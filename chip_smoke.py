@@ -3,22 +3,30 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure raises and exits nonzero):
-  1. the card's name and power limit (nvidia-smi); build every native
-     library of the port (K1 with nvcc for sm_90a, the CABAC writer with
-     g++), all compilers started together; K1's -Xptxas -v summary;
-  2. K1 against its plain PyTorch version on the card, exactly equal, at
-     the main path's shapes (lookahead 544x960 R=16, P-frame ME 1088x1920
-     R=16) and at 24x32 R=16 (range larger than the plane), with the
-     kernel's time (CUDA events, after warm-up), the plain version's time
-     and the bound;
+  1. the card's name, power limit and maximum SM clock (nvidia-smi); build
+     every native library of the port (K1 with nvcc for sm_90a, the CABAC
+     writer with g++), all compilers started together; K1's -Xptxas -v
+     summary;
+  2. K1's two entry points against their plain PyTorch versions on the
+     card, exactly equal: the surface kernel (sad_block8_sweep) and the
+     fused sweep-and-argmin kernel (sad_sweep_best, n = 8 and 16) at the
+     main path's shapes (lookahead 544x960 n=8, P-frame ME 1088x1920 n=16,
+     R=16), at 24x32 and 32x48 with R=16 (range larger than the plane), on
+     a flat plane with lambda_bits=0 (every cost ties: the answer must be
+     (-R, -R)), in uint8, int16 and int32; then, at the main path's shapes,
+     each kernel's time (CUDA events, after warm-up), its plain version's
+     time and its bound, and the whole sweep as the main path pays it:
+     the surface route (surface kernel + PyTorch tail) against the fused
+     route;
   3. the golden clip through the port's IPPP CQP session on the card: its
      stream md5 must equal tests/golden/manifest.json["ippp_cqp"];
   4. the main path: 1080p IPPP CQP (qp 32, keyint 250, hash SEI) over a
      synthetic clip through VideoEncoderSession.encode_frame, with fps,
-     per-stage ms, bytes, PSNR-Y, peak device memory and K1's launch count
-     (= frames + P frames: one lookahead sweep per frame, one ME sweep per
-     P frame); then the last P frame again with the plain versions, whose
-     decision dict must be identical;
+     per-stage ms, bytes, PSNR-Y, peak device memory and K1's launch
+     counts (sad_sweep_best = frames + P frames: one lookahead sweep per
+     frame, one ME sweep per P frame; sad_block8_sweep = 0); then the last
+     P frame again with both entry points patched to their plain versions,
+     whose decision dict must be identical;
   5. the kernels line; then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
@@ -38,7 +46,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 W1080, H1080 = 1920, 1080
 FRAMES = 7
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_INT_OPS_PER_S = 67e12     # CUDA-core 32-bit rate (fp32 peak)
+INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
 
 def emit(**kw):
@@ -87,15 +95,24 @@ def cuda_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
-def k1_bound_ms(H: int, W: int, R: int, itemsize: int):
-    """Least time for the sweep on an H100 SXM: the larger of the bytes
-    (both planes read once, the [D, D, H/8, W/8] int32 surface written
-    once) over the memory rate and the abs-diff-adds (one __sad each) over
-    the 32-bit CUDA-core rate."""
+def int_ops_per_s(sms: int, clock_mhz: float, dtype) -> float:
+    """Abs-diff-adds per second on the card's INT32 lanes: 64 x SMs x the
+    maximum SM clock, four to a packed instruction on 8-bit input."""
+    packed = 4 if dtype == torch.uint8 else 1
+    return INT32_LANES_PER_SM * sms * clock_mhz * 1e6 * packed
+
+
+def k1_bound_ms(H: int, W: int, R: int, dtype, ops_rate: float,
+                n: int = None):
+    """Least time for the sweep: the larger of the bytes (both planes read
+    once; the [D, D, H/8, W/8] int32 surface, or with n the three int32
+    [nblocks] outputs of the fused kernel, written once) over the memory
+    rate and the abs-diff-adds over the INT32-lane rate."""
     D = 2 * R + 1
-    nbytes = 2 * H * W * itemsize + D * D * (H // 8) * (W // 8) * 4
-    ops = D * D * H * W
-    t_b, t_o = nbytes / H100_BYTES_PER_S, ops / H100_INT_OPS_PER_S
+    out = D * D * (H // 8) * (W // 8) * 4 if n is None \
+        else 3 * (H // n) * (W // n) * 4
+    nbytes = 2 * H * W * torch.empty((), dtype=dtype).element_size() + out
+    t_b, t_o = nbytes / H100_BYTES_PER_S, D * D * H * W / ops_rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -104,55 +121,122 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     from x265_yuuki_asuna_tpu_torch.utils import build
     t0 = time.perf_counter()
     logs = build.build()
+    build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in logs["me_sad"].splitlines()
              if "registers" in ln or "spill" in ln or "smem" in ln]
-    emit(phase="build", card=smi, build_s=time.perf_counter() - t0,
-         libraries=sorted(logs), ptxas=ptxas)
-    return smi
+    emit(phase="build", card=smi, clocks_max_sm_mhz=clock, sms=sms,
+         int32_abs_diff_adds_per_s=int_ops_per_s(sms, clock, torch.int32),
+         build_s=build_s, libraries=sorted(logs), ptxas=ptxas)
+    return smi, (sms, clock)
 
 
-def phase_k1(dev):
-    """K1 vs its plain version on the card at the three shapes."""
+def _planes(dev):
+    """(name, ref, src, R, sizes, lambdas) of the K1 parity cases."""
     from x265_yuuki_asuna_tpu_torch.models.lookahead import downscale_half
-    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     fr = synth_clip(2, W1080, H1080)
     pad = lambda y: np.pad(y, ((0, 8), (0, 0)), mode="edge")   # 1080 -> 1088
     y0 = torch.as_tensor(pad(fr[0][0]), device=dev)
     y1 = torch.as_tensor(pad(fr[1][0]), device=dev)
+    low = lambda y: downscale_half(y)[:544, :960].contiguous()
     g = golden_clip()
-    cases = [
-        ("lookahead 544x960", downscale_half(y0)[:544, :960].contiguous(),
-         downscale_half(y1)[:544, :960].contiguous(), 20),
-        ("P-frame ME 1088x1920", y0, y1, 10),
-        ("24x32 R>plane", downscale_half(torch.as_tensor(
-            g[0][0], device=dev))[:24, :32].contiguous(),
-         downscale_half(torch.as_tensor(g[1][0], device=dev))[:24, :32]
-         .contiguous(), 50),
+    g0, g1 = (torch.as_tensor(g[i][0], device=dev) for i in (0, 1))
+    l0, l1 = (downscale_half(p).to(torch.uint8) for p in (g0, g1))
+    rng = np.random.default_rng(11)
+    tex = lambda dt: torch.as_tensor(rng.integers(0, 256, (48, 64)),
+                                     dtype=dt, device=dev)
+    flat = torch.full((48, 64), 77, dtype=torch.uint8, device=dev)
+    return [
+        ("lookahead 544x960", low(y0).to(torch.uint8),
+         low(y1).to(torch.uint8), 16, (8,), (1,)),
+        ("P-frame ME 1088x1920", y0, y1, 16, (16,), (2,)),
+        ("lookahead 544x960 int32", low(y0), low(y1), 16, (8,), (1,)),
+        ("24x32 R>plane", l0[:24, :32].contiguous(),
+         l1[:24, :32].contiguous(), 16, (8,), (0, 1, 2)),
+        ("32x48 R>plane", g0[:32, :48].contiguous(),
+         g1[:32, :48].contiguous(), 16, (8, 16), (0, 1, 2)),
+        ("flat lambda=0", flat, flat, 16, (8, 16), (0,)),
+        ("48x64 int16", tex(torch.int16), tex(torch.int16), 16, (8, 16),
+         (0, 2)),
+        ("48x64 int32", tex(torch.int32), tex(torch.int32), 16, (8, 16),
+         (0, 2)),
     ]
-    rows = []
-    for name, ref, src, iters in cases:
-        R = 16
+
+
+def phase_k1(dev, card):
+    """Both K1 entry points vs their plain versions; times and bounds at
+    the main path's shapes."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    err = 0
+    cases = _planes(dev)
+    for name, ref, src, R, sizes, lams in cases:
         k = me_sad.sad_block8_sweep(ref, src, R)
         p = me_sad.sad_block8_sweep_plain(ref, src, R)
         torch.cuda.synchronize()
-        err = int((k.long() - p.long()).abs().max())
-        if err != 0:
+        e = int((k.long() - p.long()).abs().max())
+        best = {}
+        for n in sizes:
+            for lam in lams:
+                kb = me_sad.sad_sweep_best(ref, src, R, n, lam)
+                pb = me_sad.sad_sweep_best_plain(ref, src, R, n, lam)
+                torch.cuda.synchronize()
+                eb = max(int((a.long() - b.long()).abs().max())
+                         for a, b in zip(kb, pb))
+                best[f"n{n} lambda{lam}"] = eb
+                e = max(e, eb)
+                if name.startswith("flat") and not (
+                        bool((kb[0] == -R).all()) and bool((kb[1] == -R).all())
+                        and bool((kb[2] == 0).all())):
+                    raise AssertionError(f"flat plane: the first minimum "
+                                         f"must be (-R, -R) at n={n}")
+        emit(phase="k1_parity", shape=name, dtype=str(src.dtype), R=R,
+             surface_max_abs_err=int((k.long() - p.long()).abs().max()),
+             best_max_abs_err=best)
+        if e:
             raise AssertionError(f"K1 differs from its plain version at "
-                                 f"{name}: max abs err {err}")
-        ms = cuda_ms(lambda: me_sad.sad_block8_sweep(ref, src, R), iters)
-        plain_ms = cuda_ms(
-            lambda: me_sad.sad_block8_sweep_plain(ref, src, R), 2)
+                                 f"{name}: max abs err {e}")
+        err = max(err, e)
+    rows = {}
+    for name, ref, src, R, (n,), (lam,) in cases[:3]:
         H, W = src.shape
-        bound, by = k1_bound_ms(H, W, R, src.element_size())
-        row = dict(shape=name, H=H, W=W, R=R, dtype=str(src.dtype),
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=by)
+        rate = int_ops_per_s(*card, src.dtype)
+        row = dict(shape=name, H=H, W=W, R=R, dtype=str(src.dtype))
+        row["surface_ms"] = cuda_ms(
+            lambda: me_sad.sad_block8_sweep(ref, src, R), 20)
+        row["surface_plain_ms"] = cuda_ms(
+            lambda: me_sad.sad_block8_sweep_plain(ref, src, R), 2)
+        row["surface_bound_ms"], row["surface_bound_by"] = k1_bound_ms(
+            H, W, R, src.dtype, rate)
+        # the surface route: the surface kernel, then the PyTorch tail
+        row["surface_route_ms"] = cuda_ms(lambda: me_sad.best_of_surface(
+            me_sad.sad_block8_sweep(ref, src, R), n, R, lam), 10)
+        if src.dtype == torch.uint8:
+            shift, kdt = me_sad.key_layout(src.dtype, n, R, lam)
+            keys = torch.full(((H // n) * (W // n),), -1, dtype=kdt,
+                              device=dev)
+            # the fused kernel alone (keys left as they are: the atomicMin
+            # work is the same), then the wrapper as the main path calls it
+            row["best_ms"] = cuda_ms(lambda: me_sad._launch(
+                "best", src, ref.data_ptr(), src.data_ptr(),
+                keys.data_ptr(), H, W, R, n, lam, shift, keys.element_size(),
+                0), 50)
+            row["best_route_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best(ref, src, R, n, lam), 20)
+            row["best_plain_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best_plain(ref, src, R, n, lam), 2)
+            row["best_bound_ms"], row["best_bound_by"] = k1_bound_ms(
+                H, W, R, src.dtype, rate, n)
+            row.update(n=n, lambda_bits=lam)
         emit(phase="k1", **row)
-        rows.append(row)
-    return rows
+        rows[name] = row
+    return rows, err
 
 
 def phase_golden(dev):
@@ -185,6 +269,7 @@ def phase_1080p(dev):
     results, t_frames = [], []
     last_p = None
     me_sad.sad_block8_sweep.launches = 0          # the main path starts
+    me_sad.sad_sweep_best.launches = 0
     for i, fr in enumerate(frames):
         if i == len(frames) - 1:
             last_p = (fr, sess.ref, sess.poc)
@@ -193,7 +278,8 @@ def phase_1080p(dev):
         t_frames.append(time.perf_counter() - t0)
         results.append(r)
         total += len(r.nals)
-    launches = me_sad.sad_block8_sweep.launches    # the main path ends
+    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
+                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
     n_p = sum(r.frame_type == "P" for r in results)
     fps = (len(frames) - 1) / sum(t_frames[1:])
     psnr = [r.psnr_y for r in results]
@@ -212,9 +298,10 @@ def phase_1080p(dev):
          max_memory_allocated=torch.cuda.max_memory_allocated())
     if not ok_out:
         raise AssertionError("1080p output malformed")
-    if launches != len(frames) + n_p:
-        raise AssertionError(f"K1 launches {launches} != frames + P frames "
-                             f"{len(frames) + n_p}")
+    want = {"sad_sweep_best": len(frames) + n_p, "sad_block8_sweep": 0}
+    if launches != want:
+        raise AssertionError(f"K1 launches {launches} != {want} (frames + "
+                             f"P frames fused sweeps, no surface)")
     # the last P frame again: kernel path vs plain path, same inputs
     (y, u, v), ref, _ = last_p
     yp = G.pad_plane(y, sess.coded_h, sess.coded_w)
@@ -223,7 +310,9 @@ def phase_1080p(dev):
     qp = results[-1].qp
     out_k = sess.inter_encoder.encode_frame(yp, up, vp, *ref, qp)
     with mock.patch.object(me_sad, "sad_block8_sweep",
-                           me_sad.sad_block8_sweep_plain):
+                           me_sad.sad_block8_sweep_plain), \
+            mock.patch.object(me_sad, "sad_sweep_best",
+                              me_sad.sad_sweep_best_plain):
         out_p = sess.inter_encoder.encode_frame(yp, up, vp, *ref, qp)
     same = sorted(out_k) == sorted(out_p) and all(
         (out_k[k] is None and out_p[k] is None)
@@ -239,20 +328,25 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = phase_build()
-    k1 = phase_k1(dev)
+    smi, card = phase_build()
+    k1, err = phase_k1(dev, card)
     phase_golden(dev)
     launches = phase_1080p(dev)
-    me = k1[1]                                   # the P-frame ME shape
-    emit(kernels=[{
-        "name": "sad_block8_sweep", "route": "cuda",
-        "source": "x265_yuuki_asuna_tpu_torch/csrc/me_sad.cu",
-        "replaces": "x265_yuuki_asuna_tpu/ops/pallas/me_sad.py:56",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k1),
-        "ms": me["ms"], "plain_ms": me["plain_ms"],
-        "bound_ms": me["bound_ms"], "bound_by": me["bound_by"],
-        "library_ms": None}])
+    me = k1["P-frame ME 1088x1920"]
+    common = {"route": "cuda",
+              "source": "x265_yuuki_asuna_tpu_torch/csrc/me_sad.cu",
+              "replaces": "x265_yuuki_asuna_tpu/ops/pallas/me_sad.py:56",
+              "max_abs_err": err, "library_ms": None}
+    emit(kernels=[
+        {"name": "sad_block8_sweep", **common,
+         "launches": launches["sad_block8_sweep"], "ms": me["surface_ms"],
+         "plain_ms": me["surface_plain_ms"],
+         "bound_ms": me["surface_bound_ms"],
+         "bound_by": me["surface_bound_by"]},
+        {"name": "sad_sweep_best", **common,
+         "launches": launches["sad_sweep_best"], "ms": me["best_ms"],
+         "plain_ms": me["best_plain_ms"], "bound_ms": me["best_bound_ms"],
+         "bound_by": me["best_bound_by"]}])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Motion-estimation parity of the PyTorch port with the JAX package (CPU):
-the K1 sweep (its plain version here; the CUDA kernel is held against it
-in test_torch_kernels.py on the card), the full search, and the lookahead
-built on them. Exact integer equality."""
+the K1 sweep and fused sweep-and-argmin (their plain versions here; the
+CUDA kernels are held against them in test_torch_kernels.py on the card),
+the full search, and the lookahead built on them. Exact integer
+equality."""
 import numpy as np
 import pytest
 import torch
@@ -13,6 +14,7 @@ from x265_yuuki_asuna_tpu.ops import me as j_me
 from x265_yuuki_asuna_tpu.ops.pallas.me_sad import sad_sweep_multi_pallas
 from x265_yuuki_asuna_tpu_torch.models import lookahead as t_la
 from x265_yuuki_asuna_tpu_torch.ops import me as t_me
+from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
 
 torch.set_num_threads(2)
 
@@ -50,6 +52,32 @@ def test_sweep_matches_pallas_and_xla(kind, H, W, R, sizes):
     for n in sizes:
         _same(p[n], t[n])
         _same(x[n], t[n])
+
+
+@pytest.mark.parametrize("kind,H,W,R,n,lam", [
+    ("textured", 48, 64, 6, 8, 0),
+    ("textured", 48, 64, 6, 16, 1),
+    ("flat", 48, 64, 6, 16, 0),           # every cost ties: (-R, -R)
+    ("flat", 48, 64, 6, 8, 1),
+    ("textured", 32, 48, 16, 16, 2),      # range larger than the plane
+])
+def test_sweep_best_matches_pallas_and_xla(kind, H, W, R, n, lam):
+    """K1's fused plain version and the single-size route of
+    sad_sweep_multi (which takes the fused entry point) against the JAX
+    sweep and the Pallas kernel with its XLA tail."""
+    ref, src = _planes(kind, H, W)
+    tr, ts = torch.from_numpy(ref), torch.from_numpy(src)
+    plain = me_sad.sad_sweep_best_plain(tr, ts, R, n, lam)
+    routed = t_me.sad_sweep_multi(tr, ts, (n,), R, lambda_bits=lam)[n]
+    p = sad_sweep_multi_pallas(jnp.asarray(ref), jnp.asarray(src), (n,), R,
+                               lambda_bits=lam, interpret=True)[n]
+    x = j_me.sad_sweep_multi(jnp.asarray(ref), jnp.asarray(src), (n,), R,
+                             lambda_bits=lam)[n]
+    for t in (plain, routed):
+        _same(p, t)
+        _same(x, t)
+    if kind == "flat" and lam == 0:
+        assert (plain[0] == -R).all() and (plain[1] == -R).all()
 
 
 @pytest.mark.parametrize("kind", ["textured", "flat"])

@@ -55,8 +55,11 @@ class Lookahead:
         icost = pixel.satd(blocks, dc.to(torch.int32)[:, None, None]
                            .expand(nblocks, 8, 8))
         intra_cost = icost.sum()
-        # lowres inter: 8x8 full search +-16 on the previous lowres (K1)
-        mvx, mvy, sad = me.sad_sweep_multi(prev, low, (8,), 16,
+        # lowres inter: 8x8 full search +-16 on the previous lowres (K1's
+        # fused kernel). The sweep takes uint8 planes: exact, since
+        # downscale_half of uint8 stays within 0..255
+        mvx, mvy, sad = me.sad_sweep_multi(prev.to(torch.uint8),
+                                           low.to(torch.uint8), (8,), 16,
                                            lambda_bits=1)[8]
         # half-pel refinement: a P-px full-res pan is P/2 at lowres
         px = (torch.arange(nblocks, dtype=torch.int32, device=dev) % nb_x) * 8

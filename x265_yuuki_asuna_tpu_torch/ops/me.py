@@ -1,12 +1,13 @@
 """Motion estimation: full-search SAD over a +-R window for every block.
 
 Port of x265_yuuki_asuna_tpu/ops/me.py (sad_sweep_multi, sad_at_mv,
-full_search_sad). The sweep runs through K1 (`kernels/me_sad`), which
-writes the 8x8-block SAD of every displacement; the block-size aggregation,
-the rate bias and the argmin stay plain PyTorch.
+full_search_sad) on K1 (`kernels/me_sad`). A single block size of 8 or 16
+takes the fused sweep-and-argmin kernel, which writes no surface; several
+sizes take the surface kernel (the 8x8 SAD of every displacement) and the
+plain PyTorch aggregation, rate bias and argmin.
 
 Cost = SAD + lambda_bits * (|dx| + |dy|); ties go to the first (dy, dx) in
-row-major order (torch.argmin returns the first minimum).
+row-major order.
 """
 
 from __future__ import annotations
@@ -19,33 +20,18 @@ from .kernels import me_sad
 def sad_sweep_multi(ref_plane: torch.Tensor, src_plane: torch.Tensor, sizes,
                     srange: int, lambda_bits: int = 1) -> dict:
     """Frame-level full-search ME for the aligned block sizes in `sizes`
-    (multiples of 8) from one K1 sweep: 8x8 sums, then 2x2 sums for each
-    doubling. ref/src: [H, W] planes, H and W multiples of max(sizes).
-    Returns {n: (mvx, mvy, sad)} int32 arrays in raster block order."""
-    H, W = src_plane.shape
-    R = srange
-    D = 2 * R + 1
+    (multiples of 8). ref/src: [H, W] planes, H and W multiples of
+    max(sizes). Returns {n: (mvx, mvy, sad)} int32 arrays in raster block
+    order."""
     sizes = sorted(sizes)
-    base = sizes[0]
-    assert base % 8 == 0, sizes
-    s = me_sad.sad_block8_sweep(ref_plane, src_plane, R)   # [D, D, H/8, W/8]
-    if base != 8:
-        f = base // 8
-        s = s.reshape(D, D, H // base, f, W // base, f).sum(dim=(3, 5))
-    sums = {base: s}
-    for n in sizes[1:]:
-        s = s.reshape(D, D, H // n, 2, W // n, 2).sum(dim=(3, 5))
-        sums[n] = s
-    d = (torch.arange(D, device=src_plane.device) - R).abs()
-    bias = lambda_bits * (d[:, None] + d[None, :])           # [dy, dx]
-    out = {}
-    for n in sizes:
-        flat = sums[n].reshape(D * D, -1)
-        best = torch.argmin(flat + bias.reshape(D * D, 1), dim=0)
-        sad = torch.gather(flat, 0, best[None])[0]
-        out[n] = ((best % D - R).to(torch.int32),
-                  (best // D - R).to(torch.int32), sad.to(torch.int32))
-    return out
+    assert sizes[0] % 8 == 0, sizes
+    if len(sizes) == 1 and sizes[0] in me_sad.BEST_SIZES:
+        n = sizes[0]
+        return {n: me_sad.sad_sweep_best(ref_plane, src_plane, srange, n,
+                                         lambda_bits)}
+    s8 = me_sad.sad_block8_sweep(ref_plane, src_plane, srange)
+    return {n: me_sad.best_of_surface(s8, n, srange, lambda_bits)
+            for n in sizes}
 
 
 def sad_at_mv(ref_plane: torch.Tensor, src_blocks: torch.Tensor, px, py,
@@ -71,5 +57,5 @@ def full_search_sad(ref_plane: torch.Tensor, src_plane: torch.Tensor, n: int,
     positions and gathers a [B, D, D, n, n] candidate tensor; on the uniform
     grid it computes exactly the sweep with sizes=(n,) (edge extension
     equals its border clamp, and both take the first minimum in (dy, dx)
-    order), so the port runs it through K1 on the plane."""
+    order), so the port runs it through K1's fused kernel on the plane."""
     return sad_sweep_multi(ref_plane, src_plane, (n,), srange, lambda_bits)[n]
