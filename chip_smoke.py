@@ -10,24 +10,34 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   2. K1's two entry points against their plain PyTorch versions on the
      card, exactly equal: the surface kernel (sad_block8_sweep) and the
      fused sweep-and-argmin kernel (sad_sweep_best, n = 8 and 16) at the
-     main path's shapes (lookahead 544x960 n=8, P-frame ME 1088x1920 n=16,
-     R=16), at 24x32 and 32x48 with R=16 (range larger than the plane), on
-     a flat plane with lambda_bits=0 (every cost ties: the answer must be
-     (-R, -R)), in uint8, int16 and int32; then, at the main path's shapes,
-     each kernel's time (CUDA events, after warm-up), its plain version's
-     time and its bound, and the whole sweep as the main path pays it:
-     the surface route (surface kernel + PyTorch tail) against the fused
+     main paths' shapes (lookahead 544x960 n=8, P-frame ME 1088x1920 uint8:
+     the uniform path's n=16 and the quadtree's surface), at 24x32 and
+     32x48 with R=16 (range larger than the plane), on a flat plane with
+     lambda_bits=0 (every cost ties: the answer must be (-R, -R)), in
+     uint8, int16 and int32; then, at the main paths' shapes, each
+     kernel's time (CUDA events, after warm-up), its plain version's time
+     and its bound, and the whole sweep as the main path pays it: the
+     surface route (surface kernel + PyTorch tail) against the fused
      route;
-  3. the golden clip through the port's IPPP CQP session on the card: its
-     stream md5 must equal tests/golden/manifest.json["ippp_cqp"];
-  4. the main path: 1080p IPPP CQP (qp 32, keyint 250, hash SEI) over a
-     synthetic clip through VideoEncoderSession.encode_frame, with fps,
+  3. the golden clips through the port's sessions on the card: the IPPP
+     CQP stream md5 must equal tests/golden/manifest.json["ippp_cqp"]
+     (golden), the CTU32 depth-2 quadtree stream its "qt2_ippp"
+     (golden_qt2);
+  4. qt2_cpu_vs_card: the quadtree session on a 416x240 synthetic clip,
+     3 frames, on the card and with device="cpu": equal stream md5s;
+  5. the main paths, each through VideoEncoderSession.encode_frame over a
+     synthetic 1080p clip (qp 32, keyint 250, hash SEI) with fps,
      per-stage ms, bytes, PSNR-Y, peak device memory and K1's launch
-     counts (sad_sweep_best = frames + P frames: one lookahead sweep per
-     frame, one ME sweep per P frame; sad_block8_sweep = 0); then the last
-     P frame again with both entry points patched to their plain versions,
-     whose decision dict must be identical;
-  5. the kernels line; then the card line and, last, the ok line.
+     counts, each path's counts set to 0 just before it: the uniform IPPP
+     path (1080p; sad_sweep_best = frames + P frames: one lookahead sweep
+     per frame, one ME sweep per P frame; sad_block8_sweep = 0) and the
+     quadtree path (1080p_qt2, I + 3 P frames; sad_sweep_best = frames,
+     the lookahead's; sad_block8_sweep = P frames, the multi-size ME
+     surface); after each, its last P frame again with both entry points
+     patched to their plain versions, whose decision dict must be
+     identical;
+  6. the kernels line (launches on the quadtree path, and on each path);
+     then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -44,7 +54,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 W1080, H1080 = 1920, 1080
-FRAMES = 7
+FRAMES = 7          # the uniform IPPP path
+QT_FRAMES = 4       # the quadtree path: I + 3 P
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
@@ -239,30 +250,66 @@ def phase_k1(dev, card):
     return rows, err
 
 
-def phase_golden(dev):
+def phase_golden(dev, key: str, **kw):
+    """The golden clip through the port's session on the card; its stream
+    md5 must be the manifest's `key`."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
     with open(os.path.join(REPO, "tests", "golden", "manifest.json")) as f:
-        want = json.load(f)["ippp_cqp"]
-    sess = VideoEncoderSession(64, 48, qp=32, cu_size=16, keyint=100,
-                               hash_sei=False, device=dev)
+        want = json.load(f)[key]
+    sess = VideoEncoderSession(64, 48, keyint=100, hash_sei=False,
+                               device=dev, **kw)
     out = sess.headers()
     for fr in golden_clip():
         out += sess.encode_frame(*fr).nals
     got = hashlib.md5(out).hexdigest()
-    emit(phase="golden", md5=got, want=want, match=got == want)
+    emit(phase="golden" if key == "ippp_cqp" else "golden_qt2", clip=key,
+         md5=got, want=want, match=got == want)
     if got != want:
-        raise AssertionError(f"golden ippp_cqp md5 {got} != {want}")
+        raise AssertionError(f"golden {key} md5 {got} != {want}")
 
 
-def phase_1080p(dev):
+def phase_qt2_cpu_vs_card(dev):
+    """The quadtree session on a 416x240 clip, on the card and on the CPU:
+    the two streams must be equal."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    frames = synth_clip(3, 416, 240)
+    md5, secs = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        sess = VideoEncoderSession(416, 240, qp=30, max_depth=2, keyint=100,
+                                   hash_sei=True, device=where)
+        out = sess.headers() + b"".join(sess.encode_frame(*f).nals
+                                        for f in frames)
+        md5[str(where)] = hashlib.md5(out).hexdigest()
+        secs[str(where)] = time.perf_counter() - t0
+    same = len(set(md5.values())) == 1
+    emit(phase="qt2_cpu_vs_card", md5=md5, seconds=secs, equal=same)
+    if not same:
+        raise AssertionError(f"416x240 quadtree streams differ: {md5}")
+
+
+def _same_decisions(a: dict, b: dict) -> bool:
+    def eq(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        if isinstance(x, tuple):
+            return all(torch.equal(p, q) for p, q in zip(x, y))
+        return np.array_equal(x, y)
+    return sorted(a) == sorted(b) and all(eq(a[k], b[k]) for k in a)
+
+
+def phase_1080p(dev, name: str, max_depth: int, n_frames: int):
+    """One main path at 1080p; returns its K1 launch counts."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     from x265_yuuki_asuna_tpu_torch.utils import geometry as G
-    frames = synth_clip(FRAMES, W1080, H1080)
-    sess = VideoEncoderSession(W1080, H1080, qp=32, cu_size=16, keyint=250,
-                               hash_sei=True, device=dev)
+    frames = synth_clip(n_frames, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
+                               hash_sei=True, max_depth=max_depth,
+                               device=dev)
     total = len(sess.headers())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -272,7 +319,7 @@ def phase_1080p(dev):
     me_sad.sad_sweep_best.launches = 0
     for i, fr in enumerate(frames):
         if i == len(frames) - 1:
-            last_p = (fr, sess.ref, sess.poc)
+            last_p = (fr, sess.ref)
         t0 = time.perf_counter()
         r = sess.encode_frame(*fr)
         t_frames.append(time.perf_counter() - t0)
@@ -285,25 +332,27 @@ def phase_1080p(dev):
     psnr = [r.psnr_y for r in results]
     ok_out = all(np.isfinite(psnr)) and all(
         r.recon[0].shape == (H1080, W1080) for r in results) and \
-        results[0].frame_type == "I"
+        results[0].frame_type == "I" and n_p == len(frames) - 1
     # each stage's ms per frame that runs it: intra on I frames, inter on
     # P frames, lookahead and serialize on every frame
     runs = {"intra": len(frames) - n_p, "inter": n_p}
-    emit(phase="1080p", frames=len(frames), p_frames=n_p, fps=fps,
-         frame_ms=[t * 1e3 for t in t_frames],
+    emit(phase=name, max_depth=max_depth, frames=len(frames), p_frames=n_p,
+         fps=fps, frame_ms=[t * 1e3 for t in t_frames],
          stage_ms_per_frame={k: v / max(runs.get(k, len(frames)), 1)
                              for k, v in sess.stage_ms.items()},
          bytes=total, psnr_y=psnr, qp=[r.qp for r in results],
          k1_launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     if not ok_out:
-        raise AssertionError("1080p output malformed")
-    want = {"sad_sweep_best": len(frames) + n_p, "sad_block8_sweep": 0}
+        raise AssertionError(f"{name} output malformed")
+    if max_depth:        # lookahead: fused; ME: the multi-size surface
+        want = {"sad_sweep_best": len(frames), "sad_block8_sweep": n_p}
+    else:                # lookahead and ME both fused
+        want = {"sad_sweep_best": len(frames) + n_p, "sad_block8_sweep": 0}
     if launches != want:
-        raise AssertionError(f"K1 launches {launches} != {want} (frames + "
-                             f"P frames fused sweeps, no surface)")
+        raise AssertionError(f"{name}: K1 launches {launches} != {want}")
     # the last P frame again: kernel path vs plain path, same inputs
-    (y, u, v), ref, _ = last_p
+    (y, u, v), ref = last_p
     yp = G.pad_plane(y, sess.coded_h, sess.coded_w)
     up = G.pad_plane(u, sess.coded_h // 2, sess.coded_w // 2)
     vp = G.pad_plane(v, sess.coded_h // 2, sess.coded_w // 2)
@@ -314,12 +363,11 @@ def phase_1080p(dev):
             mock.patch.object(me_sad, "sad_sweep_best",
                               me_sad.sad_sweep_best_plain):
         out_p = sess.inter_encoder.encode_frame(yp, up, vp, *ref, qp)
-    same = sorted(out_k) == sorted(out_p) and all(
-        (out_k[k] is None and out_p[k] is None)
-        or np.array_equal(out_k[k], out_p[k]) for k in out_k)
-    emit(phase="p_frame_plain_rerun", identical=same)
+    same = _same_decisions(out_k, out_p)
+    emit(phase=f"{name}_p_frame_plain_rerun", identical=same)
     if not same:
-        raise AssertionError("kernel and plain P-frame decisions differ")
+        raise AssertionError(f"{name}: kernel and plain P-frame decisions "
+                             "differ")
     return launches
 
 
@@ -330,23 +378,30 @@ def main():
     dev = torch.device("cuda")
     smi, card = phase_build()
     k1, err = phase_k1(dev, card)
-    phase_golden(dev)
-    launches = phase_1080p(dev)
+    phase_golden(dev, "ippp_cqp", qp=32, cu_size=16)
+    phase_golden(dev, "qt2_ippp", qp=30, max_depth=2)
+    phase_qt2_cpu_vs_card(dev)
+    by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
+               "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES)}
+    launches = by_path["1080p_qt2"]
     me = k1["P-frame ME 1088x1920"]
     common = {"route": "cuda",
               "source": "x265_yuuki_asuna_tpu_torch/csrc/me_sad.cu",
               "replaces": "x265_yuuki_asuna_tpu/ops/pallas/me_sad.py:56",
               "max_abs_err": err, "library_ms": None}
+    per_path = lambda k: {p: c[k] for p, c in by_path.items()}
     emit(kernels=[
         {"name": "sad_block8_sweep", **common,
-         "launches": launches["sad_block8_sweep"], "ms": me["surface_ms"],
-         "plain_ms": me["surface_plain_ms"],
+         "launches": launches["sad_block8_sweep"],
+         "launches_by_path": per_path("sad_block8_sweep"),
+         "ms": me["surface_ms"], "plain_ms": me["surface_plain_ms"],
          "bound_ms": me["surface_bound_ms"],
          "bound_by": me["surface_bound_by"]},
         {"name": "sad_sweep_best", **common,
-         "launches": launches["sad_sweep_best"], "ms": me["best_ms"],
-         "plain_ms": me["best_plain_ms"], "bound_ms": me["best_bound_ms"],
-         "bound_by": me["best_bound_by"]}])
+         "launches": launches["sad_sweep_best"],
+         "launches_by_path": per_path("sad_sweep_best"),
+         "ms": me["best_ms"], "plain_ms": me["best_plain_ms"],
+         "bound_ms": me["best_bound_ms"], "bound_by": me["best_bound_by"]}])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -146,11 +146,23 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 
 
 @pytest.mark.parametrize("option", [
-    {"bframes": 3}, {"max_depth": 2}, {"deblock": True}, {"sao": True},
+    {"bframes": 3}, {"max_depth": 1}, {"deblock": True}, {"sao": True},
     {"rc_mode": "crf"}, {"aq_mode": 2}, {"cutree": True}, {"weightp": True},
     {"rdoq": True}, {"sbh": True}, {"wpp": True}, {"n_refs": 2},
     {"bit_depth": 10}, {"hme": True}, {"tmvp": True}, {"frame_dup": True},
+    {"max_depth": 2, "cu_size": 64},
 ])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         t_top.VideoEncoderSession(64, 48, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [
+    {"deblock": True}, {"sao": True}, {"rdoq": True}, {"sbh": True},
+    {"hme": True}, {"psy_rd": 2.0}, {"weightp": True}, {"rqt": True},
+    {"bframes": 3},
+])
+def test_quadtree_options_outside_the_slice_raise(option):
+    with pytest.raises(NotImplementedError, match=next(iter(option))):
+        t_top.VideoEncoderSession(64, 48, max_depth=2, device="cpu",
+                                  **option)

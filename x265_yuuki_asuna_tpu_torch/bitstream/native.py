@@ -31,6 +31,10 @@ def load() -> ctypes.CDLL:
         lib.asuna_encode_p_slice.restype = ctypes.c_int
         lib.asuna_encode_p_slice.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + extras + out)
+        lib.asuna_encode_slice_qt2.restype = ctypes.c_int
+        lib.asuna_encode_slice_qt2.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+            + out)
         _lib = lib
     return _lib
 
@@ -91,3 +95,51 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
         None, None, 8,           # no SAO, no QP map, 8-bit
         out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
+
+
+# decision-dict keys an I slice does not code, and those of depth-2 trees
+_QT2_INTER = {"use_intra", "mvx", "mvy", "use_intra4", "mv4x", "mv4y",
+              "use_intra8", "mv8x", "mv8y"}
+_QT2_DEPTH2 = {"split16", "use_intra8", "modes8", "mv8x", "mv8y"}
+# each array's shape per CTU, in the writer's argument order
+_QT2_SHAPES = {"split": (), "split16": (4,), "use_intra": (), "modes": (),
+               "mvx": (), "mvy": (), "use_intra4": (4,), "modes4": (4,),
+               "mv4x": (4,), "mv4y": (4,), "use_intra8": (4, 4),
+               "modes8": (4, 4), "mv8x": (4, 4), "mv8y": (4, 4),
+               "levels_y": (32, 32), "levels_cb": (16, 16),
+               "levels_cr": (16, 16)}
+
+
+def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
+                     max_merge: int = 3):
+    """CTU32 quadtree slice CABAC data (slice_type 2 = I, 1 = P; depth 1
+    or 2) from the quadtree programs' decision dict. Returns (payload,
+    tail, tail_bits)."""
+    if slice_type not in (1, 2):
+        raise NotImplementedError(
+            f"slice type {slice_type}: the quadtree writer codes I and P "
+            "slices (the B-frame slice adds B)")
+    lib = load()
+    rows, cols = out["split"].shape
+    keep = []      # the arrays must outlive the call
+
+    def ptr(key, dt):
+        if (slice_type == 2 and key in _QT2_INTER) or \
+                (max_depth < 2 and key in _QT2_DEPTH2):
+            return None
+        a = np.ascontiguousarray(out[key], dt)
+        if a.shape != (rows, cols) + _QT2_SHAPES[key]:
+            raise ValueError(f"{key}: shape {a.shape} for a {rows}x{cols} "
+                             "CTU grid")
+        keep.append(a)
+        return a.ctypes.data
+
+    args = [ptr(k, np.uint8 if k.startswith(("split", "use_intra"))
+                else np.int32) for k in _QT2_SHAPES]
+    cap = int(rows * cols * (32 * 32 + 2 * 16 * 16) * 4 + 65536)
+    buf = np.empty(cap, np.uint8)
+    tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
+    nbytes = lib.asuna_encode_slice_qt2(
+        slice_type, max_depth, *args, rows, cols, qp, max_merge,
+        buf.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+    return _finish(nbytes, buf, tail, tail_bits)

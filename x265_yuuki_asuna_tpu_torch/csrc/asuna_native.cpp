@@ -7,7 +7,8 @@
 // tables are H.265 spec constants).
 //
 // The port's copy of x265_yuuki_asuna_tpu/native/asuna_native.cpp, cut to
-// the uniform-grid I and P slice writers that the IPPP CQP slice runs.
+// the slice writers the port's sessions run: the uniform-grid I and P
+// writers and the CTU32 quadtree I/P writer.
 //
 // Build: g++ -O2 -shared -fPIC -o build/libasuna.so csrc/asuna_native.cpp
 // Interface: extern "C", driven through ctypes (bitstream/native.py).
@@ -968,3 +969,352 @@ int asuna_encode_p_slice(
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// CTU32 quadtree I/P slices (depth 1-2): coding_quadtree per CTU with
+// split_cu_flag contexts from the neighbours' depths (9.3.4.2.2), MPMs and
+// merge/AMVP candidates from a cell grid of 32>>maxDepth pixels. The
+// port's copy of the qt2 writer in x265_yuuki_asuna_tpu/native/
+// asuna_native.cpp (asuna_encode_slice_qt2), cut to I and P slices with
+// one TU per CU (no RQT), no SAO and no per-CU QP.
+// ---------------------------------------------------------------------------
+
+namespace qt2 {
+
+struct QCell {
+    uint8_t decoded = 0, isIntra = 0, skip = 0;
+    int32_t mvx = 0, mvy = 0;       // quarter-pel, L0
+    int32_t intraMode = 1;
+};
+
+struct QGrid {
+    std::vector<QCell> v;
+    int gr, gc;
+    const QCell* at(int y, int x) const {
+        if (y < 0 || x < 0 || y >= gr || x >= gc) return nullptr;
+        const QCell* p = &v[(size_t)y * gc + x];
+        return p->decoded ? p : nullptr;
+    }
+    bool inter(int y, int x, int32_t* mv) const {
+        const QCell* p = at(y, x);
+        if (!p || p->isIntra) return false;
+        mv[0] = p->mvx; mv[1] = p->mvy;
+        return true;
+    }
+    void fill(int gy, int gx, int s, const QCell& cell) {
+        for (int yy = gy; yy < gy + s; yy++)
+            for (int xx = gx; xx < gx + s; xx++)
+                v[(size_t)yy * gc + xx] = cell;
+    }
+};
+
+// P-slice merge candidates (spatial A1, B1, B0, A0, B2; zero-MV fill)
+static void mergeCandsP(const QGrid& g, int gy, int gx, int s, int maxCands,
+                        int32_t (*out)[2]) {
+    int32_t a1[2], b1[2], b0[2], a0[2], b2[2];
+    bool hA1 = g.inter(gy + s - 1, gx - 1, a1);
+    bool hB1 = g.inter(gy - 1, gx + s - 1, b1);
+    bool hB0 = g.inter(gy - 1, gx + s, b0);
+    bool hA0 = g.inter(gy + s, gx - 1, a0);
+    bool hB2 = g.inter(gy - 1, gx - 1, b2);
+    auto eq = [](const int32_t* a, const int32_t* b) {
+        return a[0] == b[0] && a[1] == b[1];
+    };
+    int n = 0;
+    if (hA1) { out[n][0] = a1[0]; out[n][1] = a1[1]; n++; }
+    if (hB1 && !(hA1 && eq(b1, a1))) { out[n][0] = b1[0]; out[n][1] = b1[1]; n++; }
+    if (hB0 && !(hB1 && eq(b0, b1))) { out[n][0] = b0[0]; out[n][1] = b0[1]; n++; }
+    if (hA0 && !(hA1 && eq(a0, a1))) { out[n][0] = a0[0]; out[n][1] = a0[1]; n++; }
+    if (n < 4 && hB2 && !(hA1 && eq(b2, a1)) && !(hB1 && eq(b2, b1))) {
+        out[n][0] = b2[0]; out[n][1] = b2[1]; n++;
+    }
+    while (n < maxCands) { out[n][0] = 0; out[n][1] = 0; n++; }
+}
+
+// P-slice AMVP candidates (A0/A1, then B0/B1/B2; zero-MV fill)
+static void amvpCandsP(const QGrid& g, int gy, int gx, int s,
+                       int32_t (*out)[2]) {
+    int32_t a[2], b[2];
+    bool hA = g.inter(gy + s, gx - 1, a) || g.inter(gy + s - 1, gx - 1, a);
+    bool hB = g.inter(gy - 1, gx + s, b) || g.inter(gy - 1, gx + s - 1, b)
+              || g.inter(gy - 1, gx - 1, b);
+    int n = 0;
+    if (hA) { out[n][0] = a[0]; out[n][1] = a[1]; n++; }
+    if (hB && !(hA && b[0] == a[0] && b[1] == a[1])) {
+        out[n][0] = b[0]; out[n][1] = b[1]; n++;
+    }
+    while (n < 2) { out[n][0] = 0; out[n][1] = 0; n++; }
+}
+
+struct SliceCtx {
+    Cabac* cb;
+    QGrid* grid;
+    const int32_t* lvY;       // CTU-local [32*32]
+    const int32_t* lvCb;      // [16*16]
+    const int32_t* lvCr;
+    int gy0, gx0;             // CTU origin in cells
+    int cellPx, minLog2;
+    int maxMerge;
+    int sliceType;            // 1=P, 2=I
+};
+
+static void extractLv(const int32_t* src, int srcN, int oy, int ox, int px,
+                      int32_t* dst) {
+    for (int yy = 0; yy < px; yy++)
+        memcpy(dst + yy * px, src + (oy + yy) * srcN + ox,
+               px * sizeof(int32_t));
+}
+
+static void codeIntraPart(SliceCtx& S, int gy, int gx, int s, int mode,
+                          const int32_t* qly, const int32_t* qcb,
+                          const int32_t* qcr, int log2cu) {
+    Cabac& cb = *S.cb;
+    QGrid& g = *S.grid;
+    const QCell* l = g.at(gy, gx - 1);
+    int cl = (l && l->isIntra) ? l->intraMode : 1;
+    int ca = 1;
+    int ctbCells = 32 / S.cellPx;
+    if ((gy % ctbCells) != 0) {     // above outside the CTB row: DC
+        const QCell* ab = g.at(gy - 1, gx);
+        ca = (ab && ab->isIntra) ? ab->intraMode : 1;
+    }
+    int mpm[3];
+    deriveMPM(cl, ca, mpm);
+    if (log2cu == S.minLog2) cb.encodeBin(1, CTX_PART_SIZE);   // 2Nx2N
+    encodeIntraLumaMode(cb, mode, mpm);
+    cb.encodeBin(0, CTX_INTRA_CHROMA);                         // DM
+    int nl = 1 << log2cu, ncr = nl >> 1;
+    int cbfY = anyNonzero(qly, nl * nl);
+    int cbfCb = anyNonzero(qcb, ncr * ncr);
+    int cbfCr = anyNonzero(qcr, ncr * ncr);
+    cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
+    cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
+    cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+    if (cbfY) encodeResidual(cb, qly, log2cu, true, mode, 0);
+    if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, mode, 0);
+    if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, mode, 0);
+    QCell cell;
+    cell.decoded = 1; cell.isIntra = 1;
+    cell.intraMode = mode;
+    g.fill(gy, gx, s, cell);
+}
+
+// transform_tree + transform_unit of an inter 2Nx2N CU with one TU (spec
+// 7.3.8.8/7.3.8.10; max_transform_hierarchy_depth_inter = 0)
+static void codeInterTransformTree(SliceCtx& S, const int32_t* qly,
+                                   const int32_t* qcb, const int32_t* qcr,
+                                   int log2cu) {
+    Cabac& cb = *S.cb;
+    const int nl = 1 << log2cu, ncr = nl >> 1;
+    int cbfCb = anyNonzero(qcb, ncr * ncr);
+    int cbfCr = anyNonzero(qcr, ncr * ncr);
+    cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
+    cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
+    int cbfY = anyNonzero(qly, nl * nl);
+    if (cbfCb || cbfCr) cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+    if (cbfY) encodeResidual(cb, qly, log2cu, true, -1, 0);
+    if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, -1, 0);
+    if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, -1, 0);
+}
+
+static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
+                      int mode, int32_t mvx, int32_t mvy) {
+    Cabac& cb = *S.cb;
+    QGrid& g = *S.grid;
+    const int px = s * S.cellPx;
+    const int log2cu = 31 - __builtin_clz(px);
+    const int oy = (gy - S.gy0) * S.cellPx, ox = (gx - S.gx0) * S.cellPx;
+    int32_t qly[32 * 32], qcb[16 * 16], qcr[16 * 16];
+    extractLv(S.lvY, 32, oy, ox, px, qly);
+    extractLv(S.lvCb, 16, oy / 2, ox / 2, px / 2, qcb);
+    extractLv(S.lvCr, 16, oy / 2, ox / 2, px / 2, qcr);
+
+    if (S.sliceType == 2) {            // I slice: no skip/pred_mode syntax
+        codeIntraPart(S, gy, gx, s, mode, qly, qcb, qcr, log2cu);
+        return;
+    }
+    const int ncr = px >> 1;
+    bool hasResid = anyNonzero(qly, px * px) || anyNonzero(qcb, ncr * ncr)
+                    || anyNonzero(qcr, ncr * ncr);
+    const QCell* l = g.at(gy, gx - 1);
+    const QCell* a = g.at(gy - 1, gx);
+    int sctx = (l && l->skip ? 1 : 0) + (a && a->skip ? 1 : 0);
+    if (isIntra) {
+        cb.encodeBin(0, CTX_SKIP + sctx);
+        cb.encodeBin(1, CTX_PRED_MODE);
+        codeIntraPart(S, gy, gx, s, mode, qly, qcb, qcr, log2cu);
+        return;
+    }
+    // merge when the MV equals a candidate; skip when there is no residual
+    int mergeIdx = -1;
+    int32_t cands[5][2];
+    mergeCandsP(g, gy, gx, s, S.maxMerge, cands);
+    for (int i = 0; i < S.maxMerge; i++)
+        if (cands[i][0] == mvx && cands[i][1] == mvy) {
+            mergeIdx = i;
+            break;
+        }
+    QCell cell;
+    cell.decoded = 1; cell.mvx = mvx; cell.mvy = mvy;
+    bool isSkip = mergeIdx >= 0 && !hasResid;
+    cb.encodeBin(isSkip ? 1 : 0, CTX_SKIP + sctx);
+    if (isSkip) {
+        encodeMergeIdx(cb, mergeIdx, S.maxMerge);
+        cell.skip = 1;
+        g.fill(gy, gx, s, cell);
+        return;
+    }
+    cb.encodeBin(0, CTX_PRED_MODE);
+    cb.encodeBin(1, CTX_PART_SIZE);
+    int rqt;
+    if (mergeIdx >= 0) {
+        cb.encodeBin(1, CTX_MERGE_FLAG);
+        encodeMergeIdx(cb, mergeIdx, S.maxMerge);
+        rqt = 1;                        // inferred for 2Nx2N merge
+    } else {
+        cb.encodeBin(0, CTX_MERGE_FLAG);
+        int32_t preds[2][2];
+        amvpCandsP(g, gy, gx, s, preds);
+        int c0 = abs(mvx - preds[0][0]) + abs(mvy - preds[0][1]);
+        int c1 = abs(mvx - preds[1][0]) + abs(mvy - preds[1][1]);
+        int flag = c0 <= c1 ? 0 : 1;
+        encodeMvd(cb, mvx - preds[flag][0], mvy - preds[flag][1]);
+        cb.encodeBin(flag, CTX_MVP_IDX);
+        rqt = hasResid ? 1 : 0;
+        cb.encodeBin(rqt, CTX_QT_ROOT_CBF);
+    }
+    if (rqt) codeInterTransformTree(S, qly, qcb, qcr, log2cu);
+    g.fill(gy, gx, s, cell);
+}
+
+struct CtuData {
+    int sp0;
+    const uint8_t* split16;        // [4] or null (depth 1)
+    int ui32, m32;
+    int32_t mv32[2];
+    const uint8_t* ui4;
+    const int32_t* m4;
+    const int32_t* mv4x;
+    const int32_t* mv4y;
+    const uint8_t* ui8;            // [4*4] or null
+    const int32_t* m8;
+    const int32_t* mv8x;
+    const int32_t* mv8y;
+};
+
+static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
+                       std::vector<uint8_t>& depth, int g) {
+    Cabac& cb = *S.cb;
+    int gc = S.grid->gc;
+    int gy = g * r, gx = g * c;
+    S.gy0 = gy; S.gx0 = gx;
+    auto splitFlag = [&](int cy, int cx, int d, int sp) {
+        int ctx = (cx > 0 && depth[(size_t)cy * gc + cx - 1] > d ? 1 : 0)
+                + (cy > 0 && depth[(size_t)(cy - 1) * gc + cx] > d ? 1 : 0);
+        cb.encodeBin(sp, CTX_SPLIT_CU + ctx);
+    };
+    auto setDepth = [&](int cy, int cx, int sc, uint8_t d) {
+        for (int yy = cy; yy < cy + sc; yy++)
+            for (int xx = cx; xx < cx + sc; xx++)
+                depth[(size_t)yy * gc + xx] = d;
+    };
+    static const int QOFF[4][2] = {{0,0},{0,1},{1,0},{1,1}};
+    splitFlag(gy, gx, 0, D.sp0);
+    if (!D.sp0) {
+        codeCuQt2(S, gy, gx, g, D.ui32, D.m32, D.mv32[0], D.mv32[1]);
+        setDepth(gy, gx, g, 0);
+        return;
+    }
+    int half = g / 2;
+    for (int q = 0; q < 4; q++) {
+        int cy = gy + QOFF[q][0] * half, cx = gx + QOFF[q][1] * half;
+        int sub = (S.cellPx == 8) && D.split16 && D.split16[q];
+        if (S.cellPx == 8) splitFlag(cy, cx, 1, sub);
+        if (!sub) {
+            codeCuQt2(S, cy, cx, half, D.ui4[q], D.m4[q], D.mv4x[q],
+                      D.mv4y[q]);
+            setDepth(cy, cx, half, 1);
+        } else {
+            for (int sq = 0; sq < 4; sq++) {
+                int sy = cy + QOFF[sq][0], sx = cx + QOFF[sq][1];
+                int k = q * 4 + sq;
+                codeCuQt2(S, sy, sx, 1, D.ui8[k], D.m8[k], D.mv8x[k],
+                          D.mv8y[k]);
+                depth[(size_t)sy * gc + sx] = 2;
+            }
+        }
+    }
+}
+
+}  // namespace qt2
+
+// Encode a CTU32 quadtree slice's CTU data. sliceType: 1 = P, 2 = I (a B
+// slice returns -2). Per-CTU inputs in raster CTU order: split [ncu],
+// split16 [ncu*4] (depth 2, else null), the CU32 (ui32, m32, mv32x/y
+// [ncu]), the z-order 16x16 CUs (ui4, m4, mv4x/y [ncu*4]) and 8x8 CUs
+// (ui8, m8, mv8x/y [ncu*16]); in an I slice the ui*/mv* arrays may be
+// null. levelsY [ncu, 32*32], levelsCb/Cr [ncu, 16*16]: each CTU's TU
+// levels at their positions in the CTU. Returns the payload size, -1 when
+// outBuf is too small.
+extern "C" int asuna_encode_slice_qt2(
+    int sliceType, int maxDepth,
+    const uint8_t* split, const uint8_t* split16,
+    const uint8_t* ui32, const int32_t* m32,
+    const int32_t* mv32x, const int32_t* mv32y,
+    const uint8_t* ui4, const int32_t* m4,
+    const int32_t* mv4x, const int32_t* mv4y,
+    const uint8_t* ui8, const int32_t* m8,
+    const int32_t* mv8x, const int32_t* mv8y,
+    const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
+    int rows, int cols, int qp, int maxMerge,
+    uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
+{
+    using namespace qt2;
+    if (sliceType != 1 && sliceType != 2) return -2;
+    Cabac cb;
+    cb.init(sliceType, qp);
+    const int ncu = rows * cols;
+    const int g = 1 << maxDepth;
+    QGrid grid;
+    grid.gr = g * rows; grid.gc = g * cols;
+    grid.v.resize((size_t)grid.gr * grid.gc);
+    std::vector<uint8_t> depth((size_t)grid.gr * grid.gc, 0);
+    static const uint8_t ONES[16] = {1,1,1,1,1,1,1,1,1,1,1,1,1,1,1,1};
+    static const int32_t ZEROS[16] = {0};
+
+    SliceCtx S;
+    S.cb = &cb; S.grid = &grid;
+    S.cellPx = 32 / g; S.minLog2 = 5 - maxDepth;
+    S.maxMerge = maxMerge;
+    S.sliceType = sliceType;
+    const bool intra = sliceType == 2;
+    for (int r = 0; r < rows; r++) {
+        for (int c = 0; c < cols; c++) {
+            size_t idx = (size_t)r * cols + c;
+            CtuData D;
+            D.sp0 = split[idx] ? 1 : 0;
+            D.split16 = split16 ? split16 + idx * 4 : nullptr;
+            D.ui32 = intra ? 1 : ui32[idx];
+            D.m32 = m32[idx];
+            D.mv32[0] = intra ? 0 : mv32x[idx];
+            D.mv32[1] = intra ? 0 : mv32y[idx];
+            D.ui4 = intra ? ONES : ui4 + idx * 4;
+            D.m4 = m4 + idx * 4;
+            D.mv4x = intra ? ZEROS : mv4x + idx * 4;
+            D.mv4y = intra ? ZEROS : mv4y + idx * 4;
+            D.ui8 = maxDepth < 2 ? nullptr : intra ? ONES : ui8 + idx * 16;
+            D.m8 = maxDepth < 2 ? nullptr : m8 + idx * 16;
+            D.mv8x = maxDepth < 2 || intra ? ZEROS : mv8x + idx * 16;
+            D.mv8y = maxDepth < 2 || intra ? ZEROS : mv8y + idx * 16;
+            S.lvY = levelsY + idx * 32 * 32;
+            S.lvCb = levelsCb + idx * 16 * 16;
+            S.lvCr = levelsCr + idx * 16 * 16;
+            codeCtuQt2(S, D, r, c, depth, g);
+            cb.encodeBinTrm(idx == (size_t)ncu - 1 ? 1 : 0);
+        }
+    }
+    cb.finish(tailValue, tailBits);
+    if ((int)cb.out.size() > outCap) return -1;
+    memcpy(outBuf, cb.out.data(), cb.out.size());
+    return (int)cb.out.size();
+}

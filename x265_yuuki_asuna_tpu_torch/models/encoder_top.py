@@ -1,11 +1,17 @@
-"""Top-level encoder session: IPPP, CQP, one L0 reference, uniform CU grid.
+"""Top-level encoder session: IPPP, CQP, one L0 reference; the uniform CU
+grid or the CTU32 depth-2 quadtree.
 
-Port of the IPPP CQP path of x265_yuuki_asuna_tpu/models/encoder_top.py
+Port of the IPPP CQP paths of x265_yuuki_asuna_tpu/models/encoder_top.py
 (VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
 hash SEI, scenecut and keyint_min; the IntraEncoderSession parts it uses
 are folded in). Device work (lookahead, intra and inter programs) runs on
 `device`; the CABAC pass runs on the host through the native writer. The
 streams are byte-identical to the JAX package's.
+
+With max_depth=2 the session codes CTU32 quadtrees down to 8x8 CUs (the
+JAX session's device-DPB quadtree path with both loop filters off): the
+reference picture stays on the device between frames and is copied to
+the host only for the hash SEI, PSNR and the returned recon.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ from ..bitstream.bitio import (BitWriter, wrap_nal, NAL_IDR_W_RADL,
                                NAL_SUFFIX_SEI, NAL_TRAIL_R)
 from ..utils import geometry as G
 from ..utils.device import exact_fp32_matmul, resolve_device
-from .inter_encoder import InterFrameEncoder
-from .intra_encoder import IntraFrameEncoder
+from .inter_encoder import InterFrameEncoder, InterQTEncoder
+from .intra_encoder import IntraFrameEncoder, IntraQTEncoder
 from .lookahead import Lookahead
 from .ratecontrol import RateControl
 
@@ -34,23 +40,24 @@ MAX_MERGE = 3      # merge candidates (five_minus_max_num_merge_cand = 2)
 
 # options of the JAX session that later slices of the port add
 _LATER = {
-    "bframes": "the B-frame slice", "max_depth": "the quadtree slices",
+    "bframes": "the B-frame slice",
     "deblock": "the in-program filters slice",
     "sao": "the in-program filters slice",
     "rc_mode": "the CRF/AQ/cuTree rate-control slice",
     "aq_mode": "the CRF/AQ/cuTree rate-control slice",
     "cutree": "the CRF/AQ/cuTree rate-control slice",
-    "weightp": "a later P-frame slice", "rdoq": "a later P-frame slice",
-    "sbh": "a later P-frame slice", "wpp": "a later P-frame slice",
+    "weightp": "a later P-frame slice", "rdoq": "the RDOQ/SBH slice",
+    "sbh": "the RDOQ/SBH slice", "wpp": "a later P-frame slice",
     "n_refs": "a later P-frame slice", "bit_depth": "a later P-frame slice",
-    "hme": "the quadtree P slice", "tmvp": "a later P-frame slice",
-    "frame_dup": "a later P-frame slice",
+    "hme": "the HME slice", "tmvp": "a later P-frame slice",
+    "frame_dup": "a later P-frame slice", "rqt": "the RQT slice",
+    "psy_rd": "the psy-rd slice",
 }
-_DEFAULTS = {"bframes": 0, "max_depth": 0, "deblock": False, "sao": False,
+_DEFAULTS = {"bframes": 0, "deblock": False, "sao": False,
              "rc_mode": "cqp", "aq_mode": 0, "cutree": False,
              "weightp": False, "rdoq": False, "sbh": False, "wpp": False,
              "n_refs": 1, "bit_depth": 8, "hme": False, "tmvp": False,
-             "frame_dup": False}
+             "frame_dup": False, "rqt": False, "psy_rd": 0.0}
 
 
 @dataclass
@@ -66,30 +73,44 @@ class FrameResult:
 class VideoEncoderSession:
     """GOP session: IDR + P frames (IPPP), CQP, one L0 reference.
 
+    max_depth=0 codes the uniform cu_size=16 grid; max_depth=2 codes CTU32
+    quadtrees down to 8x8 CUs (cu_size is then 32, as in the JAX session).
     device=None runs on the CUDA card (and raises when there is none);
     device="cpu" runs every kernel's plain PyTorch version. Options of the
-    JAX session outside this slice raise NotImplementedError."""
+    JAX session outside these slices raise NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
                  cu_size: int = 16, keyint: int = 25, hash_sei: bool = True,
-                 device=None, **options):
+                 max_depth: int = 0, device=None, **options):
         for k, val in options.items():
             if k not in _DEFAULTS:
                 raise TypeError(f"unknown option {k!r}")
             if val != _DEFAULTS[k]:
                 raise NotImplementedError(
-                    f"{k}={val!r} is not in the port's IPPP CQP slice; "
+                    f"{k}={val!r} is not in the port's IPPP CQP slices; "
                     f"{_LATER[k]} adds it")
-        if cu_size != 16:
+        if max_depth not in (0, 2):
             raise NotImplementedError(
-                "cu_size != 16: the port's first slice codes the uniform "
-                "16x16 CU grid")
+                f"max_depth={max_depth}: the port codes the uniform grid "
+                "(0) and the CTU32 depth-2 quadtree (2); the max_depth=1 "
+                "slice adds depth 1")
+        if max_depth and cu_size == 64:
+            raise NotImplementedError(
+                "max_depth with cu_size=64: the CTU64 slice adds CTU64 "
+                "quadtrees")
+        if max_depth:
+            cu_size = 32
+        elif cu_size != 16:
+            raise NotImplementedError(
+                "cu_size != 16: the port's uniform slice codes the 16x16 "
+                "CU grid")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             exact_fp32_matmul()
         self.src_w, self.src_h = width, height
         self.qp = qp
         self.cu = cu_size
+        self.max_depth = max_depth
         self.keyint = max(keyint, 1)
         # reference keyframeMin: scenecut IDRs are suppressed closer than
         # this to the last keyframe
@@ -103,21 +124,29 @@ class VideoEncoderSession:
             conf_win=(0, self.coded_w - width, 0, self.coded_h - height),
             ptl=HDR.ProfileTierLevel(level_idc=SEI.pick_level(
                 self.coded_w, self.coded_h, FPS[0] / FPS[1])),
-            log2_min_cb=log2cu, log2_diff_max_min_cb=0,
+            log2_min_cb=log2cu - max_depth, log2_diff_max_min_cb=max_depth,
             log2_min_tb=2, log2_diff_max_min_tb=min(log2cu, 5) - 2,
             strong_intra_smoothing=0, max_dec_pic_buffering=2,
             timing_info=(FPS[1], FPS[0]))
         self.pps = HDR.PPSInfo(init_qp=26, deblocking_disabled=1)
-        self.intra_encoder = IntraFrameEncoder(self.coded_w, self.coded_h,
-                                               cu_size, self.device)
-        self.inter_encoder = InterFrameEncoder(self.coded_w, self.coded_h,
-                                               cu_size, self.device)
+        if max_depth:
+            self.intra_encoder = IntraQTEncoder(self.coded_w, self.coded_h,
+                                                self.device)
+            self.inter_encoder = InterQTEncoder(self.coded_w, self.coded_h,
+                                                self.device)
+        else:
+            self.intra_encoder = IntraFrameEncoder(
+                self.coded_w, self.coded_h, cu_size, self.device)
+            self.inter_encoder = InterFrameEncoder(
+                self.coded_w, self.coded_h, cu_size, self.device)
         self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device)
         self.rc = RateControl(qp)
         self.frame_idx = 0
         self.poc = 0
         self.display_idx = 0
-        self.ref = None        # (y, u, v) padded recon planes
+        # (y, u, v) padded recon planes of the reference picture: host
+        # arrays on the uniform grid, uint8 device tensors for quadtrees
+        self.ref = None
         # wall-clock ms per stage, summed over frames (each stage ends in a
         # device->host copy, so the times include the device work)
         self.stage_ms = defaultdict(float)
@@ -165,7 +194,8 @@ class VideoEncoderSession:
             nals = self._timed("serialize", self._assemble_p_slice, out, qp)
         if self.hash_sei:
             nals += self._timed("serialize", self._hash_sei, out)
-        self.ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+        self.ref = out.get("recon_dev") or \
+            (out["recon_y"], out["recon_u"], out["recon_v"])
         self.frame_idx += 1
         self.rc.frame_done(qp, len(nals) * 8)
         rec_y = out["recon_y"][:self.src_h, :self.src_w]
@@ -191,9 +221,12 @@ class VideoEncoderSession:
         """IDR I slice."""
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
                                     slice_qp=qp, nal_type=NAL_IDR_W_RADL)
-        res = native.encode_intra_slice(
-            out["modes"], out["levels_y"], out["levels_cb"],
-            out["levels_cr"], self.cu.bit_length() - 1, qp)
+        if self.max_depth:
+            res = native.encode_slice_qt2(2, self.max_depth, out, qp)
+        else:
+            res = native.encode_intra_slice(
+                out["modes"], out["levels_y"], out["levels_cb"],
+                out["levels_cr"], self.cu.bit_length() - 1, qp)
         return self._slice_nal(bw, res, NAL_IDR_W_RADL)
 
     def _assemble_p_slice(self, out: dict, qp: int) -> bytes:
@@ -202,10 +235,14 @@ class VideoEncoderSession:
                                     slice_qp=qp, nal_type=NAL_TRAIL_R,
                                     poc=self.poc, ref_poc_delta=1,
                                     max_merge=MAX_MERGE)
-        res = native.encode_p_slice(
-            out["use_intra"], out["modes"], out["mvx"], out["mvy"],
-            out["levels_y"], out["levels_cb"], out["levels_cr"],
-            self.cu.bit_length() - 1, qp, MAX_MERGE)
+        if self.max_depth:
+            res = native.encode_slice_qt2(1, self.max_depth, out, qp,
+                                          MAX_MERGE)
+        else:
+            res = native.encode_p_slice(
+                out["use_intra"], out["modes"], out["mvx"], out["mvy"],
+                out["levels_y"], out["levels_cb"], out["levels_cr"],
+                self.cu.bit_length() - 1, qp, MAX_MERGE)
         return self._slice_nal(bw, res, NAL_TRAIL_R)
 
     def _hash_sei(self, out: dict) -> bytes:

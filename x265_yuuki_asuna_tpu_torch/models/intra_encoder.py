@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import bitcost as BC
 from ..ops import intra, pixel, quant, transforms
 from ..utils.geometry import wavefront_schedule
 
@@ -213,3 +214,67 @@ class IntraFrameEncoder:
                                  log2n - 1, True)
             ws.commit(cu, m, lv, rec, lvc, recc)
         return ws.result(self.rows, self.cols)
+
+
+class IntraQTEncoder:
+    """CTU32 depth-2 quadtree intra frame encoder: dense decide, then
+    commit (port of IntraFrameEncoder._build_qt + _unpack_qt with
+    max_depth=2, 8-bit, no RDOQ / sign hiding / psy-rd, loop filters off).
+
+    Every CU size's intra mode is decided densely from source-pixel
+    neighbours (the reference's fast-intra approximation); each leaf's RD
+    (SSD + lambda2 * (K9 bits + MODE_BITS)) feeds the bottom-up split
+    decisions; the commit then reconstructs the decided tree with true
+    neighbour references (qt_common.commit_intra)."""
+
+    def __init__(self, width: int, height: int, device):
+        from . import qt_common as QT      # qt_common imports this module
+        self.QT = QT
+        self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
+                                 torch.device(device))
+
+    def encode_frame(self, y, u, v, qp: int) -> dict:
+        """y, u, v: 8-bit planes padded to the coded size (numpy or device
+        tensors). Returns the decision dict (numpy) and "recon_dev", the
+        recon planes as uint8 device tensors."""
+        QT, geo = self.QT, self.geo
+        dev = geo.device
+        pl = lambda p: torch.as_tensor(np.array(p, np.int32), device=dev)
+        y32, u32, v32 = pl(y), pl(u), pl(v)
+        qpc = chroma_qp_from_luma(qp)
+        states = BC.init_states_dev(2, qp)       # I-slice contexts
+        leaf = {}
+        for nn in (QT.N, 16, 8):
+            modes, py, pu, pv = QT.dense_intra(nn, y32, u32, v32)
+            nb = modes.shape[0]
+            qp_blk = torch.full((nb,), qp, dtype=torch.int32, device=dev)
+            qpc_blk = torch.full((nb,), qpc, dtype=torch.int32, device=dev)
+            _, _, dist, bits = QT.rd_leaf(nn, QT.sources3(y32, u32, v32, nn),
+                                          (py, pu, pv), qp_blk, qpc_blk,
+                                          states, True)
+            leaf[nn] = {"modes": modes, "dist": dist,
+                        "bits": bits + QT.MODE_BITS}
+        l2 = torch.tensor(QT.lam2(qp), device=dev)
+        split16, split = QT.split_rd(leaf, geo, l2)
+
+        rows, cols = geo.rows, geo.cols
+        h = lambda a: a.cpu().numpy()
+        out = {"split": h(split).reshape(rows, cols),
+               "modes": h(leaf[QT.N]["modes"]).reshape(rows, cols),
+               "modes4": QT.by_ctu(leaf[16]["modes"], geo.map16,
+                                   (rows, cols, 4)),
+               "split16": QT.by_ctu(split16, geo.map16, (rows, cols, 4)),
+               "modes8": QT.by_ctu(leaf[8]["modes"], geo.map8,
+                                   (rows, cols, 4, 4))}
+        z = lambda p: torch.zeros_like(p)
+        rec = (z(y32), z(u32), z(v32))
+        lv = (z(y32), z(u32), z(v32))
+        leaves = QT.intra_leaves(out["split"].reshape(-1),
+                                 out["split16"].reshape(-1, 4),
+                                 out["modes"].reshape(-1),
+                                 out["modes4"].reshape(-1, 4),
+                                 out["modes8"].reshape(-1, 4, 4))
+        QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, qp, qpc, True)
+        out.update(QT.decision_planes(geo, rec, lv))
+        out["recon_dev"] = tuple(p.to(torch.uint8) for p in rec)
+        return out

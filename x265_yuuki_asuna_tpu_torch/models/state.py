@@ -20,7 +20,9 @@ RC_KEYS = ("frame", "total_bits", "cplx_sum", "cplx_count",
 
 def load_session_state(sess, state: dict) -> None:
     """state keys:
-      ref_y, ref_u, ref_v   padded reference planes (numpy, coded size)
+      ref_y, ref_u, ref_v   padded reference planes (coded size; host
+                            arrays, or anything np.asarray takes, e.g. the
+                            JAX session's device planes)
       prev_lowres           the lookahead's previous lowres plane [lh, lw]
                             (absent or None: no previous frame)
       frame_idx, poc, display_idx
@@ -33,7 +35,12 @@ def load_session_state(sess, state: dict) -> None:
     for p, shp in zip(planes, shapes):
         if np.shape(p) != shp:
             raise ValueError(f"reference plane {np.shape(p)} != {shp}")
-    sess.ref = tuple(np.asarray(p, np.int32) for p in planes)
+    if sess.max_depth:
+        # the quadtree session keeps its reference on the device
+        sess.ref = tuple(torch.as_tensor(np.array(p, np.uint8),
+                                         device=sess.device) for p in planes)
+    else:
+        sess.ref = tuple(np.asarray(p, np.int32) for p in planes)
     prev = state.get("prev_lowres")
     la = sess.lookahead
     if prev is None:

@@ -1,14 +1,17 @@
 """Where the time of a 1080p IPPP CQP frame goes, on the card.
 
     python -m x265_yuuki_asuna_tpu_torch.profile_1080p [--frames 3]
+        [--max-depth 0 2]
 
-Encodes a synthetic 1080p clip (the chip smoke test's) through
-VideoEncoderSession.encode_frame: the first frames warm up, then
-torch.profiler records one I frame and one P frame (a fresh session so the
-first of them is an IDR). Prints one JSON object: wall ms per recorded
-frame, device busy ms (the sum of CUDA kernel times) and so the device's
-idle share, the number of kernel launches, and the top operators by self
-device time and by self host time.
+For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
+depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
+smoke test's) through VideoEncoderSession.encode_frame: the first frames
+warm up, then torch.profiler records one I frame and one P frame (a fresh
+session so the first of them is an IDR). Prints one JSON object per
+session with, for each recorded frame: its wall ms, device busy ms (the
+sum of CUDA kernel times) and so the device's idle share, its number of
+kernel launches, its stage ms, and the top operators by self device time
+and by self host time.
 """
 
 from __future__ import annotations
@@ -33,45 +36,56 @@ def synth_clip(n, w, h, seed=7):
             for i in range(n)]
 
 
-def _top(events, key, n=15):
+def _top(events, key, n=10):
     rows = sorted(events, key=lambda e: getattr(e, key), reverse=True)[:n]
     return [{"op": e.key, "calls": e.count,
              "self_device_ms": e.self_device_time_total / 1e3,
              "self_host_ms": e.self_cpu_time_total / 1e3} for e in rows]
 
 
-def main():
+def profile_session(max_depth: int, warm_frames: int) -> dict:
     from .models.encoder_top import VideoEncoderSession
+    frames = synth_clip(warm_frames + 2, 1920, 1080)
+    kw = dict(qp=32, keyint=250, hash_sei=True, max_depth=max_depth)
+    warm = VideoEncoderSession(1920, 1080, **kw)
+    for f in frames[:warm_frames]:
+        warm.encode_frame(*f)
+    sess = VideoEncoderSession(1920, 1080, **kw)
+    torch.cuda.synchronize()
+    out = []
+    for f in frames[warm_frames:]:
+        stage0 = dict(sess.stage_ms)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r = sess.encode_frame(*f)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        ev = prof.key_averages()
+        out.append({"frame_type": r.frame_type, "wall_ms": wall,
+                    "device_busy_ms": busy,
+                    "device_idle_share": 1 - busy / wall,
+                    "device_kernels": len(kernels),
+                    "stage_ms": {k: v - stage0.get(k, 0.0)
+                                 for k, v in sess.stage_ms.items()},
+                    "top_by_device": _top(ev, "self_device_time_total"),
+                    "top_by_host": _top(ev, "self_cpu_time_total")})
+    return {"session": "qt2" if max_depth else "uniform",
+            "card": torch.cuda.get_device_name(0), "frames": out}
+
+
+def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3,
                     help="warm-up frames before the recorded I + P pair")
+    ap.add_argument("--max-depth", type=int, nargs="+", default=[0, 2],
+                    help="sessions to profile: 0 uniform grid, 2 quadtree")
     args = ap.parse_args()
-    frames = synth_clip(args.frames + 2, 1920, 1080)
-    warm = VideoEncoderSession(1920, 1080, qp=32, keyint=250, hash_sei=True)
-    for f in frames[:args.frames]:
-        warm.encode_frame(*f)
-    sess = VideoEncoderSession(1920, 1080, qp=32, keyint=250, hash_sei=True)
-    torch.cuda.synchronize()
-    walls = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for f in frames[args.frames:]:
-            t0 = time.perf_counter()
-            sess.encode_frame(*f)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-    ev = prof.key_averages()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(json.dumps({
-        "card": torch.cuda.get_device_name(0),
-        "frame_wall_ms": walls, "frame_types": ["I", "P"],
-        "device_busy_ms": busy, "device_idle_share": 1 - busy / sum(walls),
-        "device_kernels": len(kernels),
-        "stage_ms": dict(sess.stage_ms),
-        "top_by_device": _top(ev, "self_device_time_total"),
-        "top_by_host": _top(ev, "self_cpu_time_total")}))
+    for md in args.max_depth:
+        print(json.dumps(profile_session(md, args.frames)), flush=True)
 
 
 if __name__ == "__main__":
