@@ -22,22 +22,27 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   3. the golden clips through the port's sessions on the card: the IPPP
      CQP stream md5 must equal tests/golden/manifest.json["ippp_cqp"]
      (golden), the CTU32 depth-2 quadtree stream its "qt2_ippp"
-     (golden_qt2);
-  4. qt2_cpu_vs_card: the quadtree session on a 416x240 synthetic clip,
-     3 frames, on the card and with device="cpu": equal stream md5s;
-  5. the main paths, each through VideoEncoderSession.encode_frame over a
-     synthetic 1080p clip (qp 32, keyint 250, hash SEI) with fps,
-     per-stage ms, bytes, PSNR-Y, peak device memory and K1's launch
-     counts, each path's counts set to 0 just before it: the uniform IPPP
-     path (1080p; sad_sweep_best = frames + P frames: one lookahead sweep
-     per frame, one ME sweep per P frame; sad_block8_sweep = 0) and the
-     quadtree path (1080p_qt2, I + 3 P frames; sad_sweep_best = frames,
-     the lookahead's; sad_block8_sweep = P frames, the multi-size ME
-     surface); after each, its last P frame again with both entry points
-     patched to their plain versions, whose decision dict must be
-     identical;
-  6. the kernels line (launches on the quadtree path, and on each path);
-     then the card line and, last, the ok line.
+     (golden_qt2), and the quadtree B session (bframes=3, B-pyramid,
+     b_adapt=0, keyint 5, 8 frames through push_frame / flush) the JAX
+     package's md5 pinned below (golden_qt2_b);
+  4. qt2_cpu_vs_card: the quadtree IPPP session (3 frames) and the
+     quadtree B session (5 frames: I, P, B, b, b) on a 416x240 synthetic
+     clip, on the card and with device="cpu": equal stream md5s;
+  5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
+     SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
+     K1's launch counts, each path's counts set to 0 just before it: the
+     uniform IPPP path (1080p, encode_frame; sad_sweep_best = frames + P
+     frames: one lookahead sweep per frame, one ME sweep per P frame;
+     sad_block8_sweep = 0), the quadtree path (1080p_qt2, encode_frame, I
+     + 3 P frames; sad_sweep_best = frames, the lookahead's;
+     sad_block8_sweep = P frames, the multi-size ME surface) and the
+     quadtree B path (1080p_qt2_b, 5 frames through push_frame / flush:
+     IDR, P 4, B 2, b 1, b 3; sad_sweep_best = 5, sad_block8_sweep = 1 +
+     2 x 3, one surface per P anchor and one per list per B frame); after
+     each, its last P or B frame again with both entry points patched to
+     their plain versions, whose decision dict must be identical;
+  6. the kernels line (launches on the B path, and on each path); then
+     the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -56,6 +61,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 W1080, H1080 = 1920, 1080
 FRAMES = 7          # the uniform IPPP path
 QT_FRAMES = 4       # the quadtree path: I + 3 P
+QT_B_FRAMES = 5     # the B path: I, then one mini-GOP (P, B, b, b)
+B_KW = dict(max_depth=2, bframes=3, b_pyramid=True, b_adapt=0)
+# md5 of the JAX package's stream of the quadtree B session on the golden
+# clip (64x48, 8 frames, qp 30, keyint 5, no hash SEI)
+GOLDEN_QT2_B_MD5 = "0eca13bc30dfb501333206d7751facc6"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
@@ -269,25 +279,55 @@ def phase_golden(dev, key: str, **kw):
         raise AssertionError(f"golden {key} md5 {got} != {want}")
 
 
-def phase_qt2_cpu_vs_card(dev):
-    """The quadtree session on a 416x240 clip, on the card and on the CPU:
-    the two streams must be equal."""
+def push_all(sess, frames):
+    """Every result of a B session over `frames` (push_frame, then
+    flush), in coding order."""
+    res = []
+    for fr in frames:
+        res += sess.push_frame(*fr)
+    return res + sess.flush()
+
+
+def phase_golden_qt2_b(dev):
+    """The golden clip through the port's quadtree B session on the card;
+    its stream md5 must be the JAX package's (GOLDEN_QT2_B_MD5)."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
-    frames = synth_clip(3, 416, 240)
-    md5, secs = {}, {}
-    for where in (dev, "cpu"):
-        t0 = time.perf_counter()
-        sess = VideoEncoderSession(416, 240, qp=30, max_depth=2, keyint=100,
-                                   hash_sei=True, device=where)
-        out = sess.headers() + b"".join(sess.encode_frame(*f).nals
-                                        for f in frames)
-        md5[str(where)] = hashlib.md5(out).hexdigest()
-        secs[str(where)] = time.perf_counter() - t0
-    same = len(set(md5.values())) == 1
-    emit(phase="qt2_cpu_vs_card", md5=md5, seconds=secs, equal=same)
-    if not same:
-        raise AssertionError(f"416x240 quadtree streams differ: {md5}")
+    sess = VideoEncoderSession(64, 48, qp=30, keyint=5, hash_sei=False,
+                               device=dev, **B_KW)
+    res = push_all(sess, golden_clip(n=8))
+    got = hashlib.md5(sess.headers() + b"".join(r.nals for r in res)) \
+        .hexdigest()
+    emit(phase="golden_qt2_b", md5=got, want=GOLDEN_QT2_B_MD5,
+         match=got == GOLDEN_QT2_B_MD5,
+         frames=[[r.poc, r.frame_type] for r in res])
+    if got != GOLDEN_QT2_B_MD5:
+        raise AssertionError(f"golden qt2 B md5 {got} != {GOLDEN_QT2_B_MD5}")
+
+
+def phase_qt2_cpu_vs_card(dev):
+    """The quadtree IPPP and B sessions on a 416x240 clip, on the card and
+    on the CPU: each pair of streams must be equal."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    for name, kw, n in (("ippp", {"max_depth": 2}, 3), ("b", B_KW, 5)):
+        frames = synth_clip(n, 416, 240)
+        md5, secs = {}, {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            sess = VideoEncoderSession(416, 240, qp=30, keyint=100,
+                                       hash_sei=True, device=where, **kw)
+            res = push_all(sess, frames) if sess.bframes else \
+                [sess.encode_frame(*f) for f in frames]
+            out = sess.headers() + b"".join(r.nals for r in res)
+            md5[str(where)] = hashlib.md5(out).hexdigest()
+            secs[str(where)] = time.perf_counter() - t0
+        same = len(set(md5.values())) == 1
+        emit(phase="qt2_cpu_vs_card", session=name, frames=n, md5=md5,
+             seconds=secs, equal=same)
+        if not same:
+            raise AssertionError(f"416x240 quadtree {name} streams differ: "
+                                 f"{md5}")
 
 
 def _same_decisions(a: dict, b: dict) -> bool:
@@ -371,6 +411,77 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int):
     return launches
 
 
+def phase_1080p_b(dev):
+    """The quadtree B path at 1080p through push_frame / flush; returns its
+    K1 launch counts."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    name = "1080p_qt2_b"
+    frames = synth_clip(QT_B_FRAMES, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
+                               hash_sei=True, device=dev, **B_KW)
+    # record the inter program's calls, to rerun the last B frame
+    enc = sess.inter_encoder
+    calls, run = [], enc.encode_frame
+    enc.encode_frame = lambda *a, **k: calls.append((a, k)) or run(*a, **k)
+    total = len(sess.headers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, call_ms, per_call = [], [], []
+    me_sad.sad_block8_sweep.launches = 0          # the main path starts
+    me_sad.sad_sweep_best.launches = 0
+    for fr in frames + [None]:
+        t0 = time.perf_counter()
+        got = sess.push_frame(*fr) if fr is not None else sess.flush()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call.append([[r.poc, r.frame_type] for r in got])
+        results += got
+    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
+                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
+    order = [(r.poc, r.frame_type) for r in results]
+    total += sum(len(r.nals) for r in results)
+    # frames after the IDR over the calls after the IDR's
+    fps = (len(results) - 1) / (sum(call_ms[1:]) / 1e3)
+    runs = {k: sum(r.frame_type in t for r in results)
+            for k, t in (("intra", "I"), ("inter", "P"), ("inter_b", "Bb"),
+                         ("serialize", "IPBb"))}
+    runs["lookahead"] = len(frames)
+    psnr = [r.psnr_y for r in results]
+    emit(phase=name, max_depth=2, bframes=3, frames=len(results),
+         fps=fps, call_ms=call_ms, call_frames=per_call,
+         stage_ms_per_frame={k: v / max(runs[k], 1)
+                             for k, v in sess.stage_ms.items()},
+         bytes=total, frame_bytes=[len(r.nals) for r in results],
+         psnr_y=psnr, qp=[r.qp for r in results], k1_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    want_order = [(0, "I"), (4, "P"), (2, "B"), (1, "b"), (3, "b")]
+    if order != want_order or not all(np.isfinite(psnr)) or not all(
+            r.recon[0].shape == (H1080, W1080) for r in results):
+        raise AssertionError(f"{name} output malformed: {order}")
+    want = {"sad_sweep_best": len(frames), "sad_block8_sweep": 1 + 2 * 3}
+    if launches != want:
+        raise AssertionError(f"{name}: K1 launches {launches} != {want}")
+    # the last B frame again: kernel path vs plain path, same inputs
+    a, k = calls[-1]
+    if k.get("ref1") is None:
+        raise AssertionError(f"{name}: the last inter call is not a B frame")
+    out_k = run(*a, **k)
+    with mock.patch.object(me_sad, "sad_block8_sweep",
+                           me_sad.sad_block8_sweep_plain), \
+            mock.patch.object(me_sad, "sad_sweep_best",
+                              me_sad.sad_sweep_best_plain):
+        out_p = run(*a, **k)
+    same = _same_decisions(out_k, out_p)
+    emit(phase=f"{name}_b_frame_plain_rerun", identical=same,
+         pdir_counts={int(d): int(c) for d, c in zip(*np.unique(
+             out_k["pdir8"], return_counts=True))})
+    if not same:
+        raise AssertionError(f"{name}: kernel and plain B-frame decisions "
+                             "differ")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -380,10 +491,12 @@ def main():
     k1, err = phase_k1(dev, card)
     phase_golden(dev, "ippp_cqp", qp=32, cu_size=16)
     phase_golden(dev, "qt2_ippp", qp=30, max_depth=2)
+    phase_golden_qt2_b(dev)
     phase_qt2_cpu_vs_card(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
-               "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES)}
-    launches = by_path["1080p_qt2"]
+               "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
+               "1080p_qt2_b": phase_1080p_b(dev)}
+    launches = by_path["1080p_qt2_b"]
     me = k1["P-frame ME 1088x1920"]
     common = {"route": "cuda",
               "source": "x265_yuuki_asuna_tpu_torch/csrc/me_sad.cu",

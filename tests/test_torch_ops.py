@@ -104,3 +104,39 @@ def test_interp_qpel(luma):
            jnp.asarray(mvx), jnp.asarray(mvy), n, 8, xp=jnp),
         tf(torch.from_numpy(ref), torch.from_numpy(px), torch.from_numpy(py),
            torch.from_numpy(mvx), torch.from_numpy(mvy), n, 8))
+
+
+@pytest.mark.parametrize("luma,n", [(True, 8), (True, 16), (True, 32),
+                                    (False, 4), (False, 8), (False, 16)])
+def test_interp_ps_and_add_avg(luma, n):
+    """The short-domain MC of both lists and their bi average, against the
+    JAX functions run on numpy: every fraction pair (16 luma, 64 chroma)
+    at the picture's corners and inside, with MVs reaching past the
+    border."""
+    rng = np.random.default_rng(n + 100 * luma)
+    H, W = (64, 96) if luma else (32, 48)
+    nf, unit = (4, 4) if luma else (8, 8)
+    pos = [(0, 0), (0, W - n), (H - n, 0), (H - n, W - n), (n, 2 * n)]
+    fx, fy = (a.reshape(-1) for a in np.meshgrid(range(nf), range(nf)))
+    py, px = (np.repeat(np.array(c, np.int32), nf * nf) for c in zip(*pos))
+    B = len(px)
+    fx, fy = np.tile(fx, len(pos)), np.tile(fy, len(pos))
+    refs = [rng.integers(0, 256, (H, W)).astype(np.int32) for _ in (0, 1)]
+
+    def mv(frac):
+        ip = rng.integers(-6, 7, B)
+        far = rng.random(B) < 0.2           # past the picture's border
+        ip = np.where(far, rng.choice([-1, 1], B) * (W + 8), ip)
+        return (ip * unit + frac).astype(np.int32)
+
+    mvs = [(mv(fx), mv(fy)), (mv(np.roll(fx, 3)), mv(np.roll(fy, 5)))]
+    jf = j_interp.mc_luma_qpel_ps if luma else j_interp.mc_chroma_qpel_ps
+    tf = t_interp.mc_luma_qpel_ps if luma else t_interp.mc_chroma_qpel_ps
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    jps = [jf(r, px, py, mx, my, n, 8, xp=np) for r, (mx, my) in
+           zip(refs, mvs)]
+    tps = [tf(t(r), t(px), t(py), t(mx), t(my), n, 8) for r, (mx, my) in
+           zip(refs, mvs)]
+    for a, b in zip(jps, tps):
+        _eq(a, b)
+    _eq(j_interp.add_avg(*jps, 8, xp=np), t_interp.add_avg(*tps, 8))

@@ -1,15 +1,17 @@
 """Modules of the port's quadtree slice against the JAX package's (CPU,
 small shapes): the K9 bit model and its tables, the lambdas, per-block QP
 quant, the window gather and subpel refinement, K1's multi-size sweep,
-the quadtree helpers (source_v, block_v availability, the median MV) and
-the native quadtree slice writer. Integer results are compared exactly;
-so are the float32 lambdas and MVD bits."""
+the quadtree helpers (source_v, block_v availability, the median MV), the
+native quadtree slice writer (I, P and B) and the B-frame slice headers.
+Integer results are compared exactly, streams byte for byte; so are the
+float32 lambdas and MVD bits."""
 import numpy as np
 import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
+from x265_yuuki_asuna_tpu.bitstream import headers as j_hdr
 from x265_yuuki_asuna_tpu.bitstream import native as j_native
 from x265_yuuki_asuna_tpu.bitstream import tables as j_tables
 from x265_yuuki_asuna_tpu.models import qt_common as j_qt
@@ -17,6 +19,7 @@ from x265_yuuki_asuna_tpu.ops import bitcost as j_bc
 from x265_yuuki_asuna_tpu.ops import interp as j_interp
 from x265_yuuki_asuna_tpu.ops import me as j_me
 from x265_yuuki_asuna_tpu.ops import quant as j_quant
+from x265_yuuki_asuna_tpu_torch.bitstream import headers as t_hdr
 from x265_yuuki_asuna_tpu_torch.bitstream import native as t_native
 from x265_yuuki_asuna_tpu_torch.bitstream import tables as t_tables
 from x265_yuuki_asuna_tpu_torch.models import inter_encoder as t_inter
@@ -259,8 +262,10 @@ def _random_tree(rng, rows, cols, slice_type):
            "levels_y": lv(rows, cols, 32, 32),
            "levels_cb": lv(rows, cols, 16, 16),
            "levels_cr": lv(rows, cols, 16, 16)}
-    if slice_type == 1:
-        mv = lambda *s: rng.choice([-8, -4, 0, 4, 8, 5], s).astype(np.int32)
+    # MVs from a small set, so merge candidates often match (and often
+    # do not)
+    mv = lambda *s: rng.choice([-8, -4, 0, 4, 8, 5], s).astype(np.int32)
+    if slice_type in (0, 1):
         out.update({"use_intra": rng.random((rows, cols)) < 0.2,
                     "use_intra4": rng.random((rows, cols, 4)) < 0.2,
                     "use_intra8": np.zeros((rows, cols, 4, 4), bool),
@@ -268,6 +273,15 @@ def _random_tree(rng, rows, cols, slice_type):
                     "mv4x": mv(rows, cols, 4), "mv4y": mv(rows, cols, 4),
                     "mv8x": mv(rows, cols, 4, 4),
                     "mv8y": mv(rows, cols, 4, 4)})
+    if slice_type == 0:
+        pd = lambda *s: rng.integers(1, 4, s).astype(np.int32)
+        out.update({"use_intra8": rng.random((rows, cols, 4, 4)) < 0.1,
+                    "pdir": pd(rows, cols), "pdir4": pd(rows, cols, 4),
+                    "pdir8": pd(rows, cols, 4, 4),
+                    "mv1x": mv(rows, cols), "mv1y": mv(rows, cols),
+                    "mv41x": mv(rows, cols, 4), "mv41y": mv(rows, cols, 4),
+                    "mv81x": mv(rows, cols, 4, 4),
+                    "mv81y": mv(rows, cols, 4, 4)})
     assert ncu
     return out
 
@@ -281,9 +295,30 @@ def test_native_qt2_writer_matches_jax(slice_type):
     assert j is not None and t == j
 
 
+# (poc, L0 poc, L1 poc): distances 1, 2 and 3 on either side, so AMVP
+# scales the other list's neighbour MVs (scaleMvB) by every ratio
+B_POCS = [(1, 0, 2), (2, 0, 4), (1, 0, 4), (3, 0, 4), (2, 1, 4), (3, 1, 4)]
+
+
+@pytest.mark.parametrize("pocs", B_POCS)
+def test_native_qt2_b_writer_matches_jax(pocs):
+    """B slices: every pdir at 32, 16 and 8, intra CUs among them, merge
+    hits and misses, AMVP across the two lists' POC distances."""
+    poc, poc0, poc1 = pocs
+    rng = np.random.default_rng(poc * 10 + poc0)
+    out = _random_tree(rng, 3, 4, 0)
+    kw = dict(poc=poc, poc_l0=poc0, poc_l1=poc1)
+    j = j_native.encode_slice_qt2(0, 2, out, 31, 3, **kw)
+    t = t_native.encode_slice_qt2(0, 2, out, 31, 3, **kw)
+    assert j is not None and t == j
+    assert all(set(np.unique(out[k])) == {1, 2, 3}
+               for k in ("pdir4", "pdir8"))
+
+
 def test_native_qt2_writer_refuses_b_slices():
-    out = _random_tree(np.random.default_rng(0), 2, 2, 2)
-    with pytest.raises(NotImplementedError, match="B"):
+    """A B slice without its B fields (a P decision dict) is refused."""
+    out = _random_tree(np.random.default_rng(0), 2, 2, 1)
+    with pytest.raises(ValueError, match="pdir"):
         t_native.encode_slice_qt2(0, 2, out, 30, 3)
 
 
@@ -292,3 +327,30 @@ def test_native_qt2_writer_checks_shapes():
     out["levels_cb"] = out["levels_cb"][:, :, :8, :8]
     with pytest.raises(ValueError, match="levels_cb"):
         t_native.encode_slice_qt2(1, 2, out, 30, 3)
+
+
+# (slice_type, nal_type, poc, ref_poc_delta, pos_poc_delta, rps): the
+# pyramid's referenced middle B, its leaves (the first keeps the later
+# anchor in its RPS, unused), a flat B, and a P anchor 4 pictures on
+SLICE_HEADERS = [
+    (0, 1, 2, 2, 2, None),
+    (0, 0, 1, 1, 1, ([(1, 1)], [(1, 1), (3, 0)])),
+    (0, 0, 3, 1, 1, ([(1, 1)], [(1, 1)])),
+    (0, 0, 1, 1, 1, None),
+    (0, 0, 5, 2, 3, None),
+    (1, 1, 4, 4, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", SLICE_HEADERS)
+def test_b_and_anchor_slice_headers_match_jax(case):
+    slice_type, nal_type, poc, d0, d1, rps = case
+    kw = dict(nal_type=nal_type, poc=poc, ref_poc_delta=d0,
+              pos_poc_delta=d1, rps=rps, max_merge=3)
+    j = j_hdr.write_slice_header(
+        j_hdr.SPSInfo(), j_hdr.PPSInfo(init_qp=26, deblocking_disabled=1),
+        slice_type, 33, **kw)
+    t = t_hdr.write_slice_header(
+        t_hdr.SPSInfo(), t_hdr.PPSInfo(init_qp=26, deblocking_disabled=1),
+        slice_type, 33, **kw)
+    assert t.get_bytes() == j.get_bytes()

@@ -1,8 +1,13 @@
-"""The port's CTU32 depth-2 quadtree IPPP session against the JAX package's
+"""The port's CTU32 depth-2 quadtree sessions against the JAX package's
 (CPU): the golden qt2_ippp clip byte for byte (headers, every frame's
 NALs, the blessed md5), a session resumed mid-GOP from the JAX session's
-state, and the card tests (gpu-marked: the golden stream and the
-kernel-vs-plain identity of a P frame on the card)."""
+state, the B session (bframes=3, B-pyramid, b_adapt=0, push_frame /
+flush) on the golden clip byte for byte, and the card tests (gpu-marked:
+the golden stream and the kernel-vs-plain identity of a P frame on the
+card). The JAX B session runs in this module so that it takes the JAX
+IPPP session's I and P programs (the same configuration) and compiles
+only its B program; test_torch_qt_b_session.py holds the other B-session
+tests."""
 import hashlib
 import json
 import os
@@ -13,6 +18,7 @@ import pytest
 import torch
 
 from golden_corpus import clip
+from test_torch_qt_b_session import B_KW, MD5, ORDER, encode_push
 from x265_yuuki_asuna_tpu.models import encoder_top as j_top
 from x265_yuuki_asuna_tpu_torch.models import encoder_top as t_top
 from x265_yuuki_asuna_tpu_torch.models.state import load_session_state
@@ -51,16 +57,35 @@ def _state(s):
 
 
 @pytest.fixture(scope="module")
-def jax_qt2():
-    """The golden qt2_ippp encode in JAX: headers, per-frame NALs and the
-    session state before frame 3."""
+def jax_qt2_session():
+    """The golden qt2_ippp encode in JAX: the session, its headers,
+    per-frame NALs and the session state before frame 3."""
     s = j_top.VideoEncoderSession(64, 48, **QT2)
     hdr, nals, state = s.headers(), [], None
     for i, f in enumerate(clip()):
         if i == 3:
             state = _state(s)
         nals.append(s.encode_frame(*f).nals)
-    return hdr, nals, state
+    return s, hdr, nals, state
+
+
+@pytest.fixture(scope="module")
+def jax_qt2(jax_qt2_session):
+    return jax_qt2_session[1:]
+
+
+@pytest.fixture(scope="module")
+def jax_qt2_b(jax_qt2_session):
+    """The JAX B session over the golden clip: (headers, results). Its I
+    and P frame encoders are the IPPP session's, whose configuration is
+    the same, so their compiled programs are reused."""
+    ippp = jax_qt2_session[0]
+
+    def share(s):
+        s.inter_encoder = ippp.inter_encoder
+        s.intra_sess.frame_encoder = ippp.intra_sess.frame_encoder
+
+    return encode_push(j_top, B_KW, setup=share)
 
 
 def test_qt2_ippp_stream_matches_jax_and_golden(jax_qt2):
@@ -89,6 +114,19 @@ def test_qt2_load_session_state_mid_gop(jax_qt2):
     for i in (3, 4, 5):
         r = s.encode_frame(*frames[i])
         assert r.frame_type == "P" and r.nals == nals[i], i
+
+
+def test_qt2_b_stream_matches_jax(jax_qt2_b):
+    jh, jres = jax_qt2_b
+    th, tres = encode_push(t_top, B_KW, device="cpu")
+    assert th == jh
+    assert [(r.poc, r.frame_type) for r in jres] == ORDER["pyramid"]
+    assert [(r.poc, r.frame_type) for r in tres] == ORDER["pyramid"]
+    for t, j in zip(tres, jres):
+        assert t.nals == j.nals, (t.poc, t.frame_type)
+    stream = lambda h, res: hashlib.md5(
+        h + b"".join(r.nals for r in res)).hexdigest()
+    assert stream(jh, jres) == stream(th, tres) == MD5["pyramid"]
 
 
 def test_qt2_session_recon_and_hash_sei():

@@ -166,3 +166,33 @@ def test_quadtree_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         t_top.VideoEncoderSession(64, 48, max_depth=2, device="cpu",
                                   **option)
+
+
+B_SESSION = dict(max_depth=2, bframes=3, b_adapt=0)
+
+
+@pytest.mark.parametrize("option,match", [
+    ({"b_adapt": 1}, "b_adapt=1"), ({"b_adapt": 2}, "b_adapt=2"),
+    ({"open_gop": True}, "open_gop"), ({"max_depth": 0}, "max_depth=0"),
+    ({"b_intra": True}, "b_intra"),
+])
+def test_b_session_options_outside_the_slice_raise(option, match):
+    with pytest.raises(NotImplementedError, match=match):
+        t_top.VideoEncoderSession(64, 48, device="cpu",
+                                  **{**B_SESSION, **option})
+
+
+def test_b_session_takes_frames_through_push_frame_only():
+    y, u, v = clip(64, 48, n=1)[0]
+    s = t_top.VideoEncoderSession(64, 48, device="cpu", **B_SESSION)
+    with pytest.raises(RuntimeError, match="push_frame"):
+        s.encode_frame(y, u, v)
+    s = t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2)
+    with pytest.raises(RuntimeError, match="bframes"):
+        s.push_frame(y, u, v)
+
+
+def test_load_session_state_refuses_b_sessions(jax_ippp):
+    s = t_top.VideoEncoderSession(64, 48, device="cpu", **B_SESSION)
+    with pytest.raises(NotImplementedError, match="bframes"):
+        load_session_state(s, jax_ippp[2])

@@ -76,6 +76,7 @@ def anti_emulation(rbsp: bytes) -> bytes:
 
 
 # NAL unit types (spec table 7-1)
+NAL_TRAIL_N = 0
 NAL_TRAIL_R = 1
 NAL_IDR_W_RADL = 19
 NAL_VPS = 32

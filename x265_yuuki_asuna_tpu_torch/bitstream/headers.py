@@ -1,9 +1,10 @@
 """Parameter-set and slice-header writers (spec 7.3.2-7.3.6).
 
 Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what an
-8-bit 4:2:0 IPPP session writes (Main profile, flat scaling lists, VUI
-timing only, one L0 reference, no WPP/tiles/slices). The bits written are
-the same as the JAX package's for those settings.
+8-bit 4:2:0 IPPP or fixed-mini-GOP B session writes (Main profile, flat
+scaling lists, VUI timing only, one reference per list, explicit
+short-term RPS, no WPP/tiles/slices, no weighted prediction or TMVP). The
+bits written are the same as the JAX package's for those settings.
 
 Reference behavior (studied, not copied): encoder/entropy.cpp codeVPS /
 codeSPS / codePPS / codeProfileTier / codeSliceHeader.
@@ -199,10 +200,18 @@ def write_pps(pps: PPSInfo) -> bytes:
 def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
                        slice_qp: int, *, nal_type: int = NAL_IDR_W_RADL,
                        poc: int = 0, ref_poc_delta: int = 1,
+                       pos_poc_delta: int = 0, rps: Optional[Tuple] = None,
                        max_merge: int = 3) -> BitWriter:
     """Returns a BitWriter positioned after byte_alignment() — ready for the
-    caller to append CABAC slice data. slice_type: 1=P 2=I (one slice per
-    picture, one L0 reference at ref_poc_delta)."""
+    caller to append CABAC slice data. slice_type: 0=B 1=P 2=I (one slice
+    per picture, one reference per list).
+
+    The short-term RPS (spec 7.3.7) holds the L0 reference ref_poc_delta
+    before the picture and, when pos_poc_delta is set, the L1 reference
+    that far after it, both used by the picture. rps overrides that:
+    (negatives, positives), each a list of (poc distance, used_by_curr)
+    nearest first, e.g. a B-pyramid leaf that keeps an unused later
+    anchor in its RPS."""
     bw = BitWriter()
     bw.write_flag(1)                         # first_slice_segment_in_pic_flag
     if 16 <= nal_type <= 23:                 # IRAP
@@ -213,12 +222,23 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
         bw.write_bits(poc & ((1 << sps.log2_max_poc_lsb) - 1),
                       sps.log2_max_poc_lsb)
         bw.write_flag(0)                     # short_term_ref_pic_set_sps_flag
-        bw.write_ue(1)                       # num_negative_pics
-        bw.write_ue(0)                       # num_positive_pics
-        bw.write_ue(ref_poc_delta - 1)       # delta_poc_s0_minus1[0]
-        bw.write_flag(1)                     # used_by_curr_pic_s0_flag[0]
-    if slice_type != 2:                      # P
+        if rps is None:
+            neg = [(ref_poc_delta, 1)]
+            pos = [(pos_poc_delta, 1)] if pos_poc_delta else []
+        else:
+            neg, pos = rps
+        bw.write_ue(len(neg))                # num_negative_pics
+        bw.write_ue(len(pos))                # num_positive_pics
+        for pics in (neg, pos):
+            prev = 0
+            for delta, used in pics:
+                bw.write_ue(delta - prev - 1)    # delta_poc_s{0,1}_minus1
+                bw.write_flag(used)              # used_by_curr_pic_s{0,1}
+                prev = delta
+    if slice_type != 2:                      # P / B
         bw.write_flag(0)                     # num_ref_idx_active_override_flag
+        if slice_type == 0:
+            bw.write_flag(0)                 # mvd_l1_zero_flag
         bw.write_ue(5 - max_merge)           # five_minus_max_num_merge_cand
     bw.write_se(slice_qp - pps.init_qp)
     if pps.loop_filter_across_slices and not pps.deblocking_disabled:

@@ -33,8 +33,8 @@ def load() -> ctypes.CDLL:
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + extras + out)
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
-            + out)
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
+            + [ctypes.c_int] * 7 + out)
         _lib = lib
     return _lib
 
@@ -97,36 +97,47 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
     return _finish(nbytes, out, tail, tail_bits)
 
 
-# decision-dict keys an I slice does not code, and those of depth-2 trees
-_QT2_INTER = {"use_intra", "mvx", "mvy", "use_intra4", "mv4x", "mv4y",
-              "use_intra8", "mv8x", "mv8y"}
-_QT2_DEPTH2 = {"split16", "use_intra8", "modes8", "mv8x", "mv8y"}
+# decision-dict keys only B slices code, those a P slice codes too (an I
+# slice codes neither), and those of depth-2 trees
+_QT2_B = {"pdir", "mv1x", "mv1y", "pdir4", "mv41x", "mv41y", "pdir8",
+          "mv81x", "mv81y"}
+_QT2_INTER = _QT2_B | {"use_intra", "mvx", "mvy", "use_intra4", "mv4x",
+                       "mv4y", "use_intra8", "mv8x", "mv8y"}
+_QT2_DEPTH2 = {"split16", "use_intra8", "modes8", "pdir8", "mv8x", "mv8y",
+               "mv81x", "mv81y"}
 # each array's shape per CTU, in the writer's argument order
 _QT2_SHAPES = {"split": (), "split16": (4,), "use_intra": (), "modes": (),
-               "mvx": (), "mvy": (), "use_intra4": (4,), "modes4": (4,),
-               "mv4x": (4,), "mv4y": (4,), "use_intra8": (4, 4),
-               "modes8": (4, 4), "mv8x": (4, 4), "mv8y": (4, 4),
-               "levels_y": (32, 32), "levels_cb": (16, 16),
+               "pdir": (), "mvx": (), "mvy": (), "mv1x": (), "mv1y": (),
+               "use_intra4": (4,), "modes4": (4,), "pdir4": (4,),
+               "mv4x": (4,), "mv4y": (4,), "mv41x": (4,), "mv41y": (4,),
+               "use_intra8": (4, 4), "modes8": (4, 4), "pdir8": (4, 4),
+               "mv8x": (4, 4), "mv8y": (4, 4), "mv81x": (4, 4),
+               "mv81y": (4, 4), "levels_y": (32, 32), "levels_cb": (16, 16),
                "levels_cr": (16, 16)}
 
 
 def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
-                     max_merge: int = 3):
-    """CTU32 quadtree slice CABAC data (slice_type 2 = I, 1 = P; depth 1
-    or 2) from the quadtree programs' decision dict. Returns (payload,
-    tail, tail_bits)."""
-    if slice_type not in (1, 2):
-        raise NotImplementedError(
-            f"slice type {slice_type}: the quadtree writer codes I and P "
-            "slices (the B-frame slice adds B)")
+                     max_merge: int = 3, poc: int = 0, poc_l0: int = 0,
+                     poc_l1: int = 0):
+    """CTU32 quadtree slice CABAC data (slice_type 2 = I, 1 = P, 0 = B;
+    depth 1 or 2) from the quadtree programs' decision dict. A B slice
+    reads pdir* (1 = L0, 2 = L1, 3 = bi) and the L1 MVs mv1x/mv41x/mv81x
+    (and y); poc, poc_l0 and poc_l1 scale its AMVP candidates. Returns
+    (payload, tail, tail_bits)."""
+    if slice_type not in (0, 1, 2):
+        raise ValueError(f"slice type {slice_type}: 0 = B, 1 = P, 2 = I")
     lib = load()
     rows, cols = out["split"].shape
     keep = []      # the arrays must outlive the call
 
     def ptr(key, dt):
         if (slice_type == 2 and key in _QT2_INTER) or \
+                (slice_type == 1 and key in _QT2_B) or \
                 (max_depth < 2 and key in _QT2_DEPTH2):
             return None
+        if out.get(key) is None:
+            raise ValueError(f"{key}: missing from the decision dict of a "
+                             f"slice of type {slice_type}")
         a = np.ascontiguousarray(out[key], dt)
         if a.shape != (rows, cols) + _QT2_SHAPES[key]:
             raise ValueError(f"{key}: shape {a.shape} for a {rows}x{cols} "
@@ -140,6 +151,7 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
     buf = np.empty(cap, np.uint8)
     tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
     nbytes = lib.asuna_encode_slice_qt2(
-        slice_type, max_depth, *args, rows, cols, qp, max_merge,
-        buf.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+        slice_type, max_depth, *args, rows, cols, qp, max_merge, poc,
+        poc_l0, poc_l1, buf.ctypes.data, cap, ctypes.byref(tail),
+        ctypes.byref(tail_bits))
     return _finish(nbytes, buf, tail, tail_bits)

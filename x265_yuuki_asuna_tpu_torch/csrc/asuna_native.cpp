@@ -8,7 +8,7 @@
 //
 // The port's copy of x265_yuuki_asuna_tpu/native/asuna_native.cpp, cut to
 // the slice writers the port's sessions run: the uniform-grid I and P
-// writers and the CTU32 quadtree I/P writer.
+// writers and the CTU32 quadtree I/P/B writer.
 //
 // Build: g++ -O2 -shared -fPIC -o build/libasuna.so csrc/asuna_native.cpp
 // Interface: extern "C", driven through ctypes (bitstream/native.py).
@@ -970,20 +970,34 @@ int asuna_encode_p_slice(
 
 }  // extern "C"
 
+
 // ---------------------------------------------------------------------------
-// CTU32 quadtree I/P slices (depth 1-2): coding_quadtree per CTU with
+// CTU32 quadtree I/P/B slices (depth 1-2): coding_quadtree per CTU with
 // split_cu_flag contexts from the neighbours' depths (9.3.4.2.2), MPMs and
 // merge/AMVP candidates from a cell grid of 32>>maxDepth pixels. The
 // port's copy of the qt2 writer in x265_yuuki_asuna_tpu/native/
-// asuna_native.cpp (asuna_encode_slice_qt2), cut to I and P slices with
-// one TU per CU (no RQT), no SAO and no per-CU QP.
+// asuna_native.cpp (asuna_encode_slice_qt2), cut to one reference per list
+// and one TU per CU (no RQT), no SAO and no per-CU QP.
 // ---------------------------------------------------------------------------
 
 namespace qt2 {
 
+// a CU's motion: dir 1 = L0, 2 = L1, 3 = bi; quarter-pel MVs
+struct Motion {
+    int dir = 1;
+    int32_t mv0x = 0, mv0y = 0;
+    int32_t mv1x = 0, mv1y = 0;
+    bool sameAs(const Motion& o) const {
+        if (dir != o.dir) return false;
+        if ((dir & 1) && (mv0x != o.mv0x || mv0y != o.mv0y)) return false;
+        if ((dir & 2) && (mv1x != o.mv1x || mv1y != o.mv1y)) return false;
+        return true;
+    }
+};
+
 struct QCell {
     uint8_t decoded = 0, isIntra = 0, skip = 0;
-    int32_t mvx = 0, mvy = 0;       // quarter-pel, L0
+    Motion motion;
     int32_t intraMode = 1;
 };
 
@@ -995,10 +1009,14 @@ struct QGrid {
         const QCell* p = &v[(size_t)y * gc + x];
         return p->decoded ? p : nullptr;
     }
-    bool inter(int y, int x, int32_t* mv) const {
+    const Motion* inter(int y, int x) const {
         const QCell* p = at(y, x);
-        if (!p || p->isIntra) return false;
-        mv[0] = p->mvx; mv[1] = p->mvy;
+        return (p && !p->isIntra) ? &p->motion : nullptr;
+    }
+    bool interL0(int y, int x, int32_t* mv) const {
+        const Motion* m = inter(y, x);
+        if (!m) return false;
+        mv[0] = m->mv0x; mv[1] = m->mv0y;
         return true;
     }
     void fill(int gy, int gx, int s, const QCell& cell) {
@@ -1012,11 +1030,11 @@ struct QGrid {
 static void mergeCandsP(const QGrid& g, int gy, int gx, int s, int maxCands,
                         int32_t (*out)[2]) {
     int32_t a1[2], b1[2], b0[2], a0[2], b2[2];
-    bool hA1 = g.inter(gy + s - 1, gx - 1, a1);
-    bool hB1 = g.inter(gy - 1, gx + s - 1, b1);
-    bool hB0 = g.inter(gy - 1, gx + s, b0);
-    bool hA0 = g.inter(gy + s, gx - 1, a0);
-    bool hB2 = g.inter(gy - 1, gx - 1, b2);
+    bool hA1 = g.interL0(gy + s - 1, gx - 1, a1);
+    bool hB1 = g.interL0(gy - 1, gx + s - 1, b1);
+    bool hB0 = g.interL0(gy - 1, gx + s, b0);
+    bool hA0 = g.interL0(gy + s, gx - 1, a0);
+    bool hB2 = g.interL0(gy - 1, gx - 1, b2);
     auto eq = [](const int32_t* a, const int32_t* b) {
         return a[0] == b[0] && a[1] == b[1];
     };
@@ -1035,15 +1053,160 @@ static void mergeCandsP(const QGrid& g, int gy, int gx, int s, int maxCands,
 static void amvpCandsP(const QGrid& g, int gy, int gx, int s,
                        int32_t (*out)[2]) {
     int32_t a[2], b[2];
-    bool hA = g.inter(gy + s, gx - 1, a) || g.inter(gy + s - 1, gx - 1, a);
-    bool hB = g.inter(gy - 1, gx + s, b) || g.inter(gy - 1, gx + s - 1, b)
-              || g.inter(gy - 1, gx - 1, b);
+    bool hA = g.interL0(gy + s, gx - 1, a) || g.interL0(gy + s - 1, gx - 1, a);
+    bool hB = g.interL0(gy - 1, gx + s, b) || g.interL0(gy - 1, gx + s - 1, b)
+              || g.interL0(gy - 1, gx - 1, b);
     int n = 0;
     if (hA) { out[n][0] = a[0]; out[n][1] = a[1]; n++; }
     if (hB && !(hA && b[0] == a[0] && b[1] == a[1])) {
         out[n][0] = b[0]; out[n][1] = b[1]; n++;
     }
     while (n < 2) { out[n][0] = 0; out[n][1] = 0; n++; }
+}
+
+// B-slice merge candidates: the spatial ones, then the combined
+// bi-predictive pairs (spec table 8-6 order), then bi zero-MV fill
+static void mergeCandsB(const QGrid& g, int gy, int gx, int s, int maxCands,
+                        Motion* out) {
+    const Motion* a1 = g.inter(gy + s - 1, gx - 1);
+    const Motion* b1 = g.inter(gy - 1, gx + s - 1);
+    const Motion* b0 = g.inter(gy - 1, gx + s);
+    const Motion* a0 = g.inter(gy + s, gx - 1);
+    const Motion* b2 = g.inter(gy - 1, gx - 1);
+    int n = 0;
+    if (a1) out[n++] = *a1;
+    if (b1 && !(a1 && b1->sameAs(*a1))) out[n++] = *b1;
+    if (b0 && !(b1 && b0->sameAs(*b1))) out[n++] = *b0;
+    if (a0 && !(a1 && a0->sameAs(*a1))) out[n++] = *a0;
+    if (n < 4 && b2 && !(a1 && b2->sameAs(*a1)) && !(b1 && b2->sameAs(*b1)))
+        out[n++] = *b2;
+    static const int PAIRS[12][2] = {{0,1},{1,0},{0,2},{2,0},{1,2},{2,1},
+                                     {0,3},{3,0},{1,3},{3,1},{2,3},{3,2}};
+    int nOrig = n;
+    int nPairs = nOrig * (nOrig - 1);
+    if (nPairs > 12) nPairs = 12;
+    for (int k = 0; k < nPairs && n < maxCands; k++) {
+        int i = PAIRS[k][0], j = PAIRS[k][1];
+        if ((out[i].dir & 1) && (out[j].dir & 2)) {
+            Motion m;
+            m.dir = 3;
+            m.mv0x = out[i].mv0x; m.mv0y = out[i].mv0y;
+            m.mv1x = out[j].mv1x; m.mv1y = out[j].mv1y;
+            out[n++] = m;
+        }
+    }
+    while (n < maxCands) {
+        Motion z;
+        z.dir = 3;
+        out[n++] = z;
+    }
+}
+
+// a neighbour's MV scaled by the POC distances tb / td (spec 8.5.3.2.7)
+static void scaleMvB(int32_t mvx, int32_t mvy, int tb, int td,
+                     int32_t* ox, int32_t* oy) {
+    int tx = (td > 0) ? (16384 + (abs(td) >> 1)) / td
+                      : -((16384 + (abs(td) >> 1)) / -td);
+    int64_t dsf = (int64_t)tb * tx + 32;
+    dsf >>= 6;
+    if (dsf < -4096) dsf = -4096;
+    if (dsf > 4095) dsf = 4095;
+    auto s = [&](int32_t v) -> int32_t {
+        int64_t val = dsf * v;
+        int sign = val >= 0 ? 1 : -1;
+        int64_t mag = (llabs(val) + 127) >> 8;
+        int64_t res = sign * mag;
+        if (res < -32768) res = -32768;
+        if (res > 32767) res = 32767;
+        return (int32_t)res;
+    };
+    *ox = s(mvx);
+    *oy = s(mvy);
+}
+
+// B-slice AMVP candidates for list lx: left (A0, A1) unscaled then scaled,
+// above (B0, B1, B2) unscaled, scaled only when no left neighbour is inter
+static void amvpCandsB(const QGrid& g, int gy, int gx, int s, int lx,
+                       int pocCur, int pocL0, int pocL1, int32_t (*out)[2]) {
+    int pocTarget = lx == 0 ? pocL0 : pocL1;
+    auto pocOf = [&](int which) { return which == 0 ? pocL0 : pocL1; };
+    auto mvOf = [&](const Motion& m, int which, int32_t* v) {
+        if (which == 0) { v[0] = m.mv0x; v[1] = m.mv0y; }
+        else { v[0] = m.mv1x; v[1] = m.mv1y; }
+    };
+    auto noscale = [&](const Motion& m, int32_t* v) -> bool {
+        if (m.dir & (1 << lx)) { mvOf(m, lx, v); return true; }
+        int oy = 1 - lx;
+        if ((m.dir & (1 << oy)) && pocOf(oy) == pocTarget) {
+            mvOf(m, oy, v);
+            return true;
+        }
+        return false;
+    };
+    auto scaled = [&](const Motion& m, int32_t* v) -> bool {
+        for (int k = 0; k < 2; k++) {
+            int which = k == 0 ? lx : 1 - lx;
+            if (m.dir & (1 << which)) {
+                int tb = pocCur - pocTarget;
+                int td = pocCur - pocOf(which);
+                if (td == 0) return false;
+                int32_t raw[2];
+                mvOf(m, which, raw);
+                if (tb == td) { v[0] = raw[0]; v[1] = raw[1]; }
+                else scaleMvB(raw[0], raw[1], tb, td, &v[0], &v[1]);
+                return true;
+            }
+        }
+        return false;
+    };
+    const int A_POS[2][2] = {{gy + s, gx - 1}, {gy + s - 1, gx - 1}};
+    const int B_POS[3][2] = {{gy - 1, gx + s}, {gy - 1, gx + s - 1},
+                             {gy - 1, gx - 1}};
+    int n = 0;
+    int32_t candA[2];
+    bool haveA = false, leftAvail = false;
+    for (int i = 0; i < 2 && !haveA; i++) {
+        const Motion* m = g.inter(A_POS[i][0], A_POS[i][1]);
+        if (m) {
+            leftAvail = true;
+            haveA = noscale(*m, candA);
+        }
+    }
+    if (leftAvail && !haveA) {
+        for (int i = 0; i < 2 && !haveA; i++) {
+            const Motion* m = g.inter(A_POS[i][0], A_POS[i][1]);
+            if (m) haveA = scaled(*m, candA);
+        }
+    }
+    if (haveA) { out[n][0] = candA[0]; out[n][1] = candA[1]; n++; }
+    for (int i = 0; i < 3; i++) {
+        const Motion* m = g.inter(B_POS[i][0], B_POS[i][1]);
+        if (m) {
+            int32_t v[2];
+            if (noscale(*m, v)) { out[n][0] = v[0]; out[n][1] = v[1]; n++; break; }
+        }
+    }
+    if (!leftAvail && n < 2) {
+        for (int i = 0; i < 3; i++) {
+            const Motion* m = g.inter(B_POS[i][0], B_POS[i][1]);
+            if (m) {
+                int32_t v[2];
+                if (scaled(*m, v)) { out[n][0] = v[0]; out[n][1] = v[1]; n++; break; }
+            }
+        }
+    }
+    if (n == 2 && out[0][0] == out[1][0] && out[0][1] == out[1][1]) n = 1;
+    while (n < 2) { out[n][0] = 0; out[n][1] = 0; n++; }
+}
+
+// mvd_coding + mvp_lx_flag: the predictor nearer the MV (ties: the first)
+static void codeMvdMvp(Cabac& cb, int32_t mx, int32_t my,
+                       const int32_t (*preds)[2]) {
+    int c0 = abs(mx - preds[0][0]) + abs(my - preds[0][1]);
+    int c1 = abs(mx - preds[1][0]) + abs(my - preds[1][1]);
+    int flag = c0 <= c1 ? 0 : 1;
+    encodeMvd(cb, mx - preds[flag][0], my - preds[flag][1]);
+    cb.encodeBin(flag, CTX_MVP_IDX);
 }
 
 struct SliceCtx {
@@ -1055,7 +1218,8 @@ struct SliceCtx {
     int gy0, gx0;             // CTU origin in cells
     int cellPx, minLog2;
     int maxMerge;
-    int sliceType;            // 1=P, 2=I
+    int sliceType;            // 0=B, 1=P, 2=I
+    int pocCur, pocL0, pocL1;
 };
 
 static void extractLv(const int32_t* src, int srcN, int oy, int ox, int px,
@@ -1118,7 +1282,7 @@ static void codeInterTransformTree(SliceCtx& S, const int32_t* qly,
 }
 
 static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
-                      int mode, int32_t mvx, int32_t mvy) {
+                      int mode, const Motion& motion) {
     Cabac& cb = *S.cb;
     QGrid& g = *S.grid;
     const int px = s * S.cellPx;
@@ -1145,17 +1309,29 @@ static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
         codeIntraPart(S, gy, gx, s, mode, qly, qcb, qcr, log2cu);
         return;
     }
-    // merge when the MV equals a candidate; skip when there is no residual
+    // merge when the motion equals a candidate; skip when there is no
+    // residual
     int mergeIdx = -1;
-    int32_t cands[5][2];
-    mergeCandsP(g, gy, gx, s, S.maxMerge, cands);
-    for (int i = 0; i < S.maxMerge; i++)
-        if (cands[i][0] == mvx && cands[i][1] == mvy) {
-            mergeIdx = i;
-            break;
-        }
+    if (S.sliceType == 1) {
+        int32_t cands[5][2];
+        mergeCandsP(g, gy, gx, s, S.maxMerge, cands);
+        for (int i = 0; i < S.maxMerge; i++)
+            if (cands[i][0] == motion.mv0x && cands[i][1] == motion.mv0y) {
+                mergeIdx = i;
+                break;
+            }
+    } else {
+        Motion cands[5];
+        mergeCandsB(g, gy, gx, s, S.maxMerge, cands);
+        for (int i = 0; i < S.maxMerge; i++)
+            if (cands[i].sameAs(motion)) {
+                mergeIdx = i;
+                break;
+            }
+    }
     QCell cell;
-    cell.decoded = 1; cell.mvx = mvx; cell.mvy = mvy;
+    cell.decoded = 1;
+    cell.motion = motion;
     bool isSkip = mergeIdx >= 0 && !hasResid;
     cb.encodeBin(isSkip ? 1 : 0, CTX_SKIP + sctx);
     if (isSkip) {
@@ -1174,12 +1350,25 @@ static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
     } else {
         cb.encodeBin(0, CTX_MERGE_FLAG);
         int32_t preds[2][2];
-        amvpCandsP(g, gy, gx, s, preds);
-        int c0 = abs(mvx - preds[0][0]) + abs(mvy - preds[0][1]);
-        int c1 = abs(mvx - preds[1][0]) + abs(mvy - preds[1][1]);
-        int flag = c0 <= c1 ? 0 : 1;
-        encodeMvd(cb, mvx - preds[flag][0], mvy - preds[flag][1]);
-        cb.encodeBin(flag, CTX_MVP_IDX);
+        if (S.sliceType == 0) {
+            // inter_pred_idc: bi flag (context by CU depth), then L0/L1
+            cb.encodeBin(motion.dir == 3 ? 1 : 0, CTX_INTER_DIR + 5 - log2cu);
+            if (motion.dir != 3)
+                cb.encodeBin(motion.dir == 1 ? 0 : 1, CTX_INTER_DIR + 4);
+            if (motion.dir & 1) {
+                amvpCandsB(g, gy, gx, s, 0, S.pocCur, S.pocL0, S.pocL1,
+                           preds);
+                codeMvdMvp(cb, motion.mv0x, motion.mv0y, preds);
+            }
+            if (motion.dir & 2) {
+                amvpCandsB(g, gy, gx, s, 1, S.pocCur, S.pocL0, S.pocL1,
+                           preds);
+                codeMvdMvp(cb, motion.mv1x, motion.mv1y, preds);
+            }
+        } else {
+            amvpCandsP(g, gy, gx, s, preds);
+            codeMvdMvp(cb, motion.mv0x, motion.mv0y, preds);
+        }
         rqt = hasResid ? 1 : 0;
         cb.encodeBin(rqt, CTX_QT_ROOT_CBF);
     }
@@ -1191,15 +1380,13 @@ struct CtuData {
     int sp0;
     const uint8_t* split16;        // [4] or null (depth 1)
     int ui32, m32;
-    int32_t mv32[2];
+    Motion mo32;
     const uint8_t* ui4;
     const int32_t* m4;
-    const int32_t* mv4x;
-    const int32_t* mv4y;
+    Motion mo4[4];
     const uint8_t* ui8;            // [4*4] or null
     const int32_t* m8;
-    const int32_t* mv8x;
-    const int32_t* mv8y;
+    Motion mo8[16];
 };
 
 static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
@@ -1221,7 +1408,7 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
     static const int QOFF[4][2] = {{0,0},{0,1},{1,0},{1,1}};
     splitFlag(gy, gx, 0, D.sp0);
     if (!D.sp0) {
-        codeCuQt2(S, gy, gx, g, D.ui32, D.m32, D.mv32[0], D.mv32[1]);
+        codeCuQt2(S, gy, gx, g, D.ui32, D.m32, D.mo32);
         setDepth(gy, gx, g, 0);
         return;
     }
@@ -1231,15 +1418,13 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
         int sub = (S.cellPx == 8) && D.split16 && D.split16[q];
         if (S.cellPx == 8) splitFlag(cy, cx, 1, sub);
         if (!sub) {
-            codeCuQt2(S, cy, cx, half, D.ui4[q], D.m4[q], D.mv4x[q],
-                      D.mv4y[q]);
+            codeCuQt2(S, cy, cx, half, D.ui4[q], D.m4[q], D.mo4[q]);
             setDepth(cy, cx, half, 1);
         } else {
             for (int sq = 0; sq < 4; sq++) {
                 int sy = cy + QOFF[sq][0], sx = cx + QOFF[sq][1];
                 int k = q * 4 + sq;
-                codeCuQt2(S, sy, sx, 1, D.ui8[k], D.m8[k], D.mv8x[k],
-                          D.mv8y[k]);
+                codeCuQt2(S, sy, sx, 1, D.ui8[k], D.m8[k], D.mo8[k]);
                 depth[(size_t)sy * gc + sx] = 2;
             }
         }
@@ -1248,29 +1433,36 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
 
 }  // namespace qt2
 
-// Encode a CTU32 quadtree slice's CTU data. sliceType: 1 = P, 2 = I (a B
-// slice returns -2). Per-CTU inputs in raster CTU order: split [ncu],
-// split16 [ncu*4] (depth 2, else null), the CU32 (ui32, m32, mv32x/y
-// [ncu]), the z-order 16x16 CUs (ui4, m4, mv4x/y [ncu*4]) and 8x8 CUs
-// (ui8, m8, mv8x/y [ncu*16]); in an I slice the ui*/mv* arrays may be
-// null. levelsY [ncu, 32*32], levelsCb/Cr [ncu, 16*16]: each CTU's TU
-// levels at their positions in the CTU. Returns the payload size, -1 when
-// outBuf is too small.
+// Encode a CTU32 quadtree slice's CTU data. sliceType: 0 = B, 1 = P, 2 = I.
+// Per-CTU inputs in raster CTU order: split [ncu], split16 [ncu*4] (depth
+// 2, else null), the CU32 (ui32, m32, pdir32, mv32x/y, mv321x/y [ncu]), the
+// z-order 16x16 CUs (ui4, m4, pdir4, mv4x/y, mv41x/y [ncu*4]) and 8x8 CUs
+// (ui8, m8, pdir8, mv8x/y, mv81x/y [ncu*16]). In an I slice the ui*, pdir*
+// and mv* arrays may be null; in a P slice the pdir* and L1 (mv*1*) arrays
+// (every CU is L0). pdir: 1 = L0, 2 = L1, 3 = bi; a list's MV is read only
+// where pdir uses it. levelsY [ncu, 32*32], levelsCb/Cr [ncu, 16*16]: each
+// CTU's TU levels at their positions in the CTU. pocCur/pocL0/pocL1 scale
+// the B slice's AMVP candidates. Returns the payload size, -1 when outBuf
+// is too small.
 extern "C" int asuna_encode_slice_qt2(
     int sliceType, int maxDepth,
     const uint8_t* split, const uint8_t* split16,
     const uint8_t* ui32, const int32_t* m32,
-    const int32_t* mv32x, const int32_t* mv32y,
+    const int32_t* pdir32, const int32_t* mv32x, const int32_t* mv32y,
+    const int32_t* mv321x, const int32_t* mv321y,
     const uint8_t* ui4, const int32_t* m4,
-    const int32_t* mv4x, const int32_t* mv4y,
+    const int32_t* pdir4, const int32_t* mv4x, const int32_t* mv4y,
+    const int32_t* mv41x, const int32_t* mv41y,
     const uint8_t* ui8, const int32_t* m8,
-    const int32_t* mv8x, const int32_t* mv8y,
+    const int32_t* pdir8, const int32_t* mv8x, const int32_t* mv8y,
+    const int32_t* mv81x, const int32_t* mv81y,
     const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
     int rows, int cols, int qp, int maxMerge,
+    int pocCur, int pocL0, int pocL1,
     uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
 {
     using namespace qt2;
-    if (sliceType != 1 && sliceType != 2) return -2;
+    if (sliceType < 0 || sliceType > 2) return -2;
     Cabac cb;
     cb.init(sliceType, qp);
     const int ncu = rows * cols;
@@ -1280,14 +1472,26 @@ extern "C" int asuna_encode_slice_qt2(
     grid.v.resize((size_t)grid.gr * grid.gc);
     std::vector<uint8_t> depth((size_t)grid.gr * grid.gc, 0);
     static const uint8_t ONES[16] = {1,1,1,1,1,1,1,1,1,1,1,1,1,1,1,1};
-    static const int32_t ZEROS[16] = {0};
 
     SliceCtx S;
     S.cb = &cb; S.grid = &grid;
     S.cellPx = 32 / g; S.minLog2 = 5 - maxDepth;
     S.maxMerge = maxMerge;
     S.sliceType = sliceType;
+    S.pocCur = pocCur; S.pocL0 = pocL0; S.pocL1 = pocL1;
     const bool intra = sliceType == 2;
+    // CU i's motion: pdir (1 without a pdir array), the used lists' MVs
+    auto mot = [](const int32_t* pd, const int32_t* x0, const int32_t* y0,
+                  const int32_t* x1, const int32_t* y1, size_t i) {
+        Motion m;
+        m.dir = pd ? pd[i] : 1;
+        m.mv0x = (m.dir & 1) && x0 ? x0[i] : 0;
+        m.mv0y = (m.dir & 1) && y0 ? y0[i] : 0;
+        m.mv1x = (m.dir & 2) && x1 ? x1[i] : 0;
+        m.mv1y = (m.dir & 2) && y1 ? y1[i] : 0;
+        return m;
+    };
+    auto off = [](const int32_t* p, size_t o) { return p ? p + o : nullptr; };
     for (int r = 0; r < rows; r++) {
         for (int c = 0; c < cols; c++) {
             size_t idx = (size_t)r * cols + c;
@@ -1296,16 +1500,20 @@ extern "C" int asuna_encode_slice_qt2(
             D.split16 = split16 ? split16 + idx * 4 : nullptr;
             D.ui32 = intra ? 1 : ui32[idx];
             D.m32 = m32[idx];
-            D.mv32[0] = intra ? 0 : mv32x[idx];
-            D.mv32[1] = intra ? 0 : mv32y[idx];
+            D.mo32 = mot(pdir32, mv32x, mv32y, mv321x, mv321y, idx);
             D.ui4 = intra ? ONES : ui4 + idx * 4;
             D.m4 = m4 + idx * 4;
-            D.mv4x = intra ? ZEROS : mv4x + idx * 4;
-            D.mv4y = intra ? ZEROS : mv4y + idx * 4;
+            for (int q = 0; q < 4; q++)
+                D.mo4[q] = mot(off(pdir4, idx * 4), off(mv4x, idx * 4),
+                               off(mv4y, idx * 4), off(mv41x, idx * 4),
+                               off(mv41y, idx * 4), q);
             D.ui8 = maxDepth < 2 ? nullptr : intra ? ONES : ui8 + idx * 16;
             D.m8 = maxDepth < 2 ? nullptr : m8 + idx * 16;
-            D.mv8x = maxDepth < 2 || intra ? ZEROS : mv8x + idx * 16;
-            D.mv8y = maxDepth < 2 || intra ? ZEROS : mv8y + idx * 16;
+            if (maxDepth >= 2)
+                for (int k = 0; k < 16; k++)
+                    D.mo8[k] = mot(off(pdir8, idx * 16), off(mv8x, idx * 16),
+                                   off(mv8y, idx * 16), off(mv81x, idx * 16),
+                                   off(mv81y, idx * 16), k);
             S.lvY = levelsY + idx * 32 * 32;
             S.lvCb = levelsCb + idx * 16 * 16;
             S.lvCr = levelsCr + idx * 16 * 16;

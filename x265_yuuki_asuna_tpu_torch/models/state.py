@@ -28,6 +28,10 @@ def load_session_state(sess, state: dict) -> None:
       frame_idx, poc, display_idx
       rc_<name> for <name> in RC_KEYS, and rc_window_bits (a sequence)
     """
+    if sess.bframes:
+        raise NotImplementedError(
+            "load_session_state for a session with bframes > 0: the "
+            "mini-GOP state (pending frames, anchors) is a later slice's")
     planes = (state["ref_y"], state["ref_u"], state["ref_v"])
     shapes = ((sess.coded_h, sess.coded_w),
               (sess.coded_h // 2, sess.coded_w // 2),

@@ -2,13 +2,18 @@
 over blocks with per-block fractional MVs.
 
 Port of x265_yuuki_asuna_tpu/ops/interp.py (mc_block_batch, mc_luma_qpel,
-mc_chroma_qpel, gather_luma_window, subpel_refine_win). Filter taps are spec constants (H.265 tables 8-11/8-13);
-reference behavior (studied, not copied): common/ipfilter.cpp.
+mc_chroma_qpel, the short-domain mc_block_batch_ps / mc_luma_qpel_ps /
+mc_chroma_qpel_ps and the bi average add_avg, gather_luma_window,
+subpel_refine_win). Filter taps are spec constants (H.265 tables
+8-11/8-13); reference behavior (studied, not copied): common/ipfilter.cpp.
 
 One two-stage path serves all fractions: horizontal pixel->short with the
 -IF_INTERNAL_OFFS bias, then vertical short->pixel; for zero fractions it
-equals the dedicated copy paths. Out-of-picture samples clamp their index
-(the decoder's border extension). All sums are int32.
+equals the dedicated copy paths. The short-domain variant stops after the
+vertical stage with a plain >> 6 (no offset, no clip), and add_avg adds
+back 2 * IF_INTERNAL_OFFS with the rounding before its shift, as the JAX
+package does. Out-of-picture samples clamp their index (the decoder's
+border extension). All sums are int32.
 """
 
 from __future__ import annotations
@@ -35,14 +40,10 @@ CHROMA_FILTERS = np.array([
 IF_INTERNAL_OFFS = 1 << 13   # 8192
 
 
-def mc_block_batch(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y,
-                   frac_x, frac_y, n: int, luma: bool = True,
-                   bit_depth: int = 8) -> torch.Tensor:
-    """Motion-compensate a batch of n x n blocks.
-
-    ref_plane: [H, W] int; px/py: [B] block top-left; mv_int_*: [B] integer
-    offsets; frac_*: [B] fraction (0..3 luma, 0..7 chroma).
-    Returns [B, n, n] predicted pixels (int32)."""
+def _two_stage(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y, frac_x,
+               frac_y, n: int, luma: bool, bit_depth: int) -> torch.Tensor:
+    """The vertical stage's int32 sums [B, n, n] before its shift: both
+    filter stages over a border-clamped window."""
     dev = ref_plane.device
     taps = 8 if luma else 4
     half = taps // 2 - 1          # 3 luma, 1 chroma
@@ -70,9 +71,41 @@ def mc_block_batch(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y,
     acc2 = torch.zeros((B, n, n), dtype=torch.int32, device=dev)
     for k in range(taps):
         acc2 = acc2 + cfy[:, k, None, None] * mid[:, k:k + n, :]
-    shift2 = 6 + headroom
+    return acc2
+
+
+def mc_block_batch(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y,
+                   frac_x, frac_y, n: int, luma: bool = True,
+                   bit_depth: int = 8) -> torch.Tensor:
+    """Motion-compensate a batch of n x n blocks.
+
+    ref_plane: [H, W] int; px/py: [B] block top-left; mv_int_*: [B] integer
+    offsets; frac_*: [B] fraction (0..3 luma, 0..7 chroma).
+    Returns [B, n, n] predicted pixels (int32)."""
+    acc2 = _two_stage(ref_plane, px, py, mv_int_x, mv_int_y, frac_x, frac_y,
+                      n, luma, bit_depth)
+    shift2 = 6 + 14 - bit_depth
     offset2 = (1 << (shift2 - 1)) + (IF_INTERNAL_OFFS << 6)
     return ((acc2 + offset2) >> shift2).clamp(0, (1 << bit_depth) - 1)
+
+
+def mc_block_batch_ps(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y,
+                      frac_x, frac_y, n: int, luma: bool = True,
+                      bit_depth: int = 8) -> torch.Tensor:
+    """MC to the 14-bit short domain for bi-prediction: the same two stages
+    as mc_block_batch, the vertical one ending in >> 6 with no offset and
+    no clip. Returns [B, n, n] int32."""
+    return _two_stage(ref_plane, px, py, mv_int_x, mv_int_y, frac_x, frac_y,
+                      n, luma, bit_depth) >> 6
+
+
+def add_avg(ps0: torch.Tensor, ps1: torch.Tensor,
+            bit_depth: int = 8) -> torch.Tensor:
+    """Bi-prediction combine of two short-domain predictions: the clipped,
+    rounded mean (the reference's addAvg)."""
+    shift = 15 - bit_depth
+    offset = (1 << (shift - 1)) + 2 * IF_INTERNAL_OFFS
+    return ((ps0 + ps1 + offset) >> shift).clamp(0, (1 << bit_depth) - 1)
 
 
 def mc_luma_qpel(ref_plane, px, py, mv_qpel_x, mv_qpel_y, n: int,
@@ -89,6 +122,23 @@ def mc_chroma_qpel(ref_plane, px_c, py_c, mv_qpel_x, mv_qpel_y, n: int,
     return mc_block_batch(ref_plane, px_c, py_c, mv_qpel_x >> 3,
                           mv_qpel_y >> 3, mv_qpel_x & 7, mv_qpel_y & 7,
                           n, False, bit_depth)
+
+
+def mc_luma_qpel_ps(ref_plane, px, py, mv_qpel_x, mv_qpel_y, n: int,
+                    bit_depth: int = 8):
+    """Short-domain luma MC with quarter-pel MVs [B]."""
+    return mc_block_batch_ps(ref_plane, px, py, mv_qpel_x >> 2,
+                             mv_qpel_y >> 2, mv_qpel_x & 3, mv_qpel_y & 3, n,
+                             True, bit_depth)
+
+
+def mc_chroma_qpel_ps(ref_plane, px_c, py_c, mv_qpel_x, mv_qpel_y, n: int,
+                      bit_depth: int = 8):
+    """Short-domain 4:2:0 chroma MC (chroma eighth-pel from the luma
+    quarter-pel MV)."""
+    return mc_block_batch_ps(ref_plane, px_c, py_c, mv_qpel_x >> 3,
+                             mv_qpel_y >> 3, mv_qpel_x & 7, mv_qpel_y & 7, n,
+                             False, bit_depth)
 
 
 def gather_luma_window(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y,
