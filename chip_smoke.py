@@ -30,10 +30,16 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      "ippp_deblock_sao", and with the hash SEI on (so every filtered recon
      is held) the uniform, quadtree IPPP and quadtree B streams against
      the JAX package's md5s pinned below (LF_PINS);
+     golden_intra: the five golden intra streams of the manifest
+     (intra_cqp_ctu16, intra_qp26_deblock, intra_sao, intra_sbh,
+     intra_rdoq) through the port's IntraEncoderSession;
   4. qt2_cpu_vs_card: the quadtree IPPP session (3 frames) and the
      quadtree B session (5 frames: I, P, B, b, b) on a 416x240 synthetic
      clip, on the card and with device="cpu": equal stream md5s;
      lf_cpu_vs_card: the B session again with both filters on;
+     intra_cpu_vs_card: the quadtree intra session with sign hiding and
+     both filters, and the uniform intra session with RDOQ (3 frames
+     each);
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -49,7 +55,15 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      same launches; the filters' ms per frame type); after each, its last
      P or B frame again with both entry points patched to their plain
      versions, whose decision dict (with the filtered recon and the SAO
-     parameters) must be identical;
+     parameters) must be identical; then the filtered B path with sign
+     hiding (1080p_qt2_b_lf_sbh: the same launches; bytes and PSNR beside
+     the run without), an I and a P frame of the quadtree IPPP session
+     with RDOQ (1080p_qt2_rdoq: K1 fused 2, surface 1), and the all-intra
+     session with sign hiding and both filters (1080p_intra: frames through
+     encode_frame, then a batch of 4 through encode_batch, each batched
+     frame's decisions equal to its single-frame encode; ms per frame,
+     launches per frame in each mode under torch.profiler, bytes, PSNR
+     Y/U/V, SSIM-Y, peak memory; it runs no K1);
   6. the kernels line (launches on the filtered B path, and on each
      path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
@@ -83,6 +97,12 @@ LF = dict(deblock=True, sao=True)
 LF_PINS = {"uniform": "0b71ca6e5ad866cf844df3036a46daa9",
            "qt2_ippp": "25599653a857fb705ce2eeac6aa750da",
            "qt2_b": "001a8cbb356be2cc980690bd99ba8630"}
+# md5 of the JAX package's streams on the golden clip with the hash SEI
+# on: the quadtree intra session with sign hiding and both filters (qp
+# 30), and the quadtree B session (as GOLDEN_QT2_B_MD5's) with sign hiding
+# and both filters
+SBH_PINS = {"intra_qt2_sbh_lf": "250afb785a78a94b42d0296bdc099eab",
+            "qt2_b_sbh_lf": "2734e716459f0c1887d6c689eff0055b"}
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
@@ -378,6 +398,139 @@ def phase_qt2_cpu_vs_card(dev, phase="qt2_cpu_vs_card", opts=None):
                                  f"{md5}")
 
 
+GOLDEN_INTRA = (
+    ("intra_cqp_ctu16", dict(qp=32)), ("intra_qp26_deblock",
+                                       dict(qp=26, deblock=True)),
+    ("intra_sao", dict(qp=32, sao=True)), ("intra_sbh", dict(qp=32, sbh=True)),
+    ("intra_rdoq", dict(qp=32, rdoq=True)))
+
+
+def phase_golden_intra(dev):
+    """The five golden intra clips through the port's IntraEncoderSession
+    on the card: each stream md5 must be the manifest's; and the sign-
+    hiding sessions' pinned JAX md5s (SBH_PINS)."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        IntraEncoderSession, VideoEncoderSession
+    with open(os.path.join(REPO, "tests", "golden", "manifest.json")) as f:
+        manifest = json.load(f)
+    got = {}
+    for key, kw in GOLDEN_INTRA:
+        sess = IntraEncoderSession(64, 48, hash_sei=False, device=dev, **kw)
+        out = sess.headers() + b"".join(sess.encode_frame(*fr).nals
+                                        for fr in golden_clip())
+        got[key] = hashlib.md5(out).hexdigest()
+        got[key + "_match"] = got[key] == manifest[key]
+    sess = IntraEncoderSession(64, 48, qp=30, max_depth=2, sbh=True,
+                               hash_sei=True, device=dev, **LF)
+    res = [sess.encode_frame(*fr) for fr in golden_clip()]
+    b = VideoEncoderSession(64, 48, qp=30, keyint=5, hash_sei=True, sbh=True,
+                            device=dev, **B_KW, **LF)
+    for key, s_, r in (("intra_qt2_sbh_lf", sess, res),
+                       ("qt2_b_sbh_lf", b, push_all(b, golden_clip(n=8)))):
+        got[key] = hashlib.md5(s_.headers() + b"".join(
+            x.nals for x in r)).hexdigest()
+        got[key + "_match"] = got[key] == SBH_PINS[key]
+    emit(phase="golden_intra", **got)
+    bad = [k for k in got if k.endswith("_match") and not got[k]]
+    if bad:
+        raise AssertionError(f"golden intra md5s differ: {bad}")
+
+
+def phase_intra_cpu_vs_card(dev):
+    """The quadtree intra session with sign hiding and both filters, and
+    the uniform intra session with RDOQ, on a 416x240 clip on the card and
+    on the CPU: equal streams."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        IntraEncoderSession
+    frames = synth_clip(3, 416, 240)
+    for name, kw in (("qt2_sbh_lf", dict(max_depth=2, sbh=True, **LF)),
+                     ("uniform_rdoq", dict(rdoq=True))):
+        md5, secs = {}, {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            sess = IntraEncoderSession(416, 240, qp=30, hash_sei=True,
+                                       device=where, **kw)
+            out = sess.headers() + b"".join(sess.encode_frame(*f).nals
+                                            for f in frames)
+            md5[str(where)] = hashlib.md5(out).hexdigest()
+            secs[str(where)] = time.perf_counter() - t0
+        same = len(set(md5.values())) == 1
+        emit(phase="intra_cpu_vs_card", session=name, frames=len(frames),
+             md5=md5, seconds=secs, equal=same)
+        if not same:
+            raise AssertionError(f"416x240 intra {name} streams differ: "
+                                 f"{md5}")
+
+
+def _launches(fn) -> int:
+    """CUDA kernel launches of fn() (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA and
+               not getattr(e, "is_user_annotation", False)
+               and e.name != "filters" for e in prof.events())
+
+
+def phase_1080p_intra(dev, n_single=3, n_batch=4):
+    """The all-intra session at 1080p with sign hiding and both filters:
+    frames through encode_frame, then a batch through encode_batch; each
+    batched frame's decisions (modes, levels) equal its single-frame
+    encode's."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        IntraEncoderSession
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    kw = dict(qp=32, deblock=True, sao=True, sbh=True)
+    frames = synth_clip(max(n_single, n_batch), W1080, H1080)
+    sess = IntraEncoderSession(W1080, H1080, hash_sei=True, device=dev, **kw)
+    sess.encode_frame(*frames[0])             # warm-up (not counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    me_sad.sad_block8_sweep.launches = 0          # the main path starts
+    me_sad.sad_sweep_best.launches = 0
+    res, t_single = [], []
+    for fr in frames[:n_single]:
+        t0 = time.perf_counter()
+        res.append(sess.encode_frame(*fr))
+        t_single.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    batch = sess.encode_batch(frames[:n_batch])
+    t_batch = time.perf_counter() - t0
+    k1 = me_sad.sad_block8_sweep.launches + me_sad.sad_sweep_best.launches
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"single": _launches(lambda: sess.encode_frame(*frames[0])),
+                "batch": _launches(lambda: sess.encode_batch(
+                    frames[:n_batch])) / n_batch}
+    # the program's decisions for the batch, and for each frame alone
+    keys = ("modes", "levels_y", "levels_cb", "levels_cr")
+    padded = [sess._pad(*f) for f in frames[:n_batch]]
+    outs = sess.frame_encoder.encode_frames(*zip(*padded), sess.qp)
+    same = [all(np.array_equal(o[q], sess.frame_encoder.encode_frame(
+        *p, sess.qp)[q]) for q in keys) for o, p in zip(outs, padded)]
+    single_ms = sum(t_single) / len(t_single) * 1e3
+    emit(phase="1080p_intra", frames_single=n_single, batch=n_batch,
+         ms_per_frame_single=single_ms, fps_single=1e3 / single_ms,
+         ms_per_frame_batch=t_batch / n_batch * 1e3,
+         fps_batch=n_batch / t_batch,
+         batch_speedup=single_ms / (t_batch / n_batch * 1e3),
+         launches_per_frame=launches,
+         bytes_single=[len(r.nals) for r in res],
+         bytes_batch=[len(r.nals) for r in batch],
+         psnr_y=[r.psnr_y for r in res], psnr_u=[r.psnr_u for r in res],
+         psnr_v=[r.psnr_v for r in res], ssim_y=[r.ssim_y for r in res],
+         batch_psnr_y=[r.psnr_y for r in batch],
+         stage_ms=dict(sess.stage_ms), k1_launches=k1,
+         batch_decisions_equal=same, max_memory_allocated=peak)
+    if not all(same) or len(same) != n_batch:
+        raise AssertionError("1080p_intra: a batched frame's decisions "
+                             "differ from its single-frame encode")
+    if k1 or not all(np.isfinite([r.psnr_y, r.psnr_u, r.psnr_v, r.ssim_y])
+                     .all() and r.recon[0].shape == (H1080, W1080)
+                     for r in res + batch):
+        raise AssertionError("1080p_intra output malformed")
+
+
 def _same_decisions(a: dict, b: dict) -> bool:
     def eq(x, y):
         if x is None or y is None:
@@ -388,8 +541,10 @@ def _same_decisions(a: dict, b: dict) -> bool:
     return sorted(a) == sorted(b) and all(eq(a[k], b[k]) for k in a)
 
 
-def phase_1080p(dev, name: str, max_depth: int, n_frames: int):
-    """One main path at 1080p; returns its K1 launch counts."""
+def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
+                opts=None):
+    """One main path at 1080p (with opts, e.g. RDOQ); returns its K1
+    launch counts."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
@@ -397,7 +552,7 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int):
     frames = synth_clip(n_frames, W1080, H1080)
     sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
                                hash_sei=True, max_depth=max_depth,
-                               device=dev)
+                               device=dev, **(opts or {}))
     total = len(sess.headers())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -425,10 +580,12 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int):
     # P frames, lookahead and serialize on every frame
     runs = {"intra": len(frames) - n_p, "inter": n_p}
     emit(phase=name, max_depth=max_depth, frames=len(frames), p_frames=n_p,
-         fps=fps, frame_ms=[t * 1e3 for t in t_frames],
+         opts=opts or {}, fps=fps, frame_ms=[t * 1e3 for t in t_frames],
          stage_ms_per_frame={k: v / max(runs.get(k, len(frames)), 1)
                              for k, v in sess.stage_ms.items()},
-         bytes=total, psnr_y=psnr, qp=[r.qp for r in results],
+         bytes=total, psnr_y=psnr, psnr_u=[r.psnr_u for r in results],
+         psnr_v=[r.psnr_v for r in results],
+         ssim_y=[r.ssim_y for r in results], qp=[r.qp for r in results],
          k1_launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     if not ok_out:
@@ -461,7 +618,8 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int):
 
 def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     """The quadtree B path at 1080p through push_frame / flush (with opts,
-    e.g. the in-loop filters); returns its K1 launch counts."""
+    e.g. the in-loop filters); returns its K1 launch counts and its fps,
+    bytes and per-frame PSNR-Y."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
@@ -508,7 +666,7 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     runs["lookahead"] = len(frames)
     psnr = [r.psnr_y for r in results]
     emit(phase=name, max_depth=2, bframes=3, frames=len(results),
-         fps=fps, call_ms=call_ms, call_frames=per_call,
+         opts=opts or {}, fps=fps, call_ms=call_ms, call_frames=per_call,
          stage_ms_per_frame={k: v / max(runs[k], 1)
                              for k, v in sess.stage_ms.items()},
          bytes=total, frame_bytes=[len(r.nals) for r in results],
@@ -542,7 +700,7 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     if not same:
         raise AssertionError(f"{name}: kernel and plain B-frame decisions "
                              "differ")
-    return launches
+    return launches, dict(fps=fps, bytes=total, psnr_y=psnr)
 
 
 def main():
@@ -558,11 +716,23 @@ def main():
     phase_golden_lf(dev)
     phase_qt2_cpu_vs_card(dev)
     phase_qt2_cpu_vs_card(dev, "lf_cpu_vs_card", LF)
+    phase_golden_intra(dev)
+    phase_intra_cpu_vs_card(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
-               "1080p_qt2_b": phase_1080p_b(dev),
-               "1080p_qt2_b_lf": phase_1080p_b(dev, "1080p_qt2_b_lf", LF)}
-    launches = by_path["1080p_qt2_b_lf"]
+               "1080p_qt2_b": phase_1080p_b(dev)[0]}
+    by_path["1080p_qt2_b_lf"], lf = phase_1080p_b(dev, "1080p_qt2_b_lf",
+                                                  LF)
+    by_path["1080p_qt2_b_lf_sbh"], sbh = phase_1080p_b(
+        dev, "1080p_qt2_b_lf_sbh", dict(LF, sbh=True))
+    emit(phase="sbh_vs_no_sbh", fps=[sbh["fps"], lf["fps"]],
+         bytes=[sbh["bytes"], lf["bytes"]],
+         bytes_change=sbh["bytes"] / lf["bytes"] - 1,
+         psnr_y_change=[a - b for a, b in zip(sbh["psnr_y"], lf["psnr_y"])])
+    by_path["1080p_qt2_rdoq"] = phase_1080p(dev, "1080p_qt2_rdoq", 2, 2,
+                                            {"rdoq": True})
+    phase_1080p_intra(dev)
+    launches = by_path["1080p_qt2_b_lf_sbh"]
     me = k1["P-frame ME 1088x1920"]
     common = {"route": "cuda",
               "source": "x265_yuuki_asuna_tpu_torch/csrc/me_sad.cu",

@@ -131,8 +131,9 @@ def test_load_session_state_mid_gop_with_filters(kw):
 
 
 def test_filters_do_not_open_other_later_options():
-    with pytest.raises(NotImplementedError, match="RDOQ"):
-        t_top.VideoEncoderSession(64, 48, device="cpu", rdoq=True, **LF)
+    with pytest.raises(NotImplementedError, match="HME"):
+        t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
+                                  hme=True, **LF)
     with pytest.raises(NotImplementedError, match="rate-control"):
         t_top.VideoEncoderSession(64, 48, device="cpu", aq_mode=2, **LF)
 

@@ -148,7 +148,7 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 @pytest.mark.parametrize("option", [
     {"bframes": 3}, {"max_depth": 1}, {"rqt": True}, {"psy_rd": 2.0},
     {"rc_mode": "crf"}, {"aq_mode": 2}, {"cutree": True}, {"weightp": True},
-    {"rdoq": True}, {"sbh": True}, {"wpp": True}, {"n_refs": 2},
+    {"zones": "0,10,q=20"}, {"hrd": True}, {"wpp": True}, {"n_refs": 2},
     {"bit_depth": 10}, {"hme": True}, {"tmvp": True}, {"frame_dup": True},
     {"max_depth": 2, "cu_size": 64},
 ])
@@ -158,8 +158,9 @@ def test_options_outside_the_slice_raise(option):
 
 
 @pytest.mark.parametrize("option", [
-    {"open_gop": True}, {"b_intra": True}, {"rdoq": True}, {"sbh": True},
-    {"hme": True}, {"psy_rd": 2.0}, {"weightp": True}, {"rqt": True},
+    {"open_gop": True}, {"b_intra": True}, {"search_range": 32},
+    {"max_merge": 5}, {"hme": True}, {"psy_rd": 2.0}, {"weightp": True},
+    {"rqt": True},
     {"bframes": 3},
 ])
 def test_quadtree_options_outside_the_slice_raise(option):

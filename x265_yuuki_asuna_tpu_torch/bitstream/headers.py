@@ -58,6 +58,7 @@ class PPSInfo:
     init_qp: int = 26
     loop_filter_across_slices: int = 1
     deblocking_disabled: int = 0
+    sign_hiding: int = 0
 
 
 def _profile_tier_level(bw: BitWriter, ptl: ProfileTierLevel):
@@ -169,7 +170,7 @@ def write_pps(pps: PPSInfo) -> bytes:
     bw.write_flag(0)             # dependent_slice_segments_enabled_flag
     bw.write_flag(0)             # output_flag_present_flag
     bw.write_bits(0, 3)          # num_extra_slice_header_bits
-    bw.write_flag(0)             # sign_data_hiding_enabled_flag
+    bw.write_flag(pps.sign_hiding)   # sign_data_hiding_enabled_flag
     bw.write_flag(0)             # cabac_init_present_flag
     bw.write_ue(0)               # num_ref_idx_l0_default_active_minus1
     bw.write_ue(0)               # num_ref_idx_l1_default_active_minus1

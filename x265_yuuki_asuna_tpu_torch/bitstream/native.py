@@ -34,7 +34,7 @@ def load() -> ctypes.CDLL:
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p] + out)
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p] + out)
         _lib = lib
     return _lib
 
@@ -59,10 +59,11 @@ def _finish(nbytes: int, out: np.ndarray, tail, tail_bits):
 
 def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
                        levels_cb: np.ndarray, levels_cr: np.ndarray,
-                       log2cu: int, qp: int, sao=None):
+                       log2cu: int, qp: int, sign_hiding: bool = False,
+                       sao=None):
     """I-slice CABAC data on the uniform CU grid, with each CU's SAO
-    parameters when sao ([ncu, 18]) is given. Returns (payload_bytes,
-    tail_value, tail_bits)."""
+    parameters when sao ([ncu, 18]) is given; sign_hiding leaves out the
+    hidden signs. Returns (payload_bytes, tail_value, tail_bits)."""
     lib = load()
     rows, cols = modes.shape
     keep = []
@@ -76,7 +77,7 @@ def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
     nbytes = lib.asuna_encode_intra_slice(
         m.ctypes.data, ly.ctypes.data, lcb.ctypes.data, lcr.ctypes.data,
         rows, cols, log2cu, qp,
-        1, 1, 0,                 # part_mode coded, chroma present, no SBH
+        1, 1, int(sign_hiding),  # part_mode coded, chroma present
         _sao_ptr(sao, rows * cols, keep), None, 8,   # no QP map, 8-bit
         0, 0,                    # not lossless, 4:2:0
         out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
@@ -87,10 +88,10 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
                    mvx_q: np.ndarray, mvy_q: np.ndarray,
                    levels_y: np.ndarray, levels_cb: np.ndarray,
                    levels_cr: np.ndarray, log2cu: int, qp: int,
-                   max_merge: int = 3, sao=None):
+                   max_merge: int = 3, sign_hiding: bool = False, sao=None):
     """P-slice CABAC data incl. the merge/AMVP/skip signaling decisions
-    (and each CU's SAO parameters when sao is given). Returns (payload,
-    tail, tail_bits)."""
+    (and each CU's SAO parameters when sao is given; sign_hiding leaves out
+    the hidden signs). Returns (payload, tail, tail_bits)."""
     lib = load()
     rows, cols = use_intra.shape
     keep = []
@@ -107,7 +108,7 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
     nbytes = lib.asuna_encode_p_slice(
         ui.ctypes.data, im.ctypes.data, mx.ctypes.data, my.ctypes.data,
         ly.ctypes.data, lcb.ctypes.data, lcr.ctypes.data,
-        rows, cols, log2cu, qp, max_merge, 0,
+        rows, cols, log2cu, qp, max_merge, int(sign_hiding),
         _sao_ptr(sao, rows * cols, keep), None, 8,   # no QP map, 8-bit
         out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
@@ -134,13 +135,14 @@ _QT2_SHAPES = {"split": (), "split16": (4,), "use_intra": (), "modes": (),
 
 def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
                      max_merge: int = 3, poc: int = 0, poc_l0: int = 0,
-                     poc_l1: int = 0, sao=None):
+                     poc_l1: int = 0, sign_hiding: bool = False, sao=None):
     """CTU32 quadtree slice CABAC data (slice_type 2 = I, 1 = P, 0 = B;
     depth 1 or 2) from the quadtree programs' decision dict. A B slice
     reads pdir* (1 = L0, 2 = L1, 3 = bi) and the L1 MVs mv1x/mv41x/mv81x
-    (and y); poc, poc_l0 and poc_l1 scale its AMVP candidates. sao: each
-    CTU's SAO parameters ([ncu, 18]), coded before the CTU, or None.
-    Returns (payload, tail, tail_bits)."""
+    (and y); poc, poc_l0 and poc_l1 scale its AMVP candidates.
+    sign_hiding leaves out the hidden signs. sao: each CTU's SAO parameters
+    ([ncu, 18]), coded before the CTU, or None. Returns (payload, tail,
+    tail_bits)."""
     if slice_type not in (0, 1, 2):
         raise ValueError(f"slice type {slice_type}: 0 = B, 1 = P, 2 = I")
     lib = load()
@@ -169,7 +171,8 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
     tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
     nbytes = lib.asuna_encode_slice_qt2(
         slice_type, max_depth, *args, rows, cols, qp, max_merge, poc,
-        poc_l0, poc_l1, _sao_ptr(sao, rows * cols, keep), buf.ctypes.data,
+        poc_l0, poc_l1, int(sign_hiding), _sao_ptr(sao, rows * cols, keep),
+        buf.ctypes.data,
         cap, ctypes.byref(tail),
         ctypes.byref(tail_bits))
     return _finish(nbytes, buf, tail, tail_bits)

@@ -1,19 +1,23 @@
 """SEI payload writers and level choice (host copy of the parts of
-x265_yuuki_asuna_tpu/bitstream/sei.py the IPPP session writes: wrap_sei,
-active_parameter_sets, user_data_unregistered, pick_level).
+x265_yuuki_asuna_tpu/bitstream/sei.py the sessions write: wrap_sei,
+active_parameter_sets, user_data_unregistered, parse_master_display,
+mastering_display, content_light_level, pick_level).
 
 Reference behavior (studied, not copied): encoder/sei.cpp, common/level.cpp.
 """
 
 from __future__ import annotations
 
-from typing import List
+import re
+from typing import List, Optional, Tuple
 
 from .bitio import BitWriter, wrap_nal, NAL_PREFIX_SEI
 
 # payload types (spec D.2.1)
 SEI_USER_DATA_UNREGISTERED = 5
 SEI_ACTIVE_PARAMETER_SETS = 129
+SEI_MASTERING_DISPLAY = 137
+SEI_CONTENT_LIGHT_LEVEL = 144
 
 # x265 writes its encoder-info string under this UUID (public constant)
 X265_USER_DATA_UUID = bytes((0x2C, 0xA2, 0xDE, 0x09, 0xB5, 0x17, 0x47, 0xDB,
@@ -60,6 +64,33 @@ def active_parameter_sets() -> bytes:
     bw.write_bits(1, 1)      # payload bit_equal_to_one alignment
     bw.write_align_zero()
     return sei_message(SEI_ACTIVE_PARAMETER_SETS, bw.get_bytes())
+
+
+def parse_master_display(s: str) -> Optional[Tuple]:
+    """x265's --master-display string G(x,y)B(x,y)R(x,y)WP(x,y)L(max,min),
+    all integers, as a 10-tuple; None when it does not parse."""
+    m = re.match(r"G\((\d+),(\d+)\)B\((\d+),(\d+)\)R\((\d+),(\d+)\)"
+                 r"WP\((\d+),(\d+)\)L\((\d+),(\d+)\)", s.replace(" ", ""))
+    return None if not m else tuple(int(x) for x in m.groups())
+
+
+def mastering_display(vals: Tuple) -> bytes:
+    """Mastering display colour volume (D.2.28): vals (Gx, Gy, Bx, By,
+    Rx, Ry, WPx, WPy, Lmax, Lmin)."""
+    bw = BitWriter()
+    for v in vals[:8]:                   # primaries G, B, R and white point
+        bw.write_bits(v, 16)
+    bw.write_bits(vals[8], 32)           # max_display_mastering_luminance
+    bw.write_bits(vals[9], 32)
+    return sei_message(SEI_MASTERING_DISPLAY, bw.get_bytes())
+
+
+def content_light_level(max_cll: int, max_fall: int) -> bytes:
+    """Content light level information (D.2.35)."""
+    bw = BitWriter()
+    bw.write_bits(max_cll, 16)
+    bw.write_bits(max_fall, 16)
+    return sei_message(SEI_CONTENT_LIGHT_LEVEL, bw.get_bytes())
 
 
 # (level_idc, max_luma_samples, max_luma_sample_rate, main_tier_kbps)

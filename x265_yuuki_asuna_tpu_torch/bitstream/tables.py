@@ -91,18 +91,26 @@ INIT_ROWS = np.concatenate(
     axis=1)
 
 SCAN_DIAG = 0
+SCAN_HOR = 1
+SCAN_VER = 2
 
 
-def _scan_diag(h: int, w: int) -> np.ndarray:
-    """Diagonal up-right scan of an h x w block as raster indices."""
+def _scan_block(scan_type: int, h: int, w: int) -> np.ndarray:
+    """Raster indices of an h x w block in scan order: diagonal up-right
+    (spec 6.5.3), horizontal (6.5.4) or vertical (6.5.5)."""
     out = []
-    for d in range(h + w - 1):
-        y = min(d, h - 1)
-        x = d - y
-        while y >= 0 and x < w:
-            out.append(y * w + x)
-            y -= 1
-            x += 1
+    if scan_type == SCAN_HOR:
+        out = [y * w + x for y in range(h) for x in range(w)]
+    elif scan_type == SCAN_VER:
+        out = [y * w + x for x in range(w) for y in range(h)]
+    else:
+        for d in range(h + w - 1):
+            y = min(d, h - 1)
+            x = d - y
+            while y >= 0 and x < w:
+                out.append(y * w + x)
+                y -= 1
+                x += 1
     return np.array(out, dtype=np.int32)
 
 
@@ -110,13 +118,12 @@ def _scan_diag(h: int, w: int) -> np.ndarray:
 def scan_order(scan_type: int, log2_size: int) -> np.ndarray:
     """Raster indices in scan order for a 2^n x 2^n block: 4x4 coefficient
     groups in CG scan order, each scanned internally (7.4.9.11)."""
-    assert scan_type == SCAN_DIAG
     n = 1 << log2_size
+    inner = _scan_block(scan_type, 4, 4)
     if log2_size == 2:
-        return _scan_diag(4, 4)
-    inner = _scan_diag(4, 4)
+        return inner
     out = []
-    for cgi in _scan_diag(n // 4, n // 4):
+    for cgi in _scan_block(scan_type, n // 4, n // 4):
         cy, cx = divmod(int(cgi), n // 4)
         base = (cy * 4) * n + cx * 4
         out += [base + (int(p) // 4) * n + int(p) % 4 for p in inner]
@@ -125,8 +132,7 @@ def scan_order(scan_type: int, log2_size: int) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def scan_order_cg(scan_type: int, log2_size_cg: int) -> np.ndarray:
-    assert scan_type == SCAN_DIAG
-    return _scan_diag(1 << log2_size_cg, 1 << log2_size_cg)
+    return _scan_block(scan_type, 1 << log2_size_cg, 1 << log2_size_cg)
 
 
 def _min_in_group(g: int) -> int:

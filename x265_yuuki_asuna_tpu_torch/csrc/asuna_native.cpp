@@ -1220,6 +1220,7 @@ struct SliceCtx {
     int maxMerge;
     int sliceType;            // 0=B, 1=P, 2=I
     int pocCur, pocL0, pocL1;
+    int signHiding;           // sign_data_hiding_enabled_flag
 };
 
 static void extractLv(const int32_t* src, int srcN, int oy, int ox, int px,
@@ -1254,9 +1255,9 @@ static void codeIntraPart(SliceCtx& S, int gy, int gx, int s, int mode,
     cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
     cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
     cb.encodeBin(cbfY, CTX_QT_CBF + 1);
-    if (cbfY) encodeResidual(cb, qly, log2cu, true, mode, 0);
-    if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, mode, 0);
-    if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, mode, 0);
+    if (cbfY) encodeResidual(cb, qly, log2cu, true, mode, S.signHiding);
+    if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, mode, S.signHiding);
+    if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, mode, S.signHiding);
     QCell cell;
     cell.decoded = 1; cell.isIntra = 1;
     cell.intraMode = mode;
@@ -1276,9 +1277,9 @@ static void codeInterTransformTree(SliceCtx& S, const int32_t* qly,
     cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
     int cbfY = anyNonzero(qly, nl * nl);
     if (cbfCb || cbfCr) cb.encodeBin(cbfY, CTX_QT_CBF + 1);
-    if (cbfY) encodeResidual(cb, qly, log2cu, true, -1, 0);
-    if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, -1, 0);
-    if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, -1, 0);
+    if (cbfY) encodeResidual(cb, qly, log2cu, true, -1, S.signHiding);
+    if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, -1, S.signHiding);
+    if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, -1, S.signHiding);
 }
 
 static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
@@ -1442,7 +1443,8 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
 // (every CU is L0). pdir: 1 = L0, 2 = L1, 3 = bi; a list's MV is read only
 // where pdir uses it. levelsY [ncu, 32*32], levelsCb/Cr [ncu, 16*16]: each
 // CTU's TU levels at their positions in the CTU. pocCur/pocL0/pocL1 scale
-// the B slice's AMVP candidates. sao: int32[ncu*18] per-CTU SAO params,
+// the B slice's AMVP candidates. signHiding: the PPS's
+// sign_data_hiding_enabled_flag. sao: int32[ncu*18] per-CTU SAO params,
 // coded before each CTU with left / up merge candidates (null: no SAO).
 // Returns the payload size, -1 when outBuf is too small.
 extern "C" int asuna_encode_slice_qt2(
@@ -1459,7 +1461,7 @@ extern "C" int asuna_encode_slice_qt2(
     const int32_t* mv81x, const int32_t* mv81y,
     const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
     int rows, int cols, int qp, int maxMerge,
-    int pocCur, int pocL0, int pocL1, const int32_t* sao,
+    int pocCur, int pocL0, int pocL1, int signHiding, const int32_t* sao,
     uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
 {
     using namespace qt2;
@@ -1480,6 +1482,7 @@ extern "C" int asuna_encode_slice_qt2(
     S.maxMerge = maxMerge;
     S.sliceType = sliceType;
     S.pocCur = pocCur; S.pocL0 = pocL0; S.pocL1 = pocL1;
+    S.signHiding = signHiding;
     const bool intra = sliceType == 2;
     // CU i's motion: pdir (1 without a pdir array), the used lists' MVs
     auto mot = [](const int32_t* pd, const int32_t* x0, const int32_t* y0,

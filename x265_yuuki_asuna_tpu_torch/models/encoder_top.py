@@ -1,26 +1,37 @@
-"""Top-level encoder session: CQP, one reference per list; IPPP on the
-uniform CU grid or the CTU32 depth-2 quadtree, and fixed mini-GOPs with B
-frames on the quadtree.
+"""Top-level encoder sessions: the all-intra session, and the video
+session (CQP, one reference per list; IPPP on the uniform CU grid or the
+CTU32 depth-2 quadtree, and fixed mini-GOPs with B frames on the
+quadtree).
 
-Port of the CQP paths of x265_yuuki_asuna_tpu/models/encoder_top.py
-(VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
+Port of the CQP paths of x265_yuuki_asuna_tpu/models/encoder_top.py:
+IntraEncoderSession (encode_frame, the frame batches submit_batch /
+finish_batch / encode_batch, headers with the info, mastering-display and
+content-light-level SEI, the sei_provider hook) and
+VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
 hash SEI, scenecut and keyint_min; push_frame / flush with b_adapt=0, the
-B-pyramid and the B slice assembly; the IntraEncoderSession parts it uses
-are folded in). Device work (lookahead, intra and inter programs) runs on
-`device`; the CABAC pass runs on the host through the native writer. The
-streams are byte-identical to the JAX package's.
+B-pyramid and the B slice assembly. As in the reference, the video
+session codes its I frames through an IntraEncoderSession. Device work
+(lookahead, intra and inter programs) runs on `device`; the CABAC pass
+runs on the host through the native writer. The streams are
+byte-identical to the JAX package's.
 
-With max_depth=2 the session codes CTU32 quadtrees down to 8x8 CUs (the
-JAX session's device-DPB quadtree path): the reference pictures stay on
-the device between frames and are copied to the host only for the hash
-SEI, PSNR and the returned recon.
+With max_depth=2 the sessions code CTU32 quadtrees down to 8x8 CUs (the
+JAX video session's device-DPB quadtree path): the reference pictures
+stay on the device between frames and are copied to the host only for
+the hash SEI, the quality metrics and the returned recon.
 
 deblock and sao switch on the in-loop filters (each alone or both), on
-every path: on the uniform grid the session filters each coded picture
-as the JAX session's host path does (the SAO "CTU" is the 16x16 CU); the
-quadtree programs run the JAX device-DPB filter chain after the commit.
-The filtered picture is the reference, the recon returned and the one
-the hash SEI hashes; the SAO parameters go into the slice data.
+every path: on the uniform grid the sessions filter each coded picture as
+the JAX sessions' host paths do (the SAO "CTU" is the 16x16 CU); the
+quadtree programs run the JAX device-DPB filter chain after the commit
+(the intra session without dpb_device runs the same deblock and the
+host form of SAO). The filtered picture is the reference, the recon
+returned and the one the hash SEI hashes; the SAO parameters go into the
+slice data.
+
+sbh (sign-bit hiding) and rdoq (RDOQ, with psy_rdoq) change how every
+program picks its levels (ops/quant.Quantizer); sign hiding is off under
+RDOQ, as in the reference.
 
 With bframes > 0 (max_depth=2, b_adapt=0) frames go through push_frame
 and flush: each mini-GOP of bframes + 1 frames codes its last frame as a P
@@ -37,7 +48,7 @@ import hashlib
 import time
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +59,8 @@ from ..bitstream.bitio import (BitWriter, wrap_nal, NAL_IDR_W_RADL,
                                NAL_SUFFIX_SEI, NAL_TRAIL_N, NAL_TRAIL_R)
 from ..ops import deblock as DB
 from ..ops import sao as SAO
+from ..ops.pixel import ssim_plane
+from ..ops.quant import Quantizer
 from ..utils import geometry as G
 from ..utils.device import exact_fp32_matmul, resolve_device
 from .inter_encoder import InterFrameEncoder, InterQTEncoder
@@ -56,43 +69,394 @@ from .intra_encoder import (IntraFrameEncoder, IntraQTEncoder,
 from .lookahead import Lookahead
 from .ratecontrol import RateControl
 
-FPS = (25, 1)      # signalled frame rate (VUI timing, level, keyint_min)
+FPS = (25, 1)      # default signalled frame rate (VUI timing, level)
 MAX_MERGE = 3      # merge candidates (five_minus_max_num_merge_cand = 2)
 
-# options of the JAX session that later slices of the port add
+_RC = "the CRF/ABR/VBV rate-control slice"
+_AQ = "the AQ/cuTree rate-control slice"
+_P = "a later P-frame slice"
+# every keyword of the JAX sessions this port has no slice for yet, with
+# the slice that adds it (ROADMAP Queue 1)
 _LATER = {
-    "rc_mode": "the CRF/AQ/cuTree rate-control slice",
-    "aq_mode": "the CRF/AQ/cuTree rate-control slice",
-    "cutree": "the CRF/AQ/cuTree rate-control slice",
-    "weightp": "a later P-frame slice", "rdoq": "the RDOQ/SBH slice",
-    "sbh": "the RDOQ/SBH slice", "wpp": "a later P-frame slice",
-    "n_refs": "a later P-frame slice", "bit_depth": "a later P-frame slice",
-    "hme": "the HME slice", "tmvp": "a later P-frame slice",
-    "frame_dup": "a later P-frame slice", "rqt": "the RQT slice",
-    "psy_rd": "the psy-rd slice",
+    "rc_mode": _RC, "crf": _RC, "bitrate_kbps": _RC, "stats_write": _RC,
+    "stats_read": _RC, "vbv_maxrate_kbps": _RC, "vbv_bufsize_kbps": _RC,
+    "zones": _RC, "qp_min": _RC, "qp_max": _RC, "hrd": _RC,
+    "scenecut_aware_qp": _RC, "scenecut_qp_delta": _RC,
+    "scenecut_window": _RC,
+    "aq_mode": _AQ, "aq_strength": _AQ, "cutree": _AQ, "rc_lookahead": _AQ,
+    "hme": "the HME slice", "hme_range": "the HME slice",
+    "hist_scenecut": "the lookahead b-adapt and histogram-scenecut slice",
+    "recon_out": "the flagship session slice",
+    "search_range": _P, "max_merge": _P, "weightp": _P, "n_refs": _P,
+    "tmvp": _P, "frame_dup": _P, "dup_threshold": _P,
+    "analysis_save": "the analysis save/load slice",
+    "analysis_load": "the analysis save/load slice",
+    "analysis_share": "the analysis save/load slice",
+    "scale_factor": "the analysis save/load slice",
     "open_gop": "the open-GOP slice (CRA keyframes with leading pictures)",
     "b_intra": "a later B-frame slice (intra candidates in B slices)",
+    "rqt": "the RQT slice", "psy_rd": "the psy-rd slice",
+    "bit_depth": "the Main10/12 slice", "hash_type": "the hash-types slice",
+    "wpp": "the WPP slice", "slices": "the slices slice",
+    "lossless": "the lossless slice", "nr_intra": "the noise-reduction slice",
+    "scaling_lists": "the scaling-lists slice",
+    "fast_intra": "the fast-intra slice", "csp": "the 4:4:4 slice",
 }
-_DEFAULTS = {"rc_mode": "cqp", "aq_mode": 0, "cutree": False,
-             "weightp": False, "rdoq": False, "sbh": False, "wpp": False,
-             "n_refs": 1, "bit_depth": 8, "hme": False, "tmvp": False,
-             "frame_dup": False, "rqt": False, "psy_rd": 0.0,
-             "open_gop": False, "b_intra": False}
+# the defaults of those keywords in each JAX session
+_VIDEO_DEFAULTS = {
+    "rc_mode": "cqp", "crf": 28.0, "bitrate_kbps": 0, "stats_write": None,
+    "stats_read": None, "vbv_maxrate_kbps": 0, "vbv_bufsize_kbps": 0,
+    "zones": None, "qp_min": 4, "qp_max": 51, "hrd": False,
+    "scenecut_aware_qp": False, "scenecut_qp_delta": 5,
+    "scenecut_window": 12, "aq_mode": 0, "aq_strength": 1.0,
+    "cutree": False, "rc_lookahead": 0, "hme": False, "hme_range": 16,
+    "hist_scenecut": False, "recon_out": True, "search_range": 16,
+    "max_merge": 3, "weightp": False, "n_refs": 1, "tmvp": False,
+    "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
+    "analysis_load": None, "analysis_share": None, "scale_factor": 1,
+    "open_gop": False, "b_intra": False, "rqt": False, "psy_rd": 0.0,
+    "bit_depth": 8, "hash_type": 0, "wpp": False}
+_INTRA_DEFAULTS = {
+    "lossless": False, "bit_depth": 8, "aq_mode": 0, "aq_strength": 1.0,
+    "slices": 1, "wpp": False, "psy_rd": 0.0, "hash_type": 0,
+    "nr_intra": 0, "scaling_lists": None, "fast_intra": False,
+    "csp": "i420"}
+
+
+def _check_options(options: dict, defaults: dict) -> None:
+    """A keyword of the JAX session outside the port's slices: its
+    default is accepted, any other value raises NotImplementedError
+    naming the slice that adds it; a keyword no JAX session has raises
+    TypeError."""
+    for k, val in options.items():
+        if k not in defaults:
+            raise TypeError(f"unknown option {k!r}")
+        if val != defaults[k]:
+            raise NotImplementedError(
+                f"{k}={val!r} is not in the port's slices yet; {_LATER[k]} "
+                "adds it")
+
+
+def _grid(max_depth: int, cu_size: int) -> int:
+    """The CTU size of a session: 16 on the uniform grid, 32 for the
+    depth-2 quadtree; other geometries raise NotImplementedError."""
+    if max_depth not in (0, 2):
+        raise NotImplementedError(
+            f"max_depth={max_depth}: the port codes the uniform grid "
+            "(0) and the CTU32 depth-2 quadtree (2); the max_depth=1 "
+            "slice adds depth 1")
+    if max_depth and cu_size == 64:
+        raise NotImplementedError(
+            "max_depth with cu_size=64: the CTU64 slice adds CTU64 "
+            "quadtrees")
+    if max_depth:
+        return 32
+    if cu_size != 16:
+        raise NotImplementedError(
+            f"cu_size={cu_size}: the port's uniform grid codes 16x16 CUs; "
+            "a later slice adds the uniform CTU32 grid")
+    return cu_size
+
+
+def psnr(a, b) -> float:
+    """8-bit PSNR of a plane against its source (the reference's numpy
+    expression)."""
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return 99.99 if mse == 0 else 10 * np.log10(255 * 255 / mse)
+
+
+def frame_quality(recon, y, u, v, device="cpu"):
+    """PSNR of Y, U and V and SSIM of Y against the source (port of the
+    reference's frame_quality; every value equals the reference's bit for
+    bit: the SSIM windows run on `device`)."""
+    return (psnr(recon[0], y), psnr(recon[1], u), psnr(recon[2], v),
+            ssim_plane(np.asarray(recon[0]), np.asarray(y), device))
+
+
+def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
+                   sao: bool, src3, device) -> None:
+    """The uniform grid's in-loop filters on a decision dict's recon (the
+    JAX sessions' host path): the IDR deblocked with every CU edge at BS
+    2, a P frame with per-edge BS; then SAO per cu x cu CU in the host
+    form. src3: the padded source planes. Sets the filtered recon_* and,
+    with sao, "sao" (packed [ncu, 18]). Runs inside a profiler range named
+    "filters"."""
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    with torch.profiler.record_function("filters"):
+        rec = tuple(t(out[k]).to(torch.int32)
+                    for k in ("recon_y", "recon_u", "recon_v"))
+        qpc = chroma_qp_from_luma(qp)
+        if deblock and is_idr:
+            rec = DB.deblock_frame_uniform(*rec, cu, qp, qpc)
+        elif deblock:
+            cbf = t(out["levels_y"]).ne(0).flatten(2).any(2)
+            bs_v, bs_h = DB.compute_bs_uniform(
+                t(out["use_intra"]), cbf, None, t(out["mvx"]),
+                t(out["mvy"]))
+            rec = DB.deblock_frame_inter(*rec, cu, qp, qpc, bs_v, bs_h)
+        if sao:
+            src = tuple(t(p).to(torch.int32) for p in src3)
+            rec, params = SAO.sao_frame(rec, src, cu, qp, "host")
+            out["sao"] = params.cpu().numpy()
+        out["recon_y"], out["recon_u"], out["recon_v"] = (
+            p.cpu().numpy() for p in rec)
 
 
 @dataclass
 class FrameResult:
     """One coded picture: its NAL units (slice + hash SEI), the recon
-    cropped to the source size, its picture order count and its type:
-    "I" (IDR), "P", "B" (a referenced B, the pyramid's middle) or "b" (a
-    non-referenced B)."""
+    cropped to the source size (None for a batch frame coded without
+    one), its picture order count, its type: "I" (IDR), "P", "B" (a
+    referenced B, the pyramid's middle) or "b" (a non-referenced B), and
+    its quality: PSNR of Y, U and V and SSIM of Y."""
     nals: bytes
-    recon: Tuple[np.ndarray, np.ndarray, np.ndarray]   # cropped to source size
+    recon: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]
     bits: int
     psnr_y: float
     frame_type: str = ""   # I / P / B / b
     qp: int = 0
     poc: int = 0
+    psnr_u: float = 0.0
+    psnr_v: float = 0.0
+    ssim_y: float = 0.0
+
+
+def _timed(stage_ms, stage: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    stage_ms[stage] += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _program(stage_ms, stage: str, enc, *args, **kw) -> dict:
+    """A frame program's decision dict; the quadtree programs' filter
+    chain is timed as the "filters" stage, the rest as `stage`."""
+    out = _timed(stage_ms, stage, enc.encode_frame, *args, **kw)
+    flt = getattr(enc, "filters", None)
+    if flt is not None and flt.ms:
+        stage_ms[stage] -= flt.ms
+        stage_ms["filters"] += flt.ms
+    return out
+
+
+def _slice_nal(bw: BitWriter, res, nal_type: int) -> bytes:
+    data, tail, tail_bits = res
+    bw.write_bytes(data)
+    bw.write_bits(tail, tail_bits)
+    bw.rbsp_trailing_bits()
+    return wrap_nal(nal_type, bw.get_bytes())
+
+
+def hash_sei(out: dict) -> bytes:
+    """Decoded-picture-hash suffix SEI (MD5 of each coded-size recon
+    plane)."""
+    bw = BitWriter()
+    bw.write_bits(132, 8)          # payload type: decoded_picture_hash
+    payload = bytearray([0])       # hash_type 0 = MD5
+    for plane in ("recon_y", "recon_u", "recon_v"):
+        payload += hashlib.md5(out[plane].astype(np.uint8)
+                               .tobytes()).digest()
+    bw.write_bits(len(payload), 8)
+    bw.write_bytes(payload)
+    bw.rbsp_trailing_bits()
+    return wrap_nal(NAL_SUFFIX_SEI, bw.get_bytes())
+
+
+class IntraEncoderSession:
+    """All-intra CQP session, 8-bit 4:2:0.
+
+    cu_size=16 codes the uniform 16x16 grid; max_depth=2 codes CTU32
+    quadtrees down to 8x8 CUs. deblock / sao: the in-loop filters; on the
+    quadtree they run in the program (dpb_device=True: the video
+    session's chain) or, as in the reference's intra session, after it in
+    the host form. sbh / rdoq / psy_rdoq: sign-bit hiding, RDOQ (sign
+    hiding off under RDOQ), psy-RDOQ. fps sets the VUI timing and the
+    level. info_sei, master_display and max_cll choose the headers' SEI.
+    sei_provider, when set, is called with each frame's display index and
+    returns bytes that go before its slice. device=None runs on the CUDA
+    card (and raises when there is none); device="cpu" runs every
+    kernel's plain PyTorch version. Options of the JAX session outside
+    these slices raise NotImplementedError."""
+
+    def __init__(self, width: int, height: int, qp: int = 32,
+                 cu_size: int = 16, fps: Tuple[int, int] = FPS,
+                 hash_sei: bool = True, deblock: bool = False,
+                 sao: bool = False, rdoq: bool = False, sbh: bool = False,
+                 psy_rdoq: float = 0.0, info_sei: bool = True,
+                 master_display: str = None, max_cll: str = None,
+                 max_depth: int = 0, dpb_device: bool = False, device=None,
+                 **options):
+        _check_options(options, _INTRA_DEFAULTS)
+        cu_size = _grid(max_depth, cu_size)
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            exact_fp32_matmul()
+        self.src_w, self.src_h = width, height
+        self.qp, self.cu, self.max_depth = qp, cu_size, max_depth
+        self.hash_sei = hash_sei
+        self.deblock, self.sao = bool(deblock), bool(sao)
+        self.sbh = bool(sbh) and not rdoq
+        self.quant_fn = Quantizer(self.sbh, rdoq, psy_rdoq)
+        self.dpb_device = bool(dpb_device) and max_depth > 0
+        self.info_sei = info_sei
+        self.master_display, self.max_cll = master_display, max_cll
+        self.sei_provider = None      # callable(display_idx) -> bytes
+        self._display_counter = 0
+        self.coded_w = G.cdiv(width, cu_size) * cu_size
+        self.coded_h = G.cdiv(height, cu_size) * cu_size
+        log2cu = cu_size.bit_length() - 1
+        self.sps = HDR.SPSInfo(
+            width=self.coded_w, height=self.coded_h,
+            conf_win=(0, self.coded_w - width, 0, self.coded_h - height),
+            ptl=HDR.ProfileTierLevel(level_idc=SEI.pick_level(
+                self.coded_w, self.coded_h, fps[0] / max(fps[1], 1))),
+            log2_min_cb=log2cu - max_depth, log2_diff_max_min_cb=max_depth,
+            log2_min_tb=2, log2_diff_max_min_tb=min(log2cu, 5) - 2,
+            strong_intra_smoothing=0, timing_info=(fps[1], fps[0]),
+            sao_enabled=int(self.sao))
+        self.pps = HDR.PPSInfo(init_qp=26,
+                               deblocking_disabled=int(not self.deblock),
+                               sign_hiding=int(self.sbh))
+        if max_depth:
+            self.frame_encoder = IntraQTEncoder(
+                self.coded_w, self.coded_h, self.device, self.deblock,
+                self.sao, self.quant_fn,
+                "program" if self.dpb_device else "host")
+        else:
+            self.frame_encoder = IntraFrameEncoder(
+                self.coded_w, self.coded_h, cu_size, self.device,
+                self.quant_fn)
+        # wall-clock ms per stage, summed over frames
+        self.stage_ms = defaultdict(float)
+
+    # ------------------------------------------------------------------
+    def headers(self) -> bytes:
+        out = (HDR.write_vps(self.sps) + HDR.write_sps(self.sps)
+               + HDR.write_pps(self.pps))
+        msgs = []
+        if self.info_sei:
+            msgs.append(SEI.active_parameter_sets())
+            # same info string as the JAX package, so the two streams can
+            # be compared byte for byte
+            msgs.append(SEI.user_data_unregistered(
+                "x265-yuuki-asuna-tpu - TPU-native HEVC encoder - "
+                f"{self.src_w}x{self.src_h} qp={self.qp} ctu={self.cu}"))
+        if self.master_display:
+            vals = SEI.parse_master_display(self.master_display)
+            if vals:
+                msgs.append(SEI.mastering_display(vals))
+        if self.max_cll:
+            try:
+                cll, fall = (int(x) for x in self.max_cll.split(","))
+                msgs.append(SEI.content_light_level(cll, fall))
+            except ValueError:
+                pass
+        return out + SEI.wrap_sei(msgs) if msgs else out
+
+    def _pad(self, y, u, v):
+        return (G.pad_plane(y, self.coded_h, self.coded_w),
+                G.pad_plane(u, self.coded_h // 2, self.coded_w // 2),
+                G.pad_plane(v, self.coded_h // 2, self.coded_w // 2))
+
+    def code(self, yp, up, vp, qp: int, with_sao: bool = True) -> dict:
+        """The decision dict of one intra picture from padded planes, its
+        recon filtered (with_sao=False: deblocked only) and, with SAO, its
+        parameters under "sao"."""
+        st = self.stage_ms
+        if self.max_depth:
+            return _program(st, "intra", self.frame_encoder, yp, up, vp, qp,
+                            with_sao=with_sao)
+        out = _program(st, "intra", self.frame_encoder, yp, up, vp, qp)
+        self._filter(out, qp, (yp, up, vp), with_sao)
+        return out
+
+    def _filter(self, out: dict, qp: int, src3, with_sao: bool) -> None:
+        sao = self.sao and with_sao
+        if self.deblock or sao:
+            _timed(self.stage_ms, "filters", filter_uniform, out, qp, True,
+                   self.cu, self.deblock, sao, src3, self.device)
+
+    def assemble_slice(self, out: dict, qp: int) -> bytes:
+        """The IDR slice NAL of a coded picture."""
+        sao = out.get("sao")
+        bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
+                                    slice_qp=qp, nal_type=NAL_IDR_W_RADL,
+                                    sao=sao is not None)
+        if self.max_depth:
+            res = native.encode_slice_qt2(2, self.max_depth, out, qp,
+                                          sign_hiding=self.sbh, sao=sao)
+        else:
+            res = native.encode_intra_slice(
+                out["modes"], out["levels_y"], out["levels_cb"],
+                out["levels_cr"], self.cu.bit_length() - 1, qp,
+                sign_hiding=self.sbh, sao=sao)
+        return _slice_nal(bw, res, NAL_IDR_W_RADL)
+
+    def _result(self, out: dict, slice_nal: bytes, frame,
+                with_recon: bool = True) -> FrameResult:
+        """Prefix and hash SEI around the slice, the cropped recon and the
+        quality metrics (with_recon=False: no recon, metrics 0)."""
+        nals = slice_nal
+        if self.sei_provider is not None:
+            nals = self.sei_provider(self._display_counter) + nals
+        self._display_counter += 1
+        if self.hash_sei:
+            nals += _timed(self.stage_ms, "serialize", hash_sei, out)
+        if not with_recon:
+            return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
+                               psnr_y=0.0, frame_type="I", qp=self.qp)
+        ch, cw = self.src_h // 2, self.src_w // 2
+        recon = (out["recon_y"][:self.src_h, :self.src_w].astype(np.uint8),
+                 out["recon_u"][:ch, :cw].astype(np.uint8),
+                 out["recon_v"][:ch, :cw].astype(np.uint8))
+        py, pu, pv, ssim = frame_quality(recon, *frame, self.device)
+        return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
+                           psnr_y=py, frame_type="I", qp=self.qp,
+                           psnr_u=pu, psnr_v=pv, ssim_y=ssim)
+
+    # ------------------------------------------------------------------
+    def encode_frame(self, y: np.ndarray, u: np.ndarray,
+                     v: np.ndarray) -> FrameResult:
+        """Code one frame (8-bit planes at the source size) as an IDR."""
+        out = self.code(*self._pad(y, u, v), self.qp)
+        nal = _timed(self.stage_ms, "serialize", self.assemble_slice, out,
+                     self.qp)
+        return self._result(out, nal, (y, u, v))
+
+    def submit_batch(self, frames, need_recon: bool = False):
+        """Start a batch of frames ((y, u, v) each); returns a handle for
+        finish_batch. On the uniform grid the frames share the wavefront's
+        launches (IntraFrameEncoder.encode_frames); quadtree frames run
+        one after another. As in the reference, a batch deblocks but never
+        runs SAO (its slices code SAO off even with sao=True), except in
+        the device-DPB program chain, and with neither the hash SEI, the
+        deblock nor need_recon it returns no recon."""
+        need_recon = self.hash_sei or self.deblock or need_recon
+        padded = [self._pad(*f) for f in frames]
+        if self.max_depth:
+            outs = [self.code(*p, self.qp, with_sao=self.dpb_device)
+                    for p in padded]
+        else:
+            outs = _timed(self.stage_ms, "intra",
+                          self.frame_encoder.encode_frames,
+                          *zip(*padded), self.qp)
+            for out, p in zip(outs, padded):
+                self._filter(out, self.qp, p, with_sao=False)
+        return outs, frames, need_recon
+
+    def finish_batch(self, handle) -> List[FrameResult]:
+        """The batch's frames, serialized in order."""
+        outs, frames, need_recon = handle
+        return [self._result(out, _timed(self.stage_ms, "serialize",
+                                         self.assemble_slice, out, self.qp),
+                             f, need_recon)
+                for out, f in zip(outs, frames)]
+
+    def encode_batch(self, frames, need_recon: bool = False) \
+            -> List[FrameResult]:
+        """Code a list of (y, u, v) frames through the frame-batched
+        wavefront, then serialize each (submit_batch + finish_batch)."""
+        return self.finish_batch(self.submit_batch(frames, need_recon))
 
 
 class VideoEncoderSession:
@@ -103,33 +467,25 @@ class VideoEncoderSession:
     bframes=0 codes IDR + P frames through encode_frame; bframes > 0 (with
     max_depth=2 and b_adapt=0) codes fixed mini-GOPs with B frames through
     push_frame and flush, with the B-pyramid when b_pyramid is set.
-    deblock / sao switch the in-loop filters on.
-    device=None runs on the CUDA card (and raises when there is none);
-    device="cpu" runs every kernel's plain PyTorch version. Options of the
-    JAX session outside these slices raise NotImplementedError."""
+    deblock / sao switch the in-loop filters on; sbh / rdoq / psy_rdoq
+    choose the levels (sign hiding is off under RDOQ); fps sets the VUI
+    timing, the level and keyint_min; quality_metrics=False leaves PSNR-U/V
+    and SSIM out of the results. device=None runs on the CUDA card (and
+    raises when there is none); device="cpu" runs every kernel's plain
+    PyTorch version. Options of the JAX session outside these slices
+    raise NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
-                 cu_size: int = 16, keyint: int = 25, hash_sei: bool = True,
+                 cu_size: int = 16, fps: Tuple[int, int] = FPS,
+                 keyint: int = 25, hash_sei: bool = True,
                  max_depth: int = 0, bframes: int = 0,
                  b_pyramid: bool = True, b_adapt: int = 2,
-                 deblock: bool = False, sao: bool = False, device=None,
-                 **options):
-        for k, val in options.items():
-            if k not in _DEFAULTS:
-                raise TypeError(f"unknown option {k!r}")
-            if val != _DEFAULTS[k]:
-                raise NotImplementedError(
-                    f"{k}={val!r} is not in the port's CQP slices; "
-                    f"{_LATER[k]} adds it")
-        if max_depth not in (0, 2):
-            raise NotImplementedError(
-                f"max_depth={max_depth}: the port codes the uniform grid "
-                "(0) and the CTU32 depth-2 quadtree (2); the max_depth=1 "
-                "slice adds depth 1")
-        if max_depth and cu_size == 64:
-            raise NotImplementedError(
-                "max_depth with cu_size=64: the CTU64 slice adds CTU64 "
-                "quadtrees")
+                 deblock: bool = False, sao: bool = False,
+                 rdoq: bool = False, sbh: bool = False,
+                 psy_rdoq: float = 0.0, quality_metrics: bool = True,
+                 dpb_device: bool = None, device=None, **options):
+        _check_options(options, _VIDEO_DEFAULTS)
+        cu_size = _grid(max_depth, cu_size)
         if bframes > 0 and not max_depth:
             raise NotImplementedError(
                 f"bframes={bframes} with max_depth=0: the port codes B "
@@ -141,15 +497,18 @@ class VideoEncoderSession:
                 f"bframes={bframes} with b_adapt={b_adapt}: the port closes "
                 "each mini-GOP at bframes + 1 frames (b_adapt=0); the "
                 "lookahead b-adapt slice adds b_adapt 1 and 2")
-        if max_depth:
-            cu_size = 32
-        elif cu_size != 16:
+        if dpb_device is False and max_depth:
             raise NotImplementedError(
-                "cu_size != 16: the port's uniform slice codes the 16x16 "
-                "CU grid")
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            exact_fp32_matmul()
+                "dpb_device=False with max_depth=2: the port keeps the "
+                "quadtree session's references on the device; a later "
+                "slice adds the host-filter quadtree video path")
+        # the I frames go through an intra session, whose parameter sets
+        # this session shares
+        self.intra_sess = IntraEncoderSession(
+            width, height, qp, cu_size, fps, hash_sei=False,
+            deblock=deblock, sao=sao, rdoq=rdoq, sbh=sbh, psy_rdoq=psy_rdoq,
+            max_depth=max_depth, dpb_device=True, device=device)
+        self.device = self.intra_sess.device
         self.src_w, self.src_h = width, height
         self.qp = qp
         self.cu = cu_size
@@ -157,45 +516,32 @@ class VideoEncoderSession:
         self.keyint = max(keyint, 1)
         # reference keyframeMin: scenecut IDRs are suppressed closer than
         # this to the last keyframe
-        self.keyint_min = max(1, min(FPS[0] // FPS[1], self.keyint // 10))
+        self.keyint_min = max(1, min(int(round(fps[0] / max(fps[1], 1))),
+                                     self.keyint // 10))
         self.hash_sei = hash_sei
+        self.quality_metrics = bool(quality_metrics)
         self.deblock, self.sao = bool(deblock), bool(sao)
+        self.sbh = self.intra_sess.sbh
         # the uniform grid's filters run in the session, the quadtree's in
         # its programs
         self.session_filters = (self.deblock or self.sao) and not max_depth
-        self.coded_w = G.cdiv(width, cu_size) * cu_size
-        self.coded_h = G.cdiv(height, cu_size) * cu_size
-        log2cu = cu_size.bit_length() - 1
+        self.coded_w = self.intra_sess.coded_w
+        self.coded_h = self.intra_sess.coded_h
         self.bframes = max(0, bframes)
         self.b_pyramid = b_pyramid and self.bframes >= 2
         # the DPB holds the two anchors (and the pyramid's middle B) while
         # the B frames between them are decoded
-        dpb, reorder = ((5, 2) if self.b_pyramid else (4, 1)) \
-            if self.bframes else (2, 0)
-        self.sps = HDR.SPSInfo(
-            width=self.coded_w, height=self.coded_h,
-            conf_win=(0, self.coded_w - width, 0, self.coded_h - height),
-            ptl=HDR.ProfileTierLevel(level_idc=SEI.pick_level(
-                self.coded_w, self.coded_h, FPS[0] / FPS[1])),
-            log2_min_cb=log2cu - max_depth, log2_diff_max_min_cb=max_depth,
-            log2_min_tb=2, log2_diff_max_min_tb=min(log2cu, 5) - 2,
-            strong_intra_smoothing=0, max_dec_pic_buffering=dpb,
-            num_reorder_pics=reorder, timing_info=(FPS[1], FPS[0]),
-            sao_enabled=int(self.sao))
-        self.pps = HDR.PPSInfo(init_qp=26,
-                               deblocking_disabled=int(not self.deblock))
+        self.sps, self.pps = self.intra_sess.sps, self.intra_sess.pps
+        self.sps.max_dec_pic_buffering, self.sps.num_reorder_pics = \
+            ((5, 2) if self.b_pyramid else (4, 1)) if self.bframes else (2, 0)
+        quant_fn = self.intra_sess.quant_fn
         if max_depth:
-            self.intra_encoder = IntraQTEncoder(
-                self.coded_w, self.coded_h, self.device, self.deblock,
-                self.sao)
             self.inter_encoder = InterQTEncoder(
                 self.coded_w, self.coded_h, self.device, self.deblock,
-                self.sao)
+                self.sao, quant_fn)
         else:
-            self.intra_encoder = IntraFrameEncoder(
-                self.coded_w, self.coded_h, cu_size, self.device)
             self.inter_encoder = InterFrameEncoder(
-                self.coded_w, self.coded_h, cu_size, self.device)
+                self.coded_w, self.coded_h, cu_size, self.device, quant_fn)
         self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device)
         self.rc = RateControl(qp)
         self.frame_idx = 0
@@ -210,31 +556,24 @@ class VideoEncoderSession:
         self.anchor = None
         self._last_idr_didx = -10 ** 9
         # wall-clock ms per stage, summed over frames (each stage ends in a
-        # device->host copy, so the times include the device work)
-        self.stage_ms = defaultdict(float)
+        # device->host copy, so the times include the device work); the
+        # intra session adds its own stages here
+        self.stage_ms = self.intra_sess.stage_ms
+
+    @property
+    def intra_encoder(self):
+        """The I frames' program (the intra session's)."""
+        return self.intra_sess.frame_encoder
 
     # ------------------------------------------------------------------
     def headers(self) -> bytes:
-        out = (HDR.write_vps(self.sps) + HDR.write_sps(self.sps)
-               + HDR.write_pps(self.pps))
-        return out + SEI.wrap_sei([
-            SEI.active_parameter_sets(),
-            # same info string as the JAX package, so the two streams can
-            # be compared byte for byte
-            SEI.user_data_unregistered(
-                "x265-yuuki-asuna-tpu - TPU-native HEVC encoder - "
-                f"{self.src_w}x{self.src_h} qp={self.qp} ctu={self.cu}")])
+        return self.intra_sess.headers()
 
     def _timed(self, stage: str, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        self.stage_ms[stage] += (time.perf_counter() - t0) * 1e3
-        return out
+        return _timed(self.stage_ms, stage, fn, *args, **kw)
 
     def _pad(self, y, u, v):
-        return (G.pad_plane(y, self.coded_h, self.coded_w),
-                G.pad_plane(u, self.coded_h // 2, self.coded_w // 2),
-                G.pad_plane(v, self.coded_h // 2, self.coded_w // 2))
+        return self.intra_sess._pad(y, u, v)
 
     # ------------------------------------------------------------------
     def encode_frame(self, y, u, v) -> FrameResult:
@@ -260,7 +599,7 @@ class VideoEncoderSession:
             out, nals = self._code_p(yp, up, vp, self.ref, qp, self.poc, 1)
         self.ref = self._recon_ref(out)
         self.frame_idx += 1
-        return self._finish(out, nals, y, qp, self.poc,
+        return self._finish(out, nals, (y, u, v), qp, self.poc,
                             "I" if is_idr else "P")
 
     # ------------------------------------------------------------------
@@ -340,7 +679,7 @@ class VideoEncoderSession:
         qp = self.rc.frame_qp(True)
         out, nals = self._code_idr(*self._pad(y, u, v), qp)
         self.anchor = (self._recon_ref(out), 0)
-        return self._finish(out, nals, y, qp, 0, "I")
+        return self._finish(out, nals, (y, u, v), qp, 0, "I")
 
     def _encode_p_anchor(self, y, u, v, poc: int,
                          ref_delta: int) -> FrameResult:
@@ -350,7 +689,7 @@ class VideoEncoderSession:
         out, nals = self._code_p(*self._pad(y, u, v), self.anchor[0], qp,
                                  poc, ref_delta)
         self.anchor = (self._recon_ref(out), poc)
-        return self._finish(out, nals, y, qp, poc, "P")
+        return self._finish(out, nals, (y, u, v), qp, poc, "P")
 
     def _encode_b(self, y, u, v, poc: int, ref0, poc0: int, ref1, poc1: int,
                   is_ref: bool = False, rps=None):
@@ -360,73 +699,31 @@ class VideoEncoderSession:
         FrameResult and the recon planes."""
         yp, up, vp = self._pad(y, u, v)
         qp = min(self.rc.frame_qp(False) + (1 if is_ref else 2), 51)
-        out = self._program("inter_b", self.inter_encoder, yp, up, vp,
-                            *ref0, qp, ref1=ref1)
+        out = _program(self.stage_ms, "inter_b", self.inter_encoder, yp, up,
+                       vp, *ref0, qp, ref1=ref1)
         nals = self._timed("serialize", self._assemble_b_slice, out, qp, poc,
                            poc0, poc1, is_ref, rps)
-        return (self._finish(out, nals, y, qp, poc, "B" if is_ref else "b"),
-                self._recon_ref(out))
+        return (self._finish(out, nals, (y, u, v), qp, poc,
+                             "B" if is_ref else "b"), self._recon_ref(out))
 
     # ------------------------------------------------------------------
     def _code_idr(self, yp, up, vp, qp: int):
         """(decision dict, slice NAL) of an IDR picture from padded
-        planes."""
-        out = self._program("intra", self.intra_encoder, yp, up, vp, qp)
-        if self.session_filters:
-            self._timed("filters", self._filter_uniform, out, qp, True,
-                        yp, up, vp)
-        return out, self._timed("serialize", self._assemble_slice, out, qp)
+        planes, through the intra session."""
+        out = self.intra_sess.code(yp, up, vp, qp)
+        return out, self._timed("serialize", self.intra_sess.assemble_slice,
+                                out, qp)
 
     def _code_p(self, yp, up, vp, ref, qp: int, poc: int, ref_delta: int):
         """(decision dict, slice NAL) of a P picture predicted from the
         recon planes `ref`, ref_delta pictures before it."""
-        out = self._program("inter", self.inter_encoder, yp, up, vp, *ref,
-                            qp)
+        out = _program(self.stage_ms, "inter", self.inter_encoder, yp, up,
+                       vp, *ref, qp)
         if self.session_filters:
-            self._timed("filters", self._filter_uniform, out, qp, False,
-                        yp, up, vp)
+            self._timed("filters", filter_uniform, out, qp, False, self.cu,
+                        self.deblock, self.sao, (yp, up, vp), self.device)
         return out, self._timed("serialize", self._assemble_p_slice, out, qp,
                                 poc, ref_delta)
-
-    def _program(self, stage: str, enc, *args, **kw) -> dict:
-        """A frame program's decision dict; the quadtree programs' filter
-        chain is timed as the "filters" stage, the rest as `stage`."""
-        out = self._timed(stage, enc.encode_frame, *args, **kw)
-        flt = getattr(enc, "filters", None)
-        if flt is not None and flt.ms:
-            self.stage_ms[stage] -= flt.ms
-            self.stage_ms["filters"] += flt.ms
-        return out
-
-    def _filter_uniform(self, out: dict, qp: int, is_idr: bool, yp, up,
-                        vp) -> None:
-        """The uniform grid's in-loop filters on the decision dict's recon
-        (the JAX session's host path, `_deblock_frame` + `_sao_decide`):
-        the IDR deblocked with every CU edge at BS 2, a P frame with
-        per-edge BS; then SAO per 16x16 CU. Sets the filtered recon_* and
-        "sao" (packed [ncu, 18]). Runs inside a profiler range named
-        "filters"."""
-        dev = self.device
-        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-        with torch.profiler.record_function("filters"):
-            rec = tuple(t(out[k]).to(torch.int32)
-                        for k in ("recon_y", "recon_u", "recon_v"))
-            qpc = chroma_qp_from_luma(qp)
-            if self.deblock and is_idr:
-                rec = DB.deblock_frame_uniform(*rec, self.cu, qp, qpc)
-            elif self.deblock:
-                cbf = t(out["levels_y"]).ne(0).flatten(2).any(2)
-                bs_v, bs_h = DB.compute_bs_uniform(
-                    t(out["use_intra"]), cbf, None, t(out["mvx"]),
-                    t(out["mvy"]))
-                rec = DB.deblock_frame_inter(*rec, self.cu, qp, qpc, bs_v,
-                                             bs_h)
-            if self.sao:
-                src = tuple(t(p).to(torch.int32) for p in (yp, up, vp))
-                rec, params = SAO.sao_frame(rec, src, self.cu, qp, "host")
-                out["sao"] = params.cpu().numpy()
-            out["recon_y"], out["recon_u"], out["recon_v"] = (
-                p.cpu().numpy() for p in rec)
 
     @staticmethod
     def _recon_ref(out: dict):
@@ -435,46 +732,25 @@ class VideoEncoderSession:
         return out.get("recon_dev") or \
             (out["recon_y"], out["recon_u"], out["recon_v"])
 
-    def _finish(self, out: dict, nals: bytes, y, qp: int, poc: int,
+    def _finish(self, out: dict, nals: bytes, frame, qp: int, poc: int,
                 frame_type: str) -> FrameResult:
         """Append the hash SEI, feed the rate control, and make the
-        frame's result (recon cropped to the source, PSNR-Y)."""
+        frame's result (recon cropped to the source, the quality metrics
+        against the source planes `frame`)."""
         if self.hash_sei:
-            nals += self._timed("serialize", self._hash_sei, out)
+            nals += self._timed("serialize", hash_sei, out)
         # CQP's history counters do not read the slice type
         self.rc.frame_done(qp, len(nals) * 8)
-        rec_y = out["recon_y"][:self.src_h, :self.src_w]
-        mse = float(np.mean((rec_y.astype(np.float64) - y) ** 2))
-        psnr = 99.99 if mse == 0 else 10 * np.log10(255 * 255 / mse)
         ch, cw = self.src_h // 2, self.src_w // 2
-        recon = (rec_y.astype(np.uint8),
+        recon = (out["recon_y"][:self.src_h, :self.src_w].astype(np.uint8),
                  out["recon_u"][:ch, :cw].astype(np.uint8),
                  out["recon_v"][:ch, :cw].astype(np.uint8))
+        q = frame_quality(recon, *frame, self.device) \
+            if self.quality_metrics else (psnr(recon[0], frame[0]), 0.0,
+                                          0.0, 0.0)
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
-                           psnr_y=psnr, frame_type=frame_type, qp=qp,
-                           poc=poc)
-
-    def _slice_nal(self, bw: BitWriter, res, nal_type: int) -> bytes:
-        data, tail, tail_bits = res
-        bw.write_bytes(data)
-        bw.write_bits(tail, tail_bits)
-        bw.rbsp_trailing_bits()
-        return wrap_nal(nal_type, bw.get_bytes())
-
-    def _assemble_slice(self, out: dict, qp: int) -> bytes:
-        """IDR I slice."""
-        sao = out.get("sao")
-        bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
-                                    slice_qp=qp, nal_type=NAL_IDR_W_RADL,
-                                    sao=sao is not None)
-        if self.max_depth:
-            res = native.encode_slice_qt2(2, self.max_depth, out, qp,
-                                          sao=sao)
-        else:
-            res = native.encode_intra_slice(
-                out["modes"], out["levels_y"], out["levels_cb"],
-                out["levels_cr"], self.cu.bit_length() - 1, qp, sao=sao)
-        return self._slice_nal(bw, res, NAL_IDR_W_RADL)
+                           psnr_y=q[0], frame_type=frame_type, qp=qp,
+                           poc=poc, psnr_u=q[1], psnr_v=q[2], ssim_y=q[3])
 
     def _assemble_p_slice(self, out: dict, qp: int, poc: int,
                           ref_delta: int) -> bytes:
@@ -486,13 +762,15 @@ class VideoEncoderSession:
                                     max_merge=MAX_MERGE, sao=sao is not None)
         if self.max_depth:
             res = native.encode_slice_qt2(1, self.max_depth, out, qp,
-                                          MAX_MERGE, sao=sao)
+                                          MAX_MERGE, sign_hiding=self.sbh,
+                                          sao=sao)
         else:
             res = native.encode_p_slice(
                 out["use_intra"], out["modes"], out["mvx"], out["mvy"],
                 out["levels_y"], out["levels_cb"], out["levels_cr"],
-                self.cu.bit_length() - 1, qp, MAX_MERGE, sao=sao)
-        return self._slice_nal(bw, res, NAL_TRAIL_R)
+                self.cu.bit_length() - 1, qp, MAX_MERGE,
+                sign_hiding=self.sbh, sao=sao)
+        return _slice_nal(bw, res, NAL_TRAIL_R)
 
     def _assemble_b_slice(self, out: dict, qp: int, poc: int, poc0: int,
                           poc1: int, is_ref: bool, rps) -> bytes:
@@ -507,19 +785,6 @@ class VideoEncoderSession:
                                     sao=out.get("sao") is not None)
         res = native.encode_slice_qt2(0, self.max_depth, out, qp, MAX_MERGE,
                                       poc=poc, poc_l0=poc0, poc_l1=poc1,
+                                      sign_hiding=self.sbh,
                                       sao=out.get("sao"))
-        return self._slice_nal(bw, res, nal_type)
-
-    def _hash_sei(self, out: dict) -> bytes:
-        """Decoded-picture-hash suffix SEI (MD5 of each coded-size recon
-        plane)."""
-        bw = BitWriter()
-        bw.write_bits(132, 8)          # payload type: decoded_picture_hash
-        payload = bytearray([0])       # hash_type 0 = MD5
-        for plane in ("recon_y", "recon_u", "recon_v"):
-            payload += hashlib.md5(out[plane].astype(np.uint8)
-                                   .tobytes()).digest()
-        bw.write_bits(len(payload), 8)
-        bw.write_bytes(payload)
-        bw.rbsp_trailing_bits()
-        return wrap_nal(NAL_SUFFIX_SEI, bw.get_bytes())
+        return _slice_nal(bw, res, nal_type)

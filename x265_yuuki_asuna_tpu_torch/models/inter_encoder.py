@@ -2,7 +2,8 @@
 for the intra-vs-inter decision and reconstruction.
 
 Port of the single-reference uni-prediction P branch of
-x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`).
+x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`), with
+sign-bit hiding (diagonal scan) or static-bit RDOQ.
 Phase A runs for every CU at once: integer full search through K1
 (`ops.me.full_search_sad`), half- then quarter-pel SATD refinement, motion
 compensation. Phase B walks the CU diagonals (a Python loop, one batch of
@@ -22,6 +23,7 @@ import torch
 
 from ..ops import bitcost as BC
 from ..ops import interp, me, pixel
+from ..ops.quant import PLAIN, Quantizer
 from . import qt_common as QT
 from .intra_encoder import (WaveState, Wavefront, chroma_qp_from_luma,
                             from_blocks, gather_mode, planes_to_blocks,
@@ -36,10 +38,12 @@ _NBR = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (1, -1), (-1, 1), (1, 1))
 class InterFrameEncoder:
     """Uniform-grid P-frame encoder (one L0 reference) for one geometry."""
 
-    def __init__(self, width: int, height: int, cu_size: int, device):
+    def __init__(self, width: int, height: int, cu_size: int, device,
+                 quant_fn: Quantizer = PLAIN):
         self.n = cu_size
         self.rows, self.cols = height // cu_size, width // cu_size
         self.device = torch.device(device)
+        self.quant_fn = quant_fn
         self.wave = Wavefront(self.rows, self.cols, cu_size, self.device)
         ncu = self.rows * self.cols
         idx = torch.arange(ncu, dtype=torch.int32, device=self.device)
@@ -114,14 +118,14 @@ class InterFrameEncoder:
             predc = torch.where(sel.repeat(2, 1, 1), ipc,
                                 torch.cat([pred_ub[cu], pred_vb[cu]]))
             # P slice: the inter rounding offset for every CU, intra too
-            lv, rec = tq_recon(src, pred, qp, log2n, False)
+            lv, rec = tq_recon(src, pred, qp, log2n, False, self.quant_fn)
             lvc, recc = tq_recon(torch.cat([ub[cu], vb[cu]]), predc, qpc,
-                                 log2n - 1, False)
+                                 log2n - 1, False, self.quant_fn, False)
             use_intra[cu] = ui
             ws.commit(cu, m, lv, rec, lvc, recc)
 
         rows, cols = self.rows, self.cols
-        out = ws.result(rows, cols)
+        out = ws.result(rows, cols)[0]
         out.update({
             "use_intra": use_intra.cpu().numpy().reshape(rows, cols),
             "mvx": mvx.cpu().numpy().reshape(rows, cols),
@@ -213,8 +217,9 @@ class InterQTEncoder:
     list: dense decide, then (P) commit. Port of
     InterFrameEncoder._build_qt + _unpack_qt with bi=False and with
     bi=True, intra_in_b=False (max_depth=2, 8-bit, no HME / RQT / weighted
-    prediction / RDOQ / sign hiding / psy-rd; the device-DPB filter chain
-    runs last when deblock or sao is set).
+    prediction / psy-rd; quant_fn: plain, sign-bit hiding under the
+    mode-dependent scan or context RDOQ; the device-DPB filter chain runs
+    last when deblock or sao is set).
 
     Dense phase, for every block of every size (32, 16, 8): K1's frame
     sweep per list (the surface kernel, then the first-minimum argmin per
@@ -239,9 +244,11 @@ class InterQTEncoder:
     the frame: there is no commit."""
 
     def __init__(self, width: int, height: int, device,
-                 deblock: bool = False, sao: bool = False):
+                 deblock: bool = False, sao: bool = False,
+                 quant_fn: Quantizer = PLAIN):
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
+        self.quant_fn = quant_fn
         self.filters = QT.LoopFilters(deblock, sao)
 
     def _refine(self, nn: int, y32, ref_y, fine):
@@ -390,7 +397,8 @@ class InterQTEncoder:
             srcs3 = QT.sources3(y32, u32, v32, nn)
             # the inter rounding offset for both candidates (P and B)
             elv, erec, edist, ebits = QT.rd_leaf(nn, srcs3, epred, qp_blk,
-                                                 qpc_blk, states, False)
+                                                 qpc_blk, states, False,
+                                                 self.quant_fn)
             if bi or nn == 8:    # no intra in B slices, no 8x8 intra in P
                 ui = torch.zeros(nb, dtype=torch.bool, device=dev)
                 modes = torch.zeros(nb, dtype=torch.int32, device=dev)
@@ -398,7 +406,8 @@ class InterQTEncoder:
             else:
                 modes, *ipred = QT.dense_intra(nn, y32, u32, v32)
                 _, _, idist, ibits = QT.rd_leaf(nn, srcs3, ipred, qp_blk,
-                                                qpc_blk, states, False)
+                                                qpc_blk, states, False,
+                                                self.quant_fn, modes)
                 ci = idist + l2 * (ibits + QT.MODE_BITS)
                 ce = edist + l2 * (ebits + ebits_mv)
                 ui = ci < ce
@@ -446,7 +455,7 @@ class InterQTEncoder:
                 out["use_intra4"].reshape(-1, 4),
                 np.zeros((rows * cols, 4, 4), bool))
             QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, qp, qpc,
-                            False)
+                            False, self.quant_fn, states)
         sizes = (QT.N, 16, 8)
         rec, sao = self.filters(
             rec, (y32, u32, v32), lv, qp, split, split16,

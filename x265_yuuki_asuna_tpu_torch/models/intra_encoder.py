@@ -2,18 +2,24 @@
 diagonals.
 
 Port of the default branch of x265_yuuki_asuna_tpu/models/intra_encoder.py
-(`_build` + `_unpack`: uniform grid, 8-bit 4:2:0, plain quant, no RDOQ /
-sign hiding / noise reduction / scaling lists). The JAX program scans the
-wavefront diagonals with `lax.scan` over fixed-width slots; here a Python
-loop walks the diagonals and each step batches exactly that diagonal's
-CUs (the JAX program's padding slots never reach its outputs, so the
-results are the same). Each step predicts all 35 luma modes with one
-matrix product, picks the SATD argmin, then transforms, quantizes and
-reconstructs luma and the DM-mode chroma of its CUs.
+(`_build` + `_unpack`, and `submit_frames` / `collect_frames` /
+`encode_frames` for batches of frames: uniform grid, 8-bit 4:2:0, plain
+quant, sign-bit hiding or static-bit RDOQ with psy-RDOQ; no noise
+reduction / scaling lists). The JAX program scans the wavefront diagonals
+with `lax.scan` over fixed-width slots; here a Python loop walks the
+diagonals and each step batches exactly that diagonal's CUs (the JAX
+program's padding slots never reach its outputs, so the results are the
+same), of every frame of a batch at once: frames are independent, so F
+frames share each step's launches with their CUs stacked on the block
+axis. Each step predicts all 35 luma modes with one matrix product, picks
+the SATD argmin, then transforms, quantizes and reconstructs luma and the
+DM-mode chroma of its CUs.
 
-The levels come back at full width (the JAX package's int8 compaction
-only saves transfer bytes), so the decision dict equals
-`IntraFrameEncoder._unpack(..., compact=False)`.
+The levels come back at full width, so the decision dict equals
+`IntraFrameEncoder._unpack(..., compact=False)`. The JAX program packs
+levels into int8 lanes for its transfer and reruns a frame whose levels
+overflow int8 through an int16 variant (`_full`); the port has no packing
+to overflow, so it has no rerun.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from ..ops import bitcost as BC
 from ..ops import intra, pixel, quant, transforms
+from ..ops.quant import PLAIN, Quantizer
 from ..utils.geometry import wavefront_schedule
 
 
@@ -49,15 +56,17 @@ def from_blocks(blocks: torch.Tensor, nn: int, hh: int, ww: int):
 
 
 class Wavefront:
-    """Static per-diagonal CU indices and intra neighbor lookups for one CU
-    grid: for each diagonal, the CU indices, the state rows holding the
-    left / top / top-right / top-left neighbors (the sentinel row `ncu`
+    """Static per-diagonal CU indices and intra neighbor lookups for F
+    frames of one CU grid, the frames' CUs numbered f * ncu + cu: for each
+    diagonal, the CU indices of every frame, the state rows holding the
+    left / top / top-right / top-left neighbors (the sentinel row F * ncu
     where a neighbor is unavailable) and the reference availability masks
     of the luma (n) and chroma (n/2) boundary vectors."""
 
-    def __init__(self, rows: int, cols: int, n: int, device):
+    def __init__(self, rows: int, cols: int, n: int, device, frames: int = 1):
         nd, _, rc, valid = wavefront_schedule(rows, cols, slope=2)
         ncu = rows * cols
+        fo = np.arange(frames)[:, None] * ncu          # frame offsets
         self.steps = []
         for d in range(nd):
             r = rc[d, valid[d], 0].astype(np.int64)
@@ -65,17 +74,19 @@ class Wavefront:
             cu = r * cols + c
             al, at = c > 0, r > 0
             atr, atl = (r > 0) & (c < cols - 1), (r > 0) & (c > 0)
-            nbr = [np.where(al, cu - 1, ncu), np.where(at, cu - cols, ncu),
-                   np.where(atr, cu - cols + 1, ncu),
-                   np.where(atl, cu - cols - 1, ncu)]
-            avail = {nn: np.concatenate([
+            nbr = [np.where(a, (fo + k).reshape(-1), frames * ncu)
+                   for a, k in ((np.tile(al, frames), cu - 1),
+                                (np.tile(at, frames), cu - cols),
+                                (np.tile(atr, frames), cu - cols + 1),
+                                (np.tile(atl, frames), cu - cols - 1))]
+            avail = {nn: np.tile(np.concatenate([
                 np.zeros((len(cu), nn), bool),
                 np.repeat(al[:, None], nn, 1), atl[:, None],
                 np.repeat(at[:, None], nn, 1),
-                np.repeat(atr[:, None], nn, 1)], axis=1)
+                np.repeat(atr[:, None], nn, 1)], axis=1), (frames, 1))
                 for nn in (n, n // 2)}
             t = lambda a: torch.as_tensor(a, device=device)
-            self.steps.append((t(cu), [t(x) for x in nbr],
+            self.steps.append((t((fo + cu).reshape(-1)), [t(x) for x in nbr],
                                {k: t(a) for k, a in avail.items()}))
 
 
@@ -91,12 +102,15 @@ def boundary_vector(botrow: torch.Tensor, rightcol: torch.Tensor, nbr,
                       corner, botrow[top_cu], botrow[tr_cu]], dim=1)
 
 
-def tq_recon(src: torch.Tensor, pred: torch.Tensor, qp: int, log2n: int,
-             intra_slice: bool):
-    """Transform, quantize, dequantize, inverse transform and reconstruct:
-    (levels, recon) [B, n, n] int32."""
+def tq_recon(src: torch.Tensor, pred: torch.Tensor, qp, log2n: int,
+             intra_slice: bool, quant_fn: Quantizer = PLAIN, luma=True,
+             modes=None, is_intra=None, states=None):
+    """Transform, quantize (quant_fn, with the blocks' luma flag, modes,
+    intra flags and the slice's frozen contexts), dequantize, inverse
+    transform and reconstruct: (levels, recon) [B, n, n] int32."""
     coef = transforms.forward_transform(src - pred)
-    levels = quant.quant(coef, qp, log2n, 8, intra_slice)
+    levels = quant_fn(coef, qp, log2n, intra_slice, luma, modes, is_intra,
+                      states)
     rr = transforms.inverse_transform(quant.dequant(levels, qp, log2n))
     return levels, (pred + rr).clamp(0, 255)
 
@@ -151,21 +165,28 @@ class WaveState:
         self.rcuv[cu] = torch.cat([recc[:S, :, nc - 1], recc[S:, :, nc - 1]],
                                   1)
 
-    def result(self, rows: int, cols: int) -> dict:
-        """Modes, levels and recon planes in the JAX package's decision
-        dict layout (numpy)."""
+    def result(self, rows: int, cols: int, frames: int = 1) -> list:
+        """Each frame's modes, levels and recon planes in the JAX
+        package's decision dict layout (numpy)."""
         n, nc = self.n, self.n // 2
         H, W = rows * n, cols * n
         h = lambda t: t.cpu().numpy()
-        return {
-            "modes": h(self.modes).reshape(rows, cols),
-            "levels_y": h(self.lv_y).reshape(rows, cols, n, n),
-            "levels_cb": h(self.lv_c[0]).reshape(rows, cols, nc, nc),
-            "levels_cr": h(self.lv_c[1]).reshape(rows, cols, nc, nc),
-            "recon_y": h(from_blocks(self.rec_y, n, H, W)),
-            "recon_u": h(from_blocks(self.rec_c[0], nc, H // 2, W // 2)),
-            "recon_v": h(from_blocks(self.rec_c[1], nc, H // 2, W // 2)),
-        }
+        modes, lv_y, lv_c = h(self.modes), h(self.lv_y), h(self.lv_c)
+        rec_y, rec_c = self.rec_y, self.rec_c
+        ncu = rows * cols
+        out = []
+        for f in range(frames):
+            s = slice(f * ncu, (f + 1) * ncu)
+            out.append({
+                "modes": modes[s].reshape(rows, cols),
+                "levels_y": lv_y[s].reshape(rows, cols, n, n),
+                "levels_cb": lv_c[0, s].reshape(rows, cols, nc, nc),
+                "levels_cr": lv_c[1, s].reshape(rows, cols, nc, nc),
+                "recon_y": h(from_blocks(rec_y[s], n, H, W)),
+                "recon_u": h(from_blocks(rec_c[0, s], nc, H // 2, W // 2)),
+                "recon_v": h(from_blocks(rec_c[1, s], nc, H // 2, W // 2)),
+            })
+        return out
 
 
 def gather_mode(preds: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
@@ -185,42 +206,62 @@ def planes_to_blocks(y, u, v, n: int, device):
 
 
 class IntraFrameEncoder:
-    """Uniform-grid intra frame encoder for one (coded) geometry."""
+    """Uniform-grid intra frame encoder for one (coded) geometry; quant_fn
+    picks the levels (plain, sign-bit hiding or static RDOQ)."""
 
-    def __init__(self, width: int, height: int, cu_size: int, device):
+    def __init__(self, width: int, height: int, cu_size: int, device,
+                 quant_fn: Quantizer = PLAIN):
         self.n = cu_size
         self.rows, self.cols = height // cu_size, width // cu_size
         self.device = torch.device(device)
-        self.wave = Wavefront(self.rows, self.cols, cu_size, self.device)
+        self.quant_fn = quant_fn
+        self._waves = {}
+
+    def wave(self, frames: int) -> Wavefront:
+        if frames not in self._waves:
+            self._waves[frames] = Wavefront(self.rows, self.cols, self.n,
+                                            self.device, frames)
+        return self._waves[frames]
 
     def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
                      qp: int) -> dict:
         """y: [H, W] 8-bit pixels padded to the coded size; u, v: [H/2, W/2].
         Returns the decision dict (numpy): modes, levels_*, recon_*."""
-        n = self.n
+        return self.encode_frames([y], [u], [v], qp)[0]
+
+    def encode_frames(self, ys, us, vs, qp: int) -> list:
+        """A batch of independent frames (sequences of padded planes), each
+        wavefront step batching the step's CUs of every frame; one
+        decision dict per frame, each equal to its frame's encode_frame."""
+        n, F = self.n, len(ys)
         log2n = n.bit_length() - 1
         qpc = chroma_qp_from_luma(qp)
-        yb, ub, vb = planes_to_blocks(y, u, v, n, self.device)
-        ws = WaveState(self.rows * self.cols, n, self.device)
-        for cu, nbr, avail in self.wave.steps:
+        blk = [planes_to_blocks(y, u, v, n, self.device)
+               for y, u, v in zip(ys, us, vs)]
+        yb, ub, vb = (torch.cat([b[i] for b in blk]) for i in range(3))
+        ws = WaveState(F * self.rows * self.cols, n, self.device)
+        q = self.quant_fn
+        for cu, nbr, avail in self.wave(F).steps:
             # luma: all 35 modes, SATD argmin (first minimum)
             preds = ws.luma_all_modes(nbr, avail[n])
             src = yb[cu]
             m = torch.argmin(pixel.satd(src[:, None], preds), dim=1)
-            lv, rec = tq_recon(src, gather_mode(preds, m), qp, log2n, True)
+            lv, rec = tq_recon(src, gather_mode(preds, m), qp, log2n, True,
+                               q, True, m)
             # chroma, Cb and Cr in one batch
             lvc, recc = tq_recon(torch.cat([ub[cu], vb[cu]]),
                                  ws.chroma_dm(nbr, avail[n // 2], m), qpc,
-                                 log2n - 1, True)
+                                 log2n - 1, True, q, False, m.repeat(2))
             ws.commit(cu, m, lv, rec, lvc, recc)
-        return ws.result(self.rows, self.cols)
+        return ws.result(self.rows, self.cols, F)
 
 
 class IntraQTEncoder:
     """CTU32 depth-2 quadtree intra frame encoder: dense decide, commit,
     then the in-loop filters (port of IntraFrameEncoder._build_qt +
-    _unpack_qt with max_depth=2, 8-bit, no RDOQ / sign hiding / psy-rd,
-    with the device-DPB filter chain when deblock or sao is set).
+    _unpack_qt with max_depth=2, 8-bit, no psy-rd; quant_fn: plain,
+    mode-dependent sign-bit hiding or context RDOQ; with the device-DPB
+    filter chain when deblock or sao is set).
 
     Every CU size's intra mode is decided densely from source-pixel
     neighbours (the reference's fast-intra approximation); each leaf's RD
@@ -229,18 +270,21 @@ class IntraQTEncoder:
     neighbour references (qt_common.commit_intra)."""
 
     def __init__(self, width: int, height: int, device,
-                 deblock: bool = False, sao: bool = False):
+                 deblock: bool = False, sao: bool = False,
+                 quant_fn: Quantizer = PLAIN, sao_form: str = "program"):
         from . import qt_common as QT      # qt_common imports this module
         self.QT = QT
+        self.quant_fn = quant_fn
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
-        self.filters = QT.LoopFilters(deblock, sao)
+        self.filters = QT.LoopFilters(deblock, sao, sao_form)
 
-    def encode_frame(self, y, u, v, qp: int) -> dict:
+    def encode_frame(self, y, u, v, qp: int, with_sao: bool = True) -> dict:
         """y, u, v: 8-bit planes padded to the coded size (numpy or device
         tensors). Returns the decision dict (numpy), "recon_dev", the
         (filtered) recon planes as uint8 device tensors, and with SAO
-        "sao", its parameters packed [ncu, 18]."""
+        "sao", its parameters packed [ncu, 18] (with_sao=False: this frame
+        without SAO)."""
         QT, geo = self.QT, self.geo
         dev = geo.device
         pl = lambda p: torch.as_tensor(np.array(p, np.int32), device=dev)
@@ -255,7 +299,7 @@ class IntraQTEncoder:
             qpc_blk = torch.full((nb,), qpc, dtype=torch.int32, device=dev)
             _, _, dist, bits = QT.rd_leaf(nn, QT.sources3(y32, u32, v32, nn),
                                           (py, pu, pv), qp_blk, qpc_blk,
-                                          states, True)
+                                          states, True, self.quant_fn, modes)
             leaf[nn] = {"modes": modes, "dist": dist,
                         "bits": bits + QT.MODE_BITS}
         l2 = torch.tensor(QT.lam2(qp), device=dev)
@@ -278,8 +322,10 @@ class IntraQTEncoder:
                                  out["modes"].reshape(-1),
                                  out["modes4"].reshape(-1, 4),
                                  out["modes8"].reshape(-1, 4, 4))
-        QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, qp, qpc, True)
-        rec, sao = self.filters(rec, (y32, u32, v32), lv, qp, split, split16)
+        QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, qp, qpc, True,
+                        self.quant_fn, states)
+        rec, sao = self.filters(rec, (y32, u32, v32), lv, qp, split, split16,
+                                with_sao=with_sao)
         if sao is not None:
             out["sao"] = sao
         out.update(QT.decision_planes(geo, rec, lv))

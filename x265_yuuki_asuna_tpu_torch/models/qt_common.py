@@ -2,9 +2,11 @@
 
 Port of x265_yuuki_asuna_tpu/models/qt_common.py (QOFF, morton,
 _tr_available, _bl_available, block_v, source_v) and of the pieces the two
-`_build_qt` programs share: the static block maps, the per-QP lambdas, the
-transform/quant/recon step, the SSD, the dense source-neighbour intra
-decision, the commit of the decided intra leaves and the in-loop filter
+`_build_qt` programs share: the static block maps, the per-QP lambdas,
+the SSD, the dense source-neighbour intra decision, the leaf RD (the
+transform/quant/recon step with the program's quantizer: plain,
+mode-dependent sign-bit hiding or context RDOQ at the slice's frozen
+states), the commit of the decided intra leaves and the in-loop filter
 chain (ops/filters.py) that runs after it.
 
 The commit. The reference scans the CTU wavefront diagonals; each step
@@ -30,9 +32,11 @@ import numpy as np
 import torch
 
 from ..ops import bitcost as BC
+from ..ops import fp32
 from ..ops import filters as FL
-from ..ops import intra, pixel, quant, transforms
-from .intra_encoder import gather_mode, to_blocks
+from ..ops import intra, pixel
+from ..ops.quant import PLAIN, Quantizer
+from .intra_encoder import gather_mode, to_blocks, tq_recon
 
 N = 32          # CTU size
 MODE_BITS = 7.0
@@ -149,26 +153,17 @@ def _source_v_index(hh: int, ww: int, nn: int) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # per-QP lambdas: 0.9 * 2^((qp-12)/6) and 0.85 * 2^((qp-12)/3) in float32,
-# with 2^x evaluated as exp(x * ln 2) like the reference's compiled program
+# 2^x as the reference's compiled program evaluates it (fp32.lambda_table)
 # ---------------------------------------------------------------------------
-
-_LN2 = float(np.float32(np.log(2.0)))
-
-
-@lru_cache(maxsize=None)
-def _lambda_table(scale: float, div: float) -> np.ndarray:
-    q = torch.arange(52, dtype=torch.float32)
-    return (scale * torch.exp((q - 12.0) / div * _LN2)).numpy()
-
 
 def lam(qp: int) -> np.float32:
     """Motion-decision lambda (SATD units) of a QP, float32."""
-    return _lambda_table(0.9, 6.0)[qp]
+    return fp32.lambda_table(0.9, 6.0)[qp]
 
 
 def lam2(qp: int) -> np.float32:
     """Mode/split-decision lambda (SSD units) of a QP, float32."""
-    return _lambda_table(0.85, 3.0)[qp]
+    return fp32.lambda_table(0.85, 3.0)[qp]
 
 
 # ---------------------------------------------------------------------------
@@ -232,15 +227,6 @@ def split_rd(leaf: dict, geo: QtGeometry, l2: torch.Tensor):
 # transform / quant / recon and distortion
 # ---------------------------------------------------------------------------
 
-def tq_rec(src, pred, qp, log2n: int, intra_slice: bool):
-    """(levels, recon) of residual blocks src - pred [B, n, n]; qp an int
-    or [B] tensor; the rounding offset is the slice's (intra_slice)."""
-    coef = transforms.forward_transform(src - pred)
-    levels = quant.quant(coef, qp, log2n, 8, intra_slice)
-    rr = transforms.inverse_transform(quant.dequant(levels, qp, log2n))
-    return levels, (pred + rr).clamp(0, 255)
-
-
 def ssd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Sum of squared differences over the last two axes as float32. The
     sum is exact (int64), so it equals the reference's float32 sum in any
@@ -264,18 +250,25 @@ def dense_intra(nn: int, y32, u32, v32):
                                       luma=False))
 
 
-def rd_leaf(nn: int, srcs3, pred3, qp_y, qp_c, states, intra_slice: bool):
+def rd_leaf(nn: int, srcs3, pred3, qp_y, qp_c, states, intra_slice: bool,
+            quant_fn: Quantizer = PLAIN, modes=None):
     """TU levels, recon, SSD and K9 bits of one candidate at one size:
-    ((lv_y, lv_cb, lv_cr), (rec_y, rec_u, rec_v), dist, bits)."""
+    ((lv_y, lv_cb, lv_cr), (rec_y, rec_u, rec_v), dist, bits). modes: the
+    blocks' intra modes for an intra candidate (the sign-hiding scan),
+    None for an inter one; states: the slice's frozen contexts (K9 and
+    the context RDOQ)."""
     log2nn = nn.bit_length() - 1
     sy, su, sv = srcs3
-    lv_y, rec_y = tq_rec(sy, pred3[0], qp_y, log2nn, intra_slice)
-    lv_cb, rec_u = tq_rec(su, pred3[1], qp_c, log2nn - 1, intra_slice)
-    lv_cr, rec_v = tq_rec(sv, pred3[2], qp_c, log2nn - 1, intra_slice)
+    tq = lambda src, pred, qp, log2, luma: tq_recon(
+        src, pred, qp, log2, intra_slice, quant_fn, luma, modes, None, states)
+    lv_y, rec_y = tq(sy, pred3[0], qp_y, log2nn, True)
+    lv_cb, rec_u = tq(su, pred3[1], qp_c, log2nn - 1, False)
+    lv_cr, rec_v = tq(sv, pred3[2], qp_c, log2nn - 1, False)
     dist = (ssd(sy, rec_y) + ssd(su, rec_u)) + ssd(sv, rec_v)
-    bits = ((BC.est_tu_bits_ctx(lv_y, log2nn, True, states)
-             + BC.est_tu_bits_ctx(lv_cb, log2nn - 1, False, states))
-            + BC.est_tu_bits_ctx(lv_cr, log2nn - 1, False, states))
+    sh = quant_fn.sbh
+    bits = ((BC.est_tu_bits_ctx(lv_y, log2nn, True, states, sh)
+             + BC.est_tu_bits_ctx(lv_cb, log2nn - 1, False, states, sh))
+            + BC.est_tu_bits_ctx(lv_cr, log2nn - 1, False, states, sh))
     return (lv_y, lv_cb, lv_cr), (rec_y, rec_u, rec_v), dist, bits
 
 
@@ -331,14 +324,16 @@ def block_index(r, c, y0: int, x0: int, nn: int, ctu: int, width: int):
 
 
 def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
-                 intra_slice: bool):
+                 intra_slice: bool, quant_fn: Quantizer = PLAIN,
+                 states=None):
     """Reconstruct the intra leaves in decoding order, in place.
 
     src, rec, lv: (y, u, v) int32 frame planes on the device (source,
     recon, levels); rec and lv hold the inter leaves already (P) or
     nothing yet (I). leaves: intra_leaves(). For each wavefront diagonal
     (CTU (r, c) on diagonal 2r + c) and each z-order position, the leaves
-    there form one batch: luma, then Cb and Cr together."""
+    there form one batch: luma, then Cb and Cr together. quant_fn and
+    states: the program's quantizer and the slice's frozen contexts."""
     rows, cols, W = geo.rows, geo.cols, geo.W
     dev = geo.device
     steps = {}
@@ -358,8 +353,9 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
         v = intra.substitute_references(rec[0].reshape(-1)[t(vi)], t(va))
         bi = t(block_index(r, c, y0, x0, nn, N, W))
         pred = intra.predict_mode_matmul(v, modes, nn, luma=True)
-        lvy, ry = tq_rec(src[0].reshape(-1)[bi].reshape(S, nn, nn), pred,
-                         qp, nn.bit_length() - 1, intra_slice)
+        lvy, ry = tq_recon(src[0].reshape(-1)[bi].reshape(S, nn, nn), pred,
+                           qp, nn.bit_length() - 1, intra_slice, quant_fn,
+                           True, modes, None, states)
         rec[0].view(-1)[bi] = ry.reshape(S, -1)
         lv[0].view(-1)[bi] = lvy.reshape(S, -1)
         # chroma: Cb then Cr in one batch
@@ -371,8 +367,9 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
         bi = t(block_index(r, c, y0 // 2, x0 // 2, nc, ctu_c, W // 2))
         pred = intra.predict_mode_matmul(v, modes.repeat(2), nc, luma=False)
         s = torch.cat([src[1].reshape(-1)[bi], src[2].reshape(-1)[bi]])
-        lvc, rc_ = tq_rec(s.reshape(2 * S, nc, nc), pred, qpc,
-                          nc.bit_length() - 1, intra_slice)
+        lvc, rc_ = tq_recon(s.reshape(2 * S, nc, nc), pred, qpc,
+                            nc.bit_length() - 1, intra_slice, quant_fn, False,
+                            modes.repeat(2), None, states)
         for p in (1, 2):
             sl = slice((p - 1) * S, p * S)
             rec[p].view(-1)[bi] = rc_[sl].reshape(S, -1)
@@ -399,21 +396,25 @@ def by_ctu(a: torch.Tensor, m: torch.Tensor, shape) -> np.ndarray:
 
 class LoopFilters:
     """The quadtree programs' in-loop filters (deblock, SAO; each may be
-    off) and the wall-clock ms of the last frame's chain."""
+    off; SAO in its "program" or "host" form) and the wall-clock ms of
+    the last frame's chain."""
 
-    def __init__(self, deblock: bool, sao: bool):
-        self.deblock, self.sao = deblock, sao
+    def __init__(self, deblock: bool, sao: bool, sao_form: str = "program"):
+        self.deblock, self.sao, self.sao_form = deblock, sao, sao_form
         self.ms = 0.0
 
     def __call__(self, rec, src3, lv, qp: int, split, split16,
-                 ui_sizes=None, mv_sizes=None, pdir_sizes=None):
+                 ui_sizes=None, mv_sizes=None, pdir_sizes=None,
+                 with_sao: bool = True):
         """The filtered recon planes of a frame (the same planes when both
         filters are off) and its SAO parameters ([ncu, 18] int32 numpy,
         or None); the arguments of FL.qt_loopfilter, with one QP for every
-        CTU. The chain runs between two device synchronisations, inside a
-        profiler range named "filters"."""
+        CTU; with_sao=False leaves SAO out of this frame. The chain runs
+        between two device synchronisations, inside a profiler range named
+        "filters"."""
         self.ms = 0.0
-        if not (self.deblock or self.sao):
+        sao_on = self.sao and with_sao
+        if not (self.deblock or sao_on):
             return rec, None
         dev = rec[0].device
         sync = torch.cuda.synchronize if dev.type == "cuda" else \
@@ -426,7 +427,7 @@ class LoopFilters:
             rec, sao = FL.qt_loopfilter(tuple(rec), src3, qp_cu, qp, split,
                                         split16, ui_sizes, mv_sizes,
                                         pdir_sizes, lv, self.deblock,
-                                        self.sao)
+                                        sao_on, self.sao_form)
             sao = None if sao is None else sao.cpu().numpy()
             sync()
         self.ms = (time.perf_counter() - t0) * 1e3

@@ -2,7 +2,7 @@
 
 Port of x265_yuuki_asuna_tpu/ops/bitcost.py (entropy_bits_table,
 init_states_dev, state_bit_luts, chain_lookup, _tu_static, _rice_len,
-est_tu_bits_ctx, mvd_bits). Every context is frozen at its slice-init
+est_tu_bits_ctx with its sign_hiding branch, mvd_bits). Every context is frozen at its slice-init
 state (spec 9.3.2.2) and a bin costs the entropy of the state's LPS
 probability, pLPS(sigma) = 0.5 * alpha^sigma with alpha =
 (0.01875/0.5)^(1/63), the model behind the spec's rangeTabLps. A TU's
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..bitstream import tables as T
+from . import fp32
 
 CTX = T.CTX_OFFSET
 
@@ -145,7 +146,7 @@ def _rice_len(code: torch.Tensor, rice: torch.Tensor) -> torch.Tensor:
     q = code >> rice
     short = q + 1 + rice
     cn = (q - 3).clamp(min=0)
-    length = torch.floor(torch.log2(cn.float() + 1.0)).to(torch.int32)
+    length = fp32.floor_log2_int(cn + 1)
     long_ = (3 + length + 1) + (length + rice)
     return torch.where(q < 3, short, long_).float()
 
@@ -255,12 +256,14 @@ def _prev_gt1_cg(cg_nz: torch.Tensor, had_gt1: torch.Tensor) -> torch.Tensor:
 
 
 def est_tu_bits_ctx(levels: torch.Tensor, log2n: int, is_luma: bool,
-                    states) -> torch.Tensor:
-    """Estimated residual_coding() bits for a batch of TUs (no sign hiding).
+                    states, sign_hiding: bool = False) -> torch.Tensor:
+    """Estimated residual_coding() bits for a batch of TUs.
 
     levels: int [..., N, N] quantized levels (raster). states: [NUM_CTX]
-    packed slice-init states (init_states_dev). Returns float32 [...];
-    all-zero TUs cost 0 (the caller prices the cbf flags)."""
+    packed slice-init states (init_states_dev). sign_hiding: each CG whose
+    first and last nonzero levels are 4 or more scan positions apart
+    codes one sign fewer. Returns float32 [...]; all-zero TUs cost 0 (the
+    caller prices the cbf flags)."""
     L = _luts(states, log2n, is_luma, levels.device)
     st = _tu_static(log2n, bool(is_luma))
     n, nn, ncg = st["n"], st["nn"], st["ncg"]
@@ -348,7 +351,14 @@ def est_tu_bits_ctx(levels: torch.Tensor, log2n: int, is_luma: bool,
     bits_g2 = cg_sum(torch.where(first_c2, g2_cost, 0.0))
 
     # ---- signs ------------------------------------------------------------
-    bits_sign = srev.sum((-2, -1)).float()
+    nsig_cg = srev.sum(-1)
+    if sign_hiding:
+        posk = torch.arange(16, device=dev)
+        firstk = torch.where(sigcg > 0, posk, 99).amin(-1)
+        lastk = torch.where(sigcg > 0, posk, -1).amax(-1)
+        nsig_cg = (nsig_cg - ((lastk - firstk) >= 4).to(nsig_cg.dtype)) \
+            .clamp(min=0)
+    bits_sign = nsig_cg.sum(-1).float()
 
     # ---- remaining levels (Golomb-Rice, running-max rice bound) -----------
     base_level = torch.where(rank >= 8, 1, torch.where(first_c2, 3, 2)) * srev
@@ -357,8 +367,7 @@ def est_tu_bits_ctx(levels: torch.Tensor, log2n: int, is_luma: bool,
                                      device=dev),
                          torch.where(srev > 0, arev, 0)[..., :-1]], -1)
     runmax = prevmax.cummax(-1).values
-    rice = (torch.floor(torch.log2(runmax.clamp(min=1).float() / 3.0))
-            .to(torch.int32) + 1).clamp(0, 4)
+    rice = (fp32.floor_log2_third(runmax.clamp(min=1)) + 1).clamp(0, 4)
     rem = (arev - base_level).clamp(min=0)
     bits_rem = torch.where(rem_coded, _rice_len(rem, rice), 0.0).sum((-2, -1))
 

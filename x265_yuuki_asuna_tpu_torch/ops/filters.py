@@ -121,7 +121,7 @@ def _cell_maps(split, split16, ui_sizes, mv_sizes, pdir_sizes, lv_y, rows,
 
 def qt_loopfilter(rec3, src3, qp_cu, slice_qp: int, split, split16,
                   ui_sizes, mv_sizes, pdir_sizes, lv3, deblock: bool,
-                  sao: bool):
+                  sao: bool, sao_form: str = "program"):
     """The loop-filter chain of one CTU32 depth-2 frame.
 
     rec3 / src3: int32 (y [H, W], u, v [H/2, W/2]) planes; qp_cu [ncu] the
@@ -129,9 +129,12 @@ def qt_loopfilter(rec3, src3, qp_cu, slice_qp: int, split, split16,
     (ui32, ui16, ui8) bool per size (ui8 may be None), or None for an I
     frame; mv_sizes: per size (mv0x, mv0y, mv1x, mv1y) quarter-pel (a
     missing list None), or None; pdir_sizes: (pdir32, pdir16, pdir8), or
-    None (a P frame: L0); lv3: the level planes (y, u, v). Returns the
-    filtered planes and the SAO parameters packed [ncu, 18] (None without
-    SAO)."""
+    None (a P frame: L0); lv3: the level planes (y, u, v); sao_form: the
+    SAO cost's form, "program" (the quadtree programs') or "host" (the
+    intra session's host filters after a quadtree frame, whose deblock is
+    this one: under one QP per frame the effective QP changes nothing).
+    Returns the filtered planes and the SAO parameters packed [ncu, 18]
+    (None without SAO)."""
     H, W = rec3[0].shape
     rows, cols = H // N, W // N
     out3 = rec3
@@ -149,5 +152,5 @@ def qt_loopfilter(rec3, src3, qp_cu, slice_qp: int, split, split16,
         out3 = deblock_qt2(out3, cell_q, bs_v, bs_h)
     params = None
     if sao:
-        out3, params = SAO.sao_frame(out3, src3, N, slice_qp, "program")
+        out3, params = SAO.sao_frame(out3, src3, N, slice_qp, sao_form)
     return out3, params

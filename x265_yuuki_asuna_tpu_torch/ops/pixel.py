@@ -49,3 +49,37 @@ def satd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     per = satd4(_tile(a, 4, 4), _tile(b, 4, 4))
     return per.sum(dim=(-2, -1)).to(torch.int32)
 
+
+
+def ssim_plane(a: np.ndarray, b: np.ndarray, device) -> float:
+    """Global SSIM of two 8-bit planes over 8x8 windows at a stride of 4
+    (port of the reference's ssim_plane: integral-image window sums, the
+    mean of the per-window SSIMs). The window sums are integers, exact in
+    float64 in any order, so they run on `device`; the per-window values
+    follow the reference's float64 expression op for op, and their mean
+    is numpy's (pairwise) on the host, so the result equals the
+    reference's bit for bit."""
+    L = 255
+    c1 = (0.01 * L) ** 2
+    c2 = (0.03 * L) ** 2
+    H, W = a.shape
+    if H < 8 or W < 8:
+        return 1.0
+    t = lambda p: torch.as_tensor(np.ascontiguousarray(p)).to(
+        device=device, dtype=torch.float64)
+    a, b = t(a), t(b)
+
+    def win_sums(x):
+        ii = torch.zeros((H + 1, W + 1), dtype=torch.float64, device=device)
+        ii[1:, 1:] = x.cumsum(0).cumsum(1)
+        return (ii[8:H + 1:4, 8:W + 1:4] - ii[8:H + 1:4, 0:W - 7:4]
+                - ii[0:H - 7:4, 8:W + 1:4] + ii[0:H - 7:4, 0:W - 7:4])
+
+    n = 64.0
+    ma, mb = win_sums(a) / n, win_sums(b) / n
+    va = win_sums(a * a) / n - ma * ma
+    vb = win_sums(b * b) / n - mb * mb
+    cov = win_sums(a * b) / n - ma * mb
+    vals = (((2 * ma * mb + c1) * (2 * cov + c2))
+            / ((ma * ma + mb * mb + c1) * (va + vb + c2)))
+    return float(vals.cpu().numpy().mean())

@@ -1,7 +1,8 @@
 """Where the time of a 1080p CQP frame goes, on the card.
 
     python -m x265_yuuki_asuna_tpu_torch.profile_1080p [--frames 3]
-        [--max-depth 0 2] [--bframes 3] [--deblock] [--sao]
+        [--max-depth 0 2] [--bframes 3] [--deblock] [--sao] [--sbh]
+        [--rdoq] [--intra] [--batch 4] [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
 depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
@@ -13,7 +14,15 @@ mini-GOP, B-pyramid, b_adapt=0): a warm-up session codes an IDR and one
 mini-GOP through push_frame, then a fresh session does the same with each
 coded frame (I, P, then the B frames) recorded on its own; the lookahead,
 which push_frame runs before the frame is coded, is outside the records.
---deblock / --sao switch the sessions' in-loop filters on.
+--deblock / --sao switch the sessions' in-loop filters on, --sbh / --rdoq
+sign-bit hiding / RDOQ. --intra profiles the all-intra session instead
+(IntraEncoderSession): after the warm-up, one frame through encode_frame
+and, with --batch N, one batch of N frames through encode_batch, recorded
+as one entry (its launches and device time are the batch's; divide by
+"frames" for a frame's). --device-only traces the card's activity alone:
+tracing every host operator as well costs more than the frame itself
+once a frame launches millions of kernels (the quadtree I frame with
+RDOQ); the host columns and the filters' span are then empty.
 Prints one JSON object per session with, for each recorded frame: its
 type and POC, its wall ms, device busy ms (the sum of CUDA kernel times)
 and so the device's idle share, its number of kernel launches, its stage
@@ -70,19 +79,22 @@ def _filter_record(kernels, spans) -> dict:
                     for k, (n, ms) in top]}
 
 
-def _recorded(sess, fn, out: list):
+def _recorded(sess, fn, out: list, device_only: bool = False):
     """fn (a call that codes one frame and returns its FrameResult, or
-    (FrameResult, recon)) wrapped to run under torch.profiler and append
-    the frame's record to `out`."""
+    (FrameResult, recon), or a batch's list of FrameResults) wrapped to
+    run under torch.profiler and append the frame's record to `out`."""
+    acts = [ProfilerActivity.CUDA] if device_only else \
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
     def run(*a, **k):
         stage0 = dict(sess.stage_ms)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             res = fn(*a, **k)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        r = res[0] if isinstance(res, tuple) else res
+        batch = res if isinstance(res, list) else None
+        r = res[0] if isinstance(res, (tuple, list)) else res
         # device events: kernels and copies, and (user annotations) the
         # device-side spans of record_function ranges
         dev = [e for e in prof.events()
@@ -94,6 +106,7 @@ def _recorded(sess, fn, out: list):
         spans = [e.time_range for e in dev if e.name == "filters"]
         ev = prof.key_averages()
         out.append({"frame_type": r.frame_type, "poc": r.poc,
+                    "frames": len(batch) if batch else 1,
                     "wall_ms": wall, "device_busy_ms": busy,
                     "device_idle_share": 1 - busy / wall,
                     "device_kernels": len(kernels),
@@ -106,12 +119,40 @@ def _recorded(sess, fn, out: list):
     return run
 
 
+def _name(max_depth: int, bframes: int, kw: dict, intra: bool = False):
+    return ("intra_" if intra else "") + ("qt2" if max_depth else "uniform") \
+        + ("_b" if bframes else "") \
+        + ("_lf" if kw["deblock"] or kw["sao"] else "") \
+        + ("_sbh" if kw["sbh"] else "") + ("_rdoq" if kw["rdoq"] else "")
+
+
+def profile_intra(max_depth: int, warm_frames: int, batch: int,
+                  opts: dict, device_only: bool = False) -> dict:
+    """The all-intra session: one frame through encode_frame and one batch
+    through encode_batch, each recorded."""
+    from .models.encoder_top import IntraEncoderSession
+    kw = dict(qp=32, hash_sei=True, max_depth=max_depth, **opts)
+    frames = synth_clip(max(warm_frames, batch, 1) + 1, 1920, 1080)
+    sess = IntraEncoderSession(1920, 1080, **kw)
+    for f in frames[:warm_frames]:
+        sess.encode_frame(*f)
+    if batch:
+        sess.encode_batch(frames[:batch])           # warm-up of the batch
+    torch.cuda.synchronize()
+    out = []
+    _recorded(sess, sess.encode_frame, out, device_only)(*frames[-1])
+    if batch:
+        _recorded(sess, sess.encode_batch, out, device_only)(frames[:batch])
+    return {"session": _name(max_depth, 0, kw, True),
+            "card": torch.cuda.get_device_name(0), "frames": out}
+
+
 def profile_session(max_depth: int, warm_frames: int,
-                    bframes: int = 0, deblock: bool = False,
-                    sao: bool = False) -> dict:
+                    bframes: int = 0, opts: dict = None,
+                    device_only: bool = False) -> dict:
     from .models.encoder_top import VideoEncoderSession
     kw = dict(qp=32, keyint=250, hash_sei=True, max_depth=max_depth,
-              deblock=deblock, sao=sao)
+              **opts)
     out = []
     if bframes:
         kw.update(bframes=bframes, b_adapt=0)
@@ -121,7 +162,8 @@ def profile_session(max_depth: int, warm_frames: int,
             warm.push_frame(*f)
         sess = VideoEncoderSession(1920, 1080, **kw)
         for name in ("_encode_idr_anchor", "_encode_p_anchor", "_encode_b"):
-            setattr(sess, name, _recorded(sess, getattr(sess, name), out))
+            setattr(sess, name, _recorded(sess, getattr(sess, name), out,
+                                          device_only))
         torch.cuda.synchronize()
         for f in frames:
             sess.push_frame(*f)
@@ -132,13 +174,11 @@ def profile_session(max_depth: int, warm_frames: int,
             warm.encode_frame(*f)
         sess = VideoEncoderSession(1920, 1080, **kw)
         torch.cuda.synchronize()
-        encode = _recorded(sess, sess.encode_frame, out)
+        encode = _recorded(sess, sess.encode_frame, out, device_only)
         for f in frames[warm_frames:]:
             encode(*f)
-    name = ("qt2" if max_depth else "uniform") + ("_b" if bframes else "") \
-        + ("_lf" if deblock or sao else "")
-    return {"session": name, "card": torch.cuda.get_device_name(0),
-            "frames": out}
+    return {"session": _name(max_depth, bframes, kw),
+            "card": torch.cuda.get_device_name(0), "frames": out}
 
 
 def main():
@@ -154,12 +194,26 @@ def main():
                     help="switch the deblocking filter on")
     ap.add_argument("--sao", action="store_true",
                     help="switch SAO on")
+    ap.add_argument("--sbh", action="store_true",
+                    help="switch sign-bit hiding on")
+    ap.add_argument("--rdoq", action="store_true", help="switch RDOQ on")
+    ap.add_argument("--intra", action="store_true",
+                    help="profile the all-intra session")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="with --intra: also one batch of this many frames")
+    ap.add_argument("--device-only", action="store_true",
+                    help="trace the card's activity alone")
     args = ap.parse_args()
+    opts = dict(deblock=args.deblock, sao=args.sao, sbh=args.sbh,
+                rdoq=args.rdoq)
     for md in args.max_depth:
-        print(json.dumps(profile_session(md, args.frames,
-                                         args.bframes if md else 0,
-                                         args.deblock, args.sao)),
-              flush=True)
+        if args.intra:
+            rec = profile_intra(md, args.frames, args.batch, opts,
+                                args.device_only)
+        else:
+            rec = profile_session(md, args.frames, args.bframes if md else 0,
+                                  opts, args.device_only)
+        print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":
