@@ -40,6 +40,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      intra_cpu_vs_card: the quadtree intra session with sign hiding and
      both filters, and the uniform intra session with RDOQ (3 frames
      each);
+     golden_aq: the adaptive-quantization / cuTree goldens of the
+     manifest (intra_aq2, ippp_aq_cutree, ippp_rc_lookahead through
+     push_la / flush_la) and the pinned JAX md5s of the quadtree AQ
+     sessions (AQ_PINS, the flagship configuration among them), then
+     aq_cpu_vs_card: the 416x240 quadtree IPPP session with AQ 2, cuTree
+     and both filters on the card and on the CPU;
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -63,9 +69,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      encode_frame, then a batch of 4 through encode_batch, each batched
      frame's decisions equal to its single-frame encode; ms per frame,
      launches per frame in each mode under torch.profiler, bytes, PSNR
-     Y/U/V, SSIM-Y, peak memory; it runs no K1);
-  6. the kernels line (launches on the filtered B path, and on each
-     path); then the card line and, last, the ok line.
+     Y/U/V, SSIM-Y, peak memory; it runs no K1); then the flagship's
+     tools under CQP (1080p_qt2_b_lf_sbh_aq: the filtered B path with
+     sign hiding, AQ 2 and cuTree; the same launches; each frame's QP-map
+     statistics and the "qp_map" stage; bytes, PSNR-Y/U/V and SSIM-Y per
+     frame beside the run without AQ, aq_vs_no_aq; the plain rerun's QP
+     map identical too) and the uniform IPPP path with AQ 2, cuTree and
+     the rc-lookahead window (1080p_aq_la, rc_lookahead=3, 7 frames
+     through push_la / flush_la: K1 fused = frames + P frames, surface 0;
+     the last P frame's plain rerun identical);
+  6. the kernels line (launches on the filtered B path with sign hiding,
+     and on each path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -103,6 +117,16 @@ LF_PINS = {"uniform": "0b71ca6e5ad866cf844df3036a46daa9",
 # and both filters
 SBH_PINS = {"intra_qt2_sbh_lf": "250afb785a78a94b42d0296bdc099eab",
             "qt2_b_sbh_lf": "2734e716459f0c1887d6c689eff0055b"}
+# md5 of the JAX package's streams on the golden clip with adaptive
+# quantization: the quadtree IPPP session with AQ 2, cuTree and both
+# filters (qp 30, keyint 100, hash SEI), the quadtree intra session with AQ
+# 2 and both filters (qp 30, hash SEI), and tests/golden_corpus.py's
+# qt2_bframes_flagship configuration on this tree (its manifest md5
+# predates the reference's parked B-session cuTree average)
+AQ_PINS = {"qt2_aq_cutree_lf_sei": "795879673f782275c42823a944f8d503",
+           "intra_qt2_aq_lf_sei": "33836641495f1c374bf9fbd94e7b6d2e",
+           "qt2_bframes_flagship": "f9c048f1d7f69982d48dabf30d1a146f"}
+AQ = dict(aq_mode=2, cutree=True)
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
@@ -370,14 +394,17 @@ def phase_golden_lf(dev):
         raise AssertionError(f"filtered golden md5s differ: {bad}")
 
 
-def phase_qt2_cpu_vs_card(dev, phase="qt2_cpu_vs_card", opts=None):
+def phase_qt2_cpu_vs_card(dev, phase="qt2_cpu_vs_card", opts=None,
+                          sessions=None):
     """The quadtree IPPP and B sessions (or with opts, the B session with
-    those options) on a 416x240 clip, on the card and on the CPU: each
-    pair of streams must be equal."""
+    those options; or `sessions`: (name, keywords, frames) each) on a
+    416x240 clip, on the card and on the CPU: each pair of streams must be
+    equal."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
-    sessions = (("ippp", {"max_depth": 2}, 3), ("b", B_KW, 5)) \
-        if opts is None else (("b", dict(B_KW, **opts), 5),)
+    if sessions is None:
+        sessions = (("ippp", {"max_depth": 2}, 3), ("b", B_KW, 5)) \
+            if opts is None else (("b", dict(B_KW, **opts), 5),)
     for name, kw, n in sessions:
         frames = synth_clip(n, 416, 240)
         md5, secs = {}, {}
@@ -460,6 +487,76 @@ def phase_intra_cpu_vs_card(dev):
         if not same:
             raise AssertionError(f"416x240 intra {name} streams differ: "
                                  f"{md5}")
+
+
+def _md5_of(sess, results) -> str:
+    return hashlib.md5(sess.headers() + b"".join(
+        r.nals for r in results)).hexdigest()
+
+
+def phase_golden_aq(dev):
+    """The golden AQ / cuTree clips through the port's sessions on the
+    card (the manifest's intra_aq2, ippp_aq_cutree and ippp_rc_lookahead,
+    the last through push_la / flush_la) and the pinned JAX md5s of the
+    quadtree AQ sessions (AQ_PINS); then the 416x240 quadtree IPPP session
+    with AQ 2, cuTree and both filters, card against CPU."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        IntraEncoderSession, VideoEncoderSession
+    with open(os.path.join(REPO, "tests", "golden", "manifest.json")) as f:
+        manifest = json.load(f)
+    uni = dict(qp=32, cu_size=16, keyint=100, hash_sei=False)
+    got = {}
+
+    def check(key, sess, results, want):
+        got[key] = _md5_of(sess, results)
+        got[key + "_match"] = got[key] == want
+
+    s = IntraEncoderSession(64, 48, qp=32, aq_mode=2, hash_sei=False,
+                            device=dev)
+    check("intra_aq2", s, [s.encode_frame(*f) for f in golden_clip()],
+          manifest["intra_aq2"])
+    s = VideoEncoderSession(64, 48, device=dev, **uni, **AQ)
+    check("ippp_aq_cutree", s, [s.encode_frame(*f) for f in golden_clip()],
+          manifest["ippp_aq_cutree"])
+    s = VideoEncoderSession(64, 48, device=dev, cutree=True, rc_lookahead=3,
+                            **uni)
+    res = []
+    for f in golden_clip():
+        res += s.push_la(*f)
+    check("ippp_rc_lookahead", s, res + s.flush_la(),
+          manifest["ippp_rc_lookahead"])
+    s = VideoEncoderSession(64, 48, qp=30, max_depth=2, keyint=100,
+                            hash_sei=True, device=dev, **AQ, **LF)
+    check("qt2_aq_cutree_lf_sei", s,
+          [s.encode_frame(*f) for f in golden_clip()],
+          AQ_PINS["qt2_aq_cutree_lf_sei"])
+    s = IntraEncoderSession(64, 48, qp=30, max_depth=2, aq_mode=2,
+                            hash_sei=True, device=dev, **LF)
+    check("intra_qt2_aq_lf_sei", s,
+          [s.encode_frame(*f) for f in golden_clip()],
+          AQ_PINS["intra_qt2_aq_lf_sei"])
+    s = VideoEncoderSession(64, 48, qp=30, keyint=100, hash_sei=False,
+                            sbh=True, device=dev, **B_KW, **AQ, **LF)
+    check("qt2_bframes_flagship", s, push_all(s, golden_clip()),
+          AQ_PINS["qt2_bframes_flagship"])
+    emit(phase="golden_aq", **got)
+    bad = [k for k in got if k.endswith("_match") and not got[k]]
+    if bad:
+        raise AssertionError(f"AQ golden md5s differ: {bad}")
+    phase_qt2_cpu_vs_card(dev, "aq_cpu_vs_card", sessions=(
+        ("ippp_aq_cutree_lf", dict(max_depth=2, **AQ, **LF), 3),))
+
+
+def _qp_map_stats(maps) -> list:
+    """Per frame: min / mean / max offset of the per-CU QP map from the
+    slice QP and the share of CUs off it (maps: (slice qp, map) each)."""
+    out = []
+    for qp, m in maps:
+        off = np.asarray(m, np.int64) - qp
+        out.append({"slice_qp": int(qp), "min": int(off.min()),
+                    "mean": float(off.mean()), "max": int(off.max()),
+                    "share_off_slice_qp": float((off != 0).mean())})
+    return out
 
 
 def _launches(fn) -> int:
@@ -618,19 +715,23 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
 
 def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     """The quadtree B path at 1080p through push_frame / flush (with opts,
-    e.g. the in-loop filters); returns its K1 launch counts and its fps,
-    bytes and per-frame PSNR-Y."""
+    e.g. the in-loop filters or AQ); returns its K1 launch counts and its
+    fps, bytes and per-frame quality. With a per-CU QP map (AQ / cuTree)
+    it also reports each frame's map statistics and checks that the plain
+    rerun of the last b frame reproduces its map."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    from x265_yuuki_asuna_tpu_torch.utils import geometry as G
     frames = synth_clip(QT_B_FRAMES, W1080, H1080)
     sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
                                hash_sei=True, device=dev, **B_KW,
                                **(opts or {}))
     # record the inter program's calls, to rerun the last B frame, and
-    # each program call's filter ms (calls run in coding order)
+    # each program call's filter ms (calls run in coding order), and each
+    # frame's QP map
     enc = sess.inter_encoder
-    calls, run, filter_ms = [], enc.encode_frame, []
+    calls, run, filter_ms, maps = [], enc.encode_frame, [], []
 
     def recorded(e, fn):
         def call(*a, **k):
@@ -642,6 +743,14 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
         recorded(enc, run)(*a, **k)
     sess.intra_encoder.encode_frame = recorded(
         sess.intra_encoder, sess.intra_encoder.encode_frame)
+    qp_map_fn = sess._qp_map
+
+    def qp_map(yp, qp):
+        m = qp_map_fn(yp, qp)
+        if m is not None:
+            maps.append((qp, m, yp))
+        return m
+    sess._qp_map = qp_map
     total = len(sess.headers())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -662,18 +771,28 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     fps = (len(results) - 1) / (sum(call_ms[1:]) / 1e3)
     runs = {k: sum(r.frame_type in t for r in results)
             for k, t in (("intra", "I"), ("inter", "P"), ("inter_b", "Bb"),
-                         ("serialize", "IPBb"), ("filters", "IPBb"))}
+                         ("serialize", "IPBb"), ("filters", "IPBb"),
+                         ("qp_map", "IPBb"))}
     runs["lookahead"] = len(frames)
-    psnr = [r.psnr_y for r in results]
+    quality = dict(frame_bytes=[len(r.nals) for r in results],
+                   psnr_y=[r.psnr_y for r in results],
+                   psnr_u=[r.psnr_u for r in results],
+                   psnr_v=[r.psnr_v for r in results],
+                   ssim_y=[r.ssim_y for r in results])
+    extra = {}
+    if maps:
+        extra = dict(qp_map_stats=_qp_map_stats([m[:2] for m in maps]),
+                     qp_map_ms=sess.stage_ms["qp_map"])
     emit(phase=name, max_depth=2, bframes=3, frames=len(results),
          opts=opts or {}, fps=fps, call_ms=call_ms, call_frames=per_call,
          stage_ms_per_frame={k: v / max(runs[k], 1)
                              for k, v in sess.stage_ms.items()},
-         bytes=total, frame_bytes=[len(r.nals) for r in results],
-         psnr_y=psnr, qp=[r.qp for r in results], k1_launches=launches,
+         bytes=total, qp=[r.qp for r in results], k1_launches=launches,
          filters_ms_by_frame=[[r.frame_type, ms]
                               for r, ms in zip(results, filter_ms)],
-         max_memory_allocated=torch.cuda.max_memory_allocated())
+         max_memory_allocated=torch.cuda.max_memory_allocated(), **quality,
+         **extra)
+    psnr = quality["psnr_y"]
     want_order = [(0, "I"), (4, "P"), (2, "B"), (1, "b"), (3, "b")]
     if order != want_order or not all(np.isfinite(psnr)) or not all(
             r.recon[0].shape == (H1080, W1080) for r in results):
@@ -693,14 +812,95 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
             mock.patch.object(me_sad, "sad_sweep_best",
                               me_sad.sad_sweep_best_plain):
         out_p = run(*a, **k)
+        same_map = True
+        if maps:
+            qp, m, yp = maps[-1]
+            same_map = np.array_equal(qp_map_fn(yp, qp), m) and \
+                np.array_equal(np.asarray(a[6]), m)
     same = _same_decisions(out_k, out_p)
     emit(phase=f"{name}_b_frame_plain_rerun", identical=same,
+         qp_map_identical=same_map,
          pdir_counts={int(d): int(c) for d, c in zip(*np.unique(
              out_k["pdir8"], return_counts=True))})
-    if not same:
+    if not (same and same_map):
         raise AssertionError(f"{name}: kernel and plain B-frame decisions "
-                             "differ")
-    return launches, dict(fps=fps, bytes=total, psnr_y=psnr)
+                             "or QP maps differ")
+    return launches, dict(fps=fps, bytes=total, **quality)
+
+
+def phase_1080p_aq_la(dev, n_frames=7):
+    """The uniform IPPP path at 1080p with AQ 2, cuTree and the
+    rc-lookahead window (rc_lookahead=3) through push_la / flush_la: fps,
+    the QP maps, K1's fused launches (one lookahead sweep per frame, one
+    ME sweep per P frame), quality; then its last P frame again with K1's
+    plain versions: identical decisions."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    frames = synth_clip(n_frames, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
+                               hash_sei=True, rc_lookahead=3, device=dev,
+                               **AQ)
+    enc = sess.inter_encoder
+    calls, run, maps = [], enc.encode_frame, []
+    enc.encode_frame = lambda *a, **k: calls.append((a, k)) or run(*a, **k)
+    qp_map_fn = sess._qp_map
+    sess._qp_map = lambda yp, qp: maps.append(
+        (qp, qp_map_fn(yp, qp))) or maps[-1][1]
+    total = len(sess.headers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, call_ms, per_call = [], [], []
+    me_sad.sad_block8_sweep.launches = 0          # the main path starts
+    me_sad.sad_sweep_best.launches = 0
+    for fr in frames + [None]:
+        t0 = time.perf_counter()
+        got = sess.push_la(*fr) if fr is not None else sess.flush_la()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call.append([[r.poc, r.frame_type] for r in got])
+        results += got
+    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
+                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
+    total += sum(len(r.nals) for r in results)
+    first = next(i for i, c in enumerate(per_call) if c)   # the IDR's call
+    fps = (len(results) - 1) / (sum(call_ms[first + 1:]) / 1e3)
+    n_p = sum(r.frame_type == "P" for r in results)
+    emit(phase="1080p_aq_la", frames=len(results), p_frames=n_p,
+         rc_lookahead=3, opts=AQ, fps=fps, call_ms=call_ms,
+         call_frames=per_call,
+         stage_ms_per_frame={k: v / len(results)
+                             for k, v in sess.stage_ms.items()},
+         qp_map_ms=sess.stage_ms["qp_map"],
+         qp_map_stats=_qp_map_stats(maps), bytes=total,
+         frame_bytes=[len(r.nals) for r in results],
+         psnr_y=[r.psnr_y for r in results],
+         psnr_u=[r.psnr_u for r in results],
+         psnr_v=[r.psnr_v for r in results],
+         ssim_y=[r.ssim_y for r in results], qp=[r.qp for r in results],
+         k1_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if [r.frame_type for r in results] != ["I"] + ["P"] * (n_frames - 1) \
+            or not all(np.isfinite([r.psnr_y, r.psnr_u, r.psnr_v, r.ssim_y])
+                       .all() and r.recon[0].shape == (H1080, W1080)
+                       for r in results):
+        raise AssertionError("1080p_aq_la output malformed")
+    want = {"sad_sweep_best": n_frames + n_p, "sad_block8_sweep": 0}
+    if launches != want:
+        raise AssertionError(f"1080p_aq_la: K1 launches {launches} != "
+                             f"{want}")
+    a, k = calls[-1]
+    out_k = run(*a, **k)
+    with mock.patch.object(me_sad, "sad_block8_sweep",
+                           me_sad.sad_block8_sweep_plain), \
+            mock.patch.object(me_sad, "sad_sweep_best",
+                              me_sad.sad_sweep_best_plain):
+        out_p = run(*a, **k)
+    same = _same_decisions(out_k, out_p)
+    emit(phase="1080p_aq_la_p_frame_plain_rerun", identical=same)
+    if not same:
+        raise AssertionError("1080p_aq_la: kernel and plain P-frame "
+                             "decisions differ")
+    return launches
 
 
 def main():
@@ -718,6 +918,7 @@ def main():
     phase_qt2_cpu_vs_card(dev, "lf_cpu_vs_card", LF)
     phase_golden_intra(dev)
     phase_intra_cpu_vs_card(dev)
+    phase_golden_aq(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -729,6 +930,16 @@ def main():
          bytes=[sbh["bytes"], lf["bytes"]],
          bytes_change=sbh["bytes"] / lf["bytes"] - 1,
          psnr_y_change=[a - b for a, b in zip(sbh["psnr_y"], lf["psnr_y"])])
+    by_path["1080p_qt2_b_lf_sbh_aq"], aq = phase_1080p_b(
+        dev, "1080p_qt2_b_lf_sbh_aq", dict(LF, sbh=True, **AQ))
+    emit(phase="aq_vs_no_aq", fps=[aq["fps"], sbh["fps"]],
+         bytes=[aq["bytes"], sbh["bytes"]],
+         bytes_change=aq["bytes"] / sbh["bytes"] - 1,
+         frame_bytes_change=[a / b - 1 for a, b in zip(
+             aq["frame_bytes"], sbh["frame_bytes"])],
+         **{f"{k}_change": [a - b for a, b in zip(aq[k], sbh[k])]
+            for k in ("psnr_y", "psnr_u", "psnr_v", "ssim_y")})
+    by_path["1080p_aq_la"] = phase_1080p_aq_la(dev)
     by_path["1080p_qt2_rdoq"] = phase_1080p(dev, "1080p_qt2_rdoq", 2, 2,
                                             {"rdoq": True})
     phase_1080p_intra(dev)

@@ -120,10 +120,15 @@ def test_uniform_inter_bs_and_deblock_match_jax(qp):
 
 
 def test_uniform_deblock_refuses_a_qp_map():
-    y = torch.zeros((32, 32), dtype=torch.int32)
-    u = torch.zeros((16, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="rate-control"):
-        t_db.deblock_frame_uniform(y, u, u, 16, np.full((2, 2), 30), 30)
+    """A per-CU QP map is taken now (AQ / cuTree; tests/test_torch_aq_ops.py
+    holds it against the JAX package): a map at one QP filters as that QP
+    does."""
+    rng = np.random.default_rng(12)
+    y = torch.as_tensor(rng.integers(0, 256, (32, 32)), dtype=torch.int32)
+    u = torch.as_tensor(rng.integers(0, 256, (16, 16)), dtype=torch.int32)
+    a = t_db.deblock_frame_uniform(y, u, u, 16, np.full((2, 2), 38), 35)
+    b = t_db.deblock_frame_uniform(y, u, u, 16, 38, 35)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
 
 
 def _cell_maps(rng, gr, gc):

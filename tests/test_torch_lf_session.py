@@ -135,7 +135,8 @@ def test_filters_do_not_open_other_later_options():
         t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
                                   hme=True, **LF)
     with pytest.raises(NotImplementedError, match="rate-control"):
-        t_top.VideoEncoderSession(64, 48, device="cpu", aq_mode=2, **LF)
+        t_top.VideoEncoderSession(64, 48, device="cpu", rc_mode="crf",
+                                  **LF)
 
 
 @pytest.mark.slow

@@ -1,11 +1,21 @@
 """The port's CTU32 depth-2 quadtree programs against the JAX package's
 (CPU, 128x96, exact): every key of the intra, the P and the B decision
-dict, recon included. The content mixes smooth gradients, strong texture
+dict, recon included, and of the intra dict under a non-uniform per-CTU
+QP map (AQ / cuTree). The content mixes smooth gradients, strong texture
 and, in the P frame, a patch the reference picture does not have, so the
 decided trees hold 32, 16 and 8 leaves and the P frame has intra leaves.
 The B frame takes the I frame's recon as L0 and the P frame's as L1; its
 source is the first frame on top, the second at the bottom and their mean
-between, so L0, L1 and bi each win somewhere."""
+between, so L0, L1 and bi each win somewhere.
+
+The JAX programs take minutes to compile on the CPU, so the tier-1 tests
+hold the port's dicts to digests of the JAX dicts pinned here (sha256 of
+every array in key order; the P and B frames predict from the port's own
+recon, which equals the JAX recon while the intra digest holds); the slow
+test recomputes the digests from the live JAX programs and compares the
+dicts key by key."""
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +30,21 @@ from x265_yuuki_asuna_tpu_torch.models.intra_encoder import IntraQTEncoder
 
 torch.set_num_threads(2)
 W, H = 128, 96
+# a non-uniform per-CTU QP map of the 3 x 4 CTUs, and its slice QP
+QMAP = np.array([[24, 30, 36, 27], [33, 38, 25, 31], [29, 35, 26, 32]],
+                np.int32)
+QMAP_SLICE = 30
+# sha256 (digest()) of the JAX package's decision dicts: the intra frame
+# at qp 30, the P frame at qp 32, the B frame at qp 33 and the intra frame
+# at QMAP
+DIGEST = {"intra":
+            "9b58e85e956c5f676fa14f64db063a70fff2179d3e67221a1c2d9cf3258fff34",
+          "p":
+            "7c86f5a97b283ab0059880bb81ea6cbb4c8a36a7aafd1a94525e0dc4117c141d",
+          "b":
+            "d89ea336841008d3c40e6c22d8353a4f24b5bcd9f2f7de693bddeb98c3cb0f16",
+          "intra_aq":
+            "7b4283d9137db05eaeff741499b6349998314ee34772eb4c2c5371c20af6922b"}
 
 
 def _frames():
@@ -60,6 +85,23 @@ def _jax_dict(out):
     return out
 
 
+def digest(d: dict) -> str:
+    """sha256 of a decision dict: each key in sorted order with its
+    array's shape and int64 values (None as such); recon_dev left out."""
+    h = hashlib.sha256()
+    for k in sorted(d):
+        if k == "recon_dev":
+            continue
+        h.update(k.encode())
+        v = d[k]
+        if v is None:
+            h.update(b"None")
+        else:
+            a = np.ascontiguousarray(np.asarray(v), np.int64)
+            h.update(repr(a.shape).encode() + a.tobytes())
+    return h.hexdigest()
+
+
 def _assert_same_dict(j, t):
     t = dict(t)
     t.pop("recon_dev")
@@ -71,51 +113,88 @@ def _assert_same_dict(j, t):
             assert np.array_equal(np.asarray(v), t[k]), k
 
 
+def _recon(d):
+    return d["recon_y"], d["recon_u"], d["recon_v"]
+
+
 @pytest.fixture(scope="module")
-def jax_frames():
+def port_frames():
+    """The port's dicts: I (qp 30), P (qp 32) from the I recon, B (qp 33)
+    from both, and I at QMAP."""
     f0, f1 = _frames()
-    ji = _jax_dict(IntraFrameEncoder(IntraFrameConfig(
-        width=W, height=H, cu_size=32, qp=30, max_depth=2, dpb=True))
-        .encode_frame(*f0, qp=30))
-    refs = (ji["recon_y"], ji["recon_u"], ji["recon_v"])
-    jp = _jax_dict(InterFrameEncoder(InterFrameConfig(
-        width=W, height=H, cu_size=32, qp=32, max_depth=2, dpb=True))
-        .encode_frame(*f1, *refs, qp=32))
+    ti = IntraQTEncoder(W, H, "cpu").encode_frame(*f0, 30)
+    tp = InterQTEncoder(W, H, "cpu").encode_frame(*f1, *_recon(ti), 32)
     fb = _b_frame(f0, f1)
-    jb = _jax_dict(InterFrameEncoder(InterFrameConfig(
-        width=W, height=H, cu_size=32, qp=33, max_depth=2, dpb=True,
-        bi=True, intra_in_b=False)).encode_frame(
-            *fb, *refs, qp=33, ref1_y=jp["recon_y"], ref1_u=jp["recon_u"],
-            ref1_v=jp["recon_v"]))
-    return f0, f1, ji, jp, fb, jb
+    tb = InterQTEncoder(W, H, "cpu").encode_frame(*fb, *_recon(ti), 33,
+                                                  ref1=_recon(tp))
+    taq = IntraQTEncoder(W, H, "cpu").encode_frame(*f0, QMAP,
+                                                   slice_qp=QMAP_SLICE)
+    return {"intra": ti, "p": tp, "b": tb, "intra_aq": taq}
 
 
-def test_intra_qt_decisions_match_jax(jax_frames):
-    f0, _, ji, *_ = jax_frames
-    to = IntraQTEncoder(W, H, "cpu").encode_frame(*f0, 30)
-    _assert_same_dict(ji, to)
+def test_intra_qt_decisions_match_jax(port_frames):
+    to = port_frames["intra"]
+    assert digest(to) == DIGEST["intra"]
     assert to["split"].any() and to["split16"].any() and not to["split"].all()
 
 
-def test_p_qt_decisions_match_jax(jax_frames):
-    _, f1, ji, jp, *_ = jax_frames
-    refs = (ji["recon_y"], ji["recon_u"], ji["recon_v"])
-    to = InterQTEncoder(W, H, "cpu").encode_frame(*f1, *refs, 32)
-    _assert_same_dict(jp, to)
+def test_p_qt_decisions_match_jax(port_frames):
+    to = port_frames["p"]
+    assert digest(to) == DIGEST["p"]
     assert to["split"].any() and to["split16"].any()
     assert to["use_intra"].any() or to["use_intra4"].any()
     assert not to["use_intra8"].any()          # P slices: no 8x8 intra
 
 
-def test_b_qt_decisions_match_jax(jax_frames):
-    _, _, ji, jp, fb, jb = jax_frames
-    ref0 = (ji["recon_y"], ji["recon_u"], ji["recon_v"])
-    ref1 = (jp["recon_y"], jp["recon_u"], jp["recon_v"])
-    to = InterQTEncoder(W, H, "cpu").encode_frame(*fb, *ref0, 33, ref1=ref1)
-    _assert_same_dict(jb, to)
+def test_b_qt_decisions_match_jax(port_frames):
+    to = port_frames["b"]
+    assert digest(to) == DIGEST["b"]
     # every prediction direction occurs, at some size, and no leaf is intra
     pdirs = np.concatenate([to[k].reshape(-1)
                             for k in ("pdir", "pdir4", "pdir8")])
     assert set(np.unique(pdirs)) == {1, 2, 3}
     assert not any(to[k].any() for k in ("use_intra", "use_intra4",
                                          "use_intra8"))
+
+
+def test_intra_qt_aq_decisions_match_jax(port_frames):
+    """The intra program under a per-CTU QP map: per-block QPs and
+    lambdas, the commit at each leaf's CTU QP, the K9 contexts from the
+    first CTU's QP."""
+    to = port_frames["intra_aq"]
+    assert digest(to) == DIGEST["intra_aq"]
+    plain = port_frames["intra"]
+    assert not np.array_equal(to["levels_y"], plain["levels_y"])
+    assert not np.array_equal(to["split16"], plain["split16"])
+
+
+@pytest.fixture(scope="module")
+def jax_frames():
+    """The JAX package's dicts of port_frames' frames (four program
+    compiles of minutes each)."""
+    f0, f1 = _frames()
+    enc = IntraFrameEncoder(IntraFrameConfig(
+        width=W, height=H, cu_size=32, qp=30, max_depth=2, dpb=True))
+    ji = _jax_dict(enc.encode_frame(*f0, qp=30))
+    jp = _jax_dict(InterFrameEncoder(InterFrameConfig(
+        width=W, height=H, cu_size=32, qp=32, max_depth=2, dpb=True))
+        .encode_frame(*f1, *_recon(ji), qp=32))
+    fb = _b_frame(f0, f1)
+    jb = _jax_dict(InterFrameEncoder(InterFrameConfig(
+        width=W, height=H, cu_size=32, qp=33, max_depth=2, dpb=True,
+        bi=True, intra_in_b=False)).encode_frame(
+            *fb, *_recon(ji), qp=33, ref1_y=jp["recon_y"],
+            ref1_u=jp["recon_u"], ref1_v=jp["recon_v"]))
+    jaq = _jax_dict(enc.encode_frame(*f0, qp=QMAP.reshape(-1),
+                                     slice_qp=QMAP_SLICE))
+    return {"intra": ji, "p": jp, "b": jb, "intra_aq": jaq}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(DIGEST))
+def test_digests_recomputed_from_the_jax_programs(name, jax_frames,
+                                                   port_frames):
+    """Where the digests come from: the JAX programs' dicts, which the
+    port's equal key by key."""
+    assert digest(jax_frames[name]) == DIGEST[name]
+    _assert_same_dict(jax_frames[name], port_frames[name])

@@ -2,13 +2,14 @@
 sessions (CPU). The intra and P decision dicts with sign hiding and the
 intra dict with context RDOQ against the JAX programs at 128x96, exact,
 on test_torch_qt_programs.py's content (the P frame predicts from the
-intra frame's recon); and the video sessions with sign hiding or RDOQ
-over the golden clip, hash SEI on, against the JAX sessions' md5s pinned
-here: the quadtree IPPP session with each, the uniform IPPP session with
-each (sign hiding with the filters), and the B-pyramid session with sign
-hiding and the filters (the flagship's set). The slow tests recompute
-the pins from the JAX sessions; the card twins (gpu-marked) hold them on
-the card."""
+intra frame's recon), held to digests of the JAX dicts pinned here; and
+the video sessions with sign hiding or RDOQ over the golden clip, hash
+SEI on, against the JAX sessions' md5s pinned here: the quadtree IPPP
+session with each, the uniform IPPP session with each (sign hiding with
+the filters), and the B-pyramid session with sign hiding and the filters
+(the flagship's set). The slow tests recompute the digests from the live
+JAX programs and the md5s from the JAX sessions; the card twins
+(gpu-marked) hold the md5s on the card."""
 import hashlib
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 from golden_corpus import clip
 from test_torch_qt_b_session import B_KW, encode_push
 from test_torch_qt_programs import W, H, _assert_same_dict, _frames, \
-    _jax_dict
+    _jax_dict, _recon, digest
 from x265_yuuki_asuna_tpu.models.inter_encoder import (InterFrameConfig,
                                                        InterFrameEncoder)
 from x265_yuuki_asuna_tpu.models.intra_encoder import (IntraFrameConfig,
@@ -45,6 +46,15 @@ MD5 = {"qt2_sbh_sei": "af92aec53e249fc7931649e5d144417b",
        "uniform_sbh_lf_sei": "86134eabdce143334d707d4340d084a3",
        "uniform_rdoq_sei": "dcf4dbd51a89fa62ffd089ef3bfb2ed0",
        "qt2_b_sbh_lf_sei": "2734e716459f0c1887d6c689eff0055b"}
+# digest() of the JAX programs' dicts at 128x96: the intra frame at qp 30
+# with sign hiding and with RDOQ, the P frame at qp 32 with sign hiding
+# from the first's recon
+DIGEST = {"intra_sbh":
+            "ae9948963aaa0ffe956a205609f05ef39b4b68376c64f561bcf87f89dc102b04",
+          "intra_rdoq":
+            "10d09f954c7ff0c3e34792daea7e1807031646f3b508071c293579bc22ad8fa4",
+          "p_sbh":
+            "9b974cd78e812524d7fcc0690459d3bbbab714bf541b5d71f87b9f7c7bbd4c84"}
 
 
 def encode(top, name, **extra):
@@ -61,6 +71,20 @@ def encode(top, name, **extra):
 
 
 @pytest.fixture(scope="module")
+def port_frames():
+    """The port's dicts: the intra frame with sign hiding and with RDOQ,
+    and the P frame with sign hiding from the first's recon."""
+    f0, f1 = _frames()
+    ti = IntraQTEncoder(W, H, "cpu", quant_fn=Quantizer(sbh=True)) \
+        .encode_frame(*f0, 30)
+    tr = IntraQTEncoder(W, H, "cpu", quant_fn=Quantizer(rdoq=True)) \
+        .encode_frame(*f0, 30)
+    tp = InterQTEncoder(W, H, "cpu", quant_fn=Quantizer(sbh=True)) \
+        .encode_frame(*f1, *_recon(ti), 32)
+    return {"intra_sbh": ti, "intra_rdoq": tr, "p_sbh": tp}
+
+
+@pytest.fixture(scope="module")
 def jax_frames():
     """The JAX intra program with sign hiding and with RDOQ, and the P
     program with sign hiding from the first's recon (three compiles)."""
@@ -70,35 +94,36 @@ def jax_frames():
         qp=30, sbh=True, **cfg)).encode_frame(*f0, qp=30))
     jr = _jax_dict(IntraFrameEncoder(IntraFrameConfig(
         qp=30, rdoq=True, **cfg)).encode_frame(*f0, qp=30))
-    refs = (ji["recon_y"], ji["recon_u"], ji["recon_v"])
     jp = _jax_dict(InterFrameEncoder(InterFrameConfig(
-        qp=32, sbh=True, **cfg)).encode_frame(*f1, *refs, qp=32))
-    return f0, f1, ji, jr, jp
+        qp=32, sbh=True, **cfg)).encode_frame(*f1, *_recon(ji), qp=32))
+    return {"intra_sbh": ji, "intra_rdoq": jr, "p_sbh": jp}
 
 
-def test_intra_qt_sbh_decisions_match_jax(jax_frames):
-    f0, _, ji, *_ = jax_frames
-    to = IntraQTEncoder(W, H, "cpu", quant_fn=Quantizer(sbh=True)) \
-        .encode_frame(*f0, 30)
-    _assert_same_dict(ji, to)
-    plain = IntraQTEncoder(W, H, "cpu").encode_frame(*f0, 30)
+def test_intra_qt_sbh_decisions_match_jax(port_frames):
+    to = port_frames["intra_sbh"]
+    assert digest(to) == DIGEST["intra_sbh"]
+    plain = IntraQTEncoder(W, H, "cpu").encode_frame(*_frames()[0], 30)
     assert not np.array_equal(plain["levels_y"], to["levels_y"])
 
 
-def test_intra_qt_rdoq_decisions_match_jax(jax_frames):
-    f0, _, _, jr, _ = jax_frames
-    to = IntraQTEncoder(W, H, "cpu", quant_fn=Quantizer(rdoq=True)) \
-        .encode_frame(*f0, 30)
-    _assert_same_dict(jr, to)
+def test_intra_qt_rdoq_decisions_match_jax(port_frames):
+    assert digest(port_frames["intra_rdoq"]) == DIGEST["intra_rdoq"]
 
 
-def test_p_qt_sbh_decisions_match_jax(jax_frames):
-    _, f1, ji, _, jp = jax_frames
-    refs = (ji["recon_y"], ji["recon_u"], ji["recon_v"])
-    to = InterQTEncoder(W, H, "cpu", quant_fn=Quantizer(sbh=True)) \
-        .encode_frame(*f1, *refs, 32)
-    _assert_same_dict(jp, to)
+def test_p_qt_sbh_decisions_match_jax(port_frames):
+    to = port_frames["p_sbh"]
+    assert digest(to) == DIGEST["p_sbh"]
     assert to["use_intra"].any() or to["use_intra4"].any()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(DIGEST))
+def test_digests_recomputed_from_the_jax_programs(name, jax_frames,
+                                                   port_frames):
+    """Where the digests come from: the JAX programs' dicts, which the
+    port's equal key by key."""
+    assert digest(jax_frames[name]) == DIGEST[name]
+    _assert_same_dict(jax_frames[name], port_frames[name])
 
 
 @pytest.mark.parametrize("name", sorted(MD5))

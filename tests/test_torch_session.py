@@ -147,7 +147,8 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 
 @pytest.mark.parametrize("option", [
     {"bframes": 3}, {"max_depth": 1}, {"rqt": True}, {"psy_rd": 2.0},
-    {"rc_mode": "crf"}, {"aq_mode": 2}, {"cutree": True}, {"weightp": True},
+    {"rc_mode": "crf"}, {"scenecut_aware_qp": True}, {"qp_min": 10},
+    {"weightp": True},
     {"zones": "0,10,q=20"}, {"hrd": True}, {"wpp": True}, {"n_refs": 2},
     {"bit_depth": 10}, {"hme": True}, {"tmvp": True}, {"frame_dup": True},
     {"max_depth": 2, "cu_size": 64},

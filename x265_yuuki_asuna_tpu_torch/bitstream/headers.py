@@ -59,6 +59,8 @@ class PPSInfo:
     loop_filter_across_slices: int = 1
     deblocking_disabled: int = 0
     sign_hiding: int = 0
+    cu_qp_delta: int = 0             # per-CU QP (AQ / cuTree)
+    diff_cu_qp_delta_depth: int = 0  # quantization group = CTU
 
 
 def _profile_tier_level(bw: BitWriter, ptl: ProfileTierLevel):
@@ -177,7 +179,9 @@ def write_pps(pps: PPSInfo) -> bytes:
     bw.write_se(pps.init_qp - 26)
     bw.write_flag(0)             # constrained_intra_pred_flag
     bw.write_flag(0)             # transform_skip_enabled_flag
-    bw.write_flag(0)             # cu_qp_delta_enabled_flag
+    bw.write_flag(pps.cu_qp_delta)   # cu_qp_delta_enabled_flag
+    if pps.cu_qp_delta:
+        bw.write_ue(pps.diff_cu_qp_delta_depth)
     bw.write_se(0)               # pps_cb_qp_offset
     bw.write_se(0)               # pps_cr_qp_offset
     bw.write_flag(0)             # pps_slice_chroma_qp_offsets_present_flag

@@ -34,7 +34,7 @@ def load() -> ctypes.CDLL:
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
-            + [ctypes.c_int] * 8 + [ctypes.c_void_p] + out)
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2 + out)
         _lib = lib
     return _lib
 
@@ -51,6 +51,18 @@ def _sao_ptr(sao, ncu: int, keep: list):
     return a.ctypes.data
 
 
+def _qp_ptr(qp_map, ncu: int, keep: list):
+    """The writer's pointer to each CTU's QP ([ncu] int32, from a [rows,
+    cols] map), None without a QP map (no cu_qp_delta syntax)."""
+    if qp_map is None:
+        return None
+    q = np.ascontiguousarray(np.asarray(qp_map).reshape(-1), np.int32)
+    if q.shape != (ncu,):
+        raise ValueError(f"qp_map: {q.size} QPs for {ncu} CTUs")
+    keep.append(q)
+    return q.ctypes.data
+
+
 def _finish(nbytes: int, out: np.ndarray, tail, tail_bits):
     if nbytes < 0:
         raise RuntimeError("native slice writer: output buffer too small")
@@ -60,10 +72,11 @@ def _finish(nbytes: int, out: np.ndarray, tail, tail_bits):
 def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
                        levels_cb: np.ndarray, levels_cr: np.ndarray,
                        log2cu: int, qp: int, sign_hiding: bool = False,
-                       sao=None):
+                       sao=None, qp_map=None):
     """I-slice CABAC data on the uniform CU grid, with each CU's SAO
-    parameters when sao ([ncu, 18]) is given; sign_hiding leaves out the
-    hidden signs. Returns (payload_bytes, tail_value, tail_bits)."""
+    parameters when sao ([ncu, 18]) is given and its cu_qp_delta from
+    qp_map ([rows, cols]) when given; sign_hiding leaves out the hidden
+    signs. Returns (payload_bytes, tail_value, tail_bits)."""
     lib = load()
     rows, cols = modes.shape
     keep = []
@@ -78,8 +91,8 @@ def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
         m.ctypes.data, ly.ctypes.data, lcb.ctypes.data, lcr.ctypes.data,
         rows, cols, log2cu, qp,
         1, 1, int(sign_hiding),  # part_mode coded, chroma present
-        _sao_ptr(sao, rows * cols, keep), None, 8,   # no QP map, 8-bit
-        0, 0,                    # not lossless, 4:2:0
+        _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
+        8, 0, 0,                 # 8-bit, not lossless, 4:2:0
         out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
 
@@ -88,10 +101,12 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
                    mvx_q: np.ndarray, mvy_q: np.ndarray,
                    levels_y: np.ndarray, levels_cb: np.ndarray,
                    levels_cr: np.ndarray, log2cu: int, qp: int,
-                   max_merge: int = 3, sign_hiding: bool = False, sao=None):
+                   max_merge: int = 3, sign_hiding: bool = False, sao=None,
+                   qp_map=None):
     """P-slice CABAC data incl. the merge/AMVP/skip signaling decisions
-    (and each CU's SAO parameters when sao is given; sign_hiding leaves out
-    the hidden signs). Returns (payload, tail, tail_bits)."""
+    (and each CU's SAO parameters when sao is given, its cu_qp_delta from
+    qp_map when given; sign_hiding leaves out the hidden signs). Returns
+    (payload, tail, tail_bits)."""
     lib = load()
     rows, cols = use_intra.shape
     keep = []
@@ -109,8 +124,8 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
         ui.ctypes.data, im.ctypes.data, mx.ctypes.data, my.ctypes.data,
         ly.ctypes.data, lcb.ctypes.data, lcr.ctypes.data,
         rows, cols, log2cu, qp, max_merge, int(sign_hiding),
-        _sao_ptr(sao, rows * cols, keep), None, 8,   # no QP map, 8-bit
-        out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+        _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
+        8, out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
 
 
@@ -135,14 +150,16 @@ _QT2_SHAPES = {"split": (), "split16": (4,), "use_intra": (), "modes": (),
 
 def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
                      max_merge: int = 3, poc: int = 0, poc_l0: int = 0,
-                     poc_l1: int = 0, sign_hiding: bool = False, sao=None):
+                     poc_l1: int = 0, sign_hiding: bool = False, sao=None,
+                     qp_map=None):
     """CTU32 quadtree slice CABAC data (slice_type 2 = I, 1 = P, 0 = B;
     depth 1 or 2) from the quadtree programs' decision dict. A B slice
     reads pdir* (1 = L0, 2 = L1, 3 = bi) and the L1 MVs mv1x/mv41x/mv81x
     (and y); poc, poc_l0 and poc_l1 scale its AMVP candidates.
     sign_hiding leaves out the hidden signs. sao: each CTU's SAO parameters
-    ([ncu, 18]), coded before the CTU, or None. Returns (payload, tail,
-    tail_bits)."""
+    ([ncu, 18]), coded before the CTU, or None. qp_map: each CTU's QP
+    ([rows, cols]; its cu_qp_delta is coded at its first CU with a coded
+    cbf), or None. Returns (payload, tail, tail_bits)."""
     if slice_type not in (0, 1, 2):
         raise ValueError(f"slice type {slice_type}: 0 = B, 1 = P, 2 = I")
     lib = load()
@@ -172,7 +189,7 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
     nbytes = lib.asuna_encode_slice_qt2(
         slice_type, max_depth, *args, rows, cols, qp, max_merge, poc,
         poc_l0, poc_l1, int(sign_hiding), _sao_ptr(sao, rows * cols, keep),
-        buf.ctypes.data,
+        _qp_ptr(qp_map, rows * cols, keep), buf.ctypes.data,
         cap, ctypes.byref(tail),
         ctypes.byref(tail_bits))
     return _finish(nbytes, buf, tail, tail_bits)

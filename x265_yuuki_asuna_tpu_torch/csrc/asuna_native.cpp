@@ -1221,6 +1221,7 @@ struct SliceCtx {
     int sliceType;            // 0=B, 1=P, 2=I
     int pocCur, pocL0, pocL1;
     int signHiding;           // sign_data_hiding_enabled_flag
+    QpChain qc;               // per-CTU cu_qp_delta chain (QG == CTU)
 };
 
 static void extractLv(const int32_t* src, int srcN, int oy, int ox, int px,
@@ -1255,6 +1256,7 @@ static void codeIntraPart(SliceCtx& S, int gy, int gx, int s, int mode,
     cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
     cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
     cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+    S.qc.maybeCode(cb, cbfY || cbfCb || cbfCr);
     if (cbfY) encodeResidual(cb, qly, log2cu, true, mode, S.signHiding);
     if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, mode, S.signHiding);
     if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, mode, S.signHiding);
@@ -1277,6 +1279,7 @@ static void codeInterTransformTree(SliceCtx& S, const int32_t* qly,
     cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
     int cbfY = anyNonzero(qly, nl * nl);
     if (cbfCb || cbfCr) cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+    S.qc.maybeCode(cb, cbfY || cbfCb || cbfCr);
     if (cbfY) encodeResidual(cb, qly, log2cu, true, -1, S.signHiding);
     if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, -1, S.signHiding);
     if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, -1, S.signHiding);
@@ -1446,6 +1449,8 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
 // the B slice's AMVP candidates. signHiding: the PPS's
 // sign_data_hiding_enabled_flag. sao: int32[ncu*18] per-CTU SAO params,
 // coded before each CTU with left / up merge candidates (null: no SAO).
+// qpMap: int32[ncu] each CTU's QP (its cu_qp_delta is coded at its first
+// CU with a coded cbf; null: no delta syntax).
 // Returns the payload size, -1 when outBuf is too small.
 extern "C" int asuna_encode_slice_qt2(
     int sliceType, int maxDepth,
@@ -1462,7 +1467,7 @@ extern "C" int asuna_encode_slice_qt2(
     const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
     int rows, int cols, int qp, int maxMerge,
     int pocCur, int pocL0, int pocL1, int signHiding, const int32_t* sao,
-    uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
+    const int32_t* qpMap, uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
 {
     using namespace qt2;
     if (sliceType < 0 || sliceType > 2) return -2;
@@ -1483,6 +1488,8 @@ extern "C" int asuna_encode_slice_qt2(
     S.sliceType = sliceType;
     S.pocCur = pocCur; S.pocL0 = pocL0; S.pocL1 = pocL1;
     S.signHiding = signHiding;
+    S.qc.qpMap = qpMap;
+    S.qc.qpPrev = qp;
     const bool intra = sliceType == 2;
     // CU i's motion: pdir (1 without a pdir array), the used lists' MVs
     auto mot = [](const int32_t* pd, const int32_t* x0, const int32_t* y0,
@@ -1525,6 +1532,7 @@ extern "C" int asuna_encode_slice_qt2(
                 encodeSaoCtu(cb, sao + idx * 18,
                              c > 0 ? sao + (idx - 1) * 18 : nullptr,
                              r > 0 ? sao + (idx - cols) * 18 : nullptr, 8);
+            S.qc.startCtu((int)idx);
             codeCtuQt2(S, D, r, c, depth, g);
             cb.encodeBinTrm(idx == (size_t)ncu - 1 ? 1 : 0);
         }

@@ -33,6 +33,19 @@ sbh (sign-bit hiding) and rdoq (RDOQ, with psy_rdoq) change how every
 program picks its levels (ops/quant.Quantizer); sign hiding is off under
 RDOQ, as in the reference.
 
+aq_mode (1-4, with aq_strength) and cutree give every frame a per-CU QP
+map (the CTU's on the quadtree): adaptive quantization's offsets from the
+source's AC energy (the intra session's with the chroma planes', the
+video session's luma only, as in the reference) and cuTree's from the
+lookahead's motion, clipped around the frame QP. The map goes into every
+program, the deblock (at the decoder-side QP: a CTU with no coded residual
+keeps the previous one's) and the writers (PPS cu_qp_delta, one delta per
+CTU). cuTree takes a causal average over the frames so far; with
+rc_lookahead > 0 an IPPP session delays its frames through push_la /
+flush_la and propagates the costs of the window after each frame
+backwards (models/slicetype.py). B sessions keep the reference's parked
+average, whose offsets stay 0.
+
 With bframes > 0 (max_depth=2, b_adapt=0) frames go through push_frame
 and flush: each mini-GOP of bframes + 1 frames codes its last frame as a P
 anchor, then the frames before it as B frames between the two anchors;
@@ -58,6 +71,7 @@ from ..bitstream import native, sei as SEI
 from ..bitstream.bitio import (BitWriter, wrap_nal, NAL_IDR_W_RADL,
                                NAL_SUFFIX_SEI, NAL_TRAIL_N, NAL_TRAIL_R)
 from ..ops import deblock as DB
+from ..ops import filters as FL
 from ..ops import sao as SAO
 from ..ops.pixel import ssim_plane
 from ..ops.quant import Quantizer
@@ -66,14 +80,14 @@ from ..utils.device import exact_fp32_matmul, resolve_device
 from .inter_encoder import InterFrameEncoder, InterQTEncoder
 from .intra_encoder import (IntraFrameEncoder, IntraQTEncoder,
                             chroma_qp_from_luma)
+from . import slicetype
 from .lookahead import Lookahead
-from .ratecontrol import RateControl
+from .ratecontrol import RateControl, compute_aq_offsets
 
 FPS = (25, 1)      # default signalled frame rate (VUI timing, level)
 MAX_MERGE = 3      # merge candidates (five_minus_max_num_merge_cand = 2)
 
 _RC = "the CRF/ABR/VBV rate-control slice"
-_AQ = "the AQ/cuTree rate-control slice"
 _P = "a later P-frame slice"
 # every keyword of the JAX sessions this port has no slice for yet, with
 # the slice that adds it (ROADMAP Queue 1)
@@ -83,7 +97,6 @@ _LATER = {
     "zones": _RC, "qp_min": _RC, "qp_max": _RC, "hrd": _RC,
     "scenecut_aware_qp": _RC, "scenecut_qp_delta": _RC,
     "scenecut_window": _RC,
-    "aq_mode": _AQ, "aq_strength": _AQ, "cutree": _AQ, "rc_lookahead": _AQ,
     "hme": "the HME slice", "hme_range": "the HME slice",
     "hist_scenecut": "the lookahead b-adapt and histogram-scenecut slice",
     "recon_out": "the flagship session slice",
@@ -108,8 +121,7 @@ _VIDEO_DEFAULTS = {
     "stats_read": None, "vbv_maxrate_kbps": 0, "vbv_bufsize_kbps": 0,
     "zones": None, "qp_min": 4, "qp_max": 51, "hrd": False,
     "scenecut_aware_qp": False, "scenecut_qp_delta": 5,
-    "scenecut_window": 12, "aq_mode": 0, "aq_strength": 1.0,
-    "cutree": False, "rc_lookahead": 0, "hme": False, "hme_range": 16,
+    "scenecut_window": 12, "hme": False, "hme_range": 16,
     "hist_scenecut": False, "recon_out": True, "search_range": 16,
     "max_merge": 3, "weightp": False, "n_refs": 1, "tmvp": False,
     "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
@@ -117,8 +129,7 @@ _VIDEO_DEFAULTS = {
     "open_gop": False, "b_intra": False, "rqt": False, "psy_rd": 0.0,
     "bit_depth": 8, "hash_type": 0, "wpp": False}
 _INTRA_DEFAULTS = {
-    "lossless": False, "bit_depth": 8, "aq_mode": 0, "aq_strength": 1.0,
-    "slices": 1, "wpp": False, "psy_rd": 0.0, "hash_type": 0,
+    "lossless": False, "bit_depth": 8, "slices": 1, "wpp": False, "psy_rd": 0.0, "hash_type": 0,
     "nr_intra": 0, "scaling_lists": None, "fast_intra": False,
     "csp": "i420"}
 
@@ -173,27 +184,46 @@ def frame_quality(recon, y, u, v, device="cpu"):
             ssim_plane(np.asarray(recon[0]), np.asarray(y), device))
 
 
+def effective_qp_map(out: dict, qp_map, slice_qp: int):
+    """The decoder-side QP of every CU of a per-CU QP map ([rows, cols]), or
+    None without one: a CU with no coded residual codes no cu_qp_delta, so
+    its QP stays the previous coded CU's (the slice QP before the first;
+    spec 8.6.1). The loop filter must use these values."""
+    if qp_map is None:
+        return None
+    rows, cols = qp_map.shape
+    has = (np.asarray(out["levels_y"]).reshape(rows, cols, -1).any(-1)
+           | np.asarray(out["levels_cb"]).reshape(rows, cols, -1).any(-1)
+           | np.asarray(out["levels_cr"]).reshape(rows, cols, -1).any(-1))
+    return FL.effective_qp(torch.as_tensor(qp_map.reshape(-1)),
+                           torch.as_tensor(has.reshape(-1)),
+                           slice_qp).numpy().reshape(rows, cols)
+
+
 def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
                    sao: bool, src3, device) -> None:
     """The uniform grid's in-loop filters on a decision dict's recon (the
     JAX sessions' host path): the IDR deblocked with every CU edge at BS
-    2, a P frame with per-edge BS; then SAO per cu x cu CU in the host
-    form. src3: the padded source planes. Sets the filtered recon_* and,
-    with sao, "sao" (packed [ncu, 18]). Runs inside a profiler range named
-    "filters"."""
+    2, a P frame with per-edge BS, at the slice QP qp or, with a "qp_map"
+    in out, at each CU's decoder-side QP; then SAO per cu x cu CU in the
+    host form at the slice QP. src3: the padded source planes. Sets the
+    filtered recon_* and, with sao, "sao" (packed [ncu, 18]). Runs inside
+    a profiler range named "filters"."""
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     with torch.profiler.record_function("filters"):
         rec = tuple(t(out[k]).to(torch.int32)
                     for k in ("recon_y", "recon_u", "recon_v"))
         qpc = chroma_qp_from_luma(qp)
+        qmap = effective_qp_map(out, out.get("qp_map"), qp)
+        qarg = qp if qmap is None else qmap
         if deblock and is_idr:
-            rec = DB.deblock_frame_uniform(*rec, cu, qp, qpc)
+            rec = DB.deblock_frame_uniform(*rec, cu, qarg, qpc)
         elif deblock:
             cbf = t(out["levels_y"]).ne(0).flatten(2).any(2)
             bs_v, bs_h = DB.compute_bs_uniform(
                 t(out["use_intra"]), cbf, None, t(out["mvx"]),
                 t(out["mvy"]))
-            rec = DB.deblock_frame_inter(*rec, cu, qp, qpc, bs_v, bs_h)
+            rec = DB.deblock_frame_inter(*rec, cu, qarg, qpc, bs_v, bs_h)
         if sao:
             src = tuple(t(p).to(torch.int32) for p in src3)
             rec, params = SAO.sao_frame(rec, src, cu, qp, "host")
@@ -272,11 +302,15 @@ class IntraEncoderSession:
     the host form. sbh / rdoq / psy_rdoq: sign-bit hiding, RDOQ (sign
     hiding off under RDOQ), psy-RDOQ. fps sets the VUI timing and the
     level. info_sei, master_display and max_cll choose the headers' SEI.
-    sei_provider, when set, is called with each frame's display index and
-    returns bytes that go before its slice. device=None runs on the CUDA
-    card (and raises when there is none); device="cpu" runs every
-    kernel's plain PyTorch version. Options of the JAX session outside
-    these slices raise NotImplementedError."""
+    aq_mode (1-4) / aq_strength: adaptive quantization from the luma and
+    chroma energies of each frame coded through encode_frame (as in the
+    reference, a batch codes its frames at the session QP, with the PPS's
+    cu_qp_delta on and no delta in its slices). sei_provider, when set, is
+    called with each frame's display index and returns bytes that go
+    before its slice. device=None runs on the CUDA card (and raises when
+    there is none); device="cpu" runs every kernel's plain PyTorch
+    version. Options of the JAX session outside these slices raise
+    NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
                  cu_size: int = 16, fps: Tuple[int, int] = FPS,
@@ -284,7 +318,8 @@ class IntraEncoderSession:
                  sao: bool = False, rdoq: bool = False, sbh: bool = False,
                  psy_rdoq: float = 0.0, info_sei: bool = True,
                  master_display: str = None, max_cll: str = None,
-                 max_depth: int = 0, dpb_device: bool = False, device=None,
+                 max_depth: int = 0, dpb_device: bool = False,
+                 aq_mode: int = 0, aq_strength: float = 1.0, device=None,
                  **options):
         _check_options(options, _INTRA_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
@@ -296,6 +331,7 @@ class IntraEncoderSession:
         self.hash_sei = hash_sei
         self.deblock, self.sao = bool(deblock), bool(sao)
         self.sbh = bool(sbh) and not rdoq
+        self.aq_mode, self.aq_strength = aq_mode, aq_strength
         self.quant_fn = Quantizer(self.sbh, rdoq, psy_rdoq)
         self.dpb_device = bool(dpb_device) and max_depth > 0
         self.info_sei = info_sei
@@ -316,7 +352,8 @@ class IntraEncoderSession:
             sao_enabled=int(self.sao))
         self.pps = HDR.PPSInfo(init_qp=26,
                                deblocking_disabled=int(not self.deblock),
-                               sign_hiding=int(self.sbh))
+                               sign_hiding=int(self.sbh),
+                               cu_qp_delta=int(bool(aq_mode)))
         if max_depth:
             self.frame_encoder = IntraQTEncoder(
                 self.coded_w, self.coded_h, self.device, self.deblock,
@@ -358,17 +395,33 @@ class IntraEncoderSession:
                 G.pad_plane(u, self.coded_h // 2, self.coded_w // 2),
                 G.pad_plane(v, self.coded_h // 2, self.coded_w // 2))
 
-    def code(self, yp, up, vp, qp: int, with_sao: bool = True) -> dict:
-        """The decision dict of one intra picture from padded planes, its
-        recon filtered (with_sao=False: deblocked only) and, with SAO, its
-        parameters under "sao"."""
+    def code(self, yp, up, vp, qp: int, with_sao: bool = True,
+             qp_map=None) -> dict:
+        """The decision dict of one intra picture from padded planes at the
+        slice QP qp and, when given, the per-CU QP map qp_map (kept under
+        "qp_map"), its recon filtered (with_sao=False: deblocked only)
+        and, with SAO, its parameters under "sao"."""
         st = self.stage_ms
+        q = qp if qp_map is None else qp_map
         if self.max_depth:
-            return _program(st, "intra", self.frame_encoder, yp, up, vp, qp,
-                            with_sao=with_sao)
-        out = _program(st, "intra", self.frame_encoder, yp, up, vp, qp)
-        self._filter(out, qp, (yp, up, vp), with_sao)
+            out = _program(st, "intra", self.frame_encoder, yp, up, vp, q,
+                           with_sao=with_sao, slice_qp=qp)
+        else:
+            out = _program(st, "intra", self.frame_encoder, yp, up, vp, q)
+        if qp_map is not None:
+            out["qp_map"] = qp_map
+        if not self.max_depth:
+            self._filter(out, qp, (yp, up, vp), with_sao)
         return out
+
+    def aq_map(self, yp, up, vp):
+        """The per-CU QP map of a frame from padded planes under AQ
+        (luma and chroma energies), or None without AQ."""
+        if not self.aq_mode:
+            return None
+        offs = compute_aq_offsets(yp, self.cu, self.aq_strength,
+                                  mode=self.aq_mode, u_plane=up, v_plane=vp)
+        return np.clip(self.qp + offs, 0, 51).astype(np.int32)
 
     def _filter(self, out: dict, qp: int, src3, with_sao: bool) -> None:
         sao = self.sao and with_sao
@@ -382,14 +435,16 @@ class IntraEncoderSession:
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
                                     slice_qp=qp, nal_type=NAL_IDR_W_RADL,
                                     sao=sao is not None)
+        qp_map = out.get("qp_map")
         if self.max_depth:
             res = native.encode_slice_qt2(2, self.max_depth, out, qp,
-                                          sign_hiding=self.sbh, sao=sao)
+                                          sign_hiding=self.sbh, sao=sao,
+                                          qp_map=qp_map)
         else:
             res = native.encode_intra_slice(
                 out["modes"], out["levels_y"], out["levels_cb"],
                 out["levels_cr"], self.cu.bit_length() - 1, qp,
-                sign_hiding=self.sbh, sao=sao)
+                sign_hiding=self.sbh, sao=sao, qp_map=qp_map)
         return _slice_nal(bw, res, NAL_IDR_W_RADL)
 
     def _result(self, out: dict, slice_nal: bytes, frame,
@@ -418,10 +473,16 @@ class IntraEncoderSession:
     def encode_frame(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> FrameResult:
         """Code one frame (8-bit planes at the source size) as an IDR."""
-        out = self.code(*self._pad(y, u, v), self.qp)
+        padded = self._pad(y, u, v)
+        qp_map = self._timed_aq(padded)
+        out = self.code(*padded, self.qp, qp_map=qp_map)
         nal = _timed(self.stage_ms, "serialize", self.assemble_slice, out,
                      self.qp)
         return self._result(out, nal, (y, u, v))
+
+    def _timed_aq(self, padded):
+        return _timed(self.stage_ms, "qp_map", self.aq_map, *padded) \
+            if self.aq_mode else None
 
     def submit_batch(self, frames, need_recon: bool = False):
         """Start a batch of frames ((y, u, v) each); returns a handle for
@@ -468,9 +529,12 @@ class VideoEncoderSession:
     max_depth=2 and b_adapt=0) codes fixed mini-GOPs with B frames through
     push_frame and flush, with the B-pyramid when b_pyramid is set.
     deblock / sao switch the in-loop filters on; sbh / rdoq / psy_rdoq
-    choose the levels (sign hiding is off under RDOQ); fps sets the VUI
-    timing, the level and keyint_min; quality_metrics=False leaves PSNR-U/V
-    and SSIM out of the results. device=None runs on the CUDA card (and
+    choose the levels (sign hiding is off under RDOQ); aq_mode /
+    aq_strength / cutree give each frame a per-CU QP map, and with cutree
+    rc_lookahead > 0 delays an IPPP session's frames through push_la /
+    flush_la for cuTree's window; fps sets the VUI timing, the level and
+    keyint_min; quality_metrics=False leaves PSNR-U/V and SSIM out of the
+    results. device=None runs on the CUDA card (and
     raises when there is none); device="cpu" runs every kernel's plain
     PyTorch version. Options of the JAX session outside these slices
     raise NotImplementedError."""
@@ -483,9 +547,19 @@ class VideoEncoderSession:
                  deblock: bool = False, sao: bool = False,
                  rdoq: bool = False, sbh: bool = False,
                  psy_rdoq: float = 0.0, quality_metrics: bool = True,
+                 aq_mode: int = 0, aq_strength: float = 1.0,
+                 cutree: bool = False, rc_lookahead: int = 0,
                  dpb_device: bool = None, device=None, **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
+        # frames wait rc_lookahead frames for cuTree's window (cuTree only)
+        self.la_depth = max(0, rc_lookahead) if cutree else 0
+        if self.la_depth and bframes > 0:
+            raise NotImplementedError(
+                f"rc_lookahead={rc_lookahead} with cutree and bframes="
+                f"{bframes}: the window under push_frame comes with the "
+                "lookahead b-adapt slice; IPPP sessions take it through "
+                "push_la / flush_la")
         if bframes > 0 and not max_depth:
             raise NotImplementedError(
                 f"bframes={bframes} with max_depth=0: the port codes B "
@@ -534,6 +608,10 @@ class VideoEncoderSession:
         self.sps, self.pps = self.intra_sess.sps, self.intra_sess.pps
         self.sps.max_dec_pic_buffering, self.sps.num_reorder_pics = \
             ((5, 2) if self.b_pyramid else (4, 1)) if self.bframes else (2, 0)
+        self.aq_mode, self.aq_strength, self.cutree = aq_mode, aq_strength, \
+            bool(cutree)
+        # the PPS signals cu_qp_delta for the whole session
+        self.pps.cu_qp_delta = int(bool(aq_mode or cutree))
         quant_fn = self.intra_sess.quant_fn
         if max_depth:
             self.inter_encoder = InterQTEncoder(
@@ -544,6 +622,17 @@ class VideoEncoderSession:
                 self.coded_w, self.coded_h, cu_size, self.device, quant_fn)
         self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device)
         self.rc = RateControl(qp)
+        # cuTree's causal average on the lowres 8x8 grid (_cutree_update);
+        # the window of lookahead details of the frame being coded with
+        # rc_lookahead (its own first), and the frames waiting for theirs:
+        # (y, u, v, icost, pcost, scenecut, detail, force_idr, qp)
+        self.cutree_acc = np.zeros((self.lookahead.lh // 8,
+                                    self.lookahead.lw // 8))
+        self.cutree_icost = np.maximum(self.cutree_acc, 1.0)
+        self.cutree_strength = 2.0
+        self._cutree_window = None
+        self.la_queue = []
+        self._force_idr = False
         self.frame_idx = 0
         self.poc = 0
         self.display_idx = 0
@@ -575,28 +664,82 @@ class VideoEncoderSession:
     def _pad(self, y, u, v):
         return self.intra_sess._pad(y, u, v)
 
+    def intra_refresh(self):
+        """Code the next frame as an IDR (x265_encoder_intra_refresh); with
+        rc_lookahead, the next frame pushed."""
+        self._force_idr = True
+
     # ------------------------------------------------------------------
-    def encode_frame(self, y, u, v) -> FrameResult:
+    def push_la(self, y, u, v) -> List[FrameResult]:
+        """Take one display-order frame into the rc-lookahead window (an
+        IPPP session with cutree and rc_lookahead > 0); once rc_lookahead
+        frames wait behind the oldest, code it with cuTree's offsets
+        propagated back from them. Returns 0 or 1 results."""
+        if not self.la_depth:
+            raise RuntimeError("push_la needs cutree and rc_lookahead > 0")
+        yp = G.pad_plane(y, self.coded_h, self.coded_w)
+        icost, pcost, scenecut = self._timed("lookahead",
+                                             self.lookahead.push, yp)
+        det = dict(self.lookahead.last_detail, scenecut=scenecut)
+        # a forced IDR and the QP apply to this frame when it leaves the
+        # window
+        self.la_queue.append((y, u, v, icost, pcost, scenecut, det,
+                              self._force_idr, self.rc.qp))
+        self._force_idr = False
+        self.display_idx += 1
+        if len(self.la_queue) > self.la_depth:
+            return [self._pop_la()]
+        return []
+
+    def flush_la(self) -> List[FrameResult]:
+        """End of stream: code every frame left in the window."""
+        out = []
+        while self.la_queue:
+            out.append(self._pop_la())
+        return out
+
+    def _pop_la(self) -> FrameResult:
+        (y, u, v, icost, pcost, scenecut, det, force_idr,
+         qp_cfg) = self.la_queue.pop(0)
+        window = [det] + [q[6] for q in self.la_queue]
+        self.rc.qp = self.qp = qp_cfg
+        if force_idr:
+            self._force_idr = True
+        return self.encode_frame(y, u, v, _la=(icost, pcost, scenecut,
+                                               window))
+
+    # ------------------------------------------------------------------
+    def encode_frame(self, y, u, v, _la=None) -> FrameResult:
         """Code the next frame of an IPPP session (bframes=0)."""
         if self.bframes:
             raise RuntimeError(
                 "encode_frame codes IPPP sessions; a session with bframes "
                 "> 0 takes its frames through push_frame and flush")
         yp, up, vp = self._pad(y, u, v)
-        icost, pcost, scenecut = self._timed("lookahead",
-                                             self.lookahead.push, yp)
-        self.display_idx += 1
+        if _la is None:
+            icost, pcost, scenecut = self._timed("lookahead",
+                                                 self.lookahead.push, yp)
+            self.display_idx += 1
+            self._cutree_window = None
+        else:
+            icost, pcost, scenecut, self._cutree_window = _la
         is_idr = (self.frame_idx % self.keyint == 0) or self.ref is None \
-            or (scenecut and self.frame_idx >= self.keyint_min)
+            or (scenecut and self.frame_idx >= self.keyint_min) \
+            or self._force_idr
+        self._force_idr = False
         qp = self.rc.frame_qp(is_idr, lookahead_cost=icost if is_idr
                               else pcost)
+        if _la is None:
+            self._cutree_update()
+        qp_map = self._qp_map(yp, qp)
         if is_idr:
             self.poc = 0
             self.frame_idx = 0   # scenecut restarts the GOP
-            out, nals = self._code_idr(yp, up, vp, qp)
+            out, nals = self._code_idr(yp, up, vp, qp, qp_map)
         else:
             self.poc += 1
-            out, nals = self._code_p(yp, up, vp, self.ref, qp, self.poc, 1)
+            out, nals = self._code_p(yp, up, vp, self.ref, qp, self.poc, 1,
+                                     qp_map)
         self.ref = self._recon_ref(out)
         self.frame_idx += 1
         return self._finish(out, nals, (y, u, v), qp, self.poc,
@@ -677,7 +820,8 @@ class VideoEncoderSession:
 
     def _encode_idr_anchor(self, y, u, v) -> FrameResult:
         qp = self.rc.frame_qp(True)
-        out, nals = self._code_idr(*self._pad(y, u, v), qp)
+        yp, up, vp = self._pad(y, u, v)
+        out, nals = self._code_idr(yp, up, vp, qp, self._qp_map(yp, qp))
         self.anchor = (self._recon_ref(out), 0)
         return self._finish(out, nals, (y, u, v), qp, 0, "I")
 
@@ -686,8 +830,9 @@ class VideoEncoderSession:
         """The mini-GOP's P anchor, ref_delta pictures after the previous
         anchor."""
         qp = self.rc.frame_qp(False)
-        out, nals = self._code_p(*self._pad(y, u, v), self.anchor[0], qp,
-                                 poc, ref_delta)
+        yp, up, vp = self._pad(y, u, v)
+        out, nals = self._code_p(yp, up, vp, self.anchor[0], qp, poc,
+                                 ref_delta, self._qp_map(yp, qp))
         self.anchor = (self._recon_ref(out), poc)
         return self._finish(out, nals, (y, u, v), qp, poc, "P")
 
@@ -699,26 +844,36 @@ class VideoEncoderSession:
         FrameResult and the recon planes."""
         yp, up, vp = self._pad(y, u, v)
         qp = min(self.rc.frame_qp(False) + (1 if is_ref else 2), 51)
+        qp_map = self._qp_map(yp, qp)
         out = _program(self.stage_ms, "inter_b", self.inter_encoder, yp, up,
-                       vp, *ref0, qp, ref1=ref1)
+                       vp, *ref0, qp if qp_map is None else qp_map,
+                       ref1=ref1, slice_qp=qp)
+        if qp_map is not None:
+            out["qp_map"] = qp_map
         nals = self._timed("serialize", self._assemble_b_slice, out, qp, poc,
                            poc0, poc1, is_ref, rps)
         return (self._finish(out, nals, (y, u, v), qp, poc,
                              "B" if is_ref else "b"), self._recon_ref(out))
 
     # ------------------------------------------------------------------
-    def _code_idr(self, yp, up, vp, qp: int):
+    def _code_idr(self, yp, up, vp, qp: int, qp_map=None):
         """(decision dict, slice NAL) of an IDR picture from padded
-        planes, through the intra session."""
-        out = self.intra_sess.code(yp, up, vp, qp)
+        planes (at the per-CU QP map qp_map when given), through the intra
+        session."""
+        out = self.intra_sess.code(yp, up, vp, qp, qp_map=qp_map)
         return out, self._timed("serialize", self.intra_sess.assemble_slice,
                                 out, qp)
 
-    def _code_p(self, yp, up, vp, ref, qp: int, poc: int, ref_delta: int):
+    def _code_p(self, yp, up, vp, ref, qp: int, poc: int, ref_delta: int,
+                qp_map=None):
         """(decision dict, slice NAL) of a P picture predicted from the
-        recon planes `ref`, ref_delta pictures before it."""
+        recon planes `ref`, ref_delta pictures before it (at the per-CU
+        QP map qp_map when given)."""
+        kw = {"slice_qp": qp} if self.max_depth else {}
         out = _program(self.stage_ms, "inter", self.inter_encoder, yp, up,
-                       vp, *ref, qp)
+                       vp, *ref, qp if qp_map is None else qp_map, **kw)
+        if qp_map is not None:
+            out["qp_map"] = qp_map
         if self.session_filters:
             self._timed("filters", filter_uniform, out, qp, False, self.cu,
                         self.deblock, self.sao, (yp, up, vp), self.device)
@@ -760,16 +915,17 @@ class VideoEncoderSession:
                                     slice_qp=qp, nal_type=NAL_TRAIL_R,
                                     poc=poc, ref_poc_delta=ref_delta,
                                     max_merge=MAX_MERGE, sao=sao is not None)
+        qp_map = out.get("qp_map")
         if self.max_depth:
             res = native.encode_slice_qt2(1, self.max_depth, out, qp,
                                           MAX_MERGE, sign_hiding=self.sbh,
-                                          sao=sao)
+                                          sao=sao, qp_map=qp_map)
         else:
             res = native.encode_p_slice(
                 out["use_intra"], out["modes"], out["mvx"], out["mvy"],
                 out["levels_y"], out["levels_cb"], out["levels_cr"],
                 self.cu.bit_length() - 1, qp, MAX_MERGE,
-                sign_hiding=self.sbh, sao=sao)
+                sign_hiding=self.sbh, sao=sao, qp_map=qp_map)
         return _slice_nal(bw, res, NAL_TRAIL_R)
 
     def _assemble_b_slice(self, out: dict, qp: int, poc: int, poc0: int,
@@ -786,5 +942,64 @@ class VideoEncoderSession:
         res = native.encode_slice_qt2(0, self.max_depth, out, qp, MAX_MERGE,
                                       poc=poc, poc_l0=poc0, poc_l1=poc1,
                                       sign_hiding=self.sbh,
-                                      sao=out.get("sao"))
+                                      sao=out.get("sao"),
+                                      qp_map=out.get("qp_map"))
         return _slice_nal(bw, res, nal_type)
+
+    # ------------------------------------------------------------------
+    # per-CU QP: AQ and cuTree (the reference's _frame_qp_map without the
+    # two-pass and CTU-info offsets, which belong to later slices)
+    # ------------------------------------------------------------------
+    def _qp_map(self, yp, qp: int):
+        """The frame's per-CU QP map around the frame QP qp (None without
+        AQ and cuTree), timed as the stage "qp_map"."""
+        if not (self.aq_mode or self.cutree):
+            return None
+        return self._timed("qp_map", self._frame_qp_map, yp, qp)
+
+    def _frame_qp_map(self, yp, qp: int) -> np.ndarray:
+        """AQ's offsets (luma only) plus cuTree's: from the window's
+        backward propagation while a delayed frame is coded, else from
+        the causal average; clipped to 0..51."""
+        off = np.zeros((self.coded_h // self.cu, self.coded_w // self.cu),
+                       np.int32)
+        if self.aq_mode:
+            off = off + compute_aq_offsets(yp, self.cu, self.aq_strength,
+                                           mode=self.aq_mode)
+        if self.cutree and self._cutree_window:
+            off_blk = slicetype.cutree_propagate(
+                self._cutree_window, strength=self.cutree_strength)
+            off = off + slicetype.pool_to_cu(off_blk, self.cu, *off.shape)
+        elif self.cutree:
+            off = off + self._cutree_offsets()
+        return np.clip(qp + off, 0, 51).astype(np.int32)
+
+    def _cutree_update(self):
+        """Fold the lookahead's last frame into cuTree's causal average:
+        each lowres block's intra cost, times the share of it its motion
+        explains, scattered (area-weighted) into the previous frame's
+        grid; the average halves at every frame."""
+        d = self.lookahead.last_detail
+        if d is None:
+            return
+        nbx, nby = d["nb_x"], d["nb_y"]
+        if not d["has_prev"]:
+            self.cutree_acc *= 0.5
+            return
+        icost = d["icost"].reshape(nby, nbx).astype(np.float64)
+        sad = d["sad"].reshape(nby, nbx).astype(np.float64)
+        frac = np.clip(1.0 - sad / np.maximum(icost, 1.0), 0.0, 1.0)
+        acc = np.zeros_like(self.cutree_acc)
+        slicetype._bilinear_scatter(acc, icost * frac,
+                                    d["mvx"].reshape(nby, nbx),
+                                    d["mvy"].reshape(nby, nbx))
+        self.cutree_acc = 0.5 * self.cutree_acc + acc
+        self.cutree_icost = np.maximum(icost, 1.0)
+
+    def _cutree_offsets(self) -> np.ndarray:
+        """Per-CU integer QP offsets [rows, cols] from the causal
+        average."""
+        ratio = (self.cutree_icost + self.cutree_acc) / self.cutree_icost
+        off_blk = np.clip(-self.cutree_strength * np.log2(ratio), -6.0, 0.0)
+        rows, cols = self.coded_h // self.cu, self.coded_w // self.cu
+        return slicetype.pool_to_cu(off_blk, self.cu, rows, cols)

@@ -3,7 +3,8 @@ for the intra-vs-inter decision and reconstruction.
 
 Port of the single-reference uni-prediction P branch of
 x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`), with
-sign-bit hiding (diagonal scan) or static-bit RDOQ.
+sign-bit hiding (diagonal scan) or static-bit RDOQ, at one QP or a per-CU
+QP map.
 Phase A runs for every CU at once: integer full search through K1
 (`ops.me.full_search_sad`), half- then quarter-pel SATD refinement, motion
 compensation. Phase B walks the CU diagonals (a Python loop, one batch of
@@ -25,7 +26,7 @@ from ..ops import bitcost as BC
 from ..ops import interp, me, pixel
 from ..ops.quant import PLAIN, Quantizer
 from . import qt_common as QT
-from .intra_encoder import (WaveState, Wavefront, chroma_qp_from_luma,
+from .intra_encoder import (WaveState, Wavefront, cb_cr, cu_qps,
                             from_blocks, gather_mode, planes_to_blocks,
                             to_blocks, tq_recon)
 
@@ -88,14 +89,16 @@ class InterFrameEncoder:
         return mvx, mvy, pred_y, pred_u, pred_v, pixel.satd(yb, pred_y)
 
     # ---------------------------------------------------------------------
-    def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp: int) -> dict:
+    def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp) -> dict:
         """All planes 8-bit, padded to the coded size; ref_* are the
-        decoded reference planes. Returns the decision dict (numpy)."""
+        decoded reference planes; qp one QP or the per-CU QP map (AQ /
+        cuTree). Returns the decision dict (numpy)."""
         dev = self.device
         n = self.n
         ncu = self.rows * self.cols
         log2n = n.bit_length() - 1
-        qpc = chroma_qp_from_luma(qp)
+        qp, qpc = cu_qps(qp, ncu, dev)
+        at = lambda q, cu: q if isinstance(q, int) else q[cu]
         pl = lambda p: torch.as_tensor(np.ascontiguousarray(p, np.uint8),
                                        device=dev)
         mvx, mvy, pred_yb, pred_ub, pred_vb, isatd = self.motion_phase(
@@ -118,9 +121,11 @@ class InterFrameEncoder:
             predc = torch.where(sel.repeat(2, 1, 1), ipc,
                                 torch.cat([pred_ub[cu], pred_vb[cu]]))
             # P slice: the inter rounding offset for every CU, intra too
-            lv, rec = tq_recon(src, pred, qp, log2n, False, self.quant_fn)
-            lvc, recc = tq_recon(torch.cat([ub[cu], vb[cu]]), predc, qpc,
-                                 log2n - 1, False, self.quant_fn, False)
+            lv, rec = tq_recon(src, pred, at(qp, cu), log2n, False,
+                               self.quant_fn)
+            lvc, recc = tq_recon(torch.cat([ub[cu], vb[cu]]), predc,
+                                 cb_cr(at(qpc, cu)), log2n - 1, False,
+                                 self.quant_fn, False)
             use_intra[cu] = ui
             ws.commit(cu, m, lv, rec, lvc, recc)
 
@@ -271,13 +276,14 @@ class InterQTEncoder:
         cands.append(tuple(torch.zeros_like(f) for f in fields))
         return cands
 
-    def _motion(self, nn: int, y32, ref_y, mv, states, qp: int):
-        """The P winner motion of every nn-block: (mvx, mvy) quarter-pel
-        and its bits (MVD bits + 2, or the merge bits)."""
+    def _motion(self, nn: int, y32, ref_y, mv, states, qp_blk):
+        """The P winner motion of every nn-block (at its QP, qp_blk):
+        (mvx, mvy) quarter-pel and its bits (MVD bits + 2, or the merge
+        bits)."""
         px, py = self.geo.pxpy[nn]
         yb = to_blocks(y32, nn)
         mvx, mvy, _ = mv
-        lam = torch.tensor(QT.lam(qp), device=y32.device)
+        lam = QT.lam(qp_blk)
         score = lambda cx, cy: pixel.satd(
             yb, bilerp_at_qmv(ref_y, px, py, cx, cy, nn))
         cands = self._merge_cands(nn, (mvx, mvy))
@@ -296,13 +302,13 @@ class InterQTEncoder:
         return bx, by, bb
 
     def _motion_b(self, nn: int, y32, refs0, refs1, mv0, mv1, states,
-                  qp: int):
-        """The B winner motion of every nn-block: ((pdir, mv0x, mv0y, mv1x,
-        mv1y) with an unused list's MV zero, the (y, u, v) prediction, the
-        bits)."""
+                  qp_blk):
+        """The B winner motion of every nn-block (at its QP, qp_blk):
+        ((pdir, mv0x, mv0y, mv1x, mv1y) with an unused list's MV zero, the
+        (y, u, v) prediction, the bits)."""
         px, py = self.geo.pxpy[nn]
         yb = to_blocks(y32, nn)
-        lam = torch.tensor(QT.lam(qp), device=y32.device)
+        lam = QT.lam(qp_blk)
         (mv0x, mv0y, s0), (mv1x, mv1y, s1) = mv0, mv1
         sbi = pixel.satd(yb, interp.add_avg(
             interp.mc_luma_qpel_ps(refs0[0], px, py, mv0x, mv0y, nn),
@@ -354,10 +360,12 @@ class InterQTEncoder:
                      for a, b, c in zip(p0, p1, pbi))
         return mo, pred, fb
 
-    def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp: int,
-                     ref1=None) -> dict:
+    def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp, ref1=None,
+                     slice_qp: int = None) -> dict:
         """y, u, v: 8-bit planes padded to the coded size; ref_*: the L0
         reference picture's recon planes (numpy or device tensors, uint8);
+        qp: one QP or the per-CTU QP map (AQ / cuTree), slice_qp the
+        slice's (the filters' default QP; default the map's largest);
         ref1: the L1 reference's (y, u, v) for a B frame, None for a P
         frame. Returns the decision dict (numpy), "recon_dev", the
         (filtered) recon planes as uint8 device tensors, and with SAO
@@ -371,29 +379,29 @@ class InterQTEncoder:
             r8.append(tuple(_plane_u8(p, dev) for p in ref1))
         y32, u32, v32 = (p.to(torch.int32) for p in (y8, u8, v8))
         refs = [tuple(p.to(torch.int32) for p in r) for r in r8]
-        qpc = chroma_qp_from_luma(qp)
+        fq = QT.FrameQp(geo, qp, slice_qp)
         # K1 on the uint8 planes, per list: the surface, then each size's
         # argmin
         fine = [me.sad_sweep_multi(r[0], y8, (8, 16, QT.N), SEARCH_RANGE,
                                    lambda_bits=2) for r in r8]
-        states = BC.init_states_dev(0 if bi else 1, qp)   # B / P contexts
-        l2 = torch.tensor(QT.lam2(qp), device=dev)
+        # B / P contexts, at the first CTU's QP as in the reference
+        states = BC.init_states_dev(0 if bi else 1, fq.first)
         leaf, motion = {}, {}
         for nn in (QT.N, 16, 8):
             px, py = geo.pxpy[nn]
+            qp_blk, qpc_blk = fq.blk(nn, fq.cu), fq.blk(nn, fq.c)
+            l2 = QT.lam2(qp_blk)
             mvs = [self._refine(nn, y32, r[0], f)
                    for r, f in zip(refs, fine)]
             if bi:
                 motion[nn], epred, ebits_mv = self._motion_b(
-                    nn, y32, refs[0], refs[1], *mvs, states, qp)
+                    nn, y32, refs[0], refs[1], *mvs, states, qp_blk)
             else:
                 bx, by, ebits_mv = self._motion(nn, y32, refs[0][0], mvs[0],
-                                                states, qp)
+                                                states, qp_blk)
                 motion[nn] = (None, bx, by, None, None)
                 epred = _mc3(refs[0], px, py, bx, by, nn)
             nb = px.shape[0]
-            qp_blk = torch.full((nb,), qp, dtype=torch.int32, device=dev)
-            qpc_blk = torch.full((nb,), qpc, dtype=torch.int32, device=dev)
             srcs3 = QT.sources3(y32, u32, v32, nn)
             # the inter rounding offset for both candidates (P and B)
             elv, erec, edist, ebits = QT.rd_leaf(nn, srcs3, epred, qp_blk,
@@ -416,7 +424,7 @@ class InterQTEncoder:
                                    ebits + ebits_mv)
             leaf[nn] = {"ui": ui, "modes": modes, "dist": dist,
                         "bits": bits, "elv": elv, "erec": erec}
-        split16, split = QT.split_rd(leaf, geo, l2)
+        split16, split = QT.split_rd(leaf, geo, QT.lam2(fq.cu))
 
         # the inter leaves' recon and levels, each position from its level
         H, W, rows, cols = geo.H, geo.W, geo.rows, geo.cols
@@ -454,11 +462,11 @@ class InterQTEncoder:
                 None, out["use_intra"].reshape(-1),
                 out["use_intra4"].reshape(-1, 4),
                 np.zeros((rows * cols, 4, 4), bool))
-            QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, qp, qpc,
-                            False, self.quant_fn, states)
+            QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, False,
+                            self.quant_fn, states)
         sizes = (QT.N, 16, 8)
         rec, sao = self.filters(
-            rec, (y32, u32, v32), lv, qp, split, split16,
+            rec, (y32, u32, v32), lv, fq, split, split16,
             tuple(leaf[nn]["ui"] for nn in sizes),
             tuple(motion[nn][1:] for nn in sizes),
             tuple(motion[nn][0] for nn in sizes) if bi else None)

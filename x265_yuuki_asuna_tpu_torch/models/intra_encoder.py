@@ -4,8 +4,8 @@ diagonals.
 Port of the default branch of x265_yuuki_asuna_tpu/models/intra_encoder.py
 (`_build` + `_unpack`, and `submit_frames` / `collect_frames` /
 `encode_frames` for batches of frames: uniform grid, 8-bit 4:2:0, plain
-quant, sign-bit hiding or static-bit RDOQ with psy-RDOQ; no noise
-reduction / scaling lists). The JAX program scans the wavefront diagonals
+quant, sign-bit hiding or static-bit RDOQ with psy-RDOQ, one QP or a
+per-CU QP map per frame; no noise reduction / scaling lists). The JAX program scans the wavefront diagonals
 with `lax.scan` over fixed-width slots; here a Python loop walks the
 diagonals and each step batches exactly that diagonal's CUs (the JAX
 program's padding slots never reach its outputs, so the results are the
@@ -41,6 +41,26 @@ def chroma_qp_from_luma(qp_y: int, offset: int = 0) -> int:
     if qpi > 43:
         return qpi - 6
     return [29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37][qpi - 30]
+
+
+def cu_qps(qp, n: int, device):
+    """(luma, chroma) QPs of n blocks: ints for one QP (qp an int), else
+    int32 tensors [n] from a per-block QP array (AQ / cuTree), the chroma
+    QP of each through table 8-10."""
+    if np.ndim(qp) == 0:
+        return int(qp), chroma_qp_from_luma(int(qp))
+    q = torch.as_tensor(np.array(qp, np.int32).reshape(-1), device=device)
+    if q.numel() != n:
+        raise ValueError(f"{q.numel()} QPs for {n} blocks")
+    tab = torch.tensor([chroma_qp_from_luma(k) for k in range(58)],
+                       dtype=torch.int32, device=device)
+    return q, tab[q.clamp(0, 57).long()]
+
+
+def cb_cr(qc):
+    """The chroma QPs of a batch of Cb blocks followed by their Cr
+    blocks."""
+    return qc if isinstance(qc, int) else qc.repeat(2)
 
 
 def to_blocks(plane: torch.Tensor, nn: int) -> torch.Tensor:
@@ -224,18 +244,23 @@ class IntraFrameEncoder:
         return self._waves[frames]
 
     def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
-                     qp: int) -> dict:
-        """y: [H, W] 8-bit pixels padded to the coded size; u, v: [H/2, W/2].
-        Returns the decision dict (numpy): modes, levels_*, recon_*."""
-        return self.encode_frames([y], [u], [v], qp)[0]
+                     qp) -> dict:
+        """y: [H, W] 8-bit pixels padded to the coded size; u, v: [H/2, W/2];
+        qp: one QP, or the per-CU QP map ([rows, cols] or [ncu]). Returns
+        the decision dict (numpy): modes, levels_*, recon_*."""
+        return self.encode_frames([y], [u], [v],
+                                  qp if np.ndim(qp) == 0 else [qp])[0]
 
-    def encode_frames(self, ys, us, vs, qp: int) -> list:
+    def encode_frames(self, ys, us, vs, qp) -> list:
         """A batch of independent frames (sequences of padded planes), each
         wavefront step batching the step's CUs of every frame; one
-        decision dict per frame, each equal to its frame's encode_frame."""
+        decision dict per frame, each equal to its frame's encode_frame.
+        qp: one QP for every CU, or a per-CU QP map for each frame (a
+        sequence of F [rows, cols] or [ncu] arrays)."""
         n, F = self.n, len(ys)
         log2n = n.bit_length() - 1
-        qpc = chroma_qp_from_luma(qp)
+        qp, qpc = cu_qps(qp, F * self.rows * self.cols, self.device)
+        at = lambda q, cu: q if isinstance(q, int) else q[cu]
         blk = [planes_to_blocks(y, u, v, n, self.device)
                for y, u, v in zip(ys, us, vs)]
         yb, ub, vb = (torch.cat([b[i] for b in blk]) for i in range(3))
@@ -246,12 +271,13 @@ class IntraFrameEncoder:
             preds = ws.luma_all_modes(nbr, avail[n])
             src = yb[cu]
             m = torch.argmin(pixel.satd(src[:, None], preds), dim=1)
-            lv, rec = tq_recon(src, gather_mode(preds, m), qp, log2n, True,
-                               q, True, m)
+            lv, rec = tq_recon(src, gather_mode(preds, m), at(qp, cu), log2n,
+                               True, q, True, m)
             # chroma, Cb and Cr in one batch
             lvc, recc = tq_recon(torch.cat([ub[cu], vb[cu]]),
-                                 ws.chroma_dm(nbr, avail[n // 2], m), qpc,
-                                 log2n - 1, True, q, False, m.repeat(2))
+                                 ws.chroma_dm(nbr, avail[n // 2], m),
+                                 cb_cr(at(qpc, cu)), log2n - 1, True, q,
+                                 False, m.repeat(2))
             ws.commit(cu, m, lv, rec, lvc, recc)
         return ws.result(self.rows, self.cols, F)
 
@@ -279,31 +305,32 @@ class IntraQTEncoder:
                                  torch.device(device))
         self.filters = QT.LoopFilters(deblock, sao, sao_form)
 
-    def encode_frame(self, y, u, v, qp: int, with_sao: bool = True) -> dict:
+    def encode_frame(self, y, u, v, qp, with_sao: bool = True,
+                     slice_qp: int = None) -> dict:
         """y, u, v: 8-bit planes padded to the coded size (numpy or device
-        tensors). Returns the decision dict (numpy), "recon_dev", the
-        (filtered) recon planes as uint8 device tensors, and with SAO
-        "sao", its parameters packed [ncu, 18] (with_sao=False: this frame
-        without SAO)."""
+        tensors); qp: one QP or the per-CTU QP map (AQ / cuTree), slice_qp
+        the slice's (the filters' default QP; default the map's largest).
+        Returns the decision dict (numpy), "recon_dev", the (filtered)
+        recon planes as uint8 device tensors, and with SAO "sao", its
+        parameters packed [ncu, 18] (with_sao=False: this frame without
+        SAO)."""
         QT, geo = self.QT, self.geo
         dev = geo.device
         pl = lambda p: torch.as_tensor(np.array(p, np.int32), device=dev)
         y32, u32, v32 = pl(y), pl(u), pl(v)
-        qpc = chroma_qp_from_luma(qp)
-        states = BC.init_states_dev(2, qp)       # I-slice contexts
+        fq = QT.FrameQp(geo, qp, slice_qp)
+        # I-slice contexts, at the first CTU's QP as in the reference
+        states = BC.init_states_dev(2, fq.first)
         leaf = {}
         for nn in (QT.N, 16, 8):
             modes, py, pu, pv = QT.dense_intra(nn, y32, u32, v32)
-            nb = modes.shape[0]
-            qp_blk = torch.full((nb,), qp, dtype=torch.int32, device=dev)
-            qpc_blk = torch.full((nb,), qpc, dtype=torch.int32, device=dev)
             _, _, dist, bits = QT.rd_leaf(nn, QT.sources3(y32, u32, v32, nn),
-                                          (py, pu, pv), qp_blk, qpc_blk,
-                                          states, True, self.quant_fn, modes)
+                                          (py, pu, pv), fq.blk(nn, fq.cu),
+                                          fq.blk(nn, fq.c), states, True,
+                                          self.quant_fn, modes)
             leaf[nn] = {"modes": modes, "dist": dist,
                         "bits": bits + QT.MODE_BITS}
-        l2 = torch.tensor(QT.lam2(qp), device=dev)
-        split16, split = QT.split_rd(leaf, geo, l2)
+        split16, split = QT.split_rd(leaf, geo, QT.lam2(fq.cu))
 
         rows, cols = geo.rows, geo.cols
         h = lambda a: a.cpu().numpy()
@@ -322,9 +349,9 @@ class IntraQTEncoder:
                                  out["modes"].reshape(-1),
                                  out["modes4"].reshape(-1, 4),
                                  out["modes8"].reshape(-1, 4, 4))
-        QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, qp, qpc, True,
+        QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, True,
                         self.quant_fn, states)
-        rec, sao = self.filters(rec, (y32, u32, v32), lv, qp, split, split16,
+        rec, sao = self.filters(rec, (y32, u32, v32), lv, fq, split, split16,
                                 with_sao=with_sao)
         if sao is not None:
             out["sao"] = sao

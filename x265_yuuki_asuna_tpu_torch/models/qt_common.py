@@ -2,7 +2,8 @@
 
 Port of x265_yuuki_asuna_tpu/models/qt_common.py (QOFF, morton,
 _tr_available, _bl_available, block_v, source_v) and of the pieces the two
-`_build_qt` programs share: the static block maps, the per-QP lambdas,
+`_build_qt` programs share: the static block maps, the frame's QPs (one,
+or one per CTU under AQ / cuTree) and the per-QP lambdas,
 the SSD, the dense source-neighbour intra decision, the leaf RD (the
 transform/quant/recon step with the program's quantizer: plain,
 mode-dependent sign-bit hiding or context RDOQ at the slice's frozen
@@ -36,7 +37,7 @@ from ..ops import fp32
 from ..ops import filters as FL
 from ..ops import intra, pixel
 from ..ops.quant import PLAIN, Quantizer
-from .intra_encoder import gather_mode, to_blocks, tq_recon
+from .intra_encoder import cb_cr, cu_qps, gather_mode, to_blocks, tq_recon
 
 N = 32          # CTU size
 MODE_BITS = 7.0
@@ -156,14 +157,24 @@ def _source_v_index(hh: int, ww: int, nn: int) -> np.ndarray:
 # 2^x as the reference's compiled program evaluates it (fp32.lambda_table)
 # ---------------------------------------------------------------------------
 
-def lam(qp: int) -> np.float32:
-    """Motion-decision lambda (SATD units) of a QP, float32."""
-    return fp32.lambda_table(0.9, 6.0)[qp]
+def _lam_of(table: np.ndarray, qp):
+    """table[qp]: a float32 for an int QP, a float32 tensor of each QP of
+    a tensor (per-block QPs: AQ / cuTree)."""
+    if isinstance(qp, torch.Tensor):
+        return torch.as_tensor(table, device=qp.device)[qp.long()]
+    return table[qp]
 
 
-def lam2(qp: int) -> np.float32:
-    """Mode/split-decision lambda (SSD units) of a QP, float32."""
-    return fp32.lambda_table(0.85, 3.0)[qp]
+def lam(qp):
+    """Motion-decision lambda (SATD units) of a QP or of each QP of a
+    tensor, float32."""
+    return _lam_of(fp32.lambda_table(0.9, 6.0), qp)
+
+
+def lam2(qp):
+    """Mode/split-decision lambda (SSD units) of a QP or of each QP of a
+    tensor, float32."""
+    return _lam_of(fp32.lambda_table(0.85, 3.0), qp)
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +185,7 @@ class QtGeometry:
     """Index maps of a rows x cols CTU32 grid (frame raster block order):
     pxpy[nn] block origins, map16 [ncu, 4] / map8 [ncu, 4, 4] the z-order
     16 / 8 blocks of each CTU, ch8 [n16, 4] the z-order 8-children of each
-    16-block."""
+    16-block, ctu_of[nn] the CTU of every nn-block."""
 
     def __init__(self, rows: int, cols: int, device):
         self.rows, self.cols = rows, cols
@@ -195,6 +206,9 @@ class QtGeometry:
                                    + g_c * 4 + 2 * qx + sx
                                    for sy, sx in QOFF], 1)
                          for qy, qx in QOFF], 1)
+        # the CTU of every block of each size
+        self.ctu_of = {nn: (y // N) * cols + x // N
+                       for nn, (x, y) in self.pxpy.items()}
         n16 = 4 * ncu
         r16, c16 = np.arange(n16) // (cols * 2), np.arange(n16) % (cols * 2)
         ch8 = np.stack([(r16 * 2 + qy) * cols * 4 + c16 * 2 + qx
@@ -207,20 +221,57 @@ def sum4(x: torch.Tensor) -> torch.Tensor:
     return ((x[:, 0] + x[:, 1]) + x[:, 2]) + x[:, 3]
 
 
-def split_rd(leaf: dict, geo: QtGeometry, l2: torch.Tensor):
+def split_rd(leaf: dict, geo: QtGeometry, l2_ctu: torch.Tensor):
     """The bottom-up split decisions: (split16 [n16], split [ncu]) bool.
-    leaf[nn]["dist"] / ["bits"] are float32 [nblocks] per size; l2 is the
-    split lambda (float32, 0-dim)."""
+    leaf[nn]["dist"] / ["bits"] are float32 [nblocks] per size; l2_ctu is
+    each CTU's split lambda (float32 [ncu]), a 16-block's that of its
+    CTU."""
+    l2_16 = l2_ctu[geo.ctu_of[16]]
     d16, b16 = leaf[16]["dist"], leaf[16]["bits"]
     d8sum = sum4(leaf[8]["dist"][geo.ch8])
     b8sum = sum4(leaf[8]["bits"][geo.ch8])
-    split16 = (d8sum + l2 * (b8sum + 1.0)) < (d16 + l2 * (b16 + 1.0))
+    split16 = (d8sum + l2_16 * (b8sum + 1.0)) < (d16 + l2_16 * (b16 + 1.0))
     t16d = torch.where(split16, d8sum, d16)
     t16b = torch.where(split16, b8sum + 1.0, b16 + 1.0)
     dB = sum4(t16d[geo.map16])
     bB = sum4(t16b[geo.map16]) + 1.0
     dA, bA = leaf[N]["dist"], leaf[N]["bits"] + 1.0
-    return split16, (dB + l2 * bB) < (dA + l2 * bA)
+    return split16, (dB + l2_ctu * bB) < (dA + l2_ctu * bA)
+
+
+class FrameQp:
+    """The QPs of one quadtree frame: "cu" / "c" each CTU's luma / chroma
+    QP (int32 [ncu] on the device), "slice" the slice QP, "first" the first
+    CTU's QP (the programs start the K9 contexts at it, as the reference
+    does), blk(nn, q) a per-CTU array's value for every nn-block and
+    leaves(ctu) the QPs of leaves in the CTUs ctu.
+
+    qp is one QP or a per-CTU map (AQ / cuTree; [rows, cols] or [ncu]);
+    slice_qp defaults, as in the reference's programs, to the largest QP
+    of the map."""
+
+    def __init__(self, geo: QtGeometry, qp, slice_qp: int = None):
+        q = np.broadcast_to(np.asarray(qp, np.int32).reshape(-1)
+                            if np.ndim(qp) else np.int32(qp), (geo.ncu,))
+        self.geo = geo
+        self.cu, self.c = cu_qps(q, geo.ncu, geo.device)
+        self.first = int(q[0])
+        self.slice = int(q.max()) if slice_qp is None else int(slice_qp)
+        # one QP for the frame: the commit's batches quantize at ints,
+        # with no per-leaf gathers
+        self.one = cu_qps(self.first, 1, geo.device) \
+            if (q == q[0]).all() else None
+
+    def blk(self, nn: int, q: torch.Tensor) -> torch.Tensor:
+        return q[self.geo.ctu_of[nn]]
+
+    def leaves(self, ctu: np.ndarray):
+        """(luma, chroma) QPs of leaves in the CTUs `ctu` (host indices):
+        ints when the frame has one QP, else int32 tensors."""
+        if self.one is not None:
+            return self.one
+        i = torch.as_tensor(ctu, device=self.geo.device)
+        return self.cu[i], self.c[i]
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +374,7 @@ def block_index(r, c, y0: int, x0: int, nn: int, ctu: int, width: int):
     return (ys * width + xs).reshape(len(r), nn * nn)
 
 
-def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
+def commit_intra(leaves, geo: QtGeometry, src, rec, lv, fq: FrameQp,
                  intra_slice: bool, quant_fn: Quantizer = PLAIN,
                  states=None):
     """Reconstruct the intra leaves in decoding order, in place.
@@ -332,8 +383,9 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
     recon, levels); rec and lv hold the inter leaves already (P) or
     nothing yet (I). leaves: intra_leaves(). For each wavefront diagonal
     (CTU (r, c) on diagonal 2r + c) and each z-order position, the leaves
-    there form one batch: luma, then Cb and Cr together. quant_fn and
-    states: the program's quantizer and the slice's frozen contexts."""
+    there form one batch: luma, then Cb and Cr together, each leaf at its
+    CTU's QPs (fq). quant_fn and states: the program's quantizer and the
+    slice's frozen contexts."""
     rows, cols, W = geo.rows, geo.cols, geo.W
     dev = geo.device
     steps = {}
@@ -347,6 +399,7 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
         c = np.array([it[1] for it in items])
         modes = t(np.array([it[2] for it in items], np.int64))
         S = len(items)
+        qy, qc = fq.leaves(r * cols + c)
         nc, ctu_c = nn // 2, N // 2
         # luma
         vi, va = block_v(r, c, y0, x0, nn, N, cols, W)
@@ -354,7 +407,7 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
         bi = t(block_index(r, c, y0, x0, nn, N, W))
         pred = intra.predict_mode_matmul(v, modes, nn, luma=True)
         lvy, ry = tq_recon(src[0].reshape(-1)[bi].reshape(S, nn, nn), pred,
-                           qp, nn.bit_length() - 1, intra_slice, quant_fn,
+                           qy, nn.bit_length() - 1, intra_slice, quant_fn,
                            True, modes, None, states)
         rec[0].view(-1)[bi] = ry.reshape(S, -1)
         lv[0].view(-1)[bi] = lvy.reshape(S, -1)
@@ -367,7 +420,7 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, qp: int, qpc: int,
         bi = t(block_index(r, c, y0 // 2, x0 // 2, nc, ctu_c, W // 2))
         pred = intra.predict_mode_matmul(v, modes.repeat(2), nc, luma=False)
         s = torch.cat([src[1].reshape(-1)[bi], src[2].reshape(-1)[bi]])
-        lvc, rc_ = tq_recon(s.reshape(2 * S, nc, nc), pred, qpc,
+        lvc, rc_ = tq_recon(s.reshape(2 * S, nc, nc), pred, cb_cr(qc),
                             nc.bit_length() - 1, intra_slice, quant_fn, False,
                             modes.repeat(2), None, states)
         for p in (1, 2):
@@ -403,15 +456,15 @@ class LoopFilters:
         self.deblock, self.sao, self.sao_form = deblock, sao, sao_form
         self.ms = 0.0
 
-    def __call__(self, rec, src3, lv, qp: int, split, split16,
+    def __call__(self, rec, src3, lv, fq: FrameQp, split, split16,
                  ui_sizes=None, mv_sizes=None, pdir_sizes=None,
                  with_sao: bool = True):
         """The filtered recon planes of a frame (the same planes when both
         filters are off) and its SAO parameters ([ncu, 18] int32 numpy,
-        or None); the arguments of FL.qt_loopfilter, with one QP for every
-        CTU; with_sao=False leaves SAO out of this frame. The chain runs
-        between two device synchronisations, inside a profiler range named
-        "filters"."""
+        or None); the arguments of FL.qt_loopfilter, with the frame's
+        per-CTU and slice QPs (fq); with_sao=False leaves SAO out of this
+        frame. The chain runs between two device synchronisations, inside
+        a profiler range named "filters"."""
         self.ms = 0.0
         sao_on = self.sao and with_sao
         if not (self.deblock or sao_on):
@@ -422,10 +475,8 @@ class LoopFilters:
         sync()
         t0 = time.perf_counter()
         with torch.profiler.record_function("filters"):
-            qp_cu = torch.full((split.numel(),), qp, dtype=torch.int32,
-                               device=dev)
-            rec, sao = FL.qt_loopfilter(tuple(rec), src3, qp_cu, qp, split,
-                                        split16, ui_sizes, mv_sizes,
+            rec, sao = FL.qt_loopfilter(tuple(rec), src3, fq.cu, fq.slice,
+                                        split, split16, ui_sizes, mv_sizes,
                                         pdir_sizes, lv, self.deblock,
                                         sao_on, self.sao_form)
             sao = None if sao is None else sao.cpu().numpy()

@@ -2,8 +2,9 @@
 
 Port of x265_yuuki_asuna_tpu/ops/deblock.py: the spec tables, the batched
 luma and chroma edge filters, and the uniform-grid frames (the IDR, every
-CU edge at BS 2; the P frame, per-edge BS) with one QP per frame, 8-bit.
-The per-CU-QP branches (AQ / cuTree) belong to the rate-control slice.
+CU edge at BS 2; the P frame, per-edge BS), 8-bit, with one QP per frame
+or a per-CU QP map (AQ / cuTree: each edge at the average of its two
+CUs' QPs, `edge_qps`).
 
 Every vertical edge of the picture is filtered in one batched pass (the
 edges are at least 8 samples apart, so no two edges read what the other
@@ -179,29 +180,58 @@ def filter_plane(plane, vcols, hrows, luma: bool, v_args, h_args):
     return f(plane.t(), hrows, *h_args).t().contiguous()
 
 
-def _scalar_qp(qp_y):
-    if np.ndim(qp_y) != 0:
-        raise NotImplementedError(
-            "a per-CU QP map in the uniform deblock: the CRF/AQ/cuTree "
-            "rate-control slice adds it")
-    return int(qp_y)
+def edge_qps(qp_map, device) -> dict:
+    """Per-edge QPs of a per-CU QP map [rows, cols] (AQ / cuTree; spec
+    8.7.2.5.3: qPL = (QpQ + QpP + 1) >> 1): the luma QP "qv" [rows,
+    cols-1] / "qh" [rows-1, cols] of the vertical / horizontal CU edges,
+    their beta, and the chroma tc of each through table 8-10."""
+    q = torch.as_tensor(np.asarray(qp_map), device=device).to(torch.int32)
+    bt, tt, cq = (table(t, device) for t in (BETA_TABLE, TC_TABLE,
+                                              CHROMA_QP))
+    qv = (q[:, :-1] + q[:, 1:] + 1) >> 1
+    qh = (q[:-1, :] + q[1:, :] + 1) >> 1
+    tc_c = lambda qe: tt[(cq[qe.clamp(0, 51).long()]
+                          + DEFAULT_INTRA_TC_OFFSET).clamp(0, 53).long()]
+    return {"qv": qv, "qh": qh, "beta_v": bt[qv.clamp(0, 51).long()],
+            "beta_h": bt[qh.clamp(0, 51).long()], "tc_c_v": tc_c(qv),
+            "tc_c_h": tc_c(qh)}
 
 
-def deblock_frame_uniform(y, u, v, cu_size: int, qp_y: int, qp_c: int):
-    """Deblock an all-intra uniform-CU-grid frame: every CU edge BS 2, one
-    QP. y, u, v: int32 planes. Returns the filtered (y, u, v)."""
-    qp_y = _scalar_qp(qp_y)
+def _per_cu(qp_y) -> bool:
+    """A per-CU QP map ([rows, cols]) rather than one QP for the frame."""
+    return np.ndim(qp_y) == 2
+
+
+def deblock_frame_uniform(y, u, v, cu_size: int, qp_y, qp_c: int):
+    """Deblock an all-intra uniform-CU-grid frame: every CU edge BS 2.
+    qp_y: one QP, or a per-CU map [rows, cols] whose edges take their
+    averaged QP (chroma through table 8-10, qp_c unused). y, u, v: int32
+    planes. Returns the filtered (y, u, v)."""
     H, W = y.shape
     n = cu_size
-    beta, tc = luma_thresholds(qp_y)
-    tc_c = luma_thresholds(qp_c)[1]
+    if _per_cu(qp_y):
+        e = edge_qps(qp_y, y.device)
+        tt = table(TC_TABLE, y.device)
+        tc_l = lambda qe: tt[(qe + DEFAULT_INTRA_TC_OFFSET).clamp(0, 53)
+                             .long()]
+        rep = lambda a, k: a.repeat_interleave(k, 0)
+        luma_v = (rep(e["beta_v"], n // 4), rep(tc_l(e["qv"]), n // 4))
+        luma_h = (rep(e["beta_h"].t(), n // 4), rep(tc_l(e["qh"]).t(),
+                                                    n // 4))
+        chroma_v = (rep(e["tc_c_v"], n // 2),)
+        chroma_h = (rep(e["tc_c_h"].t(), n // 2),)
+    else:
+        beta, tc = luma_thresholds(int(qp_y))
+        luma_v = luma_h = (beta, tc)
+        chroma_v = chroma_h = (luma_thresholds(qp_c)[1],)
     # chroma edges on the 16-luma grid: every multiple of 8 in chroma
     c_step = max(n // 2, 8)
     vc, hc = list(range(c_step, W // 2, c_step)), \
         list(range(c_step, H // 2, c_step))
     y = filter_plane(y, list(range(n, W, n)), list(range(n, H, n)), True,
-                     (beta, tc), (beta, tc))
-    u, v = (filter_plane(p, vc, hc, False, (tc_c,), (tc_c,)) for p in (u, v))
+                     luma_v, luma_h)
+    u, v = (filter_plane(p, vc, hc, False, chroma_v, chroma_h)
+            for p in (u, v))
     return y, u, v
 
 
@@ -253,23 +283,32 @@ def tc_seg_from_bs(bs_seg, qp, tc_offset: int = 0):
     return torch.where(bs_seg > 0, tt[idx.long()], 0).to(torch.int32)
 
 
-def deblock_frame_inter(y, u, v, cu_size: int, qp_y: int, qp_c: int, bs_v,
+def deblock_frame_inter(y, u, v, cu_size: int, qp_y, qp_c: int, bs_v,
                         bs_h):
     """Deblock an inter frame on the uniform grid with per-edge BS
-    (bs_v [rows, cols-1], bs_h [rows-1, cols]), one QP. Chroma is filtered
-    on BS-2 edges only. Returns the filtered (y, u, v)."""
-    qp_y = _scalar_qp(qp_y)
+    (bs_v [rows, cols-1], bs_h [rows-1, cols]); qp_y one QP or a per-CU
+    map (as deblock_frame_uniform's). Chroma is filtered on BS-2 edges
+    only. Returns the filtered (y, u, v)."""
     H, W = y.shape
     n, nc = cu_size, cu_size // 2
-    beta = luma_thresholds(qp_y)[0]
-    tc_c = luma_thresholds(qp_c)[1]
-    tc_v = tc_seg_from_bs(bs_v, qp_y).repeat_interleave(n // 4, 0)
-    tc_h = tc_seg_from_bs(bs_h, qp_y).t().repeat_interleave(n // 4, 0)
+    if _per_cu(qp_y):
+        e = edge_qps(qp_y, y.device)
+        beta_v = e["beta_v"].repeat_interleave(n // 4, 0)
+        beta_h = e["beta_h"].t().repeat_interleave(n // 4, 0)
+        qp_v, qp_h = e["qv"], e["qh"]
+        tc_c_v = e["tc_c_v"].repeat_interleave(nc, 0)
+        tc_c_h = e["tc_c_h"].t().repeat_interleave(nc, 0)
+    else:
+        qp_v = qp_h = int(qp_y)
+        beta_v = beta_h = luma_thresholds(qp_v)[0]
+        tc_c_v = tc_c_h = luma_thresholds(qp_c)[1]
+    tc_v = tc_seg_from_bs(bs_v, qp_v).repeat_interleave(n // 4, 0)
+    tc_h = tc_seg_from_bs(bs_h, qp_h).t().repeat_interleave(n // 4, 0)
     y = filter_plane(y, list(range(n, W, n)), list(range(n, H, n)), True,
-                     (beta, tc_v), (beta, tc_h))
+                     (beta_v, tc_v), (beta_h, tc_h))
     mask_v = (bs_v == 2).repeat_interleave(nc, 0)       # [Hc, cols-1]
     mask_h = (bs_h == 2).t().repeat_interleave(nc, 0)   # [Wc, rows-1]
     vc, hc = list(range(nc, W // 2, nc)), list(range(nc, H // 2, nc))
-    u, v = (filter_plane(p, vc, hc, False, (tc_c, mask_v), (tc_c, mask_h))
-            for p in (u, v))
+    u, v = (filter_plane(p, vc, hc, False, (tc_c_v, mask_v),
+                         (tc_c_h, mask_h)) for p in (u, v))
     return y, u, v

@@ -2,7 +2,8 @@
 
     python -m x265_yuuki_asuna_tpu_torch.profile_1080p [--frames 3]
         [--max-depth 0 2] [--bframes 3] [--deblock] [--sao] [--sbh]
-        [--rdoq] [--intra] [--batch 4] [--device-only]
+        [--rdoq] [--aq-mode 2] [--cutree] [--intra] [--batch 4]
+        [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
 depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
@@ -15,7 +16,8 @@ mini-GOP through push_frame, then a fresh session does the same with each
 coded frame (I, P, then the B frames) recorded on its own; the lookahead,
 which push_frame runs before the frame is coded, is outside the records.
 --deblock / --sao switch the sessions' in-loop filters on, --sbh / --rdoq
-sign-bit hiding / RDOQ. --intra profiles the all-intra session instead
+sign-bit hiding / RDOQ, --aq-mode / --cutree adaptive quantization /
+cuTree (the per-CU QP map: its host work is the stage "qp_map"). --intra profiles the all-intra session instead
 (IntraEncoderSession): after the warm-up, one frame through encode_frame
 and, with --batch N, one batch of N frames through encode_batch, recorded
 as one entry (its launches and device time are the batch's; divide by
@@ -123,7 +125,9 @@ def _name(max_depth: int, bframes: int, kw: dict, intra: bool = False):
     return ("intra_" if intra else "") + ("qt2" if max_depth else "uniform") \
         + ("_b" if bframes else "") \
         + ("_lf" if kw["deblock"] or kw["sao"] else "") \
-        + ("_sbh" if kw["sbh"] else "") + ("_rdoq" if kw["rdoq"] else "")
+        + ("_sbh" if kw["sbh"] else "") + ("_rdoq" if kw["rdoq"] else "") \
+        + (f"_aq{kw['aq_mode']}" if kw.get("aq_mode") else "") \
+        + ("_cutree" if kw.get("cutree") else "")
 
 
 def profile_intra(max_depth: int, warm_frames: int, batch: int,
@@ -197,6 +201,10 @@ def main():
     ap.add_argument("--sbh", action="store_true",
                     help="switch sign-bit hiding on")
     ap.add_argument("--rdoq", action="store_true", help="switch RDOQ on")
+    ap.add_argument("--aq-mode", type=int, default=0,
+                    help="adaptive quantization mode (1-4)")
+    ap.add_argument("--cutree", action="store_true",
+                    help="switch cuTree on (video sessions)")
     ap.add_argument("--intra", action="store_true",
                     help="profile the all-intra session")
     ap.add_argument("--batch", type=int, default=0,
@@ -205,14 +213,15 @@ def main():
                     help="trace the card's activity alone")
     args = ap.parse_args()
     opts = dict(deblock=args.deblock, sao=args.sao, sbh=args.sbh,
-                rdoq=args.rdoq)
+                rdoq=args.rdoq, aq_mode=args.aq_mode)
     for md in args.max_depth:
         if args.intra:
             rec = profile_intra(md, args.frames, args.batch, opts,
                                 args.device_only)
         else:
             rec = profile_session(md, args.frames, args.bframes if md else 0,
-                                  opts, args.device_only)
+                                  dict(opts, cutree=args.cutree),
+                                  args.device_only)
         print(json.dumps(rec), flush=True)
 
 
