@@ -46,6 +46,15 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      sessions (AQ_PINS, the flagship configuration among them), then
      aq_cpu_vs_card: the 416x240 quadtree IPPP session with AQ 2, cuTree
      and both filters on the card and on the CPU;
+     golden_rc: the rate-controlled sessions against the JAX package's
+     md5s pinned below: the uniform IPPP session under CRF 28, under ABR
+     + VBV + HRD (with VBV re-encodes), with zones and with
+     scene-cut-aware QP (RC_PINS), two-pass (RC_TWO_PASS_PINS: the pass-1
+     stats and .cutree sidecar, the pass-2 stream), and the quadtree B
+     session with the flagship's tools under CRF 28, ABR and CQP + VBV
+     (RC_B_PINS, with each frame's QP); rc_cpu_vs_card: the 416x240
+     quadtree B session with the flagship's tools under CRF 28 on the
+     card and on the CPU (equal streams and QPs);
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -77,7 +86,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      map identical too) and the uniform IPPP path with AQ 2, cuTree and
      the rc-lookahead window (1080p_aq_la, rc_lookahead=3, 7 frames
      through push_la / flush_la: K1 fused = frames + P frames, surface 0;
-     the last P frame's plain rerun identical);
+     the last P frame's plain rerun identical); then the rate control at
+     1080p: the flagship's constructor (bench.py) without HME and with
+     b_adapt=0, CRF 28 (1080p_qt2_b_crf: 9 frames, the IDR and two
+     mini-GOPs; each frame's QP, type, bytes and quality, kbps at 25 fps,
+     the "rc" stage; K1 exactly 9 fused + 2 + 2 x 6 surface; the last b
+     frame's plain rerun identical), its first five frames beside the
+     CQP-32 run of 1080p_qt2_b_lf_sbh_aq (crf_vs_cqp), and the uniform
+     IPPP path under ABR 27,000 kbps with VBV at that rate, a one-second
+     buffer and the HRD (1080p_abr_vbv, 7 frames: bits, QP, VBV overshoot
+     and buffer fill per frame, the re-encodes and their wall time, kbps
+     against the target; K1 fused = frames + P-frame program calls);
   6. the kernels line (launches on the filtered B path with sign hiding,
      and on each path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
@@ -88,6 +107,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -127,6 +147,49 @@ AQ_PINS = {"qt2_aq_cutree_lf_sei": "795879673f782275c42823a944f8d503",
            "intra_qt2_aq_lf_sei": "33836641495f1c374bf9fbd94e7b6d2e",
            "qt2_bframes_flagship": "f9c048f1d7f69982d48dabf30d1a146f"}
 AQ = dict(aq_mode=2, cutree=True)
+# rate control: the uniform IPPP sessions on the golden clip (64x48, 6
+# frames; the scene-cut clip: 10 frames with a cut at frame 2) and md5 of
+# the JAX package's stream of each; two-pass: pass 1 (ABR with cuTree)
+# writes the stats and the .cutree sidecar (md5 of the two files, one
+# after the other), pass 2 reads them
+RC_UNI = dict(qp=32, cu_size=16, keyint=100, hash_sei=False)
+RC_PINS = {
+    "ippp_crf28": (dict(RC_UNI, rc_mode="crf", crf=28.0),
+                   "ef4ae31880633349ceac03ec8677ee55"),
+    "ippp_abr_vbv_hrd": (dict(RC_UNI, rc_mode="abr", bitrate_kbps=200,
+                              vbv_maxrate_kbps=100, vbv_bufsize_kbps=6,
+                              hrd=True, hash_sei=True),
+                         "2614e6bb5bf5afa654d8b07335476356"),
+    "ippp_zones_crf": (dict(RC_UNI, rc_mode="crf", crf=30.0,
+                            zones="1,2,q=20/3,4,b=0.5"),
+                       "f2f7d61bd535834a435a3221fae33982"),
+    "ippp_scenecut_aware": (dict(RC_UNI, keyint=20, rc_mode="crf", crf=28.0,
+                                 scenecut_aware_qp=True, scenecut_qp_delta=6,
+                                 scenecut_window=6),
+                            "00210aa051e8917399516bcec52d0fc4")}
+RC_TWO_PASS = dict(RC_UNI, keyint=4, rc_mode="abr", bitrate_kbps=300)
+RC_TWO_PASS_PINS = {"stats": "105089c1cabb55d4f51d3d4f9b64ea81",
+                    "pass2": "869c1e57a9a04416292993c773903572"}
+# the quadtree B session with the flagship's tools (tests/golden_corpus.py's
+# qt2_bframes_flagship, 8 frames) under rate control: md5 of the JAX
+# package's stream, and its QPs in coding order
+FLAG = dict(qp=30, max_depth=2, keyint=100, bframes=3, b_pyramid=True,
+            b_adapt=0, hash_sei=False, sbh=True, **AQ, **LF)
+RC_B_PINS = {
+    "flagship_crf28": (dict(FLAG, rc_mode="crf", crf=28.0),
+                       "58a9fea10900601709701be6a60ecdcf",
+                       [25, 35, 39, 39, 38, 36, 37, 38]),
+    "flagship_abr150": (dict(FLAG, rc_mode="abr", bitrate_kbps=150),
+                        "9c2dfce1699e8658d8758f970acf85d2",
+                        [34, 37, 31, 31, 28, 25, 26, 25]),
+    "flagship_cqp_vbv": (dict(FLAG, vbv_maxrate_kbps=20, vbv_bufsize_kbps=10),
+                         "e80b573bc27e2a797d61a31522e4b956",
+                         [27, 37, 38, 39, 39, 30, 31, 32])}
+# the flagship session (bench.py's constructor) without HME, b_adapt=0
+FLAGSHIP_CRF = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
+                    b_adapt=0, rc_mode="crf", crf=28.0, sbh=True,
+                    hash_sei=False, quality_metrics=True, **AQ, **LF)
+QT_B_CRF_FRAMES = 9   # the IDR and two mini-GOPs
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
@@ -713,20 +776,37 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
     return launches
 
 
-def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
-    """The quadtree B path at 1080p through push_frame / flush (with opts,
-    e.g. the in-loop filters or AQ); returns its K1 launch counts and its
-    fps, bytes and per-frame quality. With a per-CU QP map (AQ / cuTree)
-    it also reports each frame's map statistics and checks that the plain
-    rerun of the last b frame reproduces its map."""
+def minigop_order(n: int, bframes: int = 3):
+    """(POC, type) in coding order of n frames of a B session with the
+    B-pyramid and b_adapt=0 (one GOP): the IDR, then each mini-GOP's P
+    anchor, its referenced middle B and the other B frames."""
+    order, prev = [(0, "I")], 0
+    while prev < n - 1:
+        k = min(bframes + 1, n - 1 - prev)
+        order.append((prev + k, "P"))
+        m = (k - 1) // 2 if k - 1 >= 2 else None
+        if m is not None:
+            order.append((prev + 1 + m, "B"))
+        order += [(prev + 1 + i, "b") for i in range(k - 1) if i != m]
+        prev += k
+    return order
+
+
+def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
+                  n_frames=QT_B_FRAMES):
+    """The quadtree B path at 1080p through push_frame / flush (qp 32,
+    keyint 250, hash SEI, with opts over them, e.g. the in-loop filters,
+    AQ or the rate control) over n_frames frames; returns its K1 launch
+    counts and its fps, bytes, QPs and per-frame quality. With a per-CU
+    QP map (AQ / cuTree) it also reports each frame's map statistics and
+    checks that the plain rerun of the last b frame reproduces its map."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     from x265_yuuki_asuna_tpu_torch.utils import geometry as G
-    frames = synth_clip(QT_B_FRAMES, W1080, H1080)
-    sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
-                               hash_sei=True, device=dev, **B_KW,
-                               **(opts or {}))
+    frames = synth_clip(n_frames, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, device=dev, **dict(
+        dict(qp=32, keyint=250, hash_sei=True, **B_KW), **(opts or {})))
     # record the inter program's calls, to rerun the last B frame, and
     # each program call's filter ms (calls run in coding order), and each
     # frame's QP map
@@ -772,7 +852,7 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     runs = {k: sum(r.frame_type in t for r in results)
             for k, t in (("intra", "I"), ("inter", "P"), ("inter_b", "Bb"),
                          ("serialize", "IPBb"), ("filters", "IPBb"),
-                         ("qp_map", "IPBb"))}
+                         ("qp_map", "IPBb"), ("rc", "IPBb"))}
     runs["lookahead"] = len(frames)
     quality = dict(frame_bytes=[len(r.nals) for r in results],
                    psnr_y=[r.psnr_y for r in results],
@@ -783,21 +863,26 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     if maps:
         extra = dict(qp_map_stats=_qp_map_stats([m[:2] for m in maps]),
                      qp_map_ms=sess.stage_ms["qp_map"])
+    stage = {k: v / max(runs[k], 1) for k, v in sess.stage_ms.items()}
+    kbps = total * 8 / 1e3 / (len(results) / 25.0)
     emit(phase=name, max_depth=2, bframes=3, frames=len(results),
          opts=opts or {}, fps=fps, call_ms=call_ms, call_frames=per_call,
-         stage_ms_per_frame={k: v / max(runs[k], 1)
-                             for k, v in sess.stage_ms.items()},
-         bytes=total, qp=[r.qp for r in results], k1_launches=launches,
+         stage_ms_per_frame=stage, bytes=total, kbps_at_25fps=kbps,
+         qp=[r.qp for r in results],
+         frame_type=[r.frame_type for r in results], k1_launches=launches,
          filters_ms_by_frame=[[r.frame_type, ms]
                               for r, ms in zip(results, filter_ms)],
          max_memory_allocated=torch.cuda.max_memory_allocated(), **quality,
          **extra)
     psnr = quality["psnr_y"]
-    want_order = [(0, "I"), (4, "P"), (2, "B"), (1, "b"), (3, "b")]
+    want_order = minigop_order(len(frames))
     if order != want_order or not all(np.isfinite(psnr)) or not all(
             r.recon[0].shape == (H1080, W1080) for r in results):
         raise AssertionError(f"{name} output malformed: {order}")
-    want = {"sad_sweep_best": len(frames), "sad_block8_sweep": 1 + 2 * 3}
+    # the lookahead once per frame; one surface per P anchor, two per B
+    n_p = sum(t == "P" for _, t in want_order)
+    want = {"sad_sweep_best": len(frames),
+            "sad_block8_sweep": n_p + 2 * (len(frames) - 1 - n_p)}
     if launches != want:
         raise AssertionError(f"{name}: K1 launches {launches} != {want}")
     # the last B frame again: kernel path vs plain path, same inputs
@@ -825,7 +910,162 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None):
     if not (same and same_map):
         raise AssertionError(f"{name}: kernel and plain B-frame decisions "
                              "or QP maps differ")
-    return launches, dict(fps=fps, bytes=total, **quality)
+    return launches, dict(fps=fps, bytes=total, kbps_at_25fps=kbps,
+                          qp=[r.qp for r in results],
+                          frame_type=[r.frame_type for r in results],
+                          stage_ms_per_frame=stage, **quality)
+
+
+def scenecut_clip():
+    """tests/test_scenecut_aware_qp.py's clip (copied): 10 frames of
+    noise, the cut at frame 2."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 80, (48, 64)).astype(np.uint8)
+    b = rng.integers(150, 256, (48, 64)).astype(np.uint8)
+    u = np.full((24, 32), 128, np.uint8)
+    return [(a, u, u)] * 2 + [(b, u, u)] * 8
+
+
+def phase_golden_rc(dev):
+    """The rate-controlled sessions on the card: the uniform IPPP streams
+    (RC_PINS), two-pass (RC_TWO_PASS_PINS: pass 1's stats and sidecar, the
+    pass-2 stream) and the quadtree B streams with their QPs (RC_B_PINS),
+    each against the JAX package's md5."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    got = {}
+
+    def check(key, md5, want):
+        got[key] = md5
+        got[key + "_match"] = md5 == want
+
+    def encode(kw, frames):
+        s = VideoEncoderSession(64, 48, device=dev, **kw)
+        res = push_all(s, frames) if s.bframes else \
+            [s.encode_frame(*f) for f in frames]
+        return _md5_of(s, res), [r.qp for r in res], s
+
+    for name, (kw, want) in RC_PINS.items():
+        md5, got[name + "_qp"], _ = encode(
+            kw, scenecut_clip() if "scenecut" in name else golden_clip())
+        check(name, md5, want)
+    with tempfile.TemporaryDirectory(dir=REPO) as d:
+        path = os.path.join(d, "pass1.log")
+        s = encode(dict(RC_TWO_PASS, cutree=True, stats_write=path),
+                   golden_clip())[2]
+        s.stats_writer.close()
+        with open(path, "rb") as f, open(path + ".cutree", "rb") as c:
+            check("two_pass_stats", hashlib.md5(f.read() + c.read())
+                  .hexdigest(), RC_TWO_PASS_PINS["stats"])
+        md5, got["two_pass_pass2_qp"], _ = encode(
+            dict(RC_TWO_PASS, stats_read=path), golden_clip())
+        check("two_pass_pass2", md5, RC_TWO_PASS_PINS["pass2"])
+    for name, (kw, want, qps) in RC_B_PINS.items():
+        md5, got[name + "_qp"], _ = encode(kw, golden_clip(n=8))
+        check(name, md5, want)
+        got[name + "_qp_match"] = got[name + "_qp"] == qps
+    emit(phase="golden_rc", **got)
+    bad = [k for k in got if k.endswith("_match") and not got[k]]
+    if bad:
+        raise AssertionError(f"rate-control md5s or QPs differ: {bad}")
+
+
+def phase_rc_cpu_vs_card(dev, n=8):
+    """The 416x240 quadtree B session with the flagship's tools under CRF
+    28 (and the hash SEI), on the card and on the CPU: equal streams and
+    QPs."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    frames = synth_clip(n, 416, 240)
+    md5, qps, secs = {}, {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        sess = VideoEncoderSession(416, 240, device=where, **dict(
+            FLAG, rc_mode="crf", crf=28.0, hash_sei=True))
+        res = push_all(sess, frames)
+        md5[str(where)] = _md5_of(sess, res)
+        qps[str(where)] = [r.qp for r in res]
+        secs[str(where)] = time.perf_counter() - t0
+    same = len(set(md5.values())) == 1 and qps[str(dev)] == qps["cpu"]
+    emit(phase="rc_cpu_vs_card", session="qt2_b_flagship_crf28", frames=n,
+         md5=md5, qp=qps, seconds=secs, equal=same)
+    if not same:
+        raise AssertionError(f"416x240 CRF B streams differ: {md5} {qps}")
+
+
+def phase_1080p_abr_vbv(dev, n_frames=7, kbps=27000):
+    """The uniform IPPP path at 1080p under ABR at kbps with VBV (maxrate
+    kbps, a buffer of one second) and the HRD: per frame its bits, QP,
+    VBV overshoot(s) and the buffer's fill after it; the re-encodes and
+    their wall time; kbps against the target; K1's fused launches (one
+    lookahead sweep per frame, one ME sweep per P-frame program call)."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    frames = synth_clip(n_frames, W1080, H1080)
+    sess = VideoEncoderSession(
+        W1080, H1080, qp=32, keyint=250, hash_sei=True, device=dev,
+        rc_mode="abr", bitrate_kbps=kbps, vbv_maxrate_kbps=kbps,
+        vbv_bufsize_kbps=kbps, hrd=True)
+    over, calls = [], []
+    orig = sess.rc.vbv_overshoot
+    sess.rc.vbv_overshoot = lambda bits: over.append(orig(bits)) or over[-1]
+    for stage in ("_code_idr", "_code_p"):
+        fn = getattr(sess, stage)
+
+        def timed(*a, fn=fn, stage=stage, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            calls[-1].append((stage, (time.perf_counter() - t0) * 1e3))
+            return out
+        setattr(sess, stage, timed)
+    total = len(sess.headers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, t_frames, fill, overs = [], [], [], []
+    me_sad.sad_block8_sweep.launches = 0          # the main path starts
+    me_sad.sad_sweep_best.launches = 0
+    for fr in frames:
+        calls.append([])
+        n_over = len(over)
+        t0 = time.perf_counter()
+        results.append(sess.encode_frame(*fr))
+        t_frames.append(time.perf_counter() - t0)
+        fill.append(sess.rc.buffer_fill)
+        overs.append(over[n_over:])
+    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
+                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
+    total += sum(len(r.nals) for r in results)
+    reencodes = sum(len(c) - 1 for c in calls)
+    got_kbps = total * 8 / 1e3 / (len(results) / 25.0)
+    emit(phase="1080p_abr_vbv", frames=len(results), target_kbps=kbps,
+         vbv_maxrate_kbps=kbps, vbv_bufsize_kbps=kbps, hrd=True,
+         fps=(len(frames) - 1) / sum(t_frames[1:]),
+         frame_ms=[t * 1e3 for t in t_frames],
+         frame_bits=[r.bits for r in results], qp=[r.qp for r in results],
+         frame_type=[r.frame_type for r in results],
+         buffer_fill_after=fill, vbv_overshoot=overs,
+         vbv_reencodes=reencodes,
+         vbv_reencode_ms=sum(ms for c in calls for _, ms in c[1:]),
+         kbps_at_25fps=got_kbps, kbps_over_target=got_kbps / kbps,
+         stage_ms_per_frame={k: v / len(results)
+                             for k, v in sess.stage_ms.items()},
+         psnr_y=[r.psnr_y for r in results],
+         psnr_u=[r.psnr_u for r in results],
+         psnr_v=[r.psnr_v for r in results],
+         ssim_y=[r.ssim_y for r in results], k1_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if [r.frame_type for r in results] != ["I"] + ["P"] * (n_frames - 1) \
+            or not all(np.isfinite([r.psnr_y, r.psnr_u, r.psnr_v, r.ssim_y])
+                       .all() and r.recon[0].shape == (H1080, W1080)
+                       for r in results) or sess.sps.hrd is None:
+        raise AssertionError("1080p_abr_vbv output malformed")
+    p_calls = sum(stage == "_code_p" for c in calls for stage, _ in c)
+    want = {"sad_sweep_best": n_frames + p_calls, "sad_block8_sweep": 0}
+    if launches != want:
+        raise AssertionError(f"1080p_abr_vbv: K1 launches {launches} != "
+                             f"{want}")
+    return launches
 
 
 def phase_1080p_aq_la(dev, n_frames=7):
@@ -919,6 +1159,8 @@ def main():
     phase_golden_intra(dev)
     phase_intra_cpu_vs_card(dev)
     phase_golden_aq(dev)
+    phase_golden_rc(dev)
+    phase_rc_cpu_vs_card(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -940,6 +1182,23 @@ def main():
          **{f"{k}_change": [a - b for a, b in zip(aq[k], sbh[k])]
             for k in ("psnr_y", "psnr_u", "psnr_v", "ssim_y")})
     by_path["1080p_aq_la"] = phase_1080p_aq_la(dev)
+    by_path["1080p_qt2_b_crf"], crf = phase_1080p_b(
+        dev, "1080p_qt2_b_crf", FLAGSHIP_CRF, QT_B_CRF_FRAMES)
+    # the frames both runs coded (the IDR and the first mini-GOP); the
+    # CQP run's frames carry a hash SEI, the flagship's do not
+    k = len(aq["frame_bytes"])
+    emit(phase="crf_vs_cqp", crf="1080p_qt2_b_crf", cqp="1080p_qt2_b_lf_sbh_aq",
+         fps=[crf["fps"], aq["fps"]], frames=[len(crf["qp"]), k],
+         frame_type=crf["frame_type"][:k], qp=[crf["qp"][:k], aq["qp"]],
+         frame_bytes=[crf["frame_bytes"][:k], aq["frame_bytes"]],
+         bytes_first_frames=[sum(crf["frame_bytes"][:k]),
+                             sum(aq["frame_bytes"])],
+         kbps_at_25fps=[crf["kbps_at_25fps"], aq["kbps_at_25fps"]],
+         rc_ms_per_frame=[crf["stage_ms_per_frame"].get("rc", 0.0),
+                          aq["stage_ms_per_frame"].get("rc", 0.0)],
+         **{k_: [crf[k_][:k], aq[k_]]
+            for k_ in ("psnr_y", "psnr_u", "psnr_v", "ssim_y")})
+    by_path["1080p_abr_vbv"] = phase_1080p_abr_vbv(dev)
     by_path["1080p_qt2_rdoq"] = phase_1080p(dev, "1080p_qt2_rdoq", 2, 2,
                                             {"rdoq": True})
     phase_1080p_intra(dev)

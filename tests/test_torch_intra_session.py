@@ -207,12 +207,20 @@ def _keywords(cls):
 @pytest.mark.parametrize("cls,param", _keywords(
     j_top.VideoEncoderSession) + _keywords(j_top.IntraEncoderSession),
     ids=lambda x: x if isinstance(x, str) else x.name)
-def test_every_jax_keyword_runs_or_names_its_slice(cls, param):
+def test_every_jax_keyword_runs_or_names_its_slice(cls, param, tmp_path):
     """A non-default value of each keyword either codes a frame in the
     port or raises NotImplementedError naming the slice that adds it;
-    never TypeError."""
+    never TypeError. The stats files live in a temporary directory; pass
+    2 reads a pass-1 file the port wrote there."""
     val = _non_default(param)
     assert val != param.default
+    if param.name in ("stats_write", "stats_read"):
+        val = str(tmp_path / val)
+    if param.name == "stats_read":
+        p1 = t_top.VideoEncoderSession(64, 48, device="cpu",
+                                       stats_write=val)
+        p1.encode_frame(*clip(64, 48, n=1)[0])
+        p1.stats_writer.close()
     top = getattr(t_top, cls)
     try:
         s = top(64, 48, device="cpu", **{param.name: val})

@@ -18,7 +18,7 @@ import torch
 from golden_corpus import clip
 from test_torch_qt_b_session import B_KW, ORDER, encode_push
 from x265_yuuki_asuna_tpu_torch.models import encoder_top as t_top
-from x265_yuuki_asuna_tpu_torch.models.state import RC_KEYS, \
+from x265_yuuki_asuna_tpu_torch.models.state import rc_state, \
     load_session_state
 from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
 
@@ -105,9 +105,8 @@ def _port_state(s):
           "ref_v": host(s.ref[2]),
           "prev_lowres": host(s.lookahead.prev_lowres),
           "frame_idx": s.frame_idx, "poc": s.poc,
-          "display_idx": s.display_idx,
-          "rc_window_bits": list(s.rc.window_bits)}
-    st.update({"rc_" + k: getattr(s.rc, k) for k in RC_KEYS})
+          "display_idx": s.display_idx}
+    st.update(rc_state(s.rc))
     return st
 
 
@@ -134,8 +133,8 @@ def test_filters_do_not_open_other_later_options():
     with pytest.raises(NotImplementedError, match="HME"):
         t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
                                   hme=True, **LF)
-    with pytest.raises(NotImplementedError, match="rate-control"):
-        t_top.VideoEncoderSession(64, 48, device="cpu", rc_mode="crf",
+    with pytest.raises(NotImplementedError, match="open-GOP"):
+        t_top.VideoEncoderSession(64, 48, device="cpu", open_gop=True,
                                   **LF)
 
 

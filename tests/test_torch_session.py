@@ -19,7 +19,8 @@ from x265_yuuki_asuna_tpu.models.intra_encoder import (IntraFrameConfig,
 from x265_yuuki_asuna_tpu_torch.models import encoder_top as t_top
 from x265_yuuki_asuna_tpu_torch.models import inter_encoder as t_inter
 from x265_yuuki_asuna_tpu_torch.models import intra_encoder as t_intra
-from x265_yuuki_asuna_tpu_torch.models.state import load_session_state
+from x265_yuuki_asuna_tpu_torch.models.state import (load_session_state,
+                                                     rc_state)
 
 torch.set_num_threads(2)
 
@@ -137,6 +138,33 @@ def test_load_session_state_mid_gop(jax_ippp):
         assert r.frame_type == "P" and r.nals == nals[i], i
 
 
+def test_load_session_state_mid_gop_crf_vbv():
+    """A JAX CRF + VBV session stopped after 3 frames continues in the
+    port: the CRF blur, the bits predictors and the VBV buffer carry over,
+    so the next QPs and NALs are the JAX session's."""
+    kw = dict(qp=32, cu_size=16, keyint=100, hash_sei=False, rc_mode="crf",
+              crf=26.0, vbv_maxrate_kbps=150, vbv_bufsize_kbps=40)
+    js = j_top.VideoEncoderSession(64, 48, **kw)
+    frames, res, state = clip(), [], None
+    for i, f in enumerate(frames):
+        if i == 3:
+            state = dict(_state(js), **rc_state(js.rc))
+        res.append(js.encode_frame(*f))
+    assert {"rc_la_blur", "rc_buffer_fill", "rc_rate_factor",
+            "rc_pred_P_coeff", "rc__last_rceq"} <= set(state)
+    s = t_top.VideoEncoderSession(64, 48, device="cpu", **kw)
+    load_session_state(s, state)
+    got = [s.encode_frame(*frames[i]) for i in (3, 4, 5)]
+    assert [(r.nals, r.qp) for r in got] == \
+        [(r.nals, r.qp) for r in res[3:]]
+    # a fresh rate control would code them otherwise
+    fresh = t_top.VideoEncoderSession(64, 48, device="cpu", **kw)
+    load_session_state(fresh, {k: v for k, v in state.items()
+                               if not k.startswith("rc_")})
+    assert [fresh.encode_frame(*frames[i]).qp for i in (3, 4, 5)] != \
+        [r.qp for r in got]
+
+
 def test_load_session_state_rejects_wrong_geometry(jax_ippp):
     state = dict(jax_ippp[2])
     state["ref_y"] = state["ref_y"][:32]
@@ -147,15 +175,34 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 
 @pytest.mark.parametrize("option", [
     {"bframes": 3}, {"max_depth": 1}, {"rqt": True}, {"psy_rd": 2.0},
-    {"rc_mode": "crf"}, {"scenecut_aware_qp": True}, {"qp_min": 10},
+    {"open_gop": True}, {"analysis_save": "a.dat"}, {"hash_type": 1},
     {"weightp": True},
-    {"zones": "0,10,q=20"}, {"hrd": True}, {"wpp": True}, {"n_refs": 2},
+    {"b_intra": True}, {"search_range": 32}, {"wpp": True}, {"n_refs": 2},
     {"bit_depth": 10}, {"hme": True}, {"tmvp": True}, {"frame_dup": True},
     {"max_depth": 2, "cu_size": 64},
 ])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         t_top.VideoEncoderSession(64, 48, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [
+    {"rc_mode": "crf"}, {"scenecut_aware_qp": True}, {"qp_min": 10},
+    {"zones": "0,10,q=20"},
+    {"hrd": True, "vbv_maxrate_kbps": 400, "vbv_bufsize_kbps": 200},
+], ids=["rc_mode", "scenecut_aware_qp", "qp_min", "zones", "hrd"])
+def test_rate_control_options_code_a_frame(option):
+    """The rate-control keywords that raised before their slice now code
+    frames: an IDR and a P frame, at the QP the option gives the IDR."""
+    s = t_top.VideoEncoderSession(64, 48, device="cpu", **option)
+    res = [s.encode_frame(*f) for f in clip()[:2]]
+    assert [r.frame_type for r in res] == ["I", "P"]
+    assert all(r.nals for r in res)
+    want = {"qp_min": 29, "zones": 20}.get(next(iter(option)))
+    if want is not None:
+        assert res[0].qp == want
+    if "hrd" in option:
+        assert s.sps.hrd == (400000, 200000, 0)
 
 
 @pytest.mark.parametrize("option", [

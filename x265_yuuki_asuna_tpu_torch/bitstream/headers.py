@@ -2,7 +2,7 @@
 
 Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what an
 8-bit 4:2:0 IPPP or fixed-mini-GOP B session writes (Main profile, flat
-scaling lists, VUI timing only, one reference per list, explicit
+scaling lists, VUI timing and HRD only, one reference per list, explicit
 short-term RPS, no WPP/tiles/slices, no weighted prediction or TMVP;
 deblocking and SAO on or off, deblocking at the default offsets). The
 bits written are the same as the JAX package's for those settings.
@@ -51,6 +51,9 @@ class SPSInfo:
     num_reorder_pics: int = 0
     ptl: ProfileTierLevel = field(default_factory=ProfileTierLevel)
     timing_info: Optional[Tuple[int, int]] = None  # (num_units_in_tick, time_scale)
+    # HRD in the VUI (spec E.2.2): (max_bitrate_bps, cpb_size_bits,
+    # cbr_flag), written with timing_info
+    hrd: Optional[Tuple[int, int, int]] = None
 
 
 @dataclass
@@ -161,8 +164,47 @@ def _write_vui(bw: BitWriter, sps: SPSInfo):
     bw.write_bits(sps.timing_info[0], 32)
     bw.write_bits(sps.timing_info[1], 32)
     bw.write_flag(0)             # poc_proportional_to_timing_flag
-    bw.write_flag(0)             # vui_hrd_parameters_present_flag
+    if sps.hrd:
+        bw.write_flag(1)         # vui_hrd_parameters_present_flag
+        _write_hrd(bw, sps)
+    else:
+        bw.write_flag(0)         # vui_hrd_parameters_present_flag
     bw.write_flag(0)             # bitstream_restriction_flag
+
+
+# scale exponents (spec E.2.2): value = (v + 1) << (6 | 4 + scale)
+HRD_BITRATE_SCALE = 4            # bitrate units of 2^(6+4) = 1024 bps
+HRD_CPB_SCALE = 6                # cpb units of 2^(4+6) = 1024 bits
+
+
+def hrd_units(sps):
+    """(bit_rate_value_minus1, cpb_size_value_minus1, cbr_flag) of
+    sps.hrd, each rate rounded up to its unit."""
+    maxrate_bps, cpb_bits, cbr = sps.hrd
+    br = max(-(-maxrate_bps // (1 << (6 + HRD_BITRATE_SCALE))), 1)
+    cpb = max(-(-cpb_bits // (1 << (4 + HRD_CPB_SCALE))), 1)
+    return br - 1, cpb - 1, cbr
+
+
+def _write_hrd(bw: BitWriter, sps):
+    """hrd_parameters(1, 0): NAL HRD only, one sub-layer, one CPB, no
+    sub-picture timing, 24-bit delay fields."""
+    br_m1, cpb_m1, cbr = hrd_units(sps)
+    bw.write_flag(1)             # nal_hrd_parameters_present_flag
+    bw.write_flag(0)             # vcl_hrd_parameters_present_flag
+    bw.write_flag(0)             # sub_pic_hrd_params_present_flag
+    bw.write_bits(HRD_BITRATE_SCALE, 4)
+    bw.write_bits(HRD_CPB_SCALE, 4)
+    bw.write_bits(23, 5)         # initial_cpb_removal_delay_length_minus1
+    bw.write_bits(23, 5)         # au_cpb_removal_delay_length_minus1
+    bw.write_bits(23, 5)         # dpb_output_delay_length_minus1
+    bw.write_flag(0)             # fixed_pic_rate_general_flag[0]
+    bw.write_flag(0)             # fixed_pic_rate_within_cvs_flag[0]
+    bw.write_flag(0)             # low_delay_hrd_flag[0]
+    bw.write_ue(0)               # cpb_cnt_minus1[0]
+    bw.write_ue(br_m1)           # bit_rate_value_minus1
+    bw.write_ue(cpb_m1)          # cpb_size_value_minus1
+    bw.write_flag(cbr)           # cbr_flag
 
 
 def write_pps(pps: PPSInfo) -> bytes:

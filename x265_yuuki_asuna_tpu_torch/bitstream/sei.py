@@ -1,7 +1,8 @@
 """SEI payload writers and level choice (host copy of the parts of
 x265_yuuki_asuna_tpu/bitstream/sei.py the sessions write: wrap_sei,
 active_parameter_sets, user_data_unregistered, parse_master_display,
-mastering_display, content_light_level, pick_level).
+mastering_display, content_light_level, the HRD's buffering_period and
+pic_timing, pick_level).
 
 Reference behavior (studied, not copied): encoder/sei.cpp, common/level.cpp.
 """
@@ -91,6 +92,37 @@ def content_light_level(max_cll: int, max_fall: int) -> bytes:
     bw.write_bits(max_cll, 16)
     bw.write_bits(max_fall, 16)
     return sei_message(SEI_CONTENT_LIGHT_LEVEL, bw.get_bytes())
+
+
+# ---------------------------------------------------------------------------
+# HRD SEI (spec D.2.2 buffering_period, D.2.3 pic_timing), for a session
+# whose VUI carries hrd_parameters (headers._write_hrd: 24-bit delay
+# fields, one NAL CPB, no sub-picture timing)
+# ---------------------------------------------------------------------------
+
+def buffering_period(initial_delay_90k: int,
+                     initial_offset_90k: int = 0) -> bytes:
+    """buffering_period SEI (payload type 0), delays in 90 kHz ticks."""
+    bw = BitWriter()
+    bw.write_ue(0)                       # bp_seq_parameter_set_id
+    bw.write_flag(0)                     # concatenation_flag
+    bw.write_bits(0, 24)                 # au_cpb_removal_delay_delta_minus1
+    d = min(max(int(initial_delay_90k), 1), (1 << 24) - 1)
+    o = min(max(int(initial_offset_90k), 0), (1 << 24) - 1)
+    bw.write_bits(d, 24)                 # nal_initial_cpb_removal_delay[0]
+    bw.write_bits(o, 24)                 # nal_initial_cpb_removal_offset[0]
+    bw.rbsp_trailing_bits()
+    return sei_message(0, bw.get_bytes())
+
+
+def pic_timing(au_removal_delay_minus1: int, dpb_output_delay: int) -> bytes:
+    """pic_timing SEI (payload type 1): the CPB removal and DPB output
+    delays (no frame_field_info)."""
+    bw = BitWriter()
+    bw.write_bits(min(au_removal_delay_minus1, (1 << 24) - 1), 24)
+    bw.write_bits(min(dpb_output_delay, (1 << 24) - 1), 24)
+    bw.rbsp_trailing_bits()
+    return sei_message(1, bw.get_bytes())
 
 
 # (level_idc, max_luma_samples, max_luma_sample_rate, main_tier_kbps)

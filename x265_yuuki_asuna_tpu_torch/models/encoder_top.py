@@ -1,11 +1,11 @@
 """Top-level encoder sessions: the all-intra session, and the video
-session (CQP, one reference per list; IPPP on the uniform CU grid or the
-CTU32 depth-2 quadtree, and fixed mini-GOPs with B frames on the
-quadtree).
+session (one reference per list; IPPP on the uniform CU grid or the CTU32
+depth-2 quadtree, and fixed mini-GOPs with B frames on the quadtree),
+under CQP, CRF or ABR rate control with VBV.
 
-Port of the CQP paths of x265_yuuki_asuna_tpu/models/encoder_top.py:
-IntraEncoderSession (encode_frame, the frame batches submit_batch /
-finish_batch / encode_batch, headers with the info, mastering-display and
+Port of x265_yuuki_asuna_tpu/models/encoder_top.py: IntraEncoderSession
+(encode_frame, the frame batches submit_batch / finish_batch /
+encode_batch, headers with the info, mastering-display and
 content-light-level SEI, the sei_provider hook) and
 VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
 hash SEI, scenecut and keyint_min; push_frame / flush with b_adapt=0, the
@@ -46,18 +46,39 @@ flush_la and propagates the costs of the window after each frame
 backwards (models/slicetype.py). B sessions keep the reference's parked
 average, whose offsets stay 0.
 
+Rate control (models/ratecontrol.py) gives each frame its QP: rc_mode
+"cqp", "crf" (crf) or "abr" (bitrate_kbps), with VBV (vbv_maxrate_kbps
+and vbv_bufsize_kbps), qp_min / qp_max and zones; stats_write /
+stats_read run the two passes. On the IPPP path, as in the reference,
+the QP comes from the lookahead's cost of the frame and of the frames
+still in the rc-lookahead window (or from pass 2), then the zone, then
+scene-cut-aware QP's window after a cut; hrd adds the HRD to the VUI and
+a buffering-period / pic-timing SEI to each access unit; a frame that
+would underflow the VBV buffer is coded again, at most twice, at a
+higher QP (the retry drops the prefix SEI, the reference's fault: ROADMAP
+Queue 3); stats_write records each frame. The B path takes each frame's
+QP from the rate control and the zone only (the reference has neither
+the HRD SEI, the scene-cut window nor pass-1 records there, though the
+VUI signals the HRD).
+
 With bframes > 0 (max_depth=2, b_adapt=0) frames go through push_frame
 and flush: each mini-GOP of bframes + 1 frames codes its last frame as a P
 anchor, then the frames before it as B frames between the two anchors;
 with b_pyramid and two or more B frames the middle one is a referenced B
-(TRAIL_R) that the outer ones predict from. The JAX session pipelines a
-mini-GOP's device programs under CQP; the port runs them in order, which
-codes the same stream.
+(TRAIL_R) that the outer ones predict from. The port codes a mini-GOP's
+frames one after another. The JAX session pipelines them under CQP
+without two-pass: it takes every frame's QP at submit, before any of the
+mini-GOP's frames is fed back. With a constant QP that codes the same
+stream as in order; under CQP with VBV the buffer moves between frames,
+so the port then takes the mini-GOP's QPs first, in submit order, and
+feeds the frames back in coding order after them. CRF, ABR and two-pass
+B sessions run in order in the reference too.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import time
 from collections import defaultdict
 from dataclasses import dataclass
@@ -82,21 +103,16 @@ from .intra_encoder import (IntraFrameEncoder, IntraQTEncoder,
                             chroma_qp_from_luma)
 from . import slicetype
 from .lookahead import Lookahead
-from .ratecontrol import RateControl, compute_aq_offsets
+from .ratecontrol import (RateControl, RCConfig, StatsWriter, TwoPassRC,
+                          compute_aq_offsets)
 
 FPS = (25, 1)      # default signalled frame rate (VUI timing, level)
 MAX_MERGE = 3      # merge candidates (five_minus_max_num_merge_cand = 2)
 
-_RC = "the CRF/ABR/VBV rate-control slice"
 _P = "a later P-frame slice"
 # every keyword of the JAX sessions this port has no slice for yet, with
 # the slice that adds it (ROADMAP Queue 1)
 _LATER = {
-    "rc_mode": _RC, "crf": _RC, "bitrate_kbps": _RC, "stats_write": _RC,
-    "stats_read": _RC, "vbv_maxrate_kbps": _RC, "vbv_bufsize_kbps": _RC,
-    "zones": _RC, "qp_min": _RC, "qp_max": _RC, "hrd": _RC,
-    "scenecut_aware_qp": _RC, "scenecut_qp_delta": _RC,
-    "scenecut_window": _RC,
     "hme": "the HME slice", "hme_range": "the HME slice",
     "hist_scenecut": "the lookahead b-adapt and histogram-scenecut slice",
     "recon_out": "the flagship session slice",
@@ -117,11 +133,7 @@ _LATER = {
 }
 # the defaults of those keywords in each JAX session
 _VIDEO_DEFAULTS = {
-    "rc_mode": "cqp", "crf": 28.0, "bitrate_kbps": 0, "stats_write": None,
-    "stats_read": None, "vbv_maxrate_kbps": 0, "vbv_bufsize_kbps": 0,
-    "zones": None, "qp_min": 4, "qp_max": 51, "hrd": False,
-    "scenecut_aware_qp": False, "scenecut_qp_delta": 5,
-    "scenecut_window": 12, "hme": False, "hme_range": 16,
+    "hme": False, "hme_range": 16,
     "hist_scenecut": False, "recon_out": True, "search_range": 16,
     "max_merge": 3, "weightp": False, "n_refs": 1, "tmvp": False,
     "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
@@ -521,7 +533,7 @@ class IntraEncoderSession:
 
 
 class VideoEncoderSession:
-    """GOP session, CQP, one reference per list.
+    """GOP session, one reference per list.
 
     max_depth=0 codes the uniform cu_size=16 grid; max_depth=2 codes CTU32
     quadtrees down to 8x8 CUs (cu_size is then 32, as in the JAX session).
@@ -534,7 +546,14 @@ class VideoEncoderSession:
     rc_lookahead > 0 delays an IPPP session's frames through push_la /
     flush_la for cuTree's window; fps sets the VUI timing, the level and
     keyint_min; quality_metrics=False leaves PSNR-U/V and SSIM out of the
-    results. device=None runs on the CUDA card (and
+    results. Rate control: rc_mode ("cqp", "crf" with crf, "abr" with
+    bitrate_kbps), vbv_maxrate_kbps / vbv_bufsize_kbps (VBV, both > 0),
+    hrd (the HRD in the VUI and, on the IPPP path, its SEI; with VBV
+    only), qp_min / qp_max, zones ("start,end,q=N" or "start,end,b=F"
+    parts joined by "/", display indices), scenecut_aware_qp with
+    scenecut_qp_delta / scenecut_window (IPPP), stats_write (pass-1 stats
+    of the IPPP path, written by stats_writer.close()) and stats_read
+    (pass 2). device=None runs on the CUDA card (and
     raises when there is none); device="cpu" runs every kernel's plain
     PyTorch version. Options of the JAX session outside these slices
     raise NotImplementedError."""
@@ -549,6 +568,13 @@ class VideoEncoderSession:
                  psy_rdoq: float = 0.0, quality_metrics: bool = True,
                  aq_mode: int = 0, aq_strength: float = 1.0,
                  cutree: bool = False, rc_lookahead: int = 0,
+                 rc_mode: str = "cqp", crf: float = 28.0,
+                 bitrate_kbps: int = 0, vbv_maxrate_kbps: int = 0,
+                 vbv_bufsize_kbps: int = 0, hrd: bool = False,
+                 zones: str = None, qp_min: int = 4, qp_max: int = 51,
+                 scenecut_aware_qp: bool = False,
+                 scenecut_qp_delta: int = 5, scenecut_window: int = 12,
+                 stats_write: str = None, stats_read: str = None,
                  dpb_device: bool = None, device=None, **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
@@ -621,11 +647,66 @@ class VideoEncoderSession:
             self.inter_encoder = InterFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device, quant_fn)
         self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device)
-        self.rc = RateControl(qp)
+        fps_f = fps[0] / max(fps[1], 1)
+        # the rate control sees the source size
+        self.rc = RateControl(RCConfig(
+            mode=rc_mode, qp=qp, crf=crf, bitrate_kbps=bitrate_kbps,
+            fps=fps_f, width=width, height=height, qp_min=qp_min,
+            qp_max=qp_max, vbv_maxrate_kbps=vbv_maxrate_kbps,
+            vbv_bufsize_kbps=vbv_bufsize_kbps))
+        # HRD: the CPB is the VBV buffer, so it needs both rates
+        self.hrd = bool(hrd) and vbv_maxrate_kbps > 0 \
+            and vbv_bufsize_kbps > 0
+        if self.hrd:
+            self.sps.hrd = (vbv_maxrate_kbps * 1000, vbv_bufsize_kbps * 1000,
+                            0)
+            self._au_count = 0
+        # scene-cut-aware QP: the frames of the window after a cut get a
+        # higher QP, in three steps
+        self.scenecut_aware_qp = bool(scenecut_aware_qp)
+        self.scenecut_qp_delta = scenecut_qp_delta
+        self.scenecut_window = max(scenecut_window, 3)
+        self._since_scenecut = 10 ** 9
+        # two-pass; the #options header holds the fields x265's pass-2
+        # parser checks
+        opts = (f"input-res={width}x{height} fps={fps[0]}/{fps[1]} "
+                f"bitdepth=8 weightp=0 bframes={max(0, bframes)} "
+                f"b-pyramid={int(bool(b_pyramid))} open-gop=0 "
+                f"keyint={keyint} scenecut=40 intra-refresh=0 frame-dup=0 "
+                f"b-adapt={b_adapt} rc-lookahead={rc_lookahead} "
+                f"vbv-maxrate={vbv_maxrate_kbps} "
+                f"vbv-bufsize={vbv_bufsize_kbps} ctu={cu_size} ref=1")
+        self.stats_writer = (StatsWriter(stats_write, options=opts)
+                             if stats_write else None)
+        self.two_pass = TwoPassRC(stats_read, bitrate_kbps, fps_f) \
+            if stats_read else None
+        # pass-1 cuTree offsets: every frame carries a QP map
+        self._tp_delta_on = bool(
+            self.two_pass is not None
+            and any("cuoff" in r for r in self.two_pass.records))
+        if self._tp_delta_on:
+            self.pps.cu_qp_delta = 1
+        self._tp_cuoff = None       # the pass-1 offsets of this frame
+        # zones: (first, last display index, QP or None, bitrate factor
+        # or None)
+        self.zones = []
+        self.gop_display_base = 0   # display index of the GOP's POC 0
+        if zones:
+            for part in zones.split("/"):
+                first, last, opt = part.split(",", 2)
+                zq = zb = None
+                k, _, val = opt.partition("=")
+                if k == "q":
+                    zq = int(val)
+                elif k == "b":
+                    zb = float(val)
+                self.zones.append((int(first), int(last), zq, zb))
+        self.sei_provider = None    # callable(display_idx) -> prefix bytes
         # cuTree's causal average on the lowres 8x8 grid (_cutree_update);
         # the window of lookahead details of the frame being coded with
         # rc_lookahead (its own first), and the frames waiting for theirs:
-        # (y, u, v, icost, pcost, scenecut, detail, force_idr, qp)
+        # (y, u, v, icost, pcost, scenecut, detail, display index,
+        # force_idr, qp)
         self.cutree_acc = np.zeros((self.lookahead.lh // 8,
                                     self.lookahead.lw // 8))
         self.cutree_icost = np.maximum(self.cutree_acc, 1.0)
@@ -664,6 +745,18 @@ class VideoEncoderSession:
     def _pad(self, y, u, v):
         return self.intra_sess._pad(y, u, v)
 
+    def _zone_qp(self, display_idx: int, qp: int) -> int:
+        """The QP of the frame at display_idx in its zone: the zone's QP,
+        or qp - 6 log2(factor) clipped to 0..51; qp outside every zone."""
+        for first, last, zq, zb in self.zones:
+            if first <= display_idx <= last:
+                if zq is not None:
+                    return zq
+                if zb:
+                    return int(round(min(max(qp - 6 * math.log2(zb), 0),
+                                         51)))
+        return qp
+
     def intra_refresh(self):
         """Code the next frame as an IDR (x265_encoder_intra_refresh); with
         rc_lookahead, the next frame pushed."""
@@ -684,7 +777,8 @@ class VideoEncoderSession:
         # a forced IDR and the QP apply to this frame when it leaves the
         # window
         self.la_queue.append((y, u, v, icost, pcost, scenecut, det,
-                              self._force_idr, self.rc.qp))
+                              self.display_idx, self._force_idr,
+                              self.rc.cfg.qp))
         self._force_idr = False
         self.display_idx += 1
         if len(self.la_queue) > self.la_depth:
@@ -699,14 +793,14 @@ class VideoEncoderSession:
         return out
 
     def _pop_la(self) -> FrameResult:
-        (y, u, v, icost, pcost, scenecut, det, force_idr,
+        (y, u, v, icost, pcost, scenecut, det, didx, force_idr,
          qp_cfg) = self.la_queue.pop(0)
         window = [det] + [q[6] for q in self.la_queue]
-        self.rc.qp = self.qp = qp_cfg
+        self.rc.cfg.qp = self.qp = qp_cfg
         if force_idr:
             self._force_idr = True
         return self.encode_frame(y, u, v, _la=(icost, pcost, scenecut,
-                                               window))
+                                               window, didx))
 
     # ------------------------------------------------------------------
     def encode_frame(self, y, u, v, _la=None) -> FrameResult:
@@ -719,31 +813,101 @@ class VideoEncoderSession:
         if _la is None:
             icost, pcost, scenecut = self._timed("lookahead",
                                                  self.lookahead.push, yp)
+            didx = self.display_idx
             self.display_idx += 1
             self._cutree_window = None
         else:
-            icost, pcost, scenecut, self._cutree_window = _la
+            icost, pcost, scenecut, self._cutree_window, didx = _la
         is_idr = (self.frame_idx % self.keyint == 0) or self.ref is None \
             or (scenecut and self.frame_idx >= self.keyint_min) \
             or self._force_idr
         self._force_idr = False
-        qp = self.rc.frame_qp(is_idr, lookahead_cost=icost if is_idr
-                              else pcost)
+        la_cost = icost if is_idr else pcost
+        qp = self._timed("rc", self._ippp_qp, is_idr, la_cost)
+        qp = self._zone_qp(didx, qp)
+        if self.scenecut_aware_qp:
+            qp = self._scenecut_qp(qp, is_idr and (scenecut
+                                                   or self.frame_idx == 0))
         if _la is None:
             self._cutree_update()
-        qp_map = self._qp_map(yp, qp)
         if is_idr:
             self.poc = 0
             self.frame_idx = 0   # scenecut restarts the GOP
-            out, nals = self._code_idr(yp, up, vp, qp, qp_map)
         else:
             self.poc += 1
-            out, nals = self._code_p(yp, up, vp, self.ref, qp, self.poc, 1,
-                                     qp_map)
+
+        def attempt(qp):
+            qp_map = self._qp_map(yp, qp)
+            if is_idr:
+                return self._code_idr(yp, up, vp, qp, qp_map)
+            return self._code_p(yp, up, vp, self.ref, qp, self.poc, 1,
+                                qp_map)
+
+        out, nals = attempt(qp)
+        if self.hrd:
+            nals = self._hrd_sei(is_idr) + nals
+        if self.sei_provider is not None:
+            nals = self.sei_provider(didx) + nals
+        # VBV: a frame the buffer cannot take is coded again at a higher
+        # QP (the retry's NALs have no prefix SEI, as in the reference)
+        for _ in range(2):
+            over = self.rc.vbv_overshoot(len(nals) * 8)
+            if over <= 1.08 or qp >= 51:
+                break
+            qp = min(qp + max(1, int(round(6 * math.log2(over)))), 51)
+            out, nals = attempt(qp)
         self.ref = self._recon_ref(out)
         self.frame_idx += 1
         return self._finish(out, nals, (y, u, v), qp, self.poc,
-                            "I" if is_idr else "P")
+                            "I" if is_idr else "P", la_cost)
+
+    def _ippp_qp(self, is_idr: bool, la_cost: float) -> int:
+        """The IPPP frame's QP before its zone: pass 2's (and its cuTree
+        offsets, kept for the QP map), or the rate control's from the
+        frame's lookahead cost and those of the frames in the window."""
+        self._tp_cuoff = None
+        if self.two_pass is not None:
+            qp = self.two_pass.frame_qp()
+            off = self.two_pass.frame_cuoff()
+            rows, cols = self.coded_h // self.cu, self.coded_w // self.cu
+            if off is not None and off.size == rows * cols:
+                self._tp_cuoff = off.reshape(rows, cols)
+            return qp
+        return self.rc.frame_qp(is_idr, lookahead_cost=la_cost,
+                                future_costs=[q[4] for q in self.la_queue])
+
+    def _scenecut_qp(self, qp: int, cut: bool) -> int:
+        """Scene-cut-aware QP: + delta in the first third of the window
+        after a cut (cut: this frame is one), + 2/3 delta in the second,
+        + 1/3 delta in the last."""
+        if cut:
+            self._since_scenecut = 0
+        else:
+            self._since_scenecut += 1
+        w3, k = self.scenecut_window, self._since_scenecut
+        if k < w3 // 3:
+            qp = min(qp + self.scenecut_qp_delta, 51)
+        elif k < 2 * w3 // 3:
+            qp = min(qp + (2 * self.scenecut_qp_delta) // 3, 51)
+        elif k < w3:
+            qp = min(qp + self.scenecut_qp_delta // 3, 51)
+        return qp
+
+    def _hrd_sei(self, is_idr: bool) -> bytes:
+        """The access unit's HRD prefix SEI: a buffering period at an IDR
+        (the initial CPB fill as a 90 kHz delay), then its picture
+        timing."""
+        cfg = self.rc.cfg
+        msgs = []
+        if is_idr:
+            init = (cfg.vbv_bufsize_kbps * cfg.vbv_init
+                    / max(cfg.vbv_maxrate_kbps, 1))
+            msgs.append(SEI.buffering_period(int(init * 90000)))
+            self._au_count = 0
+        msgs.append(SEI.pic_timing(max(self._au_count - 1, 0),
+                                   self.sps.num_reorder_pics))
+        self._au_count += 1
+        return SEI.wrap_sei(msgs)
 
     # ------------------------------------------------------------------
     # mini-GOPs with B frames (bframes > 0): the JAX session's push_frame
@@ -780,70 +944,99 @@ class VideoEncoderSession:
         """Code the pending frames: the last as a P anchor, the others as B
         frames between the previous anchor and it. With b_pyramid and two
         or more B frames the middle one is a referenced B and the others
-        predict from it and the nearer anchor."""
+        predict from it and the nearer anchor. Under CQP without two-pass
+        the frames' QPs are taken first, in this order (the reference's
+        pipelined mini-GOP)."""
         if not self.pending:
             return []
         frames, self.pending = self.pending, []
         prev_anchor, prev_poc = self.anchor
         anchor_poc = prev_poc + len(frames)
-        out = [self._encode_p_anchor(*frames[-1], anchor_poc,
-                                     anchor_poc - prev_poc)]
-        new_anchor = self.anchor[0]
         nb = len(frames) - 1
+        # coding order: (frame, POC, QP offset: None for the P anchor, 1
+        # for the referenced B, 2 for the others; its two references by
+        # name and POC; its RPS)
+        plan = [(nb, anchor_poc, None, None, None)]
         if self.b_pyramid and nb >= 2:
             m = nb // 2
             bref_poc = prev_poc + 1 + m
-            fr, bref = self._encode_b(*frames[m], bref_poc, prev_anchor,
-                                      prev_poc, new_anchor, anchor_poc,
-                                      is_ref=True)
-            out.append(fr)
-            for i, f in enumerate(frames[:-1]):
-                if i == m:
-                    continue
+            plan.append((m, bref_poc, 1,
+                         ("prev", prev_poc, "anchor", anchor_poc), None))
+            for i in range(nb):
                 poc = prev_poc + 1 + i
                 if i < m:
                     # refs (previous anchor, middle B); the next anchor
                     # stays in the RPS, unused, for the Bs after this one
-                    rps = ([(poc - prev_poc, 1)],
-                           [(bref_poc - poc, 1), (anchor_poc - poc, 0)])
-                    refs = (prev_anchor, prev_poc, bref, bref_poc)
-                else:
-                    rps = ([(poc - bref_poc, 1)], [(anchor_poc - poc, 1)])
-                    refs = (bref, bref_poc, new_anchor, anchor_poc)
-                out.append(self._encode_b(*f, poc, *refs, rps=rps)[0])
+                    plan.append((i, poc, 2, ("prev", prev_poc, "bref",
+                                             bref_poc),
+                                 ([(poc - prev_poc, 1)],
+                                  [(bref_poc - poc, 1),
+                                   (anchor_poc - poc, 0)])))
+                elif i > m:
+                    plan.append((i, poc, 2, ("bref", bref_poc, "anchor",
+                                             anchor_poc),
+                                 ([(poc - bref_poc, 1)],
+                                  [(anchor_poc - poc, 1)])))
         else:
-            for i, f in enumerate(frames[:-1]):
-                out.append(self._encode_b(*f, prev_poc + 1 + i, prev_anchor,
-                                          prev_poc, new_anchor,
-                                          anchor_poc)[0])
+            plan += [(i, prev_poc + 1 + i, 2,
+                      ("prev", prev_poc, "anchor", anchor_poc), None)
+                     for i in range(nb)]
+        pipelined = self.rc.cfg.mode == "cqp" and self.two_pass is None
+        qps = [self._timed("rc", self._minigop_qp, p[1], p[2])
+               for p in plan] if pipelined else [None] * len(plan)
+        refs, out = {"prev": prev_anchor}, []
+        for (i, poc, b_off, r, rps), qp in zip(plan, qps):
+            if qp is None:
+                qp = self._timed("rc", self._minigop_qp, poc, b_off)
+            if b_off is None:
+                out.append(self._encode_p_anchor(*frames[i], poc,
+                                                 poc - prev_poc, qp))
+                refs["anchor"] = self.anchor[0]
+                continue
+            fr, rec = self._encode_b(*frames[i], poc, refs[r[0]], r[1],
+                                     refs[r[2]], r[3], qp,
+                                     is_ref=b_off == 1, rps=rps)
+            out.append(fr)
+            if b_off == 1:
+                refs["bref"] = rec
         return out
 
+    def _minigop_qp(self, poc: int, b_off: Optional[int]) -> int:
+        """The QP of a mini-GOP frame at poc: the rate control's (+ b_off
+        for a B frame, at most 51), then its zone."""
+        qp = self.rc.frame_qp(False)
+        if b_off is not None:
+            qp = min(qp + b_off, 51)
+        return self._zone_qp(self.gop_display_base + poc, qp)
+
     def _encode_idr_anchor(self, y, u, v) -> FrameResult:
-        qp = self.rc.frame_qp(True)
+        qp = self._timed("rc", self.rc.frame_qp, True)
+        self.gop_display_base = self.display_idx
+        qp = self._zone_qp(self.display_idx, qp)
         yp, up, vp = self._pad(y, u, v)
         out, nals = self._code_idr(yp, up, vp, qp, self._qp_map(yp, qp))
+        nals = self._provided(0) + nals
         self.anchor = (self._recon_ref(out), 0)
         return self._finish(out, nals, (y, u, v), qp, 0, "I")
 
-    def _encode_p_anchor(self, y, u, v, poc: int,
-                         ref_delta: int) -> FrameResult:
+    def _encode_p_anchor(self, y, u, v, poc: int, ref_delta: int,
+                         qp: int) -> FrameResult:
         """The mini-GOP's P anchor, ref_delta pictures after the previous
-        anchor."""
-        qp = self.rc.frame_qp(False)
+        anchor, at the QP qp."""
         yp, up, vp = self._pad(y, u, v)
         out, nals = self._code_p(yp, up, vp, self.anchor[0], qp, poc,
                                  ref_delta, self._qp_map(yp, qp))
+        nals = self._provided(poc) + nals
         self.anchor = (self._recon_ref(out), poc)
         return self._finish(out, nals, (y, u, v), qp, poc, "P")
 
     def _encode_b(self, y, u, v, poc: int, ref0, poc0: int, ref1, poc1: int,
-                  is_ref: bool = False, rps=None):
-        """One B frame from ref0 (L0, at poc0) and ref1 (L1, at poc1), each
-        (y, u, v) recon planes. is_ref: the pyramid's referenced middle B,
-        coded TRAIL_R at a QP offset of 1 instead of 2. Returns the
-        FrameResult and the recon planes."""
+                  qp: int, is_ref: bool = False, rps=None):
+        """One B frame at the QP qp from ref0 (L0, at poc0) and ref1 (L1,
+        at poc1), each (y, u, v) recon planes. is_ref: the pyramid's
+        referenced middle B, coded TRAIL_R. Returns the FrameResult and
+        the recon planes."""
         yp, up, vp = self._pad(y, u, v)
-        qp = min(self.rc.frame_qp(False) + (1 if is_ref else 2), 51)
         qp_map = self._qp_map(yp, qp)
         out = _program(self.stage_ms, "inter_b", self.inter_encoder, yp, up,
                        vp, *ref0, qp if qp_map is None else qp_map,
@@ -852,8 +1045,15 @@ class VideoEncoderSession:
             out["qp_map"] = qp_map
         nals = self._timed("serialize", self._assemble_b_slice, out, qp, poc,
                            poc0, poc1, is_ref, rps)
+        nals = self._provided(poc) + nals
         return (self._finish(out, nals, (y, u, v), qp, poc,
                              "B" if is_ref else "b"), self._recon_ref(out))
+
+    def _provided(self, poc: int) -> bytes:
+        """sei_provider's bytes for the mini-GOP frame at poc."""
+        if self.sei_provider is None:
+            return b""
+        return self.sei_provider(self.gop_display_base + poc)
 
     # ------------------------------------------------------------------
     def _code_idr(self, yp, up, vp, qp: int, qp_map=None):
@@ -888,14 +1088,16 @@ class VideoEncoderSession:
             (out["recon_y"], out["recon_u"], out["recon_v"])
 
     def _finish(self, out: dict, nals: bytes, frame, qp: int, poc: int,
-                frame_type: str) -> FrameResult:
-        """Append the hash SEI, feed the rate control, and make the
-        frame's result (recon cropped to the source, the quality metrics
-        against the source planes `frame`)."""
+                frame_type: str, la_cost: float = None) -> FrameResult:
+        """Append the hash SEI, feed the rate control (and on the IPPP path
+        pass 2 and the pass-1 stats, with the frame's lookahead cost
+        la_cost), and make the frame's result (recon cropped to the
+        source, the quality metrics against the source planes
+        `frame`)."""
         if self.hash_sei:
             nals += self._timed("serialize", hash_sei, out)
-        # CQP's history counters do not read the slice type
-        self.rc.frame_done(qp, len(nals) * 8)
+        self._timed("rc", self._rc_done, qp, len(nals) * 8, frame_type,
+                    la_cost)
         ch, cw = self.src_h // 2, self.src_w // 2
         recon = (out["recon_y"][:self.src_h, :self.src_w].astype(np.uint8),
                  out["recon_u"][:ch, :cw].astype(np.uint8),
@@ -906,6 +1108,22 @@ class VideoEncoderSession:
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
                            psnr_y=q[0], frame_type=frame_type, qp=qp,
                            poc=poc, psnr_u=q[1], psnr_v=q[2], ssim_y=q[3])
+
+    def _rc_done(self, qp: int, bits: int, frame_type: str,
+                 la_cost: float) -> None:
+        self.rc.frame_done(qp, bits, slice_type="B" if frame_type in "Bb"
+                           else frame_type)
+        if self.bframes:     # the reference's B path stops here
+            return
+        if self.two_pass is not None:
+            self.two_pass.frame_done(bits)
+        if self.stats_writer is not None:
+            co = None
+            if self.cutree and self._cutree_window:
+                co = self._window_offsets().reshape(-1).tolist()
+            elif self.cutree:
+                co = self._cutree_offsets().reshape(-1).tolist()
+            self.stats_writer.add(frame_type, qp, bits, la_cost, cuoff=co)
 
     def _assemble_p_slice(self, out: dict, qp: int, poc: int,
                           ref_delta: int) -> bytes:
@@ -947,32 +1165,43 @@ class VideoEncoderSession:
         return _slice_nal(bw, res, nal_type)
 
     # ------------------------------------------------------------------
-    # per-CU QP: AQ and cuTree (the reference's _frame_qp_map without the
-    # two-pass and CTU-info offsets, which belong to later slices)
+    # per-CU QP: AQ, cuTree and pass 2's cuTree offsets (the reference's
+    # _frame_qp_map without the CTU-info offsets of the host API)
     # ------------------------------------------------------------------
     def _qp_map(self, yp, qp: int):
         """The frame's per-CU QP map around the frame QP qp (None without
-        AQ and cuTree), timed as the stage "qp_map"."""
-        if not (self.aq_mode or self.cutree):
+        AQ, cuTree and pass-1 offsets), timed as the stage "qp_map"."""
+        if not (self.aq_mode or self.cutree or self._tp_delta_on):
             return None
         return self._timed("qp_map", self._frame_qp_map, yp, qp)
 
     def _frame_qp_map(self, yp, qp: int) -> np.ndarray:
-        """AQ's offsets (luma only) plus cuTree's: from the window's
+        """AQ's offsets (luma only) plus cuTree's: pass 2's from the
+        pass-1 stats when the frame has them, else from the window's
         backward propagation while a delayed frame is coded, else from
-        the causal average; clipped to 0..51."""
+        the causal average; clipped to 0..51. The reference's
+        ctu_info_offsets term (x265_encoder_ctu_info) comes with the host
+        API (ROADMAP Queue 1)."""
         off = np.zeros((self.coded_h // self.cu, self.coded_w // self.cu),
                        np.int32)
         if self.aq_mode:
             off = off + compute_aq_offsets(yp, self.cu, self.aq_strength,
                                            mode=self.aq_mode)
-        if self.cutree and self._cutree_window:
-            off_blk = slicetype.cutree_propagate(
-                self._cutree_window, strength=self.cutree_strength)
-            off = off + slicetype.pool_to_cu(off_blk, self.cu, *off.shape)
+        if self._tp_cuoff is not None:
+            off = off + self._tp_cuoff
+        elif self.cutree and self._cutree_window:
+            off = off + self._window_offsets()
         elif self.cutree:
             off = off + self._cutree_offsets()
         return np.clip(qp + off, 0, 51).astype(np.int32)
+
+    def _window_offsets(self) -> np.ndarray:
+        """Per-CU integer QP offsets [rows, cols] from the rc-lookahead
+        window's backward propagation."""
+        off_blk = slicetype.cutree_propagate(self._cutree_window,
+                                             strength=self.cutree_strength)
+        return slicetype.pool_to_cu(off_blk, self.cu, self.coded_h // self.cu,
+                                    self.coded_w // self.cu)
 
     def _cutree_update(self):
         """Fold the lookahead's last frame into cuTree's causal average:

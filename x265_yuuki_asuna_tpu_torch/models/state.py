@@ -12,10 +12,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# rate-control history counters (RateControl attributes)
+# rate-control state (RateControl attributes): the history counters, the
+# CRF / ABR / VBV state (each present only in its modes; la_blur and
+# _last_rceq only after their first use) and each slice type's bits
+# predictor, as pred_<I|P|B>_<coeff|count|offset>
 RC_KEYS = ("frame", "total_bits", "cplx_sum", "cplx_count",
            "short_term_cplx", "short_term_count", "last_qscale",
-           "last_satd")
+           "last_satd", "la_blur", "rate_factor", "cplxr_sum",
+           "wanted_bits_window", "buffer_fill", "amortize_per_frame",
+           "amortize_left", "_last_rceq") + tuple(
+               f"pred_{t}_{a}" for t in "IPB"
+               for a in ("coeff", "count", "offset"))
+
+
+def rc_state(rc) -> dict:
+    """The rc_<name> entries of a session state (see load_session_state)
+    from a RateControl, of this package or the JAX one: every RC_KEYS
+    attribute it has, and its window_bits."""
+    st = {"rc_window_bits": list(rc.window_bits)}
+    for k in RC_KEYS:
+        if k.startswith("pred_"):
+            _, t, a = k.split("_")
+            st["rc_" + k] = getattr(rc.pred[t], a)
+        elif hasattr(rc, k):
+            st["rc_" + k] = getattr(rc, k)
+    return st
 
 
 def load_session_state(sess, state: dict) -> None:
@@ -26,7 +47,9 @@ def load_session_state(sess, state: dict) -> None:
       prev_lowres           the lookahead's previous lowres plane [lh, lw]
                             (absent or None: no previous frame)
       frame_idx, poc, display_idx
-      rc_<name> for <name> in RC_KEYS, and rc_window_bits (a sequence)
+      rc_<name> for <name> in RC_KEYS, and rc_window_bits (a sequence);
+                            only the ones given are set (rc_state makes
+                            them)
     """
     if sess.bframes:
         raise NotImplementedError(
@@ -59,7 +82,14 @@ def load_session_state(sess, state: dict) -> None:
     sess.poc = int(state["poc"])
     sess.display_idx = int(state["display_idx"])
     for k in RC_KEYS:
-        if f"rc_{k}" in state:
-            setattr(sess.rc, k, type(getattr(sess.rc, k))(state[f"rc_{k}"]))
+        if f"rc_{k}" not in state:
+            continue
+        obj, name = sess.rc, k
+        if k.startswith("pred_"):
+            _, t, name = k.split("_")
+            obj = sess.rc.pred[t]
+        # ints stay ints (frame, amortize_left), the rest are floats
+        cast = int if isinstance(getattr(obj, name, 0.0), int) else float
+        setattr(obj, name, cast(state[f"rc_{k}"]))
     if "rc_window_bits" in state:
         sess.rc.window_bits = [int(b) for b in state["rc_window_bits"]]

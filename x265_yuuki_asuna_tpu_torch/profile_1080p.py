@@ -1,9 +1,10 @@
-"""Where the time of a 1080p CQP frame goes, on the card.
+"""Where the time of a 1080p frame goes, on the card.
 
     python -m x265_yuuki_asuna_tpu_torch.profile_1080p [--frames 3]
         [--max-depth 0 2] [--bframes 3] [--deblock] [--sao] [--sbh]
-        [--rdoq] [--aq-mode 2] [--cutree] [--intra] [--batch 4]
-        [--device-only]
+        [--rdoq] [--aq-mode 2] [--cutree] [--rc-mode crf] [--crf 28]
+        [--bitrate 27000] [--vbv-maxrate 27000] [--vbv-bufsize 27000]
+        [--intra] [--batch 4] [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
 depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
@@ -17,7 +18,10 @@ coded frame (I, P, then the B frames) recorded on its own; the lookahead,
 which push_frame runs before the frame is coded, is outside the records.
 --deblock / --sao switch the sessions' in-loop filters on, --sbh / --rdoq
 sign-bit hiding / RDOQ, --aq-mode / --cutree adaptive quantization /
-cuTree (the per-CU QP map: its host work is the stage "qp_map"). --intra profiles the all-intra session instead
+cuTree (the per-CU QP map: its host work is the stage "qp_map");
+--rc-mode / --crf / --bitrate / --vbv-maxrate / --vbv-bufsize the video
+sessions' rate control (CQP at qp 32 by default; its host work is the
+stage "rc"). --intra profiles the all-intra session instead
 (IntraEncoderSession): after the warm-up, one frame through encode_frame
 and, with --batch N, one batch of N frames through encode_batch, recorded
 as one entry (its launches and device time are the batch's; divide by
@@ -127,7 +131,9 @@ def _name(max_depth: int, bframes: int, kw: dict, intra: bool = False):
         + ("_lf" if kw["deblock"] or kw["sao"] else "") \
         + ("_sbh" if kw["sbh"] else "") + ("_rdoq" if kw["rdoq"] else "") \
         + (f"_aq{kw['aq_mode']}" if kw.get("aq_mode") else "") \
-        + ("_cutree" if kw.get("cutree") else "")
+        + ("_cutree" if kw.get("cutree") else "") \
+        + (f"_{kw['rc_mode']}" if kw.get("rc_mode", "cqp") != "cqp"
+           else "") + ("_vbv" if kw.get("vbv_maxrate_kbps") else "")
 
 
 def profile_intra(max_depth: int, warm_frames: int, batch: int,
@@ -205,6 +211,16 @@ def main():
                     help="adaptive quantization mode (1-4)")
     ap.add_argument("--cutree", action="store_true",
                     help="switch cuTree on (video sessions)")
+    ap.add_argument("--rc-mode", default="cqp", choices=("cqp", "crf", "abr"),
+                    help="rate control of the video sessions")
+    ap.add_argument("--crf", type=float, default=28.0,
+                    help="with --rc-mode crf: the rate factor")
+    ap.add_argument("--bitrate", type=int, default=0,
+                    help="with --rc-mode abr: the target, kbit/s")
+    ap.add_argument("--vbv-maxrate", type=int, default=0,
+                    help="VBV maximum rate, kbit/s (with --vbv-bufsize)")
+    ap.add_argument("--vbv-bufsize", type=int, default=0,
+                    help="VBV buffer size, kbit")
     ap.add_argument("--intra", action="store_true",
                     help="profile the all-intra session")
     ap.add_argument("--batch", type=int, default=0,
@@ -219,8 +235,12 @@ def main():
             rec = profile_intra(md, args.frames, args.batch, opts,
                                 args.device_only)
         else:
+            rc = dict(rc_mode=args.rc_mode, crf=args.crf,
+                      bitrate_kbps=args.bitrate,
+                      vbv_maxrate_kbps=args.vbv_maxrate,
+                      vbv_bufsize_kbps=args.vbv_bufsize)
             rec = profile_session(md, args.frames, args.bframes if md else 0,
-                                  dict(opts, cutree=args.cutree),
+                                  dict(opts, cutree=args.cutree, **rc),
                                   args.device_only)
         print(json.dumps(rec), flush=True)
 
