@@ -7,8 +7,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      every native library of the port (K1 with nvcc for sm_90a, the CABAC
      writer with g++), all compilers started together; K1's -Xptxas -v
      summary;
-  2. K1's two entry points against their plain PyTorch versions on the
-     card, exactly equal: the surface kernel (sad_block8_sweep) and the
+  2. K1's three entry points against their plain PyTorch versions on the
+     card, exactly equal: the surface kernel (sad_block8_sweep), the 4x4
+     surface (sad_block4_sweep: HME's coarse sweep, at 544x960 uint8 and
+     int32, 24x32, int16, and a flat plane whose answer must be (-R, -R)
+     at lambda 0 and (0, 0) at lambda 2 for the sizes 4, 8 and 16) and the
      fused sweep-and-argmin kernel (sad_sweep_best, n = 8 and 16) at the
      main paths' shapes (lookahead 544x960 n=8, P-frame ME 1088x1920 uint8:
      the uniform path's n=16 and the quadtree's surface), at 24x32 and
@@ -55,6 +58,13 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      (RC_B_PINS, with each frame's QP); rc_cpu_vs_card: the 416x240
      quadtree B session with the flagship's tools under CRF 28 on the
      card and on the CPU (equal streams and QPs);
+     golden_flagship: the flagship session (bench.py's constructor: HME,
+     b-adapt 2, recon_out=False with the flagship's tools under CRF 28)
+     and its variants with b_adapt=1, the histogram scene cut and the
+     rc-lookahead window over the 160x96 clip of tests/flagship_pins.py
+     against the JAX package's md5s and (POC, type, QP) pinned there,
+     then the flagship constructor over a 416x240 clip on the card and on
+     the CPU (equal streams and frames);
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -84,24 +94,31 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      statistics and the "qp_map" stage; bytes, PSNR-Y/U/V and SSIM-Y per
      frame beside the run without AQ, aq_vs_no_aq; the plain rerun's QP
      map identical too) and the uniform IPPP path with AQ 2, cuTree and
-     the rc-lookahead window (1080p_aq_la, rc_lookahead=3, 7 frames
+     the rc-lookahead window (1080p_aq_la, rc_lookahead=3, 5 frames
      through push_la / flush_la: K1 fused = frames + P frames, surface 0;
      the last P frame's plain rerun identical); then the rate control at
      1080p: the flagship's constructor (bench.py) without HME and with
-     b_adapt=0, CRF 28 (1080p_qt2_b_crf: 9 frames, the IDR and two
-     mini-GOPs; each frame's QP, type, bytes and quality, kbps at 25 fps,
-     the "rc" stage; K1 exactly 9 fused + 2 + 2 x 6 surface; the last b
-     frame's plain rerun identical), its first five frames beside the
+     b_adapt=0, CRF 28 (1080p_qt2_b_crf: 5 frames, the IDR and a
+     mini-GOP; each frame's QP, type, bytes and quality, kbps at 25 fps,
+     the "rc" stage; K1 exactly 5 fused + 1 + 2 x 3 surface; the last b
+     frame's plain rerun identical), its five frames beside the
      CQP-32 run of 1080p_qt2_b_lf_sbh_aq (crf_vs_cqp), and the uniform
      IPPP path under ABR 27,000 kbps with VBV at that rate, a one-second
      buffer and the HRD (1080p_abr_vbv, 7 frames: bits, QP, VBV overshoot
      and buffer fill per frame, the re-encodes and their wall time, kbps
      against the target; K1 fused = frames + P-frame program calls);
-  6. the kernels line (launches on the filtered B path with sign hiding,
-     and on each path); then the card line and, last, the ok line.
+     then the flagship itself: bench.py's constructor verbatim over 13
+     frames (1080p_flagship: fps, the mini-GOP lengths b-adapt chose, QPs,
+     bytes, stage ms, the share of blocks that took HME's coarse MV, peak
+     memory; K1 exactly frames + K + K(K-1)/2 per trellis decision fused,
+     and one 8x8 and one 4x4 surface per P anchor, two of each per B
+     frame; the last B frame's plain rerun identical);
+  6. the kernels line (launches on the flagship's path, and on each
+     path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -116,7 +133,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 W1080, H1080 = 1920, 1080
-FRAMES = 7          # the uniform IPPP path
+FRAMES = 4          # the uniform IPPP path: I + 3 P
 QT_FRAMES = 4       # the quadtree path: I + 3 P
 QT_B_FRAMES = 5     # the B path: I, then one mini-GOP (P, B, b, b)
 B_KW = dict(max_depth=2, bframes=3, b_pyramid=True, b_adapt=0)
@@ -189,13 +206,19 @@ RC_B_PINS = {
 FLAGSHIP_CRF = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
                     b_adapt=0, rc_mode="crf", crf=28.0, sbh=True,
                     hash_sei=False, quality_metrics=True, **AQ, **LF)
-QT_B_CRF_FRAMES = 9   # the IDR and two mini-GOPs
+QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs three)
+FLAGSHIP_FRAMES = 13  # the 1080p flagship path: the IDR and three trellis
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps(dict(kw, elapsed_s=time.perf_counter() - T0)),
+          flush=True)
 
 
 def golden_clip(w=64, h=48, n=6, seed=3):
@@ -226,6 +249,15 @@ def synth_clip(n, w, h, seed=7):
     return frames
 
 
+def flagship_pins():
+    """tests/flagship_pins.py: the flagship session's 160x96 test clip,
+    the JAX package's md5s and (POC, type, QP) over it, and the counter
+    of HME's coarse winners."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import flagship_pins as pins
+    return pins
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of fn() in ms (CUDA events, one warm-up call)."""
     fn()
@@ -248,13 +280,13 @@ def int_ops_per_s(sms: int, clock_mhz: float, dtype) -> float:
 
 
 def k1_bound_ms(H: int, W: int, R: int, dtype, ops_rate: float,
-                n: int = None):
+                n: int = None, base: int = 8):
     """Least time for the sweep: the larger of the bytes (both planes read
-    once; the [D, D, H/8, W/8] int32 surface, or with n the three int32
-    [nblocks] outputs of the fused kernel, written once) over the memory
-    rate and the abs-diff-adds over the INT32-lane rate."""
+    once; the [D, D, H/base, W/base] int32 surface, or with n the three
+    int32 [nblocks] outputs of the fused kernel, written once) over the
+    memory rate and the abs-diff-adds over the INT32-lane rate."""
     D = 2 * R + 1
-    out = D * D * (H // 8) * (W // 8) * 4 if n is None \
+    out = D * D * (H // base) * (W // base) * 4 if n is None \
         else 3 * (H // n) * (W // n) * 4
     nbytes = 2 * H * W * torch.empty((), dtype=dtype).element_size() + out
     t_b, t_o = nbytes / H100_BYTES_PER_S, D * D * H * W / ops_rate
@@ -381,6 +413,61 @@ def phase_k1(dev, card):
             row.update(n=n, lambda_bits=lam)
         emit(phase="k1", **row)
         rows[name] = row
+    # the 4x4-base surface (HME's coarse sweep): 544x960 planes (the
+    # downscaled 1080p frames, as HME's) in uint8 and int32, smaller and
+    # wider types, a flat plane
+    from x265_yuuki_asuna_tpu_torch.ops import me
+    la, la32 = cases[0], cases[2]
+    g = golden_clip()
+    g0, g1 = (torch.as_tensor(g[i][0], device=dev) for i in (0, 1))
+    rng = np.random.default_rng(12)
+    tex = lambda dt: torch.as_tensor(rng.integers(0, 256, (48, 80)),
+                                     dtype=dt, device=dev)
+    flat = torch.full((48, 80), 77, dtype=torch.uint8, device=dev)
+    for name, ref, src in (
+            ("hme 544x960", la[1], la[2]), ("hme 544x960 int32", la32[1],
+                                            la32[2]),
+            ("24x32 R>plane", g0[:24, :32].contiguous(),
+             g1[:24, :32].contiguous()),
+            ("48x80 int16", tex(torch.int16), tex(torch.int16)),
+            ("flat", flat, flat)):
+        k = me_sad.sad_block4_sweep(ref, src, 16)
+        p = me_sad.sad_block4_sweep_plain(ref, src, 16)
+        torch.cuda.synchronize()
+        e = int((k.long() - p.long()).abs().max())
+        sizes = (4, 8, 16) if src.shape[0] % 16 == 0 else (4, 8)
+        multi = {lam: me.sad_sweep_multi(ref, src, sizes, 16, lam)
+                 for lam in (0, 2)}
+        flat_ok = None
+        if name == "flat":   # all SADs 0: (-R, -R) at lambda 0, (0, 0) at 2
+            flat_ok = all(bool((multi[0][n][0] == -16).all())
+                          and bool((multi[0][n][1] == -16).all())
+                          and bool((multi[2][n][0] == 0).all())
+                          and bool((multi[2][n][1] == 0).all())
+                          for n in sizes)
+        emit(phase="k1_parity", shape=name, entry="sad_block4_sweep",
+             dtype=str(src.dtype), R=16, surface_max_abs_err=e,
+             flat_answer_ok=flat_ok)
+        if e or flat_ok is False:
+            raise AssertionError(f"K1 4x4 surface differs from its plain "
+                                 f"version at {name}: max abs err {e}, "
+                                 f"flat {flat_ok}")
+        err = max(err, e)
+        if name.startswith("hme"):
+            H, W = src.shape
+            row = dict(shape=name, H=H, W=W, R=16, dtype=str(src.dtype),
+                       entry="sad_block4_sweep")
+            row["ms"] = cuda_ms(
+                lambda: me_sad.sad_block4_sweep(ref, src, 16), 20)
+            row["plain_ms"] = cuda_ms(
+                lambda: me_sad.sad_block4_sweep_plain(ref, src, 16), 2)
+            row["bound_ms"], row["bound_by"] = k1_bound_ms(
+                H, W, 16, src.dtype, int_ops_per_s(*card, src.dtype),
+                base=4)
+            row["route_ms"] = cuda_ms(
+                lambda: me.sad_sweep_multi(ref, src, (4, 8, 16), 16, 2), 10)
+            emit(phase="k1", **row)
+            rows[name] = row
     return rows, err
 
 
@@ -622,33 +709,60 @@ def _qp_map_stats(maps) -> list:
     return out
 
 
+K1_ENTRIES = ("sad_sweep_best", "sad_block8_sweep", "sad_block4_sweep")
+
+
+def k1_start():
+    """Set every K1 entry point's launch count to 0 (a main path starts)."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    for name in K1_ENTRIES:
+        getattr(me_sad, name).launches = 0
+
+
+def k1_read() -> dict:
+    """Every K1 entry point's launch count since k1_start()."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    return {name: getattr(me_sad, name).launches for name in K1_ENTRIES}
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """Every K1 entry point patched to its plain PyTorch version."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    with contextlib.ExitStack() as stack:
+        for name in K1_ENTRIES:
+            stack.enter_context(mock.patch.object(
+                me_sad, name, getattr(me_sad, name + "_plain")))
+        yield
+
+
 def _launches(fn) -> int:
     """CUDA kernel launches of fn() (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA and
-               not getattr(e, "is_user_annotation", False)
-               and e.name != "filters" for e in prof.events())
+    # the raw events: building prof.events() costs seconds per 100k
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.device_type() == cuda and e.name() != "filters" and
+               not getattr(e, "is_user_annotation", lambda: False)()
+               for e in prof.profiler.kineto_results.events())
 
 
 def phase_1080p_intra(dev, n_single=3, n_batch=4):
     """The all-intra session at 1080p with sign hiding and both filters:
     frames through encode_frame, then a batch through encode_batch; each
     batched frame's decisions (modes, levels) equal its single-frame
-    encode's."""
+    encode's; returns K1's launch counts (none)."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         IntraEncoderSession
-    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     kw = dict(qp=32, deblock=True, sao=True, sbh=True)
     frames = synth_clip(max(n_single, n_batch), W1080, H1080)
     sess = IntraEncoderSession(W1080, H1080, hash_sei=True, device=dev, **kw)
     sess.encode_frame(*frames[0])             # warm-up (not counted)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    me_sad.sad_block8_sweep.launches = 0          # the main path starts
-    me_sad.sad_sweep_best.launches = 0
+    k1_start()                                    # the main path starts
     res, t_single = [], []
     for fr in frames[:n_single]:
         t0 = time.perf_counter()
@@ -657,7 +771,7 @@ def phase_1080p_intra(dev, n_single=3, n_batch=4):
     t0 = time.perf_counter()
     batch = sess.encode_batch(frames[:n_batch])
     t_batch = time.perf_counter() - t0
-    k1 = me_sad.sad_block8_sweep.launches + me_sad.sad_sweep_best.launches
+    k1 = k1_read()
     peak = torch.cuda.max_memory_allocated()
     launches = {"single": _launches(lambda: sess.encode_frame(*frames[0])),
                 "batch": _launches(lambda: sess.encode_batch(
@@ -685,10 +799,11 @@ def phase_1080p_intra(dev, n_single=3, n_batch=4):
     if not all(same) or len(same) != n_batch:
         raise AssertionError("1080p_intra: a batched frame's decisions "
                              "differ from its single-frame encode")
-    if k1 or not all(np.isfinite([r.psnr_y, r.psnr_u, r.psnr_v, r.ssim_y])
-                     .all() and r.recon[0].shape == (H1080, W1080)
-                     for r in res + batch):
+    if any(k1.values()) or not all(
+            np.isfinite([r.psnr_y, r.psnr_u, r.psnr_v, r.ssim_y]).all()
+            and r.recon[0].shape == (H1080, W1080) for r in res + batch):
         raise AssertionError("1080p_intra output malformed")
+    return k1
 
 
 def _same_decisions(a: dict, b: dict) -> bool:
@@ -707,7 +822,6 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
     launch counts."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
-    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     from x265_yuuki_asuna_tpu_torch.utils import geometry as G
     frames = synth_clip(n_frames, W1080, H1080)
     sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
@@ -718,8 +832,7 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
     torch.cuda.reset_peak_memory_stats()
     results, t_frames = [], []
     last_p = None
-    me_sad.sad_block8_sweep.launches = 0          # the main path starts
-    me_sad.sad_sweep_best.launches = 0
+    k1_start()                                    # the main path starts
     for i, fr in enumerate(frames):
         if i == len(frames) - 1:
             last_p = (fr, sess.ref)
@@ -728,8 +841,7 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
         t_frames.append(time.perf_counter() - t0)
         results.append(r)
         total += len(r.nals)
-    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
-                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
+    launches = k1_read()
     n_p = sum(r.frame_type == "P" for r in results)
     fps = (len(frames) - 1) / sum(t_frames[1:])
     psnr = [r.psnr_y for r in results]
@@ -751,9 +863,11 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
     if not ok_out:
         raise AssertionError(f"{name} output malformed")
     if max_depth:        # lookahead: fused; ME: the multi-size surface
-        want = {"sad_sweep_best": len(frames), "sad_block8_sweep": n_p}
+        want = {"sad_sweep_best": len(frames), "sad_block8_sweep": n_p,
+                "sad_block4_sweep": 0}
     else:                # lookahead and ME both fused
-        want = {"sad_sweep_best": len(frames) + n_p, "sad_block8_sweep": 0}
+        want = {"sad_sweep_best": len(frames) + n_p, "sad_block8_sweep": 0,
+                "sad_block4_sweep": 0}
     if launches != want:
         raise AssertionError(f"{name}: K1 launches {launches} != {want}")
     # the last P frame again: kernel path vs plain path, same inputs
@@ -763,10 +877,7 @@ def phase_1080p(dev, name: str, max_depth: int, n_frames: int,
     vp = G.pad_plane(v, sess.coded_h // 2, sess.coded_w // 2)
     qp = results[-1].qp
     out_k = sess.inter_encoder.encode_frame(yp, up, vp, *ref, qp)
-    with mock.patch.object(me_sad, "sad_block8_sweep",
-                           me_sad.sad_block8_sweep_plain), \
-            mock.patch.object(me_sad, "sad_sweep_best",
-                              me_sad.sad_sweep_best_plain):
+    with plain_k1():
         out_p = sess.inter_encoder.encode_frame(yp, up, vp, *ref, qp)
     same = _same_decisions(out_k, out_p)
     emit(phase=f"{name}_p_frame_plain_rerun", identical=same)
@@ -802,8 +913,6 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
     checks that the plain rerun of the last b frame reproduces its map."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
-    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
-    from x265_yuuki_asuna_tpu_torch.utils import geometry as G
     frames = synth_clip(n_frames, W1080, H1080)
     sess = VideoEncoderSession(W1080, H1080, device=dev, **dict(
         dict(qp=32, keyint=250, hash_sei=True, **B_KW), **(opts or {})))
@@ -835,16 +944,14 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     results, call_ms, per_call = [], [], []
-    me_sad.sad_block8_sweep.launches = 0          # the main path starts
-    me_sad.sad_sweep_best.launches = 0
+    k1_start()                                    # the main path starts
     for fr in frames + [None]:
         t0 = time.perf_counter()
         got = sess.push_frame(*fr) if fr is not None else sess.flush()
         call_ms.append((time.perf_counter() - t0) * 1e3)
         per_call.append([[r.poc, r.frame_type] for r in got])
         results += got
-    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
-                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
+    launches = k1_read()
     order = [(r.poc, r.frame_type) for r in results]
     total += sum(len(r.nals) for r in results)
     # frames after the IDR over the calls after the IDR's
@@ -882,7 +989,8 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
     # the lookahead once per frame; one surface per P anchor, two per B
     n_p = sum(t == "P" for _, t in want_order)
     want = {"sad_sweep_best": len(frames),
-            "sad_block8_sweep": n_p + 2 * (len(frames) - 1 - n_p)}
+            "sad_block8_sweep": n_p + 2 * (len(frames) - 1 - n_p),
+            "sad_block4_sweep": 0}
     if launches != want:
         raise AssertionError(f"{name}: K1 launches {launches} != {want}")
     # the last B frame again: kernel path vs plain path, same inputs
@@ -892,10 +1000,7 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
     out_k = run(*a, **k)
     if opts and opts.get("sao") and "sao" not in out_k:
         raise AssertionError(f"{name}: the B frame has no SAO parameters")
-    with mock.patch.object(me_sad, "sad_block8_sweep",
-                           me_sad.sad_block8_sweep_plain), \
-            mock.patch.object(me_sad, "sad_sweep_best",
-                              me_sad.sad_sweep_best_plain):
+    with plain_k1():
         out_p = run(*a, **k)
         same_map = True
         if maps:
@@ -970,7 +1075,7 @@ def phase_golden_rc(dev):
         raise AssertionError(f"rate-control md5s or QPs differ: {bad}")
 
 
-def phase_rc_cpu_vs_card(dev, n=8):
+def phase_rc_cpu_vs_card(dev, n=5):
     """The 416x240 quadtree B session with the flagship's tools under CRF
     28 (and the hash SEI), on the card and on the CPU: equal streams and
     QPs."""
@@ -993,6 +1098,124 @@ def phase_rc_cpu_vs_card(dev, n=8):
         raise AssertionError(f"416x240 CRF B streams differ: {md5} {qps}")
 
 
+def phase_golden_flagship(dev, n=5):
+    """The flagship session and its variants on the card against the
+    JAX package's md5s and (POC, type, QP) (tests/flagship_pins.py), then
+    the flagship constructor over a 416x240 clip of n frames on the card
+    and on the CPU: equal streams and frame lists."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    from x265_yuuki_asuna_tpu_torch.profile_1080p import FLAGSHIP
+    pins = flagship_pins()
+    got = {}
+    for name, extra in pins.SESSIONS.items():
+        sess = VideoEncoderSession(pins.W, pins.H, device=dev,
+                                   **dict(FLAGSHIP, **extra))
+        res = push_all(sess, pins.clip())
+        got[name] = _md5_of(sess, res)
+        got[name + "_frames"] = [(r.poc, r.frame_type, r.qp) for r in res]
+        got[name + "_match"] = (got[name], got[name + "_frames"]) == \
+            pins.PINS[name]
+    frames = synth_clip(n, 416, 240)
+    md5, order, secs = {}, {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        sess = VideoEncoderSession(416, 240, device=where, **FLAGSHIP)
+        res = push_all(sess, frames)
+        md5[str(where)] = _md5_of(sess, res)
+        order[str(where)] = [(r.poc, r.frame_type, r.qp) for r in res]
+        secs[str(where)] = time.perf_counter() - t0
+    got["cpu_vs_card_match"] = len(set(md5.values())) == 1 and \
+        order[str(dev)] == order["cpu"]
+    emit(phase="golden_flagship", **got, cpu_vs_card_md5=md5,
+         cpu_vs_card_frames=order[str(dev)], cpu_vs_card_seconds=secs)
+    bad = [k for k in got if k.endswith("_match") and not got[k]]
+    if bad:
+        raise AssertionError(f"flagship md5s or frames differ: {bad}")
+
+
+def phase_1080p_flagship(dev, n_frames=FLAGSHIP_FRAMES):
+    """bench.py's constructor verbatim at 1080p over synth_clip, through
+    push_frame / flush: fps, the mini-GOP lengths b-adapt chose, QPs,
+    bytes, stage ms, the share of blocks whose integer winner was HME's
+    coarse MV, K1's launches by entry (fused: the lookahead's one per
+    frame and the trellis's K + K(K-1)/2 per decision; each surface: one
+    per P anchor and two per B frame), peak memory; then the last B frame
+    again with every K1 entry patched to its plain version, whose
+    decision dict must be identical."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    from x265_yuuki_asuna_tpu_torch.profile_1080p import FLAGSHIP
+    frames = synth_clip(n_frames, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, device=dev, **FLAGSHIP)
+    enc = sess.inter_encoder
+    calls, run, trellis = [], enc.encode_frame, []
+    enc.encode_frame = lambda *a, **k: calls.append((a, k)) or run(*a, **k)
+    costs_fn = sess.lookahead.badapt_path_costs
+
+    def badapt(anchor, lows):
+        trellis.append(len(lows))
+        return costs_fn(anchor, lows)
+    sess.lookahead.badapt_path_costs = badapt
+    total = len(sess.headers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_start()                                    # the main path starts
+    results, call_ms = [], []
+    with flagship_pins().coarse_mvs_counted() as coarse:
+        for fr in frames + [None]:
+            t0 = time.perf_counter()
+            got = sess.push_frame(*fr) if fr is not None else sess.flush()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            results += got
+    torch.cuda.synchronize()
+    launches = k1_read()
+    order = [(r.poc, r.frame_type) for r in results]
+    anchors = [p for p, t in order if t in "IP"]
+    gops = [b - a for a, b in zip(anchors, anchors[1:])]
+    total += sum(len(r.nals) for r in results)
+    n_p = sum(t == "P" for _, t in order)
+    n_b = sum(t in "Bb" for _, t in order)
+    fps = (len(results) - 1) / (sum(call_ms[1:]) / 1e3)
+    runs = {"inter": n_p, "inter_b": n_b, "intra": len(results) - n_p - n_b}
+    stage = {k: v / max(runs.get(k, len(results)), 1)
+             for k, v in sess.stage_ms.items()}
+    emit(phase="1080p_flagship", frames=len(results), fps=fps,
+         call_ms=call_ms, minigop_lengths=gops, trellis_sizes=trellis,
+         frame_type=[t for _, t in order], poc=[p for p, _ in order],
+         qp=[r.qp for r in results], bytes=total,
+         frame_bytes=[len(r.nals) for r in results],
+         kbps_at_25fps=total * 8 / 1e3 / (len(results) / 25.0),
+         stage_ms_per_frame=stage, stage_ms_total=dict(sess.stage_ms),
+         hme_coarse_share=float(coarse["taken"]) / max(coarse["blocks"], 1),
+         hme_blocks=coarse["blocks"],
+         k1_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if len(results) != n_frames or order[0] != (0, "I") or any(
+            r.recon is not None or r.psnr_y != 0.0 for r in results):
+        raise AssertionError(f"1080p_flagship output malformed: {order}")
+    want = {"sad_sweep_best": n_frames + sum(k + k * (k - 1) // 2
+                                             for k in trellis),
+            "sad_block8_sweep": n_p + 2 * n_b,
+            "sad_block4_sweep": n_p + 2 * n_b}
+    if launches != want:
+        raise AssertionError(f"1080p_flagship: K1 launches {launches} != "
+                             f"{want}")
+    a, k = calls[-1]
+    if k.get("ref1") is None:
+        raise AssertionError("1080p_flagship: the last inter call is not "
+                             "a B frame")
+    out_k = run(*a, **k)
+    with plain_k1():
+        out_p = run(*a, **k)
+    same = _same_decisions(out_k, out_p)
+    emit(phase="1080p_flagship_b_frame_plain_rerun", identical=same)
+    if not same:
+        raise AssertionError("1080p_flagship: kernel and plain B-frame "
+                             "decisions differ")
+    return launches
+
+
 def phase_1080p_abr_vbv(dev, n_frames=7, kbps=27000):
     """The uniform IPPP path at 1080p under ABR at kbps with VBV (maxrate
     kbps, a buffer of one second) and the HRD: per frame its bits, QP,
@@ -1001,7 +1224,6 @@ def phase_1080p_abr_vbv(dev, n_frames=7, kbps=27000):
     lookahead sweep per frame, one ME sweep per P-frame program call)."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
-    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     frames = synth_clip(n_frames, W1080, H1080)
     sess = VideoEncoderSession(
         W1080, H1080, qp=32, keyint=250, hash_sei=True, device=dev,
@@ -1023,8 +1245,7 @@ def phase_1080p_abr_vbv(dev, n_frames=7, kbps=27000):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     results, t_frames, fill, overs = [], [], [], []
-    me_sad.sad_block8_sweep.launches = 0          # the main path starts
-    me_sad.sad_sweep_best.launches = 0
+    k1_start()                                    # the main path starts
     for fr in frames:
         calls.append([])
         n_over = len(over)
@@ -1033,8 +1254,7 @@ def phase_1080p_abr_vbv(dev, n_frames=7, kbps=27000):
         t_frames.append(time.perf_counter() - t0)
         fill.append(sess.rc.buffer_fill)
         overs.append(over[n_over:])
-    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
-                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
+    launches = k1_read()
     total += sum(len(r.nals) for r in results)
     reencodes = sum(len(c) - 1 for c in calls)
     got_kbps = total * 8 / 1e3 / (len(results) / 25.0)
@@ -1061,14 +1281,15 @@ def phase_1080p_abr_vbv(dev, n_frames=7, kbps=27000):
                        for r in results) or sess.sps.hrd is None:
         raise AssertionError("1080p_abr_vbv output malformed")
     p_calls = sum(stage == "_code_p" for c in calls for stage, _ in c)
-    want = {"sad_sweep_best": n_frames + p_calls, "sad_block8_sweep": 0}
+    want = {"sad_sweep_best": n_frames + p_calls, "sad_block8_sweep": 0,
+            "sad_block4_sweep": 0}
     if launches != want:
         raise AssertionError(f"1080p_abr_vbv: K1 launches {launches} != "
                              f"{want}")
     return launches
 
 
-def phase_1080p_aq_la(dev, n_frames=7):
+def phase_1080p_aq_la(dev, n_frames=5):
     """The uniform IPPP path at 1080p with AQ 2, cuTree and the
     rc-lookahead window (rc_lookahead=3) through push_la / flush_la: fps,
     the QP maps, K1's fused launches (one lookahead sweep per frame, one
@@ -1076,7 +1297,6 @@ def phase_1080p_aq_la(dev, n_frames=7):
     plain versions: identical decisions."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         VideoEncoderSession
-    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     frames = synth_clip(n_frames, W1080, H1080)
     sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
                                hash_sei=True, rc_lookahead=3, device=dev,
@@ -1091,16 +1311,14 @@ def phase_1080p_aq_la(dev, n_frames=7):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     results, call_ms, per_call = [], [], []
-    me_sad.sad_block8_sweep.launches = 0          # the main path starts
-    me_sad.sad_sweep_best.launches = 0
+    k1_start()                                    # the main path starts
     for fr in frames + [None]:
         t0 = time.perf_counter()
         got = sess.push_la(*fr) if fr is not None else sess.flush_la()
         call_ms.append((time.perf_counter() - t0) * 1e3)
         per_call.append([[r.poc, r.frame_type] for r in got])
         results += got
-    launches = {"sad_sweep_best": me_sad.sad_sweep_best.launches,
-                "sad_block8_sweep": me_sad.sad_block8_sweep.launches}
+    launches = k1_read()
     total += sum(len(r.nals) for r in results)
     first = next(i for i, c in enumerate(per_call) if c)   # the IDR's call
     fps = (len(results) - 1) / (sum(call_ms[first + 1:]) / 1e3)
@@ -1124,16 +1342,14 @@ def phase_1080p_aq_la(dev, n_frames=7):
                        .all() and r.recon[0].shape == (H1080, W1080)
                        for r in results):
         raise AssertionError("1080p_aq_la output malformed")
-    want = {"sad_sweep_best": n_frames + n_p, "sad_block8_sweep": 0}
+    want = {"sad_sweep_best": n_frames + n_p, "sad_block8_sweep": 0,
+            "sad_block4_sweep": 0}
     if launches != want:
         raise AssertionError(f"1080p_aq_la: K1 launches {launches} != "
                              f"{want}")
     a, k = calls[-1]
     out_k = run(*a, **k)
-    with mock.patch.object(me_sad, "sad_block8_sweep",
-                           me_sad.sad_block8_sweep_plain), \
-            mock.patch.object(me_sad, "sad_sweep_best",
-                              me_sad.sad_sweep_best_plain):
+    with plain_k1():
         out_p = run(*a, **k)
     same = _same_decisions(out_k, out_p)
     emit(phase="1080p_aq_la_p_frame_plain_rerun", identical=same)
@@ -1161,6 +1377,7 @@ def main():
     phase_golden_aq(dev)
     phase_golden_rc(dev)
     phase_rc_cpu_vs_card(dev)
+    phase_golden_flagship(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -1201,9 +1418,12 @@ def main():
     by_path["1080p_abr_vbv"] = phase_1080p_abr_vbv(dev)
     by_path["1080p_qt2_rdoq"] = phase_1080p(dev, "1080p_qt2_rdoq", 2, 2,
                                             {"rdoq": True})
-    phase_1080p_intra(dev)
-    launches = by_path["1080p_qt2_b_lf_sbh"]
+    by_path["1080p_intra"] = phase_1080p_intra(dev)
+    by_path["1080p_flagship"] = phase_1080p_flagship(dev)
+    # the flagship's path: every entry point runs there
+    launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]
+    hme = k1["hme 544x960"]
     common = {"route": "cuda",
               "source": "x265_yuuki_asuna_tpu_torch/csrc/me_sad.cu",
               "replaces": "x265_yuuki_asuna_tpu/ops/pallas/me_sad.py:56",
@@ -1220,11 +1440,16 @@ def main():
          "launches": launches["sad_sweep_best"],
          "launches_by_path": per_path("sad_sweep_best"),
          "ms": me["best_ms"], "plain_ms": me["best_plain_ms"],
-         "bound_ms": me["best_bound_ms"], "bound_by": me["best_bound_by"]}])
+         "bound_ms": me["best_bound_ms"], "bound_by": me["best_bound_by"]},
+        {"name": "sad_block4_sweep", **common,
+         "launches": launches["sad_block4_sweep"],
+         "launches_by_path": per_path("sad_block4_sweep"),
+         "ms": hme["ms"], "plain_ms": hme["plain_ms"],
+         "bound_ms": hme["bound_ms"], "bound_by": hme["bound_by"]}])
     print(smi, flush=True)
-    emit(ok=True, device={"platform": "gpu",
-                          "kind": torch.cuda.get_device_name(0),
-                          "count": torch.cuda.device_count()})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -232,10 +232,17 @@ def test_uniform_p_program_with_a_qp_map_matches_jax():
 
 
 def test_rc_lookahead_with_bframes_names_its_slice():
-    with pytest.raises(NotImplementedError, match="b-adapt slice"):
-        t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
+    """A B session with cuTree takes the rc-lookahead window inside
+    push_frame (the b-adapt slice added it; tests/test_torch_badapt.py
+    holds its stream to the JAX session's); encode_frame and push_la stay
+    the IPPP session's."""
+    s = t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
                                   bframes=3, b_adapt=0, cutree=True,
                                   rc_lookahead=3)
+    assert s.la_depth == 3
+    assert s.push_frame(*clip(64, 48, n=1)[0]) == [] and len(s.la_queue) == 1
+    with pytest.raises(RuntimeError, match="push_frame"):
+        s.encode_frame(*clip(64, 48, n=1)[0])
     # without cuTree the window is off, as in the reference
     s = t_top.VideoEncoderSession(64, 48, device="cpu", rc_lookahead=3)
     assert s.la_depth == 0 and not s.pps.cu_qp_delta

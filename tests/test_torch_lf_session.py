@@ -130,9 +130,9 @@ def test_load_session_state_mid_gop_with_filters(kw):
 
 
 def test_filters_do_not_open_other_later_options():
-    with pytest.raises(NotImplementedError, match="HME"):
+    with pytest.raises(NotImplementedError, match="RQT"):
         t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
-                                  hme=True, **LF)
+                                  rqt=True, **LF)
     with pytest.raises(NotImplementedError, match="open-GOP"):
         t_top.VideoEncoderSession(64, 48, device="cpu", open_gop=True,
                                   **LF)

@@ -1,13 +1,17 @@
 """The port's CTU32 depth-2 quadtree sessions against the JAX package's
-(CPU): the golden qt2_ippp clip byte for byte (headers, every frame's
-NALs, the blessed md5), a session resumed mid-GOP from the JAX session's
-state, the B session (bframes=3, B-pyramid, b_adapt=0, push_frame /
-flush) on the golden clip byte for byte, and the card tests (gpu-marked:
-the golden stream and the kernel-vs-plain identity of a P frame on the
-card). The JAX B session runs in this module so that it takes the JAX
-IPPP session's I and P programs (the same configuration) and compiles
-only its B program; test_torch_qt_b_session.py holds the other B-session
-tests."""
+(CPU): the golden qt2_ippp clip (the blessed md5), a session resumed
+mid-GOP from the JAX session's state (pinned in tests/golden), the B session
+(bframes=3, B-pyramid, b_adapt=0, push_frame / flush) on the golden clip
+(the JAX md5 pinned in test_torch_qt_b_session.py), and the card tests
+(gpu-marked: the golden stream and the kernel-vs-plain identity of a P
+frame on the card).
+
+The JAX quadtree sessions take about 100 s to compile on the CPU, so the
+tier-1 tests hold the port to the golden and pinned md5s; the slow tests
+compare it with the live JAX sessions: headers and every frame's NALs,
+the JAX session's state against the pinned one, and the B session, which
+takes the JAX IPPP session's I and P programs (the same configuration)
+and compiles only its B program."""
 import hashlib
 import json
 import os
@@ -27,6 +31,9 @@ from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
 torch.set_num_threads(2)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "manifest.json")
+# the JAX qt2_ippp session's state before frame 3 of the golden clip
+STATE = os.path.join(os.path.dirname(__file__), "golden",
+                     "qt2_ippp_state_f3.npz")
 QT2 = dict(qp=30, max_depth=2, keyint=100, hash_sei=False)
 
 
@@ -54,6 +61,33 @@ def _state(s):
               "last_satd"):
         st["rc_" + k] = getattr(s.rc, k)
     return st
+
+
+def _pinned_state():
+    """STATE: the JAX session's state before frame 3, as _state gives it
+    (the slow twin recomputes it)."""
+    with np.load(STATE) as z:
+        st = {k: z[k].item() if z[k].ndim == 0 else z[k] for k in z.files}
+    st["rc_window_bits"] = st["rc_window_bits"].tolist()
+    return st
+
+
+def _port_qt2():
+    """The port's golden qt2_ippp encode: headers, per-frame NALs and
+    frame types."""
+    s = t_top.VideoEncoderSession(64, 48, device="cpu", **QT2)
+    assert s.cu == 32
+    hdr, nals, types = s.headers(), [], []
+    for f in clip():
+        r = s.encode_frame(*f)
+        nals.append(r.nals)
+        types.append(r.frame_type)
+    return hdr, nals, types
+
+
+@pytest.fixture(scope="module")
+def port_qt2():
+    return _port_qt2()
 
 
 @pytest.fixture(scope="module")
@@ -88,24 +122,15 @@ def jax_qt2_b(jax_qt2_session):
     return encode_push(j_top, B_KW, setup=share)
 
 
-def test_qt2_ippp_stream_matches_jax_and_golden(jax_qt2):
-    hdr, nals, _ = jax_qt2
-    s = t_top.VideoEncoderSession(64, 48, device="cpu", **QT2)
-    assert s.cu == 32
-    out = s.headers()
-    assert out == hdr
-    types = []
-    for f, jn in zip(clip(), nals):
-        r = s.encode_frame(*f)
-        assert r.nals == jn
-        types.append(r.frame_type)
-        out += r.nals
+def test_qt2_ippp_stream_matches_jax_and_golden(port_qt2):
+    """The golden stream (the JAX session's, blessed); the slow twin
+    compares headers and NALs with the live JAX session."""
+    hdr, nals, types = port_qt2
     assert types == ["I"] + ["P"] * 5
-    assert hashlib.md5(out).hexdigest() == _golden_md5()
+    assert hashlib.md5(hdr + b"".join(nals)).hexdigest() == _golden_md5()
 
 
-def test_qt2_load_session_state_mid_gop(jax_qt2):
-    _, nals, state = jax_qt2
+def _resume(state, nals):
     s = t_top.VideoEncoderSession(64, 48, device="cpu", **QT2)
     load_session_state(s, state)
     assert all(isinstance(p, torch.Tensor) and p.dtype == torch.uint8
@@ -116,17 +141,54 @@ def test_qt2_load_session_state_mid_gop(jax_qt2):
         assert r.frame_type == "P" and r.nals == nals[i], i
 
 
-def test_qt2_b_stream_matches_jax(jax_qt2_b):
+def test_qt2_load_session_state_mid_gop(port_qt2):
+    """A session resumed before frame 3 from the JAX session's state
+    (pinned in STATE) continues the golden stream (the slow twin
+    recomputes the state from the live JAX session)."""
+    hdr, nals, _ = port_qt2
+    assert hashlib.md5(hdr + b"".join(nals)).hexdigest() == _golden_md5()
+    _resume(_pinned_state(), nals)
+
+
+def test_qt2_b_stream_matches_jax():
+    """The B session's stream is the JAX session's (its md5 pinned); the
+    slow twin compares it NAL for NAL with the live JAX session."""
+    th, tres = encode_push(t_top, B_KW, device="cpu")
+    assert [(r.poc, r.frame_type) for r in tres] == ORDER["pyramid"]
+    assert hashlib.md5(th + b"".join(r.nals for r in tres)).hexdigest() \
+        == MD5["pyramid"]
+
+
+@pytest.mark.slow
+def test_qt2_ippp_stream_recomputed_from_the_jax_session(jax_qt2, port_qt2):
+    hdr, nals, _ = jax_qt2
+    assert port_qt2[0] == hdr and port_qt2[1] == nals
+    assert hashlib.md5(hdr + b"".join(nals)).hexdigest() == _golden_md5()
+
+
+@pytest.mark.slow
+def test_qt2_load_session_state_from_the_jax_session(jax_qt2):
+    """Where STATE comes from: the live JAX session's state before frame
+    3, which resumes the port's session as well."""
+    _, nals, state = jax_qt2
+    pinned = _pinned_state()
+    assert sorted(state) == sorted(pinned)
+    for k, v in state.items():
+        assert np.array_equal(np.asarray(v), np.asarray(pinned[k])), k
+        assert type(v) is type(pinned[k]) or isinstance(v, np.ndarray), k
+    _resume(state, nals)
+
+
+@pytest.mark.slow
+def test_qt2_b_stream_recomputed_from_the_jax_session(jax_qt2_b):
     jh, jres = jax_qt2_b
     th, tres = encode_push(t_top, B_KW, device="cpu")
     assert th == jh
     assert [(r.poc, r.frame_type) for r in jres] == ORDER["pyramid"]
-    assert [(r.poc, r.frame_type) for r in tres] == ORDER["pyramid"]
     for t, j in zip(tres, jres):
         assert t.nals == j.nals, (t.poc, t.frame_type)
-    stream = lambda h, res: hashlib.md5(
-        h + b"".join(r.nals for r in res)).hexdigest()
-    assert stream(jh, jres) == stream(th, tres) == MD5["pyramid"]
+    assert hashlib.md5(jh + b"".join(r.nals for r in jres)).hexdigest() \
+        == MD5["pyramid"]
 
 
 def test_qt2_session_recon_and_hash_sei():

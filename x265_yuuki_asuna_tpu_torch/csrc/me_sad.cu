@@ -2,11 +2,15 @@
 //
 // Replaces the TPU kernel x265_yuuki_asuna_tpu/ops/pallas/me_sad.py
 // sad_block8_sweep (its pl.pallas_call) together with the XLA tail of
-// sad_sweep_multi_pallas. Two entry points share one kernel template:
+// sad_sweep_multi_pallas. Three entry points share one kernel template:
 //   * asuna_sad_block8_sweep — the surface: for every displacement (dy, dx)
 //     in [-R, R]^2 the 8x8-block sums of |ref(y+dy, x+dx) - src(y, x)|, the
 //     reference edge-extended by index clamping:
 //         out[dy+R, dx+R, by, bx]   int32, shape [D, D, H/8, W/8], D = 2R+1;
+//   * asuna_sad_block4_sweep — the same surface of 4x4 blocks,
+//     [D, D, H/4, W/4]: HME's coarse sweep over the half-resolution
+//     planes, whose smallest size is 4 (the reference computes it with the
+//     XLA scan of ops/me.py, which takes 4x4 bases; Pallas there needs 8);
 //   * asuna_sad_sweep_best — the fused sweep and argmin: for every n x n
 //     block (n = 8 or 16) the key  cost << shift | (dyi*D + dxi)  of the
 //     least cost = SAD + lam*(|dx| + |dy|), reduced with atomicMin into a
@@ -20,7 +24,9 @@
 //   surface, ME 1088x1920 uint8 R=16: 142 MB written -> 43.7 us (bytes);
 //            2.27e9 abs-diff-adds, packed -> 34.0 us;
 //   fused,   ME n=16: 34.0 us (operations; 4.3 MB moved -> 1.3 us);
-//            lookahead 544x960 uint8 n=8: 8.5 us (operations).
+//            lookahead 544x960 uint8 n=8: 8.5 us (operations);
+//   4x4 surface, HME 544x960 uint8 R=16: 142 MB written -> 42.6 us
+//            (bytes; 5.7e8 abs-diff-adds, packed -> 8.5 us).
 //
 // Design. A CTA of NWARP warps owns a tile of 32 neighbouring 8-column
 // blocks (lane = block), one row of blocks (8 or 16 pixel rows) and a run of
@@ -39,7 +45,11 @@
 // int32 (128 coalesced bytes, with evict-first stores: the surface is
 // larger than L2), or, fused, folds them into its running
 // minimum key with a multiply-add (FMA pipe). For n = 16 a lane sums 16
-// rows and adds its horizontal neighbour with __shfl_xor. int16/int32
+// rows and adds its horizontal neighbour with __shfl_xor. The 4x4 surface
+// keeps the layout: a lane's 8 columns are two 4x4 blocks, each word of
+// its source row feeds its own sum (NH = 2 sums per dx), the CTA covers 4
+// pixel rows, and a warp stores 32 neighbouring int2 pairs (256
+// coalesced bytes) per (dy, dx). int16/int32
 // planes take the same structure unpacked (per-element __sad, one copy).
 // The packed SAD is PTX vabsdiff4 with accumulate: one VABSDIFF4 per four
 // bytes, where __vsadu4 adds an IADD3 and __vabsdiffu4 + __dp4a an IDP4A.
@@ -140,15 +150,18 @@ __device__ void load_band(typename Plane<T>::S* band, const T* ref, int rows,
     }
 }
 
-// acc[i] = SAD of this lane's NR x 8 source block against the band window
-// at column offset i (dx = dx0 + i - R): window word q of offset 4q + m is
-// word q of copy m
-template <int NR, int CSTRIDE>
+// acc[h][i] = SAD of this lane's NR x 8 source block (NH = 1), or of its
+// left and right NR x 4 halves (NH = 2), against the band window at column
+// offset i (dx = dx0 + i - R): window word q of offset 4q + m is word q of
+// copy m
+template <int NR, int CSTRIDE, int NH>
 __device__ __forceinline__ void sweep_u8(const uint8_t* win,
                                          const uint32_t (&s)[NR][2],
-                                         uint32_t (&acc)[DXS]) {
+                                         uint32_t (&acc)[NH][DXS]) {
     #pragma unroll
-    for (int i = 0; i < DXS; ++i) acc[i] = 0;
+    for (int h = 0; h < NH; ++h)
+        #pragma unroll
+        for (int i = 0; i < DXS; ++i) acc[h][i] = 0;
     #pragma unroll
     for (int r = 0; r < NR; ++r) {
         // copy 0 gives words 0..9, copies 1..3 words 0..8 (offset 4q + m
@@ -170,18 +183,21 @@ __device__ __forceinline__ void sweep_u8(const uint8_t* win,
         }
         #pragma unroll
         for (int i = 0; i < DXS; ++i) {
-            acc[i] = sad4(w[i % 4][i / 4], s[r][0], acc[i]);
-            acc[i] = sad4(w[i % 4][i / 4 + 1], s[r][1], acc[i]);
+            acc[0][i] = sad4(w[i % 4][i / 4], s[r][0], acc[0][i]);
+            acc[NH - 1][i] = sad4(w[i % 4][i / 4 + 1], s[r][1],
+                                  acc[NH - 1][i]);
         }
     }
 }
 
-template <typename T, int NR>
+template <typename T, int NR, int NH>
 __device__ __forceinline__ void sweep_wide(const int32_t* win, const T* sp,
                                            int W, bool active,
-                                           uint32_t (&acc)[DXS]) {
+                                           uint32_t (&acc)[NH][DXS]) {
     #pragma unroll
-    for (int i = 0; i < DXS; ++i) acc[i] = 0;
+    for (int h = 0; h < NH; ++h)
+        #pragma unroll
+        for (int i = 0; i < DXS; ++i) acc[h][i] = 0;
     #pragma unroll 1
     for (int r = 0; r < NR; ++r) {
         int s[8], w[WIN];
@@ -198,7 +214,8 @@ __device__ __forceinline__ void sweep_wide(const int32_t* win, const T* sp,
         #pragma unroll
         for (int i = 0; i < DXS; ++i)
             #pragma unroll
-            for (int c = 0; c < 8; ++c) acc[i] = __sad(w[i + c], s[c], acc[i]);
+            for (int c = 0; c < 8; ++c)
+                acc[c * NH / 8][i] = __sad(w[i + c], s[c], acc[c * NH / 8][i]);
     }
 }
 
@@ -219,10 +236,12 @@ __device__ __forceinline__ Key min_key(const uint32_t (&acc)[DXS],
     return best;
 }
 
-// One kernel for both entry points. NR = pixel rows of a lane's block (8,
-// or 16 for the fused n = 16); BEST = fused argmin into `keys` (else the
-// surface into `out`); Key = uint32_t or unsigned long long.
-template <typename T, int NR, bool BEST, typename Key>
+// One kernel for all entry points. NR = pixel rows of a lane's block (8,
+// 16 for the fused n = 16, 4 for the 4x4 surface); NH = sums per lane and
+// dx (1: one 8-wide block, 2: two 4-wide ones); BEST = fused argmin into
+// `keys` (else the surface into `out`); Key = uint32_t or unsigned long
+// long.
+template <typename T, int NR, bool BEST, typename Key, int NH = 1>
 __global__ void __launch_bounds__(THREADS)
 k1_kernel(const T* __restrict__ ref, const T* __restrict__ src, int H, int W,
           int R, int lam, int shift, int32_t* __restrict__ out,
@@ -270,13 +289,15 @@ k1_kernel(const T* __restrict__ ref, const T* __restrict__ src, int H, int W,
         const int d = warp * DYW + j;               // dy within the run
         const int dyi = dy0 + d;
         if (dyi >= D) break;                        // warp-uniform
-        uint32_t acc[DXS];
+        uint32_t sums[NH][DXS];
         if constexpr (sizeof(T) == 1)
-            sweep_u8<NR, CSTRIDE>(band + d * BANDW + 8 * lane, s, acc);
+            sweep_u8<NR, CSTRIDE, NH>(band + d * BANDW + 8 * lane, s, sums);
         else
-            sweep_wide<T, NR>(band + d * BANDW + 8 * lane, sp, W, active,
-                              acc);
+            sweep_wide<T, NR, NH>(band + d * BANDW + 8 * lane, sp, W, active,
+                                  sums);
+        uint32_t (&acc)[DXS] = sums[0];
         if constexpr (BEST) {
+            static_assert(NH == 1, "the fused argmin takes 8-wide blocks");
             if constexpr (NR == 16) {
                 #pragma unroll
                 for (int i = 0; i < DXS; ++i)
@@ -287,13 +308,23 @@ k1_kernel(const T* __restrict__ ref, const T* __restrict__ src, int H, int W,
                                      : min_key<Key, true>(acc, cx, nd, mul))
                 + ((Key)(lam * abs(dyi - R)) << shift) + (Key)(dyi * D);
             best = k < best ? k : best;
-        } else if (active) {
+        } else if (active && NH == 1) {
             int32_t* o = out + ((size_t)(dyi * D + dx0) * hb + blockIdx.y) * wb
                 + bx;
             const size_t plane = (size_t)hb * wb;
             #pragma unroll
             for (int i = 0; i < DXS; ++i)
                 if (i < nd) __stcs(o + i * plane, (int32_t)acc[i]);
+        } else if (active) {
+            // the lane's two 4x4 blocks are neighbours in the W/4 row
+            int2* o = reinterpret_cast<int2*>(out) +
+                ((size_t)(dyi * D + dx0) * hb + blockIdx.y) * wb + bx;
+            const size_t plane = (size_t)hb * wb;
+            #pragma unroll
+            for (int i = 0; i < DXS; ++i)
+                if (i < nd)
+                    __stcs(o + i * plane, make_int2((int32_t)sums[0][i],
+                                                    (int32_t)sums[NH - 1][i]));
         }
     }
     if constexpr (BEST) {
@@ -303,15 +334,15 @@ k1_kernel(const T* __restrict__ ref, const T* __restrict__ src, int H, int W,
     }
 }
 
-template <typename T, int NR, bool BEST, typename Key>
+template <typename T, int NR, bool BEST, typename Key, int NH = 1>
 cudaError_t launch(const void* ref, const void* src, int H, int W, int R,
                    int lam, int shift, void* out, void* keys,
                    cudaStream_t stream) {
     const int D = 2 * R + 1;
     const dim3 grid((W / 8 + LANES - 1) / LANES, H / NR,
                     ((D + DYRUN - 1) / DYRUN) * ((D + DXS - 1) / DXS));
-    k1_kernel<T, NR, BEST, Key><<<grid, THREADS, band_bytes<T, NR>(),
-                                  stream>>>(
+    k1_kernel<T, NR, BEST, Key, NH><<<grid, THREADS, band_bytes<T, NR>(),
+                                      stream>>>(
         (const T*)ref, (const T*)src, H, W, R, lam, shift, (int32_t*)out,
         (Key*)keys);
     return cudaGetLastError();
@@ -355,6 +386,22 @@ int asuna_sad_block8_sweep(const void* ref, const void* src, void* out,
         case 1: return (int)launch<int16_t, 8, false, uint32_t>(
                     ref, src, H, W, R, 0, 0, out, nullptr, s);
         case 2: return (int)launch<int32_t, 8, false, uint32_t>(
+                    ref, src, H, W, R, 0, 0, out, nullptr, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// As above, of 4x4 blocks: out is [D, D, H/4, W/4] int32; H is a
+// multiple of 4 and W of 8.
+int asuna_sad_block4_sweep(const void* ref, const void* src, void* out,
+                           int H, int W, int R, int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (dtype) {
+        case 0: return (int)launch<uint8_t, 4, false, uint32_t, 2>(
+                    ref, src, H, W, R, 0, 0, out, nullptr, s);
+        case 1: return (int)launch<int16_t, 4, false, uint32_t, 2>(
+                    ref, src, H, W, R, 0, 0, out, nullptr, s);
+        case 2: return (int)launch<int32_t, 4, false, uint32_t, 2>(
                     ref, src, H, W, R, 0, 0, out, nullptr, s);
         default: return (int)cudaErrorInvalidValue;
     }

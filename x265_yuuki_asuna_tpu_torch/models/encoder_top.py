@@ -1,14 +1,15 @@
 """Top-level encoder sessions: the all-intra session, and the video
 session (one reference per list; IPPP on the uniform CU grid or the CTU32
-depth-2 quadtree, and fixed mini-GOPs with B frames on the quadtree),
-under CQP, CRF or ABR rate control with VBV.
+depth-2 quadtree, and mini-GOPs with B frames on the quadtree, fixed or
+chosen by b-adapt), under CQP, CRF or ABR rate control with VBV.
 
 Port of x265_yuuki_asuna_tpu/models/encoder_top.py: IntraEncoderSession
 (encode_frame, the frame batches submit_batch / finish_batch /
 encode_batch, headers with the info, mastering-display and
 content-light-level SEI, the sei_provider hook) and
 VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
-hash SEI, scenecut and keyint_min; push_frame / flush with b_adapt=0, the
+hash SEI, scenecut (the cost rule or the histogram rule) and keyint_min;
+push_frame / flush with b_adapt 0, 1 and 2, the rc-lookahead window, the
 B-pyramid and the B slice assembly. As in the reference, the video
 session codes its I frames through an IntraEncoderSession. Device work
 (lookahead, intra and inter programs) runs on `device`; the CABAC pass
@@ -18,7 +19,9 @@ byte-identical to the JAX package's.
 With max_depth=2 the sessions code CTU32 quadtrees down to 8x8 CUs (the
 JAX video session's device-DPB quadtree path): the reference pictures
 stay on the device between frames and are copied to the host only for
-the hash SEI, the quality metrics and the returned recon.
+the hash SEI, the quality metrics and the returned recon (recon_out=False
+with neither of the others: never, and FrameResult.recon is None). hme
+adds the hierarchical search to the quadtree P and B programs.
 
 deblock and sao switch on the in-loop filters (each alone or both), on
 every path: on the uniform grid the sessions filter each coded picture as
@@ -61,14 +64,21 @@ QP from the rate control and the zone only (the reference has neither
 the HRD SEI, the scene-cut window nor pass-1 records there, though the
 VUI signals the HRD).
 
-With bframes > 0 (max_depth=2, b_adapt=0) frames go through push_frame
-and flush: each mini-GOP of bframes + 1 frames codes its last frame as a P
-anchor, then the frames before it as B frames between the two anchors;
-with b_pyramid and two or more B frames the middle one is a referenced B
-(TRAIL_R) that the outer ones predict from. The port codes a mini-GOP's
-frames one after another. The JAX session pipelines them under CQP
-without two-pass: it takes every frame's QP at submit, before any of the
-mini-GOP's frames is fed back. With a constant QP that codes the same
+With bframes > 0 (max_depth=2) frames go through push_frame and flush:
+each mini-GOP codes its last frame as a P anchor, then the frames before
+it as B frames between the two anchors; with b_pyramid and two or more B
+frames the middle one is a referenced B (TRAIL_R) that the outer ones
+predict from. b_adapt=0 closes every mini-GOP at bframes + 1 frames;
+b_adapt=1 closes it early at a frame the lookahead predicts poorly
+(from the frame before, then from the anchor); b_adapt=2 (the default)
+runs the trellis over bframes + 1 pending frames and closes the mini-GOP
+at the P placement of least cost per frame, the rest staying pending.
+With cutree and rc_lookahead > 0 each frame waits in the rc-lookahead
+window until rc_lookahead later frames are analysed, and its QP map
+takes cuTree's offsets propagated back from them. The port codes a
+mini-GOP's frames one after another. The JAX session pipelines them under
+CQP without two-pass: it takes every frame's QP at submit, before any of
+the mini-GOP's frames is fed back. With a constant QP that codes the same
 stream as in order; under CQP with VBV the buffer moves between frames,
 so the port then takes the mini-GOP's QPs first, in submit order, and
 feeds the frames back in coding order after them. CRF, ABR and two-pass
@@ -113,9 +123,6 @@ _P = "a later P-frame slice"
 # every keyword of the JAX sessions this port has no slice for yet, with
 # the slice that adds it (ROADMAP Queue 1)
 _LATER = {
-    "hme": "the HME slice", "hme_range": "the HME slice",
-    "hist_scenecut": "the lookahead b-adapt and histogram-scenecut slice",
-    "recon_out": "the flagship session slice",
     "search_range": _P, "max_merge": _P, "weightp": _P, "n_refs": _P,
     "tmvp": _P, "frame_dup": _P, "dup_threshold": _P,
     "analysis_save": "the analysis save/load slice",
@@ -133,8 +140,7 @@ _LATER = {
 }
 # the defaults of those keywords in each JAX session
 _VIDEO_DEFAULTS = {
-    "hme": False, "hme_range": 16,
-    "hist_scenecut": False, "recon_out": True, "search_range": 16,
+    "search_range": 16,
     "max_merge": 3, "weightp": False, "n_refs": 1, "tmvp": False,
     "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
     "analysis_load": None, "analysis_share": None, "scale_factor": 1,
@@ -321,8 +327,10 @@ class IntraEncoderSession:
     called with each frame's display index and returns bytes that go
     before its slice. device=None runs on the CUDA card (and raises when
     there is none); device="cpu" runs every kernel's plain PyTorch
-    version. Options of the JAX session outside these slices raise
-    NotImplementedError."""
+    version. recon_host=False, with dpb_device (the video session's I
+    frames when nothing reads their recon on the host): the quadtree
+    program's recon stays on the device. Options of the JAX session
+    outside these slices raise NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
                  cu_size: int = 16, fps: Tuple[int, int] = FPS,
@@ -332,7 +340,7 @@ class IntraEncoderSession:
                  master_display: str = None, max_cll: str = None,
                  max_depth: int = 0, dpb_device: bool = False,
                  aq_mode: int = 0, aq_strength: float = 1.0, device=None,
-                 **options):
+                 recon_host: bool = True, **options):
         _check_options(options, _INTRA_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         self.device = resolve_device(device)
@@ -370,7 +378,8 @@ class IntraEncoderSession:
             self.frame_encoder = IntraQTEncoder(
                 self.coded_w, self.coded_h, self.device, self.deblock,
                 self.sao, self.quant_fn,
-                "program" if self.dpb_device else "host")
+                "program" if self.dpb_device else "host",
+                recon_host or not self.dpb_device)
         else:
             self.frame_encoder = IntraFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device,
@@ -538,15 +547,20 @@ class VideoEncoderSession:
     max_depth=0 codes the uniform cu_size=16 grid; max_depth=2 codes CTU32
     quadtrees down to 8x8 CUs (cu_size is then 32, as in the JAX session).
     bframes=0 codes IDR + P frames through encode_frame; bframes > 0 (with
-    max_depth=2 and b_adapt=0) codes fixed mini-GOPs with B frames through
-    push_frame and flush, with the B-pyramid when b_pyramid is set.
+    max_depth=2) codes mini-GOPs with B frames through push_frame and
+    flush, with the B-pyramid when b_pyramid is set, closed by b_adapt
+    (0 fixed, 1 fast, 2 trellis). hme / hme_range: the hierarchical search
+    on the quadtree (ignored on the uniform grid, as in the reference);
+    hist_scenecut: the histogram scene cut in place of the cost rule.
     deblock / sao switch the in-loop filters on; sbh / rdoq / psy_rdoq
     choose the levels (sign hiding is off under RDOQ); aq_mode /
     aq_strength / cutree give each frame a per-CU QP map, and with cutree
     rc_lookahead > 0 delays an IPPP session's frames through push_la /
-    flush_la for cuTree's window; fps sets the VUI timing, the level and
-    keyint_min; quality_metrics=False leaves PSNR-U/V and SSIM out of the
-    results. Rate control: rc_mode ("cqp", "crf" with crf, "abr" with
+    flush_la (a B session's inside push_frame) for cuTree's window; fps
+    sets the VUI timing, the level and keyint_min; quality_metrics=False
+    leaves PSNR-U/V and SSIM out of the results, and with recon_out=False
+    and no hash SEI the quadtree path returns no recon (and PSNR-Y 0).
+    Rate control: rc_mode ("cqp", "crf" with crf, "abr" with
     bitrate_kbps), vbv_maxrate_kbps / vbv_bufsize_kbps (VBV, both > 0),
     hrd (the HRD in the VUI and, on the IPPP path, its SEI; with VBV
     only), qp_min / qp_max, zones ("start,end,q=N" or "start,end,b=F"
@@ -575,39 +589,34 @@ class VideoEncoderSession:
                  scenecut_aware_qp: bool = False,
                  scenecut_qp_delta: int = 5, scenecut_window: int = 12,
                  stats_write: str = None, stats_read: str = None,
+                 hme: bool = False, hme_range: int = 16,
+                 hist_scenecut: bool = False, recon_out: bool = True,
                  dpb_device: bool = None, device=None, **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         # frames wait rc_lookahead frames for cuTree's window (cuTree only)
         self.la_depth = max(0, rc_lookahead) if cutree else 0
-        if self.la_depth and bframes > 0:
-            raise NotImplementedError(
-                f"rc_lookahead={rc_lookahead} with cutree and bframes="
-                f"{bframes}: the window under push_frame comes with the "
-                "lookahead b-adapt slice; IPPP sessions take it through "
-                "push_la / flush_la")
         if bframes > 0 and not max_depth:
             raise NotImplementedError(
                 f"bframes={bframes} with max_depth=0: the port codes B "
                 "frames on the CTU32 depth-2 quadtree only; B frames on the "
                 "uniform 16x16 grid are still to come (a later B-frame "
                 "slice)")
-        if bframes > 0 and b_adapt:
-            raise NotImplementedError(
-                f"bframes={bframes} with b_adapt={b_adapt}: the port closes "
-                "each mini-GOP at bframes + 1 frames (b_adapt=0); the "
-                "lookahead b-adapt slice adds b_adapt 1 and 2")
         if dpb_device is False and max_depth:
             raise NotImplementedError(
                 "dpb_device=False with max_depth=2: the port keeps the "
                 "quadtree session's references on the device; a later "
                 "slice adds the host-filter quadtree video path")
+        # the quadtree programs' recon planes come to the host only for
+        # the hash SEI, the returned recon and the quality metrics
+        recon_host = bool(recon_out or quality_metrics or hash_sei)
         # the I frames go through an intra session, whose parameter sets
         # this session shares
         self.intra_sess = IntraEncoderSession(
             width, height, qp, cu_size, fps, hash_sei=False,
             deblock=deblock, sao=sao, rdoq=rdoq, sbh=sbh, psy_rdoq=psy_rdoq,
-            max_depth=max_depth, dpb_device=True, device=device)
+            max_depth=max_depth, dpb_device=True, recon_host=recon_host,
+            device=device)
         self.device = self.intra_sess.device
         self.src_w, self.src_h = width, height
         self.qp = qp
@@ -620,6 +629,7 @@ class VideoEncoderSession:
                                      self.keyint // 10))
         self.hash_sei = hash_sei
         self.quality_metrics = bool(quality_metrics)
+        self.recon_out = bool(recon_out)
         self.deblock, self.sao = bool(deblock), bool(sao)
         self.sbh = self.intra_sess.sbh
         # the uniform grid's filters run in the session, the quadtree's in
@@ -640,13 +650,16 @@ class VideoEncoderSession:
         self.pps.cu_qp_delta = int(bool(aq_mode or cutree))
         quant_fn = self.intra_sess.quant_fn
         if max_depth:
+            # HME runs on the quadtree only, as in the reference
             self.inter_encoder = InterQTEncoder(
                 self.coded_w, self.coded_h, self.device, self.deblock,
-                self.sao, quant_fn)
+                self.sao, quant_fn, hme=hme, hme_range=hme_range,
+                recon_host=recon_host)
         else:
             self.inter_encoder = InterFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device, quant_fn)
-        self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device)
+        self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device,
+                                   hist_scenecut=hist_scenecut)
         fps_f = fps[0] / max(fps[1], 1)
         # the rate control sees the source size
         self.rc = RateControl(RCConfig(
@@ -720,10 +733,17 @@ class VideoEncoderSession:
         # (y, u, v) padded recon planes of the reference picture: host
         # arrays on the uniform grid, uint8 device tensors for quadtrees
         self.ref = None
-        # push_frame state: display-order frames of the open mini-GOP, the
-        # last anchor's (recon planes, poc), the last IDR's display index
+        # push_frame state: display-order frames of the open mini-GOP, their
+        # lowres planes (device tensors) and rc-lookahead windows, the
+        # last anchor's (recon planes, poc) and lowres plane, the last
+        # IDR's display index; b_adapt: 0 fixed mini-GOPs, 1 the fast
+        # early close, 2 the trellis
+        self.b_adapt = b_adapt
         self.pending = []
+        self.pending_lowres = []
+        self.pending_windows = []
         self.anchor = None
+        self.anchor_lowres = None
         self._last_idr_didx = -10 ** 9
         # wall-clock ms per stage, summed over frames (each stage ends in a
         # device->host copy, so the times include the device work); the
@@ -911,45 +931,117 @@ class VideoEncoderSession:
 
     # ------------------------------------------------------------------
     # mini-GOPs with B frames (bframes > 0): the JAX session's push_frame
-    # at la_depth 0 with b_adapt=0, and its sequential mini-GOP flush
+    # with its rc-lookahead window and b-adapt, and its sequential
+    # mini-GOP flush
     # ------------------------------------------------------------------
     def push_frame(self, y, u, v) -> List[FrameResult]:
         """Take one display-order frame; returns the frames it completes
-        (none, or a whole mini-GOP in coding order)."""
+        (none, or whole mini-GOPs in coding order). With cutree and
+        rc_lookahead > 0 the frame first waits in the window until
+        rc_lookahead later frames are analysed; it then reaches the
+        mini-GOP with the window's details for cuTree."""
         if not self.bframes:
             raise RuntimeError("push_frame needs bframes > 0; IPPP sessions "
                                "use encode_frame")
         yp = G.pad_plane(y, self.coded_h, self.coded_w)
-        _, _, scenecut = self._timed("lookahead", self.lookahead.push, yp)
+        icost, pcost, scenecut = self._timed("lookahead",
+                                             self.lookahead.push, yp)
+        det = dict(self.lookahead.last_detail, scenecut=scenecut)
+        low = self.lookahead.prev_lowres      # stays on the device
+        if self.la_depth:
+            self.la_queue.append((y, u, v, icost, pcost, scenecut, det, low))
+            if len(self.la_queue) > self.la_depth:
+                return self._pop_la_b()
+            return []
+        return self._push_frame_now(y, u, v, icost, pcost, scenecut, low)
+
+    def _pop_la_b(self) -> List[FrameResult]:
+        """The oldest frame of the window into the mini-GOP, with the
+        details of itself and the frames behind it."""
+        y, u, v, icost, pcost, scenecut, det, low = self.la_queue.pop(0)
+        window = [det] + [q[6] for q in self.la_queue]
+        return self._push_frame_now(y, u, v, icost, pcost, scenecut, low,
+                                    window)
+
+    def _push_frame_now(self, y, u, v, icost: float, pcost: float,
+                        scenecut: bool, low, window=None) \
+            -> List[FrameResult]:
+        """An IDR at keyint or a scene cut (keyint_min after the last);
+        else the frame joins the open mini-GOP, which closes at bframes + 1
+        frames or, with b_adapt, where the lookahead says."""
         results = []
         if (self.display_idx % self.keyint == 0 or self.anchor is None
                 or (scenecut and self.display_idx - self._last_idr_didx
                     >= self.keyint_min)):
             self._last_idr_didx = self.display_idx
             results += self._flush_minigop()
+            self._cutree_window = window
             results.append(self._encode_idr_anchor(y, u, v))
+            self.anchor_lowres = low
         else:
             self.pending.append((y, u, v))
-            if len(self.pending) == self.bframes + 1:
-                results += self._flush_minigop()
+            self.pending_lowres.append(low)
+            self.pending_windows.append(window)
+            full = len(self.pending) == self.bframes + 1
+            if self.b_adapt >= 2:
+                if full and self.anchor_lowres is not None:
+                    results += self._flush_minigop(
+                        self._timed("b_adapt", self._trellis) + 1)
+                elif full:
+                    results += self._flush_minigop()
+            else:
+                # fast b-adapt: close early when this frame predicts
+                # poorly from the one before, then from the anchor
+                poor = bool(self.b_adapt) and pcost > 0.45 * max(icost, 1)
+                if (self.b_adapt and not poor
+                        and self.anchor_lowres is not None
+                        and len(self.pending) > 1):
+                    far = self._timed("b_adapt", self.lookahead.pair_cost,
+                                      self.anchor_lowres, low)
+                    poor = far > 0.65 * max(icost, 1)
+                if full or poor:
+                    results += self._flush_minigop()
         self.display_idx += 1
         return results
 
-    def flush(self) -> List[FrameResult]:
-        """End of stream: code the open mini-GOP (its last frame as the P
-        anchor)."""
-        return self._flush_minigop()
+    def _trellis(self) -> int:
+        """b-adapt 2: the index of the pending frame that becomes the P
+        anchor, the least normalised path cost scanning from the longest
+        mini-GOP down (a strict <, so ties keep the longer one)."""
+        costs = self.lookahead.badapt_path_costs(self.anchor_lowres,
+                                                 self.pending_lowres)
+        best_k, best = len(costs) - 1, None
+        for k in range(len(costs) - 1, -1, -1):
+            if best is None or costs[k] < best:
+                best_k, best = k, costs[k]
+        return best_k
 
-    def _flush_minigop(self) -> List[FrameResult]:
-        """Code the pending frames: the last as a P anchor, the others as B
-        frames between the previous anchor and it. With b_pyramid and two
-        or more B frames the middle one is a referenced B and the others
-        predict from it and the nearer anchor. Under CQP without two-pass
-        the frames' QPs are taken first, in this order (the reference's
+    def flush(self) -> List[FrameResult]:
+        """End of stream: drain the rc-lookahead window (each frame with
+        what remains of its window), then code the open mini-GOP (its last
+        frame as the P anchor)."""
+        out = []
+        while self.la_queue:
+            out += self._pop_la_b()
+        return out + self._flush_minigop()
+
+    def _flush_minigop(self, count: int = None) -> List[FrameResult]:
+        """Code the first `count` pending frames (default all): the last
+        as a P anchor, the others as B frames between the previous anchor
+        and it; the rest stay pending. With b_pyramid and two or more B
+        frames the middle one is a referenced B and the others predict
+        from it and the nearer anchor. Under CQP without two-pass the
+        frames' QPs are taken first, in this order (the reference's
         pipelined mini-GOP)."""
         if not self.pending:
             return []
-        frames, self.pending = self.pending, []
+        if count is None or count >= len(self.pending):
+            count = len(self.pending)
+        frames, self.pending = self.pending[:count], self.pending[count:]
+        windows = self.pending_windows[:count]
+        self.pending_windows = self.pending_windows[count:]
+        self.anchor_lowres = self.pending_lowres[count - 1]
+        self.pending_lowres = self.pending_lowres[count:]
         prev_anchor, prev_poc = self.anchor
         anchor_poc = prev_poc + len(frames)
         nb = len(frames) - 1
@@ -988,6 +1080,7 @@ class VideoEncoderSession:
         for (i, poc, b_off, r, rps), qp in zip(plan, qps):
             if qp is None:
                 qp = self._timed("rc", self._minigop_qp, poc, b_off)
+            self._cutree_window = windows[i]
             if b_off is None:
                 out.append(self._encode_p_anchor(*frames[i], poc,
                                                  poc - prev_poc, qp))
@@ -1098,6 +1191,12 @@ class VideoEncoderSession:
             nals += self._timed("serialize", hash_sei, out)
         self._timed("rc", self._rc_done, qp, len(nals) * 8, frame_type,
                     la_cost)
+        if out.get("recon_y") is None:
+            # recon_out=False without the quality metrics or the hash SEI
+            # on the quadtree path: the recon never left the device
+            return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
+                               psnr_y=0.0, frame_type=frame_type, qp=qp,
+                               poc=poc)
         ch, cw = self.src_h // 2, self.src_w // 2
         recon = (out["recon_y"][:self.src_h, :self.src_w].astype(np.uint8),
                  out["recon_u"][:ch, :cw].astype(np.uint8),

@@ -26,6 +26,7 @@ from ..ops import bitcost as BC
 from ..ops import interp, me, pixel
 from ..ops.quant import PLAIN, Quantizer
 from . import qt_common as QT
+from .lookahead import downscale_half
 from .intra_encoder import (WaveState, Wavefront, cb_cr, cu_qps,
                             from_blocks, gather_mode, planes_to_blocks,
                             to_blocks, tq_recon)
@@ -217,20 +218,31 @@ _MOTION_KEYS = {QT.N: ("pdir", "mvx", "mvy", "mv1x", "mv1y"),
                 8: ("pdir8", "mv8x", "mv8y", "mv81x", "mv81y")}
 
 
+def hme_takes_coarse(csad, cx, cy, fsad, fx, fy):
+    """Per block, whether HME's doubled coarse MV (cx, cy) with its
+    full-resolution SAD replaces the fine winner: strictly cheaper at a
+    rate of 2 (|mvx| + |mvy|)."""
+    return csad + 2 * (cx.abs() + cy.abs()) < fsad + 2 * (fx.abs() + fy.abs())
+
+
 class InterQTEncoder:
     """CTU32 depth-2 quadtree P- and B-frame encoder, one reference per
     list: dense decide, then (P) commit. Port of
     InterFrameEncoder._build_qt + _unpack_qt with bi=False and with
-    bi=True, intra_in_b=False (max_depth=2, 8-bit, no HME / RQT / weighted
+    bi=True, intra_in_b=False (max_depth=2, 8-bit, no RQT / weighted
     prediction / psy-rd; quant_fn: plain, sign-bit hiding under the
     mode-dependent scan or context RDOQ; the device-DPB filter chain runs
-    last when deblock or sao is set).
+    last when deblock or sao is set; hme: the hierarchical search).
 
     Dense phase, for every block of every size (32, 16, 8): K1's frame
     sweep per list (the surface kernel, then the first-minimum argmin per
-    size at lambda_bits 2), half- then quarter-pel SATD refinement on a
-    gathered window, then the motion decision, then the leaf RD; then the
-    bottom-up split decisions. The inter leaves' levels and recon are
+    size at lambda_bits 2); with hme, K1's 4x4-base sweep of the
+    half-resolution planes over +-hme_range (sizes 16, 8, 4), whose MV,
+    doubled, replaces the fine winner where its SAD on the full-resolution
+    plane plus 2 (|mvx| + |mvy|) is strictly less than the fine winner's;
+    half- then quarter-pel SATD refinement on a gathered window around the
+    winner, then the motion decision, then the leaf RD; then the bottom-up
+    split decisions. The inter leaves' levels and recon are
     exact from the dense phase.
 
     P frames: merge-candidate RD of the ME winner against the left /
@@ -250,17 +262,29 @@ class InterQTEncoder:
 
     def __init__(self, width: int, height: int, device,
                  deblock: bool = False, sao: bool = False,
-                 quant_fn: Quantizer = PLAIN):
+                 quant_fn: Quantizer = PLAIN, hme: bool = False,
+                 hme_range: int = 16, recon_host: bool = True):
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
         self.quant_fn = quant_fn
         self.filters = QT.LoopFilters(deblock, sao)
+        self.hme, self.hme_range = hme, hme_range
+        # the decision dict carries the recon planes on the host
+        # (recon_y / _u / _v); off, only recon_dev holds them
+        self.recon_host = recon_host
 
-    def _refine(self, nn: int, y32, ref_y, fine):
+    def _refine(self, nn: int, y32, ref_y, fine, coarse=None):
         """Every nn-block's quarter-pel ME winner around K1's integer
-        winner: (mvx, mvy, satd)."""
+        winner (or HME's doubled coarse MV where it costs less): (mvx, mvy,
+        satd)."""
         px, py = self.geo.pxpy[nn]
-        fx, fy, _ = fine[nn]
+        fx, fy, fsad = fine[nn]
+        if coarse is not None:
+            cx, cy = coarse[nn // 2][0] * 2, coarse[nn // 2][1] * 2
+            csad = me.sad_at_mv(ref_y, to_blocks(y32, nn), px, py, cx, cy,
+                                nn)
+            use_c = hme_takes_coarse(csad, cx, cy, fsad, fx, fy)
+            fx, fy = torch.where(use_c, cx, fx), torch.where(use_c, cy, fy)
         win = interp.gather_luma_window(ref_y, px, py, fx, fy, nn)
         dqx, dqy, satd = interp.subpel_refine_win(win, to_blocks(y32, nn),
                                                   nn)
@@ -384,6 +408,14 @@ class InterQTEncoder:
         # argmin
         fine = [me.sad_sweep_multi(r[0], y8, (8, 16, QT.N), SEARCH_RANGE,
                                    lambda_bits=2) for r in r8]
+        coarse = [None] * len(r8)
+        if self.hme:
+            # the half-resolution planes stay within 0..255: uint8 for K1
+            low = lambda p: downscale_half(p).to(torch.uint8)
+            low_y = low(y8)
+            coarse = [me.sad_sweep_multi(low(r[0]), low_y,
+                                         (QT.N // 2, 8, 4), self.hme_range,
+                                         lambda_bits=2) for r in r8]
         # B / P contexts, at the first CTU's QP as in the reference
         states = BC.init_states_dev(0 if bi else 1, fq.first)
         leaf, motion = {}, {}
@@ -391,8 +423,8 @@ class InterQTEncoder:
             px, py = geo.pxpy[nn]
             qp_blk, qpc_blk = fq.blk(nn, fq.cu), fq.blk(nn, fq.c)
             l2 = QT.lam2(qp_blk)
-            mvs = [self._refine(nn, y32, r[0], f)
-                   for r, f in zip(refs, fine)]
+            mvs = [self._refine(nn, y32, r[0], f, c)
+                   for r, f, c in zip(refs, fine, coarse)]
             if bi:
                 motion[nn], epred, ebits_mv = self._motion_b(
                     nn, y32, refs[0], refs[1], *mvs, states, qp_blk)
@@ -472,6 +504,6 @@ class InterQTEncoder:
             tuple(motion[nn][0] for nn in sizes) if bi else None)
         if sao is not None:
             out["sao"] = sao
-        out.update(QT.decision_planes(geo, rec, lv))
+        out.update(QT.decision_planes(geo, rec, lv, self.recon_host))
         out["recon_dev"] = tuple(p.to(torch.uint8) for p in rec)
         return out

@@ -297,13 +297,17 @@ class IntraQTEncoder:
 
     def __init__(self, width: int, height: int, device,
                  deblock: bool = False, sao: bool = False,
-                 quant_fn: Quantizer = PLAIN, sao_form: str = "program"):
+                 quant_fn: Quantizer = PLAIN, sao_form: str = "program",
+                 recon_host: bool = True):
         from . import qt_common as QT      # qt_common imports this module
         self.QT = QT
         self.quant_fn = quant_fn
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
         self.filters = QT.LoopFilters(deblock, sao, sao_form)
+        # the decision dict carries the recon planes on the host
+        # (recon_y / _u / _v); off, only recon_dev holds them
+        self.recon_host = recon_host
 
     def encode_frame(self, y, u, v, qp, with_sao: bool = True,
                      slice_qp: int = None) -> dict:
@@ -355,6 +359,6 @@ class IntraQTEncoder:
                                 with_sao=with_sao)
         if sao is not None:
             out["sao"] = sao
-        out.update(QT.decision_planes(geo, rec, lv))
+        out.update(QT.decision_planes(geo, rec, lv, self.recon_host))
         out["recon_dev"] = tuple(p.to(torch.uint8) for p in rec)
         return out

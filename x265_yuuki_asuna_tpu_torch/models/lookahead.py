@@ -1,8 +1,11 @@
-"""Lookahead: half-res cost estimation and scenecut detection.
+"""Lookahead: half-res cost estimation, scenecut detection and the b-adapt
+costs.
 
-Port of x265_yuuki_asuna_tpu/models/lookahead.py (downscale_half,
-Lookahead._build's per-frame pass, push). The pair / bidir / b-adapt costs
-of the B-frame path belong to a later slice.
+Port of x265_yuuki_asuna_tpu/models/lookahead.py (downscale_half, the
+per-frame pass and push with the histogram scene cut, pair_cost,
+bidir_cost, badapt_path_costs). Every sweep is K1's fused sweep-and-argmin
+at n=8, R=16, lambda_bits=1 on the uint8 lowres planes, which stay on the
+device.
 
 Reference behavior (studied, not copied): encoder/slicetype.cpp — lowres
 pyramid (frameInitLowres), 8x8 lowres ME, lowres intra estimate, scenecut
@@ -29,16 +32,51 @@ def downscale_half(plane: torch.Tensor) -> torch.Tensor:
             + p[1::2, 1::2] + 2) >> 2
 
 
-class Lookahead:
-    """Incremental lookahead over a session's frames (one L0 reference)."""
+HIST_CUT = 0.35       # the histogram scene cut's L1 distance
 
-    def __init__(self, width: int, height: int, device):
+
+def _search(ref_low: torch.Tensor, cur_low: torch.Tensor) -> torch.Tensor:
+    """[nblocks] SAD of each 8x8 lowres block of cur at its best MV into
+    ref (full search +-16, lambda_bits 1): K1's fused kernel. The sweep
+    takes uint8 planes: exact, since downscale_half of uint8 stays within
+    0..255."""
+    return me.sad_sweep_multi(ref_low.to(torch.uint8),
+                              cur_low.to(torch.uint8), (8,), 16,
+                              lambda_bits=1)[8][2]
+
+
+class Lookahead:
+    """Incremental lookahead over a session's frames (one L0 reference).
+    hist_scenecut: the histogram rule replaces the cost rule (the
+    reference's bHistBasedSceneCut)."""
+
+    def __init__(self, width: int, height: int, device,
+                 hist_scenecut: bool = False):
         # lowres geometry, trimmed to whole 8x8 blocks
         self.lw = (width // 2) // 8 * 8
         self.lh = (height // 2) // 8 * 8
         self.device = torch.device(device)
+        self.hist_scenecut = hist_scenecut
+        self._prev_hist = None
         self.prev_lowres = None       # int32 [lh, lw] on the device
         self.last_detail = None
+
+    def _blocks(self, low: torch.Tensor) -> torch.Tensor:
+        """[nblocks, 8, 8] raster 8x8 blocks of a lowres plane."""
+        nb_x, nb_y = self.lw // 8, self.lh // 8
+        return (low.reshape(nb_y, 8, nb_x, 8).permute(0, 2, 1, 3)
+                .reshape(nb_x * nb_y, 8, 8))
+
+    @staticmethod
+    def _icost(blocks: torch.Tensor) -> torch.Tensor:
+        """Lowres intra estimate of each block: SATD against the DC
+        predictor; the DC is the integer block sum // 64 (the JAX float
+        mean truncates to the same value: sums <= 64*255 are exact in
+        float32)."""
+        nblocks = blocks.shape[0]
+        dc = blocks.reshape(nblocks, 64).sum(dim=1) // 64
+        return pixel.satd(blocks, dc.to(torch.int32)[:, None, None]
+                          .expand(nblocks, 8, 8))
 
     def _run(self, y: torch.Tensor, prev: torch.Tensor, has_prev: bool):
         lw, lh = self.lw, self.lh
@@ -46,18 +84,11 @@ class Lookahead:
         nblocks = nb_x * nb_y
         dev = self.device
         low = downscale_half(y)[:lh, :lw].contiguous()
-        blocks = (low.reshape(nb_y, 8, nb_x, 8).permute(0, 2, 1, 3)
-                  .reshape(nblocks, 8, 8))
-        # lowres intra estimate: SATD against the DC predictor; the DC is
-        # the integer block sum // 64 (the JAX float mean truncates to the
-        # same value: sums <= 64*255 are exact in float32)
-        dc = blocks.reshape(nblocks, 64).sum(dim=1) // 64
-        icost = pixel.satd(blocks, dc.to(torch.int32)[:, None, None]
-                           .expand(nblocks, 8, 8))
+        blocks = self._blocks(low)
+        icost = self._icost(blocks)
         intra_cost = icost.sum()
         # lowres inter: 8x8 full search +-16 on the previous lowres (K1's
-        # fused kernel). The sweep takes uint8 planes: exact, since
-        # downscale_half of uint8 stays within 0..255
+        # fused kernel on uint8 planes, as _search)
         mvx, mvy, sad = me.sad_sweep_multi(prev.to(torch.uint8),
                                            low.to(torch.uint8), (8,), 16,
                                            lambda_bits=1)[8]
@@ -79,6 +110,62 @@ class Lookahead:
             icost.to(torch.float32), sad.to(torch.float32),
             mvx.to(torch.float32), mvy.to(torch.float32)])
         return low, packed
+
+    def pair_cost(self, ref_low: torch.Tensor, cur_low: torch.Tensor) \
+            -> float:
+        """Lowres ME cost of cur against an arbitrary reference: the sum
+        over blocks of min(SAD, intra) (distance-aware fast b-adapt)."""
+        icost = self._icost(self._blocks(cur_low))
+        return float(torch.minimum(_search(ref_low, cur_low), icost).sum())
+
+    def bidir_cost(self, ref0_low: torch.Tensor, ref1_low: torch.Tensor,
+                   cur_low: torch.Tensor) -> float:
+        """Cost of cur as a B between ref0 (past) and ref1 (future): the
+        sum over blocks of min(forward SAD, backward SAD, intra)."""
+        icost = self._icost(self._blocks(cur_low))
+        fwd, bwd = _search(ref0_low, cur_low), _search(ref1_low, cur_low)
+        return float(torch.minimum(torch.minimum(fwd, bwd), icost).sum())
+
+    def badapt_path_costs(self, anchor_low: torch.Tensor, lows) \
+            -> np.ndarray:
+        """The b-adapt trellis over the K pending lowres planes `lows`:
+        the cost of each P placement k, cost(anchor -> P at lows[k]) plus
+        the bidir cost of every lows[i], i < k, between the anchor and
+        lows[k], divided by k + 1 (float64 [K]). The K forward sweeps
+        run first, then the K(K-1)/2 backward ones in the reference's
+        (k, i < k) order; the per-term int sums are combined on the host
+        in the reference's order."""
+        K = len(lows)
+        icost = [self._icost(self._blocks(c)) for c in lows]
+        anchor_low = anchor_low.to(torch.uint8)
+        lows = [c.to(torch.uint8) for c in lows]
+        fwd = [_search(anchor_low, c) for c in lows]
+        terms = [torch.minimum(f, ic).sum() for f, ic in zip(fwd, icost)]
+        for k in range(K):
+            for i in range(k):
+                bwd = _search(lows[k], lows[i])
+                terms.append(torch.minimum(torch.minimum(fwd[i], bwd),
+                                           icost[i]).sum())
+        raw = torch.stack(terms).cpu().numpy().astype(np.int64)
+        cost = raw[:K].astype(np.float64)
+        p = K
+        for k in range(K):
+            for _ in range(k):
+                cost[k] += float(raw[p])
+                p += 1
+        return cost / (np.arange(K) + 1.0)
+
+    def _hist_cut(self, low: torch.Tensor) -> bool:
+        """The histogram scene cut: the L1 distance of this frame's
+        normalised 64-bin histogram of low >> 2 from the previous frame's
+        above HIST_CUT (never on the first frame)."""
+        hist = torch.bincount(low.reshape(-1) >> 2, minlength=64)[:64] \
+            .cpu().numpy().astype(np.float64)
+        hist /= max(hist.sum(), 1.0)
+        cut = self._prev_hist is not None and \
+            float(np.abs(hist - self._prev_hist).sum()) > HIST_CUT
+        self._prev_hist = hist
+        return cut
 
     def push(self, y: np.ndarray):
         """Returns (intra_cost, inter_cost, scenecut) for this frame."""
@@ -104,4 +191,6 @@ class Lookahead:
         # 0.4): cut when inter cost stops beating intra by the margin
         scenecut = has_prev and pcost >= (1.0 - SCENECUT_BIAS) * icost \
             and icost > 0
+        if self.hist_scenecut:
+            scenecut = self._hist_cut(low)
         return icost, pcost, bool(scenecut)

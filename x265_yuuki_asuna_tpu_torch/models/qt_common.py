@@ -429,15 +429,17 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, fq: FrameQp,
             lv[p].view(-1)[bi] = lvc[sl].reshape(S, -1)
 
 
-def decision_planes(geo: QtGeometry, rec, lv) -> dict:
-    """Levels as CTU tiles and recon planes, numpy, in the reference's
-    decision dict layout."""
+def decision_planes(geo: QtGeometry, rec, lv, recon: bool = True) -> dict:
+    """Levels as CTU tiles and (with recon) the recon planes, numpy, in the
+    reference's decision dict layout."""
     rows, cols = geo.rows, geo.cols
     h = lambda x: x.cpu().numpy()
     tiles = lambda p, k: h(to_blocks(p, k)).reshape(rows, cols, k, k)
-    return {"levels_y": tiles(lv[0], N), "levels_cb": tiles(lv[1], N // 2),
-            "levels_cr": tiles(lv[2], N // 2), "recon_y": h(rec[0]),
-            "recon_u": h(rec[1]), "recon_v": h(rec[2])}
+    out = {"levels_y": tiles(lv[0], N), "levels_cb": tiles(lv[1], N // 2),
+           "levels_cr": tiles(lv[2], N // 2)}
+    if recon:
+        out.update(recon_y=h(rec[0]), recon_u=h(rec[1]), recon_v=h(rec[2]))
+    return out
 
 
 def by_ctu(a: torch.Tensor, m: torch.Tensor, shape) -> np.ndarray:

@@ -1,10 +1,12 @@
 """K1, the motion-estimation SAD sweep: wrappers of the CUDA kernels in
 `csrc/me_sad.cu` and their plain PyTorch versions.
 
-Two entry points:
+Three entry points:
   * `sad_block8_sweep` — the surface of 8x8-block SADs of every
     displacement (replaces the TPU kernel
     x265_yuuki_asuna_tpu/ops/pallas/me_sad.py sad_block8_sweep);
+  * `sad_block4_sweep` — the same surface of 4x4 blocks (HME's coarse
+    sweep on the half-resolution planes, sizes 4, 8 and 16);
   * `sad_sweep_best`   — the fused sweep and argmin: each n x n block's
     best (mvx, mvy, sad), as sad_sweep_multi_pallas computes it for one
     size, without writing the surface.
@@ -31,8 +33,10 @@ def _kernel(name: str):
         lib = build.load("me_sad")
         p, i = ctypes.c_void_p, ctypes.c_int
         fns = {"surface": lib.asuna_sad_block8_sweep,
+               "surface4": lib.asuna_sad_block4_sweep,
                "best": lib.asuna_sad_sweep_best}
-        fns["surface"].argtypes = [p] * 3 + [i] * 4 + [p]
+        fns["surface"].argtypes = fns["surface4"].argtypes = \
+            [p] * 3 + [i] * 4 + [p]
         fns["best"].argtypes = [p] * 3 + [i] * 8 + [p]
         for fn in fns.values():
             fn.restype = i
@@ -41,12 +45,16 @@ def _kernel(name: str):
 
 
 def _check_planes(ref_plane: torch.Tensor, src_plane: torch.Tensor,
-                  n: int = 8):
+                  n: int = 8, wn: int = None):
+    """Shapes, types and layout the kernels take: H a multiple of n, W of
+    wn (default n)."""
     if ref_plane.shape != src_plane.shape or src_plane.ndim != 2:
         raise ValueError("ref and src must be [H, W] planes of one shape")
     H, W = src_plane.shape
-    if H % n or W % n:
-        raise ValueError(f"plane {H}x{W}: H and W must be multiples of {n}")
+    wn = wn or n
+    if H % n or W % wn:
+        raise ValueError(f"plane {H}x{W}: H must be a multiple of {n} and "
+                         f"W of {wn}")
     if ref_plane.dtype != src_plane.dtype or src_plane.dtype not in _DTYPES:
         raise TypeError(f"planes must share one of uint8/int16/int32, got "
                         f"{ref_plane.dtype} and {src_plane.dtype}")
@@ -67,10 +75,11 @@ def _launch(name: str, plane: torch.Tensor, *args):
         raise RuntimeError(f"K1 {name} launch failed: CUDA error {err}")
 
 
-def sad_block8_sweep_plain(ref_plane: torch.Tensor, src_plane: torch.Tensor,
-                           srange: int) -> torch.Tensor:
-    """Plain version: a loop over dy, vectorised over dx. The reference is
-    edge-extended by clamping its row and column indices."""
+def _surface_plain(ref_plane: torch.Tensor, src_plane: torch.Tensor,
+                   srange: int, b: int) -> torch.Tensor:
+    """[D, D, H/b, W/b] b x b-block SADs: a loop over dy, vectorised over
+    dx. The reference is edge-extended by clamping its row and column
+    indices."""
     H, W = src_plane.shape
     R = srange
     D = 2 * R + 1
@@ -80,13 +89,25 @@ def sad_block8_sweep_plain(ref_plane: torch.Tensor, src_plane: torch.Tensor,
     cols = (torch.arange(W, device=dev)[None, :]
             + torch.arange(D, device=dev)[:, None] - R).clamp(0, W - 1)
     ys = torch.arange(H, device=dev)
-    out = torch.empty((D, D, H // 8, W // 8), dtype=torch.int32, device=dev)
+    out = torch.empty((D, D, H // b, W // b), dtype=torch.int32, device=dev)
     for dyi in range(D):
         rows = ref[(ys + dyi - R).clamp(0, H - 1)]            # [H, W]
         d = (rows[:, cols] - src[:, None, :]).abs()           # [H, D, W]
-        out[dyi] = d.reshape(H // 8, 8, D, W // 8, 8).sum(dim=(1, 4)) \
+        out[dyi] = d.reshape(H // b, b, D, W // b, b).sum(dim=(1, 4)) \
             .permute(1, 0, 2)
     return out
+
+
+def sad_block8_sweep_plain(ref_plane: torch.Tensor, src_plane: torch.Tensor,
+                           srange: int) -> torch.Tensor:
+    """Plain version of sad_block8_sweep."""
+    return _surface_plain(ref_plane, src_plane, srange, 8)
+
+
+def sad_block4_sweep_plain(ref_plane: torch.Tensor, src_plane: torch.Tensor,
+                           srange: int) -> torch.Tensor:
+    """Plain version of sad_block4_sweep."""
+    return _surface_plain(ref_plane, src_plane, srange, 4)
 
 
 def sad_block8_sweep(ref_plane: torch.Tensor, src_plane: torch.Tensor,
@@ -113,18 +134,44 @@ def sad_block8_sweep(ref_plane: torch.Tensor, src_plane: torch.Tensor,
 sad_block8_sweep.launches = 0
 
 
-def best_of_surface(s8: torch.Tensor, n: int, srange: int,
-                    lambda_bits: int):
+def sad_block4_sweep(ref_plane: torch.Tensor, src_plane: torch.Tensor,
+                     srange: int) -> torch.Tensor:
+    """[D, D, H/4, W/4] int32: 4x4-block SADs for every (dy, dx) in
+    [-R, R]^2 (edge-extended reference), as sad_block8_sweep; H a multiple
+    of 4, W of 8.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. `sad_block4_sweep.launches` counts kernel launches."""
+    _check_planes(ref_plane, src_plane, 4, 8)
+    if not src_plane.is_cuda:
+        return sad_block4_sweep_plain(ref_plane, src_plane, srange)
+    H, W = src_plane.shape
+    D = 2 * srange + 1
+    out = torch.empty((D, D, H // 4, W // 4), dtype=torch.int32,
+                      device=src_plane.device)
+    _launch("surface4", src_plane, ref_plane.data_ptr(),
+            src_plane.data_ptr(), out.data_ptr(), H, W, srange,
+            _DTYPES[src_plane.dtype])
+    sad_block4_sweep.launches += 1
+    return out
+
+
+sad_block4_sweep.launches = 0
+
+
+def best_of_surface(surf: torch.Tensor, n: int, srange: int,
+                    lambda_bits: int, base: int = 8):
     """(mvx, mvy, sad) int32 [nblocks] of the n x n blocks (raster order)
-    from the 8x8 surface: f x f sums (f = n/8), cost = SAD + lambda_bits *
-    (|dx| + |dy|), first minimum in row-major (dy, dx) order (torch.argmin
-    returns the first minimum)."""
-    D, _, hb, wb = s8.shape
+    from the base x base surface (8 or 4): f x f sums (f = n/base), cost =
+    SAD + lambda_bits * (|dx| + |dy|), first minimum in row-major (dy, dx)
+    order (torch.argmin returns the first minimum). Integer sums, so the
+    f x f sum equals the reference's 2x2 sums level by level."""
+    D, _, hb, wb = surf.shape
     R = srange
-    f = n // 8
-    s = s8 if f == 1 else \
-        s8.reshape(D, D, hb // f, f, wb // f, f).sum(dim=(3, 5))
-    d = (torch.arange(D, device=s8.device) - R).abs()
+    f = n // base
+    s = surf if f == 1 else \
+        surf.reshape(D, D, hb // f, f, wb // f, f).sum(dim=(3, 5))
+    d = (torch.arange(D, device=surf.device) - R).abs()
     bias = lambda_bits * (d[:, None] + d[None, :])           # [dy, dx]
     flat = s.reshape(D * D, -1)
     best = torch.argmin(flat + bias.reshape(D * D, 1), dim=0)

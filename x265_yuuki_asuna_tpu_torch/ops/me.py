@@ -3,7 +3,8 @@
 Port of x265_yuuki_asuna_tpu/ops/me.py (sad_sweep_multi, sad_at_mv,
 full_search_sad) on K1 (`kernels/me_sad`). A single block size of 8 or 16
 takes the fused sweep-and-argmin kernel, which writes no surface; several
-sizes take the surface kernel (the 8x8 SAD of every displacement) and the
+sizes take the surface kernel (the 8x8 SAD of every displacement, or the
+4x4 one when the smallest size is 4, as in HME's coarse sweep) and the
 plain PyTorch aggregation, rate bias and argmin.
 
 Cost = SAD + lambda_bits * (|dx| + |dy|); ties go to the first (dy, dx) in
@@ -20,24 +21,27 @@ from .kernels import me_sad
 def sad_sweep_multi(ref_plane: torch.Tensor, src_plane: torch.Tensor, sizes,
                     srange: int, lambda_bits: int = 1) -> dict:
     """Frame-level full-search ME for the aligned block sizes in `sizes`
-    (multiples of 8). ref/src: [H, W] planes, H and W multiples of
-    max(sizes). Returns {n: (mvx, mvy, sad)} int32 arrays in raster block
-    order."""
+    (multiples of 8, or 4 and multiples of 4). ref/src: [H, W] planes, H
+    and W multiples of max(sizes) (and W of 8). Returns {n: (mvx, mvy,
+    sad)} int32 arrays in raster block order."""
     sizes = sorted(sizes)
-    assert sizes[0] % 8 == 0, sizes
+    base = 4 if sizes[0] == 4 else 8
+    assert all(n % base == 0 for n in sizes), sizes
     if len(sizes) == 1 and sizes[0] in me_sad.BEST_SIZES:
         n = sizes[0]
         return {n: me_sad.sad_sweep_best(ref_plane, src_plane, srange, n,
                                          lambda_bits)}
-    s8 = me_sad.sad_block8_sweep(ref_plane, src_plane, srange)
-    return {n: me_sad.best_of_surface(s8, n, srange, lambda_bits)
+    sweep = me_sad.sad_block4_sweep if base == 4 else me_sad.sad_block8_sweep
+    surf = sweep(ref_plane, src_plane, srange)
+    return {n: me_sad.best_of_surface(surf, n, srange, lambda_bits, base)
             for n in sizes}
 
 
 def sad_at_mv(ref_plane: torch.Tensor, src_blocks: torch.Tensor, px, py,
               mvx, mvy, n: int) -> torch.Tensor:
     """SAD of each block against the reference at a given integer MV
-    (border-clamped). Returns int32 [B]."""
+    (border-clamped, so any MV, also past the search range). Returns
+    int32 [B]."""
     H, W = ref_plane.shape
     ar = torch.arange(n, device=ref_plane.device)
     rows = ((py + mvy).long()[:, None] + ar[None, :]).clamp(0, H - 1)

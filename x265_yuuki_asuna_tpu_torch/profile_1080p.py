@@ -4,7 +4,8 @@
         [--max-depth 0 2] [--bframes 3] [--deblock] [--sao] [--sbh]
         [--rdoq] [--aq-mode 2] [--cutree] [--rc-mode crf] [--crf 28]
         [--bitrate 27000] [--vbv-maxrate 27000] [--vbv-bufsize 27000]
-        [--intra] [--batch 4] [--device-only]
+        [--hme] [--b-adapt 2] [--flagship [--hme-turns 3]] [--intra]
+        [--batch 4] [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
 depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
@@ -12,10 +13,19 @@ smoke test's): the first frames warm up, then torch.profiler records one I
 frame and one P frame of a fresh session through
 VideoEncoderSession.encode_frame (so the first of them is an IDR). With
 --bframes N the quadtree session is a B session instead (N B frames per
-mini-GOP, B-pyramid, b_adapt=0): a warm-up session codes an IDR and one
-mini-GOP through push_frame, then a fresh session does the same with each
-coded frame (I, P, then the B frames) recorded on its own; the lookahead,
-which push_frame runs before the frame is coded, is outside the records.
+mini-GOP, B-pyramid, b_adapt=0 or --b-adapt's): a warm-up session codes an
+IDR and N + 1 frames through push_frame and flush, then a fresh session
+does the same with each coded frame (I, P, then the B frames) recorded on
+its own; the lookahead and the b-adapt decision, which push_frame runs
+before a frame is coded, are outside the records (their ms are the
+session's stages "lookahead" and "b_adapt", printed per session).
+--hme switches the quadtree sessions' hierarchical search on. --flagship
+profiles bench.py's session (its constructor verbatim: the quadtree B
+session with HME, b-adapt 2, CRF 28, AQ 2, cuTree, deblock, SAO, sign
+hiding, no hash SEI, no recon to the host) in place of the other
+sessions; with --hme-turns N it profiles nothing and instead times that
+session's last B frame's inter program N times with and N times without
+HME, in turns (HME's cost on a B frame).
 --deblock / --sao switch the sessions' in-loop filters on, --sbh / --rdoq
 sign-bit hiding / RDOQ, --aq-mode / --cutree adaptive quantization /
 cuTree (the per-CU QP map: its host work is the stage "qp_map");
@@ -128,12 +138,15 @@ def _recorded(sess, fn, out: list, device_only: bool = False):
 def _name(max_depth: int, bframes: int, kw: dict, intra: bool = False):
     return ("intra_" if intra else "") + ("qt2" if max_depth else "uniform") \
         + ("_b" if bframes else "") \
-        + ("_lf" if kw["deblock"] or kw["sao"] else "") \
-        + ("_sbh" if kw["sbh"] else "") + ("_rdoq" if kw["rdoq"] else "") \
+        + ("_lf" if kw.get("deblock") or kw.get("sao") else "") \
+        + ("_sbh" if kw.get("sbh") else "") \
+        + ("_rdoq" if kw.get("rdoq") else "") \
         + (f"_aq{kw['aq_mode']}" if kw.get("aq_mode") else "") \
         + ("_cutree" if kw.get("cutree") else "") \
         + (f"_{kw['rc_mode']}" if kw.get("rc_mode", "cqp") != "cqp"
-           else "") + ("_vbv" if kw.get("vbv_maxrate_kbps") else "")
+           else "") + ("_vbv" if kw.get("vbv_maxrate_kbps") else "") \
+        + ("_hme" if kw.get("hme") else "") \
+        + (f"_badapt{kw.get('b_adapt', 2)}" if bframes else "")
 
 
 def profile_intra(max_depth: int, warm_frames: int, batch: int,
@@ -157,19 +170,33 @@ def profile_intra(max_depth: int, warm_frames: int, batch: int,
             "card": torch.cuda.get_device_name(0), "frames": out}
 
 
+# bench.py's session constructor (the flagship configuration)
+FLAGSHIP = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
+                rc_mode="crf", crf=28.0, aq_mode=2, cutree=True,
+                deblock=True, sao=True, sbh=True, hash_sei=False, hme=True,
+                quality_metrics=False, recon_out=False)
+
+
 def profile_session(max_depth: int, warm_frames: int,
                     bframes: int = 0, opts: dict = None,
-                    device_only: bool = False) -> dict:
+                    device_only: bool = False, kw: dict = None) -> dict:
+    """One video session's recorded frames; kw: the constructor's
+    keywords verbatim (else qp 32, keyint 250, the hash SEI, max_depth,
+    bframes and opts)."""
     from .models.encoder_top import VideoEncoderSession
-    kw = dict(qp=32, keyint=250, hash_sei=True, max_depth=max_depth,
-              **opts)
+    if kw is None:
+        kw = dict(qp=32, keyint=250, hash_sei=True, max_depth=max_depth,
+                  **opts)
+        if bframes:
+            kw.update(bframes=bframes)
+    bframes = kw.get("bframes", 0)
     out = []
     if bframes:
-        kw.update(bframes=bframes, b_adapt=0)
         frames = synth_clip(bframes + 2, 1920, 1080)
         warm = VideoEncoderSession(1920, 1080, **kw)
         for f in frames:
             warm.push_frame(*f)
+        warm.flush()
         sess = VideoEncoderSession(1920, 1080, **kw)
         for name in ("_encode_idr_anchor", "_encode_p_anchor", "_encode_b"):
             setattr(sess, name, _recorded(sess, getattr(sess, name), out,
@@ -177,6 +204,7 @@ def profile_session(max_depth: int, warm_frames: int,
         torch.cuda.synchronize()
         for f in frames:
             sess.push_frame(*f)
+        sess.flush()
     else:
         frames = synth_clip(warm_frames + 2, 1920, 1080)
         warm = VideoEncoderSession(1920, 1080, **kw)
@@ -187,8 +215,40 @@ def profile_session(max_depth: int, warm_frames: int,
         encode = _recorded(sess, sess.encode_frame, out, device_only)
         for f in frames[warm_frames:]:
             encode(*f)
-    return {"session": _name(max_depth, bframes, kw),
-            "card": torch.cuda.get_device_name(0), "frames": out}
+    return {"session": _name(kw.get("max_depth", 0), bframes, kw),
+            "card": torch.cuda.get_device_name(0), "frames": out,
+            "stage_ms": dict(sess.stage_ms)}
+
+
+def hme_turns(turns: int) -> dict:
+    """bench.py's session over five 1080p frames (the IDR and one
+    mini-GOP), then its last B frame's inter program again, timed with and
+    without HME in turns (with, without, without, with, ...): wall ms of
+    each synchronised call."""
+    from .models.encoder_top import VideoEncoderSession
+    sess = VideoEncoderSession(1920, 1080, **FLAGSHIP)
+    enc = sess.inter_encoder
+    calls, run = [], enc.encode_frame
+    enc.encode_frame = lambda *a, **k: calls.append((a, k)) or run(*a, **k)
+    for f in synth_clip(5, 1920, 1080):
+        sess.push_frame(*f)
+    sess.flush()
+    args, kw = calls[-1]
+    if kw.get("ref1") is None:
+        raise AssertionError("the last inter call is not a B frame")
+    ms = {True: [], False: []}
+    for i in range(turns):
+        for hme in ((True, False) if i % 2 == 0 else (False, True)):
+            enc.hme = hme
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(*args, **kw)
+            torch.cuda.synchronize()
+            ms[hme].append((time.perf_counter() - t0) * 1e3)
+    return {"session": "flagship_b_frame_hme_turns",
+            "card": torch.cuda.get_device_name(0),
+            "b_frame_ms_with_hme": ms[True],
+            "b_frame_ms_without_hme": ms[False]}
 
 
 def main():
@@ -221,6 +281,16 @@ def main():
                     help="VBV maximum rate, kbit/s (with --vbv-bufsize)")
     ap.add_argument("--vbv-bufsize", type=int, default=0,
                     help="VBV buffer size, kbit")
+    ap.add_argument("--hme", action="store_true",
+                    help="switch HME on (quadtree sessions)")
+    ap.add_argument("--b-adapt", type=int, default=0, choices=(0, 1, 2),
+                    help="with --bframes: the B sessions' b-adapt")
+    ap.add_argument("--flagship", action="store_true",
+                    help="profile bench.py's session alone")
+    ap.add_argument("--hme-turns", type=int, default=0,
+                    help="with --flagship: instead of profiling, time its "
+                         "last B frame's inter program this many times "
+                         "with and without HME, in turns")
     ap.add_argument("--intra", action="store_true",
                     help="profile the all-intra session")
     ap.add_argument("--batch", type=int, default=0,
@@ -230,6 +300,14 @@ def main():
     args = ap.parse_args()
     opts = dict(deblock=args.deblock, sao=args.sao, sbh=args.sbh,
                 rdoq=args.rdoq, aq_mode=args.aq_mode)
+    if args.flagship and args.hme_turns:
+        print(json.dumps(hme_turns(args.hme_turns)), flush=True)
+        return
+    if args.flagship:
+        print(json.dumps(profile_session(2, args.frames, kw=FLAGSHIP,
+                                         device_only=args.device_only)),
+              flush=True)
+        return
     for md in args.max_depth:
         if args.intra:
             rec = profile_intra(md, args.frames, args.batch, opts,
@@ -239,9 +317,13 @@ def main():
                       bitrate_kbps=args.bitrate,
                       vbv_maxrate_kbps=args.vbv_maxrate,
                       vbv_bufsize_kbps=args.vbv_bufsize)
+            vid = dict(cutree=args.cutree, **rc)
+            if md and args.bframes:
+                vid["b_adapt"] = args.b_adapt
+            if md:
+                vid["hme"] = args.hme
             rec = profile_session(md, args.frames, args.bframes if md else 0,
-                                  dict(opts, cutree=args.cutree, **rc),
-                                  args.device_only)
+                                  dict(opts, **vid), args.device_only)
         print(json.dumps(rec), flush=True)
 
 
