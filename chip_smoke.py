@@ -17,7 +17,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      the uniform path's n=16 and the quadtree's surface), at 24x32 and
      32x48 with R=16 (range larger than the plane), on a flat plane with
      lambda_bits=0 (every cost ties: the answer must be (-R, -R)), in
-     uint8, int16 and int32; then, at the main paths' shapes, each
+     uint8, int16 and int32, and at the library's R=24 (1088x1920, 24x32,
+     the flat plane); then, at the main paths' shapes (and the surface at
+     R=24), each
      kernel's time (CUDA events, after warm-up), its plain version's time
      and its bound, and the whole sweep as the main path pays it: the
      surface route (surface kernel + PyTorch tail) against the fused
@@ -65,6 +67,15 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      against the JAX package's md5s and (POC, type, QP) pinned there,
      then the flagship constructor over a 416x240 clip on the card and on
      the CPU (equal streams and frames);
+     golden_cli: the golden intra_qt2_psy stream (psy-rd), then the
+     command line (cli.main) at --preset superfast, at --preset superfast
+     --keyint 4 (open GOP: CRA + RASL_N) and at --preset medium
+     --no-weightp, and the library (api.Encoder at
+     param_default_preset("superfast"), search range 24) over the 96x64
+     clip of tests/preset_pins.py against the JAX package's md5s, NAL
+     types and CSV logs pinned there; cli_cpu_vs_card: the command line
+     at --preset medium --no-weightp on a 416x240 clip on the card and on
+     the CPU (equal streams and CSV logs);
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -112,13 +123,24 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      bytes, stage ms, the share of blocks that took HME's coarse MV, peak
      memory; K1 exactly frames + K + K(K-1)/2 per trellis decision fused,
      and one 8x8 and one 4x4 surface per P anchor, two of each per B
-     frame; the last B frame's plain rerun identical);
+     frame; the last B frame's plain rerun identical); then the entry
+     points users call: the command line at --preset superfast over a
+     1080p y4m (1080p_cli_superfast, 9 frames: fps, each frame's type,
+     POC, QP and bytes from the CSV log, stage ms, peak memory; K1 exactly
+     9 fused + one surface per P anchor and two per B frame; the last B
+     frame's launches with and without intra candidates, its program's ms
+     with and without psy-rd in turns and the last P anchor's, and its
+     plain rerun identical) and the library at superfast
+     (1080p_api_superfast, 5 frames: K1 frames + 10 per trellis fused,
+     the R = 24 surfaces one per P anchor and two per B frame; the last B
+     frame's plain rerun identical);
   6. the kernels line (launches on the flagship's path, and on each
      path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -207,7 +229,10 @@ FLAGSHIP_CRF = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
                     b_adapt=0, rc_mode="crf", crf=28.0, sbh=True,
                     hash_sei=False, quality_metrics=True, **AQ, **LF)
 QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs three)
-FLAGSHIP_FRAMES = 13  # the 1080p flagship path: the IDR and three trellis
+FLAGSHIP_FRAMES = 13  # the 1080p flagship: the IDR, three trellis decisions
+CLI_FRAMES = 9        # the CLI at --preset superfast: the IDR, 2 mini-GOPs
+API_FRAMES = 5        # the library at superfast: the IDR, one trellis
+R24_ME = "P-frame ME 1088x1920 R=24"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
 
@@ -344,6 +369,11 @@ def _planes(dev):
          (0, 2)),
         ("48x64 int32", tex(torch.int32), tex(torch.int32), 16, (8, 16),
          (0, 2)),
+        # the library's search range, min(merange, 24)
+        (R24_ME, y0, y1, 24, (8, 16), (2,)),
+        ("24x32 R=24>plane", l0[:24, :32].contiguous(),
+         l1[:24, :32].contiguous(), 24, (8,), (0, 1, 2)),
+        ("flat lambda=0 R=24", flat, flat, 24, (8, 16), (0,)),
     ]
 
 
@@ -413,6 +443,18 @@ def phase_k1(dev, card):
             row.update(n=n, lambda_bits=lam)
         emit(phase="k1", **row)
         rows[name] = row
+    # the surface at the library's search range: 2401 displacements
+    _, ref, src, R, _, _ = next(c for c in cases if c[0] == R24_ME)
+    H, W = src.shape
+    row = dict(shape=R24_ME, H=H, W=W, R=R, dtype=str(src.dtype))
+    row["surface_ms"] = cuda_ms(
+        lambda: me_sad.sad_block8_sweep(ref, src, R), 20)
+    row["surface_plain_ms"] = cuda_ms(
+        lambda: me_sad.sad_block8_sweep_plain(ref, src, R), 2)
+    row["surface_bound_ms"], row["surface_bound_by"] = k1_bound_ms(
+        H, W, R, src.dtype, int_ops_per_s(*card, src.dtype))
+    emit(phase="k1", **row)
+    rows[R24_ME] = row
     # the 4x4-base surface (HME's coarse sweep): 544x960 planes (the
     # downscaled 1080p frames, as HME's) in uint8 and int32, smaller and
     # wider types, a flat plane
@@ -1359,6 +1401,290 @@ def phase_1080p_aq_la(dev, n_frames=5):
     return launches
 
 
+def preset_pins():
+    """tests/preset_pins.py: the CLI's and the library's 96x64 test clip
+    and the JAX package's pins over it."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import preset_pins as pins
+    return pins
+
+
+def phase_golden_cli(dev):
+    """The golden intra_qt2_psy stream (psy-rd 1 on the all-intra
+    quadtree), then the command line and the library on the card against
+    the JAX package's pins (tests/preset_pins.py): --preset superfast
+    (psy-rd, intra in B slices), the same with --keyint 4 (the open GOP's
+    CRA and RASL_N pictures), --preset medium --no-weightp, and the
+    library at param_default_preset("superfast") (search range 24):
+    stream md5s, NAL types and CSV logs."""
+    from x265_yuuki_asuna_tpu_torch import api, cli
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        IntraEncoderSession
+    with open(os.path.join(REPO, "tests", "golden", "manifest.json")) as f:
+        want = json.load(f)["intra_qt2_psy"]
+    sess = IntraEncoderSession(64, 48, qp=30, max_depth=2, psy_rd=1.0,
+                               hash_sei=False, device=dev)
+    out = sess.headers()
+    for fr in golden_clip():
+        out += sess.encode_frame(*fr).nals
+    got = {"intra_qt2_psy": hashlib.md5(out).hexdigest()}
+    ok = {"intra_qt2_psy": got["intra_qt2_psy"] == want}
+    pins = preset_pins()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in pins.CLI:
+            res = pins.run_cli(cli.main, name, tmp)
+            got[name] = res[0]
+            ok[name] = res == pins.CLI_PINS[name]
+    res = pins.run_api(api)
+    got["api_superfast"] = res[0]
+    ok["api_superfast"] = res == pins.API_PIN
+    emit(phase="golden_cli", md5=got, match=ok)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_cli: streams differ: {ok}")
+
+
+def _write_y4m(path, frames):
+    from x265_yuuki_asuna_tpu_torch.utils import io as IO
+    h, w = frames[0][0].shape
+    wr = IO.Y4MWriter(path, IO.VideoInfo(w, h, 25, 1, IO.CSP_I420, 8))
+    for fr in frames:
+        wr.write_frame(*fr)
+    wr.close()
+
+
+def phase_cli_cpu_vs_card(dev, n=6):
+    """The command line at --preset medium --no-weightp (SAO, AQ 2,
+    cuTree, b-adapt 2, bframes 4, psy-rd, intra in B slices) on a 416x240
+    clip of n frames, on the card and with device="cpu": equal streams and
+    CSV logs."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    md5, csv, secs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.y4m")
+        _write_y4m(src, synth_clip(n, 416, 240))
+        for where in (None, "cpu"):
+            tag = "cpu" if where else "card"
+            dst, log = os.path.join(tmp, tag + ".hevc"), \
+                os.path.join(tmp, tag + ".csv")
+            t0 = time.perf_counter()
+            rc = cli.main([src, "-o", dst, "--preset", "medium",
+                           "--no-weightp", "--csv", log], device=where)
+            secs[tag] = time.perf_counter() - t0
+            with open(dst, "rb") as f:
+                md5[tag] = hashlib.md5(f.read()).hexdigest()
+            with open(log) as f:
+                csv[tag] = f.read().splitlines()
+            if rc != 0:
+                raise AssertionError(f"cli_cpu_vs_card: rc {rc} ({tag})")
+    same = md5["card"] == md5["cpu"] and csv["card"] == csv["cpu"]
+    emit(phase="cli_cpu_vs_card", frames=n, md5=md5, csv=csv["card"],
+         seconds=secs, match=same)
+    if not same:
+        raise AssertionError("cli_cpu_vs_card: the card's stream or CSV "
+                             "differs from the CPU's")
+
+
+class _Instrumented:
+    """A video session's push_frame / flush timed and its results kept,
+    its inter program's calls recorded (to rerun the last P and B frame)
+    and the b-adapt trellis sizes counted."""
+
+    def __init__(self, sess):
+        self.sess, self.call_ms, self.results = sess, [], []
+        self.calls, enc = [], sess.inter_encoder
+        self.run = enc.encode_frame
+        enc.encode_frame = lambda *a, **k: self.calls.append((a, k)) or \
+            self.run(*a, **k)
+        self.trellis, costs = [], sess.lookahead.badapt_path_costs
+
+        def badapt(anchor, lows):
+            self.trellis.append(len(lows))
+            return costs(anchor, lows)
+        sess.lookahead.badapt_path_costs = badapt
+        for name in ("push_frame", "flush"):
+            setattr(sess, name, self._timed(getattr(sess, name)))
+
+    def _timed(self, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*a)
+            torch.cuda.synchronize()
+            self.call_ms.append((time.perf_counter() - t0) * 1e3)
+            self.results += got
+            return got
+        return call
+
+    def last(self, bi: bool):
+        """The last inter call of a B (bi) or a P frame."""
+        return next((a, k) for a, k in reversed(self.calls)
+                    if (k.get("ref1") is not None) == bi)
+
+    def report(self):
+        """(fps after the IDR, frames' (POC, type), per-stage ms per frame
+        that runs the stage, K1 counts a B session must launch)."""
+        res = self.results
+        order = [(r.poc, r.frame_type) for r in res]
+        fps = (len(res) - 1) / (sum(self.call_ms[1:]) / 1e3)
+        n_p = sum(t == "P" for _, t in order)
+        n_b = sum(t in "Bb" for _, t in order)
+        runs = {"inter": n_p, "inter_b": n_b,
+                "intra": len(res) - n_p - n_b}
+        stage = {k: v / max(runs.get(k, len(res)), 1)
+                 for k, v in self.sess.stage_ms.items()}
+        want = {"sad_sweep_best": len(res) + sum(
+                    k + k * (k - 1) // 2 for k in self.trellis),
+                "sad_block8_sweep": n_p + 2 * n_b,
+                "sad_block4_sweep": 0}
+        return fps, order, stage, want
+
+
+def _plain_rerun(name, inst):
+    """The last B frame again with every K1 entry plain: identical."""
+    a, k = inst.last(True)
+    out_k = inst.run(*a, **k)
+    with plain_k1():
+        out_p = inst.run(*a, **k)
+    same = _same_decisions(out_k, out_p)
+    emit(phase=f"{name}_b_frame_plain_rerun", identical=same)
+    if not same:
+        raise AssertionError(f"{name}: kernel and plain B-frame decisions "
+                             "differ")
+
+
+def _turns_ms(fn, set_on, turns=2):
+    """Wall ms of fn() with an option on and off, in turns (on, off, off,
+    on, ...): {True: [...], False: [...]}."""
+    ms = {True: [], False: []}
+    for i in range(turns):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            set_on(on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t0) * 1e3)
+    set_on(True)
+    return ms
+
+
+def phase_1080p_cli_superfast(dev, n_frames=CLI_FRAMES):
+    """The command line at --preset superfast over a 1080p y4m of
+    synth_clip (n_frames frames: the IDR and two fixed mini-GOPs of 4):
+    fps after the IDR, each frame's type, POC, QP and bytes from the CSV
+    log, stage ms per frame, peak memory and K1's launches (fused: one
+    lookahead sweep per frame; the surface: one per P anchor, two per B
+    frame), then on the last B frame: its launches with and without
+    intra candidates (torch.profiler), its program's ms with and without
+    psy-rd in turns (and the last P anchor's once each), and its plain
+    rerun, which must be identical."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    frames = synth_clip(n_frames, W1080, H1080)
+    made = []
+    configure = cli.configure
+
+    def instrumented(*a, **k):
+        made.append(_Instrumented(configure(*a, **k)))
+        return made[-1].sess
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        log = os.path.join(tmp, "log.csv")
+        _write_y4m(src, frames)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_start()                                # the main path starts
+        with mock.patch.object(cli, "configure", instrumented):
+            rc = cli.main([src, "-o", dst, "--preset", "superfast",
+                           "--frames", str(n_frames), "--csv", log])
+        launches = k1_read()
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rows = [r.split(", ") for r in f.read().splitlines()[1:-1]]
+        total = os.path.getsize(dst)
+    inst = made[0]
+    fps, order, stage, want = inst.report()
+    enc = inst.sess.inter_encoder
+    a, k = inst.last(True)
+    b_launches = {}
+    for on in (True, False):
+        enc.b_intra = on
+        b_launches["with_b_intra" if on else "without_b_intra"] = \
+            _launches(lambda: inst.run(*a, **k))
+    enc.b_intra = True
+    psy = lambda on: setattr(enc, "psy_rd", 2.0 if on else 0.0)
+    b_psy = _turns_ms(lambda: inst.run(*a, **k), psy)
+    ap, kp = inst.last(False)
+    p_psy = _turns_ms(lambda: inst.run(*ap, **kp), psy, turns=1)
+    emit(phase="1080p_cli_superfast", argv="--preset superfast",
+         rc=rc, frames=len(rows), fps=fps, call_ms=inst.call_ms,
+         frame_type=[r[1] for r in rows], poc=[int(r[2]) for r in rows],
+         qp=[int(r[3]) for r in rows],
+         frame_bytes=[int(r[4]) // 8 for r in rows], bytes=total,
+         psnr_y=[float(r[5]) for r in rows],
+         coding_order=order, stage_ms_per_frame=stage,
+         stage_ms_total=dict(inst.sess.stage_ms), k1_launches=launches,
+         b_frame_launches=b_launches, b_frame_ms_psy_turns=b_psy,
+         p_anchor_ms_psy_turns=p_psy, max_memory_allocated=peak)
+    if rc != 0 or order != minigop_order(n_frames) or len(rows) != n_frames \
+            or not all(np.isfinite(float(r[5])) for r in rows):
+        raise AssertionError(f"1080p_cli_superfast output malformed: "
+                             f"{order}")
+    if launches != want:
+        raise AssertionError(f"1080p_cli_superfast: K1 launches "
+                             f"{launches} != {want}")
+    _plain_rerun("1080p_cli_superfast", inst)
+    return launches
+
+
+def phase_1080p_api_superfast(dev, n_frames=API_FRAMES):
+    """The library (api.Encoder at param_default_preset("superfast"):
+    search range 24, b-adapt 2, psy-rd, CRF 28, no hash SEI) over
+    n_frames 1080p frames: fps after the IDR, frame types, QPs and bytes,
+    peak memory, K1's launches (fused: the lookahead's per frame and the
+    trellis's K + K(K-1)/2 per decision; the R = 24 surface one per P
+    anchor, two per B frame), and the last B frame's plain rerun (the
+    surface at R = 24 against its plain version on the main path)."""
+    from x265_yuuki_asuna_tpu_torch import api
+    frames = synth_clip(n_frames, W1080, H1080)
+    p = api.param_default_preset("superfast")
+    api.param_parse(p, "input-res", f"{W1080}x{H1080}")
+    enc = api.encoder_open(p)
+    inst = _Instrumented(enc._sess)
+    stream = api.encoder_headers(enc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_start()                                    # the main path starts
+    for fr in frames + [None]:
+        pic = None
+        if fr is not None:
+            pic = api.picture_init(p, api.picture_alloc())
+            pic.planes = fr
+        for nals in api.encoder_encode(enc, pic):
+            stream += nals
+    launches = k1_read()
+    peak = torch.cuda.max_memory_allocated()
+    fps, order, stage, want = inst.report()
+    res = inst.results
+    R = inst.sess.inter_encoder.search_range
+    emit(phase="1080p_api_superfast", search_range=R, frames=len(res),
+         fps=fps, call_ms=inst.call_ms, trellis_sizes=inst.trellis,
+         frame_type=[t for _, t in order], poc=[q for q, _ in order],
+         qp=[r.qp for r in res], frame_bytes=[len(r.nals) for r in res],
+         bytes=len(stream), psnr_y=[r.psnr_y for r in res],
+         stage_ms_per_frame=stage, k1_launches=launches,
+         stats=dataclasses.asdict(api.encoder_get_stats(enc)),
+         max_memory_allocated=peak)
+    if R != 24 or len(res) != n_frames or order[0] != (0, "I") or not all(
+            np.isfinite([r.psnr_y for r in res])):
+        raise AssertionError(f"1080p_api_superfast output malformed: "
+                             f"R={R} {order}")
+    if launches != want:
+        raise AssertionError(f"1080p_api_superfast: K1 launches "
+                             f"{launches} != {want}")
+    _plain_rerun("1080p_api_superfast", inst)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1378,6 +1704,8 @@ def main():
     phase_golden_rc(dev)
     phase_rc_cpu_vs_card(dev)
     phase_golden_flagship(dev)
+    phase_golden_cli(dev)
+    phase_cli_cpu_vs_card(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -1420,9 +1748,12 @@ def main():
                                             {"rdoq": True})
     by_path["1080p_intra"] = phase_1080p_intra(dev)
     by_path["1080p_flagship"] = phase_1080p_flagship(dev)
+    by_path["1080p_cli_superfast"] = phase_1080p_cli_superfast(dev)
+    by_path["1080p_api_superfast"] = phase_1080p_api_superfast(dev)
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]
+    r24 = k1[R24_ME]
     hme = k1["hme 544x960"]
     common = {"route": "cuda",
               "source": "x265_yuuki_asuna_tpu_torch/csrc/me_sad.cu",
@@ -1435,7 +1766,11 @@ def main():
          "launches_by_path": per_path("sad_block8_sweep"),
          "ms": me["surface_ms"], "plain_ms": me["surface_plain_ms"],
          "bound_ms": me["surface_bound_ms"],
-         "bound_by": me["surface_bound_by"]},
+         "bound_by": me["surface_bound_by"],
+         "r24": {"ms": r24["surface_ms"],
+                 "plain_ms": r24["surface_plain_ms"],
+                 "bound_ms": r24["surface_bound_ms"],
+                 "bound_by": r24["surface_bound_by"]}},
         {"name": "sad_sweep_best", **common,
          "launches": launches["sad_sweep_best"],
          "launches_by_path": per_path("sad_sweep_best"),

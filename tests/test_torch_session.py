@@ -174,10 +174,11 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 
 
 @pytest.mark.parametrize("option", [
-    {"bframes": 3}, {"max_depth": 1}, {"rqt": True}, {"psy_rd": 2.0},
-    {"open_gop": True}, {"analysis_save": "a.dat"}, {"hash_type": 1},
+    {"bframes": 3}, {"max_depth": 1}, {"rqt": True}, {"max_merge": 5},
+    {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"hash_type": 1},
     {"weightp": True},
-    {"b_intra": True}, {"search_range": 32}, {"wpp": True}, {"n_refs": 2},
+    {"analysis_load": "a.dat"}, {"analysis_share": "save"}, {"wpp": True},
+    {"n_refs": 2},
     {"bit_depth": 10}, {"dup_threshold": 50}, {"tmvp": True},
     {"frame_dup": True},
     {"max_depth": 2, "cu_size": 64},
@@ -207,8 +208,8 @@ def test_rate_control_options_code_a_frame(option):
 
 
 @pytest.mark.parametrize("option", [
-    {"open_gop": True}, {"b_intra": True}, {"search_range": 32},
-    {"max_merge": 5}, {"tmvp": True}, {"psy_rd": 2.0}, {"weightp": True},
+    {"frame_dup": True}, {"dup_threshold": 50}, {"hash_type": 1},
+    {"max_merge": 5}, {"tmvp": True}, {"bit_depth": 10}, {"weightp": True},
     {"rqt": True},
     {"n_refs": 2},
 ])
@@ -223,8 +224,8 @@ B_SESSION = dict(max_depth=2, bframes=3, b_adapt=0)
 
 @pytest.mark.parametrize("option,match", [
     ({"weightp": True}, "weightp"), ({"rqt": True}, "rqt"),
-    ({"open_gop": True}, "open_gop"), ({"max_depth": 0}, "max_depth=0"),
-    ({"b_intra": True}, "b_intra"),
+    ({"tmvp": True}, "tmvp"), ({"max_depth": 0}, "max_depth=0"),
+    ({"max_merge": 5}, "max_merge"),
 ])
 def test_b_session_options_outside_the_slice_raise(option, match):
     with pytest.raises(NotImplementedError, match=match):

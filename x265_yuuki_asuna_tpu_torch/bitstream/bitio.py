@@ -78,7 +78,9 @@ def anti_emulation(rbsp: bytes) -> bytes:
 # NAL unit types (spec table 7-1)
 NAL_TRAIL_N = 0
 NAL_TRAIL_R = 1
+NAL_RASL_N = 8      # an open GOP's leading pictures
 NAL_IDR_W_RADL = 19
+NAL_CRA = 21        # an open GOP's keyframe
 NAL_VPS = 32
 NAL_SPS = 33
 NAL_PPS = 34

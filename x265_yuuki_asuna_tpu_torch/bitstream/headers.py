@@ -2,7 +2,8 @@
 
 Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what an
 8-bit 4:2:0 IPPP or fixed-mini-GOP B session writes (Main profile, flat
-scaling lists, VUI timing and HRD only, one reference per list, explicit
+scaling lists, VUI timing, HRD, signal type and chroma location only,
+one reference per list, explicit
 short-term RPS, no WPP/tiles/slices, no weighted prediction or TMVP;
 deblocking and SAO on or off, deblocking at the default offsets). The
 bits written are the same as the JAX package's for those settings.
@@ -54,6 +55,11 @@ class SPSInfo:
     # HRD in the VUI (spec E.2.2): (max_bitrate_bps, cpb_size_bits,
     # cbr_flag), written with timing_info
     hrd: Optional[Tuple[int, int, int]] = None
+    # VUI video signal type and chroma location (the CLI's --range,
+    # --colorprim / --transfer / --colormatrix and --chromaloc)
+    video_full_range: int = 0
+    colour_description: Optional[Tuple[int, int, int]] = None
+    chroma_loc: Optional[int] = None    # chroma_sample_loc_type (0..5)
 
 
 @dataclass
@@ -142,7 +148,8 @@ def write_sps(sps: SPSInfo) -> bytes:
     bw.write_flag(0)             # long_term_ref_pics_present_flag
     bw.write_flag(0)             # sps_temporal_mvp_enabled_flag
     bw.write_flag(sps.strong_intra_smoothing)
-    vui_present = sps.timing_info is not None
+    vui_present = (sps.timing_info is not None or sps.video_full_range
+                   or sps.colour_description or sps.chroma_loc is not None)
     bw.write_flag(1 if vui_present else 0)
     if vui_present:
         _write_vui(bw, sps)
@@ -154,21 +161,38 @@ def write_sps(sps: SPSInfo) -> bytes:
 def _write_vui(bw: BitWriter, sps: SPSInfo):
     bw.write_flag(0)             # aspect_ratio_info_present_flag
     bw.write_flag(0)             # overscan_info_present_flag
-    bw.write_flag(0)             # video_signal_type_present_flag
-    bw.write_flag(0)             # chroma_loc_info_present_flag
+    if sps.video_full_range or sps.colour_description:
+        bw.write_flag(1)         # video_signal_type_present_flag
+        bw.write_bits(5, 3)      # video_format unknown
+        bw.write_flag(sps.video_full_range)
+        bw.write_flag(1 if sps.colour_description else 0)
+        if sps.colour_description:
+            for v in sps.colour_description:   # primaries, transfer, matrix
+                bw.write_bits(v, 8)
+    else:
+        bw.write_flag(0)         # video_signal_type_present_flag
+    if sps.chroma_loc is not None:
+        bw.write_flag(1)         # chroma_loc_info_present_flag
+        bw.write_ue(sps.chroma_loc)
+        bw.write_ue(sps.chroma_loc)
+    else:
+        bw.write_flag(0)         # chroma_loc_info_present_flag
     bw.write_flag(0)             # neutral_chroma_indication_flag
     bw.write_flag(0)             # field_seq_flag
     bw.write_flag(0)             # frame_field_info_present_flag
     bw.write_flag(0)             # default_display_window_flag
-    bw.write_flag(1)             # vui_timing_info_present_flag
-    bw.write_bits(sps.timing_info[0], 32)
-    bw.write_bits(sps.timing_info[1], 32)
-    bw.write_flag(0)             # poc_proportional_to_timing_flag
-    if sps.hrd:
-        bw.write_flag(1)         # vui_hrd_parameters_present_flag
-        _write_hrd(bw, sps)
+    if sps.timing_info:
+        bw.write_flag(1)         # vui_timing_info_present_flag
+        bw.write_bits(sps.timing_info[0], 32)
+        bw.write_bits(sps.timing_info[1], 32)
+        bw.write_flag(0)         # poc_proportional_to_timing_flag
+        if sps.hrd:
+            bw.write_flag(1)     # vui_hrd_parameters_present_flag
+            _write_hrd(bw, sps)
+        else:
+            bw.write_flag(0)     # vui_hrd_parameters_present_flag
     else:
-        bw.write_flag(0)         # vui_hrd_parameters_present_flag
+        bw.write_flag(0)         # vui_timing_info_present_flag
     bw.write_flag(0)             # bitstream_restriction_flag
 
 

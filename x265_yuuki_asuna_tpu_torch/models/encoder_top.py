@@ -10,7 +10,8 @@ content-light-level SEI, the sei_provider hook) and
 VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
 hash SEI, scenecut (the cost rule or the histogram rule) and keyint_min;
 push_frame / flush with b_adapt 0, 1 and 2, the rc-lookahead window, the
-B-pyramid and the B slice assembly. As in the reference, the video
+B-pyramid, open GOP (CRA keyframes with RASL leading pictures) and the B
+slice assembly. As in the reference, the video
 session codes its I frames through an IntraEncoderSession. Device work
 (lookahead, intra and inter programs) runs on `device`; the CABAC pass
 runs on the host through the native writer. The streams are
@@ -21,7 +22,10 @@ JAX video session's device-DPB quadtree path): the reference pictures
 stay on the device between frames and are copied to the host only for
 the hash SEI, the quality metrics and the returned recon (recon_out=False
 with neither of the others: never, and FrameResult.recon is None). hme
-adds the hierarchical search to the quadtree P and B programs.
+adds the hierarchical search to the quadtree P and B programs, psy_rd
+the psycho-visual term to their leaf RD (and the intra program's), and
+b_intra intra candidates to the B program (then committed as in P
+frames).
 
 deblock and sao switch on the in-loop filters (each alone or both), on
 every path: on the uniform grid the sessions filter each coded picture as
@@ -99,8 +103,9 @@ import torch
 
 from ..bitstream import headers as HDR
 from ..bitstream import native, sei as SEI
-from ..bitstream.bitio import (BitWriter, wrap_nal, NAL_IDR_W_RADL,
-                               NAL_SUFFIX_SEI, NAL_TRAIL_N, NAL_TRAIL_R)
+from ..bitstream.bitio import (BitWriter, wrap_nal, NAL_CRA, NAL_IDR_W_RADL,
+                               NAL_RASL_N, NAL_SUFFIX_SEI, NAL_TRAIL_N,
+                               NAL_TRAIL_R)
 from ..ops import deblock as DB
 from ..ops import filters as FL
 from ..ops import sao as SAO
@@ -123,15 +128,15 @@ _P = "a later P-frame slice"
 # every keyword of the JAX sessions this port has no slice for yet, with
 # the slice that adds it (ROADMAP Queue 1)
 _LATER = {
-    "search_range": _P, "max_merge": _P, "weightp": _P, "n_refs": _P,
-    "tmvp": _P, "frame_dup": _P, "dup_threshold": _P,
+    "max_merge": _P, "n_refs": _P, "tmvp": _P, "frame_dup": _P,
+    "dup_threshold": _P,
+    "weightp": "the weighted-prediction slice (weightp on the quadtree's "
+               "host-filter path, ROADMAP Queue 1 item 5)",
     "analysis_save": "the analysis save/load slice",
     "analysis_load": "the analysis save/load slice",
     "analysis_share": "the analysis save/load slice",
     "scale_factor": "the analysis save/load slice",
-    "open_gop": "the open-GOP slice (CRA keyframes with leading pictures)",
-    "b_intra": "a later B-frame slice (intra candidates in B slices)",
-    "rqt": "the RQT slice", "psy_rd": "the psy-rd slice",
+    "rqt": "the RQT slice",
     "bit_depth": "the Main10/12 slice", "hash_type": "the hash-types slice",
     "wpp": "the WPP slice", "slices": "the slices slice",
     "lossless": "the lossless slice", "nr_intra": "the noise-reduction slice",
@@ -140,14 +145,13 @@ _LATER = {
 }
 # the defaults of those keywords in each JAX session
 _VIDEO_DEFAULTS = {
-    "search_range": 16,
     "max_merge": 3, "weightp": False, "n_refs": 1, "tmvp": False,
     "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
     "analysis_load": None, "analysis_share": None, "scale_factor": 1,
-    "open_gop": False, "b_intra": False, "rqt": False, "psy_rd": 0.0,
-    "bit_depth": 8, "hash_type": 0, "wpp": False}
+    "rqt": False, "bit_depth": 8, "hash_type": 0, "wpp": False}
 _INTRA_DEFAULTS = {
-    "lossless": False, "bit_depth": 8, "slices": 1, "wpp": False, "psy_rd": 0.0, "hash_type": 0,
+    "lossless": False, "bit_depth": 8, "slices": 1, "wpp": False,
+    "hash_type": 0,
     "nr_intra": 0, "scaling_lists": None, "fast_intra": False,
     "csp": "i420"}
 
@@ -329,8 +333,10 @@ class IntraEncoderSession:
     there is none); device="cpu" runs every kernel's plain PyTorch
     version. recon_host=False, with dpb_device (the video session's I
     frames when nothing reads their recon on the host): the quadtree
-    program's recon stays on the device. Options of the JAX session
-    outside these slices raise NotImplementedError."""
+    program's recon stays on the device. psy_rd: psycho-visual RD in the
+    quadtree's leaf decisions (the uniform grid has none, as in the
+    reference). Options of the JAX session outside these slices raise
+    NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
                  cu_size: int = 16, fps: Tuple[int, int] = FPS,
@@ -340,7 +346,7 @@ class IntraEncoderSession:
                  master_display: str = None, max_cll: str = None,
                  max_depth: int = 0, dpb_device: bool = False,
                  aq_mode: int = 0, aq_strength: float = 1.0, device=None,
-                 recon_host: bool = True, **options):
+                 recon_host: bool = True, psy_rd: float = 0.0, **options):
         _check_options(options, _INTRA_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         self.device = resolve_device(device)
@@ -379,7 +385,7 @@ class IntraEncoderSession:
                 self.coded_w, self.coded_h, self.device, self.deblock,
                 self.sao, self.quant_fn,
                 "program" if self.dpb_device else "host",
-                recon_host or not self.dpb_device)
+                recon_host or not self.dpb_device, psy_rd)
         else:
             self.frame_encoder = IntraFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device,
@@ -450,11 +456,13 @@ class IntraEncoderSession:
             _timed(self.stage_ms, "filters", filter_uniform, out, qp, True,
                    self.cu, self.deblock, sao, src3, self.device)
 
-    def assemble_slice(self, out: dict, qp: int) -> bytes:
-        """The IDR slice NAL of a coded picture."""
+    def assemble_slice(self, out: dict, qp: int,
+                       nal_type: int = NAL_IDR_W_RADL, poc: int = 0) -> bytes:
+        """The I slice NAL of a coded picture: an IDR, or with nal_type
+        NAL_CRA an open GOP's CRA at poc."""
         sao = out.get("sao")
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
-                                    slice_qp=qp, nal_type=NAL_IDR_W_RADL,
+                                    slice_qp=qp, nal_type=nal_type, poc=poc,
                                     sao=sao is not None)
         qp_map = out.get("qp_map")
         if self.max_depth:
@@ -466,7 +474,7 @@ class IntraEncoderSession:
                 out["modes"], out["levels_y"], out["levels_cb"],
                 out["levels_cr"], self.cu.bit_length() - 1, qp,
                 sign_hiding=self.sbh, sao=sao, qp_map=qp_map)
-        return _slice_nal(bw, res, NAL_IDR_W_RADL)
+        return _slice_nal(bw, res, nal_type)
 
     def _result(self, out: dict, slice_nal: bytes, frame,
                 with_recon: bool = True) -> FrameResult:
@@ -567,10 +575,14 @@ class VideoEncoderSession:
     parts joined by "/", display indices), scenecut_aware_qp with
     scenecut_qp_delta / scenecut_window (IPPP), stats_write (pass-1 stats
     of the IPPP path, written by stats_writer.close()) and stats_read
-    (pass 2). device=None runs on the CUDA card (and
-    raises when there is none); device="cpu" runs every kernel's plain
-    PyTorch version. Options of the JAX session outside these slices
-    raise NotImplementedError."""
+    (pass 2). search_range: the integer motion search's +-range on both
+    grids; psy_rd: psycho-visual RD in the quadtree's leaf decisions;
+    b_intra: intra candidates in the quadtree's B slices; open_gop: every
+    keyframe after the first of a B session is a CRA with the frames
+    pending at it as RASL leading pictures. device=None runs on the CUDA
+    card (and raises when there is none); device="cpu" runs every
+    kernel's plain PyTorch version. Options of the JAX session outside
+    these slices raise NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
                  cu_size: int = 16, fps: Tuple[int, int] = FPS,
@@ -591,7 +603,9 @@ class VideoEncoderSession:
                  stats_write: str = None, stats_read: str = None,
                  hme: bool = False, hme_range: int = 16,
                  hist_scenecut: bool = False, recon_out: bool = True,
-                 dpb_device: bool = None, device=None, **options):
+                 dpb_device: bool = None, search_range: int = 16,
+                 psy_rd: float = 0.0, b_intra: bool = False,
+                 open_gop: bool = False, device=None, **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         # frames wait rc_lookahead frames for cuTree's window (cuTree only)
@@ -616,7 +630,7 @@ class VideoEncoderSession:
             width, height, qp, cu_size, fps, hash_sei=False,
             deblock=deblock, sao=sao, rdoq=rdoq, sbh=sbh, psy_rdoq=psy_rdoq,
             max_depth=max_depth, dpb_device=True, recon_host=recon_host,
-            device=device)
+            psy_rd=psy_rd, device=device)
         self.device = self.intra_sess.device
         self.src_w, self.src_h = width, height
         self.qp = qp
@@ -649,17 +663,31 @@ class VideoEncoderSession:
         # the PPS signals cu_qp_delta for the whole session
         self.pps.cu_qp_delta = int(bool(aq_mode or cutree))
         quant_fn = self.intra_sess.quant_fn
+        # B slices evaluate intra candidates with b_intra (the
+        # reference's bIntraInBFrames: x265's presets and --b-intra
+        # switch it on, the session's default is off)
+        self.b_intra = bool(b_intra)
         if max_depth:
-            # HME runs on the quadtree only, as in the reference
+            # HME and psy-rd run on the quadtree only, as in the
+            # reference
             self.inter_encoder = InterQTEncoder(
                 self.coded_w, self.coded_h, self.device, self.deblock,
                 self.sao, quant_fn, hme=hme, hme_range=hme_range,
-                recon_host=recon_host)
+                recon_host=recon_host, psy_rd=psy_rd, b_intra=self.b_intra,
+                search_range=search_range)
         else:
             self.inter_encoder = InterFrameEncoder(
-                self.coded_w, self.coded_h, cu_size, self.device, quant_fn)
+                self.coded_w, self.coded_h, cu_size, self.device, quant_fn,
+                search_range)
         self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device,
                                    hist_scenecut=hist_scenecut)
+        # the lookahead's scene cut places keyframes (the host API's
+        # reconfig switches it with its scenecut threshold)
+        self.scenecut_enabled = True
+        # open GOP: keyframes after the first are CRA pictures, and the
+        # frames pending at one become its RASL leading pictures (B
+        # sessions; an IPPP session has none, as in the reference)
+        self.open_gop = bool(open_gop)
         fps_f = fps[0] / max(fps[1], 1)
         # the rate control sees the source size
         self.rc = RateControl(RCConfig(
@@ -684,7 +712,8 @@ class VideoEncoderSession:
         # parser checks
         opts = (f"input-res={width}x{height} fps={fps[0]}/{fps[1]} "
                 f"bitdepth=8 weightp=0 bframes={max(0, bframes)} "
-                f"b-pyramid={int(bool(b_pyramid))} open-gop=0 "
+                f"b-pyramid={int(bool(b_pyramid))} "
+                f"open-gop={int(bool(open_gop))} "
                 f"keyint={keyint} scenecut=40 intra-refresh=0 frame-dup=0 "
                 f"b-adapt={b_adapt} rc-lookahead={rc_lookahead} "
                 f"vbv-maxrate={vbv_maxrate_kbps} "
@@ -700,6 +729,10 @@ class VideoEncoderSession:
         if self._tp_delta_on:
             self.pps.cu_qp_delta = 1
         self._tp_cuoff = None       # the pass-1 offsets of this frame
+        # per-CU QP offsets [rows, cols] from the host API's ctu_info
+        # (x265_encoder_ctu_info), added to every later frame's map
+        self.ctu_info_offsets = None
+        self.rows, self.cols = self.coded_h // cu_size, self.coded_w // cu_size
         # zones: (first, last display index, QP or None, bitrate factor
         # or None)
         self.zones = []
@@ -839,7 +872,8 @@ class VideoEncoderSession:
         else:
             icost, pcost, scenecut, self._cutree_window, didx = _la
         is_idr = (self.frame_idx % self.keyint == 0) or self.ref is None \
-            or (scenecut and self.frame_idx >= self.keyint_min) \
+            or (self.scenecut_enabled and scenecut
+                and self.frame_idx >= self.keyint_min) \
             or self._force_idr
         self._force_idr = False
         la_cost = icost if is_idr else pcost
@@ -966,17 +1000,22 @@ class VideoEncoderSession:
     def _push_frame_now(self, y, u, v, icost: float, pcost: float,
                         scenecut: bool, low, window=None) \
             -> List[FrameResult]:
-        """An IDR at keyint or a scene cut (keyint_min after the last);
-        else the frame joins the open mini-GOP, which closes at bframes + 1
-        frames or, with b_adapt, where the lookahead says."""
+        """A keyframe at keyint or a scene cut (keyint_min after the
+        last): an IDR, or with open_gop after the first a CRA; else the
+        frame joins the open mini-GOP, which closes at bframes + 1 frames
+        or, with b_adapt, where the lookahead says."""
         results = []
         if (self.display_idx % self.keyint == 0 or self.anchor is None
-                or (scenecut and self.display_idx - self._last_idr_didx
+                or (self.scenecut_enabled and scenecut
+                    and self.display_idx - self._last_idr_didx
                     >= self.keyint_min)):
             self._last_idr_didx = self.display_idx
-            results += self._flush_minigop()
-            self._cutree_window = window
-            results.append(self._encode_idr_anchor(y, u, v))
+            if self.open_gop and self.anchor is not None:
+                results += self._encode_cra_gop(y, u, v)
+            else:
+                results += self._flush_minigop()
+                self._cutree_window = window
+                results.append(self._encode_idr_anchor(y, u, v))
             self.anchor_lowres = low
         else:
             self.pending.append((y, u, v))
@@ -1112,6 +1151,43 @@ class VideoEncoderSession:
         self.anchor = (self._recon_ref(out), 0)
         return self._finish(out, nals, (y, u, v), qp, 0, "I")
 
+    def _encode_cra_gop(self, y, u, v) -> List[FrameResult]:
+        """Open-GOP keyframe: this frame as a CRA whose POC continues the
+        stream, then the pending frames, in display order, as RASL_N
+        leading pictures (non-referenced B frames between the previous
+        anchor and the CRA), which a decoder starting at the CRA drops.
+        As in the reference (faults in ROADMAP Queue 3): the CRA keeps
+        the cuTree window of the frame coded before it, feeds the rate
+        control as no slice type (the P predictor) and signals the
+        default one-picture RPS; the leading pictures take their QPs one
+        after another."""
+        prev_anchor, prev_poc = self.anchor
+        pending, windows = self.pending, self.pending_windows
+        self.pending, self.pending_lowres, self.pending_windows = [], [], []
+        cra_poc = prev_poc + len(pending) + 1
+        qp = self._timed("rc", self.rc.frame_qp, True)
+        qp = self._zone_qp(self.display_idx, qp)
+        yp, up, vp = self._pad(y, u, v)
+        out = self.intra_sess.code(yp, up, vp, qp,
+                                   qp_map=self._qp_map(yp, qp))
+        nals = self._timed("serialize", self.intra_sess.assemble_slice, out,
+                           qp, NAL_CRA, cra_poc)
+        if self.sei_provider is not None:
+            nals = self.sei_provider(self.display_idx) + nals
+        cra = self._recon_ref(out)
+        results = [self._finish(out, nals, (y, u, v), qp, cra_poc, "I",
+                                rc_type=None)]
+        self.gop_display_base = self.display_idx - cra_poc
+        for i, f in enumerate(pending):
+            self._cutree_window = windows[i]
+            poc = prev_poc + 1 + i
+            qp = self._timed("rc", self._minigop_qp, poc, 2)
+            results.append(self._encode_b(*f, poc, prev_anchor, prev_poc,
+                                          cra, cra_poc, qp,
+                                          nal_type=NAL_RASL_N)[0])
+        self.anchor = (cra, cra_poc)
+        return results
+
     def _encode_p_anchor(self, y, u, v, poc: int, ref_delta: int,
                          qp: int) -> FrameResult:
         """The mini-GOP's P anchor, ref_delta pictures after the previous
@@ -1124,11 +1200,12 @@ class VideoEncoderSession:
         return self._finish(out, nals, (y, u, v), qp, poc, "P")
 
     def _encode_b(self, y, u, v, poc: int, ref0, poc0: int, ref1, poc1: int,
-                  qp: int, is_ref: bool = False, rps=None):
+                  qp: int, is_ref: bool = False, rps=None, nal_type=None):
         """One B frame at the QP qp from ref0 (L0, at poc0) and ref1 (L1,
         at poc1), each (y, u, v) recon planes. is_ref: the pyramid's
-        referenced middle B, coded TRAIL_R. Returns the FrameResult and
-        the recon planes."""
+        referenced middle B, coded TRAIL_R; nal_type overrides the NAL
+        type (an open GOP's RASL_N). Returns the FrameResult and the recon
+        planes."""
         yp, up, vp = self._pad(y, u, v)
         qp_map = self._qp_map(yp, qp)
         out = _program(self.stage_ms, "inter_b", self.inter_encoder, yp, up,
@@ -1137,7 +1214,7 @@ class VideoEncoderSession:
         if qp_map is not None:
             out["qp_map"] = qp_map
         nals = self._timed("serialize", self._assemble_b_slice, out, qp, poc,
-                           poc0, poc1, is_ref, rps)
+                           poc0, poc1, is_ref, rps, nal_type)
         nals = self._provided(poc) + nals
         return (self._finish(out, nals, (y, u, v), qp, poc,
                              "B" if is_ref else "b"), self._recon_ref(out))
@@ -1181,16 +1258,19 @@ class VideoEncoderSession:
             (out["recon_y"], out["recon_u"], out["recon_v"])
 
     def _finish(self, out: dict, nals: bytes, frame, qp: int, poc: int,
-                frame_type: str, la_cost: float = None) -> FrameResult:
-        """Append the hash SEI, feed the rate control (and on the IPPP path
-        pass 2 and the pass-1 stats, with the frame's lookahead cost
-        la_cost), and make the frame's result (recon cropped to the
-        source, the quality metrics against the source planes
-        `frame`)."""
+                frame_type: str, la_cost: float = None,
+                rc_type: str = "") -> FrameResult:
+        """Append the hash SEI, feed the rate control (as the slice type
+        rc_type, by default the frame's; and on the IPPP path pass 2 and
+        the pass-1 stats, with the frame's lookahead cost la_cost), and
+        make the frame's result (recon cropped to the source, the quality
+        metrics against the source planes `frame`)."""
         if self.hash_sei:
             nals += self._timed("serialize", hash_sei, out)
+        if rc_type == "":
+            rc_type = "B" if frame_type in "Bb" else frame_type
         self._timed("rc", self._rc_done, qp, len(nals) * 8, frame_type,
-                    la_cost)
+                    la_cost, rc_type)
         if out.get("recon_y") is None:
             # recon_out=False without the quality metrics or the hash SEI
             # on the quadtree path: the recon never left the device
@@ -1209,9 +1289,8 @@ class VideoEncoderSession:
                            poc=poc, psnr_u=q[1], psnr_v=q[2], ssim_y=q[3])
 
     def _rc_done(self, qp: int, bits: int, frame_type: str,
-                 la_cost: float) -> None:
-        self.rc.frame_done(qp, bits, slice_type="B" if frame_type in "Bb"
-                           else frame_type)
+                 la_cost: float, rc_type: str) -> None:
+        self.rc.frame_done(qp, bits, slice_type=rc_type)
         if self.bframes:     # the reference's B path stops here
             return
         if self.two_pass is not None:
@@ -1246,10 +1325,13 @@ class VideoEncoderSession:
         return _slice_nal(bw, res, NAL_TRAIL_R)
 
     def _assemble_b_slice(self, out: dict, qp: int, poc: int, poc0: int,
-                          poc1: int, is_ref: bool, rps) -> bytes:
+                          poc1: int, is_ref: bool, rps,
+                          nal_type: int = None) -> bytes:
         """Quadtree B slice between the pictures at poc0 (L0) and poc1
-        (L1); a referenced B is TRAIL_R, the others TRAIL_N."""
-        nal_type = NAL_TRAIL_R if is_ref else NAL_TRAIL_N
+        (L1); a referenced B is TRAIL_R, the others TRAIL_N, unless
+        nal_type says otherwise."""
+        if nal_type is None:
+            nal_type = NAL_TRAIL_R if is_ref else NAL_TRAIL_N
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=0,
                                     slice_qp=qp, nal_type=nal_type, poc=poc,
                                     ref_poc_delta=poc - poc0,
@@ -1264,25 +1346,26 @@ class VideoEncoderSession:
         return _slice_nal(bw, res, nal_type)
 
     # ------------------------------------------------------------------
-    # per-CU QP: AQ, cuTree and pass 2's cuTree offsets (the reference's
-    # _frame_qp_map without the CTU-info offsets of the host API)
+    # per-CU QP: the host API's CTU offsets, AQ, cuTree and pass 2's
+    # cuTree offsets (the reference's _frame_qp_map)
     # ------------------------------------------------------------------
     def _qp_map(self, yp, qp: int):
         """The frame's per-CU QP map around the frame QP qp (None without
-        AQ, cuTree and pass-1 offsets), timed as the stage "qp_map"."""
-        if not (self.aq_mode or self.cutree or self._tp_delta_on):
+        CTU offsets, AQ, cuTree and pass-1 offsets), timed as the stage
+        "qp_map"."""
+        if not (self.aq_mode or self.cutree or self._tp_delta_on
+                or self.ctu_info_offsets is not None):
             return None
         return self._timed("qp_map", self._frame_qp_map, yp, qp)
 
     def _frame_qp_map(self, yp, qp: int) -> np.ndarray:
-        """AQ's offsets (luma only) plus cuTree's: pass 2's from the
-        pass-1 stats when the frame has them, else from the window's
-        backward propagation while a delayed frame is coded, else from
-        the causal average; clipped to 0..51. The reference's
-        ctu_info_offsets term (x265_encoder_ctu_info) comes with the host
-        API (ROADMAP Queue 1)."""
-        off = np.zeros((self.coded_h // self.cu, self.coded_w // self.cu),
-                       np.int32)
+        """The host API's CTU offsets, AQ's (luma only) and cuTree's:
+        pass 2's from the pass-1 stats when the frame has them, else from
+        the window's backward propagation while a delayed frame is coded,
+        else from the causal average; clipped to 0..51."""
+        off = np.zeros((self.rows, self.cols), np.int32)
+        if self.ctu_info_offsets is not None:
+            off = off + self.ctu_info_offsets
         if self.aq_mode:
             off = off + compute_aq_offsets(yp, self.cu, self.aq_strength,
                                            mode=self.aq_mode)

@@ -31,8 +31,6 @@ from .intra_encoder import (WaveState, Wavefront, cb_cr, cu_qps,
                             from_blocks, gather_mode, planes_to_blocks,
                             to_blocks, tq_recon)
 
-SEARCH_RANGE = 16    # integer full search over [-16, 16]^2
-
 # subpel refinement neighbors, in evaluation order (ties keep the earlier)
 _NBR = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (1, -1), (-1, 1), (1, 1))
 
@@ -41,8 +39,10 @@ class InterFrameEncoder:
     """Uniform-grid P-frame encoder (one L0 reference) for one geometry."""
 
     def __init__(self, width: int, height: int, cu_size: int, device,
-                 quant_fn: Quantizer = PLAIN):
+                 quant_fn: Quantizer = PLAIN, search_range: int = 16):
         self.n = cu_size
+        # integer full search over [-search_range, search_range]^2
+        self.search_range = search_range
         self.rows, self.cols = height // cu_size, width // cu_size
         self.device = torch.device(device)
         self.quant_fn = quant_fn
@@ -61,7 +61,7 @@ class InterFrameEncoder:
         n, px, py = self.n, self.px, self.py
         yb = to_blocks(y.to(torch.int32), n)
         ry = ref_y.to(torch.int32)
-        mvx_i, mvy_i, _ = me.full_search_sad(ref_y, y, n, SEARCH_RANGE,
+        mvx_i, mvy_i, _ = me.full_search_sad(ref_y, y, n, self.search_range,
                                              lambda_bits=2)
         mvx, mvy = mvx_i * 4, mvy_i * 4
 
@@ -227,16 +227,18 @@ def hme_takes_coarse(csad, cx, cy, fsad, fx, fy):
 
 class InterQTEncoder:
     """CTU32 depth-2 quadtree P- and B-frame encoder, one reference per
-    list: dense decide, then (P) commit. Port of
+    list: dense decide, then the commit of the intra leaves. Port of
     InterFrameEncoder._build_qt + _unpack_qt with bi=False and with
-    bi=True, intra_in_b=False (max_depth=2, 8-bit, no RQT / weighted
-    prediction / psy-rd; quant_fn: plain, sign-bit hiding under the
-    mode-dependent scan or context RDOQ; the device-DPB filter chain runs
+    bi=True (max_depth=2, 8-bit, no RQT / weighted prediction; quant_fn:
+    plain, sign-bit hiding under the mode-dependent scan or context RDOQ;
+    psy_rd: the psycho-visual term of the leaf RD; b_intra: intra
+    candidates in B slices (intra_in_b); the device-DPB filter chain runs
     last when deblock or sao is set; hme: the hierarchical search).
 
     Dense phase, for every block of every size (32, 16, 8): K1's frame
-    sweep per list (the surface kernel, then the first-minimum argmin per
-    size at lambda_bits 2); with hme, K1's 4x4-base sweep of the
+    sweep per list over +-search_range (the surface kernel, then the
+    first-minimum argmin per size at lambda_bits 2); with hme, K1's
+    4x4-base sweep of the
     half-resolution planes over +-hme_range (sizes 16, 8, 4), whose MV,
     doubled, replaces the fine winner where its SAD on the full-resolution
     plane plus 2 (|mvx| + |mvy|) is strictly less than the fine winner's;
@@ -256,22 +258,34 @@ class InterQTEncoder:
     add_avg of the two short-domain predictions), then the merge stage
     over the neighbours' (pdir, mv0, mv1), the zero candidate as bi zero
     MV and the two lists' median MVs as bi, scored by bilinear-qpel SATD
-    (bi: the rounded mean of the two bilinear predictions). B slices have
-    no intra candidate (--b-intra off), so the decided inter leaves are
-    the frame: there is no commit."""
+    (bi: the rounded mean of the two bilinear predictions). With b_intra
+    the source-neighbour intra candidate competes at every size, 8x8
+    included, and the commit reconstructs the decided intra leaves as in
+    a P frame; without it (--no-b-intra) the decided inter leaves are the
+    frame: there is no commit."""
 
     def __init__(self, width: int, height: int, device,
                  deblock: bool = False, sao: bool = False,
                  quant_fn: Quantizer = PLAIN, hme: bool = False,
-                 hme_range: int = 16, recon_host: bool = True):
+                 hme_range: int = 16, recon_host: bool = True,
+                 psy_rd: float = 0.0, b_intra: bool = False,
+                 search_range: int = 16):
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
         self.quant_fn = quant_fn
+        self.psy_rd, self.b_intra = psy_rd, bool(b_intra)
+        self.search_range = search_range
         self.filters = QT.LoopFilters(deblock, sao)
         self.hme, self.hme_range = hme, hme_range
         # the decision dict carries the recon planes on the host
         # (recon_y / _u / _v); off, only recon_dev holds them
         self.recon_host = recon_host
+
+    def _allow_intra(self, bi: bool, nn: int) -> bool:
+        """Whether the nn-blocks of a frame have an intra candidate: in
+        B slices with b_intra, in P slices at 32 and 16 (the reference
+        leaves 8x8 intra out of P slices at depth 2)."""
+        return self.b_intra if bi else nn != 8
 
     def _refine(self, nn: int, y32, ref_y, fine, coarse=None):
         """Every nn-block's quarter-pel ME winner around K1's integer
@@ -406,8 +420,9 @@ class InterQTEncoder:
         fq = QT.FrameQp(geo, qp, slice_qp)
         # K1 on the uint8 planes, per list: the surface, then each size's
         # argmin
-        fine = [me.sad_sweep_multi(r[0], y8, (8, 16, QT.N), SEARCH_RANGE,
-                                   lambda_bits=2) for r in r8]
+        fine = [me.sad_sweep_multi(r[0], y8, (8, 16, QT.N),
+                                   self.search_range, lambda_bits=2)
+                for r in r8]
         coarse = [None] * len(r8)
         if self.hme:
             # the half-resolution planes stay within 0..255: uint8 for K1
@@ -438,8 +453,9 @@ class InterQTEncoder:
             # the inter rounding offset for both candidates (P and B)
             elv, erec, edist, ebits = QT.rd_leaf(nn, srcs3, epred, qp_blk,
                                                  qpc_blk, states, False,
-                                                 self.quant_fn)
-            if bi or nn == 8:    # no intra in B slices, no 8x8 intra in P
+                                                 self.quant_fn,
+                                                 psy_rd=self.psy_rd)
+            if not self._allow_intra(bi, nn):
                 ui = torch.zeros(nb, dtype=torch.bool, device=dev)
                 modes = torch.zeros(nb, dtype=torch.int32, device=dev)
                 dist, bits = edist, ebits + ebits_mv
@@ -447,7 +463,8 @@ class InterQTEncoder:
                 modes, *ipred = QT.dense_intra(nn, y32, u32, v32)
                 _, _, idist, ibits = QT.rd_leaf(nn, srcs3, ipred, qp_blk,
                                                 qpc_blk, states, False,
-                                                self.quant_fn, modes)
+                                                self.quant_fn, modes,
+                                                self.psy_rd)
                 ci = idist + l2 * (ibits + QT.MODE_BITS)
                 ce = edist + l2 * (ebits + ebits_mv)
                 ui = ci < ce
@@ -487,13 +504,13 @@ class InterQTEncoder:
             out[km] = per_size[nn](leaf[nn]["modes"])
             for k, a in zip(_MOTION_KEYS[nn], motion[nn]):
                 out[k] = None if a is None else per_size[nn](a)
-        if not bi:
+        if not bi or self.b_intra:
             leaves = QT.intra_leaves(
                 out["split"].reshape(-1), out["split16"].reshape(-1, 4),
                 out["modes"].reshape(-1), out["modes4"].reshape(-1, 4),
-                None, out["use_intra"].reshape(-1),
+                out["modes8"].reshape(-1, 4, 4), out["use_intra"].reshape(-1),
                 out["use_intra4"].reshape(-1, 4),
-                np.zeros((rows * cols, 4, 4), bool))
+                out["use_intra8"].reshape(-1, 4, 4))
             QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, False,
                             self.quant_fn, states)
         sizes = (QT.N, 16, 8)

@@ -285,9 +285,10 @@ class IntraFrameEncoder:
 class IntraQTEncoder:
     """CTU32 depth-2 quadtree intra frame encoder: dense decide, commit,
     then the in-loop filters (port of IntraFrameEncoder._build_qt +
-    _unpack_qt with max_depth=2, 8-bit, no psy-rd; quant_fn: plain,
-    mode-dependent sign-bit hiding or context RDOQ; with the device-DPB
-    filter chain when deblock or sao is set).
+    _unpack_qt with max_depth=2, 8-bit; quant_fn: plain, mode-dependent
+    sign-bit hiding or context RDOQ; psy_rd: the psycho-visual term of
+    the leaf RD; with the device-DPB filter chain when deblock or sao is
+    set).
 
     Every CU size's intra mode is decided densely from source-pixel
     neighbours (the reference's fast-intra approximation); each leaf's RD
@@ -298,10 +299,11 @@ class IntraQTEncoder:
     def __init__(self, width: int, height: int, device,
                  deblock: bool = False, sao: bool = False,
                  quant_fn: Quantizer = PLAIN, sao_form: str = "program",
-                 recon_host: bool = True):
+                 recon_host: bool = True, psy_rd: float = 0.0):
         from . import qt_common as QT      # qt_common imports this module
         self.QT = QT
         self.quant_fn = quant_fn
+        self.psy_rd = psy_rd
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
         self.filters = QT.LoopFilters(deblock, sao, sao_form)
@@ -331,7 +333,7 @@ class IntraQTEncoder:
             _, _, dist, bits = QT.rd_leaf(nn, QT.sources3(y32, u32, v32, nn),
                                           (py, pu, pv), fq.blk(nn, fq.cu),
                                           fq.blk(nn, fq.c), states, True,
-                                          self.quant_fn, modes)
+                                          self.quant_fn, modes, self.psy_rd)
             leaf[nn] = {"modes": modes, "dist": dist,
                         "bits": bits + QT.MODE_BITS}
         split16, split = QT.split_rd(leaf, geo, QT.lam2(fq.cu))

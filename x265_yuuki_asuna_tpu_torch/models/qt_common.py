@@ -302,12 +302,17 @@ def dense_intra(nn: int, y32, u32, v32):
 
 
 def rd_leaf(nn: int, srcs3, pred3, qp_y, qp_c, states, intra_slice: bool,
-            quant_fn: Quantizer = PLAIN, modes=None):
-    """TU levels, recon, SSD and K9 bits of one candidate at one size:
-    ((lv_y, lv_cb, lv_cr), (rec_y, rec_u, rec_v), dist, bits). modes: the
-    blocks' intra modes for an intra candidate (the sign-hiding scan),
-    None for an inter one; states: the slice's frozen contexts (K9 and
-    the context RDOQ)."""
+            quant_fn: Quantizer = PLAIN, modes=None, psy_rd: float = 0.0):
+    """TU levels, recon, distortion and K9 bits of one candidate at one
+    size: ((lv_y, lv_cb, lv_cr), (rec_y, rec_u, rec_v), dist, bits).
+    modes: the blocks' intra modes for an intra candidate (the
+    sign-hiding scan), None for an inter one; states: the slice's frozen
+    contexts (K9 and the context RDOQ). dist is the SSD of the three
+    planes, plus with psy_rd > 0 psy_rd times the luma's change of
+    psycho-visual energy, |E(source) - E(recon)|, in float32 as the
+    reference's compiled program adds it: the multiply contracted into
+    the add (exact for psy_rd a power of two, as the presets' 1, 2 and
+    4 are)."""
     log2nn = nn.bit_length() - 1
     sy, su, sv = srcs3
     tq = lambda src, pred, qp, log2, luma: tq_recon(
@@ -316,6 +321,9 @@ def rd_leaf(nn: int, srcs3, pred3, qp_y, qp_c, states, intra_slice: bool,
     lv_cb, rec_u = tq(su, pred3[1], qp_c, log2nn - 1, False)
     lv_cr, rec_v = tq(sv, pred3[2], qp_c, log2nn - 1, False)
     dist = (ssd(sy, rec_y) + ssd(su, rec_u)) + ssd(sv, rec_v)
+    if psy_rd > 0:
+        e = (pixel.psy_energy(sy) - pixel.psy_energy(rec_y)).abs().float()
+        dist = fp32.fma(e, np.float32(psy_rd), dist)
     sh = quant_fn.sbh
     bits = ((BC.est_tu_bits_ctx(lv_y, log2nn, True, states, sh)
              + BC.est_tu_bits_ctx(lv_cb, log2nn - 1, False, states, sh))

@@ -1,8 +1,11 @@
-"""Pixel cost metric: SATD (4x4 Hadamard).
+"""Pixel cost metrics: SATD (4x4 Hadamard), sa8d (8x8 Hadamard), the
+psycho-visual energy, SSIM.
 
-Port of x265_yuuki_asuna_tpu/ops/pixel.py (satd, satd4).
+Port of x265_yuuki_asuna_tpu/ops/pixel.py (satd, satd4, sa8d,
+psy_energy, ssim_plane).
 Reference behavior (studied, not copied): common/pixel.cpp satd_4x4 —
-sum(|H d H|) / 2 with rounding.
+sum(|H d H|) / 2 with rounding; sa8d_8x8 — (sum(|H d H|) + 2) >> 2;
+rdcost.h psyCost — the block's AC energy.
 
 Exactness: the Hadamard products run in float64 (CUDA has no int32
 matmul); entries are +-1 and |d| <= 2^16, so every partial sum is an
@@ -48,6 +51,26 @@ def satd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     4x4-subblock SATDs. Broadcasts a against b. Returns int32 [...]."""
     per = satd4(_tile(a, 4, 4), _tile(b, 4, 4))
     return per.sum(dim=(-2, -1)).to(torch.int32)
+
+
+def sa8d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sa8d of [..., H, W] blocks (H, W multiples of 8): the sum over the
+    8x8 subblocks of (sum(|H d H|) + 2) >> 2. Returns int32 [...]."""
+    d = _tile(a, 8, 8).to(torch.int32) - _tile(b, 8, 8).to(torch.int32)
+    per = (_hadamard2d(d, 8).abs().sum(dim=(-2, -1)) + 2) >> 2
+    return per.sum(dim=(-2, -1)).to(torch.int32)
+
+
+def psy_energy(a: torch.Tensor) -> torch.Tensor:
+    """Psycho-visual energy of [..., N, N] pixel blocks (N a multiple of
+    8): the sa8d of each block against its DC, the floor of its mean (the
+    reference's float32 mean, exact below 2^24, then truncated). Returns
+    int32 [...]."""
+    ai = a.to(torch.int32)
+    n = ai.shape[-1] * ai.shape[-2]
+    dc = torch.div(ai.sum(dim=(-2, -1), dtype=torch.int64), n,
+                   rounding_mode="floor").to(torch.int32)
+    return sa8d(ai, dc[..., None, None].expand(ai.shape))
 
 
 

@@ -4,8 +4,8 @@
         [--max-depth 0 2] [--bframes 3] [--deblock] [--sao] [--sbh]
         [--rdoq] [--aq-mode 2] [--cutree] [--rc-mode crf] [--crf 28]
         [--bitrate 27000] [--vbv-maxrate 27000] [--vbv-bufsize 27000]
-        [--hme] [--b-adapt 2] [--flagship [--hme-turns 3]] [--intra]
-        [--batch 4] [--device-only]
+        [--hme] [--b-adapt 2] [--flagship [--hme-turns 3]]
+        [--cli "--preset superfast"] [--intra] [--batch 4] [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
 depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
@@ -19,7 +19,12 @@ does the same with each coded frame (I, P, then the B frames) recorded on
 its own; the lookahead and the b-adapt decision, which push_frame runs
 before a frame is coded, are outside the records (their ms are the
 session's stages "lookahead" and "b_adapt", printed per session).
---hme switches the quadtree sessions' hierarchical search on. --flagship
+--hme switches the quadtree sessions' hierarchical search on. --cli
+profiles the session the command line (x265_yuuki_asuna_tpu_torch.cli)
+builds from the given flags for a 1920x1080 25 fps input, in place of
+the other sessions (with B frames: each coded frame recorded, as above;
+e.g. "--preset superfast --no-b-intra", "--preset superfast --psy-rd
+0"). --flagship
 profiles bench.py's session (its constructor verbatim: the quadtree B
 session with HME, b-adapt 2, CRF 28, AQ 2, cuTree, deblock, SAO, sign
 hiding, no hash SEI, no recon to the host) in place of the other
@@ -179,45 +184,63 @@ FLAGSHIP = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
 
 def profile_session(max_depth: int, warm_frames: int,
                     bframes: int = 0, opts: dict = None,
-                    device_only: bool = False, kw: dict = None) -> dict:
+                    device_only: bool = False, kw: dict = None,
+                    make=None, name: str = None) -> dict:
     """One video session's recorded frames; kw: the constructor's
     keywords verbatim (else qp 32, keyint 250, the hash SEI, max_depth,
-    bframes and opts)."""
+    bframes and opts); make: a function that returns a new session (in
+    place of the constructor), name its record's name."""
     from .models.encoder_top import VideoEncoderSession
-    if kw is None:
-        kw = dict(qp=32, keyint=250, hash_sei=True, max_depth=max_depth,
-                  **opts)
-        if bframes:
-            kw.update(bframes=bframes)
-    bframes = kw.get("bframes", 0)
+    if make is None:
+        if kw is None:
+            kw = dict(qp=32, keyint=250, hash_sei=True, max_depth=max_depth,
+                      **opts)
+            if bframes:
+                kw.update(bframes=bframes)
+        make = lambda: VideoEncoderSession(1920, 1080, **kw)
+    probe = make()
+    bframes = probe.bframes
     out = []
     if bframes:
         frames = synth_clip(bframes + 2, 1920, 1080)
-        warm = VideoEncoderSession(1920, 1080, **kw)
+        warm = probe
         for f in frames:
             warm.push_frame(*f)
         warm.flush()
-        sess = VideoEncoderSession(1920, 1080, **kw)
-        for name in ("_encode_idr_anchor", "_encode_p_anchor", "_encode_b"):
-            setattr(sess, name, _recorded(sess, getattr(sess, name), out,
-                                          device_only))
+        sess = make()
+        for fn in ("_encode_idr_anchor", "_encode_p_anchor", "_encode_b"):
+            setattr(sess, fn, _recorded(sess, getattr(sess, fn), out,
+                                        device_only))
         torch.cuda.synchronize()
         for f in frames:
             sess.push_frame(*f)
         sess.flush()
     else:
         frames = synth_clip(warm_frames + 2, 1920, 1080)
-        warm = VideoEncoderSession(1920, 1080, **kw)
+        warm = probe
         for f in frames[:warm_frames]:
             warm.encode_frame(*f)
-        sess = VideoEncoderSession(1920, 1080, **kw)
+        sess = make()
         torch.cuda.synchronize()
         encode = _recorded(sess, sess.encode_frame, out, device_only)
         for f in frames[warm_frames:]:
             encode(*f)
-    return {"session": _name(kw.get("max_depth", 0), bframes, kw),
+    return {"session": name or _name(kw.get("max_depth", 0), bframes, kw),
             "card": torch.cuda.get_device_name(0), "frames": out,
             "stage_ms": dict(sess.stage_ms)}
+
+
+def cli_session(flags: str):
+    """A function that returns a new session of the command line with
+    these flags (a string) for a 1920x1080 25 fps 8-bit 4:2:0 input."""
+    from . import cli
+    from .utils import io as IO
+    info = IO.VideoInfo(1920, 1080, 25, 1, IO.CSP_I420, 8)
+
+    def make():
+        args, prm = cli.parse(["in.y4m", "-o", "out.hevc"] + flags.split())
+        return cli.configure(args, prm, info)
+    return make
 
 
 def hme_turns(turns: int) -> dict:
@@ -285,6 +308,9 @@ def main():
                     help="switch HME on (quadtree sessions)")
     ap.add_argument("--b-adapt", type=int, default=0, choices=(0, 1, 2),
                     help="with --bframes: the B sessions' b-adapt")
+    ap.add_argument("--cli", default=None,
+                    help="profile the command line's session of these "
+                         "flags (one string) alone")
     ap.add_argument("--flagship", action="store_true",
                     help="profile bench.py's session alone")
     ap.add_argument("--hme-turns", type=int, default=0,
@@ -307,6 +333,12 @@ def main():
         print(json.dumps(profile_session(2, args.frames, kw=FLAGSHIP,
                                          device_only=args.device_only)),
               flush=True)
+        return
+    if args.cli:
+        print(json.dumps(profile_session(
+            2, args.frames, device_only=args.device_only,
+            make=cli_session(args.cli), name=f"cli {args.cli}")),
+            flush=True)
         return
     for md in args.max_depth:
         if args.intra:
