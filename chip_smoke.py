@@ -69,13 +69,24 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      the CPU (equal streams and frames);
      golden_cli: the golden intra_qt2_psy stream (psy-rd), then the
      command line (cli.main) at --preset superfast, at --preset superfast
-     --keyint 4 (open GOP: CRA + RASL_N) and at --preset medium
-     --no-weightp, and the library (api.Encoder at
-     param_default_preset("superfast"), search range 24) over the 96x64
-     clip of tests/preset_pins.py against the JAX package's md5s, NAL
-     types and CSV logs pinned there; cli_cpu_vs_card: the command line
-     at --preset medium --no-weightp on a 416x240 clip on the card and on
-     the CPU (equal streams and CSV logs);
+     --keyint 4 (open GOP: CRA + RASL_N), at --preset medium
+     --no-weightp, and with weighted prediction over the clip fading by 6
+     a frame with no preset flag (medium) and at --preset veryfast, and
+     the library (api.Encoder at param_default_preset("superfast"),
+     search range 24) over the 96x64 clip of tests/preset_pins.py against
+     the JAX package's md5s, NAL types and CSV logs pinned there;
+     cli_cpu_vs_card: the command line at --preset medium --no-weightp on
+     a 416x240 clip on the card and on the CPU (equal streams and CSV
+     logs); golden_weightp: the golden ippp_weightp stream, the quadtree
+     sessions of tests/weightp_pins.py (weighted IPPP with and without
+     HME, the weighted B session with the host-form filters, the
+     host-filter path without weightp under AQ), the library at
+     param_default_preset("medium") and the CLI's default over a 416x240
+     fade against the JAX package's md5s, frames and chosen weights;
+     weightp_cpu_vs_card: the command line with no preset flag on a
+     416x240 clip fading by 6 a frame on the card and on the CPU (equal
+     streams and CSV logs), and its bytes beside --preset medium
+     --no-weightp on the same clip;
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -133,7 +144,13 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      plain rerun identical) and the library at superfast
      (1080p_api_superfast, 5 frames: K1 frames + 10 per trellis fused,
      the R = 24 surfaces one per P anchor and two per B frame; the last B
-     frame's plain rerun identical);
+     frame's plain rerun identical), then x265's default command line,
+     no preset flag, over a 1080p y4m fading by 6 a frame
+     (1080p_cli_medium, 6 frames, --csv-log-level 2: fps, each frame's
+     type, POC, QP and bytes, the weights each P anchor chose, each
+     frame's device, deblock, SAO and serialize ms, peak memory; K1 frames
+     + the trellis's fused, one surface per P anchor and two per B frame;
+     the weighted P anchor's plain rerun identical);
   6. the kernels line (launches on the flagship's path, and on each
      path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
@@ -232,6 +249,7 @@ QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs three)
 FLAGSHIP_FRAMES = 13  # the 1080p flagship: the IDR, three trellis decisions
 CLI_FRAMES = 9        # the CLI at --preset superfast: the IDR, 2 mini-GOPs
 API_FRAMES = 5        # the library at superfast: the IDR, one trellis
+MEDIUM_FRAMES = 6     # the CLI's default (medium): the IDR, one trellis
 R24_ME = "P-frame ME 1088x1920 R=24"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -967,7 +985,7 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
     def recorded(e, fn):
         def call(*a, **k):
             out = fn(*a, **k)
-            filter_ms.append(e.filters.ms)
+            filter_ms.append(sum(e.filters.ms.values()))
             return out
         return call
     enc.encode_frame = lambda *a, **k: calls.append((a, k)) or \
@@ -1409,14 +1427,103 @@ def preset_pins():
     return pins
 
 
+def weightp_pins():
+    """tests/weightp_pins.py: weighted prediction's and the host-filter
+    path's test clips (fades) and sessions, the JAX package's pins over
+    them and the recorder of the weights a session chooses."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import weightp_pins as pins
+    return pins
+
+
+def phase_golden_weightp(dev):
+    """Weighted prediction's pins on the card: the golden ippp_weightp
+    stream (the uniform grid), the quadtree sessions of
+    tests/weightp_pins.py (weighted IPPP with and without HME, the
+    weighted B session with the host-form filters, the host-filter path
+    without weightp under AQ, and the unweighted twin) against the JAX
+    package's md5s, (POC, type, QP) and chosen weights, the library at
+    param_default_preset("medium") (tests/preset_pins.py) and the command
+    line with no preset flag over a 416x240 fade (CLI_FADE_PIN); the
+    CLI's weighted pins over the 96x64 clip run in golden_cli."""
+    from x265_yuuki_asuna_tpu_torch import api, cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    wp, pp = weightp_pins(), preset_pins()
+    with open(os.path.join(REPO, "tests", "golden", "manifest.json")) as f:
+        want = json.load(f)["ippp_weightp"]
+    sess = top.VideoEncoderSession(64, 48, qp=32, cu_size=16, keyint=100,
+                                   weightp=True, hash_sei=False, device=dev)
+    with wp.weights_recorded(top.VideoEncoderSession) as weights:
+        out = sess.headers() + b"".join(
+            sess.encode_frame(*f).nals for f in wp.golden_fade(6))
+    got = {"ippp_weightp": hashlib.md5(out).hexdigest()}
+    ok = {"ippp_weightp": got["ippp_weightp"] == want}
+    chosen = {"ippp_weightp": weights}
+    for name in wp.SESSIONS:
+        res = wp.encode(top, name, device=dev)
+        got[name], chosen[name] = res[0], res[2]
+        ok[name] = res == wp.PINS[name]
+    with wp.weights_recorded(top.VideoEncoderSession) as weights:
+        res = pp.run_api(api, "medium")
+    got["api_medium"], chosen["api_medium"] = res[0], weights
+    ok["api_medium"] = res == pp.API_MEDIUM_PIN and \
+        weights == pp.WEIGHTS["api_medium"]
+    with tempfile.TemporaryDirectory() as tmp:
+        res = wp.run_cli_fade(cli.main, tmp)
+    got["cli_fade_416x240"] = res[0]
+    ok["cli_fade_416x240"] = res == wp.CLI_FADE_PIN
+    emit(phase="golden_weightp", md5=got, weights=chosen, match=ok)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_weightp: streams differ: {ok}")
+
+
+def phase_weightp_cpu_vs_card(dev, n=6):
+    """The command line with no preset flag (x265's medium: weighted
+    prediction, so the host-filter quadtree path) on a 416x240 clip of n
+    frames whose luma falls by 6 a frame, on the card and with
+    device="cpu": equal streams and CSV logs; then the same clip at
+    --preset medium --no-weightp on the card, for the bytes weighted
+    prediction saves."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    md5, csv, secs, size = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.y4m")
+        _write_y4m(src, weightp_pins().synth_fade(n, 416, 240))
+        for tag, where, flags in (("card", None, []), ("cpu", "cpu", []),
+                                  ("card_no_weightp", None,
+                                   ["--preset", "medium", "--no-weightp"])):
+            dst, log = os.path.join(tmp, tag + ".hevc"), \
+                os.path.join(tmp, tag + ".csv")
+            t0 = time.perf_counter()
+            rc = cli.main([src, "-o", dst, "--csv", log] + flags,
+                          device=where)
+            secs[tag] = time.perf_counter() - t0
+            with open(dst, "rb") as f:
+                data = f.read()
+            md5[tag], size[tag] = hashlib.md5(data).hexdigest(), len(data)
+            with open(log) as f:
+                csv[tag] = f.read().splitlines()
+            if rc != 0:
+                raise AssertionError(f"weightp_cpu_vs_card: rc {rc} ({tag})")
+    same = md5["card"] == md5["cpu"] and csv["card"] == csv["cpu"]
+    emit(phase="weightp_cpu_vs_card", frames=n, md5=md5, csv=csv["card"],
+         csv_no_weightp=csv["card_no_weightp"], seconds=secs, bytes=size,
+         bytes_change_weightp=size["card"] / size["card_no_weightp"] - 1,
+         match=same)
+    if not same:
+        raise AssertionError("weightp_cpu_vs_card: the card's stream or "
+                             "CSV differs from the CPU's")
+
+
 def phase_golden_cli(dev):
     """The golden intra_qt2_psy stream (psy-rd 1 on the all-intra
     quadtree), then the command line and the library on the card against
     the JAX package's pins (tests/preset_pins.py): --preset superfast
     (psy-rd, intra in B slices), the same with --keyint 4 (the open GOP's
-    CRA and RASL_N pictures), --preset medium --no-weightp, and the
-    library at param_default_preset("superfast") (search range 24):
-    stream md5s, NAL types and CSV logs."""
+    CRA and RASL_N pictures), --preset medium --no-weightp, no preset
+    flag and --preset veryfast (weighted prediction, over the faded
+    clip), and the library at param_default_preset("superfast") (search
+    range 24): stream md5s, NAL types and CSV logs."""
     from x265_yuuki_asuna_tpu_torch import api, cli
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         IntraEncoderSession
@@ -1636,6 +1743,99 @@ def phase_1080p_cli_superfast(dev, n_frames=CLI_FRAMES):
     return launches
 
 
+def phase_1080p_cli_medium(dev, n_frames=MEDIUM_FRAMES):
+    """The command line as a user calls it, with no preset flag (x265's
+    medium: weighted prediction on the host-filter quadtree path, SAO, AQ
+    2, cuTree, b-adapt 2, bframes 4, psy-rd, intra in B slices, CRF 28),
+    over a 1080p y4m of synth_clip whose luma falls by 6 a frame (n_frames
+    frames, --csv-log-level 2): fps after the IDR, each frame's type, POC,
+    QP and bytes, the weights each P anchor chose (non-identity luma
+    required), each coded frame's stage ms (deblock and SAO apart), the
+    CSV's level-2 columns (each burst of frames' stages on the first
+    frame written after it, as the reference's CLI logs them), peak
+    memory and K1's launches
+    (fused: the lookahead's per frame and the trellis's; the surface one
+    per P anchor, two per B frame), then the last weighted P anchor's
+    plain rerun, which must be identical."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    frames = weightp_pins().synth_fade(n_frames, W1080, H1080)
+    made, per_frame = [], []
+    configure = cli.configure
+
+    def instrumented(*a, **k):
+        made.append(_Instrumented(configure(*a, **k)))
+        sess, finish, prev = made[-1].sess, made[-1].sess._finish, {}
+
+        def finished(*fa, **fk):
+            # each coded frame's stage ms (coding order): the session's
+            # stages since the frame before it finished
+            r = finish(*fa, **fk)
+            cur = dict(sess.stage_ms)
+            per_frame.append([r.poc, r.frame_type, {
+                st: ms - prev.get(st, 0.0) for st, ms in cur.items()
+                if ms != prev.get(st, 0.0)}])
+            prev.clear()
+            prev.update(cur)
+            return r
+        sess._finish = finished
+        return sess
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        log = os.path.join(tmp, "log.csv")
+        _write_y4m(src, frames)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_start()                                # the main path starts
+        with mock.patch.object(cli, "configure", instrumented), \
+                weightp_pins().weights_recorded(top.VideoEncoderSession) \
+                as weights:
+            rc = cli.main([src, "-o", dst, "--frames", str(n_frames),
+                           "--csv", log, "--csv-log-level", "2"])
+        launches = k1_read()
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            lines = f.read().splitlines()
+        head, rows = lines[0].split(", "), [r.split(", ")
+                                            for r in lines[1:-1]]
+        total = os.path.getsize(dst)
+    inst = made[0]
+    fps, order, stage, want = inst.report()
+    col = lambda name: [float(r[head.index(name)]) for r in rows]
+    emit(phase="1080p_cli_medium", argv="(no preset flag)", rc=rc,
+         frames=len(rows), fps=fps, call_ms=inst.call_ms,
+         trellis_sizes=inst.trellis, frame_type=[r[1] for r in rows],
+         poc=[int(r[2]) for r in rows], qp=[int(r[3]) for r in rows],
+         frame_bytes=[int(r[4]) // 8 for r in rows], bytes=total,
+         psnr_y=[float(r[5]) for r in rows], coding_order=order,
+         p_anchor_weights=weights, stage_ms_by_frame=per_frame,
+         csv_device_ms=col("Device ms"), csv_deblock_ms=col("Deblock ms"),
+         csv_sao_ms=col("SAO ms"), csv_serialize_ms=col("Serialize ms"),
+         stage_ms_per_frame=stage, stage_ms_total=dict(inst.sess.stage_ms),
+         dpb_device=inst.sess.dpb_device, k1_launches=launches,
+         max_memory_allocated=peak)
+    weighted = any(w and w.get("luma", (64, 0)) != (64, 0) for w in weights)
+    if rc != 0 or len(rows) != n_frames or order[0] != (0, "I") \
+            or inst.sess.dpb_device or not weighted \
+            or not all(np.isfinite(float(r[5])) for r in rows):
+        raise AssertionError(f"1080p_cli_medium output malformed: {order} "
+                             f"weights {weights}")
+    if launches != want:
+        raise AssertionError(f"1080p_cli_medium: K1 launches "
+                             f"{launches} != {want}")
+    a, k = inst.last(False)
+    out_k = inst.run(*a, **k)
+    with plain_k1():
+        out_p = inst.run(*a, **k)
+    same = _same_decisions(out_k, out_p)
+    emit(phase="1080p_cli_medium_p_anchor_plain_rerun",
+         weights=k.get("weights"), identical=same)
+    if not same:
+        raise AssertionError("1080p_cli_medium: kernel and plain weighted "
+                             "P-anchor decisions differ")
+    return launches
+
+
 def phase_1080p_api_superfast(dev, n_frames=API_FRAMES):
     """The library (api.Encoder at param_default_preset("superfast"):
     search range 24, b-adapt 2, psy-rd, CRF 28, no hash SEI) over
@@ -1706,6 +1906,8 @@ def main():
     phase_golden_flagship(dev)
     phase_golden_cli(dev)
     phase_cli_cpu_vs_card(dev)
+    phase_golden_weightp(dev)
+    phase_weightp_cpu_vs_card(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -1750,6 +1952,7 @@ def main():
     by_path["1080p_flagship"] = phase_1080p_flagship(dev)
     by_path["1080p_cli_superfast"] = phase_1080p_cli_superfast(dev)
     by_path["1080p_api_superfast"] = phase_1080p_api_superfast(dev)
+    by_path["1080p_cli_medium"] = phase_1080p_cli_medium(dev)
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]

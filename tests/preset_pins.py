@@ -7,13 +7,19 @@ at 25 fps, a random texture moving 1 pixel down and 2 right a frame, flat
 chroma; write_clip writes the same y4m bytes with the port's writer.
 
 CLI holds, for each command line, the frames it reads and its flags;
-CLI_PINS the md5 of the JAX CLI's stream (x265_yuuki_asuna_tpu.cli.main
-with `--csv`), its NAL unit types and its CSV log. API_PIN is the JAX
-library's stream of the clip's 6 frames at param_default_preset
-("superfast") (api.Encoder: the CTU32 depth-2 quadtree, b-adapt 2, search
-range 24, psy-rd 2, CRF 28, deblock, sign hiding, no hash SEI). All were
-computed from the JAX package at commit 1f6f0ca on the CPU; the slow
-tests of tests/test_torch_cli_api.py recompute them."""
+RAMP the luma ramp (added to Y per frame, clipped) of the command lines
+and the library preset that run weighted prediction; CLI_PINS the md5 of the JAX CLI's stream
+(x265_yuuki_asuna_tpu.cli.main with `--csv`), its NAL unit types and its
+CSV log. API_PIN is the JAX library's stream of the clip's 6 frames at
+param_default_preset("superfast") (api.Encoder: the CTU32 depth-2
+quadtree, b-adapt 2, search range 24, psy-rd 2, CRF 28, deblock, sign
+hiding, no hash SEI), API_MEDIUM_PIN the same at "medium" over the
+ramped clip (weighted prediction, SAO, AQ 2, cuTree, bframes 4).
+WEIGHTS holds the weights each weighted case's session chose for its P
+frames, in coding order. The pins up to medium_no_weightp were computed
+from the JAX package at commit 1f6f0ca, the weighted ones at 59bcfbb, on
+the CPU; the slow tests of tests/test_torch_cli_api.py and
+tests/test_torch_weightp.py recompute them."""
 import hashlib
 
 import numpy as np
@@ -29,7 +35,12 @@ CLI = {
     # x265's default preset without weighted prediction: + SAO, AQ 2,
     # cuTree, b-adapt 2, bframes 4
     "medium_no_weightp": (6, ["--preset", "medium", "--no-weightp"]),
+    # x265's default command line (no preset flag: medium) and veryfast,
+    # both with weighted prediction, over the clip fading by 6 a frame
+    "medium": (6, []),
+    "veryfast": (6, ["--preset", "veryfast"]),
 }
+RAMP = {"medium": -6, "veryfast": -6}   # by CLI case or library preset
 _HEAD = "Encode Order, Type, POC, QP, Bits, PSNR Y, PSNR U, PSNR V, SSIM Y\n"
 CLI_PINS = {
     "superfast": (
@@ -71,28 +82,64 @@ CLI_PINS = {
         "5, P, 5, 35, 4976, 26.4896, 39.4234, 99.9900, 0.98752\n"
         "Summary, frames=6, kbps=152.07, Global PSNR Y=28.5665, "
         "U=51.1967, V=99.9900, SSIM Y=0.99201\n"),
+    # veryfast differs from medium only in options the sessions do not
+    # read (lookahead depth, subpel, references, RD level, early skip,
+    # fast intra, merge candidates): the same stream on this clip
+    "medium": (
+        "7201e08089f3aef8b5b2e4e5beef92e2",
+        [32, 33, 34, 39, 19, 40, 1, 40, 1, 40, 0, 40, 1, 40, 0, 40],
+        _HEAD +
+        "0, I, 0, 25, 28120, 33.9182, 99.9900, 99.9900, 0.99756\n"
+        "1, b, 1, 39, 816, 28.4076, 48.2222, 99.9900, 0.99359\n"
+        "2, B, 2, 40, 832, 27.4178, 42.4719, 99.9900, 0.99154\n"
+        "3, P, 3, 35, 3968, 27.3818, 40.1145, 99.9900, 0.99077\n"
+        "4, b, 4, 39, 872, 26.5698, 41.8290, 99.9900, 0.98828\n"
+        "5, P, 5, 36, 3208, 25.9996, 49.6364, 99.9900, 0.98581\n"
+        "Summary, frames=6, kbps=157.57, "
+        "Global PSNR Y=28.2825, U=53.7107, V=99.9900, SSIM Y=0.99126\n"),
+    "veryfast": (
+        "7201e08089f3aef8b5b2e4e5beef92e2",
+        [32, 33, 34, 39, 19, 40, 1, 40, 1, 40, 0, 40, 1, 40, 0, 40],
+        _HEAD +
+        "0, I, 0, 25, 28120, 33.9182, 99.9900, 99.9900, 0.99756\n"
+        "1, b, 1, 39, 816, 28.4076, 48.2222, 99.9900, 0.99359\n"
+        "2, B, 2, 40, 832, 27.4178, 42.4719, 99.9900, 0.99154\n"
+        "3, P, 3, 35, 3968, 27.3818, 40.1145, 99.9900, 0.99077\n"
+        "4, b, 4, 39, 872, 26.5698, 41.8290, 99.9900, 0.98828\n"
+        "5, P, 5, 36, 3208, 25.9996, 49.6364, 99.9900, 0.98581\n"
+        "Summary, frames=6, kbps=157.57, "
+        "Global PSNR Y=28.2825, U=53.7107, V=99.9900, SSIM Y=0.99126\n"),
 }
 API_FRAMES = 6
 # (md5, NAL unit types, bytes of each frame's NALs in coding order)
 API_PIN = ("41404b38e465bb9fe63219d4da47b58f",
            [32, 33, 34, 39, 19, 1, 1, 0, 1, 0],
            [3889, 497, 40, 44, 439, 49])
+API_MEDIUM_PIN = ("3d25cb9e510e276314d2999beaa3c03c",
+                  [32, 33, 34, 39, 19, 1, 1, 0, 1, 0],
+                  [3457, 443, 46, 44, 368, 53])
+# the weights of each weighted case's P frames in coding order (None: no
+# component's weight was kept)
+WEIGHTS = {name: [None, {"luma": (60, -8), "cb": (6, 86)}]
+           for name in ("medium", "veryfast", "api_medium")}
 
 
-def clip_frames(n: int):
-    """The clip's first n frames, (y, u, v) uint8 planes."""
+def clip_frames(n: int, ramp: int = 0):
+    """The clip's first n frames, (y, u, v) uint8 planes; ramp * i is
+    added to frame i's luma (clipped to 0..255)."""
     rng = np.random.default_rng(0)
     base = rng.integers(0, 256, (H + 32, W + 32)).astype(np.uint8)
-    return [(base[i:i + H, 2 * i:2 * i + W],
+    return [(np.clip(base[i:i + H, 2 * i:2 * i + W].astype(np.int32)
+                     + ramp * i, 0, 255).astype(np.uint8),
              np.full((H // 2, W // 2), 90 + i, np.uint8),
              np.full((H // 2, W // 2), 140, np.uint8)) for i in range(n)]
 
 
-def write_clip(path: str, n: int) -> None:
+def write_clip(path: str, n: int, ramp: int = 0) -> None:
     """The clip's first n frames as a y4m file (the port's writer)."""
     from x265_yuuki_asuna_tpu_torch.utils import io as IO
     wr = IO.Y4MWriter(path, IO.VideoInfo(W, H, 25, 1, IO.CSP_I420, 8))
-    for f in clip_frames(n):
+    for f in clip_frames(n, ramp):
         wr.write_frame(*f)
     wr.close()
 
@@ -113,7 +160,7 @@ def run_cli(cli_main, name: str, workdir: str, **kw):
     n, flags = CLI[name]
     src, dst = f"{workdir}/{name}.y4m", f"{workdir}/{name}.hevc"
     csv = f"{workdir}/{name}.csv"
-    write_clip(src, n)
+    write_clip(src, n, RAMP.get(name, 0))
     assert cli_main([src, "-o", dst, "--csv", csv] + flags, **kw) == 0
     with open(dst, "rb") as f:
         data = f.read()
@@ -121,14 +168,15 @@ def run_cli(cli_main, name: str, workdir: str, **kw):
         return hashlib.md5(data).hexdigest(), nal_types(data), f.read()
 
 
-def run_api(api, **kw):
-    """The library case: (stream md5, NAL types, each call's NAL bytes)."""
-    p = api.param_default_preset("superfast")
+def run_api(api, preset: str = "superfast", **kw):
+    """The library case at `preset` ("superfast", or "medium" over the
+    ramped clip): (stream md5, NAL types, each call's NAL bytes)."""
+    p = api.param_default_preset(preset)
     api.param_parse(p, "input-res", f"{W}x{H}")
     api.param_parse(p, "fps", "25")
     enc = api.encoder_open(p, **kw)
     stream, sizes = api.encoder_headers(enc), []
-    for f in clip_frames(API_FRAMES) + [None]:
+    for f in clip_frames(API_FRAMES, RAMP.get(preset, 0)) + [None]:
         pic = None
         if f is not None:
             pic = api.picture_init(p, api.picture_alloc())

@@ -216,11 +216,10 @@ def _empty_clip(path):
 
 
 def _runs(preset, tune, extra=()):
-    """Whether the port's CLI configures the session of preset x tune;
+    """Whether the port's CLI configures the session of preset x tune
+    (every preset but ultrafast, with or without weighted prediction);
     NotImplementedError names the slice that would add it."""
-    return not (preset == "ultrafast" or (
-        tune != "fastdecode" and preset not in ("superfast",)
-        and "--no-weightp" not in extra))
+    return preset != "ultrafast"
 
 
 @pytest.mark.parametrize("preset", PRESETS)
@@ -236,8 +235,7 @@ def test_every_preset_and_tune_runs_or_names_its_slice(tmp_path, preset):
                 assert t_cli.main(argv, device="cpu") == 0
                 assert os.path.getsize(dst) > 0
                 continue
-            want = "max_depth=1" if preset == "ultrafast" \
-                else "weighted-prediction"
+            want = "max_depth=1.*Queue 1 item 6"
             with pytest.raises(NotImplementedError, match=want) as e:
                 t_cli.main(argv, device="cpu")
             assert "slice" in str(e.value)
@@ -256,6 +254,25 @@ def test_other_presets_code_decodable_streams(tmp_path, argv):
     src, dst = str(tmp_path / "c.y4m"), str(tmp_path / "c.hevc")
     PP.write_clip(src, 3)
     assert t_cli.main([src, "-o", dst] + argv, device="cpu") == 0
+    cap = cv2.VideoCapture(dst)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    assert n == 3
+
+
+@pytest.mark.parametrize("preset", [None] + PRESETS[PRESETS.index(
+    "veryfast"):])
+def test_weighted_presets_code_decodable_streams(tmp_path, preset):
+    """The default command line (no preset flag: medium) and every preset
+    from veryfast through placebo, with weighted prediction, over 3 frames
+    of the clip fading by 6 a frame: every frame decodes with an
+    independent decoder (OpenCV's FFmpeg)."""
+    cv2 = pytest.importorskip("cv2")
+    src, dst = str(tmp_path / "w.y4m"), str(tmp_path / "w.hevc")
+    PP.write_clip(src, 3, -6)
+    argv = [src, "-o", dst] + (["--preset", preset] if preset else [])
+    assert t_cli.main(argv, device="cpu") == 0
     cap = cv2.VideoCapture(dst)
     n = 0
     while cap.read()[0]:
@@ -378,10 +395,49 @@ def test_open_gop_session_codes_cra_and_rasl():
     assert run(open_gop=True)[2] == run()[2]
 
 
+def _jax_csv_header(level2: bool) -> str:
+    """The JAX CLI's CSV header, read from the source of its main (running
+    it would compile its quadtree programs)."""
+    import inspect
+    import re
+    from x265_yuuki_asuna_tpu import cli as j_cli
+    src = inspect.getsource(j_cli.main)
+    base = re.search(r'csv_header = \(\s*"([^"]*)"\s*"([^"]*)"\)', src)
+    extra = re.search(r'csv_header \+= "([^"]*)"', src)
+    return base.group(1) + base.group(2) + (extra.group(1) if level2 else "")
+
+
+def test_csv_level2_columns_match_jax(tmp_path):
+    """--csv-log-level 2 writes the reference's header (Device, Deblock,
+    SAO and Serialize ms after the quality columns) and a value in each of
+    its columns on every frame line. x265's default preset without B
+    frames takes the host-filter quadtree path, whose deblock and SAO are
+    timed in their own columns."""
+    src, dst = str(tmp_path / "c.y4m"), str(tmp_path / "c.hevc")
+    csv = str(tmp_path / "c.csv")
+    PP.write_clip(src, 3, -6)
+    assert t_cli.main([src, "-o", dst, "--bframes", "0", "--csv", csv,
+                       "--csv-log-level", "2"], device="cpu") == 0
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    head = _jax_csv_header(True)
+    assert head.endswith(", Device ms, Deblock ms, SAO ms, Serialize ms")
+    assert lines[0] == head
+    rows = [r.split(", ") for r in lines[1:-1]]
+    assert len(rows) == 3
+    assert all(len(r) == len(head.split(", ")) for r in rows)
+    assert sum(float(r[-3]) + float(r[-2]) for r in rows) > 0
+    # level 1 keeps the reference's quality columns only
+    assert t_cli.main([src, "-o", dst, "--bframes", "0", "--csv", csv],
+                      device="cpu") == 0
+    with open(csv) as f:
+        assert f.readline().rstrip("\n") == _jax_csv_header(False)
+
+
 def test_qpfile_qp_goes_through_the_ip_offset(tmp_path):
     """Why tests/test_cli_presets.py::test_cli_qpfile_and_chunk fails (its
-    command line, with --no-weightp: the port has no weighted prediction
-    yet): the reference CLI writes a qpfile QP into the rate control's
+    command line, weighted prediction on): the reference CLI writes a
+    qpfile QP into the rate control's
     base QP, so a forced I frame at "25" is coded at 25 - 3 = 22 (CQP's
     I-frame offset), and the QP stays 25 for the P frames after it until
     the next line; x265 codes the line's QP on that frame alone. The
@@ -394,7 +450,7 @@ def test_qpfile_qp_goes_through_the_ip_offset(tmp_path):
     assert t_cli.main([src, "-o", dst, "--qp", "32", "--keyint", "100",
                        "--bframes", "0", "--qpfile", qpf, "--csv", csv,
                        "--chunk-start", "1", "--chunk-end", "6",
-                       "--no-hash", "--no-weightp"], device="cpu") == 0
+                       "--no-hash"], device="cpu") == 0
     with open(csv) as f:
         rows = [r.split(", ") for r in f.read().splitlines()[1:-1]]
     assert [(r[1], int(r[3])) for r in rows] == [

@@ -133,9 +133,8 @@ def test_filters_do_not_open_other_later_options():
     with pytest.raises(NotImplementedError, match="RQT"):
         t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
                                   rqt=True, **LF)
-    with pytest.raises(NotImplementedError, match="weighted-prediction"):
-        t_top.VideoEncoderSession(64, 48, device="cpu", weightp=True,
-                                  **LF)
+    with pytest.raises(NotImplementedError, match="WPP"):
+        t_top.VideoEncoderSession(64, 48, device="cpu", wpp=True, **LF)
 
 
 @pytest.mark.slow

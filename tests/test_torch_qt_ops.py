@@ -4,7 +4,11 @@ quant, the window gather and subpel refinement, K1's multi-size sweep,
 the quadtree helpers (source_v, block_v availability, the median MV), the
 native quadtree slice writer (I, P and B) and the B-frame slice headers.
 Integer results are compared exactly, streams byte for byte; so are the
-float32 lambdas and MVD bits."""
+float32 lambdas and MVD bits. The window gather and subpel refinement are
+held to pinned digests of the JAX outputs (their eager jnp ops take
+seconds); the slow test recomputes them."""
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -138,8 +142,18 @@ def test_quant_dequant_per_block_qp_match_jax(log2n):
     assert np.array_equal(np.asarray(jd), td.numpy())
 
 
-@pytest.mark.parametrize("n", [8, 16, 32])
-def test_window_gather_and_subpel_refine_match_jax(n):
+def digest(arrays) -> str:
+    """sha256 of arrays in order: each one's shape and int64 values."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(np.asarray(a), np.int64)
+        h.update(repr(a.shape).encode() + a.tobytes())
+    return h.hexdigest()
+
+
+def _subpel_inputs(n):
+    """A 96x128 reference, the n-blocks' positions and integer MVs, and
+    sources near the blocks' reference samples."""
     rng = np.random.default_rng(n)
     H, W = 96, 128
     ref = rng.integers(0, 256, (H, W)).astype(np.int32)
@@ -151,17 +165,45 @@ def test_window_gather_and_subpel_refine_match_jax(n):
     src = np.clip(ref.reshape(H // n, n, W // n, n).transpose(0, 2, 1, 3)
                   .reshape(-1, n, n) + rng.integers(-9, 9, (nb, n, n)),
                   0, 255).astype(np.int32)
+    return ref, px, py, mx, my, src
+
+
+# digest() of the JAX package's gather_luma_window window and
+# subpel_refine_win (dqx, dqy, satd) on _subpel_inputs(n) (the eager jnp
+# ops take seconds per size on the CPU; the slow test recomputes them)
+SUBPEL_DIGEST = {
+    8: "64db2f105ff5aa0e205a4373659696c4669c60b35db23e7fd67b68f237e17589",
+    16: "ca13e94f27148b015b52aec530510d37a3917c869ad997df0baa8428256ef9ec",
+    32: "c602d5a545ad2bd7ac8b2a2de5d57b7d0773acfa38809756569afc8f0a1a0ef4"}
+
+
+def _subpel_port(n):
+    ref, px, py, mx, my, src = _subpel_inputs(n)
+    tw = t_interp.gather_luma_window(*(torch.as_tensor(a) for a in (
+        ref, px, py, mx, my)), n)
+    return [tw, *t_interp.subpel_refine_win(tw, torch.as_tensor(src), n)]
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_window_gather_and_subpel_refine_match_jax(n):
+    t = _subpel_port(n)
+    assert digest(t) == SUBPEL_DIGEST[n]
+    assert (t[1] != 0).any() and (t[2] != 0).any()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_window_gather_and_subpel_refine_jax_digest(n):
+    """Where SUBPEL_DIGEST comes from: the live JAX functions, equal to
+    the port's outputs array for array."""
+    ref, px, py, mx, my, src = _subpel_inputs(n)
     jw = j_interp.gather_luma_window(jnp.asarray(ref), jnp.asarray(px),
                                      jnp.asarray(py), jnp.asarray(mx),
                                      jnp.asarray(my), n, xp=jnp)
-    tw = t_interp.gather_luma_window(*(torch.as_tensor(a) for a in (
-        ref, px, py, mx, my)), n)
-    assert np.array_equal(np.asarray(jw), tw.numpy())
-    j = j_interp.subpel_refine_win(jw, jnp.asarray(src), n, xp=jnp)
-    t = t_interp.subpel_refine_win(tw, torch.as_tensor(src), n)
-    for a, b in zip(j, t):
+    j = [jw, *j_interp.subpel_refine_win(jw, jnp.asarray(src), n, xp=jnp)]
+    for a, b in zip(j, _subpel_port(n)):
         assert np.array_equal(np.asarray(a), b.numpy())
-    assert (t[0] != 0).any() and (t[1] != 0).any()
+    assert digest(j) == SUBPEL_DIGEST[n]
 
 
 @pytest.mark.parametrize("H,W", [(64, 64), (96, 128)])

@@ -176,7 +176,7 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 @pytest.mark.parametrize("option", [
     {"bframes": 3}, {"max_depth": 1}, {"rqt": True}, {"max_merge": 5},
     {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"hash_type": 1},
-    {"weightp": True},
+    {"bit_depth": 12},
     {"analysis_load": "a.dat"}, {"analysis_share": "save"}, {"wpp": True},
     {"n_refs": 2},
     {"bit_depth": 10}, {"dup_threshold": 50}, {"tmvp": True},
@@ -209,7 +209,7 @@ def test_rate_control_options_code_a_frame(option):
 
 @pytest.mark.parametrize("option", [
     {"frame_dup": True}, {"dup_threshold": 50}, {"hash_type": 1},
-    {"max_merge": 5}, {"tmvp": True}, {"bit_depth": 10}, {"weightp": True},
+    {"max_merge": 5}, {"tmvp": True}, {"bit_depth": 10}, {"wpp": True},
     {"rqt": True},
     {"n_refs": 2},
 ])
@@ -223,7 +223,9 @@ B_SESSION = dict(max_depth=2, bframes=3, b_adapt=0)
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"weightp": True}, "weightp"), ({"rqt": True}, "rqt"),
+    # (the id of the case weightp had: weightp now runs on B sessions)
+    pytest.param({"wpp": True}, "wpp", id="option0-weightp"),
+    ({"rqt": True}, "rqt"),
     ({"tmvp": True}, "tmvp"), ({"max_depth": 0}, "max_depth=0"),
     ({"max_merge": 5}, "max_merge"),
 ])

@@ -4,7 +4,8 @@ Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what an
 8-bit 4:2:0 IPPP or fixed-mini-GOP B session writes (Main profile, flat
 scaling lists, VUI timing, HRD, signal type and chroma location only,
 one reference per list, explicit
-short-term RPS, no WPP/tiles/slices, no weighted prediction or TMVP;
+short-term RPS, explicit weighted prediction of P slices, no
+WPP/tiles/slices, no weighted bi-prediction or TMVP;
 deblocking and SAO on or off, deblocking at the default offsets). The
 bits written are the same as the JAX package's for those settings.
 
@@ -70,6 +71,7 @@ class PPSInfo:
     sign_hiding: int = 0
     cu_qp_delta: int = 0             # per-CU QP (AQ / cuTree)
     diff_cu_qp_delta_depth: int = 0  # quantization group = CTU
+    weighted_pred: int = 0           # P slices carry a pred_weight_table
 
 
 def _profile_tier_level(bw: BitWriter, ptl: ProfileTierLevel):
@@ -251,7 +253,7 @@ def write_pps(pps: PPSInfo) -> bytes:
     bw.write_se(0)               # pps_cb_qp_offset
     bw.write_se(0)               # pps_cr_qp_offset
     bw.write_flag(0)             # pps_slice_chroma_qp_offsets_present_flag
-    bw.write_flag(0)             # weighted_pred_flag
+    bw.write_flag(pps.weighted_pred)  # weighted_pred_flag
     bw.write_flag(0)             # weighted_bipred_flag
     bw.write_flag(0)             # transquant_bypass_enabled_flag
     bw.write_flag(0)             # tiles_enabled_flag
@@ -274,7 +276,8 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
                        slice_qp: int, *, nal_type: int = NAL_IDR_W_RADL,
                        poc: int = 0, ref_poc_delta: int = 1,
                        pos_poc_delta: int = 0, rps: Optional[Tuple] = None,
-                       max_merge: int = 3, sao: bool = False) -> BitWriter:
+                       max_merge: int = 3, sao: bool = False,
+                       weights: Optional[dict] = None) -> BitWriter:
     """Returns a BitWriter positioned after byte_alignment() — ready for the
     caller to append CABAC slice data. slice_type: 0=B 1=P 2=I (one slice
     per picture, one reference per list).
@@ -285,7 +288,9 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
     (negatives, positives), each a list of (poc distance, used_by_curr)
     nearest first, e.g. a B-pyramid leaf that keeps an unused later
     anchor in its RPS. sao: the slice's SAO luma and chroma flags (written
-    when the SPS enables SAO)."""
+    when the SPS enables SAO). weights: the P slice's explicit weights
+    (see _write_pred_weight_table); with the PPS's weighted_pred_flag
+    every P slice carries the table, all flags 0 when weights is None."""
     bw = BitWriter()
     bw.write_flag(1)                         # first_slice_segment_in_pic_flag
     if 16 <= nal_type <= 23:                 # IRAP
@@ -316,6 +321,8 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
         bw.write_flag(0)                     # num_ref_idx_active_override_flag
         if slice_type == 0:
             bw.write_flag(0)                 # mvd_l1_zero_flag
+        if pps.weighted_pred and slice_type == 1:
+            _write_pred_weight_table(bw, weights or {})
         bw.write_ue(5 - max_merge)           # five_minus_max_num_merge_cand
     bw.write_se(slice_qp - pps.init_qp)
     if pps.loop_filter_across_slices and (sao or
@@ -325,3 +332,25 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
     bw.write_bits(1, 1)
     bw.write_align_zero()
     return bw
+
+
+def _write_pred_weight_table(bw: BitWriter, weights: dict) -> None:
+    """pred_weight_table (spec 7.3.6.3) of one L0 reference. weights:
+    {"denom": log2 denominator (default 6), "luma" / "cb" / "cr": (w, o)
+    or absent}; an absent luma weight codes flag 0, and with one chroma
+    weight the other codes the default (1 << denom, 0)."""
+    denom = weights.get("denom", 6)
+    bw.write_ue(denom)                       # luma_log2_weight_denom
+    bw.write_se(0)                           # delta_chroma_log2_weight_denom
+    luma, cb, cr = (weights.get(k) for k in ("luma", "cb", "cr"))
+    bw.write_flag(1 if luma else 0)          # luma_weight_l0_flag[0]
+    bw.write_flag(1 if (cb or cr) else 0)    # chroma_weight_l0_flag[0]
+    if luma:
+        w, o = luma
+        bw.write_se(w - (1 << denom))        # delta_luma_weight_l0
+        bw.write_se(o)                       # luma_offset_l0
+    if cb or cr:
+        for comp in (cb, cr):
+            w, o = comp or ((1 << denom), 0)
+            bw.write_se(w - (1 << denom))    # delta_chroma_weight_l0
+            bw.write_se(o + ((128 * w) >> denom) - 128)  # delta_chroma_offset

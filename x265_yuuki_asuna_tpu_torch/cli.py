@@ -11,8 +11,8 @@ default CTU 64 / minimum CU 8 becomes the CTU32 depth-2 quadtree), on the
 CUDA card (main(argv, device="cpu") runs every kernel's plain version).
 A setting the port's sessions do not run yet raises NotImplementedError
 from the session, naming the slice that adds it: --preset ultrafast (the
-depth-1 quadtree), the presets that turn weighted prediction on (veryfast
-through placebo) unless --no-weightp is given, 4:4:4 or 10-bit input.
+depth-1 quadtree), 4:4:4 or 10-bit input. Every other preset runs, the
+default (medium) and veryfast through placebo with weighted prediction.
 The ABR ladder, the multi-device pipeline, reconplay and the HDR10+ /
 Dolby Vision metadata raise NotImplementedError here.
 """
@@ -431,15 +431,17 @@ def main(argv=None, device=None):
     csv_timing = args.csv and args.csv_log_level >= 2
     stage_prev = {}
     if csv_timing:
-        csv_header += ", Device ms, Filters ms, Serialize ms"
+        csv_header += ", Device ms, Deblock ms, SAO ms, Serialize ms"
 
     def stage_ms():
-        """The session's stage ms since the last call: the programs
-        (device work and its launches), the filter chain, the writer."""
+        """The session's stage ms since the last call, in the reference's
+        columns: the programs (device work and its launches, with the
+        device-DPB filter chain that runs inside them), the host-form
+        deblock, the host-form SAO, the writer."""
         cur = dict(sess.stage_ms)
         vals = [sum(cur.get(k, 0.0) - stage_prev.get(k, 0.0) for k in keys)
-                for keys in (("intra", "inter", "inter_b"), ("filters",),
-                             ("serialize",))]
+                for keys in (("intra", "inter", "inter_b", "filters"),
+                             ("deblock",), ("sao",), ("serialize",))]
         stage_prev.clear()
         stage_prev.update(cur)
         return [round(v, 1) for v in vals]

@@ -21,7 +21,12 @@ With max_depth=2 the sessions code CTU32 quadtrees down to 8x8 CUs (the
 JAX video session's device-DPB quadtree path): the reference pictures
 stay on the device between frames and are copied to the host only for
 the hash SEI, the quality metrics and the returned recon (recon_out=False
-with neither of the others: never, and FrameResult.recon is None). hme
+with neither of the others: never, and FrameResult.recon is None). With
+dpb_device=False, and always under weightp, the session codes the JAX
+session's host-filter quadtree path instead: its references stay on the
+device too, but every frame's filters run in the reference's host form
+(the SAO cost's float32 rounding, ops/sao.py) and a B session takes each
+frame's QP as it codes it. hme
 adds the hierarchical search to the quadtree P and B programs, psy_rd
 the psycho-visual term to their leaf RD (and the intra program's), and
 b_intra intra candidates to the B program (then committed as in P
@@ -35,6 +40,14 @@ quadtree programs run the JAX device-DPB filter chain after the commit
 host form of SAO). The filtered picture is the reference, the recon
 returned and the one the hash SEI hashes; the SAO parameters go into the
 slice data.
+
+weightp turns on explicit weighted prediction of P frames (the IPPP
+frames and a B session's P anchors; the PPS's weighted_pred_flag, a
+pred_weight_table in every P slice): per frame, _decide_weights picks a
+weight and offset per component from the 4x-subsampled source and
+reference planes (numpy float64 on the host, in the reference's order),
+and the P program searches on the weighted reference and predicts
+through the normative weighted combine.
 
 sbh (sign-bit hiding) and rdoq (RDOQ, with psy_rdoq) change how every
 program picks its levels (ops/quant.Quantizer); sign hiding is off under
@@ -130,8 +143,6 @@ _P = "a later P-frame slice"
 _LATER = {
     "max_merge": _P, "n_refs": _P, "tmvp": _P, "frame_dup": _P,
     "dup_threshold": _P,
-    "weightp": "the weighted-prediction slice (weightp on the quadtree's "
-               "host-filter path, ROADMAP Queue 1 item 5)",
     "analysis_save": "the analysis save/load slice",
     "analysis_load": "the analysis save/load slice",
     "analysis_share": "the analysis save/load slice",
@@ -145,7 +156,7 @@ _LATER = {
 }
 # the defaults of those keywords in each JAX session
 _VIDEO_DEFAULTS = {
-    "max_merge": 3, "weightp": False, "n_refs": 1, "tmvp": False,
+    "max_merge": 3, "n_refs": 1, "tmvp": False,
     "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
     "analysis_load": None, "analysis_share": None, "scale_factor": 1,
     "rqt": False, "bit_depth": 8, "hash_type": 0, "wpp": False}
@@ -177,7 +188,7 @@ def _grid(max_depth: int, cu_size: int) -> int:
         raise NotImplementedError(
             f"max_depth={max_depth}: the port codes the uniform grid "
             "(0) and the CTU32 depth-2 quadtree (2); the max_depth=1 "
-            "slice adds depth 1")
+            "slice adds depth 1 (ROADMAP Queue 1 item 6)")
     if max_depth and cu_size == 64:
         raise NotImplementedError(
             "max_depth with cu_size=64: the CTU64 slice adds CTU64 "
@@ -223,16 +234,20 @@ def effective_qp_map(out: dict, qp_map, slice_qp: int):
 
 
 def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
-                   sao: bool, src3, device) -> None:
+                   sao: bool, src3, device, stage_ms) -> None:
     """The uniform grid's in-loop filters on a decision dict's recon (the
     JAX sessions' host path): the IDR deblocked with every CU edge at BS
     2, a P frame with per-edge BS, at the slice QP qp or, with a "qp_map"
     in out, at each CU's decoder-side QP; then SAO per cu x cu CU in the
     host form at the slice QP. src3: the padded source planes. Sets the
-    filtered recon_* and, with sao, "sao" (packed [ncu, 18]). Runs inside
-    a profiler range named "filters"."""
+    filtered recon_* and, with sao, "sao" (packed [ncu, 18]). Each filter
+    is timed as its stage of stage_ms ("deblock", "sao"), inside a
+    profiler range named "filters"."""
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else \
+        (lambda: None)
     with torch.profiler.record_function("filters"):
+        t0 = time.perf_counter()
         rec = tuple(t(out[k]).to(torch.int32)
                     for k in ("recon_y", "recon_u", "recon_v"))
         qpc = chroma_qp_from_luma(qp)
@@ -246,12 +261,19 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
                 t(out["use_intra"]), cbf, None, t(out["mvx"]),
                 t(out["mvy"]))
             rec = DB.deblock_frame_inter(*rec, cu, qarg, qpc, bs_v, bs_h)
+        if deblock:
+            sync()
+            t1 = time.perf_counter()
+            stage_ms["deblock"] += (t1 - t0) * 1e3
+            t0 = t1
         if sao:
             src = tuple(t(p).to(torch.int32) for p in src3)
             rec, params = SAO.sao_frame(rec, src, cu, qp, "host")
             out["sao"] = params.cpu().numpy()
         out["recon_y"], out["recon_u"], out["recon_v"] = (
             p.cpu().numpy() for p in rec)
+        stage_ms["sao" if sao else "deblock"] += \
+            (time.perf_counter() - t0) * 1e3
 
 
 @dataclass
@@ -281,13 +303,14 @@ def _timed(stage_ms, stage: str, fn, *args, **kw):
 
 
 def _program(stage_ms, stage: str, enc, *args, **kw) -> dict:
-    """A frame program's decision dict; the quadtree programs' filter
-    chain is timed as the "filters" stage, the rest as `stage`."""
+    """A frame program's decision dict; the quadtree programs' filters
+    are timed as their own stages ("filters" for the device-DPB chain,
+    "deblock" and "sao" for the host form), the rest as `stage`."""
     out = _timed(stage_ms, stage, enc.encode_frame, *args, **kw)
     flt = getattr(enc, "filters", None)
-    if flt is not None and flt.ms:
-        stage_ms[stage] -= flt.ms
-        stage_ms["filters"] += flt.ms
+    for k, ms in (flt.ms.items() if flt is not None else ()):
+        stage_ms[stage] -= ms
+        stage_ms[k] += ms
     return out
 
 
@@ -453,8 +476,8 @@ class IntraEncoderSession:
     def _filter(self, out: dict, qp: int, src3, with_sao: bool) -> None:
         sao = self.sao and with_sao
         if self.deblock or sao:
-            _timed(self.stage_ms, "filters", filter_uniform, out, qp, True,
-                   self.cu, self.deblock, sao, src3, self.device)
+            filter_uniform(out, qp, True, self.cu, self.deblock, sao, src3,
+                           self.device, self.stage_ms)
 
     def assemble_slice(self, out: dict, qp: int,
                        nal_type: int = NAL_IDR_W_RADL, poc: int = 0) -> bytes:
@@ -579,7 +602,10 @@ class VideoEncoderSession:
     grids; psy_rd: psycho-visual RD in the quadtree's leaf decisions;
     b_intra: intra candidates in the quadtree's B slices; open_gop: every
     keyframe after the first of a B session is a CRA with the frames
-    pending at it as RASL leading pictures. device=None runs on the CUDA
+    pending at it as RASL leading pictures; weightp: weighted prediction
+    of P frames; dpb_device (quadtree; None: on unless weightp, which
+    turns it off, as in the reference): False codes the host-filter
+    path. device=None runs on the CUDA
     card (and raises when there is none); device="cpu" runs every
     kernel's plain PyTorch version. Options of the JAX session outside
     these slices raise NotImplementedError."""
@@ -605,7 +631,8 @@ class VideoEncoderSession:
                  hist_scenecut: bool = False, recon_out: bool = True,
                  dpb_device: bool = None, search_range: int = 16,
                  psy_rd: float = 0.0, b_intra: bool = False,
-                 open_gop: bool = False, device=None, **options):
+                 open_gop: bool = False, weightp: bool = False, device=None,
+                 **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         # frames wait rc_lookahead frames for cuTree's window (cuTree only)
@@ -616,11 +643,12 @@ class VideoEncoderSession:
                 "frames on the CTU32 depth-2 quadtree only; B frames on the "
                 "uniform 16x16 grid are still to come (a later B-frame "
                 "slice)")
-        if dpb_device is False and max_depth:
-            raise NotImplementedError(
-                "dpb_device=False with max_depth=2: the port keeps the "
-                "quadtree session's references on the device; a later "
-                "slice adds the host-filter quadtree video path")
+        # the reference's device DPB: the quadtree without weightp; off,
+        # the quadtree frames take the host-filter path
+        dpb_ok = bool(max_depth) and not weightp
+        self.dpb_device = dpb_ok if dpb_device is None \
+            else bool(dpb_device) and dpb_ok
+        self.weightp = bool(weightp)
         # the quadtree programs' recon planes come to the host only for
         # the hash SEI, the returned recon and the quality metrics
         recon_host = bool(recon_out or quality_metrics or hash_sei)
@@ -629,8 +657,8 @@ class VideoEncoderSession:
         self.intra_sess = IntraEncoderSession(
             width, height, qp, cu_size, fps, hash_sei=False,
             deblock=deblock, sao=sao, rdoq=rdoq, sbh=sbh, psy_rdoq=psy_rdoq,
-            max_depth=max_depth, dpb_device=True, recon_host=recon_host,
-            psy_rd=psy_rd, device=device)
+            max_depth=max_depth, dpb_device=self.dpb_device,
+            recon_host=recon_host, psy_rd=psy_rd, device=device)
         self.device = self.intra_sess.device
         self.src_w, self.src_h = width, height
         self.qp = qp
@@ -647,7 +675,7 @@ class VideoEncoderSession:
         self.deblock, self.sao = bool(deblock), bool(sao)
         self.sbh = self.intra_sess.sbh
         # the uniform grid's filters run in the session, the quadtree's in
-        # its programs
+        # its programs (in the host form without the device DPB)
         self.session_filters = (self.deblock or self.sao) and not max_depth
         self.coded_w = self.intra_sess.coded_w
         self.coded_h = self.intra_sess.coded_h
@@ -660,8 +688,10 @@ class VideoEncoderSession:
             ((5, 2) if self.b_pyramid else (4, 1)) if self.bframes else (2, 0)
         self.aq_mode, self.aq_strength, self.cutree = aq_mode, aq_strength, \
             bool(cutree)
-        # the PPS signals cu_qp_delta for the whole session
+        # the PPS signals cu_qp_delta and weighted prediction for the
+        # whole session
         self.pps.cu_qp_delta = int(bool(aq_mode or cutree))
+        self.pps.weighted_pred = int(self.weightp)
         quant_fn = self.intra_sess.quant_fn
         # B slices evaluate intra candidates with b_intra (the
         # reference's bIntraInBFrames: x265's presets and --b-intra
@@ -674,11 +704,12 @@ class VideoEncoderSession:
                 self.coded_w, self.coded_h, self.device, self.deblock,
                 self.sao, quant_fn, hme=hme, hme_range=hme_range,
                 recon_host=recon_host, psy_rd=psy_rd, b_intra=self.b_intra,
-                search_range=search_range)
+                search_range=search_range, weightp=self.weightp,
+                sao_form="program" if self.dpb_device else "host")
         else:
             self.inter_encoder = InterFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device, quant_fn,
-                search_range)
+                search_range, self.weightp)
         self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device,
                                    hist_scenecut=hist_scenecut)
         # the lookahead's scene cut places keyframes (the host API's
@@ -711,7 +742,8 @@ class VideoEncoderSession:
         # two-pass; the #options header holds the fields x265's pass-2
         # parser checks
         opts = (f"input-res={width}x{height} fps={fps[0]}/{fps[1]} "
-                f"bitdepth=8 weightp=0 bframes={max(0, bframes)} "
+                f"bitdepth=8 weightp={int(self.weightp)} "
+                f"bframes={max(0, bframes)} "
                 f"b-pyramid={int(bool(b_pyramid))} "
                 f"open-gop={int(bool(open_gop))} "
                 f"keyint={keyint} scenecut=40 intra-refresh=0 frame-dup=0 "
@@ -1069,9 +1101,9 @@ class VideoEncoderSession:
         as a P anchor, the others as B frames between the previous anchor
         and it; the rest stay pending. With b_pyramid and two or more B
         frames the middle one is a referenced B and the others predict
-        from it and the nearer anchor. Under CQP without two-pass the
-        frames' QPs are taken first, in this order (the reference's
-        pipelined mini-GOP)."""
+        from it and the nearer anchor. Under CQP without two-pass, on the
+        device DPB, the frames' QPs are taken first, in this order (the
+        reference's pipelined mini-GOP)."""
         if not self.pending:
             return []
         if count is None or count >= len(self.pending):
@@ -1112,7 +1144,8 @@ class VideoEncoderSession:
             plan += [(i, prev_poc + 1 + i, 2,
                       ("prev", prev_poc, "anchor", anchor_poc), None)
                      for i in range(nb)]
-        pipelined = self.rc.cfg.mode == "cqp" and self.two_pass is None
+        pipelined = (self.dpb_device and self.rc.cfg.mode == "cqp"
+                     and self.two_pass is None)
         qps = [self._timed("rc", self._minigop_qp, p[1], p[2])
                for p in plan] if pipelined else [None] * len(plan)
         refs, out = {"prev": prev_anchor}, []
@@ -1238,17 +1271,55 @@ class VideoEncoderSession:
                 qp_map=None):
         """(decision dict, slice NAL) of a P picture predicted from the
         recon planes `ref`, ref_delta pictures before it (at the per-CU
-        QP map qp_map when given)."""
+        QP map qp_map when given), with weightp at the weights
+        _decide_weights picks against `ref`."""
         kw = {"slice_qp": qp} if self.max_depth else {}
+        weights = None
+        if self.weightp:
+            weights = self._timed("weights", self._decide_weights, yp, up,
+                                  vp, ref)
+            kw["weights"] = weights
         out = _program(self.stage_ms, "inter", self.inter_encoder, yp, up,
                        vp, *ref, qp if qp_map is None else qp_map, **kw)
         if qp_map is not None:
             out["qp_map"] = qp_map
         if self.session_filters:
-            self._timed("filters", filter_uniform, out, qp, False, self.cu,
-                        self.deblock, self.sao, (yp, up, vp), self.device)
+            filter_uniform(out, qp, False, self.cu, self.deblock, self.sao,
+                           (yp, up, vp), self.device, self.stage_ms)
         return out, self._timed("serialize", self._assemble_p_slice, out, qp,
-                                poc, ref_delta)
+                                poc, ref_delta, weights)
+
+    @staticmethod
+    def _decide_weights(yp, up, vp, ref):
+        """The P frame's explicit weights against the reference planes
+        `ref` (host arrays or device tensors; only their [::4, ::4]
+        samples are read): per component, from the 4x-subsampled planes
+        in float64, a weight from the ratio of the standard deviations
+        (none when the reference's is under 0.5), an offset from the
+        means, each rounded and clipped, kept when it is not the identity
+        and cuts the subsampled SAD below 99% of the unweighted one.
+        Returns {"luma" / "cb" / "cr": (w, o)} at denominator 6, or None
+        (the reference's weightAnalyse shape, in its order)."""
+        out = {}
+        for comp, src, rp in (("luma", yp, ref[0]), ("cb", up, ref[1]),
+                              ("cr", vp, ref[2])):
+            s = np.asarray(src)[::4, ::4].astype(np.float64)
+            r = rp[::4, ::4]
+            r = (r.cpu().numpy() if isinstance(r, torch.Tensor)
+                 else np.asarray(r)).astype(np.float64)
+            sd_r = r.std()
+            if sd_r < 0.5:
+                continue
+            w = int(round(64.0 * min(max(s.std() / sd_r, 0.1), 1.99)))
+            w = min(max(w, 1), 127)
+            o = int(round(s.mean() - w * r.mean() / 64.0))
+            o = min(max(o, -128), 127)
+            if (w, o) == (64, 0):
+                continue
+            wr = np.clip((r * w / 64.0) + o, 0, 255)
+            if np.abs(s - wr).sum() < 0.99 * np.abs(s - r).sum():
+                out[comp] = (w, o)
+        return out or None
 
     @staticmethod
     def _recon_ref(out: dict):
@@ -1304,13 +1375,15 @@ class VideoEncoderSession:
             self.stats_writer.add(frame_type, qp, bits, la_cost, cuoff=co)
 
     def _assemble_p_slice(self, out: dict, qp: int, poc: int,
-                          ref_delta: int) -> bytes:
-        """P slice referencing the picture ref_delta before it."""
+                          ref_delta: int, weights=None) -> bytes:
+        """P slice referencing the picture ref_delta before it, with the
+        explicit weights `weights` under weightp."""
         sao = out.get("sao")
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=1,
                                     slice_qp=qp, nal_type=NAL_TRAIL_R,
                                     poc=poc, ref_poc_delta=ref_delta,
-                                    max_merge=MAX_MERGE, sao=sao is not None)
+                                    max_merge=MAX_MERGE, sao=sao is not None,
+                                    weights=weights)
         qp_map = out.get("qp_map")
         if self.max_depth:
             res = native.encode_slice_qt2(1, self.max_depth, out, qp,

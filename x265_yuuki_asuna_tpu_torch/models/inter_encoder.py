@@ -4,7 +4,7 @@ for the intra-vs-inter decision and reconstruction.
 Port of the single-reference uni-prediction P branch of
 x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`), with
 sign-bit hiding (diagonal scan) or static-bit RDOQ, at one QP or a per-CU
-QP map.
+QP map, and with explicit weighted prediction (weightp).
 Phase A runs for every CU at once: integer full search through K1
 (`ops.me.full_search_sad`), half- then quarter-pel SATD refinement, motion
 compensation. Phase B walks the CU diagonals (a Python loop, one batch of
@@ -35,12 +35,37 @@ from .intra_encoder import (WaveState, Wavefront, cb_cr, cu_qps,
 _NBR = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (1, -1), (-1, 1), (1, 1))
 
 
+def frame_weights(weights) -> tuple:
+    """The ((w, o) luma, cb, cr) a weighted P program runs with: the
+    chosen weights, (64, 0) for each component without one (weights None:
+    all three)."""
+    weights = weights or {}
+    return tuple(weights.get(c) or (64, 0) for c in ("luma", "cb", "cr"))
+
+
+def weighted_preds(refs, px, py, mx, my, nn: int, wts):
+    """The normative weighted prediction (y, u, v) of every nn-block: the
+    short-domain MC of the unweighted reference planes refs at the
+    quarter-pel MVs, then weight_uni with each component's (w, o)."""
+    pxc, pyc = px // 2, py // 2
+    ps = (interp.mc_luma_qpel_ps(refs[0], px, py, mx, my, nn),
+          interp.mc_chroma_qpel_ps(refs[1], pxc, pyc, mx, my, nn // 2),
+          interp.mc_chroma_qpel_ps(refs[2], pxc, pyc, mx, my, nn // 2))
+    return tuple(interp.weight_uni(p, w, o) for p, (w, o) in zip(ps, wts))
+
+
 class InterFrameEncoder:
-    """Uniform-grid P-frame encoder (one L0 reference) for one geometry."""
+    """Uniform-grid P-frame encoder (one L0 reference) for one geometry.
+    weightp: every frame takes the weighted branch (the search on the
+    weight-transformed reference, the normative weighted prediction), with
+    the identity weight for a component that has none, as the reference's
+    program does."""
 
     def __init__(self, width: int, height: int, cu_size: int, device,
-                 quant_fn: Quantizer = PLAIN, search_range: int = 16):
+                 quant_fn: Quantizer = PLAIN, search_range: int = 16,
+                 weightp: bool = False):
         self.n = cu_size
+        self.weightp = bool(weightp)
         # integer full search over [-search_range, search_range]^2
         self.search_range = search_range
         self.rows, self.cols = height // cu_size, width // cu_size
@@ -54,14 +79,19 @@ class InterFrameEncoder:
 
     # ---------- phase A: dense ME + MC over all CUs ----------------------
     def motion_phase(self, y: torch.Tensor, ref_y: torch.Tensor,
-                     ref_u: torch.Tensor, ref_v: torch.Tensor):
-        """y, ref_*: uint8 planes. Returns quarter-pel (mvx, mvy), the
+                     ref_u: torch.Tensor, ref_v: torch.Tensor, wts=None):
+        """y, ref_*: uint8 planes; wts: ((w, o) luma, cb, cr) for the
+        weighted branch, or None. Returns quarter-pel (mvx, mvy), the
         luma/chroma predictions [ncu, n, n] / [ncu, n/2, n/2] and the
         inter SATD [ncu]."""
         n, px, py = self.n, self.px, self.py
         yb = to_blocks(y.to(torch.int32), n)
-        ry = ref_y.to(torch.int32)
-        mvx_i, mvy_i, _ = me.full_search_sad(ref_y, y, n, self.search_range,
+        # the weighted branch searches (integer and subpel) on the
+        # weight-transformed luma reference
+        search = ref_y if wts is None else interp.weight_plane(ref_y,
+                                                               *wts[0])
+        ry = search.to(torch.int32)
+        mvx_i, mvy_i, _ = me.full_search_sad(search, y, n, self.search_range,
                                              lambda_bits=2)
         mvx, mvy = mvx_i * 4, mvy_i * 4
 
@@ -81,6 +111,11 @@ class InterFrameEncoder:
                 by = torch.where(better, my, by)
                 best = torch.minimum(c, best)
             mvx, mvy = bx, by
+        if wts is not None:
+            pred_y, pred_u, pred_v = weighted_preds(
+                tuple(p.to(torch.int32) for p in (ref_y, ref_u, ref_v)),
+                px, py, mvx, mvy, n, wts)
+            return mvx, mvy, pred_y, pred_u, pred_v, pixel.satd(yb, pred_y)
         pred_y = interp.mc_luma_qpel(ry, px, py, mvx, mvy, n)
         # chroma: a quarter-luma-pel MV is an eighth-chroma-pel MV
         pred_u = interp.mc_chroma_qpel(ref_u.to(torch.int32), px // 2,
@@ -90,10 +125,13 @@ class InterFrameEncoder:
         return mvx, mvy, pred_y, pred_u, pred_v, pixel.satd(yb, pred_y)
 
     # ---------------------------------------------------------------------
-    def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp) -> dict:
+    def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp,
+                     weights=None) -> dict:
         """All planes 8-bit, padded to the coded size; ref_* are the
         decoded reference planes; qp one QP or the per-CU QP map (AQ /
-        cuTree). Returns the decision dict (numpy)."""
+        cuTree); weights (weightp): {"luma" / "cb" / "cr": (w, o)} at
+        denominator 6, a missing component the identity. Returns the
+        decision dict (numpy)."""
         dev = self.device
         n = self.n
         ncu = self.rows * self.cols
@@ -103,7 +141,8 @@ class InterFrameEncoder:
         pl = lambda p: torch.as_tensor(np.ascontiguousarray(p, np.uint8),
                                        device=dev)
         mvx, mvy, pred_yb, pred_ub, pred_vb, isatd = self.motion_phase(
-            pl(y), pl(ref_y), pl(ref_u), pl(ref_v))
+            pl(y), pl(ref_y), pl(ref_u), pl(ref_v),
+            frame_weights(weights) if self.weightp else None)
         yb, ub, vb = planes_to_blocks(y, u, v, n, dev)
 
         # ---------- phase B: wavefront decision + recon ------------------
@@ -229,11 +268,13 @@ class InterQTEncoder:
     """CTU32 depth-2 quadtree P- and B-frame encoder, one reference per
     list: dense decide, then the commit of the intra leaves. Port of
     InterFrameEncoder._build_qt + _unpack_qt with bi=False and with
-    bi=True (max_depth=2, 8-bit, no RQT / weighted prediction; quant_fn:
-    plain, sign-bit hiding under the mode-dependent scan or context RDOQ;
-    psy_rd: the psycho-visual term of the leaf RD; b_intra: intra
-    candidates in B slices (intra_in_b); the device-DPB filter chain runs
-    last when deblock or sao is set; hme: the hierarchical search).
+    bi=True (max_depth=2, 8-bit, no RQT; quant_fn: plain, sign-bit hiding
+    under the mode-dependent scan or context RDOQ; psy_rd: the
+    psycho-visual term of the leaf RD; b_intra: intra candidates in B
+    slices (intra_in_b); the filter chain runs last when deblock or sao is
+    set, with SAO in sao_form: "program" (the device-DPB chain) or "host"
+    (the reference's host filters, ops/filters.py); hme: the hierarchical
+    search; weightp: explicit weighted prediction of P frames).
 
     Dense phase, for every block of every size (32, 16, 8): K1's frame
     sweep per list over +-search_range (the surface kernel, then the
@@ -262,20 +303,32 @@ class InterQTEncoder:
     the source-neighbour intra candidate competes at every size, 8x8
     included, and the commit reconstructs the decided intra leaves as in
     a P frame; without it (--no-b-intra) the decided inter leaves are the
-    frame: there is no commit."""
+    frame: there is no commit.
+
+    Weighted P frames (weightp; B frames are never weighted): K1's
+    surface, HME's coarse sweep, the coarse MV's SAD and the subpel
+    refinement run on the weight-transformed luma reference
+    (interp.weight_plane), and the motion decision keeps the ME winner:
+    no merge candidate is scored; its bits are the MVD bits + 2 and its
+    prediction the normative weighted MC of the unweighted planes. A
+    component without a weight takes the identity (64, 0), so a weightp
+    frame with no weights chosen still takes this branch, as in the
+    reference."""
 
     def __init__(self, width: int, height: int, device,
                  deblock: bool = False, sao: bool = False,
                  quant_fn: Quantizer = PLAIN, hme: bool = False,
                  hme_range: int = 16, recon_host: bool = True,
                  psy_rd: float = 0.0, b_intra: bool = False,
-                 search_range: int = 16):
+                 search_range: int = 16, weightp: bool = False,
+                 sao_form: str = "program"):
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
         self.quant_fn = quant_fn
         self.psy_rd, self.b_intra = psy_rd, bool(b_intra)
         self.search_range = search_range
-        self.filters = QT.LoopFilters(deblock, sao)
+        self.weightp = bool(weightp)
+        self.filters = QT.LoopFilters(deblock, sao, sao_form)
         self.hme, self.hme_range = hme, hme_range
         # the decision dict carries the recon planes on the host
         # (recon_y / _u / _v); off, only recon_dev holds them
@@ -399,18 +452,20 @@ class InterQTEncoder:
         return mo, pred, fb
 
     def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp, ref1=None,
-                     slice_qp: int = None) -> dict:
+                     slice_qp: int = None, weights=None) -> dict:
         """y, u, v: 8-bit planes padded to the coded size; ref_*: the L0
         reference picture's recon planes (numpy or device tensors, uint8);
         qp: one QP or the per-CTU QP map (AQ / cuTree), slice_qp the
         slice's (the filters' default QP; default the map's largest);
         ref1: the L1 reference's (y, u, v) for a B frame, None for a P
-        frame. Returns the decision dict (numpy), "recon_dev", the
-        (filtered) recon planes as uint8 device tensors, and with SAO
+        frame; weights (weightp, P frames): {"luma" / "cb" / "cr": (w, o)}
+        at denominator 6. Returns the decision dict (numpy), "recon_dev",
+        the (filtered) recon planes as uint8 device tensors, and with SAO
         "sao", its parameters packed [ncu, 18]."""
         geo = self.geo
         dev = geo.device
         bi = ref1 is not None
+        wts = frame_weights(weights) if self.weightp and not bi else None
         y8, u8, v8 = (_plane_u8(p, dev) for p in (y, u, v))
         r8 = [tuple(_plane_u8(p, dev) for p in (ref_y, ref_u, ref_v))]
         if bi:
@@ -418,19 +473,27 @@ class InterQTEncoder:
         y32, u32, v32 = (p.to(torch.int32) for p in (y8, u8, v8))
         refs = [tuple(p.to(torch.int32) for p in r) for r in r8]
         fq = QT.FrameQp(geo, qp, slice_qp)
+        # each list's luma search plane: the weighted P frame's is the
+        # weight-transformed reference
+        search, search32 = [r[0] for r in r8], [r[0] for r in refs]
+        if wts is not None:
+            search[0] = interp.weight_plane(search[0], *wts[0])
+            search32[0] = search[0].to(torch.int32)
         # K1 on the uint8 planes, per list: the surface, then each size's
         # argmin
-        fine = [me.sad_sweep_multi(r[0], y8, (8, 16, QT.N),
-                                   self.search_range, lambda_bits=2)
-                for r in r8]
+        fine = [me.sad_sweep_multi(sp, y8, (8, 16, QT.N), self.search_range,
+                                   lambda_bits=2) for sp in search]
         coarse = [None] * len(r8)
         if self.hme:
             # the half-resolution planes stay within 0..255: uint8 for K1
             low = lambda p: downscale_half(p).to(torch.uint8)
             low_y = low(y8)
-            coarse = [me.sad_sweep_multi(low(r[0]), low_y,
-                                         (QT.N // 2, 8, 4), self.hme_range,
-                                         lambda_bits=2) for r in r8]
+            low_refs = [low(r[0]) for r in r8]
+            if wts is not None:
+                low_refs[0] = interp.weight_plane(low_refs[0], *wts[0])
+            coarse = [me.sad_sweep_multi(lr, low_y, (QT.N // 2, 8, 4),
+                                         self.hme_range, lambda_bits=2)
+                      for lr in low_refs]
         # B / P contexts, at the first CTU's QP as in the reference
         states = BC.init_states_dev(0 if bi else 1, fq.first)
         leaf, motion = {}, {}
@@ -438,11 +501,17 @@ class InterQTEncoder:
             px, py = geo.pxpy[nn]
             qp_blk, qpc_blk = fq.blk(nn, fq.cu), fq.blk(nn, fq.c)
             l2 = QT.lam2(qp_blk)
-            mvs = [self._refine(nn, y32, r[0], f, c)
-                   for r, f, c in zip(refs, fine, coarse)]
+            mvs = [self._refine(nn, y32, sp, f, c)
+                   for sp, f, c in zip(search32, fine, coarse)]
             if bi:
                 motion[nn], epred, ebits_mv = self._motion_b(
                     nn, y32, refs[0], refs[1], *mvs, states, qp_blk)
+            elif wts is not None:
+                # the ME winner, no merge candidates
+                bx, by, _ = mvs[0]
+                motion[nn] = (None, bx, by, None, None)
+                ebits_mv = _mv_bits(bx, by, states)
+                epred = weighted_preds(refs[0], px, py, bx, by, nn, wts)
             else:
                 bx, by, ebits_mv = self._motion(nn, y32, refs[0][0], mvs[0],
                                                 states, qp_blk)

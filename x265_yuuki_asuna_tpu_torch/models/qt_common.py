@@ -460,11 +460,13 @@ def by_ctu(a: torch.Tensor, m: torch.Tensor, shape) -> np.ndarray:
 class LoopFilters:
     """The quadtree programs' in-loop filters (deblock, SAO; each may be
     off; SAO in its "program" or "host" form) and the wall-clock ms of
-    the last frame's chain."""
+    the last frame's chain by stage: "filters" for the program form (the
+    device-DPB chain), "deblock" and "sao" apart for the host form (the
+    reference's host filters)."""
 
     def __init__(self, deblock: bool, sao: bool, sao_form: str = "program"):
         self.deblock, self.sao, self.sao_form = deblock, sao, sao_form
-        self.ms = 0.0
+        self.ms = {}
 
     def __call__(self, rec, src3, lv, fq: FrameQp, split, split16,
                  ui_sizes=None, mv_sizes=None, pdir_sizes=None,
@@ -473,23 +475,33 @@ class LoopFilters:
         filters are off) and its SAO parameters ([ncu, 18] int32 numpy,
         or None); the arguments of FL.qt_loopfilter, with the frame's
         per-CTU and slice QPs (fq); with_sao=False leaves SAO out of this
-        frame. The chain runs between two device synchronisations, inside
-        a profiler range named "filters"."""
-        self.ms = 0.0
+        frame. Each timed stage runs between two device synchronisations,
+        inside a profiler range named "filters"."""
+        self.ms = {}
         sao_on = self.sao and with_sao
         if not (self.deblock or sao_on):
             return rec, None
         dev = rec[0].device
         sync = torch.cuda.synchronize if dev.type == "cuda" else \
             (lambda: None)
+        host = self.sao_form == "host"
+        # the host form's two stages one after the other, the program
+        # form's chain as one
+        steps = [("deblock", self.deblock, False), ("sao", False, sao_on)] \
+            if host else [("filters", self.deblock, sao_on)]
+        rec, sao = tuple(rec), None
         sync()
-        t0 = time.perf_counter()
-        with torch.profiler.record_function("filters"):
-            rec, sao = FL.qt_loopfilter(tuple(rec), src3, fq.cu, fq.slice,
-                                        split, split16, ui_sizes, mv_sizes,
-                                        pdir_sizes, lv, self.deblock,
-                                        sao_on, self.sao_form)
-            sao = None if sao is None else sao.cpu().numpy()
-            sync()
-        self.ms = (time.perf_counter() - t0) * 1e3
+        for stage, db, so in steps:
+            if not (db or so):
+                continue
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("filters"):
+                rec, p = FL.qt_loopfilter(rec, src3, fq.cu, fq.slice, split,
+                                          split16, ui_sizes, mv_sizes,
+                                          pdir_sizes, lv, db, so,
+                                          self.sao_form)
+                if p is not None:
+                    sao = p.cpu().numpy()
+                sync()
+            self.ms[stage] = (time.perf_counter() - t0) * 1e3
         return rec, sao

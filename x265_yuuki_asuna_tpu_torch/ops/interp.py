@@ -3,8 +3,10 @@ over blocks with per-block fractional MVs.
 
 Port of x265_yuuki_asuna_tpu/ops/interp.py (mc_block_batch, mc_luma_qpel,
 mc_chroma_qpel, the short-domain mc_block_batch_ps / mc_luma_qpel_ps /
-mc_chroma_qpel_ps and the bi average add_avg, gather_luma_window,
-subpel_refine_win). Filter taps are spec constants (H.265 tables
+mc_chroma_qpel_ps, the bi average add_avg, the explicit-weight combine
+weight_uni, gather_luma_window, subpel_refine_win) and of the weighted
+motion search's reference transform (weight_plane, written inline in the
+JAX package's models/inter_encoder.py). Filter taps are spec constants (H.265 tables
 8-11/8-13); reference behavior (studied, not copied): common/ipfilter.cpp.
 
 One two-stage path serves all fractions: horizontal pixel->short with the
@@ -106,6 +108,26 @@ def add_avg(ps0: torch.Tensor, ps1: torch.Tensor,
     shift = 15 - bit_depth
     offset = (1 << (shift - 1)) + 2 * IF_INTERNAL_OFFS
     return ((ps0 + ps1 + offset) >> shift).clamp(0, (1 << bit_depth) - 1)
+
+
+def weight_uni(ps: torch.Tensor, w, o, denom: int = 6,
+               bit_depth: int = 8) -> torch.Tensor:
+    """Explicit weighted uni-prediction of a short-domain prediction ps
+    (spec 8.5.3.3.4.3): ((ps + IF_INTERNAL_OFFS) * w + round) >> log2WD,
+    then + o << (bit_depth - 8), clipped; log2WD = denom + 14 - bit_depth.
+    w / o: the signalled weight and offset (ints or int32 tensors)."""
+    log2wd = denom + 14 - bit_depth
+    return ((((ps + IF_INTERNAL_OFFS) * w + (1 << (log2wd - 1))) >> log2wd)
+            + (o << (bit_depth - 8))).clamp(0, (1 << bit_depth) - 1)
+
+
+def weight_plane(ref: torch.Tensor, w: int, o: int) -> torch.Tensor:
+    """The weighted motion search's reference plane: each sample
+    clip(((ref * w + 32) >> 6) + o, 0, 255), as uint8 (K1's input). This
+    guides the search only; the prediction is weight_uni of the MC of the
+    unweighted plane."""
+    return (((ref.to(torch.int32) * w + 32) >> 6) + o).clamp(0, 255) \
+        .to(torch.uint8)
 
 
 def mc_luma_qpel(ref_plane, px, py, mv_qpel_x, mv_qpel_y, n: int,

@@ -4,8 +4,9 @@
         [--max-depth 0 2] [--bframes 3] [--deblock] [--sao] [--sbh]
         [--rdoq] [--aq-mode 2] [--cutree] [--rc-mode crf] [--crf 28]
         [--bitrate 27000] [--vbv-maxrate 27000] [--vbv-bufsize 27000]
-        [--hme] [--b-adapt 2] [--flagship [--hme-turns 3]]
-        [--cli "--preset superfast"] [--intra] [--batch 4] [--device-only]
+        [--hme] [--b-adapt 2] [--weightp] [--fade 6]
+        [--flagship [--hme-turns 3]] [--cli "--preset superfast"]
+        [--intra] [--batch 4] [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
 depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
@@ -19,12 +20,16 @@ does the same with each coded frame (I, P, then the B frames) recorded on
 its own; the lookahead and the b-adapt decision, which push_frame runs
 before a frame is coded, are outside the records (their ms are the
 session's stages "lookahead" and "b_adapt", printed per session).
---hme switches the quadtree sessions' hierarchical search on. --cli
+--hme switches the quadtree sessions' hierarchical search on, --weightp
+the video sessions' weighted prediction (on the quadtree: the host-filter
+path; its host work is the stage "weights"); --fade N lowers the clip's
+luma by N a frame (clipped), so the weight analysis has a fade to find.
+--cli
 profiles the session the command line (x265_yuuki_asuna_tpu_torch.cli)
 builds from the given flags for a 1920x1080 25 fps input, in place of
 the other sessions (with B frames: each coded frame recorded, as above;
 e.g. "--preset superfast --no-b-intra", "--preset superfast --psy-rd
-0"). --flagship
+0", or "--preset medium" with --fade: x265's default, weighted). --flagship
 profiles bench.py's session (its constructor verbatim: the quadtree B
 session with HME, b-adapt 2, CRF 28, AQ 2, cuTree, deblock, SAO, sign
 hiding, no hash SEI, no recon to the host) in place of the other
@@ -63,12 +68,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 
-def synth_clip(n, w, h, seed=7):
+def synth_clip(n, w, h, seed=7, fade=0):
+    """The chip smoke test's clip (bench.py's synth_clip); fade > 0 lowers
+    frame i's luma by fade * i, clipped at 0 (a fade to black)."""
     rng = np.random.default_rng(seed)
     base = (np.add.outer(np.arange(h), np.arange(w)) % 256).astype(np.uint8)
     tex = rng.integers(0, 32, (h, w)).astype(np.uint8)
-    return [((base + np.roll(tex, (i * 2, i * 3), axis=(0, 1)) + i * 2)
-             .astype(np.uint8),
+    return [(np.clip((base + np.roll(tex, (i * 2, i * 3), axis=(0, 1))
+                      + i * 2).astype(np.uint8).astype(np.int32)
+                     - fade * i, 0, 255).astype(np.uint8),
              ((base[::2, ::2] // 2) + i).astype(np.uint8),
              ((255 - base[::2, ::2]) // 2).astype(np.uint8))
             for i in range(n)]
@@ -151,6 +159,7 @@ def _name(max_depth: int, bframes: int, kw: dict, intra: bool = False):
         + (f"_{kw['rc_mode']}" if kw.get("rc_mode", "cqp") != "cqp"
            else "") + ("_vbv" if kw.get("vbv_maxrate_kbps") else "") \
         + ("_hme" if kw.get("hme") else "") \
+        + ("_weightp" if kw.get("weightp") else "") \
         + (f"_badapt{kw.get('b_adapt', 2)}" if bframes else "")
 
 
@@ -185,11 +194,12 @@ FLAGSHIP = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
 def profile_session(max_depth: int, warm_frames: int,
                     bframes: int = 0, opts: dict = None,
                     device_only: bool = False, kw: dict = None,
-                    make=None, name: str = None) -> dict:
+                    make=None, name: str = None, fade: int = 0) -> dict:
     """One video session's recorded frames; kw: the constructor's
     keywords verbatim (else qp 32, keyint 250, the hash SEI, max_depth,
     bframes and opts); make: a function that returns a new session (in
-    place of the constructor), name its record's name."""
+    place of the constructor), name its record's name; fade: the clip's
+    luma ramp (synth_clip)."""
     from .models.encoder_top import VideoEncoderSession
     if make is None:
         if kw is None:
@@ -202,7 +212,7 @@ def profile_session(max_depth: int, warm_frames: int,
     bframes = probe.bframes
     out = []
     if bframes:
-        frames = synth_clip(bframes + 2, 1920, 1080)
+        frames = synth_clip(bframes + 2, 1920, 1080, fade=fade)
         warm = probe
         for f in frames:
             warm.push_frame(*f)
@@ -216,7 +226,7 @@ def profile_session(max_depth: int, warm_frames: int,
             sess.push_frame(*f)
         sess.flush()
     else:
-        frames = synth_clip(warm_frames + 2, 1920, 1080)
+        frames = synth_clip(warm_frames + 2, 1920, 1080, fade=fade)
         warm = probe
         for f in frames[:warm_frames]:
             warm.encode_frame(*f)
@@ -308,6 +318,10 @@ def main():
                     help="switch HME on (quadtree sessions)")
     ap.add_argument("--b-adapt", type=int, default=0, choices=(0, 1, 2),
                     help="with --bframes: the B sessions' b-adapt")
+    ap.add_argument("--weightp", action="store_true",
+                    help="switch weighted prediction on (video sessions)")
+    ap.add_argument("--fade", type=int, default=0,
+                    help="lower the clip's luma by this much a frame")
     ap.add_argument("--cli", default=None,
                     help="profile the command line's session of these "
                          "flags (one string) alone")
@@ -337,8 +351,8 @@ def main():
     if args.cli:
         print(json.dumps(profile_session(
             2, args.frames, device_only=args.device_only,
-            make=cli_session(args.cli), name=f"cli {args.cli}")),
-            flush=True)
+            make=cli_session(args.cli), name=f"cli {args.cli}",
+            fade=args.fade)), flush=True)
         return
     for md in args.max_depth:
         if args.intra:
@@ -349,13 +363,14 @@ def main():
                       bitrate_kbps=args.bitrate,
                       vbv_maxrate_kbps=args.vbv_maxrate,
                       vbv_bufsize_kbps=args.vbv_bufsize)
-            vid = dict(cutree=args.cutree, **rc)
+            vid = dict(cutree=args.cutree, weightp=args.weightp, **rc)
             if md and args.bframes:
                 vid["b_adapt"] = args.b_adapt
             if md:
                 vid["hme"] = args.hme
             rec = profile_session(md, args.frames, args.bframes if md else 0,
-                                  dict(opts, **vid), args.device_only)
+                                  dict(opts, **vid), args.device_only,
+                                  fade=args.fade)
         print(json.dumps(rec), flush=True)
 
 
