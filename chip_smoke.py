@@ -250,6 +250,7 @@ FLAGSHIP_FRAMES = 13  # the 1080p flagship: the IDR, three trellis decisions
 CLI_FRAMES = 9        # the CLI at --preset superfast: the IDR, 2 mini-GOPs
 API_FRAMES = 5        # the library at superfast: the IDR, one trellis
 MEDIUM_FRAMES = 6     # the CLI's default (medium): the IDR, one trellis
+B_UNIFORM_FRAMES = 9  # the uniform B session: the IDR, 2 mini-GOPs of 4
 R24_ME = "P-frame ME 1088x1920 R=24"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -1427,6 +1428,15 @@ def preset_pins():
     return pins
 
 
+def grid_pins():
+    """tests/grid_pins.py: the depth-1 quadtree's and the uniform grid's B
+    sessions over the golden clip, their golden configurations and the
+    JAX package's pins over them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import grid_pins as pins
+    return pins
+
+
 def weightp_pins():
     """tests/weightp_pins.py: weighted prediction's and the host-filter
     path's test clips (fades) and sessions, the JAX package's pins over
@@ -1545,9 +1555,45 @@ def phase_golden_cli(dev):
     res = pins.run_api(api)
     got["api_superfast"] = res[0]
     ok["api_superfast"] = res == pins.API_PIN
+    res = pins.run_api(api, "ultrafast")
+    got["api_ultrafast"] = res[0]
+    ok["api_ultrafast"] = res == pins.API_ULTRAFAST_PIN
     emit(phase="golden_cli", md5=got, match=ok)
     if not all(ok.values()):
         raise AssertionError(f"golden_cli: streams differ: {ok}")
+
+
+def phase_golden_grids(dev):
+    """The two grids this slice adds, on the card (tests/grid_pins.py):
+    golden_qt1, the golden intra_qt1 stream (the depth-1 intra session)
+    and the depth-1 video sessions (IPPP, B-pyramid, filtered on the
+    device chain and on the host-filter path under weightp and under AQ)
+    against the JAX package's md5s, (POC, type, QP) and NAL types; then
+    golden_uniform_b, the goldens bframes3_pyramid, bframes_badapt and
+    open_gop and the uniform B sessions (filters with AQ 2, open GOP with
+    a RASL_N picture) against theirs."""
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    pins = grid_pins()
+    got = {"intra_qt1": pins.golden_md5(top, "intra_qt1", device=dev)}
+    ok = {"intra_qt1": got["intra_qt1"] == pins.manifest("intra_qt1")}
+    for name in pins.QT1_SESSIONS:
+        stream, frames = pins.run_qt1(top, name, device=dev)
+        got[name] = pins.qt1_pin_of(stream, frames, name)
+        ok[name] = got[name] == pins.QT1_PINS[name] and \
+            pins.nal_types(stream) == pins.QT1_NALS[name]
+    emit(phase="golden_qt1", md5=got, match=ok)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_qt1: streams differ: {ok}")
+    got, ok = {}, {}
+    for name in ("bframes3_pyramid", "bframes_badapt", "open_gop"):
+        got[name] = pins.golden_md5(top, name, device=dev)
+        ok[name] = got[name] == pins.manifest(name)
+    for name in pins.UNI_B_SESSIONS:
+        got[name] = pins.run_uni_b(top, name, device=dev)
+        ok[name] = got[name] == pins.UNI_B_PINS[name]
+    emit(phase="golden_uniform_b", md5=got, match=ok)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_uniform_b: streams differ: {ok}")
 
 
 def _write_y4m(path, frames):
@@ -1559,11 +1605,13 @@ def _write_y4m(path, frames):
     wr.close()
 
 
-def phase_cli_cpu_vs_card(dev, n=6):
-    """The command line at --preset medium --no-weightp (SAO, AQ 2,
-    cuTree, b-adapt 2, bframes 4, psy-rd, intra in B slices) on a 416x240
-    clip of n frames, on the card and with device="cpu": equal streams and
-    CSV logs."""
+def phase_cli_cpu_vs_card(dev, n=6, phase="cli_cpu_vs_card",
+                          argv=("--preset", "medium", "--no-weightp")):
+    """The command line with argv (by default --preset medium --no-weightp:
+    SAO, AQ 2, cuTree, b-adapt 2, bframes 4, psy-rd, intra in B slices;
+    ultrafast_cpu_vs_card: --preset ultrafast, the depth-1 quadtree with
+    HME) on a 416x240 clip of n frames, on the card and with device="cpu":
+    equal streams and CSV logs."""
     from x265_yuuki_asuna_tpu_torch import cli
     md5, csv, secs = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1574,21 +1622,21 @@ def phase_cli_cpu_vs_card(dev, n=6):
             dst, log = os.path.join(tmp, tag + ".hevc"), \
                 os.path.join(tmp, tag + ".csv")
             t0 = time.perf_counter()
-            rc = cli.main([src, "-o", dst, "--preset", "medium",
-                           "--no-weightp", "--csv", log], device=where)
+            rc = cli.main([src, "-o", dst, *argv, "--csv", log],
+                          device=where)
             secs[tag] = time.perf_counter() - t0
             with open(dst, "rb") as f:
                 md5[tag] = hashlib.md5(f.read()).hexdigest()
             with open(log) as f:
                 csv[tag] = f.read().splitlines()
             if rc != 0:
-                raise AssertionError(f"cli_cpu_vs_card: rc {rc} ({tag})")
+                raise AssertionError(f"{phase}: rc {rc} ({tag})")
     same = md5["card"] == md5["cpu"] and csv["card"] == csv["cpu"]
-    emit(phase="cli_cpu_vs_card", frames=n, md5=md5, csv=csv["card"],
-         seconds=secs, match=same)
+    emit(phase=phase, argv=" ".join(argv), frames=n, md5=md5,
+         csv=csv["card"], seconds=secs, match=same)
     if not same:
-        raise AssertionError("cli_cpu_vs_card: the card's stream or CSV "
-                             "differs from the CPU's")
+        raise AssertionError(f"{phase}: the card's stream or CSV differs "
+                             "from the CPU's")
 
 
 class _Instrumented:
@@ -1600,8 +1648,18 @@ class _Instrumented:
         self.sess, self.call_ms, self.results = sess, [], []
         self.calls, enc = [], sess.inter_encoder
         self.run = enc.encode_frame
-        enc.encode_frame = lambda *a, **k: self.calls.append((a, k)) or \
-            self.run(*a, **k)
+        # each inter program call's K1 launches: ("P" or "B", counts)
+        self.k1_calls = []
+
+        def recorded(*a, **k):
+            self.calls.append((a, k))
+            before = k1_read()
+            out = self.run(*a, **k)
+            self.k1_calls.append((
+                "B" if k.get("ref1") is not None else "P",
+                {n: c - before[n] for n, c in k1_read().items()}))
+            return out
+        enc.encode_frame = recorded
         self.trellis, costs = [], sess.lookahead.badapt_path_costs
 
         def badapt(anchor, lows):
@@ -1644,6 +1702,16 @@ class _Instrumented:
                 "sad_block8_sweep": n_p + 2 * n_b,
                 "sad_block4_sweep": 0}
         return fps, order, stage, want
+
+
+    def k1_by_frame_type(self) -> dict:
+        """K1's launches of each inter program call, by frame type (the
+        distinct counts seen; one each on a fixed configuration)."""
+        out = {}
+        for t, c in self.k1_calls:
+            if c not in out.setdefault(t, []):
+                out[t].append(c)
+        return out
 
 
 def _plain_rerun(name, inst):
@@ -1885,6 +1953,141 @@ def phase_1080p_api_superfast(dev, n_frames=API_FRAMES):
     return launches
 
 
+def _program_launches(inst, bi: bool) -> int:
+    """CUDA kernel launches of the last P (bi False) or B frame's inter
+    program again (torch.profiler)."""
+    a, k = inst.last(bi)
+    return _launches(lambda: inst.run(*a, **k))
+
+
+def phase_1080p_cli_ultrafast(dev, n_frames=CLI_FRAMES):
+    """The command line at --preset ultrafast over a 1080p y4m of
+    synth_clip (n_frames frames: the IDR and two fixed mini-GOPs of 4):
+    the CTU32 depth-1 quadtree, intra candidates in B slices, psy-rd 2,
+    CRF 28, no filters, and no HME (the CLI's --merange stays 16). fps
+    after the IDR, each frame's type, POC, QP and bytes from the CSV log,
+    stage ms per frame, peak memory, K1's launches (fused: one lookahead
+    sweep per frame; the 8x8 surface: per list one sweep at sizes 32 and
+    16, so one per P anchor and two per B frame, twice that with HME,
+    whose coarse sweep at 16 and 8 takes the same surface; no 4x4
+    surface) in all and per program call by frame type, the CUDA launches
+    of the last P and B frame's program, and the last B frame's plain
+    rerun, which must be identical."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    frames = synth_clip(n_frames, W1080, H1080)
+    made = []
+    configure = cli.configure
+
+    def instrumented(*a, **k):
+        made.append(_Instrumented(configure(*a, **k)))
+        return made[-1].sess
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        log = os.path.join(tmp, "log.csv")
+        _write_y4m(src, frames)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_start()                                # the main path starts
+        with mock.patch.object(cli, "configure", instrumented):
+            rc = cli.main([src, "-o", dst, "--preset", "ultrafast",
+                           "--frames", str(n_frames), "--csv", log])
+        launches = k1_read()
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rows = [r.split(", ") for r in f.read().splitlines()[1:-1]]
+        total = os.path.getsize(dst)
+    inst = made[0]
+    fps, order, stage, _ = inst.report()
+    enc = inst.sess.inter_encoder
+    n_p = sum(t == "P" for _, t in order)
+    n_b = sum(t in "Bb" for _, t in order)
+    want = {"sad_sweep_best": len(order),
+            "sad_block8_sweep": (2 if enc.hme else 1) * (n_p + 2 * n_b),
+            "sad_block4_sweep": 0}
+    emit(phase="1080p_cli_ultrafast", argv="--preset ultrafast", rc=rc,
+         max_depth=inst.sess.max_depth, hme=enc.hme,
+         hme_range=enc.hme_range, search_range=enc.search_range,
+         b_intra=enc.b_intra, psy_rd=enc.psy_rd, frames=len(rows), fps=fps,
+         call_ms=inst.call_ms, frame_type=[r[1] for r in rows],
+         poc=[int(r[2]) for r in rows], qp=[int(r[3]) for r in rows],
+         frame_bytes=[int(r[4]) // 8 for r in rows], bytes=total,
+         psnr_y=[float(r[5]) for r in rows], coding_order=order,
+         stage_ms_per_frame=stage, stage_ms_total=dict(inst.sess.stage_ms),
+         k1_launches=launches, k1_launches_want=want,
+         k1_by_frame_type=inst.k1_by_frame_type(),
+         cuda_launches_by_frame_type={"P": _program_launches(inst, False),
+                                      "B": _program_launches(inst, True)},
+         max_memory_allocated=peak)
+    if rc != 0 or order != minigop_order(n_frames) or len(rows) != n_frames \
+            or inst.sess.max_depth != 1 \
+            or not all(np.isfinite(float(r[5])) for r in rows):
+        raise AssertionError(f"1080p_cli_ultrafast output malformed: "
+                             f"{order}")
+    if launches != want:
+        raise AssertionError(f"1080p_cli_ultrafast: K1 launches "
+                             f"{launches} != {want}")
+    _plain_rerun("1080p_cli_ultrafast", inst)
+    return launches
+
+
+def phase_1080p_b_uniform(dev, n_frames=B_UNIFORM_FRAMES):
+    """The uniform 16x16 grid's B session at 1080p:
+    VideoEncoderSession(1920, 1080, cu_size=16, bframes=3, b_pyramid=True,
+    b_adapt=0, deblock=True, sao=True) at CQP 32 with the hash SEI, over
+    n_frames frames of synth_clip through push_frame / flush (the IDR and
+    two mini-GOPs of 4). fps after the IDR, each frame's type, POC, QP and
+    bytes, stage ms per frame, peak memory, K1's launches (all fused: one
+    lookahead sweep per frame, the P anchor's ME sweep, one per list per B
+    frame) in all and per program call by frame type, the CUDA launches
+    of the last P and B frame's program, and the last B frame's plain
+    rerun, which must be identical."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    frames = synth_clip(n_frames, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
+                               hash_sei=True, cu_size=16, bframes=3,
+                               b_pyramid=True, b_adapt=0, deblock=True,
+                               sao=True, device=dev)
+    inst = _Instrumented(sess)
+    total = len(sess.headers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_start()                                    # the main path starts
+    for fr in frames:
+        sess.push_frame(*fr)
+    sess.flush()
+    launches = k1_read()
+    peak = torch.cuda.max_memory_allocated()
+    res = inst.results
+    fps, order, stage, _ = inst.report()
+    n_p = sum(t == "P" for _, t in order)
+    n_b = sum(t in "Bb" for _, t in order)
+    want = {"sad_sweep_best": len(order) + n_p + 2 * n_b,
+            "sad_block8_sweep": 0, "sad_block4_sweep": 0}
+    total += sum(len(r.nals) for r in res)
+    emit(phase="1080p_b_uniform", cu_size=sess.cu, max_depth=sess.max_depth,
+         frames=len(res), fps=fps, call_ms=inst.call_ms, coding_order=order,
+         frame_type=[t for _, t in order], poc=[q for q, _ in order],
+         qp=[r.qp for r in res], frame_bytes=[len(r.nals) for r in res],
+         bytes=total, psnr_y=[r.psnr_y for r in res],
+         psnr_u=[r.psnr_u for r in res], psnr_v=[r.psnr_v for r in res],
+         ssim_y=[r.ssim_y for r in res], stage_ms_per_frame=stage,
+         stage_ms_total=dict(sess.stage_ms), k1_launches=launches,
+         k1_launches_want=want, k1_by_frame_type=inst.k1_by_frame_type(),
+         cuda_launches_by_frame_type={"P": _program_launches(inst, False),
+                                      "B": _program_launches(inst, True)},
+         max_memory_allocated=peak)
+    if order != minigop_order(n_frames) or not all(
+            np.isfinite([r.psnr_y for r in res])) or not all(
+            r.recon[0].shape == (H1080, W1080) for r in res):
+        raise AssertionError(f"1080p_b_uniform output malformed: {order}")
+    if launches != want:
+        raise AssertionError(f"1080p_b_uniform: K1 launches {launches} != "
+                             f"{want}")
+    _plain_rerun("1080p_b_uniform", inst)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1908,6 +2111,9 @@ def main():
     phase_cli_cpu_vs_card(dev)
     phase_golden_weightp(dev)
     phase_weightp_cpu_vs_card(dev)
+    phase_golden_grids(dev)
+    phase_cli_cpu_vs_card(dev, phase="ultrafast_cpu_vs_card",
+                          argv=("--preset", "ultrafast"))
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -1953,6 +2159,8 @@ def main():
     by_path["1080p_cli_superfast"] = phase_1080p_cli_superfast(dev)
     by_path["1080p_api_superfast"] = phase_1080p_api_superfast(dev)
     by_path["1080p_cli_medium"] = phase_1080p_cli_medium(dev)
+    by_path["1080p_cli_ultrafast"] = phase_1080p_cli_ultrafast(dev)
+    by_path["1080p_b_uniform"] = phase_1080p_b_uniform(dev)
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]

@@ -15,11 +15,13 @@ param_default_preset("superfast") (api.Encoder: the CTU32 depth-2
 quadtree, b-adapt 2, search range 24, psy-rd 2, CRF 28, deblock, sign
 hiding, no hash SEI), API_MEDIUM_PIN the same at "medium" over the
 ramped clip (weighted prediction, SAO, AQ 2, cuTree, bframes 4).
-WEIGHTS holds the weights each weighted case's session chose for its P
-frames, in coding order. The pins up to medium_no_weightp were computed
-from the JAX package at commit 1f6f0ca, the weighted ones at 59bcfbb, on
-the CPU; the slow tests of tests/test_torch_cli_api.py and
-tests/test_torch_weightp.py recompute them."""
+API_ULTRAFAST_PIN the same at "ultrafast". WEIGHTS holds the weights each
+weighted case's session chose for its P frames, in coding order. The pins
+up to medium_no_weightp were computed from the JAX package at commit
+1f6f0ca, the weighted ones at 59bcfbb, ultrafast, uniform_b and
+API_ULTRAFAST_PIN at d580939, on the CPU; the slow tests of
+tests/test_torch_cli_api.py and tests/test_torch_weightp.py recompute
+them."""
 import hashlib
 
 import numpy as np
@@ -39,8 +41,17 @@ CLI = {
     # both with weighted prediction, over the clip fading by 6 a frame
     "medium": (6, []),
     "veryfast": (6, ["--preset", "veryfast"]),
+    # x265's ultrafast: the CTU32 depth-1 quadtree (min CU 16), fixed
+    # mini-GOPs of 4, CRF 28, no deblock, SAO, AQ or cuTree, psy-rd 2,
+    # intra in B slices (no HME: the CLI's --merange stays 16)
+    "ultrafast": (6, ["--preset", "ultrafast"]),
+    # the default preset on the uniform 16x16 grid with three B frames
+    # (b-adapt 2, weighted P anchors, SAO, AQ 2) over the fading clip
+    "uniform_b": (6, ["--ctu", "16", "--min-cu-size", "16", "--bframes",
+                      "3"]),
 }
-RAMP = {"medium": -6, "veryfast": -6}   # by CLI case or library preset
+# by CLI case or library preset
+RAMP = {"medium": -6, "veryfast": -6, "uniform_b": -6}
 _HEAD = "Encode Order, Type, POC, QP, Bits, PSNR Y, PSNR U, PSNR V, SSIM Y\n"
 CLI_PINS = {
     "superfast": (
@@ -109,6 +120,30 @@ CLI_PINS = {
         "5, P, 5, 36, 3208, 25.9996, 49.6364, 99.9900, 0.98581\n"
         "Summary, frames=6, kbps=157.57, "
         "Global PSNR Y=28.2825, U=53.7107, V=99.9900, SSIM Y=0.99126\n"),
+    "ultrafast": (
+        "c2e6da9576d460784fb8e3a2bcb9c6b9",
+        [32, 33, 34, 39, 19, 40, 1, 40, 1, 40, 0, 40, 0, 40, 1, 40],
+        _HEAD +
+        "0, I, 0, 25, 31920, 36.7952, 99.9900, 99.9900, 0.99873\n"
+        "1, b, 1, 40, 936, 28.5469, 45.3677, 99.9900, 0.99397\n"
+        "2, B, 2, 41, 1024, 27.9449, 42.2950, 99.9900, 0.99247\n"
+        "3, b, 3, 39, 992, 28.0234, 44.7742, 99.9900, 0.99240\n"
+        "4, P, 4, 35, 6592, 28.4697, 99.9900, 99.9900, 0.99242\n"
+        "5, P, 5, 36, 3744, 27.7919, 48.1308, 99.9900, 0.99190\n"
+        "Summary, frames=6, kbps=188.37, Global PSNR Y=29.5953, "
+        "U=63.4246, V=99.9900, SSIM Y=0.99365\n"),
+    "uniform_b": (
+        "51f65c4d6628704cf286928ad5746827",
+        [32, 33, 34, 39, 19, 40, 1, 40, 1, 40, 0, 40, 1, 40, 0, 40],
+        _HEAD +
+        "0, I, 0, 25, 28544, 33.7532, 99.9900, 99.9900, 0.99745\n"
+        "1, b, 1, 40, 928, 25.5365, 48.1308, 99.9900, 0.98804\n"
+        "2, B, 2, 40, 920, 24.9203, 42.1102, 99.9900, 0.98494\n"
+        "3, P, 3, 35, 4792, 25.2102, 38.5884, 99.9900, 0.98427\n"
+        "4, b, 4, 39, 1184, 23.8638, 39.5274, 99.9900, 0.97882\n"
+        "5, P, 5, 37, 3328, 23.2319, 99.9900, 99.9900, 0.97310\n"
+        "Summary, frames=6, kbps=165.40, Global PSNR Y=26.0860, "
+        "U=61.3895, V=99.9900, SSIM Y=0.98444\n"),
 }
 API_FRAMES = 6
 # (md5, NAL unit types, bytes of each frame's NALs in coding order)
@@ -118,6 +153,11 @@ API_PIN = ("41404b38e465bb9fe63219d4da47b58f",
 API_MEDIUM_PIN = ("3d25cb9e510e276314d2999beaa3c03c",
                   [32, 33, 34, 39, 19, 1, 1, 0, 1, 0],
                   [3457, 443, 46, 44, 368, 53])
+# the library at "ultrafast": the depth-1 quadtree, b-adapt 2 (the
+# library passes none), search range 24, psy-rd 2, no filters, CRF 28
+API_ULTRAFAST_PIN = ("f0ddfcab41d13eede1d1c95baabe0d4b",
+                     [32, 33, 34, 39, 19, 1, 1, 0, 1, 0],
+                     [3932, 690, 53, 56, 551, 69])
 # the weights of each weighted case's P frames in coding order (None: no
 # component's weight was kept)
 WEIGHTS = {name: [None, {"luma": (60, -8), "cb": (6, 86)}]

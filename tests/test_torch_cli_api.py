@@ -8,8 +8,7 @@ The command lines and the library run on tests/preset_pins.py's 96x64
 clip and are held to the JAX CLI's and library's md5s, NAL types and CSV
 logs pinned there (the JAX CLI takes minutes to compile its quadtree
 programs); the slow tests recompute each pin from the live JAX code.
-Every CLI preset x tune either runs in the port or raises
-NotImplementedError naming the slice that adds it."""
+Every CLI preset x tune runs in the port."""
 import dataclasses
 import hashlib
 import os
@@ -195,11 +194,18 @@ def test_api_matches_pinned_jax_stream():
     assert PP.run_api(t_api, device="cpu") == PP.API_PIN
 
 
+def test_api_ultrafast_matches_pinned_jax_stream():
+    assert PP.run_api(t_api, "ultrafast", device="cpu") == \
+        PP.API_ULTRAFAST_PIN
+
+
 def test_cli_streams_decode(tmp_path):
     """An independent decoder (OpenCV's FFmpeg) takes every frame of the
-    port's superfast streams, the open GOP's leading pictures included."""
+    port's superfast streams, the open GOP's leading pictures included,
+    of the ultrafast (depth-1) and of the uniform-grid B stream."""
     cv2 = pytest.importorskip("cv2")
-    for name in ("superfast", "superfast_keyint4"):
+    for name in ("superfast", "superfast_keyint4", "ultrafast",
+                 "uniform_b"):
         PP.run_cli(t_cli.main, name, str(tmp_path), device="cpu")
         cap = cv2.VideoCapture(str(tmp_path / f"{name}.hevc"))
         n = 0
@@ -215,15 +221,11 @@ def _empty_clip(path):
                                         8)).close()
 
 
-def _runs(preset, tune, extra=()):
-    """Whether the port's CLI configures the session of preset x tune
-    (every preset but ultrafast, with or without weighted prediction);
-    NotImplementedError names the slice that would add it."""
-    return preset != "ultrafast"
-
-
 @pytest.mark.parametrize("preset", PRESETS)
 def test_every_preset_and_tune_runs_or_names_its_slice(tmp_path, preset):
+    """Every preset (ultrafast's depth-1 quadtree included) with every
+    tune, with or without weighted prediction, configures its session and
+    writes the headers: none raises any more."""
     src, dst = str(tmp_path / "e.y4m"), str(tmp_path / "e.hevc")
     _empty_clip(src)
     for tune in TUNES:
@@ -231,14 +233,8 @@ def test_every_preset_and_tune_runs_or_names_its_slice(tmp_path, preset):
             argv = [src, "-o", dst, "--preset", preset, *extra]
             if tune:
                 argv += ["--tune", tune]
-            if _runs(preset, tune, extra):
-                assert t_cli.main(argv, device="cpu") == 0
-                assert os.path.getsize(dst) > 0
-                continue
-            want = "max_depth=1.*Queue 1 item 6"
-            with pytest.raises(NotImplementedError, match=want) as e:
-                t_cli.main(argv, device="cpu")
-            assert "slice" in str(e.value)
+            assert t_cli.main(argv, device="cpu") == 0
+            assert os.path.getsize(dst) > 0
 
 
 @pytest.mark.parametrize("argv", [
@@ -362,6 +358,12 @@ def test_cli_pins_recomputed_from_the_jax_cli(tmp_path, name):
 def test_api_pin_recomputed_from_the_jax_library():
     from x265_yuuki_asuna_tpu import api as j_api
     assert PP.run_api(j_api) == PP.API_PIN
+
+
+@pytest.mark.slow
+def test_api_ultrafast_pin_recomputed_from_the_jax_library():
+    from x265_yuuki_asuna_tpu import api as j_api
+    assert PP.run_api(j_api, "ultrafast") == PP.API_ULTRAFAST_PIN
 
 
 def test_open_gop_session_codes_cra_and_rasl():

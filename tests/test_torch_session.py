@@ -174,7 +174,9 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 
 
 @pytest.mark.parametrize("option", [
-    {"bframes": 3}, {"max_depth": 1}, {"rqt": True}, {"max_merge": 5},
+    # (the cases bframes and max_depth=1 had: both run now, the uniform
+    # B session and the depth-1 quadtree)
+    {"max_depth": 3}, {"cu_size": 32}, {"rqt": True}, {"max_merge": 5},
     {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"hash_type": 1},
     {"bit_depth": 12},
     {"analysis_load": "a.dat"}, {"analysis_share": "save"}, {"wpp": True},
@@ -226,7 +228,11 @@ B_SESSION = dict(max_depth=2, bframes=3, b_adapt=0)
     # (the id of the case weightp had: weightp now runs on B sessions)
     pytest.param({"wpp": True}, "wpp", id="option0-weightp"),
     ({"rqt": True}, "rqt"),
-    ({"tmvp": True}, "tmvp"), ({"max_depth": 0}, "max_depth=0"),
+    ({"tmvp": True}, "tmvp"),
+    # (the case max_depth=0 had: the uniform 16x16 grid's B session runs
+    # now; its CTU32 grid is still to come)
+    pytest.param({"max_depth": 0, "cu_size": 32}, "cu_size=32",
+                 id="option3-max_depth=0"),
     ({"max_merge": 5}, "max_merge"),
 ])
 def test_b_session_options_outside_the_slice_raise(option, match):

@@ -5,7 +5,8 @@ Port of x265_yuuki_asuna_tpu/api.py: the x265_param_* / x265_picture_* /
 x265_encoder_* functions with Python naming. Encoder derives the session
 from the Param the way Encoder::configure does (the all-intra session for
 keyint <= 1 under CQP without B frames, else the video session, with the
-CTU32 depth-2 quadtree when the minimum CU is 8), on the CUDA card unless
+CTU32 quadtree of depth 2 when the minimum CU is 8, of depth 1 when it is
+16 as at "ultrafast"), on the CUDA card unless
 the caller passes device="cpu". A setting the port's sessions do not run
 yet raises NotImplementedError from the session, naming the slice that
 adds it.

@@ -31,6 +31,9 @@ def load() -> ctypes.CDLL:
         lib.asuna_encode_p_slice.restype = ctypes.c_int
         lib.asuna_encode_p_slice.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + extras + out)
+        lib.asuna_encode_b_slice.restype = ctypes.c_int
+        lib.asuna_encode_b_slice.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + extras + out)
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
@@ -129,8 +132,47 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
     return _finish(nbytes, out, tail, tail_bits)
 
 
+def encode_b_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
+                   pdir: np.ndarray, mv0x_q: np.ndarray, mv0y_q: np.ndarray,
+                   mv1x_q: np.ndarray, mv1y_q: np.ndarray,
+                   levels_y: np.ndarray, levels_cb: np.ndarray,
+                   levels_cr: np.ndarray, log2cu: int, qp: int,
+                   max_merge: int, poc_cur: int, poc_l0: int, poc_l1: int,
+                   sign_hiding: bool = False, sao=None, qp_map=None):
+    """B-slice CABAC data on the uniform CU grid: per CU pdir (1 = L0, 2 =
+    L1, 3 = bi) and each list's MV, an unused list's MV zeroed; the
+    merge / AMVP / skip decisions with the AMVP candidates scaled by the
+    POC distances (poc_cur, poc_l0, poc_l1); each CU's SAO parameters when
+    sao ([ncu, 18]) is given and its cu_qp_delta from qp_map when given;
+    sign_hiding leaves out the hidden signs. Returns (payload, tail,
+    tail_bits)."""
+    lib = load()
+    rows, cols = use_intra.shape
+    keep = []
+    c = lambda a, dt: np.ascontiguousarray(a, dt)
+    arrs = [c(use_intra, np.uint8)] + [
+        c(a, np.int32) for a in (intra_modes, pdir, mv0x_q, mv0y_q, mv1x_q,
+                                 mv1y_q, levels_y, levels_cb, levels_cr)]
+    n = 1 << log2cu
+    want = [(rows, cols)] * 7 + [(rows, cols, n, n)] + \
+        [(rows, cols, n // 2, n // 2)] * 2
+    for i, (a, shp) in enumerate(zip(arrs, want)):
+        if a.shape != shp:
+            raise ValueError(f"encode_b_slice argument {i}: shape {a.shape}"
+                             f", want {shp}")
+    cap = int(sum(a.nbytes for a in arrs[-3:]) + 65536)
+    out = np.empty(cap, np.uint8)
+    tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
+    nbytes = lib.asuna_encode_b_slice(
+        *(a.ctypes.data for a in arrs), rows, cols, log2cu, qp, max_merge,
+        poc_cur, poc_l0, poc_l1, int(sign_hiding),
+        _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
+        8, out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+    return _finish(nbytes, out, tail, tail_bits)
+
+
 # decision-dict keys only B slices code, those a P slice codes too (an I
-# slice codes neither), and those of depth-2 trees
+# slice codes neither), and those only depth-2 trees code
 _QT2_B = {"pdir", "mv1x", "mv1y", "pdir4", "mv41x", "mv41y", "pdir8",
           "mv81x", "mv81y"}
 _QT2_INTER = _QT2_B | {"use_intra", "mvx", "mvy", "use_intra4", "mv4x",

@@ -7,12 +7,14 @@ Usage:
 Port of x265_yuuki_asuna_tpu/cli.py `main`: the same flags, the preset and
 tune resolution through utils/param.py, and the same sessions (the
 all-intra session for --keyint 1 under CQP, else the video session; x265's
-default CTU 64 / minimum CU 8 becomes the CTU32 depth-2 quadtree), on the
-CUDA card (main(argv, device="cpu") runs every kernel's plain version).
-A setting the port's sessions do not run yet raises NotImplementedError
-from the session, naming the slice that adds it: --preset ultrafast (the
-depth-1 quadtree), 4:4:4 or 10-bit input. Every other preset runs, the
-default (medium) and veryfast through placebo with weighted prediction.
+default CTU 64 / minimum CU 8 becomes the CTU32 depth-2 quadtree,
+ultrafast's CTU 32 / minimum CU 16 the depth-1 one, and a minimum CU equal
+to a CTU of 16 the uniform grid), on the CUDA card (main(argv,
+device="cpu") runs every kernel's plain version). Every preset runs, the
+default (medium) and veryfast through placebo with weighted prediction. A
+setting the port's sessions do not run yet raises NotImplementedError
+from the session, naming the slice that adds it: e.g. --ctu 32
+--min-cu-size 32 (the uniform CTU32 grid), 4:4:4 or 10-bit input.
 The ABR ladder, the multi-device pipeline, reconplay and the HDR10+ /
 Dolby Vision metadata raise NotImplementedError here.
 """

@@ -7,8 +7,8 @@
 // tables are H.265 spec constants).
 //
 // The port's copy of x265_yuuki_asuna_tpu/native/asuna_native.cpp, cut to
-// the slice writers the port's sessions run: the uniform-grid I and P
-// writers and the CTU32 quadtree I/P/B writer.
+// the slice writers the port's sessions run: the uniform-grid I, P and B
+// writers and the CTU32 quadtree I/P/B writer (depth 1 or 2).
 //
 // Build: g++ -O2 -shared -fPIC -o build/libasuna.so csrc/asuna_native.cpp
 // Interface: extern "C", driven through ctypes (bitstream/native.py).
@@ -958,6 +958,320 @@ int asuna_encode_p_slice(
                 if (cbfCb) encodeResidual(cb, lcb, log2cu - 1, false, intraModes[idx], signHiding);
                 if (cbfCr) encodeResidual(cb, lcr, log2cu - 1, false, intraModes[idx], signHiding);
                 grid.cu[idx] = {1, 1, 0, 0, 0, intraModes[idx]};
+            }
+            cb.encodeBinTrm(idx == ncu - 1 ? 1 : 0);
+        }
+    }
+    cb.finish(tailValue, tailBits);
+    if ((int)cb.out.size() > outCap) return -1;
+    memcpy(outBuf, cb.out.data(), cb.out.size());
+    return (int)cb.out.size();
+}
+
+}  // extern "C"
+
+
+// ---------------------------------------------------------------------------
+// B-slice syntax (uniform 2Nx2N grid, one reference per list) — the
+// port's copy of asuna_encode_b_slice in x265_yuuki_asuna_tpu/native/
+// asuna_native.cpp (which mirrors bitstream/inter_syntax.py encode_b_ctu /
+// merge_candidates_b / amvp_candidates_b).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct BMotionC {
+    int dir = 1;                    // 1=L0, 2=L1, 3=BI
+    int32_t mv0x = 0, mv0y = 0;
+    int32_t mv1x = 0, mv1y = 0;
+    bool sameAs(const BMotionC& o) const {
+        if (dir != o.dir) return false;
+        if ((dir & 1) && (mv0x != o.mv0x || mv0y != o.mv0y)) return false;
+        if ((dir & 2) && (mv1x != o.mv1x || mv1y != o.mv1y)) return false;
+        return true;
+    }
+};
+
+struct BCUStateC {
+    uint8_t decoded = 0;
+    uint8_t isIntra = 0;
+    uint8_t skip = 0;
+    BMotionC motion;
+    int32_t intraMode = 1;
+};
+
+struct BGrid {
+    std::vector<BCUStateC> cu;
+    int rows, cols;
+    BCUStateC* at(int r, int c) {
+        if (r < 0 || c < 0 || r >= rows || c >= cols) return nullptr;
+        BCUStateC* s = &cu[r * cols + c];
+        return s->decoded ? s : nullptr;
+    }
+    const BMotionC* inter(int r, int c) {
+        BCUStateC* s = at(r, c);
+        return (s && !s->isIntra) ? &s->motion : nullptr;
+    }
+};
+
+static int mergeCandidatesB(BGrid& g, int r, int c, int maxCands,
+                            BMotionC* out) {
+    int n = 0;
+    const BMotionC* a1 = g.inter(r, c - 1);
+    const BMotionC* b1 = g.inter(r - 1, c);
+    const BMotionC* b0 = g.inter(r - 1, c + 1);
+    const BMotionC* b2 = g.inter(r - 1, c - 1);
+    if (a1) out[n++] = *a1;
+    if (b1 && !(a1 && b1->sameAs(*a1))) out[n++] = *b1;
+    if (b0 && !(b1 && b0->sameAs(*b1))) out[n++] = *b0;
+    if (n < 4 && b2 && !(a1 && b2->sameAs(*a1)) && !(b1 && b2->sameAs(*b1)))
+        out[n++] = *b2;
+    // combined bi-predictive candidates: ordered index pairs, L0 of one +
+    // L1 of another (our L0/L1 ref POCs always differ -> always eligible)
+    static const int PAIRS[12][2] = {{0,1},{1,0},{0,2},{2,0},{1,2},{2,1},
+                                     {0,3},{3,0},{1,3},{3,1},{2,3},{3,2}};
+    int nOrig = n;
+    int nPairs = nOrig * (nOrig - 1);
+    if (nPairs > 12) nPairs = 12;
+    for (int k = 0; k < nPairs && n < maxCands; k++) {
+        int i = PAIRS[k][0], j = PAIRS[k][1];
+        if ((out[i].dir & 1) && (out[j].dir & 2)) {
+            BMotionC m;
+            m.dir = 3;
+            m.mv0x = out[i].mv0x; m.mv0y = out[i].mv0y;
+            m.mv1x = out[j].mv1x; m.mv1y = out[j].mv1y;
+            out[n++] = m;
+        }
+    }
+    while (n < maxCands) {
+        BMotionC z; z.dir = 3;
+        out[n++] = z;                 // bi zero fill
+    }
+    return maxCands;
+}
+
+static void scaleMvB(int32_t mvx, int32_t mvy, int tb, int td,
+                     int32_t* ox, int32_t* oy) {
+    int tx = (td > 0) ? (16384 + (abs(td) >> 1)) / td
+                      : -((16384 + (abs(td) >> 1)) / -td);
+    int64_t dsf = (int64_t)tb * tx + 32;
+    dsf >>= 6;
+    if (dsf < -4096) dsf = -4096;
+    if (dsf > 4095) dsf = 4095;
+    auto s = [&](int32_t v) -> int32_t {
+        int64_t val = dsf * v;
+        int sign = val >= 0 ? 1 : -1;
+        int64_t mag = (llabs(val) + 127) >> 8;
+        int64_t res = sign * mag;
+        if (res < -32768) res = -32768;
+        if (res > 32767) res = 32767;
+        return (int32_t)res;
+    };
+    *ox = s(mvx);
+    *oy = s(mvy);
+}
+
+// AMVP for list lx — mirrors amvp_candidates_b (slot rules incl. the
+// scaled above candidate when no left candidate exists).
+static void amvpCandidatesB(BGrid& g, int r, int c, int lx, int pocCur,
+                            int pocL0, int pocL1, int32_t (*out)[2]) {
+    int pocTarget = lx == 0 ? pocL0 : pocL1;
+    auto pocOf = [&](int which) { return which == 0 ? pocL0 : pocL1; };
+    auto mvOf = [&](const BMotionC& m, int which, int32_t* v) {
+        if (which == 0) { v[0] = m.mv0x; v[1] = m.mv0y; }
+        else { v[0] = m.mv1x; v[1] = m.mv1y; }
+    };
+    auto noscale = [&](const BMotionC& m, int32_t* v) -> bool {
+        if (m.dir & (1 << lx)) { mvOf(m, lx, v); return true; }
+        int oy = 1 - lx;
+        if ((m.dir & (1 << oy)) && pocOf(oy) == pocTarget) {
+            mvOf(m, oy, v);
+            return true;
+        }
+        return false;
+    };
+    auto scaled = [&](const BMotionC& m, int32_t* v) -> bool {
+        for (int k = 0; k < 2; k++) {
+            int which = k == 0 ? lx : 1 - lx;
+            if (m.dir & (1 << which)) {
+                int tb = pocCur - pocTarget;
+                int td = pocCur - pocOf(which);
+                if (td == 0) return false;
+                int32_t raw[2];
+                mvOf(m, which, raw);
+                if (tb == td) { v[0] = raw[0]; v[1] = raw[1]; }
+                else scaleMvB(raw[0], raw[1], tb, td, &v[0], &v[1]);
+                return true;
+            }
+        }
+        return false;
+    };
+
+    int n = 0;
+    const BMotionC* a1 = g.inter(r, c - 1);
+    int32_t candA[2];
+    bool leftAdded = false;
+    if (a1 && (noscale(*a1, candA) || scaled(*a1, candA))) {
+        out[n][0] = candA[0]; out[n][1] = candA[1]; n++;
+        leftAdded = true;
+    }
+    const int NB[3][2] = {{r - 1, c + 1}, {r - 1, c}, {r - 1, c - 1}};
+    for (int i = 0; i < 3; i++) {
+        const BMotionC* m = g.inter(NB[i][0], NB[i][1]);
+        int32_t v[2];
+        if (m && noscale(*m, v)) {
+            out[n][0] = v[0]; out[n][1] = v[1]; n++;
+            break;
+        }
+    }
+    if (!leftAdded && n < 2) {
+        for (int i = 0; i < 3; i++) {
+            const BMotionC* m = g.inter(NB[i][0], NB[i][1]);
+            int32_t v[2];
+            if (m && scaled(*m, v)) {
+                out[n][0] = v[0]; out[n][1] = v[1]; n++;
+                break;
+            }
+        }
+    }
+    if (n == 2 && out[0][0] == out[1][0] && out[0][1] == out[1][1]) n = 1;
+    while (n < 2) { out[n][0] = 0; out[n][1] = 0; n++; }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Encode a B-slice's CTU data. Per-CU inputs (raster, [ncu]):
+//   useIntra, intraModes, pdir (1/2/3), mv0xQ/mv0yQ (L0), mv1xQ/mv1yQ (L1;
+//   unused lists must be zeroed), levels.
+int asuna_encode_b_slice(
+    const uint8_t* useIntra, const int32_t* intraModes, const int32_t* pdir,
+    const int32_t* mv0xQ, const int32_t* mv0yQ,
+    const int32_t* mv1xQ, const int32_t* mv1yQ,
+    const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
+    int rows, int cols, int log2cu, int qp, int maxMerge,
+    int pocCur, int pocL0, int pocL1, int signHiding,
+    const int32_t* sao, const int32_t* qpMap, int bitDepth,
+    uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
+{
+    Cabac cb;
+    cb.init(0, qp);   // B-slice ctx row
+    const int n = 1 << log2cu;
+    const int nc = n >> 1;
+    const int ncu = rows * cols;
+    BGrid grid;
+    grid.rows = rows; grid.cols = cols;
+    grid.cu.resize(ncu);
+    QpChain qc;
+    qc.qpMap = qpMap;
+    qc.qpPrev = qp;
+
+    for (int r = 0; r < rows; r++) {
+        for (int c = 0; c < cols; c++) {
+            int idx = r * cols + c;
+            const int32_t* ly = levelsY + (size_t)idx * n * n;
+            const int32_t* lcb = levelsCb + (size_t)idx * nc * nc;
+            const int32_t* lcr = levelsCr + (size_t)idx * nc * nc;
+            int cbfY = anyNonzero(ly, n * n);
+            int cbfCb = anyNonzero(lcb, nc * nc);
+            int cbfCr = anyNonzero(lcr, nc * nc);
+            bool hasResid = cbfY || cbfCb || cbfCr;
+
+            if (sao)
+                encodeSaoCtu(cb, sao + (size_t)idx * 18,
+                             c > 0 ? sao + (size_t)(idx - 1) * 18 : nullptr,
+                             r > 0 ? sao + (size_t)(idx - cols) * 18 : nullptr,
+                             bitDepth);
+            qc.startCtu(idx);
+
+            BCUStateC* l = grid.at(r, c - 1);
+            BCUStateC* a = grid.at(r - 1, c);
+            int sctx = (l && l->skip ? 1 : 0) + (a && a->skip ? 1 : 0);
+
+            if (!useIntra[idx]) {
+                BMotionC mv;
+                mv.dir = pdir[idx];
+                if (mv.dir & 1) { mv.mv0x = mv0xQ[idx]; mv.mv0y = mv0yQ[idx]; }
+                if (mv.dir & 2) { mv.mv1x = mv1xQ[idx]; mv.mv1y = mv1yQ[idx]; }
+                BMotionC cands[5];
+                mergeCandidatesB(grid, r, c, maxMerge, cands);
+                int mergeIdx = -1;
+                for (int i = 0; i < maxMerge; i++)
+                    if (cands[i].sameAs(mv)) { mergeIdx = i; break; }
+                bool isSkip = mergeIdx >= 0 && !hasResid;
+                cb.encodeBin(isSkip ? 1 : 0, CTX_SKIP + sctx);
+                if (isSkip) {
+                    encodeMergeIdx(cb, mergeIdx, maxMerge);
+                    grid.cu[idx].decoded = 1;
+                    grid.cu[idx].skip = 1;
+                    grid.cu[idx].motion = mv;
+                    cb.encodeBinTrm(idx == ncu - 1 ? 1 : 0);
+                    continue;
+                }
+                cb.encodeBin(0, CTX_PRED_MODE);
+                cb.encodeBin(1, CTX_PART_SIZE);
+                int rqt;
+                if (mergeIdx >= 0) {
+                    cb.encodeBin(1, CTX_MERGE_FLAG);
+                    encodeMergeIdx(cb, mergeIdx, maxMerge);
+                    rqt = 1;
+                } else {
+                    cb.encodeBin(0, CTX_MERGE_FLAG);
+                    // inter_pred_idc: bin0 (ctx depth 0) = BI?; else L1?
+                    cb.encodeBin(mv.dir == 3 ? 1 : 0, CTX_INTER_DIR + 0);
+                    if (mv.dir != 3)
+                        cb.encodeBin(mv.dir == 1 ? 0 : 1, CTX_INTER_DIR + 4);
+                    for (int lxp = 0; lxp < 2; lxp++) {
+                        if (!(mv.dir & (1 << lxp))) continue;
+                        int32_t preds[2][2];
+                        amvpCandidatesB(grid, r, c, lxp, pocCur, pocL0, pocL1,
+                                        preds);
+                        int32_t vx = lxp == 0 ? mv.mv0x : mv.mv1x;
+                        int32_t vy = lxp == 0 ? mv.mv0y : mv.mv1y;
+                        int c0 = abs(vx - preds[0][0]) + abs(vy - preds[0][1]);
+                        int c1 = abs(vx - preds[1][0]) + abs(vy - preds[1][1]);
+                        int flag = c0 <= c1 ? 0 : 1;
+                        encodeMvd(cb, vx - preds[flag][0], vy - preds[flag][1]);
+                        cb.encodeBin(flag, CTX_MVP_IDX);
+                    }
+                    rqt = hasResid ? 1 : 0;
+                    cb.encodeBin(rqt, CTX_QT_ROOT_CBF);
+                }
+                if (rqt) {
+                    cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
+                    cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
+                    if (cbfCb || cbfCr)
+                        cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+                    qc.maybeCode(cb, cbfY || cbfCb || cbfCr);
+                    if (cbfY) encodeResidual(cb, ly, log2cu, true, -1, signHiding);
+                    if (cbfCb) encodeResidual(cb, lcb, log2cu - 1, false, -1, signHiding);
+                    if (cbfCr) encodeResidual(cb, lcr, log2cu - 1, false, -1, signHiding);
+                }
+                grid.cu[idx].decoded = 1;
+                grid.cu[idx].motion = mv;
+            } else {
+                cb.encodeBin(0, CTX_SKIP + sctx);
+                cb.encodeBin(1, CTX_PRED_MODE);
+                cb.encodeBin(1, CTX_PART_SIZE);
+                int mpm[3];
+                {
+                    BCUStateC* left = grid.at(r, c - 1);
+                    int cl = (left && left->isIntra) ? left->intraMode : 1;
+                    deriveMPM(cl, 1, mpm);
+                }
+                encodeIntraLumaMode(cb, intraModes[idx], mpm);
+                cb.encodeBin(0, CTX_INTRA_CHROMA);
+                cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
+                cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
+                cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+                qc.maybeCode(cb, cbfY || cbfCb || cbfCr);
+                if (cbfY) encodeResidual(cb, ly, log2cu, true, intraModes[idx], signHiding);
+                if (cbfCb) encodeResidual(cb, lcb, log2cu - 1, false, intraModes[idx], signHiding);
+                if (cbfCr) encodeResidual(cb, lcr, log2cu - 1, false, intraModes[idx], signHiding);
+                grid.cu[idx].decoded = 1;
+                grid.cu[idx].isIntra = 1;
+                grid.cu[idx].intraMode = intraModes[idx];
             }
             cb.encodeBinTrm(idx == ncu - 1 ? 1 : 0);
         }

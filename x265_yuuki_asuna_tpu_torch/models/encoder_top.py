@@ -1,7 +1,7 @@
 """Top-level encoder sessions: the all-intra session, and the video
-session (one reference per list; IPPP on the uniform CU grid or the CTU32
-depth-2 quadtree, and mini-GOPs with B frames on the quadtree, fixed or
-chosen by b-adapt), under CQP, CRF or ABR rate control with VBV.
+session (one reference per list; IPPP, and mini-GOPs with B frames fixed
+or chosen by b-adapt, on the uniform 16x16 CU grid or the CTU32 quadtree
+of depth 1 or 2), under CQP, CRF or ABR rate control with VBV.
 
 Port of x265_yuuki_asuna_tpu/models/encoder_top.py: IntraEncoderSession
 (encode_frame, the frame batches submit_batch / finish_batch /
@@ -17,8 +17,10 @@ session codes its I frames through an IntraEncoderSession. Device work
 runs on the host through the native writer. The streams are
 byte-identical to the JAX package's.
 
-With max_depth=2 the sessions code CTU32 quadtrees down to 8x8 CUs (the
-JAX video session's device-DPB quadtree path): the reference pictures
+With max_depth=2 the sessions code CTU32 quadtrees down to 8x8 CUs, with
+max_depth=1 down to 16x16 (x265's ultrafast: the programs decide over
+sizes 32 and 16, the leaf at 16 codes no split flag; the JAX video
+session's device-DPB quadtree path): the reference pictures
 stay on the device between frames and are copied to the host only for
 the hash SEI, the quality metrics and the returned recon (recon_out=False
 with neither of the others: never, and FrameResult.recon is None). With
@@ -81,7 +83,7 @@ QP from the rate control and the zone only (the reference has neither
 the HRD SEI, the scene-cut window nor pass-1 records there, though the
 VUI signals the HRD).
 
-With bframes > 0 (max_depth=2) frames go through push_frame and flush:
+With bframes > 0 (on either grid) frames go through push_frame and flush:
 each mini-GOP codes its last frame as a P anchor, then the frames before
 it as B frames between the two anchors; with b_pyramid and two or more B
 frames the middle one is a referenced B (TRAIL_R) that the outer ones
@@ -183,12 +185,13 @@ def _check_options(options: dict, defaults: dict) -> None:
 
 def _grid(max_depth: int, cu_size: int) -> int:
     """The CTU size of a session: 16 on the uniform grid, 32 for the
-    depth-2 quadtree; other geometries raise NotImplementedError."""
-    if max_depth not in (0, 2):
+    quadtree of depth 1 or 2 (whatever cu_size, as in the reference's
+    sessions); other geometries raise NotImplementedError."""
+    if max_depth not in (0, 1, 2):
         raise NotImplementedError(
             f"max_depth={max_depth}: the port codes the uniform grid "
-            "(0) and the CTU32 depth-2 quadtree (2); the max_depth=1 "
-            "slice adds depth 1 (ROADMAP Queue 1 item 6)")
+            "(0) and the CTU32 quadtree of depth 1 or 2; the CTU64 slice "
+            "adds depth 3 (ROADMAP Queue 1 item 9)")
     if max_depth and cu_size == 64:
         raise NotImplementedError(
             "max_depth with cu_size=64: the CTU64 slice adds CTU64 "
@@ -198,7 +201,8 @@ def _grid(max_depth: int, cu_size: int) -> int:
     if cu_size != 16:
         raise NotImplementedError(
             f"cu_size={cu_size}: the port's uniform grid codes 16x16 CUs; "
-            "a later slice adds the uniform CTU32 grid")
+            "the uniform CTU32 grid slice adds 32x32 ones (ROADMAP Queue 1 "
+            "item 16)")
     return cu_size
 
 
@@ -237,11 +241,12 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
                    sao: bool, src3, device, stage_ms) -> None:
     """The uniform grid's in-loop filters on a decision dict's recon (the
     JAX sessions' host path): the IDR deblocked with every CU edge at BS
-    2, a P frame with per-edge BS, at the slice QP qp or, with a "qp_map"
-    in out, at each CU's decoder-side QP; then SAO per cu x cu CU in the
-    host form at the slice QP. src3: the padded source planes. Sets the
-    filtered recon_* and, with sao, "sao" (packed [ncu, 18]). Each filter
-    is timed as its stage of stage_ms ("deblock", "sao"), inside a
+    2, a P or B frame with per-edge BS (a B frame's from its pdir and each
+    list's MVs, an unused list's zeroed), at the slice QP qp or, with a
+    "qp_map" in out, at each CU's decoder-side QP; then SAO per cu x cu CU
+    in the host form at the slice QP. src3: the padded source planes. Sets
+    the filtered recon_* and, with sao, "sao" (packed [ncu, 18]). Each
+    filter is timed as its stage of stage_ms ("deblock", "sao"), inside a
     profiler range named "filters"."""
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else \
@@ -257,9 +262,11 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
             rec = DB.deblock_frame_uniform(*rec, cu, qarg, qpc)
         elif deblock:
             cbf = t(out["levels_y"]).ne(0).flatten(2).any(2)
+            pdir = out.get("pdir")
+            mvs = (out["mvx"], out["mvy"]) if pdir is None else _b_mvs(out)
             bs_v, bs_h = DB.compute_bs_uniform(
-                t(out["use_intra"]), cbf, None, t(out["mvx"]),
-                t(out["mvy"]))
+                t(out["use_intra"]), cbf, None if pdir is None else t(pdir),
+                *(t(m) for m in mvs))
             rec = DB.deblock_frame_inter(*rec, cu, qarg, qpc, bs_v, bs_h)
         if deblock:
             sync()
@@ -274,6 +281,17 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
             p.cpu().numpy() for p in rec)
         stage_ms["sao" if sao else "deblock"] += \
             (time.perf_counter() - t0) * 1e3
+
+
+def _b_mvs(out: dict):
+    """A uniform B frame's (mv0x, mv0y, mv1x, mv1y), each list's MVs zeroed
+    where its CU does not predict from that list (pdir bit 1: L0, bit 2:
+    L1), as the reference session hands them to the deblock and the
+    writer."""
+    pd = out["pdir"]
+    m0, m1 = (pd & 1).astype(bool), (pd & 2).astype(bool)
+    return (np.where(m0, out["mvx"], 0), np.where(m0, out["mvy"], 0),
+            np.where(m1, out["mv1x"], 0), np.where(m1, out["mv1y"], 0))
 
 
 @dataclass
@@ -341,7 +359,8 @@ class IntraEncoderSession:
     """All-intra CQP session, 8-bit 4:2:0.
 
     cu_size=16 codes the uniform 16x16 grid; max_depth=2 codes CTU32
-    quadtrees down to 8x8 CUs. deblock / sao: the in-loop filters; on the
+    quadtrees down to 8x8 CUs, max_depth=1 down to 16x16 (cu_size is then
+    32, as in the reference). deblock / sao: the in-loop filters; on the
     quadtree they run in the program (dpb_device=True: the video
     session's chain) or, as in the reference's intra session, after it in
     the host form. sbh / rdoq / psy_rdoq: sign-bit hiding, RDOQ (sign
@@ -408,7 +427,7 @@ class IntraEncoderSession:
                 self.coded_w, self.coded_h, self.device, self.deblock,
                 self.sao, self.quant_fn,
                 "program" if self.dpb_device else "host",
-                recon_host or not self.dpb_device, psy_rd)
+                recon_host or not self.dpb_device, psy_rd, max_depth)
         else:
             self.frame_encoder = IntraFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device,
@@ -576,11 +595,14 @@ class VideoEncoderSession:
     """GOP session, one reference per list.
 
     max_depth=0 codes the uniform cu_size=16 grid; max_depth=2 codes CTU32
-    quadtrees down to 8x8 CUs (cu_size is then 32, as in the JAX session).
-    bframes=0 codes IDR + P frames through encode_frame; bframes > 0 (with
-    max_depth=2) codes mini-GOPs with B frames through push_frame and
-    flush, with the B-pyramid when b_pyramid is set, closed by b_adapt
-    (0 fixed, 1 fast, 2 trellis). hme / hme_range: the hierarchical search
+    quadtrees down to 8x8 CUs, max_depth=1 down to 16x16 (cu_size is then
+    32, as in the JAX session). bframes=0 codes IDR + P frames through
+    encode_frame; bframes > 0 (either grid) codes mini-GOPs with B frames
+    through push_frame and flush, with the B-pyramid when b_pyramid is
+    set, closed by b_adapt (0 fixed, 1 fast, 2 trellis); the uniform
+    grid's B frames filter in the session like its P frames (the deblock's
+    BS from each CU's pdir and both lists' MVs). hme / hme_range: the
+    hierarchical search
     on the quadtree (ignored on the uniform grid, as in the reference);
     hist_scenecut: the histogram scene cut in place of the cost rule.
     deblock / sao switch the in-loop filters on; sbh / rdoq / psy_rdoq
@@ -637,12 +659,6 @@ class VideoEncoderSession:
         cu_size = _grid(max_depth, cu_size)
         # frames wait rc_lookahead frames for cuTree's window (cuTree only)
         self.la_depth = max(0, rc_lookahead) if cutree else 0
-        if bframes > 0 and not max_depth:
-            raise NotImplementedError(
-                f"bframes={bframes} with max_depth=0: the port codes B "
-                "frames on the CTU32 depth-2 quadtree only; B frames on the "
-                "uniform 16x16 grid are still to come (a later B-frame "
-                "slice)")
         # the reference's device DPB: the quadtree without weightp; off,
         # the quadtree frames take the host-filter path
         dpb_ok = bool(max_depth) and not weightp
@@ -705,7 +721,8 @@ class VideoEncoderSession:
                 self.sao, quant_fn, hme=hme, hme_range=hme_range,
                 recon_host=recon_host, psy_rd=psy_rd, b_intra=self.b_intra,
                 search_range=search_range, weightp=self.weightp,
-                sao_form="program" if self.dpb_device else "host")
+                sao_form="program" if self.dpb_device else "host",
+                max_depth=max_depth)
         else:
             self.inter_encoder = InterFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device, quant_fn,
@@ -1241,11 +1258,15 @@ class VideoEncoderSession:
         planes."""
         yp, up, vp = self._pad(y, u, v)
         qp_map = self._qp_map(yp, qp)
+        kw = {"slice_qp": qp} if self.max_depth else {}
         out = _program(self.stage_ms, "inter_b", self.inter_encoder, yp, up,
                        vp, *ref0, qp if qp_map is None else qp_map,
-                       ref1=ref1, slice_qp=qp)
+                       ref1=ref1, **kw)
         if qp_map is not None:
             out["qp_map"] = qp_map
+        if self.session_filters:
+            filter_uniform(out, qp, False, self.cu, self.deblock, self.sao,
+                           (yp, up, vp), self.device, self.stage_ms)
         nals = self._timed("serialize", self._assemble_b_slice, out, qp, poc,
                            poc0, poc1, is_ref, rps, nal_type)
         nals = self._provided(poc) + nals
@@ -1400,22 +1421,29 @@ class VideoEncoderSession:
     def _assemble_b_slice(self, out: dict, qp: int, poc: int, poc0: int,
                           poc1: int, is_ref: bool, rps,
                           nal_type: int = None) -> bytes:
-        """Quadtree B slice between the pictures at poc0 (L0) and poc1
-        (L1); a referenced B is TRAIL_R, the others TRAIL_N, unless
-        nal_type says otherwise."""
+        """B slice between the pictures at poc0 (L0) and poc1 (L1); a
+        referenced B is TRAIL_R, the others TRAIL_N, unless nal_type says
+        otherwise."""
         if nal_type is None:
             nal_type = NAL_TRAIL_R if is_ref else NAL_TRAIL_N
+        sao, qp_map = out.get("sao"), out.get("qp_map")
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=0,
                                     slice_qp=qp, nal_type=nal_type, poc=poc,
                                     ref_poc_delta=poc - poc0,
                                     pos_poc_delta=poc1 - poc, rps=rps,
                                     max_merge=MAX_MERGE,
-                                    sao=out.get("sao") is not None)
-        res = native.encode_slice_qt2(0, self.max_depth, out, qp, MAX_MERGE,
-                                      poc=poc, poc_l0=poc0, poc_l1=poc1,
-                                      sign_hiding=self.sbh,
-                                      sao=out.get("sao"),
-                                      qp_map=out.get("qp_map"))
+                                    sao=sao is not None)
+        if self.max_depth:
+            res = native.encode_slice_qt2(0, self.max_depth, out, qp,
+                                          MAX_MERGE, poc=poc, poc_l0=poc0,
+                                          poc_l1=poc1, sign_hiding=self.sbh,
+                                          sao=sao, qp_map=qp_map)
+        else:
+            res = native.encode_b_slice(
+                out["use_intra"], out["modes"], out["pdir"], *_b_mvs(out),
+                out["levels_y"], out["levels_cb"], out["levels_cr"],
+                self.cu.bit_length() - 1, qp, MAX_MERGE, poc, poc0, poc1,
+                sign_hiding=self.sbh, sao=sao, qp_map=qp_map)
         return _slice_nal(bw, res, nal_type)
 
     # ------------------------------------------------------------------

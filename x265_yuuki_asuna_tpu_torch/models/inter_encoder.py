@@ -1,20 +1,22 @@
-"""P-frame encoder on the uniform CU grid: dense ME/MC, then a wavefront
-for the intra-vs-inter decision and reconstruction.
+"""P- and B-frame encoder on the uniform CU grid: dense ME/MC, then a
+wavefront for the intra-vs-inter decision and reconstruction.
 
-Port of the single-reference uni-prediction P branch of
-x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`), with
-sign-bit hiding (diagonal scan) or static-bit RDOQ, at one QP or a per-CU
-QP map, and with explicit weighted prediction (weightp).
+Port of the one-reference-per-list branches of
+x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`): the
+uni-prediction P frame, with explicit weighted prediction (weightp), and
+the B frame (`motion_phase_b`), each with sign-bit hiding (diagonal scan)
+or static-bit RDOQ, at one QP or a per-CU QP map.
 Phase A runs for every CU at once: integer full search through K1
-(`ops.me.full_search_sad`), half- then quarter-pel SATD refinement, motion
-compensation. Phase B walks the CU diagonals (a Python loop, one batch of
-CUs per diagonal): the 35-mode intra candidate from reconstructed
-neighbors, the SATD decision against the inter prediction, then transform,
+(`ops.me.full_search_sad`, per list), half- then quarter-pel SATD
+refinement, motion compensation and, in a B frame, the choice of L0, L1
+or bi. Phase B walks the CU diagonals (a Python loop, one batch of CUs
+per diagonal): the 35-mode intra candidate from reconstructed neighbors,
+the SATD decision against the inter prediction, then transform,
 quantization and reconstruction. Levels come back at full width, so the
 decision dict equals `InterFrameEncoder._unpack(..., compact=False)`.
 
-The CTU32 depth-2 quadtree's P and B frames (`InterQTEncoder`) are the
-port of `_build_qt` + `_unpack_qt` of the same module.
+The CTU32 quadtree's P and B frames (`InterQTEncoder`, depth 1 or 2) are
+the port of `_build_qt` + `_unpack_qt` of the same module.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import bitcost as BC
-from ..ops import interp, me, pixel
+from ..ops import fp32, interp, me, pixel
 from ..ops.quant import PLAIN, Quantizer
 from . import qt_common as QT
 from .lookahead import downscale_half
@@ -54,12 +56,27 @@ def weighted_preds(refs, px, py, mx, my, nn: int, wts):
     return tuple(interp.weight_uni(p, w, o) for p, (w, o) in zip(ps, wts))
 
 
+def bi_costs(satds, mv0, mv1, qp: int) -> torch.Tensor:
+    """The uniform B program's [L0, L1, bi] costs of every CU ([ncu, 3]
+    float32): SATD + lambda * bits, lambda = 0.9 * 2^((qp - 12) / 6), the
+    bits of a list 4 + 2 log2(1 + |mvx|) + 2 log2(1 + |mvy|), + 1 for L1,
+    both lists' + 2 for bi. satds: the three predictions' SATDs (int);
+    mv0 / mv1: each list's (mvx, mvy). Every float32 value is XLA's:
+    lambda from fp32.lambda_table, the bits from fp32.mv_log_bits, each
+    cost one multiply-add contraction (fp32.fma)."""
+    lam = QT.lam(qp)
+    b0, b1 = fp32.mv_log_bits(*mv0), fp32.mv_log_bits(*mv1)
+    s0, s1, sbi = (s.float() for s in satds)
+    return torch.stack([fp32.fma(b0, lam, s0), fp32.fma(b1 + 1.0, lam, s1),
+                        fp32.fma((b0 + b1) + 2.0, lam, sbi)], 1)
+
+
 class InterFrameEncoder:
-    """Uniform-grid P-frame encoder (one L0 reference) for one geometry.
-    weightp: every frame takes the weighted branch (the search on the
-    weight-transformed reference, the normative weighted prediction), with
-    the identity weight for a component that has none, as the reference's
-    program does."""
+    """Uniform-grid P- and B-frame encoder (one reference per list) for
+    one geometry. weightp: every P frame takes the weighted branch (the
+    search on the weight-transformed reference, the normative weighted
+    prediction), with the identity weight for a component that has none,
+    as the reference's program does; B frames are never weighted."""
 
     def __init__(self, width: int, height: int, cu_size: int, device,
                  quant_fn: Quantizer = PLAIN, search_range: int = 16,
@@ -78,6 +95,34 @@ class InterFrameEncoder:
         self.py = (idx // self.cols) * cu_size
 
     # ---------- phase A: dense ME + MC over all CUs ----------------------
+    def _search(self, yb: torch.Tensor, y: torch.Tensor,
+                search: torch.Tensor):
+        """Every CU's quarter-pel MV against the uint8 luma plane `search`:
+        K1's integer full search of y, then half- then quarter-pel SATD
+        refinement (8 neighbours each, the first of equal costs kept)."""
+        n, px, py = self.n, self.px, self.py
+        ry = search.to(torch.int32)
+        mvx_i, mvy_i, _ = me.full_search_sad(search, y, n, self.search_range,
+                                             lambda_bits=2)
+        mvx, mvy = mvx_i * 4, mvy_i * 4
+
+        def eval_mv(mx, my):
+            return pixel.satd(yb, interp.mc_luma_qpel(ry, px, py, mx, my, n))
+
+        # (reference: motion.cpp subpel iterations, SATD-costed)
+        best = eval_mv(mvx, mvy)
+        for stepq in (2, 1):
+            bx, by = mvx, mvy
+            for dx, dy in _NBR:
+                mx, my = mvx + dx * stepq, mvy + dy * stepq
+                c = eval_mv(mx, my)
+                better = c < best
+                bx = torch.where(better, mx, bx)
+                by = torch.where(better, my, by)
+                best = torch.minimum(c, best)
+            mvx, mvy = bx, by
+        return mvx, mvy
+
     def motion_phase(self, y: torch.Tensor, ref_y: torch.Tensor,
                      ref_u: torch.Tensor, ref_v: torch.Tensor, wts=None):
         """y, ref_*: uint8 planes; wts: ((w, o) luma, cb, cr) for the
@@ -91,26 +136,7 @@ class InterFrameEncoder:
         search = ref_y if wts is None else interp.weight_plane(ref_y,
                                                                *wts[0])
         ry = search.to(torch.int32)
-        mvx_i, mvy_i, _ = me.full_search_sad(search, y, n, self.search_range,
-                                             lambda_bits=2)
-        mvx, mvy = mvx_i * 4, mvy_i * 4
-
-        def eval_mv(mx, my):
-            return pixel.satd(yb, interp.mc_luma_qpel(ry, px, py, mx, my, n))
-
-        # half-pel then quarter-pel refinement, 8 neighbors each
-        # (reference: motion.cpp subpel iterations, SATD-costed)
-        best = eval_mv(mvx, mvy)
-        for stepq in (2, 1):
-            bx, by = mvx, mvy
-            for dx, dy in _NBR:
-                mx, my = mvx + dx * stepq, mvy + dy * stepq
-                c = eval_mv(mx, my)
-                better = c < best
-                bx = torch.where(better, mx, bx)
-                by = torch.where(better, my, by)
-                best = torch.minimum(c, best)
-            mvx, mvy = bx, by
+        mvx, mvy = self._search(yb, y, search)
         if wts is not None:
             pred_y, pred_u, pred_v = weighted_preds(
                 tuple(p.to(torch.int32) for p in (ref_y, ref_u, ref_v)),
@@ -124,25 +150,63 @@ class InterFrameEncoder:
                                        py // 2, mvx, mvy, n // 2)
         return mvx, mvy, pred_y, pred_u, pred_v, pixel.satd(yb, pred_y)
 
+    def motion_phase_b(self, y: torch.Tensor, refs0, refs1, qp: int):
+        """The B frame's two searches and its per-CU choice of L0, L1 or
+        bi (y: uint8 plane; refs0 / refs1: each list's uint8 (y, u, v)
+        planes; qp: the program's QP, the largest of a map): the first
+        minimum of bi_costs (ties favour uni-prediction); bi predicts with
+        add_avg of the two short-domain predictions, as the decoder does.
+        Returns (pdir 1 / 2 / 3, mv0x, mv0y, mv1x, mv1y, the chosen (y,
+        u, v) predictions, the least cost, float32)."""
+        n, px, py = self.n, self.px, self.py
+        yb = to_blocks(y.to(torch.int32), n)
+        r32 = [tuple(p.to(torch.int32) for p in r) for r in (refs0, refs1)]
+        (mv0x, mv0y), (mv1x, mv1y) = (self._search(yb, y, r[0])
+                                      for r in (refs0, refs1))
+        p0 = _mc3(r32[0], px, py, mv0x, mv0y, n)
+        p1 = _mc3(r32[1], px, py, mv1x, mv1y, n)
+        pbi = [interp.add_avg(a, b) for a, b in zip(
+            _mc3(r32[0], px, py, mv0x, mv0y, n, ps=True),
+            _mc3(r32[1], px, py, mv1x, mv1y, n, ps=True))]
+        costs = bi_costs([pixel.satd(yb, p[0]) for p in (p0, p1, pbi)],
+                         (mv0x, mv0y), (mv1x, mv1y), qp)
+        sel = torch.argmin(costs, 1)              # the first minimum
+        pdir = torch.where(sel == 2, 3, sel + 1).to(torch.int32)
+        s = sel[:, None, None]
+        pred = tuple(torch.where(s == 0, a, torch.where(s == 1, b, c))
+                     for a, b, c in zip(p0, p1, pbi))
+        return (pdir, mv0x, mv0y, mv1x, mv1y) + pred + (costs.min(1).values,)
+
     # ---------------------------------------------------------------------
     def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp,
-                     weights=None) -> dict:
+                     weights=None, ref1=None) -> dict:
         """All planes 8-bit, padded to the coded size; ref_* are the
-        decoded reference planes; qp one QP or the per-CU QP map (AQ /
-        cuTree); weights (weightp): {"luma" / "cb" / "cr": (w, o)} at
-        denominator 6, a missing component the identity. Returns the
-        decision dict (numpy)."""
+        decoded reference planes (L0); ref1: the L1 reference's (y, u, v)
+        planes for a B frame, None for a P frame; qp one QP or the per-CU
+        QP map (AQ / cuTree); weights (weightp, P frames): {"luma" / "cb" /
+        "cr": (w, o)} at denominator 6, a missing component the identity.
+        Returns the decision dict (numpy; a B frame's with pdir and the L1
+        MVs, each list's MVs as searched: the session masks them by
+        pdir)."""
         dev = self.device
         n = self.n
         ncu = self.rows * self.cols
         log2n = n.bit_length() - 1
+        qmax = int(np.max(qp))
         qp, qpc = cu_qps(qp, ncu, dev)
         at = lambda q, cu: q if isinstance(q, int) else q[cu]
         pl = lambda p: torch.as_tensor(np.ascontiguousarray(p, np.uint8),
                                        device=dev)
-        mvx, mvy, pred_yb, pred_ub, pred_vb, isatd = self.motion_phase(
-            pl(y), pl(ref_y), pl(ref_u), pl(ref_v),
-            frame_weights(weights) if self.weightp else None)
+        pdir = mv1x = mv1y = None
+        if ref1 is not None:
+            (pdir, mvx, mvy, mv1x, mv1y, pred_yb, pred_ub, pred_vb,
+             isatd) = self.motion_phase_b(
+                pl(y), (pl(ref_y), pl(ref_u), pl(ref_v)),
+                tuple(pl(p) for p in ref1), qmax)
+        else:
+            mvx, mvy, pred_yb, pred_ub, pred_vb, isatd = self.motion_phase(
+                pl(y), pl(ref_y), pl(ref_u), pl(ref_v),
+                frame_weights(weights) if self.weightp else None)
         yb, ub, vb = planes_to_blocks(y, u, v, n, dev)
 
         # ---------- phase B: wavefront decision + recon ------------------
@@ -171,16 +235,16 @@ class InterFrameEncoder:
 
         rows, cols = self.rows, self.cols
         out = ws.result(rows, cols)[0]
-        out.update({
-            "use_intra": use_intra.cpu().numpy().reshape(rows, cols),
-            "mvx": mvx.cpu().numpy().reshape(rows, cols),
-            "mvy": mvy.cpu().numpy().reshape(rows, cols),
-            "ref": None, "pdir": None, "mv1x": None, "mv1y": None})
+        h = lambda a: None if a is None else a.cpu().numpy().reshape(rows,
+                                                                     cols)
+        out.update({"use_intra": h(use_intra), "mvx": h(mvx), "mvy": h(mvy),
+                    "ref": None, "pdir": h(pdir), "mv1x": h(mv1x),
+                    "mv1y": h(mv1y)})
         return out
 
 
 # ---------------------------------------------------------------------------
-# CTU32 depth-2 quadtree P and B frames
+# CTU32 quadtree P and B frames (depth 1 or 2)
 # ---------------------------------------------------------------------------
 
 def _plane_u8(p, dev) -> torch.Tensor:
@@ -265,10 +329,11 @@ def hme_takes_coarse(csad, cx, cy, fsad, fx, fy):
 
 
 class InterQTEncoder:
-    """CTU32 depth-2 quadtree P- and B-frame encoder, one reference per
-    list: dense decide, then the commit of the intra leaves. Port of
+    """CTU32 quadtree P- and B-frame encoder, one reference per list:
+    dense decide, then the commit of the intra leaves. Port of
     InterFrameEncoder._build_qt + _unpack_qt with bi=False and with
-    bi=True (max_depth=2, 8-bit, no RQT; quant_fn: plain, sign-bit hiding
+    bi=True (max_depth 1: CUs 32 and 16, or 2: down to 8; 8-bit, no RQT;
+    quant_fn: plain, sign-bit hiding
     under the mode-dependent scan or context RDOQ; psy_rd: the
     psycho-visual term of the leaf RD; b_intra: intra candidates in B
     slices (intra_in_b); the filter chain runs last when deblock or sao is
@@ -276,11 +341,12 @@ class InterQTEncoder:
     (the reference's host filters, ops/filters.py); hme: the hierarchical
     search; weightp: explicit weighted prediction of P frames).
 
-    Dense phase, for every block of every size (32, 16, 8): K1's frame
-    sweep per list over +-search_range (the surface kernel, then the
-    first-minimum argmin per size at lambda_bits 2); with hme, K1's
-    4x4-base sweep of the
-    half-resolution planes over +-hme_range (sizes 16, 8, 4), whose MV,
+    Dense phase, for every block of every size (32, 16, 8; 32 and 16 at
+    depth 1): K1's frame sweep per list over +-search_range (the surface
+    kernel, then the first-minimum argmin per size at lambda_bits 2); with
+    hme, K1's sweep of the half-resolution planes over +-hme_range at the
+    halved sizes (16, 8, 4 on the 4x4-base surface; 16 and 8 on the 8x8
+    one at depth 1), whose MV,
     doubled, replaces the fine winner where its SAD on the full-resolution
     plane plus 2 (|mvx| + |mvy|) is strictly less than the fine winner's;
     half- then quarter-pel SATD refinement on a gathered window around the
@@ -321,9 +387,10 @@ class InterQTEncoder:
                  hme_range: int = 16, recon_host: bool = True,
                  psy_rd: float = 0.0, b_intra: bool = False,
                  search_range: int = 16, weightp: bool = False,
-                 sao_form: str = "program"):
+                 sao_form: str = "program", max_depth: int = 2):
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
+        self.sizes = QT.sizes_of(max_depth)
         self.quant_fn = quant_fn
         self.psy_rd, self.b_intra = psy_rd, bool(b_intra)
         self.search_range = search_range
@@ -481,7 +548,7 @@ class InterQTEncoder:
             search32[0] = search[0].to(torch.int32)
         # K1 on the uint8 planes, per list: the surface, then each size's
         # argmin
-        fine = [me.sad_sweep_multi(sp, y8, (8, 16, QT.N), self.search_range,
+        fine = [me.sad_sweep_multi(sp, y8, self.sizes, self.search_range,
                                    lambda_bits=2) for sp in search]
         coarse = [None] * len(r8)
         if self.hme:
@@ -491,13 +558,14 @@ class InterQTEncoder:
             low_refs = [low(r[0]) for r in r8]
             if wts is not None:
                 low_refs[0] = interp.weight_plane(low_refs[0], *wts[0])
-            coarse = [me.sad_sweep_multi(lr, low_y, (QT.N // 2, 8, 4),
+            coarse = [me.sad_sweep_multi(lr, low_y,
+                                         tuple(nn // 2 for nn in self.sizes),
                                          self.hme_range, lambda_bits=2)
                       for lr in low_refs]
         # B / P contexts, at the first CTU's QP as in the reference
         states = BC.init_states_dev(0 if bi else 1, fq.first)
         leaf, motion = {}, {}
-        for nn in (QT.N, 16, 8):
+        for nn in self.sizes:
             px, py = geo.pxpy[nn]
             qp_blk, qpc_blk = fq.blk(nn, fq.cu), fq.blk(nn, fq.c)
             l2 = QT.lam2(qp_blk)
@@ -544,50 +612,57 @@ class InterQTEncoder:
                         "bits": bits, "elv": elv, "erec": erec}
         split16, split = QT.split_rd(leaf, geo, QT.lam2(fq.cu))
 
-        # the inter leaves' recon and levels, each position from its level
+        # the inter leaves' recon and levels, each position from its
+        # level (0: CU32, 1: CU16, 2: CU8) on the 8x8 cell grid
         H, W, rows, cols = geo.H, geo.W, geo.rows, geo.cols
         lvl = torch.where(split.reshape(rows, cols), 1, 0) \
             .repeat_interleave(4, 0).repeat_interleave(4, 1)
-        lvl = lvl + torch.where(split16.reshape(rows * 2, cols * 2), 1, 0) \
-            .repeat_interleave(2, 0).repeat_interleave(2, 1) * lvl
+        if split16 is not None:
+            lvl = lvl + torch.where(split16.reshape(rows * 2, cols * 2), 1,
+                                    0).repeat_interleave(2, 0) \
+                .repeat_interleave(2, 1) * lvl
         rec, lv = [], []
         for i, sub in enumerate((1, 2, 2)):
             up = lvl.repeat_interleave(8 // sub, 0) \
                 .repeat_interleave(8 // sub, 1)
             for key, dst in (("erec", rec), ("elv", lv)):
-                p = {nn: from_blocks(leaf[nn][key][i], nn // sub, H // sub,
-                                     W // sub) for nn in (QT.N, 16, 8)}
-                dst.append(torch.where(up == 2, p[8], torch.where(
-                    up == 1, p[16], p[QT.N])).contiguous())
+                p = [from_blocks(leaf[nn][key][i], nn // sub, H // sub,
+                                 W // sub) for nn in self.sizes]
+                sel = p[0]
+                for k in range(1, len(p)):
+                    sel = torch.where(up == k, p[k], sel)
+                dst.append(sel.contiguous())
 
         h = lambda a: a.cpu().numpy()
         per_size = {QT.N: lambda a: h(a).reshape(rows, cols),
                     16: lambda a: QT.by_ctu(a, geo.map16, (rows, cols, 4)),
                     8: lambda a: QT.by_ctu(a, geo.map8, (rows, cols, 4, 4))}
         out = {"split": h(split).reshape(rows, cols), "tu_split32": None,
-               "split16": per_size[16](split16)}
+               "split16": None if split16 is None else per_size[16](split16)}
         for nn, (ki, km) in ((QT.N, ("use_intra", "modes")),
                              (16, ("use_intra4", "modes4")),
                              (8, ("use_intra8", "modes8"))):
-            out[ki] = per_size[nn](leaf[nn]["ui"])
-            out[km] = per_size[nn](leaf[nn]["modes"])
-            for k, a in zip(_MOTION_KEYS[nn], motion[nn]):
+            lf, mo = leaf.get(nn), motion.get(nn, (None,) * 5)
+            out[ki] = None if lf is None else per_size[nn](lf["ui"])
+            out[km] = None if lf is None else per_size[nn](lf["modes"])
+            for k, a in zip(_MOTION_KEYS[nn], mo):
                 out[k] = None if a is None else per_size[nn](a)
         if not bi or self.b_intra:
+            rs = lambda k, *shape: None if out[k] is None else \
+                out[k].reshape(-1, *shape)
             leaves = QT.intra_leaves(
-                out["split"].reshape(-1), out["split16"].reshape(-1, 4),
-                out["modes"].reshape(-1), out["modes4"].reshape(-1, 4),
-                out["modes8"].reshape(-1, 4, 4), out["use_intra"].reshape(-1),
-                out["use_intra4"].reshape(-1, 4),
-                out["use_intra8"].reshape(-1, 4, 4))
+                rs("split"), rs("split16", 4), rs("modes"), rs("modes4", 4),
+                rs("modes8", 4, 4), rs("use_intra"), rs("use_intra4", 4),
+                rs("use_intra8", 4, 4))
             QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, False,
                             self.quant_fn, states)
         sizes = (QT.N, 16, 8)
         rec, sao = self.filters(
             rec, (y32, u32, v32), lv, fq, split, split16,
-            tuple(leaf[nn]["ui"] for nn in sizes),
-            tuple(motion[nn][1:] for nn in sizes),
-            tuple(motion[nn][0] for nn in sizes) if bi else None)
+            tuple(leaf[nn]["ui"] if nn in leaf else None for nn in sizes),
+            tuple(motion[nn][1:] if nn in motion else None for nn in sizes),
+            tuple(motion[nn][0] if nn in motion else None for nn in sizes)
+            if bi else None)
         if sao is not None:
             out["sao"] = sao
         out.update(QT.decision_planes(geo, rec, lv, self.recon_host))

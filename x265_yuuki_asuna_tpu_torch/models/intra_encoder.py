@@ -283,9 +283,10 @@ class IntraFrameEncoder:
 
 
 class IntraQTEncoder:
-    """CTU32 depth-2 quadtree intra frame encoder: dense decide, commit,
-    then the in-loop filters (port of IntraFrameEncoder._build_qt +
-    _unpack_qt with max_depth=2, 8-bit; quant_fn: plain, mode-dependent
+    """CTU32 quadtree intra frame encoder: dense decide, commit, then the
+    in-loop filters (port of IntraFrameEncoder._build_qt + _unpack_qt with
+    max_depth 1 (CUs 32 and 16) or 2 (down to 8), 8-bit; quant_fn: plain,
+    mode-dependent
     sign-bit hiding or context RDOQ; psy_rd: the psycho-visual term of
     the leaf RD; with the device-DPB filter chain when deblock or sao is
     set).
@@ -299,9 +300,11 @@ class IntraQTEncoder:
     def __init__(self, width: int, height: int, device,
                  deblock: bool = False, sao: bool = False,
                  quant_fn: Quantizer = PLAIN, sao_form: str = "program",
-                 recon_host: bool = True, psy_rd: float = 0.0):
+                 recon_host: bool = True, psy_rd: float = 0.0,
+                 max_depth: int = 2):
         from . import qt_common as QT      # qt_common imports this module
         self.QT = QT
+        self.sizes = QT.sizes_of(max_depth)
         self.quant_fn = quant_fn
         self.psy_rd = psy_rd
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
@@ -328,7 +331,7 @@ class IntraQTEncoder:
         # I-slice contexts, at the first CTU's QP as in the reference
         states = BC.init_states_dev(2, fq.first)
         leaf = {}
-        for nn in (QT.N, 16, 8):
+        for nn in self.sizes:
             modes, py, pu, pv = QT.dense_intra(nn, y32, u32, v32)
             _, _, dist, bits = QT.rd_leaf(nn, QT.sources3(y32, u32, v32, nn),
                                           (py, pu, pv), fq.blk(nn, fq.cu),
@@ -344,17 +347,20 @@ class IntraQTEncoder:
                "modes": h(leaf[QT.N]["modes"]).reshape(rows, cols),
                "modes4": QT.by_ctu(leaf[16]["modes"], geo.map16,
                                    (rows, cols, 4)),
-               "split16": QT.by_ctu(split16, geo.map16, (rows, cols, 4)),
-               "modes8": QT.by_ctu(leaf[8]["modes"], geo.map8,
-                                   (rows, cols, 4, 4))}
+               "split16": None, "modes8": None}
+        if split16 is not None:
+            out["split16"] = QT.by_ctu(split16, geo.map16, (rows, cols, 4))
+            out["modes8"] = QT.by_ctu(leaf[8]["modes"], geo.map8,
+                                      (rows, cols, 4, 4))
         z = lambda p: torch.zeros_like(p)
         rec = (z(y32), z(u32), z(v32))
         lv = (z(y32), z(u32), z(v32))
+        rs = lambda a, *shape: None if a is None else a.reshape(-1, *shape)
         leaves = QT.intra_leaves(out["split"].reshape(-1),
-                                 out["split16"].reshape(-1, 4),
+                                 rs(out["split16"], 4),
                                  out["modes"].reshape(-1),
                                  out["modes4"].reshape(-1, 4),
-                                 out["modes8"].reshape(-1, 4, 4))
+                                 rs(out["modes8"], 4, 4))
         QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, True,
                         self.quant_fn, states)
         rec, sao = self.filters(rec, (y32, u32, v32), lv, fq, split, split16,

@@ -1,4 +1,5 @@
-"""Shared parts of the CTU32 quadtree programs (intra and P).
+"""Shared parts of the CTU32 quadtree programs (intra, P and B; max depth
+1 or 2).
 
 Port of x265_yuuki_asuna_tpu/models/qt_common.py (QOFF, morton,
 _tr_available, _bl_available, block_v, source_v) and of the pieces the two
@@ -222,21 +223,33 @@ def sum4(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_rd(leaf: dict, geo: QtGeometry, l2_ctu: torch.Tensor):
-    """The bottom-up split decisions: (split16 [n16], split [ncu]) bool.
-    leaf[nn]["dist"] / ["bits"] are float32 [nblocks] per size; l2_ctu is
-    each CTU's split lambda (float32 [ncu]), a 16-block's that of its
-    CTU."""
-    l2_16 = l2_ctu[geo.ctu_of[16]]
+    """The bottom-up split decisions: (split16 [n16] bool, or None at
+    depth 1; split [ncu] bool). leaf[nn]["dist"] / ["bits"] are float32
+    [nblocks] per size (no 8 in leaf: depth 1); l2_ctu is each CTU's split
+    lambda (float32 [ncu]), a 16-block's that of its CTU. At depth 1 the
+    16x16 CU is the smallest and codes no split flag, so its bits take no
+    + 1 (the reference's b16 + 0.0)."""
     d16, b16 = leaf[16]["dist"], leaf[16]["bits"]
-    d8sum = sum4(leaf[8]["dist"][geo.ch8])
-    b8sum = sum4(leaf[8]["bits"][geo.ch8])
-    split16 = (d8sum + l2_16 * (b8sum + 1.0)) < (d16 + l2_16 * (b16 + 1.0))
-    t16d = torch.where(split16, d8sum, d16)
-    t16b = torch.where(split16, b8sum + 1.0, b16 + 1.0)
+    split16 = None
+    if 8 in leaf:
+        l2_16 = l2_ctu[geo.ctu_of[16]]
+        d8sum = sum4(leaf[8]["dist"][geo.ch8])
+        b8sum = sum4(leaf[8]["bits"][geo.ch8])
+        split16 = (d8sum + l2_16 * (b8sum + 1.0)) < \
+            (d16 + l2_16 * (b16 + 1.0))
+        t16d = torch.where(split16, d8sum, d16)
+        t16b = torch.where(split16, b8sum + 1.0, b16 + 1.0)
+    else:
+        t16d, t16b = d16, b16
     dB = sum4(t16d[geo.map16])
     bB = sum4(t16b[geo.map16]) + 1.0
     dA, bA = leaf[N]["dist"], leaf[N]["bits"] + 1.0
     return split16, (dB + l2_ctu * bB) < (dA + l2_ctu * bA)
+
+
+def sizes_of(max_depth: int) -> tuple:
+    """The CU sizes of a CTU32 quadtree of max_depth 1 or 2."""
+    return (N, 16, 8)[:max_depth + 1]
 
 
 class FrameQp:
@@ -350,7 +363,8 @@ ZINDEX = {p: k for k, p in enumerate(ZPOS)}
 def intra_leaves(split, sp16, mA, m16, m8, intraA=None, intra16=None,
                  intra8=None):
     """Host list of the decided intra leaves: (ctu, zpos index, mode).
-    split [ncu], sp16 [ncu, 4], mA [ncu], m16 [ncu, 4], m8 [ncu, 4, 4];
+    split [ncu], sp16 [ncu, 4] (None at depth 1: no 16x16 CU splits), mA
+    [ncu], m16 [ncu, 4], m8 [ncu, 4, 4] (None at depth 1);
     intra* the per-leaf intra flags (None: every leaf is intra, as in an I
     slice)."""
     out = []
@@ -360,7 +374,7 @@ def intra_leaves(split, sp16, mA, m16, m8, intraA=None, intra16=None,
                 out.append((i, 0, int(mA[i])))
             continue
         for q, (qy, qx) in enumerate(QOFF):
-            if not sp16[i, q]:
+            if sp16 is None or not sp16[i, q]:
                 if intra16 is None or intra16[i, q]:
                     out.append((i, ZINDEX[(qy * 16, qx * 16, 16)],
                                 int(m16[i, q])))

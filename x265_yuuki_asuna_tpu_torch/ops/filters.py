@@ -1,5 +1,5 @@
-"""The loop-filter chain of the CTU32 depth-2 quadtree programs: deblock,
-then SAO, on the whole frame on the device.
+"""The loop-filter chain of the CTU32 quadtree programs (depth 1 or 2):
+deblock, then SAO, on the whole frame on the device.
 
 Port of x265_yuuki_asuna_tpu/ops/filters_dev.py (qt_loopfilter_dev and the
 functions it calls; BS through ops/deblock.compute_bs, SAO through
@@ -68,8 +68,8 @@ def deblock_qt2(rec3, cell_q, bs_v, bs_h):
 def _cell_maps(split, split16, ui_sizes, mv_sizes, pdir_sizes, lv_y, rows,
                cols):
     """Per 8x8 cell: intra, cbf, MVs, prediction direction and CU id, from
-    the CTU32 / 16 / 8 dense decisions (frame raster order at each
-    size)."""
+    the CTU32 / 16 / 8 dense decisions (frame raster order at each size;
+    split16 None at depth 1, where no 16x16 CU splits)."""
     gr, gc = 4 * rows, 4 * cols
     dev = split.device
     up4 = lambda a: a.reshape(rows, cols).repeat_interleave(4, 0) \
@@ -77,7 +77,8 @@ def _cell_maps(split, split16, ui_sizes, mv_sizes, pdir_sizes, lv_y, rows,
     up2 = lambda a: a.reshape(gr // 2, gc // 2).repeat_interleave(2, 0) \
         .repeat_interleave(2, 1)
     # depth of each cell's CU: 0 = CU32, 1 = CU16, 2 = CU8
-    lvl8 = torch.where(up4(split), torch.where(up2(split16), 2, 1), 0)
+    lvl8 = torch.where(up4(split), 1, 0) if split16 is None else \
+        torch.where(up4(split), torch.where(up2(split16), 2, 1), 0)
 
     def sel8(a32, a16, a8):
         m = torch.where(lvl8 == 1, up2(a16), up4(a32))
@@ -122,10 +123,15 @@ def _cell_maps(split, split16, ui_sizes, mv_sizes, pdir_sizes, lv_y, rows,
 def qt_loopfilter(rec3, src3, qp_cu, slice_qp: int, split, split16,
                   ui_sizes, mv_sizes, pdir_sizes, lv3, deblock: bool,
                   sao: bool, sao_form: str = "program"):
-    """The loop-filter chain of one CTU32 depth-2 frame.
+    """The loop-filter chain of one CTU32 quadtree frame (the reference's
+    qt_loopfilter_dev, depth2 when split16 is given).
 
     rec3 / src3: int32 (y [H, W], u, v [H/2, W/2]) planes; qp_cu [ncu] the
-    intended per-CTU QP; split [ncu] / split16 [n16] bool; ui_sizes:
+    intended per-CTU QP; split [ncu] / split16 [n16] bool (None at depth
+    1: the cells' depth is the CTU's split, and no size-8 input is read;
+    the 8-sample luma edges inside a 16x16 CU are CU interiors, BS 0, so
+    the deblock equals the reference's host form on the 16-sample grid);
+    ui_sizes:
     (ui32, ui16, ui8) bool per size (ui8 may be None), or None for an I
     frame; mv_sizes: per size (mv0x, mv0y, mv1x, mv1y) quarter-pel (a
     missing list None), or None; pdir_sizes: (pdir32, pdir16, pdir8), or

@@ -122,9 +122,9 @@ def xla_log2(x) -> np.ndarray:
 @lru_cache(maxsize=None)
 def _tables(n: int):
     """Tables over the integers 0..n (entry 0 unused): the floor of XLA's
-    log2, the floor of log2(k / 3.0), and 2 * log2(k) + 1 as XLA
-    evaluates it (the constants folded into log(k) * (2 / ln 2) and the
-    product contracted into the add)."""
+    log2, the floor of log2(k / 3.0), 2 * log2(k) + 1 as XLA evaluates it
+    (the constants folded into log(k) * (2 / ln 2) and the product
+    contracted into the add), and XLA's log(k)."""
     k = np.arange(1, n + 1, dtype=_F32)
     lg = xla_log(k)
     pad = lambda a, dt: np.concatenate([[0], a]).astype(dt)
@@ -133,7 +133,8 @@ def _tables(n: int):
             "floor_log2_third": pad(np.floor(
                 xla_log2((k * THIRD).astype(_F32))), np.int32),
             "eg_bits": pad(_fma_np(lg, _F32(2.0) * INV_LN2, _F32(1.0)),
-                           _F32)}
+                           _F32),
+            "log": pad(lg, _F32)}
 
 
 _DEV_TABLES = {}
@@ -161,3 +162,15 @@ def floor_log2_third(k: torch.Tensor) -> torch.Tensor:
 def eg_bits_int(k: torch.Tensor) -> torch.Tensor:
     """2 * log2(k) + 1 in XLA's float32 for integers k in [1, 2^16]."""
     return _lookup("eg_bits", k)
+
+
+def mv_log_bits(mx: torch.Tensor, my: torch.Tensor) -> torch.Tensor:
+    """The uniform B program's MV rate, 4 + 2 log2(1 + |mx|) + 2 log2(1 +
+    |my|), in XLA's float32 for integer MVs with |mv| < 2^16: each 2 *
+    log2(1 + k) folded into log(1 + k) * (2 / ln 2) and contracted into
+    the sum, (log(1 + |my|) * c) + ((log(1 + |mx|) * c) + 4) with one
+    rounding per step (equal to XLA's value at every |mx|, |my| up to
+    268, tests/test_torch_uniform_b.py)."""
+    c = _F32(2.0) * INV_LN2
+    lg = lambda v: _lookup("log", v.abs() + 1)
+    return fma(lg(my), c, fma(lg(mx), c, _F32(4.0)))

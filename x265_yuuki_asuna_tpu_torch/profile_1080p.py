@@ -1,7 +1,7 @@
 """Where the time of a 1080p frame goes, on the card.
 
     python -m x265_yuuki_asuna_tpu_torch.profile_1080p [--frames 3]
-        [--max-depth 0 2] [--bframes 3] [--deblock] [--sao] [--sbh]
+        [--max-depth 0 1 2] [--bframes 3] [--deblock] [--sao] [--sbh]
         [--rdoq] [--aq-mode 2] [--cutree] [--rc-mode crf] [--crf 28]
         [--bitrate 27000] [--vbv-maxrate 27000] [--vbv-bufsize 27000]
         [--hme] [--b-adapt 2] [--weightp] [--fade 6]
@@ -9,11 +9,12 @@
         [--intra] [--batch 4] [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
-depth-2 quadtree, max_depth 2) encodes a synthetic 1080p clip (the chip
+quadtree of depth 1 or 2; by default 0 and 2) encodes a synthetic 1080p
+clip (the chip
 smoke test's): the first frames warm up, then torch.profiler records one I
 frame and one P frame of a fresh session through
 VideoEncoderSession.encode_frame (so the first of them is an IDR). With
---bframes N the quadtree session is a B session instead (N B frames per
+--bframes N each session is a B session instead (N B frames per
 mini-GOP, B-pyramid, b_adapt=0 or --b-adapt's): a warm-up session codes an
 IDR and N + 1 frames through push_frame and flush, then a fresh session
 does the same with each coded frame (I, P, then the B frames) recorded on
@@ -149,7 +150,8 @@ def _recorded(sess, fn, out: list, device_only: bool = False):
 
 
 def _name(max_depth: int, bframes: int, kw: dict, intra: bool = False):
-    return ("intra_" if intra else "") + ("qt2" if max_depth else "uniform") \
+    return ("intra_" if intra else "") \
+        + (f"qt{max_depth}" if max_depth else "uniform") \
         + ("_b" if bframes else "") \
         + ("_lf" if kw.get("deblock") or kw.get("sao") else "") \
         + ("_sbh" if kw.get("sbh") else "") \
@@ -289,10 +291,10 @@ def main():
     ap.add_argument("--frames", type=int, default=3,
                     help="warm-up frames before the recorded I + P pair")
     ap.add_argument("--max-depth", type=int, nargs="+", default=[0, 2],
-                    help="sessions to profile: 0 uniform grid, 2 quadtree")
+                    help="sessions to profile: 0 uniform grid, 1 or 2 "
+                         "the quadtree of that depth")
     ap.add_argument("--bframes", type=int, default=0,
-                    help="B frames per mini-GOP of the quadtree session "
-                         "(the port codes B frames on the quadtree only)")
+                    help="B frames per mini-GOP of each session")
     ap.add_argument("--deblock", action="store_true",
                     help="switch the deblocking filter on")
     ap.add_argument("--sao", action="store_true",
@@ -364,11 +366,11 @@ def main():
                       vbv_maxrate_kbps=args.vbv_maxrate,
                       vbv_bufsize_kbps=args.vbv_bufsize)
             vid = dict(cutree=args.cutree, weightp=args.weightp, **rc)
-            if md and args.bframes:
+            if args.bframes:
                 vid["b_adapt"] = args.b_adapt
             if md:
                 vid["hme"] = args.hme
-            rec = profile_session(md, args.frames, args.bframes if md else 0,
+            rec = profile_session(md, args.frames, args.bframes,
                                   dict(opts, **vid), args.device_only,
                                   fade=args.fade)
         print(json.dumps(rec), flush=True)
