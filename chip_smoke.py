@@ -23,7 +23,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      kernel's time (CUDA events, after warm-up), its plain version's time
      and its bound, and the whole sweep as the main path pays it: the
      surface route (surface kernel + PyTorch tail) against the fused
-     route;
+     route; k1_int16: the three entry points on the int16 planes of the
+     10- and 12-bit path (the fused keys sized from the samples' peak:
+     32 bits, 64 at R = 24 and 12 bits) against their plain versions,
+     with each one's time, plain time and bound at the main paths'
+     shapes;
   3. the golden clips through the port's sessions on the card: the IPPP
      CQP stream md5 must equal tests/golden/manifest.json["ippp_cqp"]
      (golden), the CTU32 depth-2 quadtree stream its "qt2_ippp"
@@ -86,7 +90,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      weightp_cpu_vs_card: the command line with no preset flag on a
      416x240 clip fading by 6 a frame on the card and on the CPU (equal
      streams and CSV logs), and its bytes beside --preset medium
-     --no-weightp on the same clip;
+     --no-weightp on the same clip; golden_main10: the golden
+     intra_main10 stream, the 10- and 12-bit sessions and the 10-bit
+     command lines of tests/main10_pins.py against the JAX package's
+     md5s, frames, NAL types and CSV logs (K1 on int16 planes, HME's 4x4
+     surface among them); main10_cpu_vs_card: the command line with no
+     preset flag on a 416x240 10-bit clip on the card and on the CPU;
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -136,9 +145,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      and one 8x8 and one 4x4 surface per P anchor, two of each per B
      frame; the last B frame's plain rerun identical); then the entry
      points users call: the command line at --preset superfast over a
-     1080p y4m (1080p_cli_superfast, 9 frames: fps, each frame's type,
+     1080p y4m (1080p_cli_superfast, 5 frames: fps, each frame's type,
      POC, QP and bytes from the CSV log, stage ms, peak memory; K1 exactly
-     9 fused + one surface per P anchor and two per B frame; the last B
+     5 fused + one surface per P anchor and two per B frame; the last B
      frame's launches with and without intra candidates, its program's ms
      with and without psy-rd in turns and the last P anchor's, and its
      plain rerun identical) and the library at superfast
@@ -150,9 +159,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      type, POC, QP and bytes, the weights each P anchor chose, each
      frame's device, deblock, SAO and serialize ms, peak memory; K1 frames
      + the trellis's fused, one surface per P anchor and two per B frame;
-     the weighted P anchor's plain rerun identical);
+     the weighted P anchor's plain rerun identical), and the same command
+     line over a 10-bit y4m of synth_clip times 4
+     (1080p_cli_medium_main10, 5 frames: fps, bytes, PSNR at the 10-bit
+     peak, peak memory, K1's launches by entry point on int16 planes; the
+     last B frame's plain rerun identical);
   6. the kernels line (launches on the flagship's path, and on each
-     path); then the card line and, last, the ok line.
+     path; each entry point's int16 time, plain time, bound and launches
+     on the 10-bit path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -247,10 +261,11 @@ FLAGSHIP_CRF = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
                     hash_sei=False, quality_metrics=True, **AQ, **LF)
 QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs three)
 FLAGSHIP_FRAMES = 13  # the 1080p flagship: the IDR, three trellis decisions
-CLI_FRAMES = 9        # the CLI at --preset superfast: the IDR, 2 mini-GOPs
+CLI_FRAMES = 5        # the CLI at superfast / ultrafast: the IDR, a mini-GOP
 API_FRAMES = 5        # the library at superfast: the IDR, one trellis
 MEDIUM_FRAMES = 6     # the CLI's default (medium): the IDR, one trellis
 B_UNIFORM_FRAMES = 9  # the uniform B session: the IDR, 2 mini-GOPs of 4
+MAIN10_FRAMES = 5     # the CLI's default at 10 bits: the IDR, one trellis
 R24_ME = "P-frame ME 1088x1920 R=24"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -529,6 +544,92 @@ def phase_k1(dev, card):
                 lambda: me.sad_sweep_multi(ref, src, (4, 8, 16), 16, 2), 10)
             emit(phase="k1", **row)
             rows[name] = row
+    return rows, err
+
+
+def phase_k1_int16(dev, card):
+    """K1's three entry points on the int16 planes of the 10- and 12-bit
+    paths against their plain versions, then each one's time, plain time
+    and bound at the main paths' shapes: the lookahead's fused sweep
+    (544x960, n = 8), the P frame's surface and the uniform grid's fused
+    sweep (1088x1920, n = 16), both at R = 24 at 12 bits (where the fused
+    keys take 64 bits), and HME's 4x4 surface (544x960). The fused
+    sweeps' keys are sized from the samples' peak, as the sessions call
+    them."""
+    from x265_yuuki_asuna_tpu_torch.models.lookahead import downscale_half
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    fr = synth_clip(2, W1080, H1080)
+    rng = np.random.default_rng(13)
+
+    def deep(y, bd):
+        p = np.pad(y, ((0, 8), (0, 0)), mode="edge").astype(np.int16)
+        s = bd - 8
+        return torch.as_tensor((p << s) + rng.integers(0, 1 << s, p.shape)
+                               .astype(np.int16), device=dev)
+    y10 = [deep(f[0], 10) for f in fr]
+    y12 = [deep(f[0], 12) for f in fr]
+    low = lambda y: downscale_half(y)[:544, :960].to(torch.int16) \
+        .contiguous()
+    cases = [
+        # (name, bit depth, ref, src, R, fused (n, lambda) or None, base)
+        ("lookahead 544x960 int16", 10, low(y10[0]), low(y10[1]), 16,
+         (8, 1), 8),
+        ("P-frame ME 1088x1920 int16", 10, y10[0], y10[1], 16, (16, 2), 8),
+        ("P-frame ME 1088x1920 int16 12-bit R=24", 12, y12[0], y12[1], 24,
+         (16, 2), 8),
+        ("hme 544x960 int16", 10, low(y10[0]), low(y10[1]), 16, None, 4),
+    ]
+    rows, err = {}, 0
+    for name, bd, ref, src, R, fused, base in cases:
+        H, W = src.shape
+        peak = (1 << bd) - 1
+        sweep = me_sad.sad_block4_sweep if base == 4 else \
+            me_sad.sad_block8_sweep
+        plain = me_sad.sad_block4_sweep_plain if base == 4 else \
+            me_sad.sad_block8_sweep_plain
+        k, p = sweep(ref, src, R), plain(ref, src, R)
+        torch.cuda.synchronize()
+        e = int((k.long() - p.long()).abs().max())
+        rate = int_ops_per_s(*card, src.dtype)
+        row = dict(shape=name, H=H, W=W, R=R, dtype=str(src.dtype),
+                   bit_depth=bd, surface_max_abs_err=e,
+                   surface_entry=sweep.__name__)
+        row["surface_ms"] = cuda_ms(lambda: sweep(ref, src, R), 20)
+        row["surface_plain_ms"] = cuda_ms(lambda: plain(ref, src, R), 2)
+        row["surface_bound_ms"], row["surface_bound_by"] = k1_bound_ms(
+            H, W, R, src.dtype, rate, base=base)
+        if fused:
+            n, lam = fused
+            kb = me_sad.sad_sweep_best(ref, src, R, n, lam, peak)
+            pb = me_sad.sad_sweep_best_plain(ref, src, R, n, lam)
+            torch.cuda.synchronize()
+            eb = max(int((a.long() - b.long()).abs().max())
+                     for a, b in zip(kb, pb))
+            e = max(e, eb)
+            shift, kdt = me_sad.key_layout(src.dtype, n, R, lam, peak)
+            keys = torch.full(((H // n) * (W // n),), -1, dtype=kdt,
+                              device=dev)
+            row.update(n=n, lambda_bits=lam, best_max_abs_err=eb,
+                       key_dtype=str(kdt))
+            row["best_ms"] = cuda_ms(lambda: me_sad._launch(
+                "best", src, ref.data_ptr(), src.data_ptr(),
+                keys.data_ptr(), H, W, R, n, lam, shift, keys.element_size(),
+                1), 50)
+            row["best_route_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best(ref, src, R, n, lam, peak), 20)
+            row["best_plain_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best_plain(ref, src, R, n, lam), 2)
+            row["best_bound_ms"], row["best_bound_by"] = k1_bound_ms(
+                H, W, R, src.dtype, rate, n)
+        emit(phase="k1_int16", **row)
+        if e:
+            raise AssertionError(f"K1 differs from its plain version at "
+                                 f"{name}: max abs err {e}")
+        want = torch.int64 if R == 24 and bd == 12 else torch.int32
+        if fused and row["key_dtype"] != str(want):
+            raise AssertionError(f"{name}: fused keys {row['key_dtype']}")
+        err = max(err, e)
+        rows[name] = row
     return rows, err
 
 
@@ -1596,27 +1697,79 @@ def phase_golden_grids(dev):
         raise AssertionError(f"golden_uniform_b: streams differ: {ok}")
 
 
-def _write_y4m(path, frames):
+def main10_pins():
+    """tests/main10_pins.py: the 10- and 12-bit clips, sessions and
+    command lines and the JAX package's pins over them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import main10_pins as pins
+    return pins
+
+
+def deep10(frames):
+    """synth_clip's frames at 10 bits: every sample times 4, as uint16."""
+    return [tuple(p.astype(np.uint16) * 4 for p in f) for f in frames]
+
+
+def phase_golden_main10(dev):
+    """Main10 / Main12 on the card (tests/main10_pins.py): the golden
+    intra_main10 stream, the 10-bit sessions (the uniform grid's IPPP
+    and B frames with both filters, the depth-1 and depth-2 quadtree's I,
+    P and B frames with the device filter chain, sign hiding and RDOQ,
+    weighted prediction on the host-filter path, the flagship's tools
+    with HME, b-adapt 2, AQ, cuTree and CRF, and with the histogram scene
+    cut) and the two 12-bit ones, then the command line over a 10-bit
+    y4m with no preset flag, at superfast, at ultrafast and all-intra,
+    against the JAX package's md5s, (POC, type, QP), NAL types and CSV
+    logs; K1's launches on their int16 planes."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    pins = main10_pins()
+    k1_start()
+    got = {"intra_main10": pins.golden_md5(top, device=dev)}
+    ok = {"intra_main10": got["intra_main10"] == grid_pins().manifest(
+        "intra_main10")}
+    for name in pins.SESSIONS:
+        md5, frames, _ = pins.run(top, name, device=dev)
+        got[name] = md5
+        ok[name] = (md5, frames) == pins.PINS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in pins.CLI:
+            res = pins.run_cli(cli.main, name, tmp)
+            got["cli_" + name] = res[0]
+            ok["cli_" + name] = res == pins.CLI_PINS[name]
+    launches = k1_read()
+    emit(phase="golden_main10", md5=got, match=ok, k1_launches=launches)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_main10: streams differ: {ok}")
+    return launches
+
+
+def _write_y4m(path, frames, bit_depth=8):
     from x265_yuuki_asuna_tpu_torch.utils import io as IO
     h, w = frames[0][0].shape
-    wr = IO.Y4MWriter(path, IO.VideoInfo(w, h, 25, 1, IO.CSP_I420, 8))
+    wr = IO.Y4MWriter(path, IO.VideoInfo(w, h, 25, 1, IO.CSP_I420,
+                                         bit_depth))
     for fr in frames:
         wr.write_frame(*fr)
     wr.close()
 
 
 def phase_cli_cpu_vs_card(dev, n=6, phase="cli_cpu_vs_card",
-                          argv=("--preset", "medium", "--no-weightp")):
+                          argv=("--preset", "medium", "--no-weightp"),
+                          bit_depth=8):
     """The command line with argv (by default --preset medium --no-weightp:
     SAO, AQ 2, cuTree, b-adapt 2, bframes 4, psy-rd, intra in B slices;
     ultrafast_cpu_vs_card: --preset ultrafast, the depth-1 quadtree with
-    HME) on a 416x240 clip of n frames, on the card and with device="cpu":
-    equal streams and CSV logs."""
+    HME; main10_cpu_vs_card: no flag, x265's default, over the clip at 10
+    bits) on a 416x240 clip of n frames, on the card and with
+    device="cpu": equal streams and CSV logs."""
     from x265_yuuki_asuna_tpu_torch import cli
     md5, csv, secs = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "in.y4m")
-        _write_y4m(src, synth_clip(n, 416, 240))
+        clip = synth_clip(n, 416, 240)
+        _write_y4m(src, deep10(clip) if bit_depth == 10 else clip,
+                   bit_depth)
         for where in (None, "cpu"):
             tag = "cpu" if where else "card"
             dst, log = os.path.join(tmp, tag + ".hevc"), \
@@ -1632,7 +1785,8 @@ def phase_cli_cpu_vs_card(dev, n=6, phase="cli_cpu_vs_card",
             if rc != 0:
                 raise AssertionError(f"{phase}: rc {rc} ({tag})")
     same = md5["card"] == md5["cpu"] and csv["card"] == csv["cpu"]
-    emit(phase=phase, argv=" ".join(argv), frames=n, md5=md5,
+    emit(phase=phase, argv=" ".join(argv), bit_depth=bit_depth, frames=n,
+         md5=md5,
          csv=csv["card"], seconds=secs, match=same)
     if not same:
         raise AssertionError(f"{phase}: the card's stream or CSV differs "
@@ -1745,7 +1899,7 @@ def _turns_ms(fn, set_on, turns=2):
 
 def phase_1080p_cli_superfast(dev, n_frames=CLI_FRAMES):
     """The command line at --preset superfast over a 1080p y4m of
-    synth_clip (n_frames frames: the IDR and two fixed mini-GOPs of 4):
+    synth_clip (n_frames frames: the IDR and fixed mini-GOPs of 4):
     fps after the IDR, each frame's type, POC, QP and bytes from the CSV
     log, stage ms per frame, peak memory and K1's launches (fused: one
     lookahead sweep per frame; the surface: one per P anchor, two per B
@@ -1904,6 +2058,82 @@ def phase_1080p_cli_medium(dev, n_frames=MEDIUM_FRAMES):
     return launches
 
 
+def phase_1080p_cli_medium_main10(dev, n_frames=MAIN10_FRAMES):
+    """x265's default command line (no preset flag: weighted P anchors on
+    the host-filter quadtree path, SAO, AQ 2, cuTree, b-adapt 2, bframes
+    4, psy-rd, intra in B slices, CRF 28) over a 1080p 10-bit y4m of
+    synth_clip times 4 (n_frames frames): fps after the IDR, each frame's
+    type, POC, QP, bytes and PSNR-Y at the 10-bit peak from the CSV log,
+    stage ms, peak memory and K1's launches by entry point, all on the
+    int16 planes (the fused sweeps' keys sized from the 10-bit peak: 32
+    bits); then the last B frame's plain rerun, which must be
+    identical."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    frames = deep10(synth_clip(n_frames, W1080, H1080))
+    made = []
+    configure = cli.configure
+
+    def instrumented(*a, **k):
+        made.append(_Instrumented(configure(*a, **k)))
+        return made[-1].sess
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        log = os.path.join(tmp, "log.csv")
+        _write_y4m(src, frames, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_start()                                # the main path starts
+        with mock.patch.object(cli, "configure", instrumented):
+            rc = cli.main([src, "-o", dst, "--frames", str(n_frames),
+                           "--csv", log])
+        launches = k1_read()
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            lines = f.read().splitlines()
+        rows = [r.split(", ") for r in lines[1:-1]]
+        total = os.path.getsize(dst)
+    inst = made[0]
+    sess = inst.sess
+    fps, order, stage, want = inst.report()
+    ref_dtype = str(sess.anchor[0][0].dtype)
+    keys = me_sad.key_layout(torch.int16, 16, sess.inter_encoder.search_range,
+                             2, (1 << 10) - 1)[1]
+    emit(phase="1080p_cli_medium_main10", argv="(no preset flag)", rc=rc,
+         bit_depth=sess.bit_depth, frames=len(rows), fps=fps,
+         call_ms=inst.call_ms, trellis_sizes=inst.trellis,
+         frame_type=[r[1] for r in rows], poc=[int(r[2]) for r in rows],
+         qp=[int(r[3]) for r in rows],
+         frame_bytes=[int(r[4]) // 8 for r in rows], bytes=total,
+         psnr_y_10bit_peak=[float(r[5]) for r in rows],
+         psnr_u=[float(r[6]) for r in rows],
+         psnr_v=[float(r[7]) for r in rows], coding_order=order,
+         stage_ms_per_frame=stage, stage_ms_total=dict(sess.stage_ms),
+         reference_plane_dtype=ref_dtype, fused_key_dtype=str(keys),
+         k1_launches=launches,
+         k1_launches_by_frame_type=inst.k1_by_frame_type(),
+         max_memory_allocated=peak)
+    if rc != 0 or len(rows) != n_frames or order[0] != (0, "I") \
+            or sess.bit_depth != 10 or ref_dtype != "torch.int16" \
+            or keys != torch.int32 \
+            or not all(np.isfinite(float(r[5])) for r in rows):
+        raise AssertionError(f"1080p_cli_medium_main10 output malformed: "
+                             f"{order} {ref_dtype}")
+    if launches != want:
+        raise AssertionError(f"1080p_cli_medium_main10: K1 launches "
+                             f"{launches} != {want}")
+    a, k = inst.last(True)
+    out_k = inst.run(*a, **k)
+    with plain_k1():
+        out_p = inst.run(*a, **k)
+    same = _same_decisions(out_k, out_p)
+    emit(phase="1080p_cli_medium_main10_b_frame_plain_rerun", identical=same)
+    if not same:
+        raise AssertionError("1080p_cli_medium_main10: kernel and plain B "
+                             "frame decisions differ")
+    return launches
+
+
 def phase_1080p_api_superfast(dev, n_frames=API_FRAMES):
     """The library (api.Encoder at param_default_preset("superfast"):
     search range 24, b-adapt 2, psy-rd, CRF 28, no hash SEI) over
@@ -1962,7 +2192,7 @@ def _program_launches(inst, bi: bool) -> int:
 
 def phase_1080p_cli_ultrafast(dev, n_frames=CLI_FRAMES):
     """The command line at --preset ultrafast over a 1080p y4m of
-    synth_clip (n_frames frames: the IDR and two fixed mini-GOPs of 4):
+    synth_clip (n_frames frames: the IDR and fixed mini-GOPs of 4):
     the CTU32 depth-1 quadtree, intra candidates in B slices, psy-rd 2,
     CRF 28, no filters, and no HME (the CLI's --merange stays 16). fps
     after the IDR, each frame's type, POC, QP and bytes from the CSV log,
@@ -2095,6 +2325,8 @@ def main():
     dev = torch.device("cuda")
     smi, card = phase_build()
     k1, err = phase_k1(dev, card)
+    k1_16, err16 = phase_k1_int16(dev, card)
+    err = max(err, err16)
     phase_golden(dev, "ippp_cqp", qp=32, cu_size=16)
     phase_golden(dev, "qt2_ippp", qp=30, max_depth=2)
     phase_golden_qt2_b(dev)
@@ -2114,6 +2346,9 @@ def main():
     phase_golden_grids(dev)
     phase_cli_cpu_vs_card(dev, phase="ultrafast_cpu_vs_card",
                           argv=("--preset", "ultrafast"))
+    golden10 = phase_golden_main10(dev)
+    phase_cli_cpu_vs_card(dev, phase="main10_cpu_vs_card", argv=(),
+                          bit_depth=10)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -2161,6 +2396,7 @@ def main():
     by_path["1080p_cli_medium"] = phase_1080p_cli_medium(dev)
     by_path["1080p_cli_ultrafast"] = phase_1080p_cli_ultrafast(dev)
     by_path["1080p_b_uniform"] = phase_1080p_b_uniform(dev)
+    by_path["1080p_cli_medium_main10"] = phase_1080p_cli_medium_main10(dev)
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]
@@ -2171,6 +2407,19 @@ def main():
               "replaces": "x265_yuuki_asuna_tpu/ops/pallas/me_sad.py:56",
               "max_abs_err": err, "library_ms": None}
     per_path = lambda k: {p: c[k] for p, c in by_path.items()}
+    la16, me16 = k1_16["lookahead 544x960 int16"], \
+        k1_16["P-frame ME 1088x1920 int16"]
+    me16_r24 = k1_16["P-frame ME 1088x1920 int16 12-bit R=24"]
+    hme16 = k1_16["hme 544x960 int16"]
+    # each entry point on the 10-bit path's int16 planes: its time, plain
+    # time and bound, and its launches there (the 1080p path; HME's 4x4
+    # surface runs on the 10-bit flagship session of golden_main10)
+    i16 = lambda r, pre: {"shape": r["shape"], "ms": r[pre + "ms"],
+                          "plain_ms": r[pre + "plain_ms"],
+                          "bound_ms": r[pre + "bound_ms"],
+                          "bound_by": r[pre + "bound_by"]}
+    main10 = {"1080p_cli_medium_main10": by_path["1080p_cli_medium_main10"],
+              "golden_main10": golden10}
     emit(kernels=[
         {"name": "sad_block8_sweep", **common,
          "launches": launches["sad_block8_sweep"],
@@ -2181,17 +2430,27 @@ def main():
          "r24": {"ms": r24["surface_ms"],
                  "plain_ms": r24["surface_plain_ms"],
                  "bound_ms": r24["surface_bound_ms"],
-                 "bound_by": r24["surface_bound_by"]}},
+                 "bound_by": r24["surface_bound_by"]},
+         "int16": dict(i16(me16, "surface_"), r24_12bit=i16(
+             me16_r24, "surface_"), launches_main10={
+                 p: c["sad_block8_sweep"] for p, c in main10.items()})},
         {"name": "sad_sweep_best", **common,
          "launches": launches["sad_sweep_best"],
          "launches_by_path": per_path("sad_sweep_best"),
          "ms": me["best_ms"], "plain_ms": me["best_plain_ms"],
-         "bound_ms": me["best_bound_ms"], "bound_by": me["best_bound_by"]},
+         "bound_ms": me["best_bound_ms"], "bound_by": me["best_bound_by"],
+         "int16": dict(i16(me16, "best_"), lookahead=i16(la16, "best_"),
+                       r24_12bit=i16(me16_r24, "best_"),
+                       key_dtype=me16["key_dtype"], launches_main10={
+                           p: c["sad_sweep_best"] for p, c in main10.items()
+                       })},
         {"name": "sad_block4_sweep", **common,
          "launches": launches["sad_block4_sweep"],
          "launches_by_path": per_path("sad_block4_sweep"),
          "ms": hme["ms"], "plain_ms": hme["plain_ms"],
-         "bound_ms": hme["bound_ms"], "bound_by": hme["bound_by"]}])
+         "bound_ms": hme["bound_ms"], "bound_by": hme["bound_by"],
+         "int16": dict(i16(hme16, "surface_"), launches_main10={
+             p: c["sad_block4_sweep"] for p, c in main10.items()})}])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

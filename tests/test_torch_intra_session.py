@@ -184,7 +184,8 @@ NON_DEFAULT = {"cu_size": 32, "fps": (30, 1), "max_depth": 2,
                "csp": "i444", "scaling_lists": "default", "zones": "0,5,q=20",
                "rc_mode": "crf", "analysis_share": "save", "b_adapt": 0,
                "stats_write": "stats.log", "stats_read": "stats.log",
-               "analysis_save": "analysis.dat", "analysis_load": "a.dat"}
+               "analysis_save": "analysis.dat", "analysis_load": "a.dat",
+               "bit_depth": 10}
 
 
 def _non_default(p: inspect.Parameter):

@@ -178,10 +178,11 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
     # B session and the depth-1 quadtree)
     {"max_depth": 3}, {"cu_size": 32}, {"rqt": True}, {"max_merge": 5},
     {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"hash_type": 1},
-    {"bit_depth": 12},
+    # (the cases bit_depth 12 and 10 had: both run now, Main12 and Main10)
+    {"hash_type": 2},
     {"analysis_load": "a.dat"}, {"analysis_share": "save"}, {"wpp": True},
     {"n_refs": 2},
-    {"bit_depth": 10}, {"dup_threshold": 50}, {"tmvp": True},
+    {"max_merge": 2}, {"dup_threshold": 50}, {"tmvp": True},
     {"frame_dup": True},
     {"max_depth": 2, "cu_size": 64},
 ])
@@ -211,7 +212,8 @@ def test_rate_control_options_code_a_frame(option):
 
 @pytest.mark.parametrize("option", [
     {"frame_dup": True}, {"dup_threshold": 50}, {"hash_type": 1},
-    {"max_merge": 5}, {"tmvp": True}, {"bit_depth": 10}, {"wpp": True},
+    # (bit_depth 10 runs now: Main10)
+    {"max_merge": 5}, {"tmvp": True}, {"hash_type": 2}, {"wpp": True},
     {"rqt": True},
     {"n_refs": 2},
 ])

@@ -1,7 +1,8 @@
 """Parameter-set and slice-header writers (spec 7.3.2-7.3.6).
 
-Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what an
-8-bit 4:2:0 IPPP or fixed-mini-GOP B session writes (Main profile, flat
+Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what a
+4:2:0 IPPP or B session writes (Main, Main10, or Main12 with the Range
+Extensions' constraint flags; flat
 scaling lists, VUI timing, HRD, signal type and chroma location only,
 one reference per list, explicit
 short-term RPS, explicit weighted prediction of P slices, no
@@ -31,6 +32,8 @@ class ProfileTierLevel:
     interlaced_source: int = 0
     non_packed: int = 1
     frame_only: int = 1
+    # the Range Extensions' bit-depth constraint (profile_idc 4: Main12)
+    bit_depth_constraint: int = 8
 
 
 @dataclass
@@ -84,9 +87,26 @@ def _profile_tier_level(bw: BitWriter, ptl: ProfileTierLevel):
     bw.write_flag(ptl.interlaced_source)
     bw.write_flag(ptl.non_packed)
     bw.write_flag(ptl.frame_only)
-    bw.write_bits(0, 16)                     # reserved_zero_44bits
-    bw.write_bits(0, 16)
-    bw.write_bits(0, 12)
+    if ptl.profile_idc == 4:
+        # Range Extensions (Main12, 4:2:0): constraint flags in place of
+        # the reserved_zero_44bits (spec 7.3.3 / A.3.5)
+        bd = ptl.bit_depth_constraint
+        bw.write_flag(1)                     # general_max_12bit_constraint
+        bw.write_flag(1 if bd <= 10 else 0)  # max_10bit
+        bw.write_flag(1 if bd <= 8 else 0)   # max_8bit
+        bw.write_flag(1)                     # max_422chroma
+        bw.write_flag(1)                     # max_420chroma
+        bw.write_flag(0)                     # max_monochrome
+        bw.write_flag(0)                     # intra
+        bw.write_flag(0)                     # one_picture_only
+        bw.write_flag(1)                     # lower_bit_rate
+        bw.write_bits(0, 17)                 # reserved_zero_34bits
+        bw.write_bits(0, 17)
+        bw.write_flag(0)                     # reserved_zero_bit (inbld)
+    else:
+        bw.write_bits(0, 16)                 # reserved_zero_44bits
+        bw.write_bits(0, 16)
+        bw.write_bits(0, 12)
     bw.write_bits(ptl.level_idc, 8)          # general_level_idc
 
 

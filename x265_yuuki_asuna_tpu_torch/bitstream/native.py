@@ -37,7 +37,7 @@ def load() -> ctypes.CDLL:
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
-            + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2 + out)
+            + [ctypes.c_int] * 8 + extras + out)
         _lib = lib
     return _lib
 
@@ -75,11 +75,12 @@ def _finish(nbytes: int, out: np.ndarray, tail, tail_bits):
 def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
                        levels_cb: np.ndarray, levels_cr: np.ndarray,
                        log2cu: int, qp: int, sign_hiding: bool = False,
-                       sao=None, qp_map=None):
+                       sao=None, qp_map=None, bit_depth: int = 8):
     """I-slice CABAC data on the uniform CU grid, with each CU's SAO
-    parameters when sao ([ncu, 18]) is given and its cu_qp_delta from
-    qp_map ([rows, cols]) when given; sign_hiding leaves out the hidden
-    signs. Returns (payload_bytes, tail_value, tail_bits)."""
+    parameters when sao ([ncu, 18]) is given (their offsets' range from
+    bit_depth) and its cu_qp_delta from qp_map ([rows, cols]) when given;
+    sign_hiding leaves out the hidden signs. Returns (payload_bytes,
+    tail_value, tail_bits)."""
     lib = load()
     rows, cols = modes.shape
     keep = []
@@ -95,7 +96,7 @@ def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
         rows, cols, log2cu, qp,
         1, 1, int(sign_hiding),  # part_mode coded, chroma present
         _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
-        8, 0, 0,                 # 8-bit, not lossless, 4:2:0
+        bit_depth, 0, 0,         # not lossless, 4:2:0
         out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
 
@@ -105,11 +106,11 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
                    levels_y: np.ndarray, levels_cb: np.ndarray,
                    levels_cr: np.ndarray, log2cu: int, qp: int,
                    max_merge: int = 3, sign_hiding: bool = False, sao=None,
-                   qp_map=None):
+                   qp_map=None, bit_depth: int = 8):
     """P-slice CABAC data incl. the merge/AMVP/skip signaling decisions
-    (and each CU's SAO parameters when sao is given, its cu_qp_delta from
-    qp_map when given; sign_hiding leaves out the hidden signs). Returns
-    (payload, tail, tail_bits)."""
+    (and each CU's SAO parameters when sao is given, their offsets' range
+    from bit_depth, its cu_qp_delta from qp_map when given; sign_hiding
+    leaves out the hidden signs). Returns (payload, tail, tail_bits)."""
     lib = load()
     rows, cols = use_intra.shape
     keep = []
@@ -128,7 +129,8 @@ def encode_p_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
         ly.ctypes.data, lcb.ctypes.data, lcr.ctypes.data,
         rows, cols, log2cu, qp, max_merge, int(sign_hiding),
         _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
-        8, out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+        bit_depth, out.ctypes.data, cap, ctypes.byref(tail),
+        ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
 
 
@@ -138,14 +140,15 @@ def encode_b_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
                    levels_y: np.ndarray, levels_cb: np.ndarray,
                    levels_cr: np.ndarray, log2cu: int, qp: int,
                    max_merge: int, poc_cur: int, poc_l0: int, poc_l1: int,
-                   sign_hiding: bool = False, sao=None, qp_map=None):
+                   sign_hiding: bool = False, sao=None, qp_map=None,
+                   bit_depth: int = 8):
     """B-slice CABAC data on the uniform CU grid: per CU pdir (1 = L0, 2 =
     L1, 3 = bi) and each list's MV, an unused list's MV zeroed; the
     merge / AMVP / skip decisions with the AMVP candidates scaled by the
     POC distances (poc_cur, poc_l0, poc_l1); each CU's SAO parameters when
-    sao ([ncu, 18]) is given and its cu_qp_delta from qp_map when given;
-    sign_hiding leaves out the hidden signs. Returns (payload, tail,
-    tail_bits)."""
+    sao ([ncu, 18]) is given (their offsets' range from bit_depth) and its
+    cu_qp_delta from qp_map when given; sign_hiding leaves out the hidden
+    signs. Returns (payload, tail, tail_bits)."""
     lib = load()
     rows, cols = use_intra.shape
     keep = []
@@ -167,7 +170,8 @@ def encode_b_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
         *(a.ctypes.data for a in arrs), rows, cols, log2cu, qp, max_merge,
         poc_cur, poc_l0, poc_l1, int(sign_hiding),
         _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
-        8, out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+        bit_depth, out.ctypes.data, cap, ctypes.byref(tail),
+        ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
 
 
@@ -193,7 +197,7 @@ _QT2_SHAPES = {"split": (), "split16": (4,), "use_intra": (), "modes": (),
 def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
                      max_merge: int = 3, poc: int = 0, poc_l0: int = 0,
                      poc_l1: int = 0, sign_hiding: bool = False, sao=None,
-                     qp_map=None):
+                     qp_map=None, bit_depth: int = 8):
     """CTU32 quadtree slice CABAC data (slice_type 2 = I, 1 = P, 0 = B;
     depth 1 or 2) from the quadtree programs' decision dict. A B slice
     reads pdir* (1 = L0, 2 = L1, 3 = bi) and the L1 MVs mv1x/mv41x/mv81x
@@ -201,7 +205,8 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
     sign_hiding leaves out the hidden signs. sao: each CTU's SAO parameters
     ([ncu, 18]), coded before the CTU, or None. qp_map: each CTU's QP
     ([rows, cols]; its cu_qp_delta is coded at its first CU with a coded
-    cbf), or None. Returns (payload, tail, tail_bits)."""
+    cbf), or None. bit_depth: the samples' (the SAO offsets' range).
+    Returns (payload, tail, tail_bits)."""
     if slice_type not in (0, 1, 2):
         raise ValueError(f"slice type {slice_type}: 0 = B, 1 = P, 2 = I")
     lib = load()
@@ -231,7 +236,7 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
     nbytes = lib.asuna_encode_slice_qt2(
         slice_type, max_depth, *args, rows, cols, qp, max_merge, poc,
         poc_l0, poc_l1, int(sign_hiding), _sao_ptr(sao, rows * cols, keep),
-        _qp_ptr(qp_map, rows * cols, keep), buf.ctypes.data,
+        _qp_ptr(qp_map, rows * cols, keep), bit_depth, buf.ctypes.data,
         cap, ctypes.byref(tail),
         ctypes.byref(tail_bits))
     return _finish(nbytes, buf, tail, tail_bits)

@@ -1781,7 +1781,8 @@ extern "C" int asuna_encode_slice_qt2(
     const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
     int rows, int cols, int qp, int maxMerge,
     int pocCur, int pocL0, int pocL1, int signHiding, const int32_t* sao,
-    const int32_t* qpMap, uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
+    const int32_t* qpMap, int bitDepth, uint8_t* outBuf, int outCap,
+    uint32_t* tailValue, int* tailBits)
 {
     using namespace qt2;
     if (sliceType < 0 || sliceType > 2) return -2;
@@ -1845,7 +1846,8 @@ extern "C" int asuna_encode_slice_qt2(
             if (sao)
                 encodeSaoCtu(cb, sao + idx * 18,
                              c > 0 ? sao + (idx - 1) * 18 : nullptr,
-                             r > 0 ? sao + (idx - cols) * 18 : nullptr, 8);
+                             r > 0 ? sao + (idx - cols) * 18 : nullptr,
+                             bitDepth);
             S.qc.startCtu((int)idx);
             codeCtuQt2(S, D, r, c, depth, g);
             cb.encodeBinTrm(idx == (size_t)ncu - 1 ? 1 : 0);

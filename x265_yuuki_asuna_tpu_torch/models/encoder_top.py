@@ -150,7 +150,7 @@ _LATER = {
     "analysis_share": "the analysis save/load slice",
     "scale_factor": "the analysis save/load slice",
     "rqt": "the RQT slice",
-    "bit_depth": "the Main10/12 slice", "hash_type": "the hash-types slice",
+    "hash_type": "the hash-types slice",
     "wpp": "the WPP slice", "slices": "the slices slice",
     "lossless": "the lossless slice", "nr_intra": "the noise-reduction slice",
     "scaling_lists": "the scaling-lists slice",
@@ -161,9 +161,9 @@ _VIDEO_DEFAULTS = {
     "max_merge": 3, "n_refs": 1, "tmvp": False,
     "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
     "analysis_load": None, "analysis_share": None, "scale_factor": 1,
-    "rqt": False, "bit_depth": 8, "hash_type": 0, "wpp": False}
+    "rqt": False, "hash_type": 0, "wpp": False}
 _INTRA_DEFAULTS = {
-    "lossless": False, "bit_depth": 8, "slices": 1, "wpp": False,
+    "lossless": False, "slices": 1, "wpp": False,
     "hash_type": 0,
     "nr_intra": 0, "scaling_lists": None, "fast_intra": False,
     "csp": "i420"}
@@ -206,19 +206,33 @@ def _grid(max_depth: int, cu_size: int) -> int:
     return cu_size
 
 
-def psnr(a, b) -> float:
-    """8-bit PSNR of a plane against its source (the reference's numpy
-    expression)."""
+def psnr(a, b, bit_depth: int = 8) -> float:
+    """PSNR of a plane against its source at the bit depth's peak (the
+    reference's numpy expression)."""
+    pk = (1 << bit_depth) - 1
     mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
-    return 99.99 if mse == 0 else 10 * np.log10(255 * 255 / mse)
+    return 99.99 if mse == 0 else 10 * np.log10(pk * pk / mse)
 
 
-def frame_quality(recon, y, u, v, device="cpu"):
-    """PSNR of Y, U and V and SSIM of Y against the source (port of the
-    reference's frame_quality; every value equals the reference's bit for
-    bit: the SSIM windows run on `device`)."""
-    return (psnr(recon[0], y), psnr(recon[1], u), psnr(recon[2], v),
-            ssim_plane(np.asarray(recon[0]), np.asarray(y), device))
+def frame_quality(recon, y, u, v, device="cpu", bit_depth: int = 8):
+    """PSNR of Y, U and V and SSIM of Y against the source at the bit
+    depth's peak (port of the reference's frame_quality; every value
+    equals the reference's bit for bit: the SSIM windows run on
+    `device`)."""
+    return (psnr(recon[0], y, bit_depth), psnr(recon[1], u, bit_depth),
+            psnr(recon[2], v, bit_depth),
+            ssim_plane(np.asarray(recon[0]), np.asarray(y), device,
+                       bit_depth))
+
+
+def host_planes(out: dict, h: int, w: int, bit_depth: int):
+    """The decision dict's recon planes cropped to h x w (chroma h/2 x
+    w/2), as the reference's sessions return them: uint8 at 8 bits,
+    uint16 above."""
+    pdt = np.uint16 if bit_depth > 8 else np.uint8
+    return (out["recon_y"][:h, :w].astype(pdt),
+            out["recon_u"][:h // 2, :w // 2].astype(pdt),
+            out["recon_v"][:h // 2, :w // 2].astype(pdt))
 
 
 def effective_qp_map(out: dict, qp_map, slice_qp: int):
@@ -238,7 +252,8 @@ def effective_qp_map(out: dict, qp_map, slice_qp: int):
 
 
 def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
-                   sao: bool, src3, device, stage_ms) -> None:
+                   sao: bool, src3, device, stage_ms,
+                   bit_depth: int = 8, deblock_bit_depth: int = None) -> None:
     """The uniform grid's in-loop filters on a decision dict's recon (the
     JAX sessions' host path): the IDR deblocked with every CU edge at BS
     2, a P or B frame with per-edge BS (a B frame's from its pdir and each
@@ -247,7 +262,12 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
     in the host form at the slice QP. src3: the padded source planes. Sets
     the filtered recon_* and, with sao, "sao" (packed [ncu, 18]). Each
     filter is timed as its stage of stage_ms ("deblock", "sao"), inside a
-    profiler range named "filters"."""
+    profiler range named "filters". bit_depth: the samples'; the deblock
+    runs at deblock_bit_depth (default bit_depth): the reference's video
+    session deblocks its uniform grid at 8 bits whatever the samples'
+    depth (ROADMAP Queue 3)."""
+    bd = bit_depth
+    dbd = bit_depth if deblock_bit_depth is None else deblock_bit_depth
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else \
         (lambda: None)
@@ -259,7 +279,7 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
         qmap = effective_qp_map(out, out.get("qp_map"), qp)
         qarg = qp if qmap is None else qmap
         if deblock and is_idr:
-            rec = DB.deblock_frame_uniform(*rec, cu, qarg, qpc)
+            rec = DB.deblock_frame_uniform(*rec, cu, qarg, qpc, dbd)
         elif deblock:
             cbf = t(out["levels_y"]).ne(0).flatten(2).any(2)
             pdir = out.get("pdir")
@@ -267,7 +287,7 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
             bs_v, bs_h = DB.compute_bs_uniform(
                 t(out["use_intra"]), cbf, None if pdir is None else t(pdir),
                 *(t(m) for m in mvs))
-            rec = DB.deblock_frame_inter(*rec, cu, qarg, qpc, bs_v, bs_h)
+            rec = DB.deblock_frame_inter(*rec, cu, qarg, qpc, bs_v, bs_h, dbd)
         if deblock:
             sync()
             t1 = time.perf_counter()
@@ -275,7 +295,7 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
             t0 = t1
         if sao:
             src = tuple(t(p).to(torch.int32) for p in src3)
-            rec, params = SAO.sao_frame(rec, src, cu, qp, "host")
+            rec, params = SAO.sao_frame(rec, src, cu, qp, "host", bd)
             out["sao"] = params.cpu().numpy()
         out["recon_y"], out["recon_u"], out["recon_v"] = (
             p.cpu().numpy() for p in rec)
@@ -340,15 +360,16 @@ def _slice_nal(bw: BitWriter, res, nal_type: int) -> bytes:
     return wrap_nal(nal_type, bw.get_bytes())
 
 
-def hash_sei(out: dict) -> bytes:
+def hash_sei(out: dict, bit_depth: int = 8) -> bytes:
     """Decoded-picture-hash suffix SEI (MD5 of each coded-size recon
-    plane)."""
+    plane: its bytes as uint8 at 8 bits, as little-endian uint16 above,
+    spec D.3.19's pictureData)."""
+    pdt = np.uint16 if bit_depth > 8 else np.uint8
     bw = BitWriter()
     bw.write_bits(132, 8)          # payload type: decoded_picture_hash
     payload = bytearray([0])       # hash_type 0 = MD5
     for plane in ("recon_y", "recon_u", "recon_v"):
-        payload += hashlib.md5(out[plane].astype(np.uint8)
-                               .tobytes()).digest()
+        payload += hashlib.md5(out[plane].astype(pdt).tobytes()).digest()
     bw.write_bits(len(payload), 8)
     bw.write_bytes(payload)
     bw.rbsp_trailing_bits()
@@ -356,7 +377,9 @@ def hash_sei(out: dict) -> bytes:
 
 
 class IntraEncoderSession:
-    """All-intra CQP session, 8-bit 4:2:0.
+    """All-intra CQP session, 4:2:0 at 8, 10 or 12 bits (bit_depth: Main,
+    Main10, Main12 with the Range Extensions' constraint flags; deeper
+    planes come in and go out as uint16).
 
     cu_size=16 codes the uniform 16x16 grid; max_depth=2 codes CTU32
     quadtrees down to 8x8 CUs, max_depth=1 down to 16x16 (cu_size is then
@@ -388,9 +411,16 @@ class IntraEncoderSession:
                  master_display: str = None, max_cll: str = None,
                  max_depth: int = 0, dpb_device: bool = False,
                  aq_mode: int = 0, aq_strength: float = 1.0, device=None,
-                 recon_host: bool = True, psy_rd: float = 0.0, **options):
+                 recon_host: bool = True, psy_rd: float = 0.0,
+                 bit_depth: int = 8, **options):
         _check_options(options, _INTRA_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
+        if bit_depth not in (8, 10, 12):
+            raise ValueError(f"bit_depth={bit_depth}: 8, 10 or 12")
+        self.bit_depth = bit_depth
+        # the uniform grid's deblock depth (the video session sets 8: the
+        # reference's fault, ROADMAP Queue 3)
+        self.deblock_bit_depth = bit_depth
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             exact_fp32_matmul()
@@ -400,7 +430,7 @@ class IntraEncoderSession:
         self.deblock, self.sao = bool(deblock), bool(sao)
         self.sbh = bool(sbh) and not rdoq
         self.aq_mode, self.aq_strength = aq_mode, aq_strength
-        self.quant_fn = Quantizer(self.sbh, rdoq, psy_rdoq)
+        self.quant_fn = Quantizer(self.sbh, rdoq, psy_rdoq, bit_depth)
         self.dpb_device = bool(dpb_device) and max_depth > 0
         self.info_sei = info_sei
         self.master_display, self.max_cll = master_display, max_cll
@@ -412,8 +442,13 @@ class IntraEncoderSession:
         self.sps = HDR.SPSInfo(
             width=self.coded_w, height=self.coded_h,
             conf_win=(0, self.coded_w - width, 0, self.coded_h - height),
-            ptl=HDR.ProfileTierLevel(level_idc=SEI.pick_level(
-                self.coded_w, self.coded_h, fps[0] / max(fps[1], 1))),
+            ptl=HDR.ProfileTierLevel(
+                profile_idc=4 if bit_depth > 10 else
+                2 if bit_depth > 8 else 1,
+                bit_depth_constraint=bit_depth,
+                level_idc=SEI.pick_level(self.coded_w, self.coded_h,
+                                         fps[0] / max(fps[1], 1))),
+            bit_depth=bit_depth,
             log2_min_cb=log2cu - max_depth, log2_diff_max_min_cb=max_depth,
             log2_min_tb=2, log2_diff_max_min_tb=min(log2cu, 5) - 2,
             strong_intra_smoothing=0, timing_info=(fps[1], fps[0]),
@@ -489,14 +524,16 @@ class IntraEncoderSession:
         if not self.aq_mode:
             return None
         offs = compute_aq_offsets(yp, self.cu, self.aq_strength,
-                                  mode=self.aq_mode, u_plane=up, v_plane=vp)
+                                  mode=self.aq_mode, u_plane=up, v_plane=vp,
+                                  bit_depth=self.bit_depth)
         return np.clip(self.qp + offs, 0, 51).astype(np.int32)
 
     def _filter(self, out: dict, qp: int, src3, with_sao: bool) -> None:
         sao = self.sao and with_sao
         if self.deblock or sao:
             filter_uniform(out, qp, True, self.cu, self.deblock, sao, src3,
-                           self.device, self.stage_ms)
+                           self.device, self.stage_ms, self.bit_depth,
+                           self.deblock_bit_depth)
 
     def assemble_slice(self, out: dict, qp: int,
                        nal_type: int = NAL_IDR_W_RADL, poc: int = 0) -> bytes:
@@ -510,12 +547,14 @@ class IntraEncoderSession:
         if self.max_depth:
             res = native.encode_slice_qt2(2, self.max_depth, out, qp,
                                           sign_hiding=self.sbh, sao=sao,
-                                          qp_map=qp_map)
+                                          qp_map=qp_map,
+                                          bit_depth=self.bit_depth)
         else:
             res = native.encode_intra_slice(
                 out["modes"], out["levels_y"], out["levels_cb"],
                 out["levels_cr"], self.cu.bit_length() - 1, qp,
-                sign_hiding=self.sbh, sao=sao, qp_map=qp_map)
+                sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
+                bit_depth=self.bit_depth)
         return _slice_nal(bw, res, nal_type)
 
     def _result(self, out: dict, slice_nal: bytes, frame,
@@ -527,15 +566,14 @@ class IntraEncoderSession:
             nals = self.sei_provider(self._display_counter) + nals
         self._display_counter += 1
         if self.hash_sei:
-            nals += _timed(self.stage_ms, "serialize", hash_sei, out)
+            nals += _timed(self.stage_ms, "serialize", hash_sei, out,
+                           self.bit_depth)
         if not with_recon:
             return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
                                psnr_y=0.0, frame_type="I", qp=self.qp)
-        ch, cw = self.src_h // 2, self.src_w // 2
-        recon = (out["recon_y"][:self.src_h, :self.src_w].astype(np.uint8),
-                 out["recon_u"][:ch, :cw].astype(np.uint8),
-                 out["recon_v"][:ch, :cw].astype(np.uint8))
-        py, pu, pv, ssim = frame_quality(recon, *frame, self.device)
+        recon = host_planes(out, self.src_h, self.src_w, self.bit_depth)
+        py, pu, pv, ssim = frame_quality(recon, *frame, self.device,
+                                         self.bit_depth)
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
                            psnr_y=py, frame_type="I", qp=self.qp,
                            psnr_u=pu, psnr_v=pv, ssim_y=ssim)
@@ -543,7 +581,8 @@ class IntraEncoderSession:
     # ------------------------------------------------------------------
     def encode_frame(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> FrameResult:
-        """Code one frame (8-bit planes at the source size) as an IDR."""
+        """Code one frame (planes at the source size, uint8 at 8 bits,
+        uint16 above) as an IDR."""
         padded = self._pad(y, u, v)
         qp_map = self._timed_aq(padded)
         out = self.code(*padded, self.qp, qp_map=qp_map)
@@ -594,7 +633,9 @@ class IntraEncoderSession:
 class VideoEncoderSession:
     """GOP session, one reference per list.
 
-    max_depth=0 codes the uniform cu_size=16 grid; max_depth=2 codes CTU32
+    bit_depth: 8, 10 or 12 (deeper planes come in and go out as uint16;
+    on the device they are int16). max_depth=0 codes the uniform cu_size=16
+    grid; max_depth=2 codes CTU32
     quadtrees down to 8x8 CUs, max_depth=1 down to 16x16 (cu_size is then
     32, as in the JAX session). bframes=0 codes IDR + P frames through
     encode_frame; bframes > 0 (either grid) codes mini-GOPs with B frames
@@ -654,7 +695,7 @@ class VideoEncoderSession:
                  dpb_device: bool = None, search_range: int = 16,
                  psy_rd: float = 0.0, b_intra: bool = False,
                  open_gop: bool = False, weightp: bool = False, device=None,
-                 **options):
+                 bit_depth: int = 8, **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         # frames wait rc_lookahead frames for cuTree's window (cuTree only)
@@ -674,8 +715,15 @@ class VideoEncoderSession:
             width, height, qp, cu_size, fps, hash_sei=False,
             deblock=deblock, sao=sao, rdoq=rdoq, sbh=sbh, psy_rdoq=psy_rdoq,
             max_depth=max_depth, dpb_device=self.dpb_device,
-            recon_host=recon_host, psy_rd=psy_rd, device=device)
+            recon_host=recon_host, psy_rd=psy_rd, device=device,
+            bit_depth=bit_depth)
         self.device = self.intra_sess.device
+        self.bit_depth = bit_depth
+        # the reference's video session deblocks its uniform grid (its IDRs
+        # too) at 8-bit thresholds and range whatever the bit depth: its
+        # fault, kept (ROADMAP Queue 3); its quadtree filters at the depth
+        if not max_depth:
+            self.intra_sess.deblock_bit_depth = 8
         self.src_w, self.src_h = width, height
         self.qp = qp
         self.cu = cu_size
@@ -728,7 +776,8 @@ class VideoEncoderSession:
                 self.coded_w, self.coded_h, cu_size, self.device, quant_fn,
                 search_range, self.weightp)
         self.lookahead = Lookahead(self.coded_w, self.coded_h, self.device,
-                                   hist_scenecut=hist_scenecut)
+                                   hist_scenecut=hist_scenecut,
+                                   bit_depth=bit_depth)
         # the lookahead's scene cut places keyframes (the host API's
         # reconfig switches it with its scenecut threshold)
         self.scenecut_enabled = True
@@ -759,7 +808,7 @@ class VideoEncoderSession:
         # two-pass; the #options header holds the fields x265's pass-2
         # parser checks
         opts = (f"input-res={width}x{height} fps={fps[0]}/{fps[1]} "
-                f"bitdepth=8 weightp={int(self.weightp)} "
+                f"bitdepth={bit_depth} weightp={int(self.weightp)} "
                 f"bframes={max(0, bframes)} "
                 f"b-pyramid={int(bool(b_pyramid))} "
                 f"open-gop={int(bool(open_gop))} "
@@ -813,7 +862,8 @@ class VideoEncoderSession:
         self.poc = 0
         self.display_idx = 0
         # (y, u, v) padded recon planes of the reference picture: host
-        # arrays on the uniform grid, uint8 device tensors for quadtrees
+        # arrays on the uniform grid, device tensors for quadtrees (uint8
+        # at 8 bits, int16 above)
         self.ref = None
         # push_frame state: display-order frames of the open mini-GOP, their
         # lowres planes (device tensors) and rc-lookahead windows, the
@@ -1266,7 +1316,8 @@ class VideoEncoderSession:
             out["qp_map"] = qp_map
         if self.session_filters:
             filter_uniform(out, qp, False, self.cu, self.deblock, self.sao,
-                           (yp, up, vp), self.device, self.stage_ms)
+                           (yp, up, vp), self.device, self.stage_ms,
+                           self.bit_depth, self.intra_sess.deblock_bit_depth)
         nals = self._timed("serialize", self._assemble_b_slice, out, qp, poc,
                            poc0, poc1, is_ref, rps, nal_type)
         nals = self._provided(poc) + nals
@@ -1306,7 +1357,8 @@ class VideoEncoderSession:
             out["qp_map"] = qp_map
         if self.session_filters:
             filter_uniform(out, qp, False, self.cu, self.deblock, self.sao,
-                           (yp, up, vp), self.device, self.stage_ms)
+                           (yp, up, vp), self.device, self.stage_ms,
+                           self.bit_depth, self.intra_sess.deblock_bit_depth)
         return out, self._timed("serialize", self._assemble_p_slice, out, qp,
                                 poc, ref_delta, weights)
 
@@ -1320,7 +1372,9 @@ class VideoEncoderSession:
         means, each rounded and clipped, kept when it is not the identity
         and cuts the subsampled SAD below 99% of the unweighted one.
         Returns {"luma" / "cb" / "cr": (w, o)} at denominator 6, or None
-        (the reference's weightAnalyse shape, in its order)."""
+        (the reference's weightAnalyse shape, in its order). As in the
+        reference, the weighted reference is clipped at 255 whatever the
+        bit depth (ROADMAP Queue 3)."""
         out = {}
         for comp, src, rp in (("luma", yp, ref[0]), ("cb", up, ref[1]),
                               ("cr", vp, ref[2])):
@@ -1358,7 +1412,7 @@ class VideoEncoderSession:
         make the frame's result (recon cropped to the source, the quality
         metrics against the source planes `frame`)."""
         if self.hash_sei:
-            nals += self._timed("serialize", hash_sei, out)
+            nals += self._timed("serialize", hash_sei, out, self.bit_depth)
         if rc_type == "":
             rc_type = "B" if frame_type in "Bb" else frame_type
         self._timed("rc", self._rc_done, qp, len(nals) * 8, frame_type,
@@ -1369,12 +1423,10 @@ class VideoEncoderSession:
             return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
                                psnr_y=0.0, frame_type=frame_type, qp=qp,
                                poc=poc)
-        ch, cw = self.src_h // 2, self.src_w // 2
-        recon = (out["recon_y"][:self.src_h, :self.src_w].astype(np.uint8),
-                 out["recon_u"][:ch, :cw].astype(np.uint8),
-                 out["recon_v"][:ch, :cw].astype(np.uint8))
-        q = frame_quality(recon, *frame, self.device) \
-            if self.quality_metrics else (psnr(recon[0], frame[0]), 0.0,
+        bd = self.bit_depth
+        recon = host_planes(out, self.src_h, self.src_w, bd)
+        q = frame_quality(recon, *frame, self.device, bd) \
+            if self.quality_metrics else (psnr(recon[0], frame[0], bd), 0.0,
                                           0.0, 0.0)
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
                            psnr_y=q[0], frame_type=frame_type, qp=qp,
@@ -1409,13 +1461,15 @@ class VideoEncoderSession:
         if self.max_depth:
             res = native.encode_slice_qt2(1, self.max_depth, out, qp,
                                           MAX_MERGE, sign_hiding=self.sbh,
-                                          sao=sao, qp_map=qp_map)
+                                          sao=sao, qp_map=qp_map,
+                                          bit_depth=self.bit_depth)
         else:
             res = native.encode_p_slice(
                 out["use_intra"], out["modes"], out["mvx"], out["mvy"],
                 out["levels_y"], out["levels_cb"], out["levels_cr"],
                 self.cu.bit_length() - 1, qp, MAX_MERGE,
-                sign_hiding=self.sbh, sao=sao, qp_map=qp_map)
+                sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
+                bit_depth=self.bit_depth)
         return _slice_nal(bw, res, NAL_TRAIL_R)
 
     def _assemble_b_slice(self, out: dict, qp: int, poc: int, poc0: int,
@@ -1437,13 +1491,15 @@ class VideoEncoderSession:
             res = native.encode_slice_qt2(0, self.max_depth, out, qp,
                                           MAX_MERGE, poc=poc, poc_l0=poc0,
                                           poc_l1=poc1, sign_hiding=self.sbh,
-                                          sao=sao, qp_map=qp_map)
+                                          sao=sao, qp_map=qp_map,
+                                          bit_depth=self.bit_depth)
         else:
             res = native.encode_b_slice(
                 out["use_intra"], out["modes"], out["pdir"], *_b_mvs(out),
                 out["levels_y"], out["levels_cb"], out["levels_cr"],
                 self.cu.bit_length() - 1, qp, MAX_MERGE, poc, poc0, poc1,
-                sign_hiding=self.sbh, sao=sao, qp_map=qp_map)
+                sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
+                bit_depth=self.bit_depth)
         return _slice_nal(bw, res, nal_type)
 
     # ------------------------------------------------------------------
@@ -1469,7 +1525,8 @@ class VideoEncoderSession:
             off = off + self.ctu_info_offsets
         if self.aq_mode:
             off = off + compute_aq_offsets(yp, self.cu, self.aq_strength,
-                                           mode=self.aq_mode)
+                                           mode=self.aq_mode,
+                                           bit_depth=self.bit_depth)
         if self._tp_cuoff is not None:
             off = off + self._tp_cuoff
         elif self.cutree and self._cutree_window:

@@ -45,15 +45,17 @@ def frame_weights(weights) -> tuple:
     return tuple(weights.get(c) or (64, 0) for c in ("luma", "cb", "cr"))
 
 
-def weighted_preds(refs, px, py, mx, my, nn: int, wts):
+def weighted_preds(refs, px, py, mx, my, nn: int, wts, bd: int = 8):
     """The normative weighted prediction (y, u, v) of every nn-block: the
     short-domain MC of the unweighted reference planes refs at the
-    quarter-pel MVs, then weight_uni with each component's (w, o)."""
+    quarter-pel MVs, then weight_uni with each component's (w, o), at
+    bit depth bd."""
     pxc, pyc = px // 2, py // 2
-    ps = (interp.mc_luma_qpel_ps(refs[0], px, py, mx, my, nn),
-          interp.mc_chroma_qpel_ps(refs[1], pxc, pyc, mx, my, nn // 2),
-          interp.mc_chroma_qpel_ps(refs[2], pxc, pyc, mx, my, nn // 2))
-    return tuple(interp.weight_uni(p, w, o) for p, (w, o) in zip(ps, wts))
+    ps = (interp.mc_luma_qpel_ps(refs[0], px, py, mx, my, nn, bd),
+          interp.mc_chroma_qpel_ps(refs[1], pxc, pyc, mx, my, nn // 2, bd),
+          interp.mc_chroma_qpel_ps(refs[2], pxc, pyc, mx, my, nn // 2, bd))
+    return tuple(interp.weight_uni(p, w, o, 6, bd)
+                 for p, (w, o) in zip(ps, wts))
 
 
 def bi_costs(satds, mv0, mv1, qp: int) -> torch.Tensor:
@@ -76,7 +78,9 @@ class InterFrameEncoder:
     one geometry. weightp: every P frame takes the weighted branch (the
     search on the weight-transformed reference, the normative weighted
     prediction), with the identity weight for a component that has none,
-    as the reference's program does; B frames are never weighted."""
+    as the reference's program does; B frames are never weighted. The
+    samples' bit depth is quant_fn's: planes go to the device as uint8 at
+    8 bits, int16 above (K1's input either way)."""
 
     def __init__(self, width: int, height: int, cu_size: int, device,
                  quant_fn: Quantizer = PLAIN, search_range: int = 16,
@@ -88,6 +92,7 @@ class InterFrameEncoder:
         self.rows, self.cols = height // cu_size, width // cu_size
         self.device = torch.device(device)
         self.quant_fn = quant_fn
+        self.bd = quant_fn.bit_depth
         self.wave = Wavefront(self.rows, self.cols, cu_size, self.device)
         ncu = self.rows * self.cols
         idx = torch.arange(ncu, dtype=torch.int32, device=self.device)
@@ -97,17 +102,20 @@ class InterFrameEncoder:
     # ---------- phase A: dense ME + MC over all CUs ----------------------
     def _search(self, yb: torch.Tensor, y: torch.Tensor,
                 search: torch.Tensor):
-        """Every CU's quarter-pel MV against the uint8 luma plane `search`:
-        K1's integer full search of y, then half- then quarter-pel SATD
-        refinement (8 neighbours each, the first of equal costs kept)."""
-        n, px, py = self.n, self.px, self.py
+        """Every CU's quarter-pel MV against the luma plane `search` (the
+        device plane type): K1's integer full search of y, then half- then
+        quarter-pel SATD refinement (8 neighbours each, the first of equal
+        costs kept)."""
+        n, px, py, bd = self.n, self.px, self.py, self.bd
         ry = search.to(torch.int32)
         mvx_i, mvy_i, _ = me.full_search_sad(search, y, n, self.search_range,
-                                             lambda_bits=2)
+                                             lambda_bits=2,
+                                             peak=pixel.peak(bd))
         mvx, mvy = mvx_i * 4, mvy_i * 4
 
         def eval_mv(mx, my):
-            return pixel.satd(yb, interp.mc_luma_qpel(ry, px, py, mx, my, n))
+            return pixel.satd(yb, interp.mc_luma_qpel(ry, px, py, mx, my, n,
+                                                      bd))
 
         # (reference: motion.cpp subpel iterations, SATD-costed)
         best = eval_mv(mvx, mvy)
@@ -125,49 +133,49 @@ class InterFrameEncoder:
 
     def motion_phase(self, y: torch.Tensor, ref_y: torch.Tensor,
                      ref_u: torch.Tensor, ref_v: torch.Tensor, wts=None):
-        """y, ref_*: uint8 planes; wts: ((w, o) luma, cb, cr) for the
+        """y, ref_*: device planes; wts: ((w, o) luma, cb, cr) for the
         weighted branch, or None. Returns quarter-pel (mvx, mvy), the
         luma/chroma predictions [ncu, n, n] / [ncu, n/2, n/2] and the
         inter SATD [ncu]."""
-        n, px, py = self.n, self.px, self.py
+        n, px, py, bd = self.n, self.px, self.py, self.bd
         yb = to_blocks(y.to(torch.int32), n)
         # the weighted branch searches (integer and subpel) on the
         # weight-transformed luma reference
-        search = ref_y if wts is None else interp.weight_plane(ref_y,
-                                                               *wts[0])
+        search = ref_y if wts is None else interp.weight_plane(
+            ref_y, *wts[0], bd)
         ry = search.to(torch.int32)
         mvx, mvy = self._search(yb, y, search)
         if wts is not None:
             pred_y, pred_u, pred_v = weighted_preds(
                 tuple(p.to(torch.int32) for p in (ref_y, ref_u, ref_v)),
-                px, py, mvx, mvy, n, wts)
+                px, py, mvx, mvy, n, wts, bd)
             return mvx, mvy, pred_y, pred_u, pred_v, pixel.satd(yb, pred_y)
-        pred_y = interp.mc_luma_qpel(ry, px, py, mvx, mvy, n)
+        pred_y = interp.mc_luma_qpel(ry, px, py, mvx, mvy, n, bd)
         # chroma: a quarter-luma-pel MV is an eighth-chroma-pel MV
         pred_u = interp.mc_chroma_qpel(ref_u.to(torch.int32), px // 2,
-                                       py // 2, mvx, mvy, n // 2)
+                                       py // 2, mvx, mvy, n // 2, bd)
         pred_v = interp.mc_chroma_qpel(ref_v.to(torch.int32), px // 2,
-                                       py // 2, mvx, mvy, n // 2)
+                                       py // 2, mvx, mvy, n // 2, bd)
         return mvx, mvy, pred_y, pred_u, pred_v, pixel.satd(yb, pred_y)
 
     def motion_phase_b(self, y: torch.Tensor, refs0, refs1, qp: int):
         """The B frame's two searches and its per-CU choice of L0, L1 or
-        bi (y: uint8 plane; refs0 / refs1: each list's uint8 (y, u, v)
+        bi (y: device plane; refs0 / refs1: each list's (y, u, v) device
         planes; qp: the program's QP, the largest of a map): the first
         minimum of bi_costs (ties favour uni-prediction); bi predicts with
         add_avg of the two short-domain predictions, as the decoder does.
         Returns (pdir 1 / 2 / 3, mv0x, mv0y, mv1x, mv1y, the chosen (y,
         u, v) predictions, the least cost, float32)."""
-        n, px, py = self.n, self.px, self.py
+        n, px, py, bd = self.n, self.px, self.py, self.bd
         yb = to_blocks(y.to(torch.int32), n)
         r32 = [tuple(p.to(torch.int32) for p in r) for r in (refs0, refs1)]
         (mv0x, mv0y), (mv1x, mv1y) = (self._search(yb, y, r[0])
                                       for r in (refs0, refs1))
-        p0 = _mc3(r32[0], px, py, mv0x, mv0y, n)
-        p1 = _mc3(r32[1], px, py, mv1x, mv1y, n)
-        pbi = [interp.add_avg(a, b) for a, b in zip(
-            _mc3(r32[0], px, py, mv0x, mv0y, n, ps=True),
-            _mc3(r32[1], px, py, mv1x, mv1y, n, ps=True))]
+        p0 = _mc3(r32[0], px, py, mv0x, mv0y, n, bd)
+        p1 = _mc3(r32[1], px, py, mv1x, mv1y, n, bd)
+        pbi = [interp.add_avg(a, b, bd) for a, b in zip(
+            _mc3(r32[0], px, py, mv0x, mv0y, n, bd, ps=True),
+            _mc3(r32[1], px, py, mv1x, mv1y, n, bd, ps=True))]
         costs = bi_costs([pixel.satd(yb, p[0]) for p in (p0, p1, pbi)],
                          (mv0x, mv0y), (mv1x, mv1y), qp)
         sel = torch.argmin(costs, 1)              # the first minimum
@@ -180,7 +188,7 @@ class InterFrameEncoder:
     # ---------------------------------------------------------------------
     def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp,
                      weights=None, ref1=None) -> dict:
-        """All planes 8-bit, padded to the coded size; ref_* are the
+        """All planes padded to the coded size; ref_* are the
         decoded reference planes (L0); ref1: the L1 reference's (y, u, v)
         planes for a B frame, None for a P frame; qp one QP or the per-CU
         QP map (AQ / cuTree); weights (weightp, P frames): {"luma" / "cb" /
@@ -195,8 +203,7 @@ class InterFrameEncoder:
         qmax = int(np.max(qp))
         qp, qpc = cu_qps(qp, ncu, dev)
         at = lambda q, cu: q if isinstance(q, int) else q[cu]
-        pl = lambda p: torch.as_tensor(np.ascontiguousarray(p, np.uint8),
-                                       device=dev)
+        pl = lambda p: _plane(p, dev, self.bd)
         pdir = mv1x = mv1y = None
         if ref1 is not None:
             (pdir, mvx, mvy, mv1x, mv1y, pred_yb, pred_ub, pred_vb,
@@ -210,7 +217,7 @@ class InterFrameEncoder:
         yb, ub, vb = planes_to_blocks(y, u, v, n, dev)
 
         # ---------- phase B: wavefront decision + recon ------------------
-        ws = WaveState(ncu, n, dev)
+        ws = WaveState(ncu, n, dev, self.bd)
         use_intra = torch.zeros(ncu, dtype=torch.bool, device=dev)
         for cu, nbr, avail in self.wave.steps:
             src = yb[cu]
@@ -247,11 +254,14 @@ class InterFrameEncoder:
 # CTU32 quadtree P and B frames (depth 1 or 2)
 # ---------------------------------------------------------------------------
 
-def _plane_u8(p, dev) -> torch.Tensor:
-    """A uint8 plane on `dev` from a host array or a tensor."""
+def _plane(p, dev, bd: int) -> torch.Tensor:
+    """A plane of bd-bit samples on `dev` in the device plane type (uint8
+    at 8 bits, int16 above) from a host array or a tensor."""
+    dt = pixel.plane_dtype(bd)
     if isinstance(p, torch.Tensor):
-        return p.to(dev, torch.uint8)
-    return torch.as_tensor(np.array(p, np.uint8), device=dev)
+        return p.to(dev, dt)
+    return torch.as_tensor(np.ascontiguousarray(p).astype(
+        np.uint8 if dt == torch.uint8 else np.int16), device=dev)
 
 
 def median_mv(mv: torch.Tensor) -> torch.Tensor:
@@ -305,14 +315,15 @@ def _mv_bits(mx, my, states) -> torch.Tensor:
     return (BC.mvd_bits(mx, states) + BC.mvd_bits(my, states)) + 2.0
 
 
-def _mc3(refs, px, py, mx, my, nn: int, ps: bool = False):
+def _mc3(refs, px, py, mx, my, nn: int, bd: int = 8, ps: bool = False):
     """(y, u, v) predictions of every nn-block from the reference planes
-    `refs` at quarter-pel MVs: pixels, or with ps the short-domain form."""
+    `refs` at quarter-pel MVs: bd-bit pixels, or with ps the short-domain
+    form."""
     luma = interp.mc_luma_qpel_ps if ps else interp.mc_luma_qpel
     chroma = interp.mc_chroma_qpel_ps if ps else interp.mc_chroma_qpel
-    return (luma(refs[0], px, py, mx, my, nn),
-            chroma(refs[1], px // 2, py // 2, mx, my, nn // 2),
-            chroma(refs[2], px // 2, py // 2, mx, my, nn // 2))
+    return (luma(refs[0], px, py, mx, my, nn, bd),
+            chroma(refs[1], px // 2, py // 2, mx, my, nn // 2, bd),
+            chroma(refs[2], px // 2, py // 2, mx, my, nn // 2, bd))
 
 
 # decision-dict keys of each size's motion: (pdir, L0 x, L0 y, L1 x, L1 y)
@@ -332,7 +343,8 @@ class InterQTEncoder:
     """CTU32 quadtree P- and B-frame encoder, one reference per list:
     dense decide, then the commit of the intra leaves. Port of
     InterFrameEncoder._build_qt + _unpack_qt with bi=False and with
-    bi=True (max_depth 1: CUs 32 and 16, or 2: down to 8; 8-bit, no RQT;
+    bi=True (max_depth 1: CUs 32 and 16, or 2: down to 8; at quant_fn's
+    bit depth; no RQT;
     quant_fn: plain, sign-bit hiding
     under the mode-dependent scan or context RDOQ; psy_rd: the
     psycho-visual term of the leaf RD; b_intra: intra candidates in B
@@ -395,7 +407,8 @@ class InterQTEncoder:
         self.psy_rd, self.b_intra = psy_rd, bool(b_intra)
         self.search_range = search_range
         self.weightp = bool(weightp)
-        self.filters = QT.LoopFilters(deblock, sao, sao_form)
+        self.bd = quant_fn.bit_depth
+        self.filters = QT.LoopFilters(deblock, sao, sao_form, self.bd)
         self.hme, self.hme_range = hme, hme_range
         # the decision dict carries the recon planes on the host
         # (recon_y / _u / _v); off, only recon_dev holds them
@@ -421,7 +434,7 @@ class InterQTEncoder:
             fx, fy = torch.where(use_c, cx, fx), torch.where(use_c, cy, fy)
         win = interp.gather_luma_window(ref_y, px, py, fx, fy, nn)
         dqx, dqy, satd = interp.subpel_refine_win(win, to_blocks(y32, nn),
-                                                  nn)
+                                                  nn, self.bd)
         return fx * 4 + dqx, fy * 4 + dqy, satd
 
     def _merge_cands(self, nn: int, fields):
@@ -465,12 +478,14 @@ class InterQTEncoder:
         ((pdir, mv0x, mv0y, mv1x, mv1y) with an unused list's MV zero, the
         (y, u, v) prediction, the bits)."""
         px, py = self.geo.pxpy[nn]
+        bd = self.bd
         yb = to_blocks(y32, nn)
         lam = QT.lam(qp_blk)
         (mv0x, mv0y, s0), (mv1x, mv1y, s1) = mv0, mv1
         sbi = pixel.satd(yb, interp.add_avg(
-            interp.mc_luma_qpel_ps(refs0[0], px, py, mv0x, mv0y, nn),
-            interp.mc_luma_qpel_ps(refs1[0], px, py, mv1x, mv1y, nn)))
+            interp.mc_luma_qpel_ps(refs0[0], px, py, mv0x, mv0y, nn, bd),
+            interp.mc_luma_qpel_ps(refs1[0], px, py, mv1x, mv1y, nn, bd),
+            bd))
         b0, b1 = _mv_bits(mv0x, mv0y, states), _mv_bits(mv1x, mv1y, states)
         bits = torch.stack([b0, b1 + 1.0, b0 + b1 + 2.0], 1)
         costs = torch.stack([s0 + lam * bits[:, 0], s1 + lam * bits[:, 1],
@@ -508,11 +523,11 @@ class InterQTEncoder:
         m0, m1 = pdir & 1, (pdir & 2) >> 1
         mo = (pdir, cur[1] * m0, cur[2] * m0, cur[3] * m1, cur[4] * m1)
         # the full 3-plane prediction at the winner
-        p0 = _mc3(refs0, px, py, mo[1], mo[2], nn)
-        p1 = _mc3(refs1, px, py, mo[3], mo[4], nn)
-        pbi = [interp.add_avg(a, b) for a, b in zip(
-            _mc3(refs0, px, py, mo[1], mo[2], nn, ps=True),
-            _mc3(refs1, px, py, mo[3], mo[4], nn, ps=True))]
+        p0 = _mc3(refs0, px, py, mo[1], mo[2], nn, bd)
+        p1 = _mc3(refs1, px, py, mo[3], mo[4], nn, bd)
+        pbi = [interp.add_avg(a, b, bd) for a, b in zip(
+            _mc3(refs0, px, py, mo[1], mo[2], nn, bd, ps=True),
+            _mc3(refs1, px, py, mo[3], mo[4], nn, bd, ps=True))]
         sel = pdir[:, None, None]
         pred = tuple(torch.where(sel == 1, a, torch.where(sel == 2, b, c))
                      for a, b, c in zip(p0, p1, pbi))
@@ -520,23 +535,25 @@ class InterQTEncoder:
 
     def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp, ref1=None,
                      slice_qp: int = None, weights=None) -> dict:
-        """y, u, v: 8-bit planes padded to the coded size; ref_*: the L0
-        reference picture's recon planes (numpy or device tensors, uint8);
+        """y, u, v: planes padded to the coded size; ref_*: the L0
+        reference picture's recon planes (numpy or device tensors);
         qp: one QP or the per-CTU QP map (AQ / cuTree), slice_qp the
         slice's (the filters' default QP; default the map's largest);
         ref1: the L1 reference's (y, u, v) for a B frame, None for a P
         frame; weights (weightp, P frames): {"luma" / "cb" / "cr": (w, o)}
         at denominator 6. Returns the decision dict (numpy), "recon_dev",
-        the (filtered) recon planes as uint8 device tensors, and with SAO
-        "sao", its parameters packed [ncu, 18]."""
+        the (filtered) recon planes as device tensors (uint8 at 8 bits,
+        int16 above), and with SAO "sao", its parameters packed [ncu,
+        18]."""
         geo = self.geo
         dev = geo.device
+        bd = self.bd
         bi = ref1 is not None
         wts = frame_weights(weights) if self.weightp and not bi else None
-        y8, u8, v8 = (_plane_u8(p, dev) for p in (y, u, v))
-        r8 = [tuple(_plane_u8(p, dev) for p in (ref_y, ref_u, ref_v))]
+        y8, u8, v8 = (_plane(p, dev, bd) for p in (y, u, v))
+        r8 = [tuple(_plane(p, dev, bd) for p in (ref_y, ref_u, ref_v))]
         if bi:
-            r8.append(tuple(_plane_u8(p, dev) for p in ref1))
+            r8.append(tuple(_plane(p, dev, bd) for p in ref1))
         y32, u32, v32 = (p.to(torch.int32) for p in (y8, u8, v8))
         refs = [tuple(p.to(torch.int32) for p in r) for r in r8]
         fq = QT.FrameQp(geo, qp, slice_qp)
@@ -544,23 +561,26 @@ class InterQTEncoder:
         # weight-transformed reference
         search, search32 = [r[0] for r in r8], [r[0] for r in refs]
         if wts is not None:
-            search[0] = interp.weight_plane(search[0], *wts[0])
+            search[0] = interp.weight_plane(search[0], *wts[0], bd)
             search32[0] = search[0].to(torch.int32)
-        # K1 on the uint8 planes, per list: the surface, then each size's
+        # K1 on the device planes, per list: the surface, then each size's
         # argmin
         fine = [me.sad_sweep_multi(sp, y8, self.sizes, self.search_range,
-                                   lambda_bits=2) for sp in search]
+                                   lambda_bits=2, peak=pixel.peak(bd))
+                for sp in search]
         coarse = [None] * len(r8)
         if self.hme:
-            # the half-resolution planes stay within 0..255: uint8 for K1
-            low = lambda p: downscale_half(p).to(torch.uint8)
+            # the half-resolution planes stay within the bit depth's
+            # range: the device plane type for K1
+            low = lambda p: downscale_half(p).to(pixel.plane_dtype(bd))
             low_y = low(y8)
             low_refs = [low(r[0]) for r in r8]
             if wts is not None:
-                low_refs[0] = interp.weight_plane(low_refs[0], *wts[0])
+                low_refs[0] = interp.weight_plane(low_refs[0], *wts[0], bd)
             coarse = [me.sad_sweep_multi(lr, low_y,
                                          tuple(nn // 2 for nn in self.sizes),
-                                         self.hme_range, lambda_bits=2)
+                                         self.hme_range, lambda_bits=2,
+                                         peak=pixel.peak(bd))
                       for lr in low_refs]
         # B / P contexts, at the first CTU's QP as in the reference
         states = BC.init_states_dev(0 if bi else 1, fq.first)
@@ -579,12 +599,12 @@ class InterQTEncoder:
                 bx, by, _ = mvs[0]
                 motion[nn] = (None, bx, by, None, None)
                 ebits_mv = _mv_bits(bx, by, states)
-                epred = weighted_preds(refs[0], px, py, bx, by, nn, wts)
+                epred = weighted_preds(refs[0], px, py, bx, by, nn, wts, bd)
             else:
                 bx, by, ebits_mv = self._motion(nn, y32, refs[0][0], mvs[0],
                                                 states, qp_blk)
                 motion[nn] = (None, bx, by, None, None)
-                epred = _mc3(refs[0], px, py, bx, by, nn)
+                epred = _mc3(refs[0], px, py, bx, by, nn, bd)
             nb = px.shape[0]
             srcs3 = QT.sources3(y32, u32, v32, nn)
             # the inter rounding offset for both candidates (P and B)
@@ -597,7 +617,7 @@ class InterQTEncoder:
                 modes = torch.zeros(nb, dtype=torch.int32, device=dev)
                 dist, bits = edist, ebits + ebits_mv
             else:
-                modes, *ipred = QT.dense_intra(nn, y32, u32, v32)
+                modes, *ipred = QT.dense_intra(nn, y32, u32, v32, bd)
                 _, _, idist, ibits = QT.rd_leaf(nn, srcs3, ipred, qp_blk,
                                                 qpc_blk, states, False,
                                                 self.quant_fn, modes,
@@ -666,5 +686,5 @@ class InterQTEncoder:
         if sao is not None:
             out["sao"] = sao
         out.update(QT.decision_planes(geo, rec, lv, self.recon_host))
-        out["recon_dev"] = tuple(p.to(torch.uint8) for p in rec)
+        out["recon_dev"] = tuple(p.to(pixel.plane_dtype(bd)) for p in rec)
         return out

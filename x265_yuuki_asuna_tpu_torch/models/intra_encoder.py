@@ -3,7 +3,8 @@ diagonals.
 
 Port of the default branch of x265_yuuki_asuna_tpu/models/intra_encoder.py
 (`_build` + `_unpack`, and `submit_frames` / `collect_frames` /
-`encode_frames` for batches of frames: uniform grid, 8-bit 4:2:0, plain
+`encode_frames` for batches of frames: uniform grid, 4:2:0 at 8, 10 or
+12 bits (the quantizer's), plain
 quant, sign-bit hiding or static-bit RDOQ with psy-RDOQ, one QP or a
 per-CU QP map per frame; no noise reduction / scaling lists). The JAX program scans the wavefront diagonals
 with `lax.scan` over fixed-width slots; here a Python loop walks the
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import bitcost as BC
-from ..ops import intra, pixel, quant, transforms
+from ..ops import intra, pixel, transforms
 from ..ops.quant import PLAIN, Quantizer
 from ..utils.geometry import wavefront_schedule
 
@@ -127,27 +128,30 @@ def tq_recon(src: torch.Tensor, pred: torch.Tensor, qp, log2n: int,
              modes=None, is_intra=None, states=None):
     """Transform, quantize (quant_fn, with the blocks' luma flag, modes,
     intra flags and the slice's frozen contexts), dequantize, inverse
-    transform and reconstruct: (levels, recon) [B, n, n] int32."""
-    coef = transforms.forward_transform(src - pred)
+    transform and reconstruct at quant_fn's bit depth: (levels, recon)
+    [B, n, n] int32."""
+    bd = quant_fn.bit_depth
+    coef = transforms.forward_transform(src - pred, bd)
     levels = quant_fn(coef, qp, log2n, intra_slice, luma, modes, is_intra,
                       states)
-    rr = transforms.inverse_transform(quant.dequant(levels, qp, log2n))
-    return levels, (pred + rr).clamp(0, 255)
+    rr = transforms.inverse_transform(quant_fn.dequant(levels, qp, log2n),
+                                      bd)
+    return levels, (pred + rr).clamp(0, pixel.peak(bd))
 
 
 class WaveState:
     """One frame's wavefront state on the device: the carried bottom row
     and right column of every CU's recon (luma; Cb and Cr side by side),
-    with the sentinel row `ncu` left at the fill value, and the per-CU
-    results committed so far."""
+    with the sentinel row `ncu` left at the fill value 1 << (bd - 1), and
+    the per-CU results committed so far."""
 
-    def __init__(self, ncu: int, n: int, device):
+    def __init__(self, ncu: int, n: int, device, bit_depth: int = 8):
         nc = n // 2
-        self.n = n
+        self.n, self.bd = n, bit_depth
         z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                        device=device)
-        st = lambda k: torch.full((ncu + 1, k), 128, dtype=torch.int32,
-                                  device=device)
+        st = lambda k: torch.full((ncu + 1, k), 1 << (bit_depth - 1),
+                                  dtype=torch.int32, device=device)
         self.bry, self.rcy, self.bruv, self.rcuv = st(n), st(n), st(2 * nc), \
             st(2 * nc)
         self.modes = z(ncu)
@@ -158,8 +162,8 @@ class WaveState:
         """All 35 luma intra predictions [S, 35, n, n] from the
         reconstructed neighbors."""
         v = intra.substitute_references(
-            boundary_vector(self.bry, self.rcy, nbr, self.n), avail)
-        return intra.predict_all_modes_matmul(v, self.n, luma=True)
+            boundary_vector(self.bry, self.rcy, nbr, self.n), avail, self.bd)
+        return intra.predict_all_modes_matmul(v, self.n, self.bd, luma=True)
 
     def chroma_dm(self, nbr, avail, modes) -> torch.Tensor:
         """Chroma intra predictions in the DM mode (= the luma mode),
@@ -169,8 +173,9 @@ class WaveState:
                                        nbr, nc),
                        boundary_vector(self.bruv[:, nc:], self.rcuv[:, nc:],
                                        nbr, nc)])
-        v = intra.substitute_references(v, avail.repeat(2, 1))
-        return intra.predict_mode_matmul(v, modes.repeat(2), nc, luma=False)
+        v = intra.substitute_references(v, avail.repeat(2, 1), self.bd)
+        return intra.predict_mode_matmul(v, modes.repeat(2), nc, self.bd,
+                                         luma=False)
 
     def commit(self, cu, modes, lv, rec, lvc, recc):
         """Store the results of the diagonal's CUs `cu` and their edges."""
@@ -217,7 +222,7 @@ def gather_mode(preds: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
 
 
 def planes_to_blocks(y, u, v, n: int, device):
-    """Host 8-bit planes -> int32 CU blocks on the device ([ncu, n, n]
+    """Host planes -> int32 CU blocks on the device ([ncu, n, n]
     luma, [ncu, n/2, n/2] chroma)."""
     t = lambda p: torch.as_tensor(np.ascontiguousarray(p), device=device) \
         .to(torch.int32)
@@ -245,7 +250,7 @@ class IntraFrameEncoder:
 
     def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
                      qp) -> dict:
-        """y: [H, W] 8-bit pixels padded to the coded size; u, v: [H/2, W/2];
+        """y: [H, W] pixels padded to the coded size; u, v: [H/2, W/2];
         qp: one QP, or the per-CU QP map ([rows, cols] or [ncu]). Returns
         the decision dict (numpy): modes, levels_*, recon_*."""
         return self.encode_frames([y], [u], [v],
@@ -264,7 +269,8 @@ class IntraFrameEncoder:
         blk = [planes_to_blocks(y, u, v, n, self.device)
                for y, u, v in zip(ys, us, vs)]
         yb, ub, vb = (torch.cat([b[i] for b in blk]) for i in range(3))
-        ws = WaveState(F * self.rows * self.cols, n, self.device)
+        ws = WaveState(F * self.rows * self.cols, n, self.device,
+                       self.quant_fn.bit_depth)
         q = self.quant_fn
         for cu, nbr, avail in self.wave(F).steps:
             # luma: all 35 modes, SATD argmin (first minimum)
@@ -285,7 +291,8 @@ class IntraFrameEncoder:
 class IntraQTEncoder:
     """CTU32 quadtree intra frame encoder: dense decide, commit, then the
     in-loop filters (port of IntraFrameEncoder._build_qt + _unpack_qt with
-    max_depth 1 (CUs 32 and 16) or 2 (down to 8), 8-bit; quant_fn: plain,
+    max_depth 1 (CUs 32 and 16) or 2 (down to 8), at quant_fn's bit
+    depth; quant_fn: plain,
     mode-dependent
     sign-bit hiding or context RDOQ; psy_rd: the psycho-visual term of
     the leaf RD; with the device-DPB filter chain when deblock or sao is
@@ -309,20 +316,21 @@ class IntraQTEncoder:
         self.psy_rd = psy_rd
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
-        self.filters = QT.LoopFilters(deblock, sao, sao_form)
+        self.bd = quant_fn.bit_depth
+        self.filters = QT.LoopFilters(deblock, sao, sao_form, self.bd)
         # the decision dict carries the recon planes on the host
         # (recon_y / _u / _v); off, only recon_dev holds them
         self.recon_host = recon_host
 
     def encode_frame(self, y, u, v, qp, with_sao: bool = True,
                      slice_qp: int = None) -> dict:
-        """y, u, v: 8-bit planes padded to the coded size (numpy or device
-        tensors); qp: one QP or the per-CTU QP map (AQ / cuTree), slice_qp
-        the slice's (the filters' default QP; default the map's largest).
-        Returns the decision dict (numpy), "recon_dev", the (filtered)
-        recon planes as uint8 device tensors, and with SAO "sao", its
-        parameters packed [ncu, 18] (with_sao=False: this frame without
-        SAO)."""
+        """y, u, v: planes padded to the coded size (numpy); qp: one QP or
+        the per-CTU QP map (AQ / cuTree), slice_qp the slice's (the
+        filters' default QP; default the map's largest). Returns the
+        decision dict (numpy), "recon_dev", the (filtered) recon planes as
+        device tensors (uint8 at 8 bits, int16 above), and with SAO "sao",
+        its parameters packed [ncu, 18] (with_sao=False: this frame
+        without SAO)."""
         QT, geo = self.QT, self.geo
         dev = geo.device
         pl = lambda p: torch.as_tensor(np.array(p, np.int32), device=dev)
@@ -332,7 +340,7 @@ class IntraQTEncoder:
         states = BC.init_states_dev(2, fq.first)
         leaf = {}
         for nn in self.sizes:
-            modes, py, pu, pv = QT.dense_intra(nn, y32, u32, v32)
+            modes, py, pu, pv = QT.dense_intra(nn, y32, u32, v32, self.bd)
             _, _, dist, bits = QT.rd_leaf(nn, QT.sources3(y32, u32, v32, nn),
                                           (py, pu, pv), fq.blk(nn, fq.cu),
                                           fq.blk(nn, fq.c), states, True,
@@ -368,5 +376,6 @@ class IntraQTEncoder:
         if sao is not None:
             out["sao"] = sao
         out.update(QT.decision_planes(geo, rec, lv, self.recon_host))
-        out["recon_dev"] = tuple(p.to(torch.uint8) for p in rec)
+        out["recon_dev"] = tuple(p.to(pixel.plane_dtype(self.bd))
+                                 for p in rec)
         return out

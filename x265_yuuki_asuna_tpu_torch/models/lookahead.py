@@ -4,8 +4,13 @@ costs.
 Port of x265_yuuki_asuna_tpu/models/lookahead.py (downscale_half, the
 per-frame pass and push with the histogram scene cut, pair_cost,
 bidir_cost, badapt_path_costs). Every sweep is K1's fused sweep-and-argmin
-at n=8, R=16, lambda_bits=1 on the uint8 lowres planes, which stay on the
-device.
+at n=8, R=16, lambda_bits=1 on the lowres planes in the device plane type
+(uint8 at 8 bits, int16 above: downscale_half keeps the samples' range),
+which stay on the device.
+
+As in the reference, the histogram scene cut bins low >> 2 into 64 bins
+whatever the bit depth, so above 8 bits it counts only the lowres samples
+below 256 (ROADMAP Queue 3).
 
 Reference behavior (studied, not copied): encoder/slicetype.cpp — lowres
 pyramid (frameInitLowres), 8x8 lowres ME, lowres intra estimate, scenecut
@@ -35,14 +40,15 @@ def downscale_half(plane: torch.Tensor) -> torch.Tensor:
 HIST_CUT = 0.35       # the histogram scene cut's L1 distance
 
 
-def _search(ref_low: torch.Tensor, cur_low: torch.Tensor) -> torch.Tensor:
+def _search(ref_low: torch.Tensor, cur_low: torch.Tensor,
+            bd: int = 8) -> torch.Tensor:
     """[nblocks] SAD of each 8x8 lowres block of cur at its best MV into
-    ref (full search +-16, lambda_bits 1): K1's fused kernel. The sweep
-    takes uint8 planes: exact, since downscale_half of uint8 stays within
-    0..255."""
-    return me.sad_sweep_multi(ref_low.to(torch.uint8),
-                              cur_low.to(torch.uint8), (8,), 16,
-                              lambda_bits=1)[8][2]
+    ref (full search +-16, lambda_bits 1): K1's fused kernel on the
+    planes in the device plane type of bd-bit samples (exact: downscale_half
+    stays within the bit depth's range)."""
+    dt = pixel.plane_dtype(bd)
+    return me.sad_sweep_multi(ref_low.to(dt), cur_low.to(dt), (8,), 16,
+                              lambda_bits=1, peak=pixel.peak(bd))[8][2]
 
 
 class Lookahead:
@@ -51,11 +57,12 @@ class Lookahead:
     reference's bHistBasedSceneCut)."""
 
     def __init__(self, width: int, height: int, device,
-                 hist_scenecut: bool = False):
+                 hist_scenecut: bool = False, bit_depth: int = 8):
         # lowres geometry, trimmed to whole 8x8 blocks
         self.lw = (width // 2) // 8 * 8
         self.lh = (height // 2) // 8 * 8
         self.device = torch.device(device)
+        self.bd = bit_depth
         self.hist_scenecut = hist_scenecut
         self._prev_hist = None
         self.prev_lowres = None       # int32 [lh, lw] on the device
@@ -71,7 +78,7 @@ class Lookahead:
     def _icost(blocks: torch.Tensor) -> torch.Tensor:
         """Lowres intra estimate of each block: SATD against the DC
         predictor; the DC is the integer block sum // 64 (the JAX float
-        mean truncates to the same value: sums <= 64*255 are exact in
+        mean truncates to the same value: sums <= 64*4095 are exact in
         float32)."""
         nblocks = blocks.shape[0]
         dc = blocks.reshape(nblocks, 64).sum(dim=1) // 64
@@ -88,10 +95,11 @@ class Lookahead:
         icost = self._icost(blocks)
         intra_cost = icost.sum()
         # lowres inter: 8x8 full search +-16 on the previous lowres (K1's
-        # fused kernel on uint8 planes, as _search)
-        mvx, mvy, sad = me.sad_sweep_multi(prev.to(torch.uint8),
-                                           low.to(torch.uint8), (8,), 16,
-                                           lambda_bits=1)[8]
+        # fused kernel, as _search)
+        dt = pixel.plane_dtype(self.bd)
+        mvx, mvy, sad = me.sad_sweep_multi(prev.to(dt), low.to(dt), (8,), 16,
+                                           lambda_bits=1,
+                                           peak=pixel.peak(self.bd))[8]
         # half-pel refinement: a P-px full-res pan is P/2 at lowres
         px = (torch.arange(nblocks, dtype=torch.int32, device=dev) % nb_x) * 8
         py = (torch.arange(nblocks, dtype=torch.int32, device=dev) // nb_x) * 8
@@ -116,14 +124,16 @@ class Lookahead:
         """Lowres ME cost of cur against an arbitrary reference: the sum
         over blocks of min(SAD, intra) (distance-aware fast b-adapt)."""
         icost = self._icost(self._blocks(cur_low))
-        return float(torch.minimum(_search(ref_low, cur_low), icost).sum())
+        return float(torch.minimum(_search(ref_low, cur_low, self.bd),
+                                   icost).sum())
 
     def bidir_cost(self, ref0_low: torch.Tensor, ref1_low: torch.Tensor,
                    cur_low: torch.Tensor) -> float:
         """Cost of cur as a B between ref0 (past) and ref1 (future): the
         sum over blocks of min(forward SAD, backward SAD, intra)."""
         icost = self._icost(self._blocks(cur_low))
-        fwd, bwd = _search(ref0_low, cur_low), _search(ref1_low, cur_low)
+        fwd, bwd = (_search(r, cur_low, self.bd) for r in (ref0_low,
+                                                           ref1_low))
         return float(torch.minimum(torch.minimum(fwd, bwd), icost).sum())
 
     def badapt_path_costs(self, anchor_low: torch.Tensor, lows) \
@@ -137,13 +147,14 @@ class Lookahead:
         in the reference's order."""
         K = len(lows)
         icost = [self._icost(self._blocks(c)) for c in lows]
-        anchor_low = anchor_low.to(torch.uint8)
-        lows = [c.to(torch.uint8) for c in lows]
-        fwd = [_search(anchor_low, c) for c in lows]
+        dt = pixel.plane_dtype(self.bd)
+        anchor_low = anchor_low.to(dt)
+        lows = [c.to(dt) for c in lows]
+        fwd = [_search(anchor_low, c, self.bd) for c in lows]
         terms = [torch.minimum(f, ic).sum() for f, ic in zip(fwd, icost)]
         for k in range(K):
             for i in range(k):
-                bwd = _search(lows[k], lows[i])
+                bwd = _search(lows[k], lows[i], self.bd)
                 terms.append(torch.minimum(torch.minimum(fwd[i], bwd),
                                            icost[i]).sum())
         raw = torch.stack(terms).cpu().numpy().astype(np.int64)
@@ -158,7 +169,9 @@ class Lookahead:
     def _hist_cut(self, low: torch.Tensor) -> bool:
         """The histogram scene cut: the L1 distance of this frame's
         normalised 64-bin histogram of low >> 2 from the previous frame's
-        above HIST_CUT (never on the first frame)."""
+        above HIST_CUT (never on the first frame). The bins stop at 64 at
+        every bit depth, as in the reference: deeper samples from 256 up
+        fall out of the histogram."""
         hist = torch.bincount(low.reshape(-1) >> 2, minlength=64)[:64] \
             .cpu().numpy().astype(np.float64)
         hist /= max(hist.sum(), 1.0)

@@ -294,23 +294,26 @@ class FrameQp:
 def ssd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Sum of squared differences over the last two axes as float32. The
     sum is exact (int64), so it equals the reference's float32 sum in any
-    order while the block's SSD is below 2^24."""
+    order while the block's SSD is below 2^24 (at 10 bits a 32x32 block's
+    mean squared error must stay below 16384 for that, at 12 bits too:
+    the decisions are held to the reference's pinned streams)."""
     d = (a - b).to(torch.int64)
     return (d * d).sum((-2, -1)).float()
 
 
-def dense_intra(nn: int, y32, u32, v32):
+def dense_intra(nn: int, y32, u32, v32, bd: int = 8):
     """Fast-intra decision at one size for every aligned nn-block: modes
     from source-neighbour SATD over all 35 luma modes, and the luma and
-    DM-chroma predictions from the source neighbours."""
-    preds = intra.predict_all_modes_matmul(source_v(y32, nn), nn, luma=True)
+    DM-chroma predictions from the source neighbours (bd-bit samples)."""
+    preds = intra.predict_all_modes_matmul(source_v(y32, nn), nn, bd,
+                                           luma=True)
     yb = to_blocks(y32, nn)
     modes = torch.argmin(pixel.satd(yb[:, None], preds), dim=1)
     hc = nn // 2
     return (modes.to(torch.int32), gather_mode(preds, modes),
-            intra.predict_mode_matmul(source_v(u32, hc), modes, hc,
+            intra.predict_mode_matmul(source_v(u32, hc), modes, hc, bd,
                                       luma=False),
-            intra.predict_mode_matmul(source_v(v32, hc), modes, hc,
+            intra.predict_mode_matmul(source_v(v32, hc), modes, hc, bd,
                                       luma=False))
 
 
@@ -407,8 +410,9 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, fq: FrameQp,
     (CTU (r, c) on diagonal 2r + c) and each z-order position, the leaves
     there form one batch: luma, then Cb and Cr together, each leaf at its
     CTU's QPs (fq). quant_fn and states: the program's quantizer and the
-    slice's frozen contexts."""
+    slice's frozen contexts; the samples' bit depth is quant_fn's."""
     rows, cols, W = geo.rows, geo.cols, geo.W
+    bd = quant_fn.bit_depth
     dev = geo.device
     steps = {}
     for ctu, k, mode in leaves:
@@ -425,9 +429,10 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, fq: FrameQp,
         nc, ctu_c = nn // 2, N // 2
         # luma
         vi, va = block_v(r, c, y0, x0, nn, N, cols, W)
-        v = intra.substitute_references(rec[0].reshape(-1)[t(vi)], t(va))
+        v = intra.substitute_references(rec[0].reshape(-1)[t(vi)], t(va),
+                                        bd)
         bi = t(block_index(r, c, y0, x0, nn, N, W))
-        pred = intra.predict_mode_matmul(v, modes, nn, luma=True)
+        pred = intra.predict_mode_matmul(v, modes, nn, bd, luma=True)
         lvy, ry = tq_recon(src[0].reshape(-1)[bi].reshape(S, nn, nn), pred,
                            qy, nn.bit_length() - 1, intra_slice, quant_fn,
                            True, modes, None, states)
@@ -438,9 +443,10 @@ def commit_intra(leaves, geo: QtGeometry, src, rec, lv, fq: FrameQp,
         vi, va = t(vi), t(va)
         v = intra.substitute_references(
             torch.cat([rec[1].reshape(-1)[vi], rec[2].reshape(-1)[vi]]),
-            va.repeat(2, 1))
+            va.repeat(2, 1), bd)
         bi = t(block_index(r, c, y0 // 2, x0 // 2, nc, ctu_c, W // 2))
-        pred = intra.predict_mode_matmul(v, modes.repeat(2), nc, luma=False)
+        pred = intra.predict_mode_matmul(v, modes.repeat(2), nc, bd,
+                                         luma=False)
         s = torch.cat([src[1].reshape(-1)[bi], src[2].reshape(-1)[bi]])
         lvc, rc_ = tq_recon(s.reshape(2 * S, nc, nc), pred, cb_cr(qc),
                             nc.bit_length() - 1, intra_slice, quant_fn, False,
@@ -476,10 +482,12 @@ class LoopFilters:
     off; SAO in its "program" or "host" form) and the wall-clock ms of
     the last frame's chain by stage: "filters" for the program form (the
     device-DPB chain), "deblock" and "sao" apart for the host form (the
-    reference's host filters)."""
+    reference's host filters), on bit_depth-bit samples."""
 
-    def __init__(self, deblock: bool, sao: bool, sao_form: str = "program"):
+    def __init__(self, deblock: bool, sao: bool, sao_form: str = "program",
+                 bit_depth: int = 8):
         self.deblock, self.sao, self.sao_form = deblock, sao, sao_form
+        self.bit_depth = bit_depth
         self.ms = {}
 
     def __call__(self, rec, src3, lv, fq: FrameQp, split, split16,
@@ -513,7 +521,7 @@ class LoopFilters:
                 rec, p = FL.qt_loopfilter(rec, src3, fq.cu, fq.slice, split,
                                           split16, ui_sizes, mv_sizes,
                                           pdir_sizes, lv, db, so,
-                                          self.sao_form)
+                                          self.sao_form, self.bit_depth)
                 if p is not None:
                     sao = p.cpu().numpy()
                 sync()

@@ -482,11 +482,13 @@ def _edge_maps(y):
 
 def compute_aq_offsets(y_plane, cu_size: int, strength: float = 1.0,
                        qp_range: int = 6, mode: int = 2, u_plane=None,
-                       v_plane=None) -> np.ndarray:
-    """Per-CU integer QP offsets [rows, cols] of adaptive quantization,
-    8-bit (the reference's calcAdaptiveQuantFrame, slicetype.cpp:444):
-      1 variance:         strength * 1.0397 * (log2 max(energy, 1) - 14.427)
-      2 auto-variance:    e = (energy + 1)^0.1, s = strength * mean(e),
+                       v_plane=None, bit_depth: int = 8) -> np.ndarray:
+    """Per-CU integer QP offsets [rows, cols] of adaptive quantization
+    (the reference's calcAdaptiveQuantFrame, slicetype.cpp:444), with
+    bdc = 2^(-2 (bit_depth - 8)) scaling the energies:
+      1 variance:         strength * 1.0397 * (log2 max(energy, 1)
+                          - (14.427 + 2 (bit_depth - 8)))
+      2 auto-variance:    e = (energy bdc + 1)^0.1, s = strength * mean(e),
                           adj = s * (e - (mean - 0.5 * (mean_sq - 11) / mean))
       3 auto-var-biased:  mode 2 + strength * (1 - 11 / e^2)
       4 edge:             mode 2 on the edge density where a block has
@@ -500,6 +502,7 @@ def compute_aq_offsets(y_plane, cu_size: int, strength: float = 1.0,
         return np.zeros((max(H // cu_size, 1), max(W // cu_size, 1)),
                         np.int32)
     energy = _ac_energy_cu(y_plane, u_plane, v_plane)[:rows16, :cols16]
+    bdc = 1.0 / (1 << (2 * (bit_depth - 8)))
     if mode in (2, 3, 4):
         if mode == 4:
             edge, theta = _edge_maps(y_plane)
@@ -509,11 +512,11 @@ def compute_aq_offsets(y_plane, cu_size: int, strength: float = 1.0,
                    .reshape(rows16, 16, cols16, 16).mean(axis=(1, 3)))
             inclined = (((ang >= 30) & (ang <= 60))
                         | ((ang >= 120) & (ang <= 150)))
-            qa = np.where(edens > 0, np.power(edens + 1.0, 0.1),
-                          np.power(energy + 1.0, 0.1))
+            qa = np.where(edens > 0, np.power(edens * bdc + 1.0, 0.1),
+                          np.power(energy * bdc + 1.0, 0.1))
             inclined = inclined & (edens > 0)
         else:
-            qa = np.power(energy + 1.0, 0.1)
+            qa = np.power(energy * bdc + 1.0, 0.1)
             inclined = None
         avg = qa.mean()
         avg_pow2 = (qa * qa).mean()
@@ -527,7 +530,8 @@ def compute_aq_offsets(y_plane, cu_size: int, strength: float = 1.0,
                            (s + 0.5) * (qa - avg_adj), adj)
     else:
         s = strength * 1.0397
-        adj = s * (np.log2(np.maximum(energy, 1.0)) - 14.427)
+        adj = s * (np.log2(np.maximum(energy, 1.0))
+                   - (14.427 + 2.0 * (bit_depth - 8)))
     # the 16x16 grid onto the CU grid (mean)
     f = cu_size // 16
     if f > 1:

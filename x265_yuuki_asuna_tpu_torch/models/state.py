@@ -63,8 +63,10 @@ def load_session_state(sess, state: dict) -> None:
         if np.shape(p) != shp:
             raise ValueError(f"reference plane {np.shape(p)} != {shp}")
     if sess.max_depth:
-        # the quadtree session keeps its reference on the device
-        sess.ref = tuple(torch.as_tensor(np.array(p, np.uint8),
+        # the quadtree session keeps its reference on the device, in the
+        # device plane type of its bit depth (int16 above 8 bits)
+        dt = np.uint8 if sess.bit_depth <= 8 else np.int16
+        sess.ref = tuple(torch.as_tensor(np.array(p, dt),
                                          device=sess.device) for p in planes)
     else:
         sess.ref = tuple(np.asarray(p, np.int32) for p in planes)

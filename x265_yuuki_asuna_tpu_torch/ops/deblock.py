@@ -2,8 +2,9 @@
 
 Port of x265_yuuki_asuna_tpu/ops/deblock.py: the spec tables, the batched
 luma and chroma edge filters, and the uniform-grid frames (the IDR, every
-CU edge at BS 2; the P frame, per-edge BS), 8-bit, with one QP per frame
-or a per-CU QP map (AQ / cuTree: each edge at the average of its two
+CU edge at BS 2; the P frame, per-edge BS), at any bit depth (beta and
+tc scaled by 2^(bd - 8), samples clipped to the bd-bit range), with one
+QP per frame or a per-CU QP map (AQ / cuTree: each edge at the average of its two
 CUs' QPs, `edge_qps`).
 
 Every vertical edge of the picture is filtered in one batched pass (the
@@ -31,7 +32,6 @@ DEFAULT_INTRA_TC_OFFSET = 2
 # spec table 8-10 (4:2:0): the chroma QP of a per-edge averaged luma QP
 CHROMA_QP = tuple(range(30)) + (29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36,
                                 36, 37, 37) + tuple(range(38, 52))
-MAXV = 255
 
 
 def table(values, device) -> torch.Tensor:
@@ -50,12 +50,14 @@ def _clip(x, lo, hi):
 
 
 def luma_thresholds(qp: int, beta_offset: int = 0, tc_offset: int = 0,
-                    bs: int = 2):
-    """(beta, tc) of one edge QP and boundary strength."""
+                    bs: int = 2, bit_depth: int = 8):
+    """(beta, tc) of one edge QP and boundary strength, scaled to the bit
+    depth."""
     idx_b = min(max(qp + beta_offset, 0), 51)
     idx_tc = min(max(qp + DEFAULT_INTRA_TC_OFFSET * (bs - 1) + tc_offset, 0),
                  53)
-    return BETA_TABLE[idx_b], TC_TABLE[idx_tc]
+    shift = bit_depth - 8
+    return BETA_TABLE[idx_b] << shift, TC_TABLE[idx_tc] << shift
 
 
 def _edge_samples(plane, edge_cols, k: int):
@@ -69,10 +71,11 @@ def _edge_samples(plane, edge_cols, k: int):
     return plane[:, cols_p], plane[:, cols_q], cols_p, cols_q
 
 
-def filter_vertical_edges(plane, edge_cols, beta, tc):
+def filter_vertical_edges(plane, edge_cols, beta, tc, maxv: int = 255):
     """Filter the vertical luma edges at columns `edge_cols` (a list).
     plane: int32 [H, W]. beta: an int or an [H/4, E] tensor; tc: an int
-    (uniform BS) or an [H/4, E] per-segment tensor (0 disables a segment).
+    (uniform BS) or an [H/4, E] per-segment tensor (0 disables a segment);
+    maxv: the largest sample value.
     Decisions are made per 4-row segment from rows 0 and 3 (spec
     8.7.2.5.3). Returns the filtered plane."""
     if not edge_cols:
@@ -129,13 +132,13 @@ def filter_vertical_edges(plane, edge_cols, beta, tc):
     delta0 = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
     weak_on = delta0.abs() < 10 * tc
     delta = _clip(delta0, -tc, tc)
-    wp0 = (p0 + delta).clamp(0, MAXV)
-    wq0 = (q0 - delta).clamp(0, MAXV)
+    wp0 = (p0 + delta).clamp(0, maxv)
+    wq0 = (q0 - delta).clamp(0, maxv)
     half_tc = tc >> 1
     wp1 = (p1 + _clip((((p2 + p0 + 1) >> 1) - p1 + delta) >> 1, -half_tc,
-                      half_tc)).clamp(0, MAXV)
+                      half_tc)).clamp(0, maxv)
     wq1 = (q1 + _clip((((q2 + q0 + 1) >> 1) - q1 - delta) >> 1, -half_tc,
-                      half_tc)).clamp(0, MAXV)
+                      half_tc)).clamp(0, maxv)
 
     weak = filter_on & ~strong & weak_on
     strong = filter_on & strong
@@ -150,18 +153,20 @@ def filter_vertical_edges(plane, edge_cols, beta, tc):
     return out
 
 
-def filter_vertical_edges_chroma(plane, edge_cols, tc, mask=None):
+def filter_vertical_edges_chroma(plane, edge_cols, tc, mask=None,
+                                 maxv: int = 255):
     """Chroma deblocking of BS-2 edges: one sample each side (spec
     8.7.2.5.5). tc: an int or an [Hc, E] tensor; mask: optional [Hc, E]
-    bool, the rows where the edge has BS 2."""
+    bool, the rows where the edge has BS 2; maxv: the largest sample
+    value."""
     if not edge_cols or (not torch.is_tensor(tc) and tc == 0):
         return plane
     p, q, cols_p, cols_q = _edge_samples(plane, edge_cols, 2)
     p0, p1 = p.unbind(1)
     q0, q1 = q.unbind(1)
     delta = _clip((((q0 - p0) * 4) + p1 - q1 + 4) >> 3, -tc, tc)
-    np0 = (p0 + delta).clamp(0, MAXV)
-    nq0 = (q0 - delta).clamp(0, MAXV)
+    np0 = (p0 + delta).clamp(0, maxv)
+    nq0 = (q0 - delta).clamp(0, maxv)
     if mask is not None:
         np0 = torch.where(mask, np0, p0)
         nq0 = torch.where(mask, nq0, q0)
@@ -171,30 +176,34 @@ def filter_vertical_edges_chroma(plane, edge_cols, tc, mask=None):
     return out
 
 
-def filter_plane(plane, vcols, hrows, luma: bool, v_args, h_args):
+def filter_plane(plane, vcols, hrows, luma: bool, v_args, h_args,
+                 maxv: int = 255):
     """Vertical edges, then horizontal edges on the transposed result.
     v_args / h_args: the edge filter's (beta, tc) for luma, (tc, mask)
-    for chroma."""
+    for chroma; maxv: the largest sample value."""
     f = filter_vertical_edges if luma else filter_vertical_edges_chroma
-    plane = f(plane, vcols, *v_args)
-    return f(plane.t(), hrows, *h_args).t().contiguous()
+    plane = f(plane, vcols, *v_args, maxv=maxv)
+    return f(plane.t(), hrows, *h_args, maxv=maxv).t().contiguous()
 
 
-def edge_qps(qp_map, device) -> dict:
+def edge_qps(qp_map, device, bit_depth: int = 8) -> dict:
     """Per-edge QPs of a per-CU QP map [rows, cols] (AQ / cuTree; spec
     8.7.2.5.3: qPL = (QpQ + QpP + 1) >> 1): the luma QP "qv" [rows,
     cols-1] / "qh" [rows-1, cols] of the vertical / horizontal CU edges,
-    their beta, and the chroma tc of each through table 8-10."""
+    their beta, and the chroma tc of each through table 8-10 (beta and tc
+    scaled to the bit depth)."""
+    shift = bit_depth - 8
     q = torch.as_tensor(np.asarray(qp_map), device=device).to(torch.int32)
     bt, tt, cq = (table(t, device) for t in (BETA_TABLE, TC_TABLE,
                                               CHROMA_QP))
     qv = (q[:, :-1] + q[:, 1:] + 1) >> 1
     qh = (q[:-1, :] + q[1:, :] + 1) >> 1
     tc_c = lambda qe: tt[(cq[qe.clamp(0, 51).long()]
-                          + DEFAULT_INTRA_TC_OFFSET).clamp(0, 53).long()]
-    return {"qv": qv, "qh": qh, "beta_v": bt[qv.clamp(0, 51).long()],
-            "beta_h": bt[qh.clamp(0, 51).long()], "tc_c_v": tc_c(qv),
-            "tc_c_h": tc_c(qh)}
+                          + DEFAULT_INTRA_TC_OFFSET).clamp(0, 53).long()] \
+        << shift
+    return {"qv": qv, "qh": qh, "beta_v": bt[qv.clamp(0, 51).long()] << shift,
+            "beta_h": bt[qh.clamp(0, 51).long()] << shift,
+            "tc_c_v": tc_c(qv), "tc_c_h": tc_c(qh)}
 
 
 def _per_cu(qp_y) -> bool:
@@ -202,18 +211,20 @@ def _per_cu(qp_y) -> bool:
     return np.ndim(qp_y) == 2
 
 
-def deblock_frame_uniform(y, u, v, cu_size: int, qp_y, qp_c: int):
+def deblock_frame_uniform(y, u, v, cu_size: int, qp_y, qp_c: int,
+                          bit_depth: int = 8):
     """Deblock an all-intra uniform-CU-grid frame: every CU edge BS 2.
     qp_y: one QP, or a per-CU map [rows, cols] whose edges take their
     averaged QP (chroma through table 8-10, qp_c unused). y, u, v: int32
-    planes. Returns the filtered (y, u, v)."""
+    planes of bit_depth-bit samples. Returns the filtered (y, u, v)."""
     H, W = y.shape
     n = cu_size
+    shift, maxv = bit_depth - 8, (1 << bit_depth) - 1
     if _per_cu(qp_y):
-        e = edge_qps(qp_y, y.device)
+        e = edge_qps(qp_y, y.device, bit_depth)
         tt = table(TC_TABLE, y.device)
         tc_l = lambda qe: tt[(qe + DEFAULT_INTRA_TC_OFFSET).clamp(0, 53)
-                             .long()]
+                             .long()] << shift
         rep = lambda a, k: a.repeat_interleave(k, 0)
         luma_v = (rep(e["beta_v"], n // 4), rep(tc_l(e["qv"]), n // 4))
         luma_h = (rep(e["beta_h"].t(), n // 4), rep(tc_l(e["qh"]).t(),
@@ -221,16 +232,17 @@ def deblock_frame_uniform(y, u, v, cu_size: int, qp_y, qp_c: int):
         chroma_v = (rep(e["tc_c_v"], n // 2),)
         chroma_h = (rep(e["tc_c_h"].t(), n // 2),)
     else:
-        beta, tc = luma_thresholds(int(qp_y))
+        beta, tc = luma_thresholds(int(qp_y), bit_depth=bit_depth)
         luma_v = luma_h = (beta, tc)
-        chroma_v = chroma_h = (luma_thresholds(qp_c)[1],)
+        chroma_v = chroma_h = (luma_thresholds(qp_c,
+                                               bit_depth=bit_depth)[1],)
     # chroma edges on the 16-luma grid: every multiple of 8 in chroma
     c_step = max(n // 2, 8)
     vc, hc = list(range(c_step, W // 2, c_step)), \
         list(range(c_step, H // 2, c_step))
     y = filter_plane(y, list(range(n, W, n)), list(range(n, H, n)), True,
-                     luma_v, luma_h)
-    u, v = (filter_plane(p, vc, hc, False, chroma_v, chroma_h)
+                     luma_v, luma_h, maxv)
+    u, v = (filter_plane(p, vc, hc, False, chroma_v, chroma_h, maxv)
             for p in (u, v))
     return y, u, v
 
@@ -274,25 +286,28 @@ def compute_bs_uniform(is_intra, cbf, pdir, mv0x, mv0y, mv1x=None,
         .reshape(mv0x.shape)})
 
 
-def tc_seg_from_bs(bs_seg, qp, tc_offset: int = 0):
-    """Per-segment tc from BS (0 disables the segment); qp an int or a
-    tensor shaped like bs_seg (per-edge averaged QP)."""
+def tc_seg_from_bs(bs_seg, qp, tc_offset: int = 0, bit_depth: int = 8):
+    """Per-segment tc from BS (0 disables the segment), scaled to the bit
+    depth; qp an int or a tensor shaped like bs_seg (per-edge averaged
+    QP)."""
     tt = table(TC_TABLE, bs_seg.device)
     idx = (qp + DEFAULT_INTRA_TC_OFFSET * (bs_seg - 1) + tc_offset).clamp(0,
                                                                          53)
-    return torch.where(bs_seg > 0, tt[idx.long()], 0).to(torch.int32)
+    return torch.where(bs_seg > 0, tt[idx.long()] << (bit_depth - 8),
+                       0).to(torch.int32)
 
 
 def deblock_frame_inter(y, u, v, cu_size: int, qp_y, qp_c: int, bs_v,
-                        bs_h):
+                        bs_h, bit_depth: int = 8):
     """Deblock an inter frame on the uniform grid with per-edge BS
     (bs_v [rows, cols-1], bs_h [rows-1, cols]); qp_y one QP or a per-CU
     map (as deblock_frame_uniform's). Chroma is filtered on BS-2 edges
     only. Returns the filtered (y, u, v)."""
     H, W = y.shape
     n, nc = cu_size, cu_size // 2
+    bd, maxv = bit_depth, (1 << bit_depth) - 1
     if _per_cu(qp_y):
-        e = edge_qps(qp_y, y.device)
+        e = edge_qps(qp_y, y.device, bd)
         beta_v = e["beta_v"].repeat_interleave(n // 4, 0)
         beta_h = e["beta_h"].t().repeat_interleave(n // 4, 0)
         qp_v, qp_h = e["qv"], e["qh"]
@@ -300,15 +315,15 @@ def deblock_frame_inter(y, u, v, cu_size: int, qp_y, qp_c: int, bs_v,
         tc_c_h = e["tc_c_h"].t().repeat_interleave(nc, 0)
     else:
         qp_v = qp_h = int(qp_y)
-        beta_v = beta_h = luma_thresholds(qp_v)[0]
-        tc_c_v = tc_c_h = luma_thresholds(qp_c)[1]
-    tc_v = tc_seg_from_bs(bs_v, qp_v).repeat_interleave(n // 4, 0)
-    tc_h = tc_seg_from_bs(bs_h, qp_h).t().repeat_interleave(n // 4, 0)
+        beta_v = beta_h = luma_thresholds(qp_v, bit_depth=bd)[0]
+        tc_c_v = tc_c_h = luma_thresholds(qp_c, bit_depth=bd)[1]
+    tc_v = tc_seg_from_bs(bs_v, qp_v, 0, bd).repeat_interleave(n // 4, 0)
+    tc_h = tc_seg_from_bs(bs_h, qp_h, 0, bd).t().repeat_interleave(n // 4, 0)
     y = filter_plane(y, list(range(n, W, n)), list(range(n, H, n)), True,
-                     (beta_v, tc_v), (beta_h, tc_h))
+                     (beta_v, tc_v), (beta_h, tc_h), maxv)
     mask_v = (bs_v == 2).repeat_interleave(nc, 0)       # [Hc, cols-1]
     mask_h = (bs_h == 2).t().repeat_interleave(nc, 0)   # [Wc, rows-1]
     vc, hc = list(range(nc, W // 2, nc)), list(range(nc, H // 2, nc))
     u, v = (filter_plane(p, vc, hc, False, (tc_c_v, mask_v),
-                         (tc_c_h, mask_h)) for p in (u, v))
+                         (tc_c_h, mask_h), maxv) for p in (u, v))
     return y, u, v

@@ -34,34 +34,37 @@ def effective_qp(qp_cu, cbf_cu, slice_qp: int):
     return q[last][1:]
 
 
-def deblock_qt2(rec3, cell_q, bs_v, bs_h):
+def deblock_qt2(rec3, cell_q, bs_v, bs_h, bit_depth: int = 8):
     """Deblock with luma edges on the 8-sample grid and chroma edges on the
-    16-luma grid (BS-2 segments). rec3: int32 (y, u, v); cell_q [H/8, W/8]
-    the decoder-side luma QP per cell; thresholds from the per-edge
-    average QP (qa + qb + 1) >> 1, chroma tc through CHROMA_QP."""
+    16-luma grid (BS-2 segments). rec3: int32 (y, u, v) of bit_depth-bit
+    samples; cell_q [H/8, W/8] the decoder-side luma QP per cell;
+    thresholds from the per-edge average QP (qa + qb + 1) >> 1, chroma tc
+    through CHROMA_QP, each scaled to the bit depth."""
     y, u, v = rec3
     H, W = y.shape
     dev = y.device
+    bd, shift, maxv = bit_depth, bit_depth - 8, (1 << bit_depth) - 1
     bt, tt, cq = (DB.table(t, dev) for t in (DB.BETA_TABLE, DB.TC_TABLE,
                                               DB.CHROMA_QP))
     q = cell_q.to(torch.int32)
     qv = (q[:, :-1] + q[:, 1:] + 1) >> 1
     qh = (q[:-1, :] + q[1:, :] + 1) >> 1
-    beta = lambda qe: bt[qe.clamp(0, 51).long()]
+    beta = lambda qe: bt[qe.clamp(0, 51).long()] << shift
     tc_c = lambda qe: tt[(cq[qe.clamp(0, 51).long()]
-                          + DB.DEFAULT_INTRA_TC_OFFSET).clamp(0, 53).long()]
-    tc_v = DB.tc_seg_from_bs(bs_v, qv).repeat_interleave(2, 0)
-    tc_h = DB.tc_seg_from_bs(bs_h, qh).t().repeat_interleave(2, 0)
+                          + DB.DEFAULT_INTRA_TC_OFFSET).clamp(0, 53)
+                         .long()] << shift
+    tc_v = DB.tc_seg_from_bs(bs_v, qv, 0, bd).repeat_interleave(2, 0)
+    tc_h = DB.tc_seg_from_bs(bs_h, qh, 0, bd).t().repeat_interleave(2, 0)
     y = DB.filter_plane(y, list(range(8, W, 8)), list(range(8, H, 8)), True,
                         (beta(qv).repeat_interleave(2, 0), tc_v),
-                        (beta(qh).t().repeat_interleave(2, 0), tc_h))
+                        (beta(qh).t().repeat_interleave(2, 0), tc_h), maxv)
     # chroma: 8-chroma-sample edges = the odd edges of the 8-luma grid
     cv = (tc_c(qv)[:, 1::2].repeat_interleave(4, 0),
           (bs_v[:, 1::2] == 2).repeat_interleave(4, 0))
     ch = (tc_c(qh)[1::2, :].t().repeat_interleave(4, 0),
           (bs_h[1::2, :] == 2).t().repeat_interleave(4, 0))
     vc, hc = list(range(8, W // 2, 8)), list(range(8, H // 2, 8))
-    u, v = (DB.filter_plane(p, vc, hc, False, cv, ch) for p in (u, v))
+    u, v = (DB.filter_plane(p, vc, hc, False, cv, ch, maxv) for p in (u, v))
     return y, u, v
 
 
@@ -122,7 +125,7 @@ def _cell_maps(split, split16, ui_sizes, mv_sizes, pdir_sizes, lv_y, rows,
 
 def qt_loopfilter(rec3, src3, qp_cu, slice_qp: int, split, split16,
                   ui_sizes, mv_sizes, pdir_sizes, lv3, deblock: bool,
-                  sao: bool, sao_form: str = "program"):
+                  sao: bool, sao_form: str = "program", bit_depth: int = 8):
     """The loop-filter chain of one CTU32 quadtree frame (the reference's
     qt_loopfilter_dev, depth2 when split16 is given).
 
@@ -138,8 +141,8 @@ def qt_loopfilter(rec3, src3, qp_cu, slice_qp: int, split, split16,
     None (a P frame: L0); lv3: the level planes (y, u, v); sao_form: the
     SAO cost's form, "program" (the quadtree programs') or "host" (the
     intra session's host filters after a quadtree frame, whose deblock is
-    this one: under one QP per frame the effective QP changes nothing).
-    Returns the filtered planes and the SAO parameters packed [ncu, 18]
+    this one: under one QP per frame the effective QP changes nothing);
+    bit_depth: the samples'. Returns the filtered planes and the SAO parameters packed [ncu, 18]
     (None without SAO)."""
     H, W = rec3[0].shape
     rows, cols = H // N, W // N
@@ -155,8 +158,9 @@ def qt_loopfilter(rec3, src3, qp_cu, slice_qp: int, split, split16,
         q_eff = effective_qp(qp_cu, cbf_ctu, slice_qp)
         cell_q = q_eff.reshape(rows, cols).repeat_interleave(4, 0) \
             .repeat_interleave(4, 1)
-        out3 = deblock_qt2(out3, cell_q, bs_v, bs_h)
+        out3 = deblock_qt2(out3, cell_q, bs_v, bs_h, bit_depth)
     params = None
     if sao:
-        out3, params = SAO.sao_frame(out3, src3, N, slice_qp, sao_form)
+        out3, params = SAO.sao_frame(out3, src3, N, slice_qp, sao_form,
+                                     bit_depth)
     return out3, params

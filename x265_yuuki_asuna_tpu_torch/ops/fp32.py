@@ -107,10 +107,11 @@ _LN2 = float(_F32(np.log(2.0)))
 
 @lru_cache(maxsize=None)
 def lambda_table(scale: float, div: float) -> np.ndarray:
-    """scale * 2^((qp - 12) / div) for QP 0..51 in float32, 2^x evaluated
+    """scale * 2^((qp - 12) / div) for QP 0..75 in float32 (51 plus
+    12 bits' QpBdOffset of 24, which RDOQ's lambda takes), 2^x evaluated
     as exp(x * ln 2) like the reference's compiled program (torch's exp2
-    differs from it at 21 of 52 QPs)."""
-    q = torch.arange(52, dtype=torch.float32)
+    differs from it at 21 of the 52 QPs to 51)."""
+    q = torch.arange(76, dtype=torch.float32)
     return (scale * torch.exp((q - 12.0) / div * _LN2)).numpy()
 
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .pixel import peak, plane_dtype
+
 LUMA_FILTERS = np.array([
     [0, 0, 0, 64, 0, 0, 0, 0],
     [-1, 4, -10, 58, 17, -5, 1, 0],
@@ -121,13 +123,16 @@ def weight_uni(ps: torch.Tensor, w, o, denom: int = 6,
             + (o << (bit_depth - 8))).clamp(0, (1 << bit_depth) - 1)
 
 
-def weight_plane(ref: torch.Tensor, w: int, o: int) -> torch.Tensor:
+def weight_plane(ref: torch.Tensor, w: int, o: int,
+                 bit_depth: int = 8) -> torch.Tensor:
     """The weighted motion search's reference plane: each sample
-    clip(((ref * w + 32) >> 6) + o, 0, 255), as uint8 (K1's input). This
-    guides the search only; the prediction is weight_uni of the MC of the
-    unweighted plane."""
-    return (((ref.to(torch.int32) * w + 32) >> 6) + o).clamp(0, 255) \
-        .to(torch.uint8)
+    clip(((ref * w + 32) >> 6) + o, 0, 2^bd - 1), in the device plane
+    type (K1's input: uint8 at 8 bits, int16 above). As in the
+    reference, the offset is added unscaled at every bit depth (the
+    prediction scales it by 2^(bd - 8)). This guides the search only; the
+    prediction is weight_uni of the MC of the unweighted plane."""
+    return (((ref.to(torch.int32) * w + 32) >> 6) + o) \
+        .clamp(0, peak(bit_depth)).to(plane_dtype(bit_depth))
 
 
 def mc_luma_qpel(ref_plane, px, py, mv_qpel_x, mv_qpel_y, n: int,

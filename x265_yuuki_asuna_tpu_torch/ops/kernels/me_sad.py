@@ -181,22 +181,29 @@ def best_of_surface(surf: torch.Tensor, n: int, srange: int,
 
 
 def sad_sweep_best_plain(ref_plane: torch.Tensor, src_plane: torch.Tensor,
-                         srange: int, n: int, lambda_bits: int):
-    """Plain version: the plain surface, then best_of_surface."""
+                         srange: int, n: int, lambda_bits: int,
+                         peak: int = None):
+    """Plain version: the plain surface, then best_of_surface (peak, the
+    kernel's key budget, changes nothing here)."""
     return best_of_surface(sad_block8_sweep_plain(ref_plane, src_plane,
                                                   srange),
                            n, srange, lambda_bits)
 
 
-def key_layout(dtype: torch.dtype, n: int, srange: int, lambda_bits: int):
+def key_layout(dtype: torch.dtype, n: int, srange: int, lambda_bits: int,
+               peak: int = None):
     """(shift, key dtype) of the fused kernel's packed argmin key
     cost << shift | (dyi * D + dxi): shift holds the displacement index,
     and the key is int32 when the largest cost leaves it below 2^31, else
-    int64 (the kernel reads both as unsigned). Block SADs are taken to fit
-    in 31 bits, as the surface's int32 entries do."""
+    int64 (the kernel reads both as unsigned). peak: the largest sample
+    value when the planes hold fewer bits than their type ((1 << bd) - 1:
+    10- and 12-bit samples in int16 planes); None takes the type's range.
+    Block SADs are taken to fit in 31 bits, as the surface's int32 entries
+    do."""
     D = 2 * srange + 1
     shift = max(1, (D * D - 1).bit_length())
-    cost_max = min(n * n * _MAX_DIFF[dtype], 2 ** 31 - 1) \
+    diff = _MAX_DIFF[dtype] if peak is None else min(peak, _MAX_DIFF[dtype])
+    cost_max = min(n * n * diff, 2 ** 31 - 1) \
         + lambda_bits * 2 * srange
     bits = cost_max.bit_length() + shift
     if bits <= 31:
@@ -218,12 +225,13 @@ def unpack_keys(keys: torch.Tensor, srange: int, shift: int,
 
 
 def sad_sweep_best(ref_plane: torch.Tensor, src_plane: torch.Tensor,
-                   srange: int, n: int, lambda_bits: int):
+                   srange: int, n: int, lambda_bits: int, peak: int = None):
     """(mvx, mvy, sad) int32 [(H/n) * (W/n)] in raster block order: for
     each n x n block (n = 8 or 16) the displacement in [-R, R]^2 of least
     SAD + lambda_bits * (|dx| + |dy|), the first in row-major (dy, dx)
     order on ties; exactly sad_sweep_multi(ref, src, (n,), R,
-    lambda_bits)[n]. Planes as for sad_block8_sweep, H and W multiples of n.
+    lambda_bits)[n]. Planes as for sad_block8_sweep, H and W multiples of n;
+    peak: the samples' largest value (key_layout), None: the type's.
 
     CUDA tensors launch the fused kernel (or raise); CPU tensors take the
     plain version. `sad_sweep_best.launches` counts kernel launches."""
@@ -236,7 +244,7 @@ def sad_sweep_best(ref_plane: torch.Tensor, src_plane: torch.Tensor,
         return sad_sweep_best_plain(ref_plane, src_plane, srange, n,
                                     lambda_bits)
     H, W = src_plane.shape
-    shift, kdt = key_layout(src_plane.dtype, n, srange, lambda_bits)
+    shift, kdt = key_layout(src_plane.dtype, n, srange, lambda_bits, peak)
     keys = torch.full(((H // n) * (W // n),), -1, dtype=kdt,
                       device=src_plane.device)
     _launch("best", src_plane, ref_plane.data_ptr(), src_plane.data_ptr(),

@@ -19,18 +19,21 @@ from .kernels import me_sad
 
 
 def sad_sweep_multi(ref_plane: torch.Tensor, src_plane: torch.Tensor, sizes,
-                    srange: int, lambda_bits: int = 1) -> dict:
+                    srange: int, lambda_bits: int = 1,
+                    peak: int = None) -> dict:
     """Frame-level full-search ME for the aligned block sizes in `sizes`
     (multiples of 8, or 4 and multiples of 4). ref/src: [H, W] planes, H
-    and W multiples of max(sizes) (and W of 8). Returns {n: (mvx, mvy,
-    sad)} int32 arrays in raster block order."""
+    and W multiples of max(sizes) (and W of 8); peak: the samples'
+    largest value, which sizes the fused kernel's keys (None: the plane
+    type's range). Returns {n: (mvx, mvy, sad)} int32 arrays in raster
+    block order."""
     sizes = sorted(sizes)
     base = 4 if sizes[0] == 4 else 8
     assert all(n % base == 0 for n in sizes), sizes
     if len(sizes) == 1 and sizes[0] in me_sad.BEST_SIZES:
         n = sizes[0]
         return {n: me_sad.sad_sweep_best(ref_plane, src_plane, srange, n,
-                                         lambda_bits)}
+                                         lambda_bits, peak)}
     sweep = me_sad.sad_block4_sweep if base == 4 else me_sad.sad_block8_sweep
     surf = sweep(ref_plane, src_plane, srange)
     return {n: me_sad.best_of_surface(surf, n, srange, lambda_bits, base)
@@ -52,7 +55,7 @@ def sad_at_mv(ref_plane: torch.Tensor, src_blocks: torch.Tensor, px, py,
 
 
 def full_search_sad(ref_plane: torch.Tensor, src_plane: torch.Tensor, n: int,
-                    srange: int, lambda_bits: int = 1):
+                    srange: int, lambda_bits: int = 1, peak: int = None):
     """Integer full search for every n x n block of the uniform grid of
     `src_plane`: (mvx, mvy, sad) [B] over all MVs in [-R, R]^2 on the
     border-clamped reference.
@@ -62,4 +65,5 @@ def full_search_sad(ref_plane: torch.Tensor, src_plane: torch.Tensor, n: int,
     grid it computes exactly the sweep with sizes=(n,) (edge extension
     equals its border clamp, and both take the first minimum in (dy, dx)
     order), so the port runs it through K1's fused kernel on the plane."""
-    return sad_sweep_multi(ref_plane, src_plane, (n,), srange, lambda_bits)[n]
+    return sad_sweep_multi(ref_plane, src_plane, (n,), srange, lambda_bits,
+                           peak)[n]

@@ -18,6 +18,18 @@ import numpy as np
 import torch
 
 
+def peak(bit_depth: int) -> int:
+    """The largest sample value at a bit depth."""
+    return (1 << bit_depth) - 1
+
+
+def plane_dtype(bit_depth: int) -> torch.dtype:
+    """The type of sample planes kept on the device: uint8 at 8 bits,
+    int16 above (12 bits fit; torch has few uint16 ops). K1 takes
+    both."""
+    return torch.uint8 if bit_depth <= 8 else torch.int16
+
+
 def hadamard_matrix(n: int) -> np.ndarray:
     h = np.array([[1]], dtype=np.int32)
     while h.shape[0] < n:
@@ -74,15 +86,17 @@ def psy_energy(a: torch.Tensor) -> torch.Tensor:
 
 
 
-def ssim_plane(a: np.ndarray, b: np.ndarray, device) -> float:
-    """Global SSIM of two 8-bit planes over 8x8 windows at a stride of 4
+def ssim_plane(a: np.ndarray, b: np.ndarray, device,
+               bit_depth: int = 8) -> float:
+    """Global SSIM of two planes of bit_depth-bit samples (the constants
+    from its peak) over 8x8 windows at a stride of 4
     (port of the reference's ssim_plane: integral-image window sums, the
     mean of the per-window SSIMs). The window sums are integers, exact in
     float64 in any order, so they run on `device`; the per-window values
     follow the reference's float64 expression op for op, and their mean
     is numpy's (pairwise) on the host, so the result equals the
     reference's bit for bit."""
-    L = 255
+    L = peak(bit_depth)
     c1 = (0.01 * L) ** 2
     c2 = (0.03 * L) ** 2
     H, W = a.shape

@@ -476,12 +476,18 @@ class Quantizer:
     rounding, with sign-bit hiding, or RDOQ (static bits on the uniform
     grid, context bits at K9's frozen states in the quadtree programs).
     sbh and rdoq exclude each other (the sessions switch sign hiding off
-    under RDOQ); psy_rdoq is the psy-RDOQ strength on luma."""
+    under RDOQ); psy_rdoq is the psy-RDOQ strength on luma. bit_depth is
+    the samples': the programs pass the signalled QP, and the quantizer
+    adds QpBdOffset = 6 (bit_depth - 8) before it quantizes or
+    dequantizes, as the reference's programs add it to every QP they
+    quantize at (RDOQ's lambda included)."""
 
     def __init__(self, sbh: bool = False, rdoq: bool = False,
-                 psy_rdoq: float = 0.0):
+                 psy_rdoq: float = 0.0, bit_depth: int = 8):
         self.sbh, self.rdoq = bool(sbh) and not rdoq, bool(rdoq)
         self.psy_rdoq = float(psy_rdoq) if rdoq else 0.0
+        self.bit_depth = bit_depth
+        self.qp_offset = 6 * (bit_depth - 8)
 
     def __call__(self, coef: torch.Tensor, qp, log2n: int,
                  intra_slice: bool, luma: bool = True, modes=None,
@@ -491,6 +497,8 @@ class Quantizer:
         sign-hiding scan (modes None: the diagonal scan; is_intra None:
         every block intra). states: the slice's frozen contexts (the
         quadtree programs' context RDOQ; None: static RDOQ)."""
+        bd = self.bit_depth
+        qp = qp + self.qp_offset
         if self.rdoq:
             # the programs pass a QP per block, and RDOQ's float32 lambda
             # is that form's
@@ -499,15 +507,20 @@ class Quantizer:
                                 device=coef.device)
             psy = self.psy_rdoq if luma else 0.0
             if states is None:
-                return quant_rdoq(coef, qp, log2n, psy_scale=psy)
-            return quant_rdoq_ctx(coef, qp, log2n, 8, states, luma,
+                return quant_rdoq(coef, qp, log2n, bd, psy_scale=psy)
+            return quant_rdoq_ctx(coef, qp, log2n, bd, states, luma,
                                   psy_scale=psy)
         if not self.sbh:
-            return quant(coef, qp, log2n, 8, intra_slice)
-        lv, du = quant(coef, qp, log2n, 8, intra_slice, return_delta=True)
+            return quant(coef, qp, log2n, bd, intra_slice)
+        lv, du = quant(coef, qp, log2n, bd, intra_slice, return_delta=True)
         if modes is None:
             return sign_bit_hiding(lv, du, log2n)
         return sign_bit_hiding_mdcs(lv, du, log2n, modes, luma, is_intra)
+
+    def dequant(self, levels: torch.Tensor, qp, log2n: int) -> torch.Tensor:
+        """dequant at the signalled qp (int or [B]) and the samples' bit
+        depth."""
+        return dequant(levels, qp + self.qp_offset, log2n, self.bit_depth)
 
 
 PLAIN = Quantizer()

@@ -29,7 +29,6 @@ import torch
 import torch.nn.functional as F
 
 SAO_OFF, SAO_BO, SAO_EO = 0, 1, 2
-MAX_ABS = 7                 # (1 << (8 - 5)) - 1: 8-bit offsets
 NBINS = 52                  # 4 EO classes x 5 categories + 32 bands
 
 # EO neighbour offsets per class: 0 = horizontal, 1 = vertical, 2 = 135
@@ -90,12 +89,19 @@ def eo_category(plane: torch.Tensor, eo_class: int) -> torch.Tensor:
     return torch.where(valid, cat, 0)
 
 
-def bo_band(plane: torch.Tensor) -> torch.Tensor:
-    """The BO band (of 32) of each 8-bit sample."""
-    return plane >> 3
+def max_offset(bit_depth: int) -> int:
+    """The largest |offset|: (1 << (min(bd, 10) - 5)) - 1 (7 at 8 bits,
+    31 above). The offsets apply unscaled at every bit depth: the PPS
+    signals no log2_sao_offset_scale (the range extension's, 0)."""
+    return (1 << (min(bit_depth, 10) - 5)) - 1
 
 
-def sao_keys(rec: torch.Tensor, n: int) -> torch.Tensor:
+def bo_band(plane: torch.Tensor, bit_depth: int = 8) -> torch.Tensor:
+    """The BO band (of 32) of each sample: its top 5 bits."""
+    return plane >> (bit_depth - 5)
+
+
+def sao_keys(rec: torch.Tensor, n: int, bit_depth: int = 8) -> torch.Tensor:
     """[5, H, W] int64 keys tile * 52 + bin of every sample: its EO
     category under each class, then its band."""
     H, W = rec.shape
@@ -103,16 +109,17 @@ def sao_keys(rec: torch.Tensor, n: int) -> torch.Tensor:
     tile = ((torch.arange(H, device=dev) // n)[:, None] * (W // n)
             + (torch.arange(W, device=dev) // n)[None, :]) * NBINS
     bins = [5 * c + eo_category(rec, c) for c in range(4)] + \
-        [20 + bo_band(rec)]
+        [20 + bo_band(rec, bit_depth)]
     return tile + torch.stack(bins).long()
 
 
-def sao_stats(rec: torch.Tensor, src: torch.Tensor, n: int, keys=None):
+def sao_stats(rec: torch.Tensor, src: torch.Tensor, n: int, keys=None,
+              bit_depth: int = 8):
     """Per-CTU (n x n tiles) sums of src - rec and sample counts, int64:
     ((eo_s, eo_c) [4, 5, rows, cols], (bo_s, bo_c) [32, rows, cols])."""
     H, W = rec.shape
     rows, cols = H // n, W // n
-    keys = sao_keys(rec, n) if keys is None else keys
+    keys = sao_keys(rec, n, bit_depth) if keys is None else keys
     flat = keys.reshape(-1)
     size = rows * cols * NBINS
     cnt = torch.bincount(flat, minlength=size)
@@ -127,20 +134,22 @@ def sao_stats(rec: torch.Tensor, src: torch.Tensor, n: int, keys=None):
     return (eo_s, eo_c), (bo_s, bo_c)
 
 
-def best_offsets(s, c, sign=None):
+def best_offsets(s, c, sign=None, max_abs: int = 7):
     """The offset of each (sum s, count c) that minimises the distortion
-    change c*h^2 - 2*h*s among 0..rint(s/c) (clipped to +-7; sign "pos" /
-    "neg": the EO category's sign rule). Returns (h int32, delta_d
-    float64 <= 0). Every value is an integer below 2^24, so float64 gives
-    the host form's and the program's float32 numbers exactly."""
+    change c*h^2 - 2*h*s among 0..rint(s/c) (clipped to +-max_abs; sign
+    "pos" / "neg": the EO category's sign rule). Returns (h int32,
+    delta_d float64 <= 0). The values are integers, exact in float64 as
+    in the host form; the program's float32 numbers equal them while they
+    stay below 2^24 (|2 h s| < 2^24: at 8 bits always, above only while
+    a category's summed error stays below 2^24 / 62, some 270,000)."""
     s, c = s.double(), c.double()
-    h0 = torch.round(s / c.clamp(min=1.0)).clamp(-MAX_ABS, MAX_ABS)
+    h0 = torch.round(s / c.clamp(min=1.0)).clamp(-max_abs, max_abs)
     if sign == "pos":
         h0 = h0.clamp(min=0.0)
     elif sign == "neg":
         h0 = h0.clamp(max=0.0)
     sgn = torch.sign(h0)
-    cands = torch.arange(MAX_ABS + 1, dtype=torch.float64, device=s.device)
+    cands = torch.arange(max_abs + 1, dtype=torch.float64, device=s.device)
     d = c[..., None] * cands * cands - 2.0 * cands * (s * sgn)[..., None]
     d = torch.where(cands <= h0.abs()[..., None], d, 0.0)
     k = torch.argmin(d, dim=-1)                 # the first minimum
@@ -148,12 +157,12 @@ def best_offsets(s, c, sign=None):
     return (k * sgn).to(torch.int32), best_d
 
 
-def _eo_best(eo_s, eo_c):
+def _eo_best(eo_s, eo_c, max_abs: int):
     """Per class and category: (h, d) [4, 4, rows, cols] with the sign
     rule (categories 1, 2 non-negative; 3, 4 non-positive)."""
     s, c = eo_s[:, 1:5], eo_c[:, 1:5]
-    h_pos, d_pos = best_offsets(s, c, "pos")
-    h_neg, d_neg = best_offsets(s, c, "neg")
+    h_pos, d_pos = best_offsets(s, c, "pos", max_abs)
+    h_neg, d_neg = best_offsets(s, c, "neg", max_abs)
     sel = (torch.arange(4, device=s.device) < 2)[None, :, None, None]
     return torch.where(sel, h_pos, h_neg), torch.where(sel, d_pos, d_neg)
 
@@ -163,10 +172,10 @@ def _take(a, idx):
     return torch.gather(a, 0, idx[None])[0]
 
 
-def _bo_best(bo_s, bo_c):
+def _bo_best(bo_s, bo_c, max_abs: int):
     """The best window of 4 consecutive bands: (band, d, offsets [r, c,
     4])."""
-    hb, db = best_offsets(bo_s, bo_c)                   # [32, r, c]
+    hb, db = best_offsets(bo_s, bo_c, None, max_abs)    # [32, r, c]
     wins = db.unfold(0, 4, 1).sum(-1)                   # [29, r, c]
     wb = torch.argmin(wins, dim=0)
     bi = wb[None] + torch.arange(4, device=wb.device)[:, None, None]
@@ -190,15 +199,16 @@ def _choose(eo_d, eo_bits, bo_d, bo_bits, lam, form):
     return use_eo, (bo_cost < 0) & ~use_eo
 
 
-def decide_luma(eo_stats, bo_stats, lam, form: str):
+def decide_luma(eo_stats, bo_stats, lam, form: str, bit_depth: int = 8):
     """Per-CTU luma decision at SSD + lam * estimated bits. Returns (type,
     aux, offsets [rows, cols, 4]) int32."""
-    h, d = _eo_best(*eo_stats)
+    ma = max_offset(bit_depth)
+    h, d = _eo_best(*eo_stats, ma)
     dtot = d.sum(1)                                     # [4, r, c]
     cls = torch.argmin(dtot, dim=0)
     eo_offs = torch.gather(h, 0, cls[None, None].expand(1, 4, *cls.shape))[0]
     eo_offs = eo_offs.permute(1, 2, 0)                  # [r, c, 4]
-    wb, bo_d, bo_offs = _bo_best(*bo_stats)
+    wb, bo_d, bo_offs = _bo_best(*bo_stats, ma)
     eo_bits = 3 + (eo_offs.abs() + 1).sum(-1)
     bo_bits = 6 + (bo_offs.abs() + 1 + (bo_offs != 0).int()).sum(-1)
     use_eo, use_bo = _choose(_take(dtot, cls), eo_bits, bo_d, bo_bits, lam,
@@ -210,16 +220,17 @@ def decide_luma(eo_stats, bo_stats, lam, form: str):
     return t.int(), aux.int(), offs.int()
 
 
-def decide_chroma(stats_cb, stats_cr, lam, form: str):
+def decide_chroma(stats_cb, stats_cr, lam, form: str, bit_depth: int = 8):
     """Joint chroma decision: Cb and Cr share the type and the EO class;
     offsets and band positions are per component. stats_*: (eo_stats,
     bo_stats). Returns (type, aux_cb, aux_cr, offs_cb, offs_cr)."""
-    hs, ds = zip(*(_eo_best(*st[0]) for st in (stats_cb, stats_cr)))
+    ma = max_offset(bit_depth)
+    hs, ds = zip(*(_eo_best(*st[0], ma) for st in (stats_cb, stats_cr)))
     dtot = ds[0].sum(1) + ds[1].sum(1)
     cls = torch.argmin(dtot, dim=0)
     eo_offs = [torch.gather(h, 0, cls[None, None].expand(1, 4, *cls.shape))
                [0].permute(1, 2, 0) for h in hs]
-    bos = [_bo_best(*st[1]) for st in (stats_cb, stats_cr)]
+    bos = [_bo_best(*st[1], ma) for st in (stats_cb, stats_cr)]
     bo_d = bos[0][1] + bos[1][1]
     eo_bits = 3 + sum((o.abs() + 1).sum(-1) for o in eo_offs)
     bo_bits = 11 + sum((o.abs() + 1 + (o != 0).int()).sum(-1)
@@ -252,26 +263,30 @@ def offset_table(t, aux, offs) -> torch.Tensor:
     return lut.reshape(-1)
 
 
-def apply_sao(rec, keys, t, aux, offs) -> torch.Tensor:
+def apply_sao(rec, keys, t, aux, offs, bit_depth: int = 8) -> torch.Tensor:
     """The SAO-filtered plane: rec plus its tile's offset at each of its
-    keys (only the tile's own class or band carries one), clipped."""
+    keys (only the tile's own class or band carries one), clipped to the
+    bit depth's range."""
     lut = offset_table(t, aux, offs)
-    return (rec + lut[keys].sum(0)).clamp(0, 255).to(torch.int32)
+    return (rec + lut[keys].sum(0)).clamp(0, (1 << bit_depth) - 1) \
+        .to(torch.int32)
 
 
-def sao_frame(rec3, src3, n: int, qp: int, form: str):
+def sao_frame(rec3, src3, n: int, qp: int, form: str, bit_depth: int = 8):
     """SAO over a frame: statistics of the (deblocked) recon against the
     source per n x n CTU (n/2 in chroma), the per-CTU decision at the
-    slice QP's lambda, and the application. rec3 / src3: int32 (y, u, v).
-    Returns the filtered planes and the parameters packed [ncu, 18]."""
+    slice QP's lambda, and the application. rec3 / src3: int32 (y, u, v)
+    of bit_depth-bit samples. Returns the filtered planes and the
+    parameters packed [ncu, 18]."""
+    bd = bit_depth
     sizes = (n, n // 2, n // 2)
-    keys = [sao_keys(r, k) for r, k in zip(rec3, sizes)]
+    keys = [sao_keys(r, k, bd) for r, k in zip(rec3, sizes)]
     st = [sao_stats(r, s, k, kk)
           for r, s, k, kk in zip(rec3, src3, sizes, keys)]
     lam = sao_lambda(qp, form)
-    ty, ay, oy = decide_luma(*st[0], lam, form)
-    tc, acb, acr, ocb, ocr = decide_chroma(st[1], st[2], lam, form)
-    out = tuple(apply_sao(r, kk, tt, a, o) for r, kk, tt, a, o in zip(
+    ty, ay, oy = decide_luma(*st[0], lam, form, bd)
+    tc, acb, acr, ocb, ocr = decide_chroma(st[1], st[2], lam, form, bd)
+    out = tuple(apply_sao(r, kk, tt, a, o, bd) for r, kk, tt, a, o in zip(
         rec3, keys, (ty, tc, tc), (ay, acb, acr), (oy, ocb, ocr)))
     return out, pack_sao_params(ty, ay, oy, tc, acb, acr, ocb, ocr)
 

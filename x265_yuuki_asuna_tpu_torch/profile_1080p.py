@@ -5,8 +5,8 @@
         [--rdoq] [--aq-mode 2] [--cutree] [--rc-mode crf] [--crf 28]
         [--bitrate 27000] [--vbv-maxrate 27000] [--vbv-bufsize 27000]
         [--hme] [--b-adapt 2] [--weightp] [--fade 6]
-        [--flagship [--hme-turns 3]] [--cli "--preset superfast"]
-        [--intra] [--batch 4] [--device-only]
+        [--flagship [--hme-turns 3]] [--cli "--preset superfast"
+        [--bit-depth 10]] [--intra] [--batch 4] [--device-only]
 
 For each session (the uniform 16x16 grid, max_depth 0, and the CTU32
 quadtree of depth 1 or 2; by default 0 and 2) encodes a synthetic 1080p
@@ -30,7 +30,9 @@ profiles the session the command line (x265_yuuki_asuna_tpu_torch.cli)
 builds from the given flags for a 1920x1080 25 fps input, in place of
 the other sessions (with B frames: each coded frame recorded, as above;
 e.g. "--preset superfast --no-b-intra", "--preset superfast --psy-rd
-0", or "--preset medium" with --fade: x265's default, weighted). --flagship
+0", or "--preset medium" with --fade: x265's default, weighted); with
+--bit-depth 10 or 12 the input and so the session are that deep (the
+clip's samples times 2^(bd - 8): Main10 / Main12). --flagship
 profiles bench.py's session (its constructor verbatim: the quadtree B
 session with HME, b-adapt 2, CRF 28, AQ 2, cuTree, deblock, SAO, sign
 hiding, no hash SEI, no recon to the host) in place of the other
@@ -69,9 +71,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 
-def synth_clip(n, w, h, seed=7, fade=0):
+def synth_clip(n, w, h, seed=7, fade=0, bit_depth=8):
     """The chip smoke test's clip (bench.py's synth_clip); fade > 0 lowers
-    frame i's luma by fade * i, clipped at 0 (a fade to black)."""
+    frame i's luma by fade * i, clipped at 0 (a fade to black); at
+    bit_depth > 8 every sample times 2^(bit_depth - 8), as uint16."""
+    if bit_depth > 8:
+        return [tuple(p.astype(np.uint16) << (bit_depth - 8) for p in f)
+                for f in synth_clip(n, w, h, seed, fade)]
     rng = np.random.default_rng(seed)
     base = (np.add.outer(np.arange(h), np.arange(w)) % 256).astype(np.uint8)
     tex = rng.integers(0, 32, (h, w)).astype(np.uint8)
@@ -196,12 +202,13 @@ FLAGSHIP = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
 def profile_session(max_depth: int, warm_frames: int,
                     bframes: int = 0, opts: dict = None,
                     device_only: bool = False, kw: dict = None,
-                    make=None, name: str = None, fade: int = 0) -> dict:
+                    make=None, name: str = None, fade: int = 0,
+                    bit_depth: int = 8) -> dict:
     """One video session's recorded frames; kw: the constructor's
     keywords verbatim (else qp 32, keyint 250, the hash SEI, max_depth,
     bframes and opts); make: a function that returns a new session (in
     place of the constructor), name its record's name; fade: the clip's
-    luma ramp (synth_clip)."""
+    luma ramp and bit_depth its samples' (synth_clip)."""
     from .models.encoder_top import VideoEncoderSession
     if make is None:
         if kw is None:
@@ -214,7 +221,8 @@ def profile_session(max_depth: int, warm_frames: int,
     bframes = probe.bframes
     out = []
     if bframes:
-        frames = synth_clip(bframes + 2, 1920, 1080, fade=fade)
+        frames = synth_clip(bframes + 2, 1920, 1080, fade=fade,
+                            bit_depth=bit_depth)
         warm = probe
         for f in frames:
             warm.push_frame(*f)
@@ -228,7 +236,8 @@ def profile_session(max_depth: int, warm_frames: int,
             sess.push_frame(*f)
         sess.flush()
     else:
-        frames = synth_clip(warm_frames + 2, 1920, 1080, fade=fade)
+        frames = synth_clip(warm_frames + 2, 1920, 1080, fade=fade,
+                            bit_depth=bit_depth)
         warm = probe
         for f in frames[:warm_frames]:
             warm.encode_frame(*f)
@@ -242,12 +251,13 @@ def profile_session(max_depth: int, warm_frames: int,
             "stage_ms": dict(sess.stage_ms)}
 
 
-def cli_session(flags: str):
+def cli_session(flags: str, bit_depth: int = 8):
     """A function that returns a new session of the command line with
-    these flags (a string) for a 1920x1080 25 fps 8-bit 4:2:0 input."""
+    these flags (a string) for a 1920x1080 25 fps 4:2:0 input of
+    bit_depth-bit samples."""
     from . import cli
     from .utils import io as IO
-    info = IO.VideoInfo(1920, 1080, 25, 1, IO.CSP_I420, 8)
+    info = IO.VideoInfo(1920, 1080, 25, 1, IO.CSP_I420, bit_depth)
 
     def make():
         args, prm = cli.parse(["in.y4m", "-o", "out.hevc"] + flags.split())
@@ -327,6 +337,8 @@ def main():
     ap.add_argument("--cli", default=None,
                     help="profile the command line's session of these "
                          "flags (one string) alone")
+    ap.add_argument("--bit-depth", type=int, default=8, choices=(8, 10, 12),
+                    help="with --cli: the input's bit depth")
     ap.add_argument("--flagship", action="store_true",
                     help="profile bench.py's session alone")
     ap.add_argument("--hme-turns", type=int, default=0,
@@ -353,8 +365,10 @@ def main():
     if args.cli:
         print(json.dumps(profile_session(
             2, args.frames, device_only=args.device_only,
-            make=cli_session(args.cli), name=f"cli {args.cli}",
-            fade=args.fade)), flush=True)
+            make=cli_session(args.cli, args.bit_depth),
+            name=f"cli {args.cli}" + (f" ({args.bit_depth}-bit)"
+                                      if args.bit_depth > 8 else ""),
+            fade=args.fade, bit_depth=args.bit_depth)), flush=True)
         return
     for md in args.max_depth:
         if args.intra:
