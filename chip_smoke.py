@@ -27,7 +27,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      10- and 12-bit path (the fused keys sized from the samples' peak:
      32 bits, 64 at R = 24 and 12 bits) against their plain versions,
      with each one's time, plain time and bound at the main paths'
-     shapes;
+     shapes; k1_n32: the fused sweep at n = 32 (the uniform CTU32 grid's
+     ME) at 1088x1920 in uint8 and in int16 at 10 and 12 bits (keys of
+     29, 31 and 33 bits: int32, int32, int64), a 64x96 crop at lambda 0,
+     1 and 2 and a flat plane, each equal to its plain version, with its
+     time, plain time and bound in uint8 and at 10 bits;
   3. the golden clips through the port's sessions on the card: the IPPP
      CQP stream md5 must equal tests/golden/manifest.json["ippp_cqp"]
      (golden), the CTU32 depth-2 quadtree stream its "qt2_ippp"
@@ -96,6 +100,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      md5s, frames, NAL types and CSV logs (K1 on int16 planes, HME's 4x4
      surface among them); main10_cpu_vs_card: the command line with no
      preset flag on a 416x240 10-bit clip on the card and on the CPU;
+     golden_stream_opts: the goldens intra_lossless, intra_wpp,
+     intra_slices2 and intra_scaling_default, and the sessions, command
+     lines and library cases of tests/stream_opts_pins.py (the uniform
+     CTU32 grid's intra and video sessions, the quadtree's WPP, lossless,
+     slices, scaling lists, the CRC and checksum) against the JAX
+     package's pins; lossless_cpu_vs_card: --lossless on a 416x240 clip
+     on the card and on the CPU, equal streams, every recon frame equal to
+     its source;
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -138,16 +150,16 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      buffer and the HRD (1080p_abr_vbv, 7 frames: bits, QP, VBV overshoot
      and buffer fill per frame, the re-encodes and their wall time, kbps
      against the target; K1 fused = frames + P-frame program calls);
-     then the flagship itself: bench.py's constructor verbatim over 13
+     then the flagship itself: bench.py's constructor verbatim over 9
      frames (1080p_flagship: fps, the mini-GOP lengths b-adapt chose, QPs,
      bytes, stage ms, the share of blocks that took HME's coarse MV, peak
      memory; K1 exactly frames + K + K(K-1)/2 per trellis decision fused,
      and one 8x8 and one 4x4 surface per P anchor, two of each per B
      frame; the last B frame's plain rerun identical); then the entry
      points users call: the command line at --preset superfast over a
-     1080p y4m (1080p_cli_superfast, 5 frames: fps, each frame's type,
+     1080p y4m (1080p_cli_superfast, 3 frames: fps, each frame's type,
      POC, QP and bytes from the CSV log, stage ms, peak memory; K1 exactly
-     5 fused + one surface per P anchor and two per B frame; the last B
+     3 fused + one surface per P anchor and two per B frame; the last B
      frame's launches with and without intra candidates, its program's ms
      with and without psy-rd in turns and the last P anchor's, and its
      plain rerun identical) and the library at superfast
@@ -155,15 +167,22 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      the R = 24 surfaces one per P anchor and two per B frame; the last B
      frame's plain rerun identical), then x265's default command line,
      no preset flag, over a 1080p y4m fading by 6 a frame
-     (1080p_cli_medium, 6 frames, --csv-log-level 2: fps, each frame's
+     (1080p_cli_medium, 5 frames, --csv-log-level 2: fps, each frame's
      type, POC, QP and bytes, the weights each P anchor chose, each
      frame's device, deblock, SAO and serialize ms, peak memory; K1 frames
      + the trellis's fused, one surface per P anchor and two per B frame;
      the weighted P anchor's plain rerun identical), and the same command
      line over a 10-bit y4m of synth_clip times 4
-     (1080p_cli_medium_main10, 5 frames: fps, bytes, PSNR at the 10-bit
+     (1080p_cli_medium_main10, 3 frames: fps, bytes, PSNR at the 10-bit
      peak, peak memory, K1's launches by entry point on int16 planes; the
-     last B frame's plain rerun identical);
+     last B frame's plain rerun identical), then the slice's two command
+     lines: --keyint 1 --qp 32 --ctu 32 --wpp over a 1080p y4m, 4 frames
+     in one batch (1080p_cli_intra_ctu32_wpp: ms per frame, the Python
+     CABAC's serialize ms, bytes, PSNR-Y, peak memory; no K1) and --ctu 32
+     --min-cu-size 32 at x265's default preset, 5 frames (1080p_cli_ctu32:
+     fps, K1's launches by entry point and the fused sweep's by size, 8
+     for the lookahead and the trellis, 32 for the ME, CUDA launches of
+     the last P and B program, the last B frame's plain rerun identical);
   6. the kernels line (launches on the flagship's path, and on each
      path; each entry point's int16 time, plain time, bound and launches
      on the 10-bit path); then the card line and, last, the ok line.
@@ -259,13 +278,14 @@ RC_B_PINS = {
 FLAGSHIP_CRF = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
                     b_adapt=0, rc_mode="crf", crf=28.0, sbh=True,
                     hash_sei=False, quality_metrics=True, **AQ, **LF)
-QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs three)
-FLAGSHIP_FRAMES = 13  # the 1080p flagship: the IDR, three trellis decisions
-CLI_FRAMES = 5        # the CLI at superfast / ultrafast: the IDR, a mini-GOP
+QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs two)
+FLAGSHIP_FRAMES = 9   # the 1080p flagship: the IDR, two trellis decisions [13]
+CLI_FRAMES = 5        # the CLI at ultrafast: the IDR, a mini-GOP
+SUPERFAST_FRAMES = 3  # the CLI at superfast: the IDR, a P anchor, a B [5]
 API_FRAMES = 5        # the library at superfast: the IDR, one trellis
-MEDIUM_FRAMES = 6     # the CLI's default (medium): the IDR, one trellis
+MEDIUM_FRAMES = 5     # the CLI's default (medium): the IDR, a mini-GOP [6]
 B_UNIFORM_FRAMES = 9  # the uniform B session: the IDR, 2 mini-GOPs of 4
-MAIN10_FRAMES = 5     # the CLI's default at 10 bits: the IDR, one trellis
+MAIN10_FRAMES = 3     # the CLI's default at 10 bits: the IDR, P, b [5]
 R24_ME = "P-frame ME 1088x1920 R=24"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -879,6 +899,8 @@ def k1_start():
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     for name in K1_ENTRIES:
         getattr(me_sad, name).launches = 0
+    me_sad.sad_sweep_best.launches_by_size = dict.fromkeys(
+        me_sad.BEST_SIZES, 0)
 
 
 def k1_read() -> dict:
@@ -911,7 +933,7 @@ def _launches(fn) -> int:
                for e in prof.profiler.kineto_results.events())
 
 
-def phase_1080p_intra(dev, n_single=3, n_batch=4):
+def phase_1080p_intra(dev, n_single=2, n_batch=4):
     """The all-intra session at 1080p with sign hiding and both filters:
     frames through encode_frame, then a batch through encode_batch; each
     batched frame's decisions (modes, levels) equal its single-frame
@@ -1588,7 +1610,7 @@ def phase_golden_weightp(dev):
         raise AssertionError(f"golden_weightp: streams differ: {ok}")
 
 
-def phase_weightp_cpu_vs_card(dev, n=6):
+def phase_weightp_cpu_vs_card(dev, n=4):
     """The command line with no preset flag (x265's medium: weighted
     prediction, so the host-filter quadtree path) on a 416x240 clip of n
     frames whose luma falls by 6 a frame, on the card and with
@@ -1754,7 +1776,7 @@ def _write_y4m(path, frames, bit_depth=8):
     wr.close()
 
 
-def phase_cli_cpu_vs_card(dev, n=6, phase="cli_cpu_vs_card",
+def phase_cli_cpu_vs_card(dev, n=4, phase="cli_cpu_vs_card",
                           argv=("--preset", "medium", "--no-weightp"),
                           bit_depth=8):
     """The command line with argv (by default --preset medium --no-weightp:
@@ -1897,7 +1919,7 @@ def _turns_ms(fn, set_on, turns=2):
     return ms
 
 
-def phase_1080p_cli_superfast(dev, n_frames=CLI_FRAMES):
+def phase_1080p_cli_superfast(dev, n_frames=SUPERFAST_FRAMES):
     """The command line at --preset superfast over a 1080p y4m of
     synth_clip (n_frames frames: the IDR and fixed mini-GOPs of 4):
     fps after the IDR, each frame's type, POC, QP and bytes from the CSV
@@ -1941,7 +1963,7 @@ def phase_1080p_cli_superfast(dev, n_frames=CLI_FRAMES):
             _launches(lambda: inst.run(*a, **k))
     enc.b_intra = True
     psy = lambda on: setattr(enc, "psy_rd", 2.0 if on else 0.0)
-    b_psy = _turns_ms(lambda: inst.run(*a, **k), psy)
+    b_psy = _turns_ms(lambda: inst.run(*a, **k), psy, turns=1)
     ap, kp = inst.last(False)
     p_psy = _turns_ms(lambda: inst.run(*ap, **kp), psy, turns=1)
     emit(phase="1080p_cli_superfast", argv="--preset superfast",
@@ -2318,6 +2340,310 @@ def phase_1080p_b_uniform(dev, n_frames=B_UNIFORM_FRAMES):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the uniform CTU32 grid and the all-intra stream options
+# ---------------------------------------------------------------------------
+
+def stream_opts_pins():
+    """tests/stream_opts_pins.py: the uniform CTU32 and stream-option
+    sessions, command lines and library cases, and the JAX package's pins
+    over them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import stream_opts_pins as pins
+    return pins
+
+
+def k1_sizes() -> dict:
+    """The fused sweep's launches by block size since k1_start()."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    return dict(me_sad.sad_sweep_best.launches_by_size)
+
+
+def phase_k1_n32(dev, card):
+    """K1's fused sweep at n = 32 (the uniform CTU32 grid's P and B ME,
+    R = 16, lambda_bits 2) against its plain version: 1088x1920 planes in
+    uint8 (29-bit keys), int16 at 10 bits (31-bit keys) and at 12 bits
+    (33 bits: int64 keys), a 64x96 crop at lambda 0, 1 and 2 and a flat
+    plane (every cost ties at lambda 0: (-R, -R)); then its time, plain
+    time, bound and the wrapper's time at 1088x1920 in uint8 and 10-bit
+    int16."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    fr = synth_clip(2, W1080, H1080)
+    rng = np.random.default_rng(17)
+    pad = lambda y: np.pad(y, ((0, 8), (0, 0)), mode="edge")  # 1080 -> 1088
+
+    def deep(y, bd):
+        s = bd - 8
+        p = pad(y).astype(np.int16)
+        return torch.as_tensor((p << s) + rng.integers(0, 1 << s, p.shape)
+                               .astype(np.int16), device=dev)
+    u8 = [torch.as_tensor(pad(f[0]), device=dev) for f in fr]
+    cases = [("ME 1088x1920 n=32", 8, u8[0], u8[1], (2,)),
+             ("ME 1088x1920 n=32 int16", 10, deep(fr[0][0], 10),
+              deep(fr[1][0], 10), (2,)),
+             ("ME 1088x1920 n=32 int16 12-bit", 12, deep(fr[0][0], 12),
+              deep(fr[1][0], 12), (2,)),
+             ("64x96 n=32", 8, u8[0][:64, :96].contiguous(),
+              u8[1][5:69, 3:99].contiguous(), (0, 1, 2)),
+             ("flat n=32", 8, torch.full((64, 64), 77, dtype=torch.uint8,
+                                         device=dev),
+              torch.full((64, 64), 77, dtype=torch.uint8, device=dev), (0,))]
+    want_keys = {8: torch.int32, 10: torch.int32, 12: torch.int64}
+    rows, err = {}, 0
+    for name, bd, ref, src, lams in cases:
+        peak = (1 << bd) - 1
+        H, W = src.shape
+        e = {}
+        for lam in lams:
+            kb = me_sad.sad_sweep_best(ref, src, 16, 32, lam, peak)
+            pb = me_sad.sad_sweep_best_plain(ref, src, 16, 32, lam)
+            torch.cuda.synchronize()
+            e[lam] = max(int((a.long() - b.long()).abs().max())
+                         for a, b in zip(kb, pb))
+            if name.startswith("flat") and not (
+                    bool((kb[0] == -16).all()) and bool((kb[1] == -16).all())
+                    and bool((kb[2] == 0).all())):
+                raise AssertionError("flat n=32: the first minimum must be "
+                                     "(-R, -R)")
+        shift, kdt = me_sad.key_layout(src.dtype, 32, 16, max(lams), peak)
+        row = dict(shape=name, H=H, W=W, R=16, n=32, dtype=str(src.dtype),
+                   bit_depth=bd, key_dtype=str(kdt), key_shift=shift,
+                   max_abs_err=e)
+        if name.startswith("ME") and kdt != want_keys[bd]:
+            raise AssertionError(f"{name}: keys {kdt}")
+        if name.startswith("ME") and bd < 12:
+            keys = torch.full(((H // 32) * (W // 32),), -1, dtype=kdt,
+                              device=dev)
+            row["ms"] = cuda_ms(lambda: me_sad._launch(
+                "best", src, ref.data_ptr(), src.data_ptr(), keys.data_ptr(),
+                H, W, 16, 32, 2, shift, keys.element_size(),
+                me_sad._DTYPES[src.dtype]), 50)
+            row["route_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best(ref, src, 16, 32, 2, peak), 20)
+            row["plain_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best_plain(ref, src, 16, 32, 2), 2)
+            row["bound_ms"], row["bound_by"] = k1_bound_ms(
+                H, W, 16, src.dtype, int_ops_per_s(*card, src.dtype), 32)
+        emit(phase="k1_n32", **row)
+        if any(e.values()):
+            raise AssertionError(f"K1 n=32 differs from its plain version "
+                                 f"at {name}: {e}")
+        rows[name] = row
+        err = max(err, *e.values())
+    return rows, err
+
+
+def phase_golden_stream_opts(dev):
+    """The slice's streams on the card: the four golden intra option
+    streams of the manifest (intra_lossless, intra_wpp, intra_slices2,
+    intra_scaling_default), then tests/stream_opts_pins.py's sessions
+    (the uniform CTU32 intra grid with WPP, sign hiding, AQ, lossless,
+    slices, the CRC and the checksum; the depth-1 and depth-2 quadtree
+    with WPP; a one-column WPP picture; the uniform CTU32 IPPP and B
+    sessions with the filters, AQ, cuTree, weighted prediction, x265's
+    medium, open GOP and 10 bits), command lines (--lossless, --slices 3,
+    --wpp --ctu 32, the scaling lists, --hash 2 / 3, --ctu 32
+    --min-cu-size 32 at medium and superfast) and library cases, each
+    against the JAX package's md5s, (POC, type, QP), NAL types and CSV
+    logs pinned there (the CPU's, which the tests hold)."""
+    from x265_yuuki_asuna_tpu_torch import api, cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    pins = stream_opts_pins()
+    gp = grid_pins()
+    got, ok = {}, {}
+    for name, kw in (("intra_lossless", dict(qp=4, lossless=True)),
+                     ("intra_wpp", dict(qp=32, wpp=True)),
+                     ("intra_slices2", dict(qp=32, slices=3)),
+                     ("intra_scaling_default",
+                      dict(qp=32, scaling_lists="default"))):
+        s = top.IntraEncoderSession(64, 48, hash_sei=False, device=dev, **kw)
+        got[name] = _md5_of(s, [s.encode_frame(*f) for f in golden_clip()])
+        ok[name] = got[name] == gp.manifest(name)
+    k1_start()
+    for name in pins.SESSIONS:
+        md5, frames, _ = pins.run(top, name, device=dev)
+        got[name] = md5
+        ok[name] = (md5, frames) == pins.PINS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in pins.CLI:
+            res = pins.run_cli(cli.main, name, tmp)
+            got["cli_" + name] = res[0]
+            ok["cli_" + name] = res == pins.CLI_PINS[name]
+    for name in pins.API:
+        res = pins.run_api(api, name)
+        got["api_" + name] = res[0]
+        ok["api_" + name] = res == pins.API_PINS[name]
+    launches, sizes = k1_read(), k1_sizes()
+    emit(phase="golden_stream_opts", md5=got, match=ok, k1_launches=launches,
+         k1_fused_by_size=sizes)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_stream_opts: streams differ: "
+                             f"{[k for k, v in ok.items() if not v]}")
+    if not sizes[32]:
+        raise AssertionError("golden_stream_opts: no n=32 sweep launched")
+    return launches
+
+
+def phase_lossless_cpu_vs_card(dev, n=2):
+    """The command line with --lossless on a 416x240 clip of n frames, on
+    the card and with device="cpu": equal streams and CSV logs, and every
+    recon frame (--recon) equal to its source."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    clip = synth_clip(n, 416, 240)
+    md5, csv, secs, recon_ok = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.y4m")
+        _write_y4m(src, clip)
+        for where in (None, "cpu"):
+            tag = "cpu" if where else "card"
+            dst, log, rec = (os.path.join(tmp, tag + x)
+                             for x in (".hevc", ".csv", ".yuv"))
+            t0 = time.perf_counter()
+            rc = cli.main([src, "-o", dst, "--lossless", "--csv", log,
+                           "--recon", rec], device=where)
+            secs[tag] = time.perf_counter() - t0
+            with open(dst, "rb") as f:
+                md5[tag] = hashlib.md5(f.read()).hexdigest()
+            with open(log) as f:
+                csv[tag] = f.read().splitlines()
+            got = np.fromfile(rec, np.uint8)
+            want = np.concatenate([np.concatenate([p.reshape(-1) for p in f])
+                                   for f in clip])
+            recon_ok[tag] = bool(np.array_equal(got, want))
+            if rc != 0:
+                raise AssertionError(f"lossless_cpu_vs_card: rc {rc} ({tag})")
+    same = md5["card"] == md5["cpu"] and csv["card"] == csv["cpu"]
+    emit(phase="lossless_cpu_vs_card", frames=n, md5=md5, csv=csv["card"],
+         seconds=secs, match=same, recon_equals_source=recon_ok)
+    if not same or not all(recon_ok.values()):
+        raise AssertionError("lossless_cpu_vs_card: streams differ or the "
+                             f"recon is not the source: {recon_ok}")
+
+
+def phase_1080p_cli_intra_ctu32_wpp(dev, n_frames=4):
+    """The command line --keyint 1 --qp 32 --ctu 32 --wpp (x265's medium
+    otherwise: the uniform CTU32 all-intra grid, RDOQ, the deblock, AQ
+    and SAO, which a batch leaves out, as the reference's does; without
+    --qp the preset's CRF makes it a video session, as in the
+    reference) over a
+    1080p y4m of synth_clip, n_frames frames in one batch of 4: ms per
+    frame, the session's stage ms per frame (serialize: the Python CABAC's
+    WPP substreams, 34 per picture), bytes, PSNR-Y, peak memory; K1
+    launches none."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    frames = synth_clip(n_frames, W1080, H1080)
+    made = []
+    configure = cli.configure
+
+    def captured(*a, **k):
+        made.append(configure(*a, **k))
+        return made[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        log = os.path.join(tmp, "log.csv")
+        _write_y4m(src, frames)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_start()                                # the main path starts
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "configure", captured):
+            rc = cli.main([src, "-o", dst, "--keyint", "1", "--qp", "32",
+                           "--ctu", "32", "--wpp", "--frames", str(n_frames),
+                           "--csv", log])
+        wall = time.perf_counter() - t0
+        launches = k1_read()
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rows = [r.split(", ") for r in f.read().splitlines()[1:-1]]
+        total = os.path.getsize(dst)
+    sess = made[0]
+    stage = {k: v / n_frames for k, v in sess.stage_ms.items()}
+    emit(phase="1080p_cli_intra_ctu32_wpp",
+         argv="--keyint 1 --qp 32 --ctu 32 --wpp", rc=rc, frames=len(rows),
+         cu_size=sess.cu, max_depth=sess.max_depth, wpp=sess.wpp,
+         rdoq=sess.quant_fn.rdoq, substreams=sess.rows,
+         ms_per_frame=wall / n_frames * 1e3, fps=n_frames / wall,
+         stage_ms_per_frame=stage, serialize_ms_per_frame=stage.get(
+             "serialize", 0.0),
+         frame_bytes=[int(r[4]) // 8 for r in rows], bytes=total,
+         psnr_y=[float(r[5]) for r in rows], k1_launches=launches,
+         max_memory_allocated=peak)
+    if rc != 0 or len(rows) != n_frames or sess.cu != 32 or not sess.wpp \
+            or sess.max_depth or any(launches.values()) \
+            or not all(np.isfinite(float(r[5])) for r in rows):
+        raise AssertionError("1080p_cli_intra_ctu32_wpp output malformed")
+    return launches
+
+
+def phase_1080p_cli_ctu32(dev, n_frames=5):
+    """The command line --ctu 32 --min-cu-size 32 at x265's default
+    preset (medium: bframes 4, b-adapt 2, weighted P, AQ 2, cuTree, SAO,
+    the deblock, psy-rd, CRF 28) over a 1080p y4m of synth_clip, n_frames
+    frames (the IDR and one mini-GOP): the uniform CTU32 grid's IPPP and
+    B programs. fps after the IDR, each frame's type, POC, QP and bytes,
+    stage ms per frame, peak memory, K1's launches by entry point and the
+    fused sweep's by block size (8: the lookahead's per frame and the
+    trellis's; 32: the ME, one per P anchor and two per B frame), CUDA
+    launches of the last P and B program (torch.profiler) and the last B
+    frame's plain rerun, which must be identical."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    frames = synth_clip(n_frames, W1080, H1080)
+    made = []
+    configure = cli.configure
+
+    def instrumented(*a, **k):
+        made.append(_Instrumented(configure(*a, **k)))
+        return made[-1].sess
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        log = os.path.join(tmp, "log.csv")
+        _write_y4m(src, frames)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_start()                                # the main path starts
+        with mock.patch.object(cli, "configure", instrumented):
+            rc = cli.main([src, "-o", dst, "--ctu", "32", "--min-cu-size",
+                           "32", "--frames", str(n_frames), "--csv", log])
+        launches, sizes = k1_read(), k1_sizes()
+        peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            rows = [r.split(", ") for r in f.read().splitlines()[1:-1]]
+        total = os.path.getsize(dst)
+    inst = made[0]
+    fps, order, stage, _ = inst.report()
+    n_p = sum(t == "P" for _, t in order)
+    n_b = sum(t in "Bb" for _, t in order)
+    la = len(order) + sum(k + k * (k - 1) // 2 for k in inst.trellis)
+    want = {"sad_sweep_best": la + n_p + 2 * n_b, "sad_block8_sweep": 0,
+            "sad_block4_sweep": 0}
+    want_sizes = {8: la, 16: 0, 32: n_p + 2 * n_b}
+    per_frame = {"P": _program_launches(inst, False),
+                 "B": _program_launches(inst, True)}
+    emit(phase="1080p_cli_ctu32", argv="--ctu 32 --min-cu-size 32", rc=rc,
+         cu_size=inst.sess.cu, max_depth=inst.sess.max_depth,
+         frames=len(rows), fps=fps, call_ms=inst.call_ms,
+         trellis_sizes=inst.trellis, frame_type=[r[1] for r in rows],
+         poc=[int(r[2]) for r in rows], qp=[int(r[3]) for r in rows],
+         frame_bytes=[int(r[4]) // 8 for r in rows], bytes=total,
+         psnr_y=[float(r[5]) for r in rows], coding_order=order,
+         stage_ms_per_frame=stage, stage_ms_total=dict(inst.sess.stage_ms),
+         k1_launches=launches, k1_launches_want=want,
+         k1_fused_by_size=sizes, k1_fused_by_size_want=want_sizes,
+         k1_by_frame_type=inst.k1_by_frame_type(),
+         cuda_launches_by_frame_type=per_frame,
+         launches_per_frame=(per_frame["P"] * n_p + per_frame["B"] * n_b)
+         / max(n_p + n_b, 1), max_memory_allocated=peak)
+    if rc != 0 or len(rows) != n_frames or inst.sess.cu != 32 \
+            or inst.sess.max_depth or order[0] != (0, "I") or not n_b \
+            or not all(np.isfinite(float(r[5])) for r in rows):
+        raise AssertionError(f"1080p_cli_ctu32 output malformed: {order}")
+    if launches != want or sizes != want_sizes:
+        raise AssertionError(f"1080p_cli_ctu32: K1 launches {launches} "
+                             f"{sizes} != {want} {want_sizes}")
+    _plain_rerun("1080p_cli_ctu32", inst)
+    return launches, sizes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2326,7 +2652,8 @@ def main():
     smi, card = phase_build()
     k1, err = phase_k1(dev, card)
     k1_16, err16 = phase_k1_int16(dev, card)
-    err = max(err, err16)
+    k1_32, err32 = phase_k1_n32(dev, card)
+    err = max(err, err16, err32)
     phase_golden(dev, "ippp_cqp", qp=32, cu_size=16)
     phase_golden(dev, "qt2_ippp", qp=30, max_depth=2)
     phase_golden_qt2_b(dev)
@@ -2349,6 +2676,8 @@ def main():
     golden10 = phase_golden_main10(dev)
     phase_cli_cpu_vs_card(dev, phase="main10_cpu_vs_card", argv=(),
                           bit_depth=10)
+    golden_opts = phase_golden_stream_opts(dev)
+    phase_lossless_cpu_vs_card(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -2397,6 +2726,9 @@ def main():
     by_path["1080p_cli_ultrafast"] = phase_1080p_cli_ultrafast(dev)
     by_path["1080p_b_uniform"] = phase_1080p_b_uniform(dev)
     by_path["1080p_cli_medium_main10"] = phase_1080p_cli_medium_main10(dev)
+    by_path["1080p_cli_intra_ctu32_wpp"] = \
+        phase_1080p_cli_intra_ctu32_wpp(dev)
+    by_path["1080p_cli_ctu32"], sizes32 = phase_1080p_cli_ctu32(dev)
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]
@@ -2411,6 +2743,8 @@ def main():
         k1_16["P-frame ME 1088x1920 int16"]
     me16_r24 = k1_16["P-frame ME 1088x1920 int16 12-bit R=24"]
     hme16 = k1_16["hme 544x960 int16"]
+    me32 = k1_32["ME 1088x1920 n=32"]
+    me32_16 = k1_32["ME 1088x1920 n=32 int16"]
     # each entry point on the 10-bit path's int16 planes: its time, plain
     # time and bound, and its launches there (the 1080p path; HME's 4x4
     # surface runs on the 10-bit flagship session of golden_main10)
@@ -2443,7 +2777,20 @@ def main():
                        r24_12bit=i16(me16_r24, "best_"),
                        key_dtype=me16["key_dtype"], launches_main10={
                            p: c["sad_sweep_best"] for p, c in main10.items()
-                       })},
+                       }),
+         # n = 32: the uniform CTU32 grid's ME (1080p_cli_ctu32)
+         "n32": {"shape": me32["shape"], "ms": me32["ms"],
+                 "plain_ms": me32["plain_ms"], "bound_ms": me32["bound_ms"],
+                 "bound_by": me32["bound_by"],
+                 "route_ms": me32["route_ms"],
+                 "launches": sizes32[32],
+                 "launches_golden_stream_opts":
+                     golden_opts["sad_sweep_best"],
+                 "key_dtypes": {r["bit_depth"]: r["key_dtype"]
+                                for r in k1_32.values()},
+                 "int16": {k: me32_16[k] for k in (
+                     "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "route_ms")}}},
         {"name": "sad_block4_sweep", **common,
          "launches": launches["sad_block4_sweep"],
          "launches_by_path": per_path("sad_block4_sweep"),

@@ -176,10 +176,13 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
 @pytest.mark.parametrize("option", [
     # (the cases bframes and max_depth=1 had: both run now, the uniform
     # B session and the depth-1 quadtree)
-    {"max_depth": 3}, {"cu_size": 32}, {"rqt": True}, {"max_merge": 5},
-    {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"hash_type": 1},
+    # (the case cu_size=64 took the place of cu_size=32, and scale_factor
+    # 4 and analysis_share "load" those of hash_type 1 and 2: the uniform
+    # CTU32 grid and the CRC and checksum SEI run now)
+    {"max_depth": 3}, {"cu_size": 64}, {"rqt": True}, {"max_merge": 5},
+    {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"scale_factor": 4},
     # (the cases bit_depth 12 and 10 had: both run now, Main12 and Main10)
-    {"hash_type": 2},
+    {"analysis_share": "load"},
     {"analysis_load": "a.dat"}, {"analysis_share": "save"}, {"wpp": True},
     {"n_refs": 2},
     {"max_merge": 2}, {"dup_threshold": 50}, {"tmvp": True},
@@ -211,9 +214,12 @@ def test_rate_control_options_code_a_frame(option):
 
 
 @pytest.mark.parametrize("option", [
-    {"frame_dup": True}, {"dup_threshold": 50}, {"hash_type": 1},
+    # (scale_factor and analysis_share took the places of hash_type 1 and
+    # 2: the CRC and checksum SEI run now)
+    {"frame_dup": True}, {"dup_threshold": 50}, {"scale_factor": 2},
     # (bit_depth 10 runs now: Main10)
-    {"max_merge": 5}, {"tmvp": True}, {"hash_type": 2}, {"wpp": True},
+    {"max_merge": 5}, {"tmvp": True}, {"analysis_share": "save"},
+    {"wpp": True},
     {"rqt": True},
     {"n_refs": 2},
 ])
@@ -232,8 +238,8 @@ B_SESSION = dict(max_depth=2, bframes=3, b_adapt=0)
     ({"rqt": True}, "rqt"),
     ({"tmvp": True}, "tmvp"),
     # (the case max_depth=0 had: the uniform 16x16 grid's B session runs
-    # now; its CTU32 grid is still to come)
-    pytest.param({"max_depth": 0, "cu_size": 32}, "cu_size=32",
+    # now, and its CTU32 grid; CTU64 is still to come)
+    pytest.param({"max_depth": 0, "cu_size": 64}, "cu_size=64",
                  id="option3-max_depth=0"),
     ({"max_merge": 5}, "max_merge"),
 ])

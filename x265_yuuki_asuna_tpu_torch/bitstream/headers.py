@@ -1,14 +1,15 @@
 """Parameter-set and slice-header writers (spec 7.3.2-7.3.6).
 
 Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what a
-4:2:0 IPPP or B session writes (Main, Main10, or Main12 with the Range
-Extensions' constraint flags; flat
-scaling lists, VUI timing, HRD, signal type and chroma location only,
-one reference per list, explicit
-short-term RPS, explicit weighted prediction of P slices, no
-WPP/tiles/slices, no weighted bi-prediction or TMVP;
-deblocking and SAO on or off, deblocking at the default offsets). The
-bits written are the same as the JAX package's for those settings.
+4:2:0 intra, IPPP or B session writes (Main, Main10, or Main12 with the
+Range Extensions' constraint flags; flat or signalled scaling lists
+(SPS), VUI timing, HRD, signal type and chroma location only, one
+reference per list, explicit short-term RPS, explicit weighted
+prediction of P slices, transquant bypass (lossless), WPP's entry points
+and a picture's slices by their segment address, no tiles, weighted
+bi-prediction or TMVP; deblocking and SAO on or off, deblocking at the
+default offsets). The bits written are the same as the JAX package's for
+those settings.
 
 Reference behavior (studied, not copied): encoder/entropy.cpp codeVPS /
 codeSPS / codePPS / codeProfileTier / codeSliceHeader.
@@ -17,7 +18,7 @@ codeSPS / codePPS / codeProfileTier / codeSliceHeader.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from .bitio import BitWriter, wrap_nal, NAL_VPS, NAL_SPS, NAL_PPS, \
     NAL_IDR_W_RADL
@@ -51,6 +52,8 @@ class SPSInfo:
     max_transform_hierarchy_depth_inter: int = 0
     max_transform_hierarchy_depth_intra: int = 0
     sao_enabled: int = 0
+    # ScalingListData (bitstream/scaling.py) or None (flat lists)
+    scaling_list: object = None
     strong_intra_smoothing: int = 1
     max_dec_pic_buffering: int = 1
     num_reorder_pics: int = 0
@@ -75,6 +78,8 @@ class PPSInfo:
     cu_qp_delta: int = 0             # per-CU QP (AQ / cuTree)
     diff_cu_qp_delta_depth: int = 0  # quantization group = CTU
     weighted_pred: int = 0           # P slices carry a pred_weight_table
+    transquant_bypass: int = 0       # lossless CUs may bypass (signalled)
+    entropy_coding_sync: int = 0     # WPP: one substream per CTU row
 
 
 def _profile_tier_level(bw: BitWriter, ptl: ProfileTierLevel):
@@ -162,7 +167,15 @@ def write_sps(sps: SPSInfo) -> bytes:
     bw.write_ue(sps.log2_diff_max_min_tb)
     bw.write_ue(sps.max_transform_hierarchy_depth_inter)
     bw.write_ue(sps.max_transform_hierarchy_depth_intra)
-    bw.write_flag(0)             # scaling_list_enabled_flag
+    sld = sps.scaling_list
+    bw.write_flag(sld is not None)   # scaling_list_enabled_flag
+    if sld is not None:
+        from .scaling import write_scaling_list_data
+        default = all(sld.is_default(sz, k) for sz in range(4)
+                      for k in range(6))
+        bw.write_flag(not default)   # sps_scaling_list_data_present_flag
+        if not default:
+            write_scaling_list_data(bw, sld)
     bw.write_flag(0)             # amp_enabled_flag
     bw.write_flag(sps.sao_enabled)
     bw.write_flag(0)             # pcm_enabled_flag
@@ -275,9 +288,9 @@ def write_pps(pps: PPSInfo) -> bytes:
     bw.write_flag(0)             # pps_slice_chroma_qp_offsets_present_flag
     bw.write_flag(pps.weighted_pred)  # weighted_pred_flag
     bw.write_flag(0)             # weighted_bipred_flag
-    bw.write_flag(0)             # transquant_bypass_enabled_flag
+    bw.write_flag(pps.transquant_bypass)  # transquant_bypass_enabled_flag
     bw.write_flag(0)             # tiles_enabled_flag
-    bw.write_flag(0)             # entropy_coding_sync_enabled_flag
+    bw.write_flag(pps.entropy_coding_sync)  # entropy_coding_sync_enabled
     bw.write_flag(pps.loop_filter_across_slices)
     bw.write_flag(1 if pps.deblocking_disabled else 0)
     if pps.deblocking_disabled:  # deblocking_filter_control_present
@@ -297,7 +310,10 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
                        poc: int = 0, ref_poc_delta: int = 1,
                        pos_poc_delta: int = 0, rps: Optional[Tuple] = None,
                        max_merge: int = 3, sao: bool = False,
-                       weights: Optional[dict] = None) -> BitWriter:
+                       weights: Optional[dict] = None,
+                       slice_addr: int = 0, slice_addr_bits: int = 0,
+                       entry_point_offsets: Optional[List[int]] = None) \
+        -> BitWriter:
     """Returns a BitWriter positioned after byte_alignment() — ready for the
     caller to append CABAC slice data. slice_type: 0=B 1=P 2=I (one slice
     per picture, one reference per list).
@@ -310,12 +326,19 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
     anchor in its RPS. sao: the slice's SAO luma and chroma flags (written
     when the SPS enables SAO). weights: the P slice's explicit weights
     (see _write_pred_weight_table); with the PPS's weighted_pred_flag
-    every P slice carries the table, all flags 0 when weights is None."""
+    every P slice carries the table, all flags 0 when weights is None.
+    slice_addr: the slice's first CTU (raster index; 0 is the picture's
+    first slice), written in slice_addr_bits bits. entry_point_offsets:
+    under the PPS's entropy_coding_sync, the byte sizes of every
+    substream but the last."""
     bw = BitWriter()
-    bw.write_flag(1)                         # first_slice_segment_in_pic_flag
+    first = slice_addr == 0
+    bw.write_flag(first)                     # first_slice_segment_in_pic_flag
     if 16 <= nal_type <= 23:                 # IRAP
         bw.write_flag(0)                     # no_output_of_prior_pics_flag
     bw.write_ue(0)                           # slice_pic_parameter_set_id
+    if not first:
+        bw.write_bits(slice_addr, slice_addr_bits)  # slice_segment_address
     bw.write_ue(slice_type)
     if nal_type not in (19, 20):             # not IDR
         bw.write_bits(poc & ((1 << sps.log2_max_poc_lsb) - 1),
@@ -348,6 +371,14 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
     if pps.loop_filter_across_slices and (sao or
                                           not pps.deblocking_disabled):
         bw.write_flag(1)                     # slice_loop_filter_across_slices
+    if pps.entropy_coding_sync:
+        offsets = entry_point_offsets or []
+        bw.write_ue(len(offsets))            # num_entry_point_offsets
+        if offsets:
+            olen = max(1, max(o - 1 for o in offsets).bit_length())
+            bw.write_ue(olen - 1)            # offset_len_minus1
+            for o in offsets:
+                bw.write_bits(o - 1, olen)   # entry_point_offset_minus1
     # byte_alignment(): alignment_bit_equal_to_one, then zero bits to boundary
     bw.write_bits(1, 1)
     bw.write_align_zero()

@@ -34,6 +34,9 @@ def load() -> ctypes.CDLL:
         lib.asuna_encode_b_slice.restype = ctypes.c_int
         lib.asuna_encode_b_slice.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + extras + out)
+        lib.asuna_crc16.restype = ctypes.c_uint32
+        lib.asuna_crc16.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.c_uint32]
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
@@ -75,12 +78,14 @@ def _finish(nbytes: int, out: np.ndarray, tail, tail_bits):
 def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
                        levels_cb: np.ndarray, levels_cr: np.ndarray,
                        log2cu: int, qp: int, sign_hiding: bool = False,
-                       sao=None, qp_map=None, bit_depth: int = 8):
+                       sao=None, qp_map=None, bit_depth: int = 8,
+                       lossless: bool = False):
     """I-slice CABAC data on the uniform CU grid, with each CU's SAO
     parameters when sao ([ncu, 18]) is given (their offsets' range from
     bit_depth) and its cu_qp_delta from qp_map ([rows, cols]) when given;
-    sign_hiding leaves out the hidden signs. Returns (payload_bytes,
-    tail_value, tail_bits)."""
+    sign_hiding leaves out the hidden signs; lossless codes every CU's
+    cu_transquant_bypass_flag as 1. Returns (payload_bytes, tail_value,
+    tail_bits)."""
     lib = load()
     rows, cols = modes.shape
     keep = []
@@ -96,7 +101,7 @@ def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
         rows, cols, log2cu, qp,
         1, 1, int(sign_hiding),  # part_mode coded, chroma present
         _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
-        bit_depth, 0, 0,         # not lossless, 4:2:0
+        bit_depth, int(lossless), 0,     # 4:2:0
         out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
 
@@ -240,3 +245,15 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
         cap, ctypes.byref(tail),
         ctypes.byref(tail_bits))
     return _finish(nbytes, buf, tail, tail_bits)
+
+
+def crc16(data: bytes, init: int = 0xffff) -> int:
+    """CRC-16 of the decoded-picture-hash SEI (the reference's picyuv.cpp
+    updateCRC / crcFinish: poly 0x1021, MSB first, over the bytes, then
+    16 zero bits)."""
+    arr = np.frombuffer(data, np.uint8)
+    crc = load().asuna_crc16(arr.ctypes.data, len(arr), init)
+    for _ in range(16):
+        msb = (crc >> 15) & 1
+        crc = ((crc << 1) & 0xffff) ^ (msb * 0x1021)
+    return crc

@@ -1,10 +1,13 @@
-"""CABAC context layout, init values and scan orders (ITU-T H.265).
+"""CABAC context layout, init values, state tables and scan orders
+(ITU-T H.265).
 
-The port's copy of what ops/bitcost reads from
-x265_yuuki_asuna_tpu/bitstream/tables.py: the context layout (CTX_OFFSET),
-the per-slice-type init values (Tables 9-5..9-32, rows ordered B, P, I),
-the diagonal scans (6.5.3), the last-position groups (9.3.3.1.2) and the
-significance context patterns (9.3.4.2.5). All numbers are spec constants.
+The port's copy of x265_yuuki_asuna_tpu/bitstream/tables.py: the
+arithmetic coder's state tables (rangeTabLps, Table 9-46; transIdxLps,
+Table 9-47), the context layout (CTX_OFFSET), the per-slice-type init
+values (Tables 9-5..9-32, rows ordered B, P, I) and their initialisation
+(9.3.2.2), the diagonal scans (6.5.3), the last-position groups
+(9.3.3.1.2) and the significance context patterns (9.3.4.2.5). All numbers
+are spec constants.
 """
 
 from __future__ import annotations
@@ -12,6 +15,36 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+
+# rangeTabLps[pStateIdx][(range >> 6) & 3] (Table 9-46)
+LPS_TABLE = (
+    (128, 176, 208, 240), (128, 167, 197, 227), (128, 158, 187, 216),
+    (123, 150, 178, 205), (116, 142, 169, 195), (111, 135, 160, 185),
+    (105, 128, 152, 175), (100, 122, 144, 166), (95, 116, 137, 158),
+    (90, 110, 130, 150), (85, 104, 123, 142), (81, 99, 117, 135),
+    (77, 94, 111, 128), (73, 89, 105, 122), (69, 85, 100, 116),
+    (66, 80, 95, 110), (62, 76, 90, 104), (59, 72, 86, 99),
+    (56, 69, 81, 94), (53, 65, 77, 89), (51, 62, 73, 85), (48, 59, 69, 80),
+    (46, 56, 66, 76), (43, 53, 63, 72), (41, 50, 59, 69), (39, 48, 56, 65),
+    (37, 45, 54, 62), (35, 43, 51, 59), (33, 41, 48, 56), (32, 39, 46, 53),
+    (30, 37, 43, 50), (29, 35, 41, 48), (27, 33, 39, 45), (26, 31, 37, 43),
+    (24, 30, 35, 41), (23, 28, 33, 39), (22, 27, 32, 37), (21, 26, 30, 35),
+    (20, 24, 29, 33), (19, 23, 27, 31), (18, 22, 26, 30), (17, 21, 25, 28),
+    (16, 20, 23, 27), (15, 19, 22, 25), (14, 18, 21, 24), (14, 17, 20, 23),
+    (13, 16, 19, 22), (12, 15, 18, 21), (12, 14, 17, 20), (11, 14, 16, 19),
+    (11, 13, 15, 18), (10, 12, 15, 17), (10, 12, 14, 16), (9, 11, 13, 15),
+    (9, 11, 12, 14), (8, 10, 12, 14), (8, 9, 11, 13), (7, 9, 11, 12),
+    (7, 9, 10, 12), (7, 8, 10, 11), (6, 8, 9, 11), (6, 7, 9, 10),
+    (6, 7, 8, 9), (2, 2, 2, 2))
+
+# transIdxLps (Table 9-47); the MPS transition is min(s + 1, 62), the
+# terminal state 63 stays
+TRANS_IDX_LPS = (
+    0, 0, 1, 2, 2, 4, 4, 5, 6, 7, 8, 9, 9, 11, 11, 12,
+    13, 13, 15, 15, 16, 16, 18, 18, 19, 19, 21, 21, 22, 22, 23, 24,
+    24, 25, 26, 26, 27, 27, 28, 29, 29, 30, 30, 30, 31, 32, 32, 33,
+    33, 33, 34, 34, 35, 35, 35, 36, 36, 36, 37, 37, 37, 38, 38, 63)
+TRANS_IDX_MPS = tuple(min(s + 1, 62) for s in range(63)) + (63,)
 
 CNU = 154
 
@@ -89,6 +122,20 @@ NUM_CTX = _off
 INIT_ROWS = np.concatenate(
     [np.array([_b, _p, _i], np.int32) for _n, _c, _b, _p, _i in _CTX_DEFS],
     axis=1)
+
+
+
+def init_all_contexts(slice_type: int, qp: int) -> bytearray:
+    """Spec 9.3.2.2 context init for slice type 0 = B, 1 = P, 2 = I at the
+    slice QP: the packed states (pStateIdx << 1) | valMps of every
+    context, as a bytearray [NUM_CTX]."""
+    iv = INIT_ROWS[slice_type]
+    slope = (iv >> 4) * 5 - 45
+    offset = ((iv & 15) << 3) - 16
+    pre = np.clip(((slope * int(np.clip(qp, 0, 51))) >> 4) + offset, 1, 126)
+    return bytearray(np.where(pre <= 63, (63 - pre) << 1,
+                              ((pre - 64) << 1) | 1).astype(np.uint8))
+
 
 SCAN_DIAG = 0
 SCAN_HOR = 1

@@ -9,14 +9,18 @@ tune resolution through utils/param.py, and the same sessions (the
 all-intra session for --keyint 1 under CQP, else the video session; x265's
 default CTU 64 / minimum CU 8 becomes the CTU32 depth-2 quadtree,
 ultrafast's CTU 32 / minimum CU 16 the depth-1 one, and a minimum CU equal
-to a CTU of 16 the uniform grid), on the CUDA card (main(argv,
+to a CTU of 16 or 32 the uniform grid of that CU size; --lossless,
+--slices and --wpp put the all-intra session on the uniform grid of
+--ctu, at most 32, 16 by default), on the CUDA card (main(argv,
 device="cpu") runs every kernel's plain version). Every preset runs, the
-default (medium) and veryfast through placebo with weighted prediction. A
+default (medium) and veryfast through placebo with weighted prediction,
+on 8-, 10- and 12-bit y4m input, with the all-intra stream options
+(--lossless, --slices, --wpp, --scaling-lists) and --hash 1 / 2 / 3. A
 setting the port's sessions do not run yet raises NotImplementedError
-from the session, naming the slice that adds it: e.g. --ctu 32
---min-cu-size 32 (the uniform CTU32 grid), 4:4:4 or 10-bit input.
-The ABR ladder, the multi-device pipeline, reconplay and the HDR10+ /
-Dolby Vision metadata raise NotImplementedError here.
+from the session, naming the slice that adds it: e.g. 4:4:4 input,
+--nr-intra, --ref 2 or --tmvp. The ABR ladder, the multi-device
+pipeline, reconplay and the HDR10+ / Dolby Vision metadata raise
+NotImplementedError here.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@
 //
 // The port's copy of x265_yuuki_asuna_tpu/native/asuna_native.cpp, cut to
 // the slice writers the port's sessions run: the uniform-grid I, P and B
-// writers and the CTU32 quadtree I/P/B writer (depth 1 or 2).
+// writers and the CTU32 quadtree I/P/B writer (depth 1 or 2), and the
+// hash SEI's CRC-16.
 //
 // Build: g++ -O2 -shared -fPIC -o build/libasuna.so csrc/asuna_native.cpp
 // Interface: extern "C", driven through ctypes (bitstream/native.py).
@@ -719,6 +720,21 @@ int asuna_encode_intra_slice(
     if ((int)cb.out.size() > outCap) return -1;
     memcpy(outBuf, cb.out.data(), cb.out.size());
     return (int)cb.out.size();
+}
+
+// CRC-16 for the decoded-picture-hash SEI (reference common/picyuv.cpp
+// updateCRC: poly 0x1021, MSB first, over the plane's bytes). Returns the
+// running CRC; the caller finishes with 16 zero bits (crcFinish).
+uint32_t asuna_crc16(const uint8_t* data, long long n, uint32_t crc)
+{
+    for (long long i = 0; i < n; i++) {
+        uint32_t b = data[i];
+        for (int k = 7; k >= 0; k--) {
+            uint32_t msb = (crc >> 15) & 1;
+            crc = (((crc << 1) + ((b >> k) & 1)) & 0xffff) ^ (msb * 0x1021);
+        }
+    }
+    return crc;
 }
 
 }  // extern "C"

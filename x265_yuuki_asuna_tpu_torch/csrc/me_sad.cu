@@ -12,7 +12,7 @@
 //     planes, whose smallest size is 4 (the reference computes it with the
 //     XLA scan of ops/me.py, which takes 4x4 bases; Pallas there needs 8);
 //   * asuna_sad_sweep_best — the fused sweep and argmin: for every n x n
-//     block (n = 8 or 16) the key  cost << shift | (dyi*D + dxi)  of the
+//     block (n = 8, 16 or 32) the key  cost << shift | (dyi*D + dxi)  of the
 //     least cost = SAD + lam*(|dx| + |dy|), reduced with atomicMin into a
 //     [nblocks] buffer the caller fills with all ones. The smallest key is
 //     the least cost and, among equal costs, the first (dy, dx) in row-major
@@ -23,15 +23,16 @@
 // to a packed instruction on 8-bit input = 6.7e13 per second):
 //   surface, ME 1088x1920 uint8 R=16: 142 MB written -> 43.7 us (bytes);
 //            2.27e9 abs-diff-adds, packed -> 34.0 us;
-//   fused,   ME n=16: 34.0 us (operations; 4.3 MB moved -> 1.3 us);
+//   fused,   ME n=16 or n=32: 34.0 us (operations; 4.3 MB moved ->
+//            1.3 us; n=32 adds 2 shuffle-adds per lane, dy and dx);
 //            lookahead 544x960 uint8 n=8: 8.5 us (operations);
 //   4x4 surface, HME 544x960 uint8 R=16: 142 MB written -> 42.6 us
 //            (bytes; 5.7e8 abs-diff-adds, packed -> 8.5 us).
 //
 // Design. A CTA of NWARP warps owns a tile of 32 neighbouring 8-column
-// blocks (lane = block), one row of blocks (8 or 16 pixel rows) and a run of
-// DYRUN dy values, DYW to a warp, and at most DXS = 33 dx values (one slab;
-// larger R takes more slabs). It loads the reference band it needs
+// blocks (lane = block), one row of blocks (8, 16 or 32 pixel rows) and a
+// run of DYRUN dy values, DYW to a warp, and at most DXS = 33 dx values
+// (one slab; larger R takes more slabs). It loads the reference band it needs
 // (NR + DYRUN - 1 rows x 304 columns, coordinates clamped) into shared
 // memory once, with 16-byte loads where the row is in range and aligned,
 // as bytes for uint8 (int32 for wider planes). Each lane keeps its source
@@ -45,7 +46,13 @@
 // int32 (128 coalesced bytes, with evict-first stores: the surface is
 // larger than L2), or, fused, folds them into its running
 // minimum key with a multiply-add (FMA pipe). For n = 16 a lane sums 16
-// rows and adds its horizontal neighbour with __shfl_xor. The 4x4 surface
+// rows and adds its horizontal neighbour with __shfl_xor; for n = 32 it
+// sums 32 rows and the four lanes of a block add theirs with two
+// __shfl_xor steps (1, then 2), and the first of the four takes the
+// atomicMin. n = 32's band (43 rows, 52 KB in either form) is past the
+// default 48 KB of dynamic shared memory, so its instantiations opt in
+// (cudaFuncAttributeMaxDynamicSharedMemorySize): four CTAs fit an SM's
+// 228 KB. The 4x4 surface
 // keeps the layout: a lane's 8 columns are two 4x4 blocks, each word of
 // its source row feeds its own sum (NH = 2 sums per dx), the CTA covers 4
 // pixel rows, and a warp stores 32 neighbouring int2 pairs (256
@@ -95,7 +102,10 @@ constexpr size_t band_bytes() {
 }
 static_assert(band_bytes<uint8_t, 16>() <= 48 * 1024 &&
               band_bytes<int32_t, 16>() <= 48 * 1024,
-              "the band fits the default dynamic shared memory");
+              "n <= 16: the band fits the default dynamic shared memory");
+static_assert(band_bytes<uint8_t, 32>() <= 227 * 1024 &&
+              band_bytes<int32_t, 32>() <= 227 * 1024,
+              "n = 32: the band fits a CTA's opt-in shared memory");
 
 // acc + the sum of the four byte-wise |a - b|
 __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
@@ -237,7 +247,8 @@ __device__ __forceinline__ Key min_key(const uint32_t (&acc)[DXS],
 }
 
 // One kernel for all entry points. NR = pixel rows of a lane's block (8,
-// 16 for the fused n = 16, 4 for the 4x4 surface); NH = sums per lane and
+// 16 or 32 for the fused n = 16 / 32, 4 for the 4x4 surface); NH = sums
+// per lane and
 // dx (1: one 8-wide block, 2: two 4-wide ones); BEST = fused argmin into
 // `keys` (else the surface into `out`); Key = uint32_t or unsigned long
 // long.
@@ -298,10 +309,12 @@ k1_kernel(const T* __restrict__ ref, const T* __restrict__ src, int H, int W,
         uint32_t (&acc)[DXS] = sums[0];
         if constexpr (BEST) {
             static_assert(NH == 1, "the fused argmin takes 8-wide blocks");
-            if constexpr (NR == 16) {
+            // an NR x NR block is NR / 8 neighbouring lanes
+            #pragma unroll
+            for (int m = 1; m < NR / 8; m *= 2) {
                 #pragma unroll
                 for (int i = 0; i < DXS; ++i)
-                    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+                    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], m);
             }
             const Key mul = Key(1) << shift;
             const Key k = (nd == DXS ? min_key<Key, false>(acc, cx, nd, mul)
@@ -328,7 +341,7 @@ k1_kernel(const T* __restrict__ ref, const T* __restrict__ src, int H, int W,
         }
     }
     if constexpr (BEST) {
-        if (active && (NR == 8 || lane % 2 == 0))
+        if (active && lane % (NR / 8) == 0)
             atomicMin(&keys[(size_t)blockIdx.y * (W / NR) + bx / (NR / 8)],
                       best);
     }
@@ -341,6 +354,14 @@ cudaError_t launch(const void* ref, const void* src, int H, int W, int R,
     const int D = 2 * R + 1;
     const dim3 grid((W / 8 + LANES - 1) / LANES, H / NR,
                     ((D + DYRUN - 1) / DYRUN) * ((D + DXS - 1) / DXS));
+    if constexpr (band_bytes<T, NR>() > 48 * 1024) {
+        // once per instantiation: opt in past the default 48 KB
+        static const cudaError_t attr = cudaFuncSetAttribute(
+            k1_kernel<T, NR, BEST, Key, NH>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)band_bytes<T, NR>());
+        if (attr != cudaSuccess) return attr;
+    }
     k1_kernel<T, NR, BEST, Key, NH><<<grid, THREADS, band_bytes<T, NR>(),
                                       stream>>>(
         (const T*)ref, (const T*)src, H, W, R, lam, shift, (int32_t*)out,
@@ -365,6 +386,12 @@ cudaError_t launch_best(const void* ref, const void* src, void* keys, int H,
                                         nullptr, keys, s);
     if (n == 16 && key_bytes == 8)
         return launch<T, 16, true, K64>(ref, src, H, W, R, lam, shift,
+                                        nullptr, keys, s);
+    if (n == 32 && key_bytes == 4)
+        return launch<T, 32, true, K32>(ref, src, H, W, R, lam, shift,
+                                        nullptr, keys, s);
+    if (n == 32 && key_bytes == 8)
+        return launch<T, 32, true, K64>(ref, src, H, W, R, lam, shift,
                                         nullptr, keys, s);
     return cudaErrorInvalidValue;
 }
@@ -408,8 +435,9 @@ int asuna_sad_block4_sweep(const void* ref, const void* src, void* out,
 }
 
 // As above, but keys: [(H/n) * (W/n)] device buffer of key_bytes (4 or 8)
-// each, filled with all ones by the caller, H and W multiples of n (8 or
-// 16); each block's key becomes the least cost << shift | (dyi*D + dxi).
+// each, filled with all ones by the caller, H and W multiples of n (8,
+// 16 or 32); each block's key becomes the least cost << shift |
+// (dyi*D + dxi).
 int asuna_sad_sweep_best(const void* ref, const void* src, void* keys, int H,
                          int W, int R, int n, int lam, int shift,
                          int key_bytes, int dtype, void* stream) {

@@ -1,12 +1,14 @@
 """Top-level encoder sessions: the all-intra session, and the video
 session (one reference per list; IPPP, and mini-GOPs with B frames fixed
-or chosen by b-adapt, on the uniform 16x16 CU grid or the CTU32 quadtree
-of depth 1 or 2), under CQP, CRF or ABR rate control with VBV.
+or chosen by b-adapt, on the uniform grid of 16x16 or 32x32 CUs or the
+CTU32 quadtree of depth 1 or 2), under CQP, CRF or ABR rate control with
+VBV.
 
 Port of x265_yuuki_asuna_tpu/models/encoder_top.py: IntraEncoderSession
 (encode_frame, the frame batches submit_batch / finish_batch /
 encode_batch, headers with the info, mastering-display and
-content-light-level SEI, the sei_provider hook) and
+content-light-level SEI, the sei_provider hook, lossless, slices, WPP,
+scaling lists and the three hash SEI types) and
 VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
 hash SEI, scenecut (the cost rule or the histogram rule) and keyint_min;
 push_frame / flush with b_adapt 0, 1 and 2, the rc-lookahead window, the
@@ -14,8 +16,9 @@ B-pyramid, open GOP (CRA keyframes with RASL leading pictures) and the B
 slice assembly. As in the reference, the video
 session codes its I frames through an IntraEncoderSession. Device work
 (lookahead, intra and inter programs) runs on `device`; the CABAC pass
-runs on the host through the native writer. The streams are
-byte-identical to the JAX package's.
+runs on the host through the native writer (WPP substreams through the
+Python CABAC of bitstream/cabac.py). The streams are byte-identical to
+the JAX package's.
 
 With max_depth=2 the sessions code CTU32 quadtrees down to 8x8 CUs, with
 max_depth=1 down to 16x16 (x265's ultrafast: the programs decide over
@@ -36,7 +39,7 @@ frames).
 
 deblock and sao switch on the in-loop filters (each alone or both), on
 every path: on the uniform grid the sessions filter each coded picture as
-the JAX sessions' host paths do (the SAO "CTU" is the 16x16 CU); the
+the JAX sessions' host paths do (the SAO "CTU" is the CU); the
 quadtree programs run the JAX device-DPB filter chain after the commit
 (the intra session without dpb_device runs the same deblock and the
 host form of SAO). The filtered picture is the reference, the recon
@@ -116,8 +119,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..bitstream import ctu_syntax as CS
 from ..bitstream import headers as HDR
 from ..bitstream import native, sei as SEI
+from ..bitstream.cabac import CabacEncoder
+from ..bitstream.scaling import ScalingListData
+from ..bitstream.tables import CTX_OFFSET
 from ..bitstream.bitio import (BitWriter, wrap_nal, NAL_CRA, NAL_IDR_W_RADL,
                                NAL_RASL_N, NAL_SUFFIX_SEI, NAL_TRAIL_N,
                                NAL_TRAIL_R)
@@ -150,10 +157,8 @@ _LATER = {
     "analysis_share": "the analysis save/load slice",
     "scale_factor": "the analysis save/load slice",
     "rqt": "the RQT slice",
-    "hash_type": "the hash-types slice",
-    "wpp": "the WPP slice", "slices": "the slices slice",
-    "lossless": "the lossless slice", "nr_intra": "the noise-reduction slice",
-    "scaling_lists": "the scaling-lists slice",
+    "wpp": "the P / B WPP slice (bitstream/inter_syntax.py)",
+    "nr_intra": "the noise-reduction slice",
     "fast_intra": "the fast-intra slice", "csp": "the 4:4:4 slice",
 }
 # the defaults of those keywords in each JAX session
@@ -161,12 +166,8 @@ _VIDEO_DEFAULTS = {
     "max_merge": 3, "n_refs": 1, "tmvp": False,
     "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
     "analysis_load": None, "analysis_share": None, "scale_factor": 1,
-    "rqt": False, "hash_type": 0, "wpp": False}
-_INTRA_DEFAULTS = {
-    "lossless": False, "slices": 1, "wpp": False,
-    "hash_type": 0,
-    "nr_intra": 0, "scaling_lists": None, "fast_intra": False,
-    "csp": "i420"}
+    "rqt": False, "wpp": False}
+_INTRA_DEFAULTS = {"nr_intra": 0, "fast_intra": False, "csp": "i420"}
 
 
 def _check_options(options: dict, defaults: dict) -> None:
@@ -184,9 +185,9 @@ def _check_options(options: dict, defaults: dict) -> None:
 
 
 def _grid(max_depth: int, cu_size: int) -> int:
-    """The CTU size of a session: 16 on the uniform grid, 32 for the
-    quadtree of depth 1 or 2 (whatever cu_size, as in the reference's
-    sessions); other geometries raise NotImplementedError."""
+    """The CTU size of a session: cu_size (16 or 32) on the uniform grid,
+    32 for the quadtree of depth 1 or 2 (whatever cu_size, as in the
+    reference's sessions); other geometries raise NotImplementedError."""
     if max_depth not in (0, 1, 2):
         raise NotImplementedError(
             f"max_depth={max_depth}: the port codes the uniform grid "
@@ -198,11 +199,11 @@ def _grid(max_depth: int, cu_size: int) -> int:
             "quadtrees")
     if max_depth:
         return 32
-    if cu_size != 16:
+    if cu_size not in (16, 32):
         raise NotImplementedError(
-            f"cu_size={cu_size}: the port's uniform grid codes 16x16 CUs; "
-            "the uniform CTU32 grid slice adds 32x32 ones (ROADMAP Queue 1 "
-            "item 16)")
+            f"cu_size={cu_size}: the port's uniform grid codes 16x16 and "
+            "32x32 CUs; CTU64 is the CTU64 slice's (ROADMAP Queue 1 item "
+            "9)")
     return cu_size
 
 
@@ -360,16 +361,36 @@ def _slice_nal(bw: BitWriter, res, nal_type: int) -> bytes:
     return wrap_nal(nal_type, bw.get_bytes())
 
 
-def hash_sei(out: dict, bit_depth: int = 8) -> bytes:
-    """Decoded-picture-hash suffix SEI (MD5 of each coded-size recon
-    plane: its bytes as uint8 at 8 bits, as little-endian uint16 above,
-    spec D.3.19's pictureData)."""
+def hash_sei(out: dict, bit_depth: int = 8, hash_type: int = 0) -> bytes:
+    """Decoded-picture-hash suffix SEI of each coded-size recon plane
+    (spec D.3.19; its bytes as uint8 at 8 bits, as little-endian uint16
+    above): hash_type 0 MD5, 1 CRC-16 (native.crc16), 2 the 32-bit
+    checksum of the reference's picyuv.cpp (each sample's low byte, and
+    above 8 bits its high byte, xored with a mask of its position,
+    summed)."""
     pdt = np.uint16 if bit_depth > 8 else np.uint8
     bw = BitWriter()
     bw.write_bits(132, 8)          # payload type: decoded_picture_hash
-    payload = bytearray([0])       # hash_type 0 = MD5
+    payload = bytearray([hash_type])
     for plane in ("recon_y", "recon_u", "recon_v"):
-        payload += hashlib.md5(out[plane].astype(pdt).tobytes()).digest()
+        pix = out[plane].astype(pdt)
+        if hash_type == 1:
+            crc = native.crc16(pix.tobytes())
+            payload += bytes([(crc >> 8) & 0xff, crc & 0xff])
+        elif hash_type == 2:
+            h, w = pix.shape
+            xs = np.arange(w, dtype=np.uint32)
+            ys = np.arange(h, dtype=np.uint32)[:, None]
+            xor = (xs & 0xff) ^ (ys & 0xff) ^ (xs >> 8) ^ (ys >> 8)
+            p32 = pix.astype(np.uint32)
+            cks = int(((p32 & 0xff) ^ xor).sum(dtype=np.uint64)
+                      & 0xffffffff)
+            if bit_depth > 8:
+                cks = (cks + int(((p32 >> 8) ^ xor).sum(dtype=np.uint64))) \
+                    & 0xffffffff
+            payload += cks.to_bytes(4, "big")
+        else:
+            payload += hashlib.md5(pix.tobytes()).digest()
     bw.write_bits(len(payload), 8)
     bw.write_bytes(payload)
     bw.rbsp_trailing_bits()
@@ -381,26 +402,40 @@ class IntraEncoderSession:
     Main10, Main12 with the Range Extensions' constraint flags; deeper
     planes come in and go out as uint16).
 
-    cu_size=16 codes the uniform 16x16 grid; max_depth=2 codes CTU32
-    quadtrees down to 8x8 CUs, max_depth=1 down to 16x16 (cu_size is then
-    32, as in the reference). deblock / sao: the in-loop filters; on the
-    quadtree they run in the program (dpb_device=True: the video
-    session's chain) or, as in the reference's intra session, after it in
-    the host form. sbh / rdoq / psy_rdoq: sign-bit hiding, RDOQ (sign
-    hiding off under RDOQ), psy-RDOQ. fps sets the VUI timing and the
-    level. info_sei, master_display and max_cll choose the headers' SEI.
-    aq_mode (1-4) / aq_strength: adaptive quantization from the luma and
-    chroma energies of each frame coded through encode_frame (as in the
-    reference, a batch codes its frames at the session QP, with the PPS's
-    cu_qp_delta on and no delta in its slices). sei_provider, when set, is
-    called with each frame's display index and returns bytes that go
-    before its slice. device=None runs on the CUDA card (and raises when
-    there is none); device="cpu" runs every kernel's plain PyTorch
-    version. recon_host=False, with dpb_device (the video session's I
-    frames when nothing reads their recon on the host): the quadtree
-    program's recon stays on the device. psy_rd: psycho-visual RD in the
-    quadtree's leaf decisions (the uniform grid has none, as in the
-    reference). Options of the JAX session outside these slices raise
+    cu_size=16 or 32 codes the uniform grid of 16x16 or 32x32 CUs;
+    max_depth=2 codes CTU32 quadtrees down to 8x8 CUs, max_depth=1 down
+    to 16x16 (cu_size is then 32, as in the reference). deblock / sao:
+    the in-loop filters; on the quadtree they run in the program
+    (dpb_device=True: the video session's chain) or, as in the
+    reference's intra session, after it in the host form. sbh / rdoq /
+    psy_rdoq: sign-bit hiding, RDOQ (sign hiding off under RDOQ),
+    psy-RDOQ. fps sets the VUI timing and the level. info_sei,
+    master_display and max_cll choose the headers' SEI. aq_mode (1-4) /
+    aq_strength: adaptive quantization from the luma and chroma energies
+    of each frame coded through encode_frame (as in the reference, a
+    batch codes its frames at the session QP, with the PPS's cu_qp_delta
+    on and no delta in its slices). sei_provider, when set, is called
+    with each frame's display index and returns bytes that go before its
+    slice. device=None runs on the CUDA card (and raises when there is
+    none); device="cpu" runs every kernel's plain PyTorch version.
+    recon_host=False, with dpb_device (the video session's I frames when
+    nothing reads their recon on the host): the quadtree program's recon
+    stays on the device. psy_rd: psycho-visual RD in the quadtree's leaf
+    decisions (the uniform grid has none, as in the reference).
+
+    The stream options, with the reference's rules (uniform grid unless
+    stated): lossless (transquant bypass: QP 4 signalled, no deblock, SAO,
+    AQ, sign hiding or RDOQ); slices (horizontal bands of CTU rows, each
+    its own slice and coded as its own frame, all bands as one batch; 1
+    unless the rows split evenly; no sign hiding; as in the reference the
+    bands are neither filtered nor coded with a QP map, the cu_qp_delta
+    or, under lossless, the bypass flag, ROADMAP Queue 3); wpp (uniform
+    grid and quadtree, not with slices: one substream per CTU row through
+    the Python CABAC, as in the reference: the uniform grid's rows carry
+    neither a QP map's cu_qp_delta nor the bypass flag); scaling_lists
+    ("default" or a scaling-list file; ignored under lossless, RDOQ or
+    the quadtree); hash_type (the hash SEI's 0 MD5, 1 CRC, 2 checksum).
+    Options of the JAX session outside these slices raise
     NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
@@ -412,11 +447,21 @@ class IntraEncoderSession:
                  max_depth: int = 0, dpb_device: bool = False,
                  aq_mode: int = 0, aq_strength: float = 1.0, device=None,
                  recon_host: bool = True, psy_rd: float = 0.0,
-                 bit_depth: int = 8, **options):
+                 bit_depth: int = 8, lossless: bool = False,
+                 slices: int = 1, wpp: bool = False, hash_type: int = 0,
+                 scaling_lists: str = None, **options):
         _check_options(options, _INTRA_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         if bit_depth not in (8, 10, 12):
             raise ValueError(f"bit_depth={bit_depth}: 8, 10 or 12")
+        if max_depth and (lossless or slices > 1):
+            raise NotImplementedError(
+                "lossless and slices run on the uniform grid: the "
+                "reference's quadtree intra session refuses them (its "
+                "assertions 'quadtree + lossless / slices unsupported')")
+        if hash_type not in (0, 1, 2):
+            raise ValueError(f"hash_type={hash_type}: 0 MD5, 1 CRC, 2 "
+                             "checksum")
         self.bit_depth = bit_depth
         # the uniform grid's deblock depth (the video session sets 8: the
         # reference's fault, ROADMAP Queue 3)
@@ -425,19 +470,40 @@ class IntraEncoderSession:
         if self.device.type == "cuda":
             exact_fp32_matmul()
         self.src_w, self.src_h = width, height
+        self.lossless = bool(lossless)
+        # lossless signals QP 4 and codes no filter, AQ, SBH or RDOQ
+        qp = 4 if self.lossless else qp
         self.qp, self.cu, self.max_depth = qp, cu_size, max_depth
-        self.hash_sei = hash_sei
-        self.deblock, self.sao = bool(deblock), bool(sao)
-        self.sbh = bool(sbh) and not rdoq
-        self.aq_mode, self.aq_strength = aq_mode, aq_strength
-        self.quant_fn = Quantizer(self.sbh, rdoq, psy_rdoq, bit_depth)
+        self.hash_sei, self.hash_type = hash_sei, hash_type
+        self.deblock = bool(deblock) and not self.lossless
+        self.sao = bool(sao) and not self.lossless
+        rdoq = bool(rdoq) and not self.lossless
+        self.scaling = None
+        if scaling_lists and not (self.lossless or rdoq or max_depth):
+            self.scaling = ScalingListData.default() \
+                if scaling_lists == "default" \
+                else ScalingListData.from_file(scaling_lists)
+        rows = G.cdiv(height, cu_size)
+        # equal bands of CTU rows only, else one slice
+        self.slices = max(1, min(slices, rows))
+        if rows % self.slices:
+            self.slices = 1
+        self.wpp = bool(wpp) and self.slices == 1
+        self.sbh = bool(sbh) and not rdoq and not self.lossless \
+            and self.slices == 1
+        self.aq_mode = 0 if self.lossless else aq_mode
+        self.aq_strength = aq_strength
+        self.quant_fn = Quantizer(self.sbh, rdoq, psy_rdoq, bit_depth,
+                                  self.scaling)
         self.dpb_device = bool(dpb_device) and max_depth > 0
         self.info_sei = info_sei
         self.master_display, self.max_cll = master_display, max_cll
         self.sei_provider = None      # callable(display_idx) -> bytes
         self._display_counter = 0
         self.coded_w = G.cdiv(width, cu_size) * cu_size
-        self.coded_h = G.cdiv(height, cu_size) * cu_size
+        self.coded_h = rows * cu_size
+        self.rows, self.cols = rows, self.coded_w // cu_size
+        self.band_rows = rows // self.slices
         log2cu = cu_size.bit_length() - 1
         self.sps = HDR.SPSInfo(
             width=self.coded_w, height=self.coded_h,
@@ -452,11 +518,13 @@ class IntraEncoderSession:
             log2_min_cb=log2cu - max_depth, log2_diff_max_min_cb=max_depth,
             log2_min_tb=2, log2_diff_max_min_tb=min(log2cu, 5) - 2,
             strong_intra_smoothing=0, timing_info=(fps[1], fps[0]),
-            sao_enabled=int(self.sao))
+            sao_enabled=int(self.sao), scaling_list=self.scaling)
         self.pps = HDR.PPSInfo(init_qp=26,
                                deblocking_disabled=int(not self.deblock),
                                sign_hiding=int(self.sbh),
-                               cu_qp_delta=int(bool(aq_mode)))
+                               cu_qp_delta=int(bool(self.aq_mode)),
+                               transquant_bypass=int(self.lossless),
+                               entropy_coding_sync=int(self.wpp))
         if max_depth:
             self.frame_encoder = IntraQTEncoder(
                 self.coded_w, self.coded_h, self.device, self.deblock,
@@ -464,9 +532,10 @@ class IntraEncoderSession:
                 "program" if self.dpb_device else "host",
                 recon_host or not self.dpb_device, psy_rd, max_depth)
         else:
+            # a sliced session codes each band as a frame of its own
             self.frame_encoder = IntraFrameEncoder(
-                self.coded_w, self.coded_h, cu_size, self.device,
-                self.quant_fn)
+                self.coded_w, self.band_rows * cu_size, cu_size,
+                self.device, self.quant_fn, self.lossless)
         # wall-clock ms per stage, summed over frames
         self.stage_ms = defaultdict(float)
 
@@ -538,7 +607,10 @@ class IntraEncoderSession:
     def assemble_slice(self, out: dict, qp: int,
                        nal_type: int = NAL_IDR_W_RADL, poc: int = 0) -> bytes:
         """The I slice NAL of a coded picture: an IDR, or with nal_type
-        NAL_CRA an open GOP's CRA at poc."""
+        NAL_CRA an open GOP's CRA at poc; under wpp its CTU rows' WPP
+        substreams."""
+        if self.wpp:
+            return self._assemble_wpp(out, qp, nal_type, poc)
         sao = out.get("sao")
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
                                     slice_qp=qp, nal_type=nal_type, poc=poc,
@@ -554,8 +626,137 @@ class IntraEncoderSession:
                 out["modes"], out["levels_y"], out["levels_cb"],
                 out["levels_cr"], self.cu.bit_length() - 1, qp,
                 sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
-                bit_depth=self.bit_depth)
+                bit_depth=self.bit_depth, lossless=self.lossless)
         return _slice_nal(bw, res, nal_type)
+
+    def _assemble_wpp(self, out: dict, qp: int, nal_type: int,
+                      poc: int) -> bytes:
+        """The slice as WPP substreams (the reference's
+        _assemble_slice_wpp and _assemble_slice_qt_wpp), through the
+        Python CABAC: one substream per CTU row, each ending with
+        end_of_subset_one_bit (but the last) and byte alignment; row r > 0
+        starts from the contexts saved after the second CTU of row r - 1
+        (spec 9.3.2.4; a one-column picture re-initialises every row).
+        The entry point offsets are the substreams' sizes before emulation
+        prevention, as in the reference. The quadtree's rows restart the
+        QP predictor at the slice QP; the uniform grid's code no
+        cu_qp_delta and no transquant bypass flag (the reference's
+        writer)."""
+        sao, qp_map = out.get("sao"), out.get("qp_map")
+        rows, cols = self.rows, self.cols
+        g = 1 << self.max_depth
+        maps = (np.zeros((g * rows, g * cols), np.int32),
+                np.zeros((g * rows, g * cols), np.int32))
+        sync_c = 1 if cols > 1 else None
+        blobs, saved = [], None
+        for r in range(rows):
+            enc = CabacEncoder()
+            if saved is None:
+                enc.init_contexts(2, qp)
+            else:
+                enc.ctx = bytearray(saved)
+            qp_state = [qp]             # qPY_PREV restarts on every row
+            for c in range(cols):
+                i = r * cols + c
+                if sao is not None:
+                    CS.encode_sao_ctu(enc, sao[i],
+                                      sao[i - 1] if c > 0 else None,
+                                      sao[i - cols] if r > 0 else None,
+                                      self.bit_depth)
+                if self.max_depth:
+                    self._write_ctu_qt(enc, out, r, c, *maps,
+                                       None if qp_map is None
+                                       else int(qp_map[r, c]), qp_state)
+                else:
+                    CS.encode_intra_ctu_full(
+                        enc, CS.CTUDecisions(int(out["modes"][r, c]),
+                                             out["levels_y"][r, c],
+                                             out["levels_cb"][r, c],
+                                             out["levels_cr"][r, c]),
+                        self.cu.bit_length() - 1,
+                        int(out["modes"][r, c - 1]) if c > 0 else CS.DC_MODE,
+                        CS.DC_MODE, sign_hiding=self.sbh)
+                if c == sync_c:
+                    saved = bytearray(enc.ctx)
+                enc.encode_bin_trm(int(r == rows - 1 and c == cols - 1))
+            if r < rows - 1:
+                enc.encode_bin_trm(1)            # end_of_subset_one_bit
+            data, tail, tail_bits = enc.finish()
+            sub = BitWriter()
+            sub.write_bytes(data)
+            sub.write_bits(tail, tail_bits)
+            sub.rbsp_trailing_bits()             # stop bit, byte_alignment
+            blobs.append(sub.get_bytes())
+        bw = HDR.write_slice_header(
+            self.sps, self.pps, slice_type=2, slice_qp=qp, nal_type=nal_type,
+            poc=poc, sao=sao is not None,
+            entry_point_offsets=[len(b) for b in blobs[:-1]])
+        for b in blobs:
+            bw.write_bytes(b)
+        return wrap_nal(nal_type, bw.get_bytes())
+
+    def _write_ctu_qt(self, enc, out: dict, r: int, c: int, mode_map,
+                      depth_map, ctu_qp, qp_state) -> None:
+        """One CTU32 quadtree CTU through the Python CABAC (the
+        reference's _write_ctu_qt): split_cu_flag with its context from
+        the neighbours' depths (9.3.4.2.2), each CU's intra syntax with
+        MPMs from the cell mode map (an above candidate outside the CTU
+        is DC, spec 8.4.2) and, with ctu_qp, the CTU's cu_qp_delta at its
+        first CU with a coded cbf (qp_state: [the QP predictor])."""
+        md = self.max_depth
+        g = 1 << md                      # cells per CTU side
+        cell = 32 // g
+        gy, gx = g * r, g * c
+        lv_y, lv_cb, lv_cr = (out[k][r, c] for k in (
+            "levels_y", "levels_cb", "levels_cr"))
+        pending = [ctu_qp is not None]
+
+        def split_flag(cy, cx, d, sp):
+            ctx = int(cx > 0 and depth_map[cy, cx - 1] > d) + \
+                int(cy > 0 and depth_map[cy - 1, cx] > d)
+            enc.encode_bin(int(sp), CTX_OFFSET["split_cu"] + ctx)
+
+        def code_cu(cy, cx, sc, mode, depth):
+            px = sc * cell
+            oy, ox = (cy - gy) * cell, (cx - gx) * cell
+            d = CS.CTUDecisions(
+                mode, lv_y[oy:oy + px, ox:ox + px],
+                lv_cb[oy // 2:(oy + px) // 2, ox // 2:(ox + px) // 2],
+                lv_cr[oy // 2:(oy + px) // 2, ox // 2:(ox + px) // 2])
+            left = int(mode_map[cy, cx - 1]) if cx > 0 else CS.DC_MODE
+            above = int(mode_map[cy - 1, cx]) if cy % g else CS.DC_MODE
+            delta = None
+            if pending[0] and (d.luma_levels.any() or d.cb_levels.any()
+                               or d.cr_levels.any()):
+                delta = ctu_qp - qp_state[0]
+                qp_state[0] = ctu_qp
+                pending[0] = False       # one delta per QG (the CTU)
+            log2 = px.bit_length() - 1
+            CS.encode_intra_ctu_full(enc, d, log2, left, above,
+                                     part_mode_coded=log2 == 5 - md,
+                                     sign_hiding=self.sbh, cu_qp_delta=delta)
+            mode_map[cy:cy + sc, cx:cx + sc] = mode
+            depth_map[cy:cy + sc, cx:cx + sc] = depth
+
+        sp0 = bool(out["split"][r, c])
+        split_flag(gy, gx, 0, sp0)
+        if not sp0:
+            code_cu(gy, gx, g, int(out["modes"][r, c]), 0)
+            return
+        half = g // 2
+        for q, (qy, qx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            cy, cx = gy + qy * half, gx + qx * half
+            if md == 1:
+                code_cu(cy, cx, 1, int(out["modes4"][r, c, q]), 1)
+                continue
+            sp1 = bool(out["split16"][r, c, q])
+            split_flag(cy, cx, 1, sp1)
+            if not sp1:
+                code_cu(cy, cx, 2, int(out["modes4"][r, c, q]), 1)
+                continue
+            for sq, (sy, sx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+                code_cu(cy + sy, cx + sx, 1, int(out["modes8"][r, c, q, sq]),
+                        2)
 
     def _result(self, out: dict, slice_nal: bytes, frame,
                 with_recon: bool = True) -> FrameResult:
@@ -567,7 +768,7 @@ class IntraEncoderSession:
         self._display_counter += 1
         if self.hash_sei:
             nals += _timed(self.stage_ms, "serialize", hash_sei, out,
-                           self.bit_depth)
+                           self.bit_depth, self.hash_type)
         if not with_recon:
             return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
                                psnr_y=0.0, frame_type="I", qp=self.qp)
@@ -583,12 +784,55 @@ class IntraEncoderSession:
                      v: np.ndarray) -> FrameResult:
         """Code one frame (planes at the source size, uint8 at 8 bits,
         uint16 above) as an IDR."""
+        if self.slices > 1:
+            return self._encode_sliced(y, u, v)
         padded = self._pad(y, u, v)
         qp_map = self._timed_aq(padded)
         out = self.code(*padded, self.qp, qp_map=qp_map)
         nal = _timed(self.stage_ms, "serialize", self.assemble_slice, out,
                      self.qp)
         return self._result(out, nal, (y, u, v))
+
+    def _encode_sliced(self, y, u, v) -> FrameResult:
+        """One frame as self.slices slices of band_rows CTU rows (the
+        reference's _encode_frame_sliced): the bands coded as one batch of
+        frames, no prediction across them, at the session QP, unfiltered;
+        each band's slice NAL with its slice_segment_address, then the
+        whole picture's hash SEI. As the reference's, the result carries
+        PSNR-Y only, no frame type or QP, and calls no sei_provider."""
+        yp, up, vp = self._pad(y, u, v)
+        bh = self.band_rows * self.cu
+        bands = [(yp[i * bh:(i + 1) * bh], up[i * bh // 2:(i + 1) * bh // 2],
+                  vp[i * bh // 2:(i + 1) * bh // 2])
+                 for i in range(self.slices)]
+        outs = _timed(self.stage_ms, "intra", self.frame_encoder.encode_frames,
+                      *zip(*bands), self.qp)
+        addr_bits = max(1, (self.rows * self.cols - 1).bit_length())
+        nals = b"".join(
+            _timed(self.stage_ms, "serialize", self._band_slice, out,
+                   i * self.band_rows * self.cols, addr_bits)
+            for i, out in enumerate(outs))
+        whole = {k: np.concatenate([o[k] for o in outs]) for k in (
+            "recon_y", "recon_u", "recon_v")}
+        if self.hash_sei:
+            nals += _timed(self.stage_ms, "serialize", hash_sei, whole,
+                           self.bit_depth, self.hash_type)
+        recon = host_planes(whole, self.src_h, self.src_w, self.bit_depth)
+        return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
+                           psnr_y=psnr(recon[0], y, self.bit_depth))
+
+    def _band_slice(self, out: dict, slice_addr: int,
+                    addr_bits: int) -> bytes:
+        """One band's slice NAL, starting at CTU slice_addr (the
+        reference's _assemble_band_slice: no SAO, QP map or bypass
+        flag)."""
+        bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
+                                    slice_qp=self.qp, slice_addr=slice_addr,
+                                    slice_addr_bits=addr_bits)
+        res = native.encode_intra_slice(
+            out["modes"], out["levels_y"], out["levels_cb"],
+            out["levels_cr"], self.cu.bit_length() - 1, self.qp)
+        return _slice_nal(bw, res, NAL_IDR_W_RADL)
 
     def _timed_aq(self, padded):
         return _timed(self.stage_ms, "qp_map", self.aq_map, *padded) \
@@ -601,7 +845,11 @@ class IntraEncoderSession:
         one after another. As in the reference, a batch deblocks but never
         runs SAO (its slices code SAO off even with sao=True), except in
         the device-DPB program chain, and with neither the hash SEI, the
-        deblock nor need_recon it returns no recon."""
+        deblock nor need_recon it returns no recon. A sliced session codes
+        the frames one after another (encode_frame), as the reference
+        does."""
+        if self.slices > 1:
+            return [self.encode_frame(*f) for f in frames], None, None
         need_recon = self.hash_sei or self.deblock or need_recon
         padded = [self._pad(*f) for f in frames]
         if self.max_depth:
@@ -618,6 +866,8 @@ class IntraEncoderSession:
     def finish_batch(self, handle) -> List[FrameResult]:
         """The batch's frames, serialized in order."""
         outs, frames, need_recon = handle
+        if frames is None:                   # a sliced session's results
+            return outs
         return [self._result(out, _timed(self.stage_ms, "serialize",
                                          self.assemble_slice, out, self.qp),
                              f, need_recon)
@@ -634,8 +884,8 @@ class VideoEncoderSession:
     """GOP session, one reference per list.
 
     bit_depth: 8, 10 or 12 (deeper planes come in and go out as uint16;
-    on the device they are int16). max_depth=0 codes the uniform cu_size=16
-    grid; max_depth=2 codes CTU32
+    on the device they are int16). max_depth=0 codes the uniform grid of
+    cu_size (16 or 32); max_depth=2 codes CTU32
     quadtrees down to 8x8 CUs, max_depth=1 down to 16x16 (cu_size is then
     32, as in the JAX session). bframes=0 codes IDR + P frames through
     encode_frame; bframes > 0 (either grid) codes mini-GOPs with B frames
@@ -646,6 +896,7 @@ class VideoEncoderSession:
     hierarchical search
     on the quadtree (ignored on the uniform grid, as in the reference);
     hist_scenecut: the histogram scene cut in place of the cost rule.
+    hash_type: the hash SEI's 0 MD5, 1 CRC, 2 checksum.
     deblock / sao switch the in-loop filters on; sbh / rdoq / psy_rdoq
     choose the levels (sign hiding is off under RDOQ); aq_mode /
     aq_strength / cutree give each frame a per-CU QP map, and with cutree
@@ -695,7 +946,7 @@ class VideoEncoderSession:
                  dpb_device: bool = None, search_range: int = 16,
                  psy_rd: float = 0.0, b_intra: bool = False,
                  open_gop: bool = False, weightp: bool = False, device=None,
-                 bit_depth: int = 8, **options):
+                 bit_depth: int = 8, hash_type: int = 0, **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
         # frames wait rc_lookahead frames for cuTree's window (cuTree only)
@@ -716,7 +967,7 @@ class VideoEncoderSession:
             deblock=deblock, sao=sao, rdoq=rdoq, sbh=sbh, psy_rdoq=psy_rdoq,
             max_depth=max_depth, dpb_device=self.dpb_device,
             recon_host=recon_host, psy_rd=psy_rd, device=device,
-            bit_depth=bit_depth)
+            bit_depth=bit_depth, hash_type=hash_type)
         self.device = self.intra_sess.device
         self.bit_depth = bit_depth
         # the reference's video session deblocks its uniform grid (its IDRs
@@ -1412,7 +1663,8 @@ class VideoEncoderSession:
         make the frame's result (recon cropped to the source, the quality
         metrics against the source planes `frame`)."""
         if self.hash_sei:
-            nals += self._timed("serialize", hash_sei, out, self.bit_depth)
+            nals += self._timed("serialize", hash_sei, out, self.bit_depth,
+                                self.intra_sess.hash_type)
         if rc_type == "":
             rc_type = "B" if frame_type in "Bb" else frame_type
         self._timed("rc", self._rc_done, qp, len(nals) * 8, frame_type,

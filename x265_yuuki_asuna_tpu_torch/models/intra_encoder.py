@@ -3,11 +3,14 @@ diagonals.
 
 Port of the default branch of x265_yuuki_asuna_tpu/models/intra_encoder.py
 (`_build` + `_unpack`, and `submit_frames` / `collect_frames` /
-`encode_frames` for batches of frames: uniform grid, 4:2:0 at 8, 10 or
-12 bits (the quantizer's), plain
-quant, sign-bit hiding or static-bit RDOQ with psy-RDOQ, one QP or a
-per-CU QP map per frame; no noise reduction / scaling lists). The JAX program scans the wavefront diagonals
-with `lax.scan` over fixed-width slots; here a Python loop walks the
+`encode_frames` for batches of frames: uniform grid of 16x16 or 32x32
+CUs, 4:2:0 at 8, 10 or 12 bits (the quantizer's), plain quant (with the
+scaling lists' matrices when the quantizer has them), sign-bit hiding
+or static-bit RDOQ with psy-RDOQ, or transquant bypass (lossless: the
+levels are the residual and the recon is the source), one QP or a
+per-CU QP map per frame; no noise reduction). The JAX program scans the
+wavefront diagonals with `lax.scan` over fixed-width slots; here a
+Python loop walks the
 diagonals and each step batches exactly that diagonal's CUs (the JAX
 program's padding slots never reach its outputs, so the results are the
 same), of every frame of a batch at once: frames are independent, so F
@@ -19,8 +22,9 @@ DM-mode chroma of its CUs.
 The levels come back at full width, so the decision dict equals
 `IntraFrameEncoder._unpack(..., compact=False)`. The JAX program packs
 levels into int8 lanes for its transfer and reruns a frame whose levels
-overflow int8 through an int16 variant (`_full`); the port has no packing
-to overflow, so it has no rerun.
+overflow int8 through an int16 variant (`_full`; lossless always takes
+the int16 form); the port has no packing to overflow, so it has no
+rerun.
 """
 
 from __future__ import annotations
@@ -134,8 +138,8 @@ def tq_recon(src: torch.Tensor, pred: torch.Tensor, qp, log2n: int,
     coef = transforms.forward_transform(src - pred, bd)
     levels = quant_fn(coef, qp, log2n, intra_slice, luma, modes, is_intra,
                       states)
-    rr = transforms.inverse_transform(quant_fn.dequant(levels, qp, log2n),
-                                      bd)
+    rr = transforms.inverse_transform(quant_fn.dequant(levels, qp, log2n,
+                                                       luma), bd)
     return levels, (pred + rr).clamp(0, pixel.peak(bd))
 
 
@@ -231,12 +235,16 @@ def planes_to_blocks(y, u, v, n: int, device):
 
 
 class IntraFrameEncoder:
-    """Uniform-grid intra frame encoder for one (coded) geometry; quant_fn
-    picks the levels (plain, sign-bit hiding or static RDOQ)."""
+    """Uniform-grid intra frame encoder for one (coded) geometry and CU
+    size (16 or 32); quant_fn picks the levels (plain, sign-bit hiding or
+    static RDOQ, with or without scaling lists); lossless bypasses
+    transform and quantization (the levels are the residual, the recon
+    the source)."""
 
     def __init__(self, width: int, height: int, cu_size: int, device,
-                 quant_fn: Quantizer = PLAIN):
+                 quant_fn: Quantizer = PLAIN, lossless: bool = False):
         self.n = cu_size
+        self.lossless = bool(lossless)
         self.rows, self.cols = height // cu_size, width // cu_size
         self.device = torch.device(device)
         self.quant_fn = quant_fn
@@ -277,13 +285,16 @@ class IntraFrameEncoder:
             preds = ws.luma_all_modes(nbr, avail[n])
             src = yb[cu]
             m = torch.argmin(pixel.satd(src[:, None], preds), dim=1)
-            lv, rec = tq_recon(src, gather_mode(preds, m), at(qp, cu), log2n,
-                               True, q, True, m)
-            # chroma, Cb and Cr in one batch
-            lvc, recc = tq_recon(torch.cat([ub[cu], vb[cu]]),
-                                 ws.chroma_dm(nbr, avail[n // 2], m),
-                                 cb_cr(at(qpc, cu)), log2n - 1, True, q,
-                                 False, m.repeat(2))
+            srcc = torch.cat([ub[cu], vb[cu]])     # Cb and Cr in one batch
+            predc = ws.chroma_dm(nbr, avail[n // 2], m)
+            if self.lossless:
+                lv, rec = src - gather_mode(preds, m), src
+                lvc, recc = srcc - predc, srcc
+            else:
+                lv, rec = tq_recon(src, gather_mode(preds, m), at(qp, cu),
+                                   log2n, True, q, True, m)
+                lvc, recc = tq_recon(srcc, predc, cb_cr(at(qpc, cu)),
+                                     log2n - 1, True, q, False, m.repeat(2))
             ws.commit(cu, m, lv, rec, lvc, recc)
         return ws.result(self.rows, self.cols, F)
 

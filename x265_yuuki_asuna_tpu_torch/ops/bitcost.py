@@ -55,12 +55,8 @@ def entropy_bits_table() -> np.ndarray:
 def init_states_dev(slice_type: int, qp: int) -> np.ndarray:
     """Spec 9.3.2.2 context init for slice type 0 = B, 1 = P, 2 = I:
     packed states [NUM_CTX] int32 (host)."""
-    iv = T.INIT_ROWS[slice_type]
-    slope = (iv >> 4) * 5 - 45
-    offset = ((iv & 15) << 3) - 16
-    pre = np.clip(((slope * int(np.clip(qp, 0, 51))) >> 4) + offset, 1, 126)
-    return np.where(pre <= 63, (63 - pre) << 1,
-                    ((pre - 64) << 1) | 1).astype(np.int32)
+    return np.frombuffer(T.init_all_contexts(slice_type, qp),
+                         np.uint8).astype(np.int32)
 
 
 def state_bit_luts(states: np.ndarray):

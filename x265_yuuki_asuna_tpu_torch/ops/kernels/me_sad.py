@@ -24,7 +24,7 @@ from ...utils import build
 _DTYPES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # largest |a - b| of two elements, for the fused kernel's key budget
 _MAX_DIFF = {torch.uint8: 255, torch.int16: 65535, torch.int32: 2 ** 32 - 1}
-BEST_SIZES = (8, 16)
+BEST_SIZES = (8, 16, 32)
 _fns = {}
 
 
@@ -227,16 +227,18 @@ def unpack_keys(keys: torch.Tensor, srange: int, shift: int,
 def sad_sweep_best(ref_plane: torch.Tensor, src_plane: torch.Tensor,
                    srange: int, n: int, lambda_bits: int, peak: int = None):
     """(mvx, mvy, sad) int32 [(H/n) * (W/n)] in raster block order: for
-    each n x n block (n = 8 or 16) the displacement in [-R, R]^2 of least
+    each n x n block (n = 8, 16 or 32) the displacement in [-R, R]^2 of least
     SAD + lambda_bits * (|dx| + |dy|), the first in row-major (dy, dx)
     order on ties; exactly sad_sweep_multi(ref, src, (n,), R,
     lambda_bits)[n]. Planes as for sad_block8_sweep, H and W multiples of n;
     peak: the samples' largest value (key_layout), None: the type's.
 
     CUDA tensors launch the fused kernel (or raise); CPU tensors take the
-    plain version. `sad_sweep_best.launches` counts kernel launches."""
+    plain version. `sad_sweep_best.launches` counts kernel launches,
+    `sad_sweep_best.launches_by_size` them by n."""
     if n not in BEST_SIZES:
-        raise ValueError(f"block size {n}: the fused sweep takes 8 or 16")
+        raise ValueError(f"block size {n}: the fused sweep takes 8, 16 or "
+                         "32")
     if lambda_bits < 0:
         raise ValueError("lambda_bits must be >= 0")
     _check_planes(ref_plane, src_plane, n)
@@ -251,7 +253,9 @@ def sad_sweep_best(ref_plane: torch.Tensor, src_plane: torch.Tensor,
             keys.data_ptr(), H, W, srange, n, lambda_bits, shift,
             keys.element_size(), _DTYPES[src_plane.dtype])
     sad_sweep_best.launches += 1
+    sad_sweep_best.launches_by_size[n] += 1
     return unpack_keys(keys, srange, shift, lambda_bits)
 
 
 sad_sweep_best.launches = 0
+sad_sweep_best.launches_by_size = dict.fromkeys(BEST_SIZES, 0)

@@ -1,8 +1,8 @@
 """Motion estimation: full-search SAD over a +-R window for every block.
 
 Port of x265_yuuki_asuna_tpu/ops/me.py (sad_sweep_multi, sad_at_mv,
-full_search_sad) on K1 (`kernels/me_sad`). A single block size of 8 or 16
-takes the fused sweep-and-argmin kernel, which writes no surface; several
+full_search_sad) on K1 (`kernels/me_sad`). A single block size of 8, 16
+or 32 takes the fused sweep-and-argmin kernel, which writes no surface; several
 sizes take the surface kernel (the 8x8 SAD of every displacement, or the
 4x4 one when the smallest size is 4, as in HME's coarse sweep) and the
 plain PyTorch aggregation, rate bias and argmin.

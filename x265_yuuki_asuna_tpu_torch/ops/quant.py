@@ -1,11 +1,12 @@
-"""Quantization / dequantization with flat scaling lists, sign-bit hiding
-and rate-distortion optimised quantization (RDOQ), batched.
+"""Quantization / dequantization with flat or signalled scaling lists,
+sign-bit hiding and rate-distortion optimised quantization (RDOQ),
+batched.
 
-Port of x265_yuuki_asuna_tpu/ops/quant.py (quant, dequant,
-sign_bit_hiding, sign_bit_hiding_mdcs, quant_rdoq, quant_rdoq_ctx,
-sign_at_scan). The QP is a Python int (one QP for the call) or an int
-tensor [B] (one QP per block of a [B, N, N] batch, as the programs pass
-it).
+Port of x265_yuuki_asuna_tpu/ops/quant.py (quant, dequant, quant_matrix,
+dequant_matrix, sign_bit_hiding, sign_bit_hiding_mdcs, quant_rdoq,
+quant_rdoq_ctx, sign_at_scan). The QP is a Python int (one QP for the
+call) or an int tensor [B] (one QP per block of a [B, N, N] batch, as
+the programs pass it).
 Reference behavior (studied, not copied): common/dct.cpp quant_c /
 dequant_normal_c, common/quant.cpp shift derivations and signBitHidingHDQ:
     transformShift = 15 - bitDepth - log2N
@@ -48,13 +49,30 @@ def _per_rem(qp, scales, like: torch.Tensor):
     return q // 6, tab[(q % 6).long()]
 
 
+def _matrix_at(tab: torch.Tensor, qp):
+    """(qp // 6, tab's matrix at qp % 6): tab [1 or B, 6, N, N] (one
+    table, or one per block); an int qp gives int and [1 or B, N, N], a
+    per-block qp int32 [B, 1, 1] and [B, N, N]."""
+    if isinstance(qp, int):
+        return qp // 6, tab[:, qp % 6]
+    q = qp.to(torch.int32).reshape(-1)
+    t = tab.expand(q.shape[0], -1, -1, -1)
+    return (q // 6).reshape(-1, 1, 1), \
+        t[torch.arange(q.shape[0], device=tab.device), (q % 6).long()]
+
+
 def quant(coef: torch.Tensor, qp, log2_tr_size: int, bit_depth: int = 8,
-          is_intra_slice: bool = True, return_delta: bool = False):
+          is_intra_slice: bool = True, return_delta: bool = False,
+          qtab: torch.Tensor = None):
     """Forward quant with the reference's RDO-less rounding offset
     (171/512 in I slices, 85/512 in P and B slices): int32 levels
     [..., N, N]; with return_delta also delta_u, each coefficient's
-    rounding remainder in 1/256 steps (sign-bit hiding reads it)."""
-    per, scale = _per_rem(qp, QUANT_SCALES, coef)
+    rounding remainder in 1/256 steps (sign-bit hiding reads it). qtab:
+    a scaling list's quant matrices [1 or B, 6, N, N] (quant_matrix: the
+    scale of each coefficient, ScalingListData.quant_tables), None: the
+    flat scale."""
+    per, scale = _per_rem(qp, QUANT_SCALES, coef) if qtab is None else \
+        _matrix_at(qtab, qp)
     qbits = 14 + per + transform_shift(log2_tr_size, bit_depth)
     off = 171 if is_intra_slice else 85
     add = off << (qbits - 9) if isinstance(qbits, int) else \
@@ -69,13 +87,37 @@ def quant(coef: torch.Tensor, qp, log2_tr_size: int, bit_depth: int = 8,
 
 
 def dequant(levels: torch.Tensor, qp, log2_tr_size: int,
-            bit_depth: int = 8) -> torch.Tensor:
-    """Flat-list dequant (dequant_normal): levels -> int32 coefficients."""
+            bit_depth: int = 8, dqtab: torch.Tensor = None) -> torch.Tensor:
+    """Flat-list dequant (dequant_normal): levels -> int32 coefficients;
+    with dqtab, a scaling list's dequant matrices [1 or B, 6, N, N]
+    (dequant_matrix)."""
     shift = 20 - 14 - transform_shift(log2_tr_size, bit_depth)
+    if dqtab is not None:
+        return dequant_matrix(levels, qp, shift, dqtab)
     per, scale = _per_rem(qp, INV_QUANT_SCALES, levels)
     scale = scale << per
     c = (levels.to(torch.int32) * scale + (1 << (shift - 1))) >> shift
     return c.clamp(-32768, 32767)
+
+
+def dequant_matrix(levels: torch.Tensor, qp, shift: int,
+                   dqtab: torch.Tensor) -> torch.Tensor:
+    """Scaling-list dequant (the reference's dequant_scaling): with the
+    flat shift + 4 - qp // 6 positive, (level * m + half) >> it, else the
+    product clipped to int16 and shifted left; clipped to int16."""
+    per, dq = _matrix_at(dqtab, qp)
+    sp = shift + 4 - per
+    prod = levels.to(torch.int32) * dq
+    if isinstance(sp, int):
+        out = (prod + (1 << (sp - 1))) >> sp if sp > 0 else \
+            prod.clamp(-32768, 32767) << (-sp)
+    else:
+        spp = sp.clamp(min=1)
+        out = torch.where(sp > 0,
+                          (prod + (torch.ones_like(spp) << (spp - 1)))
+                          >> spp,
+                          prod.clamp(-32768, 32767) << (-sp).clamp(min=0))
+    return out.clamp(-32768, 32767)
 
 
 # ---------------------------------------------------------------------------
@@ -480,14 +522,41 @@ class Quantizer:
     the samples': the programs pass the signalled QP, and the quantizer
     adds QpBdOffset = 6 (bit_depth - 8) before it quantizes or
     dequantizes, as the reference's programs add it to every QP they
-    quantize at (RDOQ's lambda included)."""
+    quantize at (RDOQ's lambda included). scaling: a ScalingListData
+    (bitstream/scaling.py) whose intra matrices scale the plain rounding
+    and the dequant (the reference's uniform intra program; the sessions
+    drop it under RDOQ); a chroma batch is its Cb blocks, then its Cr
+    blocks, each half at its own list."""
 
     def __init__(self, sbh: bool = False, rdoq: bool = False,
-                 psy_rdoq: float = 0.0, bit_depth: int = 8):
+                 psy_rdoq: float = 0.0, bit_depth: int = 8, scaling=None):
         self.sbh, self.rdoq = bool(sbh) and not rdoq, bool(rdoq)
         self.psy_rdoq = float(psy_rdoq) if rdoq else 0.0
         self.bit_depth = bit_depth
         self.qp_offset = 6 * (bit_depth - 8)
+        self.scaling = None if rdoq else scaling
+        self._tabs = {}
+
+    def tables(self, log2n: int, luma: bool, nblocks: int, device):
+        """(quant, dequant) matrices of the scaling lists for a batch of
+        nblocks blocks ([1, 6, N, N] luma; chroma: Cb's for the first
+        half, Cr's for the second, [nblocks, 6, N, N]), or (None, None)
+        without scaling lists."""
+        if self.scaling is None:
+            return None, None
+        key = (log2n, luma, str(device))
+        if key not in self._tabs:
+            t = [self.scaling.quant_tables(log2n, k)
+                 for k in ((0,) if luma else (1, 2))]
+            self._tabs[key] = tuple(
+                torch.as_tensor(np.stack([a[i] for a in t]), device=device)
+                for i in (0, 1))
+        q, dq = self._tabs[key]
+        if luma:
+            return q, dq
+        half = nblocks // 2
+        pick = (torch.arange(nblocks, device=device) >= half).long()
+        return q[pick], dq[pick]
 
     def __call__(self, coef: torch.Tensor, qp, log2n: int,
                  intra_slice: bool, luma: bool = True, modes=None,
@@ -510,17 +579,22 @@ class Quantizer:
                 return quant_rdoq(coef, qp, log2n, bd, psy_scale=psy)
             return quant_rdoq_ctx(coef, qp, log2n, bd, states, luma,
                                   psy_scale=psy)
+        qtab = self.tables(log2n, luma, coef.shape[0], coef.device)[0]
         if not self.sbh:
-            return quant(coef, qp, log2n, bd, intra_slice)
-        lv, du = quant(coef, qp, log2n, bd, intra_slice, return_delta=True)
+            return quant(coef, qp, log2n, bd, intra_slice, qtab=qtab)
+        lv, du = quant(coef, qp, log2n, bd, intra_slice, return_delta=True,
+                       qtab=qtab)
         if modes is None:
             return sign_bit_hiding(lv, du, log2n)
         return sign_bit_hiding_mdcs(lv, du, log2n, modes, luma, is_intra)
 
-    def dequant(self, levels: torch.Tensor, qp, log2n: int) -> torch.Tensor:
+    def dequant(self, levels: torch.Tensor, qp, log2n: int,
+                luma: bool = True) -> torch.Tensor:
         """dequant at the signalled qp (int or [B]) and the samples' bit
-        depth."""
-        return dequant(levels, qp + self.qp_offset, log2n, self.bit_depth)
+        depth (with the scaling lists' matrices of luma or chroma)."""
+        dqtab = self.tables(log2n, luma, levels.shape[0], levels.device)[1]
+        return dequant(levels, qp + self.qp_offset, log2n, self.bit_depth,
+                       dqtab)
 
 
 PLAIN = Quantizer()
