@@ -107,7 +107,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      slices, scaling lists, the CRC and checksum) against the JAX
      package's pins; lossless_cpu_vs_card: --lossless on a 416x240 clip
      on the card and on the CPU, equal streams, every recon frame equal to
-     its source;
+     its source; golden_p_options: the golden ippp_multiref_tmvp and the
+     sessions, command lines and library cases of tests/p_options_pins.py
+     (two references, TMVP, max_merge, frame duplication, the P / B WPP
+     substreams) against the JAX package's pins; p_options_cpu_vs_card:
+     the library's uniform P-only cases and those command lines on a
+     416x240 clip on the card and on the CPU, equal streams;
   5. the main paths over a synthetic 1080p clip (qp 32, keyint 250, hash
      SEI) with fps, per-stage ms, bytes, PSNR-Y, peak device memory and
      K1's launch counts, each path's counts set to 0 just before it: the
@@ -127,8 +132,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      hiding (1080p_qt2_b_lf_sbh: the same launches; bytes and PSNR beside
      the run without), an I and a P frame of the quadtree IPPP session
      with RDOQ (1080p_qt2_rdoq: K1 fused 2, surface 1), and the all-intra
-     session with sign hiding and both filters (1080p_intra: frames through
-     encode_frame, then a batch of 4 through encode_batch, each batched
+     session with sign hiding and both filters (1080p_intra: a frame through
+     encode_frame, then a batch of 2 through encode_batch, each batched
      frame's decisions equal to its single-frame encode; ms per frame,
      launches per frame in each mode under torch.profiler, bytes, PSNR
      Y/U/V, SSIM-Y, peak memory; it runs no K1); then the flagship's
@@ -150,7 +155,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      buffer and the HRD (1080p_abr_vbv, 7 frames: bits, QP, VBV overshoot
      and buffer fill per frame, the re-encodes and their wall time, kbps
      against the target; K1 fused = frames + P-frame program calls);
-     then the flagship itself: bench.py's constructor verbatim over 9
+     then the flagship itself: bench.py's constructor verbatim over 5
      frames (1080p_flagship: fps, the mini-GOP lengths b-adapt chose, QPs,
      bytes, stage ms, the share of blocks that took HME's coarse MV, peak
      memory; K1 exactly frames + K + K(K-1)/2 per trellis decision fused,
@@ -167,7 +172,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      the R = 24 surfaces one per P anchor and two per B frame; the last B
      frame's plain rerun identical), then x265's default command line,
      no preset flag, over a 1080p y4m fading by 6 a frame
-     (1080p_cli_medium, 5 frames, --csv-log-level 2: fps, each frame's
+     (1080p_cli_medium, 3 frames, --csv-log-level 2: fps, each frame's
      type, POC, QP and bytes, the weights each P anchor chose, each
      frame's device, deblock, SAO and serialize ms, peak memory; K1 frames
      + the trellis's fused, one surface per P anchor and two per B frame;
@@ -183,6 +188,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      fps, K1's launches by entry point and the fused sweep's by size, 8
      for the lookahead and the trellis, 32 for the ME, CUDA launches of
      the last P and B program, the last B frame's plain rerun identical);
+     then the P-frame options: the library at medium without B frames on
+     the uniform 16x16 grid, two references and TMVP (1080p_api_p_only,
+     5 frames: fps, stage ms per frame, the P slices' Python CABAC, K1 5
+     fused at n = 8 and 8 at n = 16, the share of CUs on reference index
+     1, CUDA launches of the last P program, its plain rerun identical)
+     and the uniform B session with WPP (1080p_wpp_b, 4 frames: 68
+     substreams a slice through the Python CABAC, K1 9 fused, the last B
+     frame's plain rerun identical);
   6. the kernels line (launches on the flagship's path, and on each
      path; each entry point's int16 time, plain time, bound and launches
      on the 10-bit path); then the card line and, last, the ok line.
@@ -279,13 +292,15 @@ FLAGSHIP_CRF = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
                     b_adapt=0, rc_mode="crf", crf=28.0, sbh=True,
                     hash_sei=False, quality_metrics=True, **AQ, **LF)
 QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs two)
-FLAGSHIP_FRAMES = 9   # the 1080p flagship: the IDR, two trellis decisions [13]
+FLAGSHIP_FRAMES = 5   # the 1080p flagship: the IDR, a trellis decision [13, 9]
 CLI_FRAMES = 5        # the CLI at ultrafast: the IDR, a mini-GOP
 SUPERFAST_FRAMES = 3  # the CLI at superfast: the IDR, a P anchor, a B [5]
 API_FRAMES = 5        # the library at superfast: the IDR, one trellis
-MEDIUM_FRAMES = 5     # the CLI's default (medium): the IDR, a mini-GOP [6]
-B_UNIFORM_FRAMES = 9  # the uniform B session: the IDR, 2 mini-GOPs of 4
+MEDIUM_FRAMES = 3     # the CLI's default (medium): the IDR, P, b [6, 5]
+B_UNIFORM_FRAMES = 5  # the uniform B session: the IDR, a mini-GOP of 4 [9]
 MAIN10_FRAMES = 3     # the CLI's default at 10 bits: the IDR, P, b [5]
+API_P_FRAMES = 5      # the library's uniform P-only session: I + 4 P
+WPP_B_FRAMES = 4      # the uniform WPP B session: the IDR, P 3, B 2, b 1
 R24_ME = "P-frame ME 1088x1920 R=24"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -933,7 +948,7 @@ def _launches(fn) -> int:
                for e in prof.profiler.kineto_results.events())
 
 
-def phase_1080p_intra(dev, n_single=2, n_batch=4):
+def phase_1080p_intra(dev, n_single=1, n_batch=2):
     """The all-intra session at 1080p with sign hiding and both filters:
     frames through encode_frame, then a batch through encode_batch; each
     batched frame's decisions (modes, levels) equal its single-frame
@@ -1610,7 +1625,7 @@ def phase_golden_weightp(dev):
         raise AssertionError(f"golden_weightp: streams differ: {ok}")
 
 
-def phase_weightp_cpu_vs_card(dev, n=4):
+def phase_weightp_cpu_vs_card(dev, n=3):
     """The command line with no preset flag (x265's medium: weighted
     prediction, so the host-filter quadtree path) on a 416x240 clip of n
     frames whose luma falls by 6 a frame, on the card and with
@@ -1776,7 +1791,7 @@ def _write_y4m(path, frames, bit_depth=8):
     wr.close()
 
 
-def phase_cli_cpu_vs_card(dev, n=4, phase="cli_cpu_vs_card",
+def phase_cli_cpu_vs_card(dev, n=3, phase="cli_cpu_vs_card",
                           argv=("--preset", "medium", "--no-weightp"),
                           bit_depth=8):
     """The command line with argv (by default --preset medium --no-weightp:
@@ -1816,16 +1831,19 @@ def phase_cli_cpu_vs_card(dev, n=4, phase="cli_cpu_vs_card",
 
 
 class _Instrumented:
-    """A video session's push_frame / flush timed and its results kept,
-    its inter program's calls recorded (to rerun the last P and B frame)
-    and the b-adapt trellis sizes counted."""
+    """A video session's push_frame / flush (with ippp, its encode_frame)
+    timed and its results kept, with each call's stage ms; its inter
+    program's calls recorded (to rerun the last P and B frame), with the
+    share of CUs a two-reference P program put on index 1; and the
+    b-adapt trellis sizes counted."""
 
-    def __init__(self, sess):
+    def __init__(self, sess, ippp: bool = False):
         self.sess, self.call_ms, self.results = sess, [], []
         self.calls, enc = [], sess.inter_encoder
         self.run = enc.encode_frame
         # each inter program call's K1 launches: ("P" or "B", counts)
         self.k1_calls = []
+        self.stage_calls, self.ref1_share = [], []
 
         def recorded(*a, **k):
             self.calls.append((a, k))
@@ -1834,6 +1852,8 @@ class _Instrumented:
             self.k1_calls.append((
                 "B" if k.get("ref1") is not None else "P",
                 {n: c - before[n] for n, c in k1_read().items()}))
+            if out.get("ref") is not None:
+                self.ref1_share.append(float(np.mean(out["ref"])))
             return out
         enc.encode_frame = recorded
         self.trellis, costs = [], sess.lookahead.badapt_path_costs
@@ -1842,17 +1862,22 @@ class _Instrumented:
             self.trellis.append(len(lows))
             return costs(anchor, lows)
         sess.lookahead.badapt_path_costs = badapt
-        for name in ("push_frame", "flush"):
-            setattr(sess, name, self._timed(getattr(sess, name)))
+        for name in ("push_frame", "flush") + (("encode_frame",) if ippp
+                                               else ()):
+            setattr(sess, name, self._timed(getattr(sess, name),
+                                            name == "encode_frame"))
 
-    def _timed(self, fn):
+    def _timed(self, fn, one: bool = False):
         def call(*a):
             torch.cuda.synchronize()
+            before = dict(self.sess.stage_ms)
             t0 = time.perf_counter()
             got = fn(*a)
             torch.cuda.synchronize()
             self.call_ms.append((time.perf_counter() - t0) * 1e3)
-            self.results += got
+            self.stage_calls.append({k: v - before.get(k, 0.0) for k, v in
+                                     self.sess.stage_ms.items()})
+            self.results += [got] if one else got
             return got
         return call
 
@@ -1890,17 +1915,19 @@ class _Instrumented:
         return out
 
 
-def _plain_rerun(name, inst):
-    """The last B frame again with every K1 entry plain: identical."""
-    a, k = inst.last(True)
+def _plain_rerun(name, inst, bi: bool = True):
+    """The last B (bi) or P frame again with every K1 entry plain:
+    identical."""
+    a, k = inst.last(bi)
     out_k = inst.run(*a, **k)
     with plain_k1():
         out_p = inst.run(*a, **k)
     same = _same_decisions(out_k, out_p)
-    emit(phase=f"{name}_b_frame_plain_rerun", identical=same)
+    kind = "B" if bi else "P"
+    emit(phase=f"{name}_{kind.lower()}_frame_plain_rerun", identical=same)
     if not same:
-        raise AssertionError(f"{name}: kernel and plain B-frame decisions "
-                             "differ")
+        raise AssertionError(f"{name}: kernel and plain {kind}-frame "
+                             "decisions differ")
 
 
 def _turns_ms(fn, set_on, turns=2):
@@ -2644,6 +2671,248 @@ def phase_1080p_cli_ctu32(dev, n_frames=5):
     return launches, sizes
 
 
+# ---------------------------------------------------------------------------
+# the P-frame options (two L0 references, TMVP, max_merge, frame
+# duplication) and the P / B WPP substreams
+# ---------------------------------------------------------------------------
+
+def p_options_pins():
+    """tests/p_options_pins.py: the P-option and WPP sessions, command
+    lines and library cases, and the JAX package's pins over them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import p_options_pins as pins
+    return pins
+
+
+def phase_golden_p_options(dev):
+    """The slice's streams on the card: the golden ippp_multiref_tmvp, then
+    tests/p_options_pins.py's sessions (two references, TMVP with one and
+    two, the uniform CTU32 grid, 10 bits, max_merge 1 / 2 / 5 and on a B
+    session and the depth-1 quadtree, frame duplication, the WPP P and B
+    substreams), command lines (--ref 2 --tmvp, --max-merge 2,
+    --frame-dup) and library cases (medium without B frames, with and
+    without weightp), each against the JAX package's md5s, (POC, type,
+    QP), NAL types and CSV logs pinned there (the CPU's, which the tests
+    hold); K1's launches over them by entry point and size."""
+    from x265_yuuki_asuna_tpu_torch import api, cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    pins = p_options_pins()
+    gp = grid_pins()
+    k1_start()
+    s = top.VideoEncoderSession(64, 48, qp=32, cu_size=16, keyint=100,
+                                n_refs=2, tmvp=True, hash_sei=False,
+                                device=dev)
+    got = {"ippp_multiref_tmvp": _md5_of(s, [s.encode_frame(*f)
+                                             for f in golden_clip()])}
+    ok = {"ippp_multiref_tmvp": got["ippp_multiref_tmvp"]
+          == gp.manifest("ippp_multiref_tmvp")}
+    for name in pins.SESSIONS:
+        md5, frames, _ = pins.run(top, name, device=dev)
+        got[name] = md5
+        ok[name] = (md5, frames) == pins.PINS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in pins.CLI:
+            res = pins.run_cli(cli.main, name, tmp)
+            pin = pins.CLI_PINS[name]
+            got["cli_" + name] = res[0]
+            ok["cli_" + name] = res[:2] == pin[:2] and pins.csv_view(
+                name, res[2]) == pins.csv_view(name, pin[2])
+    for name in pins.API:
+        res = pins.run_api(api, name)
+        got["api_" + name] = res[0]
+        ok["api_" + name] = res == pins.API_PINS[name]
+    launches, sizes = k1_read(), k1_sizes()
+    emit(phase="golden_p_options", md5=got, match=ok, k1_launches=launches,
+         k1_fused_by_size=sizes)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_p_options: streams differ: "
+                             f"{[k for k, v in ok.items() if not v]}")
+    return launches
+
+
+def _api_stream(api, opts: dict, frames, device=None):
+    """The library at param_default_preset("medium") with opts over
+    frames (the picture size from the first): the stream's md5 and each
+    call's NAL bytes."""
+    h, w = frames[0][0].shape
+    p = api.param_default_preset("medium")
+    api.param_parse(p, "input-res", f"{w}x{h}")
+    for k, v in opts.items():
+        api.param_parse(p, k, v)
+    enc = api.encoder_open(p, device=device)
+    stream, sizes = api.encoder_headers(enc), []
+    for f in frames + [None]:
+        pic = None
+        if f is not None:
+            pic = api.picture_init(p, api.picture_alloc())
+            pic.planes = f
+        for nals in api.encoder_encode(enc, pic):
+            stream += nals
+            sizes.append(len(nals))
+    api.encoder_close(enc)
+    return hashlib.md5(stream).hexdigest(), sizes
+
+
+def phase_p_options_cpu_vs_card(dev, n=3):
+    """The library's uniform P-only cases (medium without B frames, with
+    and without weightp) and the command lines of tests/p_options_pins.py
+    on a 416x240 clip of n frames (the IDR and two P frames: the second
+    with two references), on the card and with device="cpu": equal
+    streams (and CSV logs)."""
+    from x265_yuuki_asuna_tpu_torch import api, cli
+    pins = p_options_pins()
+    clip = synth_clip(n, 416, 240)
+    got, secs = {}, {}
+    for name, opts in pins.API.items():
+        for where in (None, "cpu"):
+            t0 = time.perf_counter()
+            got[("api_" + name, where or "card")] = _api_stream(
+                api, opts, clip, where)
+            secs[f"api_{name}_{where or 'card'}"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.y4m")
+        _write_y4m(src, clip)
+        for name, argv in pins.CLI.items():
+            for where in (None, "cpu"):
+                tag = where or "card"
+                dst, log = os.path.join(tmp, tag + ".hevc"), \
+                    os.path.join(tmp, tag + ".csv")
+                t0 = time.perf_counter()
+                rc = cli.main([src, "-o", dst, "--csv", log] + argv,
+                              device=where)
+                secs[f"cli_{name}_{tag}"] = time.perf_counter() - t0
+                with open(dst, "rb") as f, open(log) as g:
+                    got[("cli_" + name, tag)] = (
+                        rc, hashlib.md5(f.read()).hexdigest(), g.read())
+    match = {k: got[(k, "card")] == got[(k, "cpu")]
+             for k, _ in got if _ == "card"}
+    emit(phase="p_options_cpu_vs_card", frames=n,
+         md5={f"{k}_{t}": v[1] if k.startswith("cli") else v[0]
+              for (k, t), v in got.items()},
+         api_nal_bytes={k: got[(k, "card")][1] for k in match
+                        if k.startswith("api")},
+         seconds=secs, match=match)
+    if not all(match.values()) or any(v[0] for (k, _), v in got.items()
+                                      if k.startswith("cli")):
+        raise AssertionError(f"p_options_cpu_vs_card: the card's streams "
+                             f"differ from the CPU's: {match}")
+
+
+def phase_1080p_api_p_only(dev, n_frames=API_P_FRAMES):
+    """The library at param_default_preset("medium") with bframes 0, ctu
+    16, min-cu-size 16 and weightp 0 (the uniform 16x16 grid with two L0
+    references and TMVP, CRF 28, AQ 2, cuTree, the deblock and SAO, no
+    hash SEI: the P slices through the Python CABAC) over n_frames frames
+    of synth_clip: fps after the IDR, each frame's type, QP and bytes,
+    stage ms per frame (inter, serialize), peak memory, the share of CUs
+    each P program put on reference index 1, K1's launches (fused: the
+    lookahead's one per frame at n = 8, the P program's two per P frame
+    at n = 16), the CUDA launches of the last P program and its plain
+    rerun, which must be identical."""
+    from x265_yuuki_asuna_tpu_torch import api
+    frames = synth_clip(n_frames, W1080, H1080)
+    p = api.param_default_preset("medium")
+    for k, v in (("input-res", f"{W1080}x{H1080}"), ("bframes", "0"),
+                 ("ctu", "16"), ("min-cu-size", "16"), ("weightp", "0")):
+        api.param_parse(p, k, v)
+    enc = api.encoder_open(p)
+    sess = enc._sess
+    inst = _Instrumented(sess, ippp=True)
+    stream = api.encoder_headers(enc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_start()                                    # the main path starts
+    for fr in frames + [None]:
+        pic = None
+        if fr is not None:
+            pic = api.picture_init(p, api.picture_alloc())
+            pic.planes = fr
+        for nals in api.encoder_encode(enc, pic):
+            stream += nals
+    launches, sizes = k1_read(), k1_sizes()
+    peak = torch.cuda.max_memory_allocated()
+    res = inst.results
+    fps = (len(res) - 1) / (sum(inst.call_ms[1:len(res)]) / 1e3)
+    types = [r.frame_type for r in res]
+    n_p = types.count("P")
+    want = {"sad_sweep_best": len(res) + 2 * n_p, "sad_block8_sweep": 0,
+            "sad_block4_sweep": 0}
+    want_sizes = {8: len(res), 16: 2 * n_p, 32: 0}
+    p_launches = _program_launches(inst, False)
+    emit(phase="1080p_api_p_only", n_refs=sess.n_refs, tmvp=sess.tmvp,
+         frames=len(res), fps=fps, call_ms=inst.call_ms[:len(res)],
+         frame_type=types, qp=[r.qp for r in res],
+         frame_bytes=[len(r.nals) for r in res], bytes=len(stream),
+         psnr_y=[r.psnr_y for r in res],
+         stage_ms_per_frame=inst.stage_calls[:len(res)],
+         stage_ms_total=dict(sess.stage_ms),
+         ref1_share=inst.ref1_share, k1_launches=launches,
+         k1_launches_want=want, k1_fused_by_size=sizes,
+         k1_fused_by_size_want=want_sizes,
+         k1_by_frame_type=inst.k1_by_frame_type(),
+         cuda_launches_p_program=p_launches, max_memory_allocated=peak)
+    if sess.n_refs != 2 or not sess.tmvp or types != ["I"] + ["P"] * (
+            n_frames - 1) or not all(np.isfinite([r.psnr_y for r in res])):
+        raise AssertionError(f"1080p_api_p_only output malformed: {types}")
+    if launches != want or sizes != want_sizes:
+        raise AssertionError(f"1080p_api_p_only: K1 launches {launches} "
+                             f"{sizes} != {want} {want_sizes}")
+    _plain_rerun("1080p_api_p_only", inst, bi=False)
+    return launches, sizes
+
+
+def phase_1080p_wpp_b(dev, n_frames=WPP_B_FRAMES):
+    """The uniform 16x16 grid's B session with WPP
+    (VideoEncoderSession(1920, 1080, cu_size=16, wpp=True, bframes=2,
+    b_adapt=0) at CQP 32 with the hash SEI) over n_frames frames of
+    synth_clip (the IDR, then a P anchor and two B frames): every slice
+    as 68 substreams through the Python CABAC. fps after the IDR, each
+    frame's type, POC, QP and bytes, stage ms per call (serialize), peak
+    memory, K1's launches (fused: one lookahead sweep per frame, the P
+    anchor's ME, one per list per B frame) and the last B frame's plain
+    rerun, which must be identical."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    frames = synth_clip(n_frames, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
+                               hash_sei=True, cu_size=16, wpp=True,
+                               bframes=2, b_adapt=0, device=dev)
+    inst = _Instrumented(sess)
+    total = len(sess.headers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_start()                                    # the main path starts
+    for fr in frames:
+        sess.push_frame(*fr)
+    sess.flush()
+    launches, sizes = k1_read(), k1_sizes()
+    peak = torch.cuda.max_memory_allocated()
+    res = inst.results
+    fps, order, stage, _ = inst.report()
+    n_p = sum(t == "P" for _, t in order)
+    n_b = sum(t in "Bb" for _, t in order)
+    want = {"sad_sweep_best": len(order) + n_p + 2 * n_b,
+            "sad_block8_sweep": 0, "sad_block4_sweep": 0}
+    total += sum(len(r.nals) for r in res)
+    emit(phase="1080p_wpp_b", wpp=sess.wpp, substreams=sess.rows,
+         frames=len(res), fps=fps, call_ms=inst.call_ms,
+         coding_order=order, qp=[r.qp for r in res],
+         frame_bytes=[len(r.nals) for r in res], bytes=total,
+         psnr_y=[r.psnr_y for r in res], stage_ms_per_frame=stage,
+         stage_ms_per_call=inst.stage_calls,
+         stage_ms_total=dict(sess.stage_ms), k1_launches=launches,
+         k1_launches_want=want, k1_fused_by_size=sizes,
+         max_memory_allocated=peak)
+    if not sess.wpp or order != minigop_order(n_frames, 2) or not all(
+            np.isfinite([r.psnr_y for r in res])):
+        raise AssertionError(f"1080p_wpp_b output malformed: {order}")
+    if launches != want:
+        raise AssertionError(f"1080p_wpp_b: K1 launches {launches} != "
+                             f"{want}")
+    _plain_rerun("1080p_wpp_b", inst)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2678,6 +2947,8 @@ def main():
                           bit_depth=10)
     golden_opts = phase_golden_stream_opts(dev)
     phase_lossless_cpu_vs_card(dev)
+    golden_popts = phase_golden_p_options(dev)
+    phase_p_options_cpu_vs_card(dev)
     by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
                "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
                "1080p_qt2_b": phase_1080p_b(dev)[0]}
@@ -2729,6 +3000,8 @@ def main():
     by_path["1080p_cli_intra_ctu32_wpp"] = \
         phase_1080p_cli_intra_ctu32_wpp(dev)
     by_path["1080p_cli_ctu32"], sizes32 = phase_1080p_cli_ctu32(dev)
+    by_path["1080p_api_p_only"], sizes_p = phase_1080p_api_p_only(dev)
+    by_path["1080p_wpp_b"] = phase_1080p_wpp_b(dev)
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]
@@ -2790,7 +3063,11 @@ def main():
                                 for r in k1_32.values()},
                  "int16": {k: me32_16[k] for k in (
                      "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                     "route_ms")}}},
+                     "route_ms")}},
+         # the P-frame options: two sweeps per two-reference P frame
+         "p_options": {"1080p_api_p_only_by_size": sizes_p,
+                       "launches_golden_p_options":
+                           golden_popts["sad_sweep_best"]}},
         {"name": "sad_block4_sweep", **common,
          "launches": launches["sad_block4_sweep"],
          "launches_by_path": per_path("sad_block4_sweep"),

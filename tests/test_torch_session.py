@@ -178,15 +178,20 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
     # B session and the depth-1 quadtree)
     # (the case cu_size=64 took the place of cu_size=32, and scale_factor
     # 4 and analysis_share "load" those of hash_type 1 and 2: the uniform
-    # CTU32 grid and the CRC and checksum SEI run now)
-    {"max_depth": 3}, {"cu_size": 64}, {"rqt": True}, {"max_merge": 5},
+    # CTU32 grid and the CRC and checksum SEI run now; cu_size 8 and 128,
+    # max_depth 4, analysis_load / analysis_save "b.dat", scale_factor 3
+    # and analysis_share [] took the places of max_merge 5, wpp, n_refs,
+    # max_merge 2, dup_threshold, tmvp and frame_dup: the P-frame options
+    # run now, tests/test_torch_p_options.py)
+    {"max_depth": 3}, {"cu_size": 64}, {"rqt": True}, {"cu_size": 8},
     {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"scale_factor": 4},
     # (the cases bit_depth 12 and 10 had: both run now, Main12 and Main10)
     {"analysis_share": "load"},
-    {"analysis_load": "a.dat"}, {"analysis_share": "save"}, {"wpp": True},
-    {"n_refs": 2},
-    {"max_merge": 2}, {"dup_threshold": 50}, {"tmvp": True},
-    {"frame_dup": True},
+    {"analysis_load": "a.dat"}, {"analysis_share": "save"},
+    {"analysis_load": "b.dat"},
+    {"scale_factor": 3},
+    {"max_depth": 4}, {"analysis_save": "b.dat"}, {"cu_size": 128},
+    {"analysis_share": []},
     {"max_depth": 2, "cu_size": 64},
 ])
 def test_options_outside_the_slice_raise(option):
@@ -215,13 +220,17 @@ def test_rate_control_options_code_a_frame(option):
 
 @pytest.mark.parametrize("option", [
     # (scale_factor and analysis_share took the places of hash_type 1 and
-    # 2: the CRC and checksum SEI run now)
-    {"frame_dup": True}, {"dup_threshold": 50}, {"scale_factor": 2},
+    # 2: the CRC and checksum SEI run now; scale_factor 3, analysis_load,
+    # analysis_save, cu_size 64 and analysis_share "load" / [] took the
+    # places of frame_dup, dup_threshold, max_merge, tmvp, wpp and n_refs:
+    # the quadtree keeps max_merge and frame_dup, drops tmvp and wpp and
+    # asserts one reference, as the reference does)
+    {"scale_factor": 3}, {"analysis_load": "b.dat"}, {"scale_factor": 2},
     # (bit_depth 10 runs now: Main10)
-    {"max_merge": 5}, {"tmvp": True}, {"analysis_share": "save"},
-    {"wpp": True},
+    {"analysis_save": "b.dat"}, {"cu_size": 64}, {"analysis_share": "save"},
+    {"analysis_share": "load"},
     {"rqt": True},
-    {"n_refs": 2},
+    {"analysis_share": []},
 ])
 def test_quadtree_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
@@ -233,15 +242,19 @@ B_SESSION = dict(max_depth=2, bframes=3, b_adapt=0)
 
 
 @pytest.mark.parametrize("option,match", [
-    # (the id of the case weightp had: weightp now runs on B sessions)
-    pytest.param({"wpp": True}, "wpp", id="option0-weightp"),
+    # (the ids of the cases weightp, wpp, tmvp and max_merge had: weightp
+    # and max_merge run on B sessions, which drop wpp on the quadtree and
+    # tmvp, as the reference does)
+    pytest.param({"analysis_load": "b.dat"}, "analysis_load",
+                 id="option0-weightp"),
     ({"rqt": True}, "rqt"),
-    ({"tmvp": True}, "tmvp"),
+    pytest.param({"scale_factor": 3}, "scale_factor", id="option2-tmvp"),
     # (the case max_depth=0 had: the uniform 16x16 grid's B session runs
     # now, and its CTU32 grid; CTU64 is still to come)
     pytest.param({"max_depth": 0, "cu_size": 64}, "cu_size=64",
                  id="option3-max_depth=0"),
-    ({"max_merge": 5}, "max_merge"),
+    pytest.param({"analysis_save": "b.dat"}, "analysis_save",
+                 id="option4-max_merge"),
 ])
 def test_b_session_options_outside_the_slice_raise(option, match):
     with pytest.raises(NotImplementedError, match=match):

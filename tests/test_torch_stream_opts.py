@@ -535,8 +535,12 @@ def test_option_rules():
     for kw in (dict(lossless=True), dict(slices=3)):
         with pytest.raises(NotImplementedError):
             mk(max_depth=2, **kw)
-    with pytest.raises(NotImplementedError, match="P / B WPP"):
-        t_top.VideoEncoderSession(64, 48, wpp=True, device="cpu")
+    # the video session's wpp (the uniform grid only) reaches its intra
+    # session
+    assert t_top.VideoEncoderSession(64, 48, wpp=True,
+                                     device="cpu").intra_sess.wpp
+    assert not t_top.VideoEncoderSession(64, 48, wpp=True, max_depth=2,
+                                         device="cpu").intra_sess.wpp
     for kw in (dict(nr_intra=100), dict(fast_intra=True), dict(csp="i444")):
         with pytest.raises(NotImplementedError):
             mk(**kw)
@@ -544,14 +548,14 @@ def test_option_rules():
 
 def test_library_uniform_p_session_waits_for_multiref():
     """The library's uniform P-only session asks for two references and
-    TMVP, as the reference's does: the port names the slice that adds
-    them."""
+    TMVP, as the reference's does: the port builds it since the P-frame
+    options' slice (its stream is pinned in tests/p_options_pins.py)."""
     p = t_api.param_default_preset("medium")
     for k, v in (("input-res", "64x48"), ("bframes", "0"), ("ctu", "16"),
                  ("min-cu-size", "16"), ("weightp", "0")):
         t_api.param_parse(p, k, v)
-    with pytest.raises(NotImplementedError, match="n_refs"):
-        t_api.Encoder(p, device="cpu")
+    sess = t_api.Encoder(p, device="cpu")._sess
+    assert (sess.n_refs, sess.tmvp, sess.sps.temporal_mvp) == (2, True, 1)
 
 
 # ---------------------------------------------------------------------------

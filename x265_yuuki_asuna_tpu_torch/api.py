@@ -9,10 +9,11 @@ CTU32 quadtree of depth 2 when the minimum CU is 8, of depth 1 when it is
 16 as at "ultrafast", the uniform grid when the minimum CU is the CTU of
 16 or 32; the all-intra uniform grid codes x265's default wavefront as
 WPP substreams, and b_lossless there), on the CUDA card unless the
-caller passes device="cpu". A setting the port's sessions do not run yet
-raises NotImplementedError from the session, naming the slice that adds
-it: e.g. the uniform P-only session, for which the reference asks two
-references and TMVP (the multi-ref slice).
+caller passes device="cpu". The uniform P-only session takes the
+reference's two L0 references and TMVP (one reference with TMVP under
+weightp). A setting the port's sessions do not run yet raises
+NotImplementedError from the session, naming the slice that adds it:
+e.g. the analysis save / load options.
 """
 
 from __future__ import annotations

@@ -4,11 +4,12 @@ Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what a
 4:2:0 intra, IPPP or B session writes (Main, Main10, or Main12 with the
 Range Extensions' constraint flags; flat or signalled scaling lists
 (SPS), VUI timing, HRD, signal type and chroma location only, one
-reference per list, explicit short-term RPS, explicit weighted
-prediction of P slices, transquant bypass (lossless), WPP's entry points
-and a picture's slices by their segment address, no tiles, weighted
-bi-prediction or TMVP; deblocking and SAO on or off, deblocking at the
-default offsets). The bits written are the same as the JAX package's for
+reference per list but one or two L0 references in P slices (the
+active-reference override), explicit short-term RPS, temporal MV
+prediction, explicit weighted prediction of P slices, transquant bypass
+(lossless), WPP's entry points and a picture's slices by their segment
+address, no tiles or weighted bi-prediction; deblocking and SAO on or
+off, deblocking at the default offsets). The bits written are the same as the JAX package's for
 those settings.
 
 Reference behavior (studied, not copied): encoder/entropy.cpp codeVPS /
@@ -54,6 +55,7 @@ class SPSInfo:
     sao_enabled: int = 0
     # ScalingListData (bitstream/scaling.py) or None (flat lists)
     scaling_list: object = None
+    temporal_mvp: int = 0           # sps_temporal_mvp_enabled_flag
     strong_intra_smoothing: int = 1
     max_dec_pic_buffering: int = 1
     num_reorder_pics: int = 0
@@ -181,7 +183,7 @@ def write_sps(sps: SPSInfo) -> bytes:
     bw.write_flag(0)             # pcm_enabled_flag
     bw.write_ue(0)               # num_short_term_ref_pic_sets
     bw.write_flag(0)             # long_term_ref_pics_present_flag
-    bw.write_flag(0)             # sps_temporal_mvp_enabled_flag
+    bw.write_flag(sps.temporal_mvp)  # sps_temporal_mvp_enabled_flag
     bw.write_flag(sps.strong_intra_smoothing)
     vui_present = (sps.timing_info is not None or sps.video_full_range
                    or sps.colour_description or sps.chroma_loc is not None)
@@ -312,11 +314,13 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
                        max_merge: int = 3, sao: bool = False,
                        weights: Optional[dict] = None,
                        slice_addr: int = 0, slice_addr_bits: int = 0,
-                       entry_point_offsets: Optional[List[int]] = None) \
-        -> BitWriter:
+                       entry_point_offsets: Optional[List[int]] = None,
+                       num_ref_l0: int = 1) -> BitWriter:
     """Returns a BitWriter positioned after byte_alignment() — ready for the
     caller to append CABAC slice data. slice_type: 0=B 1=P 2=I (one slice
-    per picture, one reference per list).
+    per picture, one reference per list but num_ref_l0 active L0
+    references in a P slice: other than 1 it overrides the PPS's default
+    count, and under TMVP the collocated picture is L0 index 0).
 
     The short-term RPS (spec 7.3.7) holds the L0 reference ref_poc_delta
     before the picture and, when pos_poc_delta is set, the L1 reference
@@ -330,7 +334,8 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
     slice_addr: the slice's first CTU (raster index; 0 is the picture's
     first slice), written in slice_addr_bits bits. entry_point_offsets:
     under the PPS's entropy_coding_sync, the byte sizes of every
-    substream but the last."""
+    substream but the last. With the SPS's temporal_mvp every non-IDR
+    slice enables temporal MV prediction."""
     bw = BitWriter()
     first = slice_addr == 0
     bw.write_flag(first)                     # first_slice_segment_in_pic_flag
@@ -357,13 +362,22 @@ def write_slice_header(sps: SPSInfo, pps: PPSInfo, slice_type: int,
                 bw.write_ue(delta - prev - 1)    # delta_poc_s{0,1}_minus1
                 bw.write_flag(used)              # used_by_curr_pic_s{0,1}
                 prev = delta
+        if sps.temporal_mvp:
+            bw.write_flag(1)                 # slice_temporal_mvp_enabled_flag
     if sps.sao_enabled:
         bw.write_flag(int(sao))              # slice_sao_luma_flag
         bw.write_flag(int(sao))              # slice_sao_chroma_flag
     if slice_type != 2:                      # P / B
-        bw.write_flag(0)                     # num_ref_idx_active_override_flag
+        bw.write_flag(num_ref_l0 != 1)       # num_ref_idx_active_override_flag
+        if num_ref_l0 != 1:
+            bw.write_ue(num_ref_l0 - 1)      # num_ref_idx_l0_active_minus1
+            if slice_type == 0:
+                bw.write_ue(0)               # num_ref_idx_l1_active_minus1
         if slice_type == 0:
             bw.write_flag(0)                 # mvd_l1_zero_flag
+        if sps.temporal_mvp and num_ref_l0 > 1:
+            # collocated_from_l0 is inferred (P); index 0 is the nearest
+            bw.write_ue(0)                   # collocated_ref_idx
         if pps.weighted_pred and slice_type == 1:
             _write_pred_weight_table(bw, weights or {})
         bw.write_ue(5 - max_merge)           # five_minus_max_num_merge_cand

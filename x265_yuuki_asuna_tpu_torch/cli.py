@@ -15,12 +15,15 @@ to a CTU of 16 or 32 the uniform grid of that CU size; --lossless,
 device="cpu") runs every kernel's plain version). Every preset runs, the
 default (medium) and veryfast through placebo with weighted prediction,
 on 8-, 10- and 12-bit y4m input, with the all-intra stream options
-(--lossless, --slices, --wpp, --scaling-lists) and --hash 1 / 2 / 3. A
-setting the port's sessions do not run yet raises NotImplementedError
-from the session, naming the slice that adds it: e.g. 4:4:4 input,
---nr-intra, --ref 2 or --tmvp. The ABR ladder, the multi-device
-pipeline, reconplay and the HDR10+ / Dolby Vision metadata raise
-NotImplementedError here.
+(--lossless, --slices, --wpp, --scaling-lists), --hash 1 / 2 / 3 and
+the P-frame options of the uniform grid (--ref 2 and --tmvp without B
+frames, --max-merge, --frame-dup with --dup-threshold); as in the
+reference, --wpp is an all-intra option and --ref 2 falls back to one
+reference with B frames, the quadtree or weighted prediction. A setting
+the port's sessions do not run yet raises NotImplementedError from the
+session, naming the slice that adds it: e.g. 4:4:4 input, --nr-intra or
+--rqt. The ABR ladder, the multi-device pipeline, reconplay and the
+HDR10+ / Dolby Vision metadata raise NotImplementedError here.
 """
 
 from __future__ import annotations

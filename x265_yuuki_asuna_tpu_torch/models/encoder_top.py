@@ -1,8 +1,8 @@
 """Top-level encoder sessions: the all-intra session, and the video
-session (one reference per list; IPPP, and mini-GOPs with B frames fixed
-or chosen by b-adapt, on the uniform grid of 16x16 or 32x32 CUs or the
-CTU32 quadtree of depth 1 or 2), under CQP, CRF or ABR rate control with
-VBV.
+session (IPPP with one or, on the uniform grid, two L0 references, and
+mini-GOPs with B frames fixed or chosen by b-adapt, one reference per
+list, on the uniform grid of 16x16 or 32x32 CUs or the CTU32 quadtree of
+depth 1 or 2), under CQP, CRF or ABR rate control with VBV.
 
 Port of x265_yuuki_asuna_tpu/models/encoder_top.py: IntraEncoderSession
 (encode_frame, the frame batches submit_batch / finish_batch /
@@ -16,9 +16,23 @@ B-pyramid, open GOP (CRA keyframes with RASL leading pictures) and the B
 slice assembly. As in the reference, the video
 session codes its I frames through an IntraEncoderSession. Device work
 (lookahead, intra and inter programs) runs on `device`; the CABAC pass
-runs on the host through the native writer (WPP substreams through the
-Python CABAC of bitstream/cabac.py). The streams are byte-identical to
-the JAX package's.
+runs on the host through the native writer (WPP substreams, and P slices
+with two references or TMVP, through the Python CABAC of
+bitstream/cabac.py and inter_syntax.py). The streams are byte-identical
+to the JAX package's.
+
+The uniform IPPP session's P-frame options, with the reference's rules:
+n_refs=2 (two L0 references: the P program searches both and picks one
+per CU, the slice signals ref_idx_l0; the first P frame after an IDR has
+one, which the program searches twice), tmvp (temporal MV prediction:
+the previous frame's motion field is the collocated one; dropped on B
+and quadtree sessions), max_merge (the merge candidates, every path) and
+frame_dup with dup_threshold (a frame whose luma PSNR against the
+previous source reaches the threshold is coded as an all-skip P slice
+with no program, its recon the reference's; not with B frames, two
+references or TMVP). wpp (the uniform grid; dropped on the quadtree)
+codes every slice as WPP substreams through the Python CABAC, P and B
+slices too.
 
 With max_depth=2 the sessions code CTU32 quadtrees down to 8x8 CUs, with
 max_depth=1 down to 16x16 (x265's ultrafast: the programs decide over
@@ -121,6 +135,7 @@ import torch
 
 from ..bitstream import ctu_syntax as CS
 from ..bitstream import headers as HDR
+from ..bitstream import inter_syntax as IS
 from ..bitstream import native, sei as SEI
 from ..bitstream.cabac import CabacEncoder
 from ..bitstream.scaling import ScalingListData
@@ -144,29 +159,22 @@ from .ratecontrol import (RateControl, RCConfig, StatsWriter, TwoPassRC,
                           compute_aq_offsets)
 
 FPS = (25, 1)      # default signalled frame rate (VUI timing, level)
-MAX_MERGE = 3      # merge candidates (five_minus_max_num_merge_cand = 2)
 
-_P = "a later P-frame slice"
 # every keyword of the JAX sessions this port has no slice for yet, with
 # the slice that adds it (ROADMAP Queue 1)
 _LATER = {
-    "max_merge": _P, "n_refs": _P, "tmvp": _P, "frame_dup": _P,
-    "dup_threshold": _P,
     "analysis_save": "the analysis save/load slice",
     "analysis_load": "the analysis save/load slice",
     "analysis_share": "the analysis save/load slice",
     "scale_factor": "the analysis save/load slice",
     "rqt": "the RQT slice",
-    "wpp": "the P / B WPP slice (bitstream/inter_syntax.py)",
     "nr_intra": "the noise-reduction slice",
     "fast_intra": "the fast-intra slice", "csp": "the 4:4:4 slice",
 }
 # the defaults of those keywords in each JAX session
 _VIDEO_DEFAULTS = {
-    "max_merge": 3, "n_refs": 1, "tmvp": False,
-    "frame_dup": False, "dup_threshold": 70, "analysis_save": None,
-    "analysis_load": None, "analysis_share": None, "scale_factor": 1,
-    "rqt": False, "wpp": False}
+    "analysis_save": None, "analysis_load": None, "analysis_share": None,
+    "scale_factor": 1, "rqt": False}
 _INTRA_DEFAULTS = {"nr_intra": 0, "fast_intra": False, "csp": "i420"}
 
 
@@ -304,6 +312,23 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
             (time.perf_counter() - t0) * 1e3
 
 
+def _amvp_choice(mv, preds):
+    """(mvp flag, MVD) of mv against the two AMVP predictors: the one
+    nearer in L1 distance, the first on a tie."""
+    costs = [abs(mv[0] - p[0]) + abs(mv[1] - p[1]) for p in preds]
+    flag = 0 if costs[0] <= costs[1] else 1
+    return flag, (mv[0] - preds[flag][0], mv[1] - preds[flag][1])
+
+
+def _dup_psnr(y, prev) -> float:
+    """The luma PSNR of a source frame against the previous one at the
+    peak 255, whatever the bit depth (the reference's duplicate-frame
+    test)."""
+    diff = np.abs(y.astype(np.int32) - prev.astype(np.int32))
+    mse = float(np.mean(diff.astype(np.float64) ** 2))
+    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
 def _b_mvs(out: dict):
     """A uniform B frame's (mv0x, mv0y, mv1x, mv1y), each list's MVs zeroed
     where its CU does not predict from that list (pdir bit 1: L0, bit 2:
@@ -353,12 +378,64 @@ def _program(stage_ms, stage: str, enc, *args, **kw) -> dict:
     return out
 
 
-def _slice_nal(bw: BitWriter, res, nal_type: int) -> bytes:
+def _slice_nal(bw: BitWriter, res, nal_type: Optional[int]) -> bytes:
+    """The CABAC result res = (bytes, tail, tail bits) after the header
+    in bw, with the stop bit and byte alignment: a NAL of nal_type, or
+    with None the raw bytes (a WPP substream)."""
     data, tail, tail_bits = res
     bw.write_bytes(data)
     bw.write_bits(tail, tail_bits)
     bw.rbsp_trailing_bits()
+    return bw.get_bytes() if nal_type is None else \
+        wrap_nal(nal_type, bw.get_bytes())
+
+
+def wpp_substreams(rows: int, cols: int, init_type: int, qp: int,
+                   code_ctu) -> List[bytes]:
+    """A slice's CTU rows as WPP substreams through the Python CABAC (the
+    reference's _wpp_substreams): code_ctu(enc, r, c) codes one CTU; row
+    r > 0 starts from the contexts saved after the second CTU of row r - 1
+    (spec 9.3.2.4; a one-column picture initialises every row from
+    init_type and qp); each row ends with end_of_subset_one_bit (but the
+    last), the stop bit and byte alignment."""
+    sync_c = 1 if cols > 1 else None
+    blobs, saved = [], None
+    for r in range(rows):
+        enc = CabacEncoder()
+        if saved is None:
+            enc.init_contexts(init_type, qp)
+        else:
+            enc.ctx = bytearray(saved)
+        for c in range(cols):
+            code_ctu(enc, r, c)
+            if c == sync_c:
+                saved = bytearray(enc.ctx)
+            enc.encode_bin_trm(int(r == rows - 1 and c == cols - 1))
+        if r < rows - 1:
+            enc.encode_bin_trm(1)                # end_of_subset_one_bit
+        blobs.append(_slice_nal(BitWriter(), enc.finish(), None))
+    return blobs
+
+
+def wpp_nal(sps, pps, nal_type: int, blobs: List[bytes], **header) -> bytes:
+    """A slice NAL of WPP substreams: its header with the entry point
+    offsets (the substreams' sizes before emulation prevention, as in
+    the reference), then the substreams."""
+    bw = HDR.write_slice_header(sps, pps, nal_type=nal_type,
+                                entry_point_offsets=[len(b)
+                                                     for b in blobs[:-1]],
+                                **header)
+    for b in blobs:
+        bw.write_bytes(b)
     return wrap_nal(nal_type, bw.get_bytes())
+
+
+def code_sao(enc, sao, r: int, c: int, cols: int, bit_depth: int) -> None:
+    """The SAO syntax of CU or CTU (r, c) from the packed [ncu, 18]
+    parameters, merged against its left and upper neighbours'."""
+    i = r * cols + c
+    CS.encode_sao_ctu(enc, sao[i], sao[i - 1] if c > 0 else None,
+                      sao[i - cols] if r > 0 else None, bit_depth)
 
 
 def hash_sei(out: dict, bit_depth: int = 8, hash_type: int = 0) -> bytes:
@@ -632,68 +709,40 @@ class IntraEncoderSession:
     def _assemble_wpp(self, out: dict, qp: int, nal_type: int,
                       poc: int) -> bytes:
         """The slice as WPP substreams (the reference's
-        _assemble_slice_wpp and _assemble_slice_qt_wpp), through the
-        Python CABAC: one substream per CTU row, each ending with
-        end_of_subset_one_bit (but the last) and byte alignment; row r > 0
-        starts from the contexts saved after the second CTU of row r - 1
-        (spec 9.3.2.4; a one-column picture re-initialises every row).
-        The entry point offsets are the substreams' sizes before emulation
-        prevention, as in the reference. The quadtree's rows restart the
-        QP predictor at the slice QP; the uniform grid's code no
-        cu_qp_delta and no transquant bypass flag (the reference's
-        writer)."""
+        _assemble_slice_wpp and _assemble_slice_qt_wpp; wpp_substreams).
+        The quadtree's rows restart the QP predictor at the slice QP; the
+        uniform grid's code no cu_qp_delta and no transquant bypass flag
+        (the reference's writer)."""
         sao, qp_map = out.get("sao"), out.get("qp_map")
-        rows, cols = self.rows, self.cols
+        cols = self.cols
         g = 1 << self.max_depth
-        maps = (np.zeros((g * rows, g * cols), np.int32),
-                np.zeros((g * rows, g * cols), np.int32))
-        sync_c = 1 if cols > 1 else None
-        blobs, saved = [], None
-        for r in range(rows):
-            enc = CabacEncoder()
-            if saved is None:
-                enc.init_contexts(2, qp)
+        maps = (np.zeros((g * self.rows, g * cols), np.int32),
+                np.zeros((g * self.rows, g * cols), np.int32))
+        qp_state = [qp]
+
+        def code_ctu(enc, r, c):
+            if c == 0:
+                qp_state[0] = qp          # qPY_PREV restarts on every row
+            if sao is not None:
+                code_sao(enc, sao, r, c, cols, self.bit_depth)
+            if self.max_depth:
+                self._write_ctu_qt(enc, out, r, c, *maps,
+                                   None if qp_map is None
+                                   else int(qp_map[r, c]), qp_state)
             else:
-                enc.ctx = bytearray(saved)
-            qp_state = [qp]             # qPY_PREV restarts on every row
-            for c in range(cols):
-                i = r * cols + c
-                if sao is not None:
-                    CS.encode_sao_ctu(enc, sao[i],
-                                      sao[i - 1] if c > 0 else None,
-                                      sao[i - cols] if r > 0 else None,
-                                      self.bit_depth)
-                if self.max_depth:
-                    self._write_ctu_qt(enc, out, r, c, *maps,
-                                       None if qp_map is None
-                                       else int(qp_map[r, c]), qp_state)
-                else:
-                    CS.encode_intra_ctu_full(
-                        enc, CS.CTUDecisions(int(out["modes"][r, c]),
-                                             out["levels_y"][r, c],
-                                             out["levels_cb"][r, c],
-                                             out["levels_cr"][r, c]),
-                        self.cu.bit_length() - 1,
-                        int(out["modes"][r, c - 1]) if c > 0 else CS.DC_MODE,
-                        CS.DC_MODE, sign_hiding=self.sbh)
-                if c == sync_c:
-                    saved = bytearray(enc.ctx)
-                enc.encode_bin_trm(int(r == rows - 1 and c == cols - 1))
-            if r < rows - 1:
-                enc.encode_bin_trm(1)            # end_of_subset_one_bit
-            data, tail, tail_bits = enc.finish()
-            sub = BitWriter()
-            sub.write_bytes(data)
-            sub.write_bits(tail, tail_bits)
-            sub.rbsp_trailing_bits()             # stop bit, byte_alignment
-            blobs.append(sub.get_bytes())
-        bw = HDR.write_slice_header(
-            self.sps, self.pps, slice_type=2, slice_qp=qp, nal_type=nal_type,
-            poc=poc, sao=sao is not None,
-            entry_point_offsets=[len(b) for b in blobs[:-1]])
-        for b in blobs:
-            bw.write_bytes(b)
-        return wrap_nal(nal_type, bw.get_bytes())
+                CS.encode_intra_ctu_full(
+                    enc, CS.CTUDecisions(int(out["modes"][r, c]),
+                                         out["levels_y"][r, c],
+                                         out["levels_cb"][r, c],
+                                         out["levels_cr"][r, c]),
+                    self.cu.bit_length() - 1,
+                    int(out["modes"][r, c - 1]) if c > 0 else CS.DC_MODE,
+                    CS.DC_MODE, sign_hiding=self.sbh)
+
+        return wpp_nal(self.sps, self.pps, nal_type,
+                       wpp_substreams(self.rows, cols, 2, qp, code_ctu),
+                       slice_type=2, slice_qp=qp, poc=poc,
+                       sao=sao is not None)
 
     def _write_ctu_qt(self, enc, out: dict, r: int, c: int, mode_map,
                       depth_map, ctu_qp, qp_state) -> None:
@@ -881,7 +930,8 @@ class IntraEncoderSession:
 
 
 class VideoEncoderSession:
-    """GOP session, one reference per list.
+    """GOP session, one reference per list (two L0 references with
+    n_refs=2 on the uniform IPPP path).
 
     bit_depth: 8, 10 or 12 (deeper planes come in and go out as uint16;
     on the device they are int16). max_depth=0 codes the uniform grid of
@@ -919,7 +969,14 @@ class VideoEncoderSession:
     pending at it as RASL leading pictures; weightp: weighted prediction
     of P frames; dpb_device (quadtree; None: on unless weightp, which
     turns it off, as in the reference): False codes the host-filter
-    path. device=None runs on the CUDA
+    path. The P-frame options, with the reference's rules: n_refs
+    (clamped to 1..2; 2 asserts the uniform grid, no B frames and no
+    weightp), tmvp (kept on the uniform IPPP path only), max_merge (1..5
+    merge candidates), frame_dup / dup_threshold (kept without B frames,
+    two references or TMVP; a quadtree session stops at its first
+    duplicate frame, as the reference does), wpp (kept on the uniform
+    grid, asserts no AQ or cuTree; its P slices signal no weights under
+    weightp, the reference's fault). device=None runs on the CUDA
     card (and raises when there is none); device="cpu" runs every
     kernel's plain PyTorch version. Options of the JAX session outside
     these slices raise NotImplementedError."""
@@ -946,9 +1003,29 @@ class VideoEncoderSession:
                  dpb_device: bool = None, search_range: int = 16,
                  psy_rd: float = 0.0, b_intra: bool = False,
                  open_gop: bool = False, weightp: bool = False, device=None,
-                 bit_depth: int = 8, hash_type: int = 0, **options):
+                 bit_depth: int = 8, hash_type: int = 0, n_refs: int = 1,
+                 tmvp: bool = False, max_merge: int = 3,
+                 frame_dup: bool = False, dup_threshold: int = 70,
+                 wpp: bool = False, **options):
         _check_options(options, _VIDEO_DEFAULTS)
         cu_size = _grid(max_depth, cu_size)
+        # the reference's P-frame options: two L0 references on the
+        # uniform IPPP path only (asserted), TMVP kept there only, WPP on
+        # the uniform grid without a QP map (asserted), frame duplication
+        # without B frames, two references or TMVP
+        self.n_refs = max(1, min(n_refs, 2))
+        if self.n_refs > 1 and (bframes or max_depth or weightp):
+            raise AssertionError("multi-ref: uniform IPPP sessions (the "
+                                 "reference's assertion)")
+        self.tmvp = bool(tmvp) and not bframes and not max_depth
+        self.wpp = bool(wpp) and not max_depth
+        if self.wpp and (aq_mode or cutree):
+            raise AssertionError("WPP inter sessions: no per-CU QP (the "
+                                 "reference's assertion)")
+        self.frame_dup = bool(frame_dup) and not bframes \
+            and self.n_refs == 1 and not tmvp
+        self.dup_threshold = min(max(dup_threshold, 1), 99)
+        self.max_merge = max_merge
         # frames wait rc_lookahead frames for cuTree's window (cuTree only)
         self.la_depth = max(0, rc_lookahead) if cutree else 0
         # the reference's device DPB: the quadtree without weightp; off,
@@ -967,7 +1044,7 @@ class VideoEncoderSession:
             deblock=deblock, sao=sao, rdoq=rdoq, sbh=sbh, psy_rdoq=psy_rdoq,
             max_depth=max_depth, dpb_device=self.dpb_device,
             recon_host=recon_host, psy_rd=psy_rd, device=device,
-            bit_depth=bit_depth, hash_type=hash_type)
+            bit_depth=bit_depth, hash_type=hash_type, wpp=self.wpp)
         self.device = self.intra_sess.device
         self.bit_depth = bit_depth
         # the reference's video session deblocks its uniform grid (its IDRs
@@ -1004,9 +1081,11 @@ class VideoEncoderSession:
         self.aq_mode, self.aq_strength, self.cutree = aq_mode, aq_strength, \
             bool(cutree)
         # the PPS signals cu_qp_delta and weighted prediction for the
-        # whole session
+        # whole session, the SPS TMVP; as in the reference the DPB stays
+        # at two pictures under two references (ROADMAP Queue 3)
         self.pps.cu_qp_delta = int(bool(aq_mode or cutree))
         self.pps.weighted_pred = int(self.weightp)
+        self.sps.temporal_mvp = int(self.tmvp)
         quant_fn = self.intra_sess.quant_fn
         # B slices evaluate intra candidates with b_intra (the
         # reference's bIntraInBFrames: x265's presets and --b-intra
@@ -1114,8 +1193,15 @@ class VideoEncoderSession:
         self.display_idx = 0
         # (y, u, v) padded recon planes of the reference picture: host
         # arrays on the uniform grid, device tensors for quadtrees (uint8
-        # at 8 bits, int16 above)
+        # at 8 bits, int16 above); with n_refs=2 the one before it (None
+        # after an IDR), the POC distances of the last P frame's
+        # references and, under TMVP, its motion field (the next frame's
+        # collocated one); frame_dup's previous source luma
         self.ref = None
+        self.ref2 = None
+        self._last_ref_deltas = [1]
+        self.col_field = None
+        self._prev_src_y = None
         # push_frame state: display-order frames of the open mini-GOP, their
         # lowres planes (device tensors) and rc-lookahead windows, the
         # last anchor's (recon planes, poc) and lowres plane, the last
@@ -1247,7 +1333,14 @@ class VideoEncoderSession:
             return self._code_p(yp, up, vp, self.ref, qp, self.poc, 1,
                                 qp_map)
 
-        out, nals = attempt(qp)
+        # frame duplication: a P frame whose luma PSNR against the
+        # previous source reaches dup_threshold is coded as an all-skip
+        # slice
+        is_dup = (self.frame_dup and not is_idr
+                  and self._prev_src_y is not None
+                  and _dup_psnr(y, self._prev_src_y) >= self.dup_threshold)
+        self._prev_src_y = y
+        out, nals = self._code_skip(qp) if is_dup else attempt(qp)
         if self.hrd:
             nals = self._hrd_sei(is_idr) + nals
         if self.sei_provider is not None:
@@ -1260,10 +1353,57 @@ class VideoEncoderSession:
                 break
             qp = min(qp + max(1, int(round(6 * math.log2(over)))), 51)
             out, nals = attempt(qp)
+        self.ref2 = None if is_idr else self.ref
         self.ref = self._recon_ref(out)
+        if self.tmvp:
+            self.col_field = self._motion_field(out, is_idr)
         self.frame_idx += 1
         return self._finish(out, nals, (y, u, v), qp, self.poc,
                             "I" if is_idr else "P", la_cost)
+
+    def _motion_field(self, out: dict, is_idr: bool) -> dict:
+        """A coded picture's motion field as the next frame's collocated
+        one under TMVP (on the CU grid: HEVC keeps collocated motion at
+        16x16): all intra for an IDR, else each CU's intra flag, MV and
+        reference index, with the POC distances of its references."""
+        shape = (self.rows, self.cols)
+        zeros = np.zeros(shape, np.int32)
+        if is_idr:
+            return {"intra": np.ones(shape, bool), "mvx": zeros,
+                    "mvy": zeros, "ref": zeros, "ref_deltas": [1]}
+        ref = out.get("ref")
+        return {"intra": np.asarray(out["use_intra"], bool),
+                "mvx": np.asarray(out["mvx"], np.int32),
+                "mvy": np.asarray(out["mvy"], np.int32),
+                "ref": zeros if ref is None else np.asarray(ref, np.int32),
+                "ref_deltas": self._last_ref_deltas}
+
+    def _code_skip(self, qp: int):
+        """(decision dict, slice NAL) of a duplicate frame: every CU a skip
+        with merge index 0 (at (0, 0) the first candidate is the zero MV,
+        and every later CU inherits it), no residual, no program and no
+        filter, the recon the reference's (the reference's
+        encode_skip_frame). The reference has no such slice on the
+        quadtree (its writer fails on the missing split flags): the port
+        stops there too."""
+        if self.max_depth:
+            raise NotImplementedError(
+                "frame_dup on a quadtree session: the reference accepts it "
+                "but fails at the first duplicate frame (its quadtree "
+                "writer has no skip slice; ROADMAP Queue 3)")
+        n, nc = self.cu, self.cu // 2
+        shape = (self.rows, self.cols)
+        zc = np.zeros(shape + (nc, nc), np.int32)
+        out = {"use_intra": np.zeros(shape, bool),
+               "modes": np.zeros(shape, np.int32),
+               "mvx": np.zeros(shape, np.int32),
+               "mvy": np.zeros(shape, np.int32), "ref": None, "pdir": None,
+               "levels_y": np.zeros(shape + (n, n), np.int32),
+               "levels_cb": zc, "levels_cr": zc}
+        for k, p in zip(("recon_y", "recon_u", "recon_v"), self.ref):
+            out[k] = np.asarray(p, np.int32)
+        return out, self._timed("serialize", self._assemble_p_slice, out,
+                                qp, self.poc, 1)
 
     def _ippp_qp(self, is_idr: bool, la_cost: float) -> int:
         """The IPPP frame's QP before its zone: pass 2's (and its cuTree
@@ -1595,15 +1735,25 @@ class VideoEncoderSession:
         """(decision dict, slice NAL) of a P picture predicted from the
         recon planes `ref`, ref_delta pictures before it (at the per-CU
         QP map qp_map when given), with weightp at the weights
-        _decide_weights picks against `ref`."""
+        _decide_weights picks against `ref`; with n_refs=2 also from
+        self.ref2, the picture before `ref` (the first P frame after an
+        IDR has none: the program searches `ref` twice and the slice
+        signals one reference, as in the reference)."""
         kw = {"slice_qp": qp} if self.max_depth else {}
         weights = None
         if self.weightp:
             weights = self._timed("weights", self._decide_weights, yp, up,
                                   vp, ref)
             kw["weights"] = weights
+        n_active = 1
+        if self.n_refs > 1:
+            kw["ref2"] = ref if self.ref2 is None else self.ref2
+            n_active = 1 if self.ref2 is None else 2
         out = _program(self.stage_ms, "inter", self.inter_encoder, yp, up,
                        vp, *ref, qp if qp_map is None else qp_map, **kw)
+        if n_active == 1 and out.get("ref") is not None:
+            out["ref"] = np.zeros_like(out["ref"])
+        self._last_ref_deltas = list(range(1, n_active + 1))
         if qp_map is not None:
             out["qp_map"] = qp_map
         if self.session_filters:
@@ -1611,7 +1761,7 @@ class VideoEncoderSession:
                            (yp, up, vp), self.device, self.stage_ms,
                            self.bit_depth, self.intra_sess.deblock_bit_depth)
         return out, self._timed("serialize", self._assemble_p_slice, out, qp,
-                                poc, ref_delta, weights)
+                                poc, ref_delta, weights, n_active)
 
     @staticmethod
     def _decide_weights(yp, up, vp, ref):
@@ -1700,59 +1850,186 @@ class VideoEncoderSession:
             self.stats_writer.add(frame_type, qp, bits, la_cost, cuoff=co)
 
     def _assemble_p_slice(self, out: dict, qp: int, poc: int,
-                          ref_delta: int, weights=None) -> bytes:
-        """P slice referencing the picture ref_delta before it, with the
-        explicit weights `weights` under weightp."""
-        sao = out.get("sao")
-        bw = HDR.write_slice_header(self.sps, self.pps, slice_type=1,
-                                    slice_qp=qp, nal_type=NAL_TRAIL_R,
-                                    poc=poc, ref_poc_delta=ref_delta,
-                                    max_merge=MAX_MERGE, sao=sao is not None,
-                                    weights=weights)
-        qp_map = out.get("qp_map")
+                          ref_delta: int, weights=None,
+                          n_refs: int = 1) -> bytes:
+        """P slice referencing the picture ref_delta before it (with
+        n_refs=2 also the one before that), with the explicit weights
+        `weights` under weightp. The native writer codes one reference
+        without TMVP; two references or TMVP go through the Python CABAC
+        (with the cu_qp_delta chain of a QP map), WPP through its
+        substreams."""
+        sao, qp_map = out.get("sao"), out.get("qp_map")
+        hdr = dict(slice_type=1, slice_qp=qp, poc=poc,
+                   ref_poc_delta=ref_delta, max_merge=self.max_merge,
+                   sao=sao is not None, num_ref_l0=n_refs,
+                   rps=([(1, 1), (2, 1)], []) if n_refs == 2 else None)
+        if self.wpp:
+            # the reference's WPP P slice passes no weights (ROADMAP
+            # Queue 3) and no QP map
+            def code_ctu(enc, r, c):
+                self._code_p_ctu(enc, out, grid, r, c, n_refs, None)
+            grid = [[None] * self.cols for _ in range(self.rows)]
+            return wpp_nal(self.sps, self.pps, NAL_TRAIL_R,
+                           wpp_substreams(self.rows, self.cols, 1, qp,
+                                          code_ctu), **hdr)
+        bw = HDR.write_slice_header(self.sps, self.pps,
+                                    nal_type=NAL_TRAIL_R, weights=weights,
+                                    **hdr)
         if self.max_depth:
             res = native.encode_slice_qt2(1, self.max_depth, out, qp,
-                                          MAX_MERGE, sign_hiding=self.sbh,
-                                          sao=sao, qp_map=qp_map,
+                                          self.max_merge,
+                                          sign_hiding=self.sbh, sao=sao,
+                                          qp_map=qp_map,
                                           bit_depth=self.bit_depth)
-        else:
+        elif n_refs == 1 and not self.tmvp:
             res = native.encode_p_slice(
                 out["use_intra"], out["modes"], out["mvx"], out["mvy"],
                 out["levels_y"], out["levels_cb"], out["levels_cr"],
-                self.cu.bit_length() - 1, qp, MAX_MERGE,
+                self.cu.bit_length() - 1, qp, self.max_merge,
                 sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
                 bit_depth=self.bit_depth)
+        else:
+            res = self._p_slice_py(out, qp, n_refs)
         return _slice_nal(bw, res, NAL_TRAIL_R)
+
+    def _p_slice_py(self, out: dict, qp: int, n_refs: int):
+        """The uniform grid's P slice data through the Python CABAC (the
+        reference's fallback writer): each CU's SAO and syntax in raster
+        order, a QP map's deltas chained through the decoder's qPY_PREV.
+        Returns (bytes, tail, tail bits)."""
+        enc = CabacEncoder()
+        enc.init_contexts(1, qp)
+        grid = [[None] * self.cols for _ in range(self.rows)]
+        qp_map = out.get("qp_map")
+        qp_prev = [qp]
+        last = self.rows * self.cols - 1
+        for r in range(self.rows):
+            for c in range(self.cols):
+                self._code_p_ctu(enc, out, grid, r, c, n_refs,
+                                 None if qp_map is None
+                                 else (int(qp_map[r, c]), qp_prev))
+                enc.encode_bin_trm(int(r * self.cols + c == last))
+        return enc.finish()
+
+    def _code_p_ctu(self, enc, out: dict, grid, r: int, c: int,
+                    n_refs: int, qp_chain) -> None:
+        """One CU of a uniform P slice through the Python CABAC: its SAO,
+        then its coding unit; qp_chain (the CU's QP, [the QP predictor])
+        adds the cu_qp_delta of a CU with a residual."""
+        sao = out.get("sao")
+        if sao is not None:
+            code_sao(enc, sao, r, c, self.cols, self.bit_depth)
+        d = self._decide_cu(out, grid, r, c, n_refs)
+        delta = None
+        if qp_chain is not None and d.has_residual:
+            cu_qp, prev = qp_chain
+            delta, prev[0] = cu_qp - prev[0], cu_qp
+        IS.encode_inter_ctu(enc, d, grid, r, c, self.cu.bit_length() - 1,
+                            self.max_merge, sign_hiding=self.sbh,
+                            cu_qp_delta=delta, n_refs=n_refs)
+
+    def _decide_cu(self, out: dict, grid, r: int, c: int,
+                   n_refs: int = 1) -> IS.InterCTUDecision:
+        """A P-slice CU's signalling from the program's decision (the
+        reference's _decide_cu): intra, or its (MV, reference) as a merge
+        candidate when one of the decoder's list equals it (the first),
+        else AMVP against the predictor nearer in L1 distance (ties keep
+        the first), under TMVP with the collocated field's candidates."""
+        lv = [out[k][r, c] for k in ("levels_y", "levels_cb", "levels_cr")]
+        if out["use_intra"][r, c]:
+            return IS.InterCTUDecision(True, int(out["modes"][r, c]),
+                                       luma_levels=lv[0], cb_levels=lv[1],
+                                       cr_levels=lv[2])
+        mv = (int(out["mvx"][r, c]), int(out["mvy"][r, c]))
+        ref = int(out["ref"][r, c]) if (n_refs > 1 and out.get("ref")
+                                        is not None) else 0
+        deltas = list(range(1, n_refs + 1))
+        col = self.col_field if self.tmvp else None
+        cands = IS.merge_candidates_ref(grid, r, c, self.max_merge, n_refs,
+                                        col=col, ref_deltas=deltas)
+        d = IS.InterCTUDecision(False, mv=mv, ref=ref, luma_levels=lv[0],
+                                cb_levels=lv[1], cr_levels=lv[2])
+        if (mv, ref) in cands:
+            d.merge_idx = cands.index((mv, ref))
+            return d
+        preds = IS.amvp_candidates(grid, r, c, target_ref=ref,
+                                   ref_deltas=deltas, col=col)
+        d.mvp_flag, d.mvd = _amvp_choice(mv, preds)
+        return d
 
     def _assemble_b_slice(self, out: dict, qp: int, poc: int, poc0: int,
                           poc1: int, is_ref: bool, rps,
                           nal_type: int = None) -> bytes:
         """B slice between the pictures at poc0 (L0) and poc1 (L1); a
         referenced B is TRAIL_R, the others TRAIL_N, unless nal_type says
-        otherwise."""
+        otherwise; under WPP as substreams (no QP map)."""
         if nal_type is None:
             nal_type = NAL_TRAIL_R if is_ref else NAL_TRAIL_N
         sao, qp_map = out.get("sao"), out.get("qp_map")
-        bw = HDR.write_slice_header(self.sps, self.pps, slice_type=0,
-                                    slice_qp=qp, nal_type=nal_type, poc=poc,
-                                    ref_poc_delta=poc - poc0,
-                                    pos_poc_delta=poc1 - poc, rps=rps,
-                                    max_merge=MAX_MERGE,
-                                    sao=sao is not None)
+        hdr = dict(slice_type=0, slice_qp=qp, poc=poc,
+                   ref_poc_delta=poc - poc0, pos_poc_delta=poc1 - poc,
+                   rps=rps, max_merge=self.max_merge, sao=sao is not None)
+        if self.wpp:
+            grid = [[None] * self.cols for _ in range(self.rows)]
+
+            def code_ctu(enc, r, c):
+                if sao is not None:
+                    code_sao(enc, sao, r, c, self.cols, self.bit_depth)
+                IS.encode_b_ctu(enc, self._decide_cu_b(out, grid, r, c, poc,
+                                                       poc0, poc1),
+                                grid, r, c, self.cu.bit_length() - 1,
+                                self.max_merge, sign_hiding=self.sbh)
+            return wpp_nal(self.sps, self.pps, nal_type,
+                           wpp_substreams(self.rows, self.cols, 0, qp,
+                                          code_ctu), **hdr)
+        bw = HDR.write_slice_header(self.sps, self.pps, nal_type=nal_type,
+                                    **hdr)
         if self.max_depth:
             res = native.encode_slice_qt2(0, self.max_depth, out, qp,
-                                          MAX_MERGE, poc=poc, poc_l0=poc0,
-                                          poc_l1=poc1, sign_hiding=self.sbh,
-                                          sao=sao, qp_map=qp_map,
+                                          self.max_merge, poc=poc,
+                                          poc_l0=poc0, poc_l1=poc1,
+                                          sign_hiding=self.sbh, sao=sao,
+                                          qp_map=qp_map,
                                           bit_depth=self.bit_depth)
         else:
             res = native.encode_b_slice(
                 out["use_intra"], out["modes"], out["pdir"], *_b_mvs(out),
                 out["levels_y"], out["levels_cb"], out["levels_cr"],
-                self.cu.bit_length() - 1, qp, MAX_MERGE, poc, poc0, poc1,
-                sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
+                self.cu.bit_length() - 1, qp, self.max_merge, poc, poc0,
+                poc1, sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
                 bit_depth=self.bit_depth)
         return _slice_nal(bw, res, nal_type)
+
+    def _decide_cu_b(self, out: dict, grid, r: int, c: int, poc: int,
+                     poc0: int, poc1: int) -> IS.BCTUDecision:
+        """A B-slice CU's signalling (the reference's _decide_cu_b): intra,
+        a merge candidate equal to its motion, else each used list's AMVP
+        predictor and MVD."""
+        lv = [out[k][r, c] for k in ("levels_y", "levels_cb", "levels_cr")]
+        if out["use_intra"][r, c]:
+            return IS.BCTUDecision(True, int(out["modes"][r, c]),
+                                   luma_levels=lv[0], cb_levels=lv[1],
+                                   cr_levels=lv[2])
+        pdir = int(out["pdir"][r, c])
+        mv0 = (int(out["mvx"][r, c]), int(out["mvy"][r, c])) \
+            if pdir & 1 else (0, 0)
+        mv1 = (int(out["mv1x"][r, c]), int(out["mv1y"][r, c])) \
+            if pdir & 2 else (0, 0)
+        motion = IS.BMotion(pdir, mv0, mv1)
+        d = IS.BCTUDecision(False, motion=motion, luma_levels=lv[0],
+                            cb_levels=lv[1], cr_levels=lv[2])
+        for i, cand in enumerate(IS.merge_candidates_b(grid, r, c,
+                                                       self.max_merge)):
+            if cand.key() == motion.key():
+                d.merge_idx = i
+                return d
+        if pdir & 1:
+            d.mvp_flag0, d.mvd0 = _amvp_choice(mv0, IS.amvp_candidates_b(
+                grid, r, c, 0, poc, poc0, poc1))
+        if pdir & 2:
+            d.mvp_flag1, d.mvd1 = _amvp_choice(mv1, IS.amvp_candidates_b(
+                grid, r, c, 1, poc, poc0, poc1))
+        return d
 
     # ------------------------------------------------------------------
     # per-CU QP: the host API's CTU offsets, AQ, cuTree and pass 2's

@@ -1,15 +1,16 @@
 """P- and B-frame encoder on the uniform CU grid: dense ME/MC, then a
 wavefront for the intra-vs-inter decision and reconstruction.
 
-Port of the one-reference-per-list branches of
+Port of the uniform-grid branches of
 x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`): the
-uni-prediction P frame, with explicit weighted prediction (weightp), and
-the B frame (`motion_phase_b`), each with sign-bit hiding (diagonal scan)
-or static-bit RDOQ, at one QP or a per-CU QP map.
+uni-prediction P frame, with explicit weighted prediction (weightp), the
+P frame with two L0 references (`motion_phase_2ref`) and the B frame
+(`motion_phase_b`), each with sign-bit hiding (diagonal scan) or
+static-bit RDOQ, at one QP or a per-CU QP map.
 Phase A runs for every CU at once: integer full search through K1
-(`ops.me.full_search_sad`, per list), half- then quarter-pel SATD
-refinement, motion compensation and, in a B frame, the choice of L0, L1
-or bi. Phase B walks the CU diagonals (a Python loop, one batch of CUs
+(`ops.me.full_search_sad`, per reference), half- then quarter-pel SATD
+refinement, motion compensation and, with two references, the choice of
+one (a P frame's L0 index, a B frame's L0, L1 or bi). Phase B walks the CU diagonals (a Python loop, one batch of CUs
 per diagonal): the 35-mode intra candidate from reconstructed neighbors,
 the SATD decision against the inter prediction, then transform,
 quantization and reconstruction. Levels come back at full width, so the
@@ -71,6 +72,17 @@ def bi_costs(satds, mv0, mv1, qp: int) -> torch.Tensor:
     s0, s1, sbi = (s.float() for s in satds)
     return torch.stack([fp32.fma(b0, lam, s0), fp32.fma(b1 + 1.0, lam, s1),
                         fp32.fma((b0 + b1) + 2.0, lam, sbi)], 1)
+
+
+def ref2_costs(satds, mv0, mv1, qp: int) -> torch.Tensor:
+    """The two-reference P program's cost of each L0 reference for every
+    CU ([ncu, 2] float32): SATD + lambda * (the MV bits + 1 for ref_idx),
+    in bi_costs' terms (XLA's float32 lambda and MV bits, the sum one
+    multiply-add contraction). satds: the two predictions' SATDs (int);
+    mv0 / mv1: each reference's (mvx, mvy); qp: the program's QP."""
+    lam = QT.lam(qp)
+    return torch.stack([fp32.fma(fp32.mv_log_bits(*mv) + 1.0, lam, s.float())
+                        for s, mv in zip(satds, (mv0, mv1))], 1)
 
 
 class InterFrameEncoder:
@@ -158,6 +170,27 @@ class InterFrameEncoder:
                                        py // 2, mvx, mvy, n // 2, bd)
         return mvx, mvy, pred_y, pred_u, pred_v, pixel.satd(yb, pred_y)
 
+    def motion_phase_2ref(self, y: torch.Tensor, refs0, refs1, qp: int):
+        """The P frame with two L0 references (y: device plane; refs0 /
+        refs1: the (y, u, v) device planes of L0 index 0 and 1; qp: the
+        program's QP, the largest of a map): one search against each, then
+        per CU index 1 where its ref2_costs is strictly the lower (ties
+        keep index 0). Returns (the index, mvx, mvy, the chosen (y, u, v)
+        predictions, the chosen SATD)."""
+        n, px, py, bd = self.n, self.px, self.py, self.bd
+        yb = to_blocks(y.to(torch.int32), n)
+        r32 = [tuple(p.to(torch.int32) for p in r) for r in (refs0, refs1)]
+        mvs = [self._search(yb, y, r[0]) for r in (refs0, refs1)]
+        preds = [_mc3(r, px, py, *mv, n, bd) for r, mv in zip(r32, mvs)]
+        satds = [pixel.satd(yb, p[0]) for p in preds]
+        costs = ref2_costs(satds, *mvs, qp)
+        sel = costs[:, 1] < costs[:, 0]
+        mvx, mvy = (torch.where(sel, b, a) for a, b in zip(*mvs))
+        pred = tuple(torch.where(sel[:, None, None], b, a)
+                     for a, b in zip(*preds))
+        return (sel.to(torch.int32), mvx, mvy) + pred + (
+            torch.where(sel, satds[1], satds[0]),)
+
     def motion_phase_b(self, y: torch.Tensor, refs0, refs1, qp: int):
         """The B frame's two searches and its per-CU choice of L0, L1 or
         bi (y: device plane; refs0 / refs1: each list's (y, u, v) device
@@ -187,10 +220,12 @@ class InterFrameEncoder:
 
     # ---------------------------------------------------------------------
     def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp,
-                     weights=None, ref1=None) -> dict:
+                     weights=None, ref1=None, ref2=None) -> dict:
         """All planes padded to the coded size; ref_* are the
         decoded reference planes (L0); ref1: the L1 reference's (y, u, v)
-        planes for a B frame, None for a P frame; qp one QP or the per-CU
+        planes for a B frame, None for a P frame; ref2: a P frame's second
+        L0 reference's (y, u, v) planes (the two-reference program, the
+        chosen index under "ref"), None for one; qp one QP or the per-CU
         QP map (AQ / cuTree); weights (weightp, P frames): {"luma" / "cb" /
         "cr": (w, o)} at denominator 6, a missing component the identity.
         Returns the decision dict (numpy; a B frame's with pdir and the L1
@@ -204,8 +239,13 @@ class InterFrameEncoder:
         qp, qpc = cu_qps(qp, ncu, dev)
         at = lambda q, cu: q if isinstance(q, int) else q[cu]
         pl = lambda p: _plane(p, dev, self.bd)
-        pdir = mv1x = mv1y = None
-        if ref1 is not None:
+        pdir = mv1x = mv1y = ref_sel = None
+        if ref2 is not None:
+            (ref_sel, mvx, mvy, pred_yb, pred_ub, pred_vb,
+             isatd) = self.motion_phase_2ref(
+                pl(y), (pl(ref_y), pl(ref_u), pl(ref_v)),
+                tuple(pl(p) for p in ref2), qmax)
+        elif ref1 is not None:
             (pdir, mvx, mvy, mv1x, mv1y, pred_yb, pred_ub, pred_vb,
              isatd) = self.motion_phase_b(
                 pl(y), (pl(ref_y), pl(ref_u), pl(ref_v)),
@@ -245,7 +285,7 @@ class InterFrameEncoder:
         h = lambda a: None if a is None else a.cpu().numpy().reshape(rows,
                                                                      cols)
         out.update({"use_intra": h(use_intra), "mvx": h(mvx), "mvy": h(mvy),
-                    "ref": None, "pdir": h(pdir), "mv1x": h(mv1x),
+                    "ref": h(ref_sel), "pdir": h(pdir), "mv1x": h(mv1x),
                     "mv1y": h(mv1y)})
         return out
 

@@ -2,7 +2,10 @@
 
 The encoder has no weights; what an encode depends on is the session
 state: the reference picture, the lookahead's previous lowres plane, the
-GOP counters and the rate-control history. `load_session_state` sets them
+GOP counters and the rate-control history, and with two references,
+TMVP or frame duplication the state those options carry (the second
+reference, the collocated motion field, the previous source luma).
+`load_session_state` sets them
 on a port `VideoEncoderSession`, e.g. from a JAX session part-way through a
 GOP, so the port encodes the next frame exactly as that session would.
 """
@@ -39,11 +42,40 @@ def rc_state(rc) -> dict:
     return st
 
 
+def _ref_planes(sess, state: dict, name: str):
+    """The padded planes state[name + "_y" / "_u" / "_v"] as the session
+    keeps a reference: device tensors in the device plane type of its bit
+    depth (int16 above 8 bits) on the quadtree, int32 host arrays on the
+    uniform grid."""
+    planes = tuple(state[f"{name}_{c}"] for c in "yuv")
+    shapes = ((sess.coded_h, sess.coded_w),
+              (sess.coded_h // 2, sess.coded_w // 2),
+              (sess.coded_h // 2, sess.coded_w // 2))
+    for p, shp in zip(planes, shapes):
+        if np.shape(p) != shp:
+            raise ValueError(f"reference plane {np.shape(p)} != {shp}")
+    if sess.max_depth:
+        dt = np.uint8 if sess.bit_depth <= 8 else np.int16
+        return tuple(torch.as_tensor(np.array(p, dt), device=sess.device)
+                     for p in planes)
+    return tuple(np.asarray(p, np.int32) for p in planes)
+
+
 def load_session_state(sess, state: dict) -> None:
     """state keys:
       ref_y, ref_u, ref_v   padded reference planes (coded size; host
                             arrays, or anything np.asarray takes, e.g. the
                             JAX session's device planes)
+      ref2_y, ref2_u, ref2_v
+                            n_refs=2: the second L0 reference's planes
+                            (absent or None: none, after an IDR)
+      col_field             TMVP: the last frame's motion field {intra,
+                            mvx, mvy, ref: [rows, cols], ref_deltas}
+                            (absent or None: none)
+      last_ref_deltas       the POC distances of the last P frame's
+                            references (default [1])
+      prev_src_y            frame_dup: the previous source luma (absent or
+                            None: none)
       prev_lowres           the lookahead's previous lowres plane [lh, lw]
                             (absent or None: no previous frame)
       frame_idx, poc, display_idx
@@ -55,21 +87,20 @@ def load_session_state(sess, state: dict) -> None:
         raise NotImplementedError(
             "load_session_state for a session with bframes > 0: the "
             "mini-GOP state (pending frames, anchors) is a later slice's")
-    planes = (state["ref_y"], state["ref_u"], state["ref_v"])
-    shapes = ((sess.coded_h, sess.coded_w),
-              (sess.coded_h // 2, sess.coded_w // 2),
-              (sess.coded_h // 2, sess.coded_w // 2))
-    for p, shp in zip(planes, shapes):
-        if np.shape(p) != shp:
-            raise ValueError(f"reference plane {np.shape(p)} != {shp}")
-    if sess.max_depth:
-        # the quadtree session keeps its reference on the device, in the
-        # device plane type of its bit depth (int16 above 8 bits)
-        dt = np.uint8 if sess.bit_depth <= 8 else np.int16
-        sess.ref = tuple(torch.as_tensor(np.array(p, dt),
-                                         device=sess.device) for p in planes)
+    sess.ref = _ref_planes(sess, state, "ref")
+    if state.get("ref2_y") is not None:
+        sess.ref2 = _ref_planes(sess, state, "ref2")
     else:
-        sess.ref = tuple(np.asarray(p, np.int32) for p in planes)
+        sess.ref2 = None
+    col = state.get("col_field")
+    sess.col_field = None if col is None else {
+        "intra": np.asarray(col["intra"], bool),
+        **{k: np.asarray(col[k], np.int32) for k in ("mvx", "mvy", "ref")},
+        "ref_deltas": [int(d) for d in col["ref_deltas"]]}
+    sess._last_ref_deltas = [int(d) for d in
+                             state.get("last_ref_deltas", [1])]
+    prev_y = state.get("prev_src_y")
+    sess._prev_src_y = None if prev_y is None else np.array(prev_y)
     prev = state.get("prev_lowres")
     la = sess.lookahead
     if prev is None:
