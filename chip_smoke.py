@@ -1,6 +1,18 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--workers N]
+
+Phases 1 and 2 run in this process with the card to themselves. The
+phases after them (JOBS) run on a pool of N worker processes (default 4)
+that share the card, each taking the next phase when it finishes one: the
+paths are launch-bound on the host, so four processes keep the card busier
+without slowing each other much, and the script ends well inside its time
+limit. Each phase runs whole in one process, with its K1 counts set to 0
+just before its main path and read just after. The parent prints every
+JSON line as it arrives; phases from different workers interleave, and
+the times a phase reports are taken while other phases run (--workers 1
+runs everything in this process, one phase after another, for a clean
+measurement). A failed phase stops every worker and fails the run.
 
 Phases, each printing one JSON line (any failure raises and exits nonzero):
   1. the card's name, power limit and maximum SM clock (nvidia-smi); build
@@ -51,7 +63,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      clip, on the card and with device="cpu": equal stream md5s;
      lf_cpu_vs_card: the B session again with both filters on;
      intra_cpu_vs_card: the quadtree intra session with sign hiding and
-     both filters, and the uniform intra session with RDOQ (3 frames
+     both filters, and the uniform intra session with RDOQ (2 frames
      each);
      golden_aq: the adaptive-quantization / cuTree goldens of the
      manifest (intra_aq2, ippp_aq_cutree, ippp_rc_lookahead through
@@ -118,8 +130,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      K1's launch counts, each path's counts set to 0 just before it: the
      uniform IPPP path (1080p, encode_frame; sad_sweep_best = frames + P
      frames: one lookahead sweep per frame, one ME sweep per P frame;
-     sad_block8_sweep = 0), the quadtree path (1080p_qt2, encode_frame, I
-     + 3 P frames; sad_sweep_best = frames, the lookahead's;
+     sad_block8_sweep = 0; I + P), the quadtree path (1080p_qt2,
+     encode_frame, I + P; sad_sweep_best = frames, the lookahead's;
      sad_block8_sweep = P frames, the multi-size ME surface) and the
      quadtree B path (1080p_qt2_b, 5 frames through push_frame / flush:
      IDR, P 4, B 2, b 1, b 3; sad_sweep_best = 5, sad_block8_sweep = 1 +
@@ -181,7 +193,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      (1080p_cli_medium_main10, 3 frames: fps, bytes, PSNR at the 10-bit
      peak, peak memory, K1's launches by entry point on int16 planes; the
      last B frame's plain rerun identical), then the slice's two command
-     lines: --keyint 1 --qp 32 --ctu 32 --wpp over a 1080p y4m, 4 frames
+     lines: --keyint 1 --qp 32 --ctu 32 --wpp over a 1080p y4m, 2 frames
      in one batch (1080p_cli_intra_ctu32_wpp: ms per frame, the Python
      CABAC's serialize ms, bytes, PSNR-Y, peak memory; no K1) and --ctu 32
      --min-cu-size 32 at x265's default preset, 5 frames (1080p_cli_ctu32:
@@ -190,12 +202,22 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      the last P and B program, the last B frame's plain rerun identical);
      then the P-frame options: the library at medium without B frames on
      the uniform 16x16 grid, two references and TMVP (1080p_api_p_only,
-     5 frames: fps, stage ms per frame, the P slices' Python CABAC, K1 5
-     fused at n = 8 and 8 at n = 16, the share of CUs on reference index
+     3 frames: fps, stage ms per frame, the P slices' Python CABAC, K1 3
+     fused at n = 8 and 4 at n = 16, the share of CUs on reference index
      1, CUDA launches of the last P program, its plain rerun identical)
      and the uniform B session with WPP (1080p_wpp_b, 4 frames: 68
      substreams a slice through the Python CABAC, K1 9 fused, the last B
-     frame's plain rerun identical);
+     frame's plain rerun identical); then the all-intra session's last
+     options: golden_intra_opts (tests/intra_opts_pins.py's 4:4:4, NR,
+     fast-intra and CTU64 program decision dicts against the JAX
+     programs' digests, its sessions and command lines against the JAX
+     md5s, frames, NAL types and CSV logs), intra_opts_cpu_vs_card (4:4:4,
+     NR over 3 frames one by one, fast intra and CTU64 depth 3 at
+     416x240, card against CPU) and 1080p_intra_opts (--ctu 64 --keyint 1
+     --qp 32 through cli.main, a CTU64 depth-2 frame beside the CTU32
+     depth-2 quadtree's, a 4:4:4 frame, fast intra beside the plain
+     uniform grid in turns, three NR frames beside three without: ms,
+     launches, bytes, PSNR-Y/U/V, peak memory; K1 none);
   6. the kernels line (launches on the flagship's path, and on each
      path; each entry point's int16 time, plain time, bound and launches
      on the 10-bit path); then the card line and, last, the ok line.
@@ -218,8 +240,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 W1080, H1080 = 1920, 1080
-FRAMES = 4          # the uniform IPPP path: I + 3 P
-QT_FRAMES = 4       # the quadtree path: I + 3 P
+FRAMES = 2          # the uniform IPPP path: I + P [4]
+QT_FRAMES = 2       # the quadtree path: I + P [4]
 QT_B_FRAMES = 5     # the B path: I, then one mini-GOP (P, B, b, b)
 B_KW = dict(max_depth=2, bframes=3, b_pyramid=True, b_adapt=0)
 # md5 of the JAX package's stream of the quadtree B session on the golden
@@ -293,13 +315,13 @@ FLAGSHIP_CRF = dict(keyint=250, bframes=3, b_pyramid=True, max_depth=2,
                     hash_sei=False, quality_metrics=True, **AQ, **LF)
 QT_B_CRF_FRAMES = 5   # the IDR and a mini-GOP (1080p_flagship runs two)
 FLAGSHIP_FRAMES = 5   # the 1080p flagship: the IDR, a trellis decision [13, 9]
-CLI_FRAMES = 5        # the CLI at ultrafast: the IDR, a mini-GOP
+CLI_FRAMES = 3        # the CLI at ultrafast: the IDR, a P, a b [9, 5]
 SUPERFAST_FRAMES = 3  # the CLI at superfast: the IDR, a P anchor, a B [5]
 API_FRAMES = 5        # the library at superfast: the IDR, one trellis
 MEDIUM_FRAMES = 3     # the CLI's default (medium): the IDR, P, b [6, 5]
-B_UNIFORM_FRAMES = 5  # the uniform B session: the IDR, a mini-GOP of 4 [9]
+B_UNIFORM_FRAMES = 3  # the uniform B session: the IDR, a P, a b [9, 5]
 MAIN10_FRAMES = 3     # the CLI's default at 10 bits: the IDR, P, b [5]
-API_P_FRAMES = 5      # the library's uniform P-only session: I + 4 P
+API_P_FRAMES = 3      # the library's uniform P-only session: I + 2 P [5]
 WPP_B_FRAMES = 4      # the uniform WPP B session: the IDR, P 3, B 2, b 1
 R24_ME = "P-frame ME 1088x1920 R=24"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
@@ -310,9 +332,13 @@ T0 = time.perf_counter()
 
 
 def emit(**kw):
-    """One JSON line, with the seconds since the script started."""
-    print(json.dumps(dict(kw, elapsed_s=time.perf_counter() - T0)),
-          flush=True)
+    """One JSON line, with the seconds since the script started (in a
+    worker of the pool, sent to the parent, which prints it)."""
+    line = json.dumps(dict(kw, elapsed_s=time.perf_counter() - T0))
+    if _SINK is not None:
+        _SINK.put(("line", None, line))
+    else:
+        print(line, flush=True)
 
 
 def golden_clip(w=64, h=48, n=6, seed=3):
@@ -816,7 +842,7 @@ def phase_intra_cpu_vs_card(dev):
     on the CPU: equal streams."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
         IntraEncoderSession
-    frames = synth_clip(3, 416, 240)
+    frames = synth_clip(2, 416, 240)
     for name, kw in (("qt2_sbh_lf", dict(max_depth=2, sbh=True, **LF)),
                      ("uniform_rdoq", dict(rdoq=True))):
         md5, secs = {}, {}
@@ -1274,7 +1300,7 @@ def phase_golden_rc(dev):
         raise AssertionError(f"rate-control md5s or QPs differ: {bad}")
 
 
-def phase_rc_cpu_vs_card(dev, n=5):
+def phase_rc_cpu_vs_card(dev, n=3):
     """The 416x240 quadtree B session with the flagship's tools under CRF
     28 (and the hash SEI), on the card and on the CPU: equal streams and
     QPs."""
@@ -1297,7 +1323,7 @@ def phase_rc_cpu_vs_card(dev, n=5):
         raise AssertionError(f"416x240 CRF B streams differ: {md5} {qps}")
 
 
-def phase_golden_flagship(dev, n=5):
+def phase_golden_flagship(dev, n=3):
     """The flagship session and its variants on the card against the
     JAX package's md5s and (POC, type, QP) (tests/flagship_pins.py), then
     the flagship constructor over a 416x240 clip of n frames on the card
@@ -2314,7 +2340,7 @@ def phase_1080p_b_uniform(dev, n_frames=B_UNIFORM_FRAMES):
     VideoEncoderSession(1920, 1080, cu_size=16, bframes=3, b_pyramid=True,
     b_adapt=0, deblock=True, sao=True) at CQP 32 with the hash SEI, over
     n_frames frames of synth_clip through push_frame / flush (the IDR and
-    two mini-GOPs of 4). fps after the IDR, each frame's type, POC, QP and
+    a mini-GOP). fps after the IDR, each frame's type, POC, QP and
     bytes, stage ms per frame, peak memory, K1's launches (all fused: one
     lookahead sweep per frame, the P anchor's ME sweep, one per list per B
     frame) in all and per program call by frame type, the CUDA launches
@@ -2547,13 +2573,13 @@ def phase_lossless_cpu_vs_card(dev, n=2):
                              f"recon is not the source: {recon_ok}")
 
 
-def phase_1080p_cli_intra_ctu32_wpp(dev, n_frames=4):
+def phase_1080p_cli_intra_ctu32_wpp(dev, n_frames=2):
     """The command line --keyint 1 --qp 32 --ctu 32 --wpp (x265's medium
     otherwise: the uniform CTU32 all-intra grid, RDOQ, the deblock, AQ
     and SAO, which a batch leaves out, as the reference's does; without
     --qp the preset's CRF makes it a video session, as in the
     reference) over a
-    1080p y4m of synth_clip, n_frames frames in one batch of 4: ms per
+    1080p y4m of synth_clip, n_frames frames in one batch: ms per
     frame, the session's stage ms per frame (serialize: the Python CABAC's
     WPP substreams, 34 per picture), bytes, PSNR-Y, peak memory; K1
     launches none."""
@@ -2753,7 +2779,7 @@ def _api_stream(api, opts: dict, frames, device=None):
     return hashlib.md5(stream).hexdigest(), sizes
 
 
-def phase_p_options_cpu_vs_card(dev, n=3):
+def phase_p_options_cpu_vs_card(dev, n=2):
     """The library's uniform P-only cases (medium without B frames, with
     and without weightp) and the command lines of tests/p_options_pins.py
     on a 416x240 clip of n frames (the IDR and two P frames: the second
@@ -2913,55 +2939,401 @@ def phase_1080p_wpp_b(dev, n_frames=WPP_B_FRAMES):
     return launches
 
 
-def main():
+# ---------------------------------------------------------------------------
+# the all-intra session complete: 4:4:4, noise reduction, fast intra and
+# the CTU64 quadtree
+# ---------------------------------------------------------------------------
+
+def intra_opts_pins():
+    """tests/intra_opts_pins.py: the 4:4:4, NR, fast-intra and CTU64
+    programs, sessions and command lines, and the JAX package's pins over
+    them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import intra_opts_pins as pins
+    return pins
+
+
+def to444(frames):
+    """4:2:0 frames at 4:4:4: each chroma plane doubled in size."""
+    return [(y, u.repeat(2, 0).repeat(2, 1), v.repeat(2, 0).repeat(2, 1))
+            for y, u, v in frames]
+
+
+def phase_golden_intra_opts(dev):
+    """The slice's pins on the card: tests/intra_opts_pins.py's program
+    decision dicts (4:4:4, NR, fast intra, CTU64 depth 2 and 3 with a QP
+    map, RDOQ, sign hiding, psy-rd, 10 bits) against the JAX programs'
+    digests, its sessions (tests/test_i444.py's, test_nr.py's,
+    test_fast_intra.py's and test_ctu64.py's cases, CTU64 with RDOQ, SBH,
+    psy-rd, 10 bits, a batch, WPP) and command lines (--ctu 64 --keyint 1
+    --qp 32, --nr-intra 500 batched and at --frame-batch 1, a 4:4:4 y4m)
+    against the JAX package's md5s, frames, NAL types and CSV logs; K1
+    launches none (no path of the slice runs ME)."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    pins = intra_opts_pins()
+    got, ok = {}, {}
+    k1_start()
+    for name in pins.PROGRAMS:
+        d = pins.digest(pins.run_program_port(name, dev))
+        got["program_" + name] = d
+        ok["program_" + name] = d == pins.DIGESTS[name]
+    for name in pins.SESSIONS:
+        md5, frames, _, _ = pins.run(top, name, device=dev)
+        got[name] = md5
+        ok[name] = (md5, frames) == pins.PINS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in pins.CLI:
+            res = pins.run_cli(cli.main, name, tmp)
+            got["cli_" + name] = res[0]
+            ok["cli_" + name] = res == pins.CLI_PINS[name]
+    launches = k1_read()
+    emit(phase="golden_intra_opts", md5=got, match=ok, k1_launches=launches)
+    if not all(ok.values()):
+        raise AssertionError(f"golden_intra_opts: results differ: "
+                             f"{[k for k, v in ok.items() if not v]}")
+    if any(launches.values()):
+        raise AssertionError(f"golden_intra_opts: K1 launched {launches}")
+    return launches
+
+
+def phase_intra_opts_cpu_vs_card(dev):
+    """The slice's sessions on a 416x240 clip on the card and with
+    device="cpu": 4:4:4 at CTU16 (2 frames), NR at 500 over 3 frames one
+    by one (the CLI's --frame-batch 1), fast intra (2 frames) and CTU64
+    depth 3 with sign hiding and the deblock (1 frame); equal streams."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        IntraEncoderSession
+    clip = synth_clip(3, 416, 240)
+    cases = (("i444", to444(clip[:2]), dict(csp="i444")),
+             ("nr500", clip, dict(nr_intra=500)),
+             ("fast_intra", clip[:2], dict(fast_intra=True)),
+             ("ctu64_d3", clip[:1], dict(cu_size=64, max_depth=3, sbh=True,
+                                         deblock=True)))
+    for name, frames, kw in cases:
+        md5, secs = {}, {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            sess = IntraEncoderSession(416, 240, qp=30, hash_sei=True,
+                                       device=where, **kw)
+            md5[str(where)] = _md5_of(sess, [sess.encode_frame(*f)
+                                             for f in frames])
+            secs[str(where)] = time.perf_counter() - t0
+        same = len(set(md5.values())) == 1
+        emit(phase="intra_opts_cpu_vs_card", session=name,
+             frames=len(frames), md5=md5, seconds=secs, equal=same)
+        if not same:
+            raise AssertionError(f"416x240 {name} streams differ: {md5}")
+
+
+def _intra_run(sess, frame, traced: bool) -> dict:
+    """One frame of an all-intra session: wall ms, its stage ms, bytes,
+    PSNR-Y/U/V and, traced, the CUDA launches of a second encode of the
+    same frame (torch.profiler; None untraced)."""
+    sess.stage_ms.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = sess.encode_frame(*frame)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "bytes": len(r.nals),
+           "psnr_y": r.psnr_y, "psnr_u": r.psnr_u, "psnr_v": r.psnr_v,
+           "stage_ms": dict(sess.stage_ms), "launches": None}
+    if traced:
+        out["launches"] = _launches(lambda: sess.encode_frame(*frame))
+    if not (np.isfinite([r.psnr_y, r.psnr_u, r.psnr_v]).all()
+            and r.recon[0].shape == frame[0].shape):
+        raise AssertionError("1080p_intra_opts: a frame is malformed")
+    return out
+
+
+def phase_1080p_intra_opts(dev, trace_quadtrees: bool = False):
+    """The slice's paths at 1080p (1920x1088 coded) on synth_clip, QP 32:
+    each run's ms per frame, CUDA launches per frame, bytes, PSNR-Y/U/V
+    and peak memory, K1's counts read before and after (all 0).
+    ctu64_cli: one frame of --ctu 64 --keyint 1 --qp 32 through cli.main
+    (x265's medium otherwise: the CTU64 depth-3 quadtree with psy-rd 2,
+    sign hiding, AQ 2 and the deblock); ctu64_d2 / ctu32_d2: a CTU64
+    depth-2 frame beside the CTU32 depth-2 quadtree's, each with sign
+    hiding and the deblock, one after the other; i444: one 4:4:4 frame at
+    CTU16; fast_intra / uniform: the uniform CTU16 grid with and without
+    fast intra, in turns (each twice; the 4:4:4 run before them warms the
+    uniform grid's code); nr500 / nr0: three frames at nr_intra=500 one
+    by one (--frame-batch 1) beside three without, each frame's bytes
+    (nr0's first frame is the uniform run's: its launches are those).
+    The quadtree runs' launches
+    (0.5-2.8 M a frame: minutes of tracing) are traced only with
+    trace_quadtrees (a focused call), else reported as None."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        IntraEncoderSession
+    frames = synth_clip(3, W1080, H1080)
+    mk = lambda **kw: IntraEncoderSession(W1080, H1080, qp=32, device=dev,
+                                          **kw)
+    before = k1_read()
+    k1_start()                                    # the main path starts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, peaks = {}, {}
+    # the command line (depth 3); its session's launches on the same frame
+    made = []
+    configure = cli.configure
+
+    def captured(*a, **k):
+        made.append(configure(*a, **k))
+        return made[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        log = os.path.join(tmp, "log.csv")
+        _write_y4m(src, frames[:1])
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "configure", captured):
+            rc = cli.main([src, "-o", dst, "--ctu", "64", "--keyint", "1",
+                           "--qp", "32", "--frames", "1", "--csv", log])
+        wall = time.perf_counter() - t0
+        with open(log) as f:
+            row = f.read().splitlines()[1].split(", ")
+    sess = made[0]
+    runs["ctu64_cli"] = {
+        "rc": rc, "cu_size": sess.cu, "max_depth": sess.max_depth,
+        "psy_rd": sess.frame_encoder.psy_rd, "sbh": sess.sbh,
+        "aq_mode": sess.aq_mode, "deblock": sess.deblock,
+        "ms": wall * 1e3, "stage_ms": dict(sess.stage_ms),
+        "bytes": int(row[4]) // 8, "psnr_y": float(row[5]),
+        "psnr_u": float(row[6]), "psnr_v": float(row[7]),
+        "launches": _launches(lambda: sess.encode_frame(*frames[0]))
+        if trace_quadtrees else None}
+    peaks["ctu64_cli"] = torch.cuda.max_memory_allocated()
+    for name, kw in (("ctu64_d2", dict(cu_size=64, max_depth=2)),
+                     ("ctu32_d2", dict(max_depth=2))):
+        s = mk(sbh=True, deblock=True, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        runs[name] = _intra_run(s, frames[0], trace_quadtrees)
+        peaks[name] = torch.cuda.max_memory_allocated()
+    s = mk(csp="i444")
+    torch.cuda.reset_peak_memory_stats()
+    runs["i444"] = _intra_run(s, to444(frames[:1])[0], True)
+    peaks["i444"] = torch.cuda.max_memory_allocated()
+    turns = {"fast_intra": mk(fast_intra=True), "uniform": mk()}
+    for name, s in turns.items():
+        torch.cuda.reset_peak_memory_stats()
+        runs[name] = _intra_run(s, frames[0], True)
+        peaks[name] = torch.cuda.max_memory_allocated()
+    for name, s in turns.items():                 # the second turn
+        runs[name]["ms_turns"] = [runs[name]["ms"], _intra_run(
+            s, frames[0], False)["ms"]]
+    for name, kw in (("nr500", dict(nr_intra=500)), ("nr0", {})):
+        s = mk(**kw)
+        torch.cuda.reset_peak_memory_stats()
+        res = [_intra_run(s, f, False) for f in frames]
+        peaks[name] = torch.cuda.max_memory_allocated()
+        # the launches of a first frame, on a session of its own (a
+        # traced rerun would add to the NR sums); without NR the first
+        # frame is the uniform run's
+        s = mk(**kw)
+        runs[name] = {"ms": [r["ms"] for r in res],
+                      "frame_bytes": [r["bytes"] for r in res],
+                      "launches": _launches(lambda: s.encode_frame(
+                          *frames[0])) if kw else
+                      runs["uniform"]["launches"],
+                      **{k: [r[k] for r in res]
+                         for k in ("psnr_y", "psnr_u", "psnr_v")}}
+    launches = k1_read()
+    emit(phase="1080p_intra_opts", runs=runs, max_memory_allocated=peaks,
+         k1_launches_before=before, k1_launches=launches)
+    if rc != 0 or sess.cu != 64 or sess.max_depth != 3 \
+            or any(launches.values()):
+        raise AssertionError(f"1080p_intra_opts malformed: rc {rc}, "
+                             f"K1 {launches}")
+    return launches
+
+
+# The phases after K1, as (key, phase function, keyword arguments), the
+# longest first (by earlier runs' times) so that the pool ends together;
+# each runs whole in one process, its K1 counts set to 0 just before its
+# main path and read just after, as when the script ran them one by one.
+JOBS = (
+    ("1080p_intra_opts", "phase_1080p_intra_opts", {}),
+    ("1080p_cli_superfast", "phase_1080p_cli_superfast", {}),
+    ("1080p_qt2_rdoq", "phase_1080p", dict(name="1080p_qt2_rdoq",
+                                           max_depth=2, n_frames=2,
+                                           opts={"rdoq": True})),
+    ("1080p_cli_medium_main10", "phase_1080p_cli_medium_main10", {}),
+    ("1080p_intra", "phase_1080p_intra", {}),
+    ("golden_intra_opts", "phase_golden_intra_opts", {}),
+    ("1080p_cli_medium", "phase_1080p_cli_medium", {}),
+    ("1080p_cli_ultrafast", "phase_1080p_cli_ultrafast", {}),
+    ("1080p_api_p_only", "phase_1080p_api_p_only", {}),
+    ("1080p_wpp_b", "phase_1080p_wpp_b", {}),
+    ("1080p_qt2_b_lf_sbh", "phase_1080p_b", dict(
+        name="1080p_qt2_b_lf_sbh", opts=dict(LF, sbh=True))),
+    ("1080p_flagship", "phase_1080p_flagship", {}),
+    ("1080p_qt2_b_crf", "phase_1080p_b", dict(
+        name="1080p_qt2_b_crf", opts=FLAGSHIP_CRF,
+        n_frames=QT_B_CRF_FRAMES)),
+    ("qt2_cpu_vs_card", "phase_qt2_cpu_vs_card", {}),
+    ("1080p_qt2_b_lf_sbh_aq", "phase_1080p_b", dict(
+        name="1080p_qt2_b_lf_sbh_aq", opts=dict(LF, sbh=True, **AQ))),
+    ("golden_flagship", "phase_golden_flagship", {}),
+    ("intra_opts_cpu_vs_card", "phase_intra_opts_cpu_vs_card", {}),
+    ("1080p_api_superfast", "phase_1080p_api_superfast", {}),
+    ("golden_main10", "phase_golden_main10", {}),
+    ("lf_cpu_vs_card", "phase_qt2_cpu_vs_card", dict(
+        phase="lf_cpu_vs_card", opts=LF)),
+    ("1080p_b_uniform", "phase_1080p_b_uniform", {}),
+    ("1080p_qt2_b_lf", "phase_1080p_b", dict(name="1080p_qt2_b_lf",
+                                             opts=LF)),
+    ("1080p_cli_ctu32", "phase_1080p_cli_ctu32", {}),
+    ("1080p_qt2_b", "phase_1080p_b", {}),
+    ("golden_cli", "phase_golden_cli", {}),
+    ("weightp_cpu_vs_card", "phase_weightp_cpu_vs_card", {}),
+    ("1080p_cli_intra_ctu32_wpp", "phase_1080p_cli_intra_ctu32_wpp", {}),
+    ("golden_p_options", "phase_golden_p_options", {}),
+    ("1080p_qt2", "phase_1080p", dict(name="1080p_qt2", max_depth=2,
+                                      n_frames=QT_FRAMES)),
+    ("main10_cpu_vs_card", "phase_cli_cpu_vs_card", dict(
+        phase="main10_cpu_vs_card", argv=(), bit_depth=10)),
+    ("golden_aq", "phase_golden_aq", {}),
+    ("intra_cpu_vs_card", "phase_intra_cpu_vs_card", {}),
+    ("1080p_aq_la", "phase_1080p_aq_la", {}),
+    ("golden_weightp", "phase_golden_weightp", {}),
+    ("golden_stream_opts", "phase_golden_stream_opts", {}),
+    ("p_options_cpu_vs_card", "phase_p_options_cpu_vs_card", {}),
+    ("cli_cpu_vs_card", "phase_cli_cpu_vs_card", {}),
+    ("golden_grids", "phase_golden_grids", {}),
+    ("golden_rc", "phase_golden_rc", {}),
+    ("1080p_abr_vbv", "phase_1080p_abr_vbv", {}),
+    ("rc_cpu_vs_card", "phase_rc_cpu_vs_card", {}),
+    ("ultrafast_cpu_vs_card", "phase_cli_cpu_vs_card", dict(
+        phase="ultrafast_cpu_vs_card", argv=("--preset", "ultrafast"))),
+    ("golden_intra", "phase_golden_intra", {}),
+    ("golden_lf", "phase_golden_lf", {}),
+    ("1080p", "phase_1080p", dict(name="1080p", max_depth=0,
+                                  n_frames=FRAMES)),
+    ("golden_qt2", "phase_golden", dict(key="qt2_ippp", qp=30,
+                                        max_depth=2)),
+    ("golden_qt2_b", "phase_golden_qt2_b", {}),
+    ("golden", "phase_golden", dict(key="ippp_cqp", qp=32, cu_size=16)),
+    ("lossless_cpu_vs_card", "phase_lossless_cpu_vs_card", {}),
+)
+WORKERS = 4     # processes sharing the card (8 host cores)
+_SINK = None    # a worker's queue to the parent (emit's lines, results)
+
+
+def _run_job(dev, job):
+    key, fn, kw = job
+    return globals()[fn](dev, **kw)
+
+
+def _worker(t0, nxt, sink, go, threads):
+    """One process of the pool: takes the next job of JOBS until none is
+    left; sends each JSON line, each result and any failure to sink."""
+    import traceback
+    global T0, _SINK
+    T0, _SINK = t0, sink
+    torch.set_num_threads(threads)
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)            # the context, while K1 runs
+    go.wait()
+    while True:
+        with nxt.get_lock():
+            i, nxt.value = nxt.value, nxt.value + 1
+        if i >= len(JOBS):
+            break
+        try:
+            res = _run_job(dev, JOBS[i])
+        except BaseException:
+            sink.put(("error", JOBS[i][0], traceback.format_exc()))
+            return
+        sink.put(("result", JOBS[i][0], res))
+    sink.put(("done", None, None))
+
+
+def run_jobs(dev, workers: int, start) -> dict:
+    """Every job of JOBS, on `workers` processes sharing the card (1: in
+    this process, one after the other); start() runs here first, while
+    the workers reach the card. Returns {key: the phase's result}. A
+    failed job fails the run, and every worker is stopped."""
+    import multiprocessing as mp
+    import queue
+    if workers <= 1:
+        out = start()
+        return out, {job[0]: _run_job(dev, job) for job in JOBS}
+    ctx = mp.get_context("spawn")
+    nxt, sink, go = ctx.Value("i", 0), ctx.Queue(), ctx.Event()
+    threads = max(1, (os.cpu_count() or 8) // workers)
+    procs = [ctx.Process(target=_worker, args=(T0, nxt, sink, go, threads),
+                         daemon=True) for _ in range(workers)]
+    for p in procs:
+        p.start()
+    results, done = {}, 0
+    try:
+        out = start()
+        go.set()
+        while done < workers:
+            try:
+                kind, key, val = sink.get(timeout=10)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or not any(p.is_alive() for p in procs):
+                    raise RuntimeError(f"a worker ended without its "
+                                       f"jobs done: exit codes {dead}")
+                continue
+            if kind == "line":
+                print(val, flush=True)
+            elif kind == "result":
+                results[key] = val
+            elif kind == "error":
+                raise AssertionError(f"phase {key} failed:\n{val}")
+            else:
+                done += 1
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    missing = [job[0] for job in JOBS if job[0] not in results]
+    if missing:
+        raise RuntimeError(f"jobs without a result: {missing}")
+    return out, results
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="chip smoke test of the port")
+    ap.add_argument("--workers", type=int, default=WORKERS,
+                    help="processes that share the card for the phases "
+                    "after K1 (1: all in this process)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi, card = phase_build()
-    k1, err = phase_k1(dev, card)
-    k1_16, err16 = phase_k1_int16(dev, card)
-    k1_32, err32 = phase_k1_n32(dev, card)
-    err = max(err, err16, err32)
-    phase_golden(dev, "ippp_cqp", qp=32, cu_size=16)
-    phase_golden(dev, "qt2_ippp", qp=30, max_depth=2)
-    phase_golden_qt2_b(dev)
-    phase_golden_lf(dev)
-    phase_qt2_cpu_vs_card(dev)
-    phase_qt2_cpu_vs_card(dev, "lf_cpu_vs_card", LF)
-    phase_golden_intra(dev)
-    phase_intra_cpu_vs_card(dev)
-    phase_golden_aq(dev)
-    phase_golden_rc(dev)
-    phase_rc_cpu_vs_card(dev)
-    phase_golden_flagship(dev)
-    phase_golden_cli(dev)
-    phase_cli_cpu_vs_card(dev)
-    phase_golden_weightp(dev)
-    phase_weightp_cpu_vs_card(dev)
-    phase_golden_grids(dev)
-    phase_cli_cpu_vs_card(dev, phase="ultrafast_cpu_vs_card",
-                          argv=("--preset", "ultrafast"))
-    golden10 = phase_golden_main10(dev)
-    phase_cli_cpu_vs_card(dev, phase="main10_cpu_vs_card", argv=(),
-                          bit_depth=10)
-    golden_opts = phase_golden_stream_opts(dev)
-    phase_lossless_cpu_vs_card(dev)
-    golden_popts = phase_golden_p_options(dev)
-    phase_p_options_cpu_vs_card(dev)
-    by_path = {"1080p": phase_1080p(dev, "1080p", 0, FRAMES),
-               "1080p_qt2": phase_1080p(dev, "1080p_qt2", 2, QT_FRAMES),
-               "1080p_qt2_b": phase_1080p_b(dev)[0]}
-    by_path["1080p_qt2_b_lf"], lf = phase_1080p_b(dev, "1080p_qt2_b_lf",
-                                                  LF)
-    by_path["1080p_qt2_b_lf_sbh"], sbh = phase_1080p_b(
-        dev, "1080p_qt2_b_lf_sbh", dict(LF, sbh=True))
+
+    def start():
+        # the build and K1's timings, with no other process on the card
+        smi, card = phase_build()
+        k1, err = phase_k1(dev, card)
+        k1_16, err16 = phase_k1_int16(dev, card)
+        k1_32, err32 = phase_k1_n32(dev, card)
+        return smi, k1, k1_16, k1_32, max(err, err16, err32)
+    (smi, k1, k1_16, k1_32, err), res = run_jobs(dev, args.workers, start)
+    golden10, golden_opts, golden_popts = (
+        res["golden_main10"], res["golden_stream_opts"],
+        res["golden_p_options"])
+    by_path = {k: res[k] for k in ("1080p", "1080p_qt2")}
+    by_path["1080p_qt2_b"] = res["1080p_qt2_b"][0]
+    by_path["1080p_qt2_b_lf"], lf = res["1080p_qt2_b_lf"]
+    by_path["1080p_qt2_b_lf_sbh"], sbh = res["1080p_qt2_b_lf_sbh"]
     emit(phase="sbh_vs_no_sbh", fps=[sbh["fps"], lf["fps"]],
          bytes=[sbh["bytes"], lf["bytes"]],
          bytes_change=sbh["bytes"] / lf["bytes"] - 1,
          psnr_y_change=[a - b for a, b in zip(sbh["psnr_y"], lf["psnr_y"])])
-    by_path["1080p_qt2_b_lf_sbh_aq"], aq = phase_1080p_b(
-        dev, "1080p_qt2_b_lf_sbh_aq", dict(LF, sbh=True, **AQ))
+    by_path["1080p_qt2_b_lf_sbh_aq"], aq = res["1080p_qt2_b_lf_sbh_aq"]
     emit(phase="aq_vs_no_aq", fps=[aq["fps"], sbh["fps"]],
          bytes=[aq["bytes"], sbh["bytes"]],
          bytes_change=aq["bytes"] / sbh["bytes"] - 1,
@@ -2969,9 +3341,8 @@ def main():
              aq["frame_bytes"], sbh["frame_bytes"])],
          **{f"{k}_change": [a - b for a, b in zip(aq[k], sbh[k])]
             for k in ("psnr_y", "psnr_u", "psnr_v", "ssim_y")})
-    by_path["1080p_aq_la"] = phase_1080p_aq_la(dev)
-    by_path["1080p_qt2_b_crf"], crf = phase_1080p_b(
-        dev, "1080p_qt2_b_crf", FLAGSHIP_CRF, QT_B_CRF_FRAMES)
+    by_path["1080p_aq_la"] = res["1080p_aq_la"]
+    by_path["1080p_qt2_b_crf"], crf = res["1080p_qt2_b_crf"]
     # the frames both runs coded (the IDR and the first mini-GOP); the
     # CQP run's frames carry a hash SEI, the flagship's do not
     k = len(aq["frame_bytes"])
@@ -2986,22 +3357,16 @@ def main():
                           aq["stage_ms_per_frame"].get("rc", 0.0)],
          **{k_: [crf[k_][:k], aq[k_]]
             for k_ in ("psnr_y", "psnr_u", "psnr_v", "ssim_y")})
-    by_path["1080p_abr_vbv"] = phase_1080p_abr_vbv(dev)
-    by_path["1080p_qt2_rdoq"] = phase_1080p(dev, "1080p_qt2_rdoq", 2, 2,
-                                            {"rdoq": True})
-    by_path["1080p_intra"] = phase_1080p_intra(dev)
-    by_path["1080p_flagship"] = phase_1080p_flagship(dev)
-    by_path["1080p_cli_superfast"] = phase_1080p_cli_superfast(dev)
-    by_path["1080p_api_superfast"] = phase_1080p_api_superfast(dev)
-    by_path["1080p_cli_medium"] = phase_1080p_cli_medium(dev)
-    by_path["1080p_cli_ultrafast"] = phase_1080p_cli_ultrafast(dev)
-    by_path["1080p_b_uniform"] = phase_1080p_b_uniform(dev)
-    by_path["1080p_cli_medium_main10"] = phase_1080p_cli_medium_main10(dev)
-    by_path["1080p_cli_intra_ctu32_wpp"] = \
-        phase_1080p_cli_intra_ctu32_wpp(dev)
-    by_path["1080p_cli_ctu32"], sizes32 = phase_1080p_cli_ctu32(dev)
-    by_path["1080p_api_p_only"], sizes_p = phase_1080p_api_p_only(dev)
-    by_path["1080p_wpp_b"] = phase_1080p_wpp_b(dev)
+    for key in ("1080p_abr_vbv", "1080p_qt2_rdoq", "1080p_intra",
+                "1080p_flagship", "1080p_cli_superfast",
+                "1080p_api_superfast", "1080p_cli_medium",
+                "1080p_cli_ultrafast", "1080p_b_uniform",
+                "1080p_cli_medium_main10", "1080p_cli_intra_ctu32_wpp"):
+        by_path[key] = res[key]
+    by_path["1080p_cli_ctu32"], sizes32 = res["1080p_cli_ctu32"]
+    by_path["1080p_api_p_only"], sizes_p = res["1080p_api_p_only"]
+    for key in ("1080p_wpp_b", "golden_intra_opts", "1080p_intra_opts"):
+        by_path[key] = res[key]
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]

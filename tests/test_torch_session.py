@@ -192,7 +192,10 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
     {"scale_factor": 3},
     {"max_depth": 4}, {"analysis_save": "b.dat"}, {"cu_size": 128},
     {"analysis_share": []},
-    {"max_depth": 2, "cu_size": 64},
+    # (the case max_depth 3 with cu_size 64 took the place of max_depth 2
+    # with cu_size 64: the video session's quadtree codes CTU32 whatever
+    # cu_size, as the reference's does; CTU64 is the all-intra session's)
+    {"max_depth": 3, "cu_size": 64},
 ])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
@@ -227,7 +230,10 @@ def test_rate_control_options_code_a_frame(option):
     # asserts one reference, as the reference does)
     {"scale_factor": 3}, {"analysis_load": "b.dat"}, {"scale_factor": 2},
     # (bit_depth 10 runs now: Main10)
-    {"analysis_save": "b.dat"}, {"cu_size": 64}, {"analysis_share": "save"},
+    # (scale_factor 4 took the place of cu_size 64: the video session's
+    # quadtree codes CTU32 whatever cu_size, as the reference's does)
+    {"analysis_save": "b.dat"}, {"scale_factor": 4},
+    {"analysis_share": "save"},
     {"analysis_share": "load"},
     {"rqt": True},
     {"analysis_share": []},

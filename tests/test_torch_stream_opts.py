@@ -541,9 +541,10 @@ def test_option_rules():
                                      device="cpu").intra_sess.wpp
     assert not t_top.VideoEncoderSession(64, 48, wpp=True, max_depth=2,
                                          device="cpu").intra_sess.wpp
-    for kw in (dict(nr_intra=100), dict(fast_intra=True), dict(csp="i444")):
-        with pytest.raises(NotImplementedError):
-            mk(**kw)
+    # (the all-intra session's last options run now, with the reference's
+    # rules: tests/test_torch_intra_opts.py::test_option_rules)
+    assert (mk(nr_intra=100).nr_intra, mk(fast_intra=True).fast_intra,
+            mk(csp="i444").sps.chroma_format_idc) == (100, True, 3)
 
 
 def test_library_uniform_p_session_waits_for_multiref():

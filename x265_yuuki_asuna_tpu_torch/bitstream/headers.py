@@ -1,8 +1,9 @@
 """Parameter-set and slice-header writers (spec 7.3.2-7.3.6).
 
 Host copy of x265_yuuki_asuna_tpu/bitstream/headers.py, cut to what a
-4:2:0 intra, IPPP or B session writes (Main, Main10, or Main12 with the
-Range Extensions' constraint flags; flat or signalled scaling lists
+4:2:0 intra, IPPP or B session or a 4:4:4 intra session writes (Main,
+Main10, or Main12 and Main 4:4:4 with the Range Extensions' constraint
+flags; flat or signalled scaling lists
 (SPS), VUI timing, HRD, signal type and chroma location only, one
 reference per list but one or two L0 references in P slices (the
 active-reference override), explicit short-term RPS, temporal MV
@@ -34,8 +35,11 @@ class ProfileTierLevel:
     interlaced_source: int = 0
     non_packed: int = 1
     frame_only: int = 1
-    # the Range Extensions' bit-depth constraint (profile_idc 4: Main12)
+    # the Range Extensions' constraints (profile_idc 4: Main12, Main
+    # 4:4:4): the bit depth and the chroma format (1: at most 4:2:0, 2:
+    # at most 4:2:2, 3: 4:4:4)
     bit_depth_constraint: int = 8
+    chroma_constraint: int = 1
 
 
 @dataclass
@@ -95,14 +99,15 @@ def _profile_tier_level(bw: BitWriter, ptl: ProfileTierLevel):
     bw.write_flag(ptl.non_packed)
     bw.write_flag(ptl.frame_only)
     if ptl.profile_idc == 4:
-        # Range Extensions (Main12, 4:2:0): constraint flags in place of
-        # the reserved_zero_44bits (spec 7.3.3 / A.3.5)
+        # Range Extensions (Main12, Main 4:4:4): constraint flags in place
+        # of the reserved_zero_44bits (spec 7.3.3 / A.3.5)
         bd = ptl.bit_depth_constraint
+        cc = ptl.chroma_constraint
         bw.write_flag(1)                     # general_max_12bit_constraint
         bw.write_flag(1 if bd <= 10 else 0)  # max_10bit
         bw.write_flag(1 if bd <= 8 else 0)   # max_8bit
-        bw.write_flag(1)                     # max_422chroma
-        bw.write_flag(1)                     # max_420chroma
+        bw.write_flag(1 if cc <= 2 else 0)   # max_422chroma
+        bw.write_flag(1 if cc <= 1 else 0)   # max_420chroma
         bw.write_flag(0)                     # max_monochrome
         bw.write_flag(0)                     # intra
         bw.write_flag(0)                     # one_picture_only
@@ -146,16 +151,20 @@ def write_sps(sps: SPSInfo) -> bytes:
     _profile_tier_level(bw, sps.ptl)
     bw.write_ue(0)               # sps_seq_parameter_set_id
     bw.write_ue(sps.chroma_format_idc)
+    if sps.chroma_format_idc == 3:
+        bw.write_flag(0)         # separate_colour_plane_flag
     bw.write_ue(sps.width)
     bw.write_ue(sps.height)
     l, r, t, b = sps.conf_win
     enabled = any((l, r, t, b))
     bw.write_flag(enabled)
-    if enabled:                  # offsets in 4:2:0 chroma units
-        bw.write_ue(l >> 1)
-        bw.write_ue(r >> 1)
-        bw.write_ue(t >> 1)
-        bw.write_ue(b >> 1)
+    if enabled:                  # offsets in chroma sample units
+        hs = 1 if sps.chroma_format_idc in (1, 2) else 0
+        vs = 1 if sps.chroma_format_idc == 1 else 0
+        bw.write_ue(l >> hs)
+        bw.write_ue(r >> hs)
+        bw.write_ue(t >> vs)
+        bw.write_ue(b >> vs)
     bw.write_ue(sps.bit_depth - 8)
     bw.write_ue(sps.bit_depth - 8)
     bw.write_ue(sps.log2_max_poc_lsb - 4)

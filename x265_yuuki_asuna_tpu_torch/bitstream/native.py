@@ -37,6 +37,9 @@ def load() -> ctypes.CDLL:
         lib.asuna_crc16.restype = ctypes.c_uint32
         lib.asuna_crc16.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
                                     ctypes.c_uint32]
+        lib.asuna_encode_intra_slice_qt64.restype = ctypes.c_int
+        lib.asuna_encode_intra_slice_qt64.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + extras + out)
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
@@ -79,13 +82,13 @@ def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
                        levels_cb: np.ndarray, levels_cr: np.ndarray,
                        log2cu: int, qp: int, sign_hiding: bool = False,
                        sao=None, qp_map=None, bit_depth: int = 8,
-                       lossless: bool = False):
+                       lossless: bool = False, chroma444: bool = False):
     """I-slice CABAC data on the uniform CU grid, with each CU's SAO
     parameters when sao ([ncu, 18]) is given (their offsets' range from
     bit_depth) and its cu_qp_delta from qp_map ([rows, cols]) when given;
     sign_hiding leaves out the hidden signs; lossless codes every CU's
-    cu_transquant_bypass_flag as 1. Returns (payload_bytes, tail_value,
-    tail_bits)."""
+    cu_transquant_bypass_flag as 1; chroma444: 4:4:4, the chroma TUs at
+    the CU's size. Returns (payload_bytes, tail_value, tail_bits)."""
     lib = load()
     rows, cols = modes.shape
     keep = []
@@ -101,7 +104,7 @@ def encode_intra_slice(modes: np.ndarray, levels_y: np.ndarray,
         rows, cols, log2cu, qp,
         1, 1, int(sign_hiding),  # part_mode coded, chroma present
         _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
-        bit_depth, int(lossless), 0,     # 4:2:0
+        bit_depth, int(lossless), int(chroma444),
         out.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
 
@@ -178,6 +181,39 @@ def encode_b_slice(use_intra: np.ndarray, intra_modes: np.ndarray,
         bit_depth, out.ctypes.data, cap, ctypes.byref(tail),
         ctypes.byref(tail_bits))
     return _finish(nbytes, out, tail, tail_bits)
+
+
+def encode_intra_slice_qt64(out: dict, rows: int, cols: int, qp: int,
+                            max_depth: int, sign_hiding: bool = False,
+                            sao=None, qp_map=None, bit_depth: int = 8):
+    """CTU64 intra quadtree slice CABAC data (max_depth 2 or 3) from the
+    CTU64 program's decision dict (split32, modes32, split16, modes16,
+    modes8, levels_*): the 64x64 CU always splits. sao / qp_map /
+    bit_depth / sign_hiding as encode_slice_qt2's. Returns (payload,
+    tail, tail_bits)."""
+    lib = load()
+    keep = []
+    shapes = {"split32": (4,), "modes32": (4,), "split16": (4, 4),
+              "modes16": (4, 4), "modes8": (4, 4, 4), "levels_y": (64, 64),
+              "levels_cb": (32, 32), "levels_cr": (32, 32)}
+    args = []
+    for key, shp in shapes.items():
+        a = np.ascontiguousarray(
+            out[key], np.uint8 if key.startswith("split") else np.int32)
+        if a.shape != (rows, cols) + shp:
+            raise ValueError(f"{key}: shape {a.shape} for a {rows}x{cols} "
+                             "CTU64 grid")
+        keep.append(a)
+        args.append(a.ctypes.data)
+    cap = int(sum(a.nbytes for a in keep[-3:]) + 65536)
+    buf = np.empty(cap, np.uint8)
+    tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
+    nbytes = lib.asuna_encode_intra_slice_qt64(
+        *args, rows, cols, qp, max_depth, int(sign_hiding),
+        _sao_ptr(sao, rows * cols, keep), _qp_ptr(qp_map, rows * cols, keep),
+        bit_depth, buf.ctypes.data, cap, ctypes.byref(tail),
+        ctypes.byref(tail_bits))
+    return _finish(nbytes, buf, tail, tail_bits)
 
 
 # decision-dict keys only B slices code, those a P slice codes too (an I

@@ -17,13 +17,16 @@ default (medium) and veryfast through placebo with weighted prediction,
 on 8-, 10- and 12-bit y4m input, with the all-intra stream options
 (--lossless, --slices, --wpp, --scaling-lists), --hash 1 / 2 / 3 and
 the P-frame options of the uniform grid (--ref 2 and --tmvp without B
-frames, --max-merge, --frame-dup with --dup-threshold); as in the
-reference, --wpp is an all-intra option and --ref 2 falls back to one
+frames, --max-merge, --frame-dup with --dup-threshold), and every
+all-intra option: 4:4:4 input (all-intra under CQP on the CTU16 grid,
+no loop filters, as in the reference), --nr-intra and --ctu 64 with
+--keyint 1 (the CTU64 quadtree, depth 2 or 3); as in the reference,
+--wpp is an all-intra option (off CTU64) and --ref 2 falls back to one
 reference with B frames, the quadtree or weighted prediction. A setting
 the port's sessions do not run yet raises NotImplementedError from the
-session, naming the slice that adds it: e.g. 4:4:4 input, --nr-intra or
---rqt. The ABR ladder, the multi-device pipeline, reconplay and the
-HDR10+ / Dolby Vision metadata raise NotImplementedError here.
+session, naming the slice that adds it: e.g. --rqt or --analysis-save.
+The ABR ladder, the multi-device pipeline, reconplay and the HDR10+ /
+Dolby Vision metadata raise NotImplementedError here.
 """
 
 from __future__ import annotations

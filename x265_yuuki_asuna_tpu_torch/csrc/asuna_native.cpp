@@ -7,9 +7,10 @@
 // tables are H.265 spec constants).
 //
 // The port's copy of x265_yuuki_asuna_tpu/native/asuna_native.cpp, cut to
-// the slice writers the port's sessions run: the uniform-grid I, P and B
-// writers and the CTU32 quadtree I/P/B writer (depth 1 or 2), and the
-// hash SEI's CRC-16.
+// the slice writers the port's sessions run: the uniform-grid I (4:2:0
+// or 4:4:4), P and B writers, the CTU32 quadtree I/P/B writer (depth 1
+// or 2), the CTU64 intra quadtree writer (depth 2 or 3), and the hash
+// SEI's CRC-16.
 //
 // Build: g++ -O2 -shared -fPIC -o build/libasuna.so csrc/asuna_native.cpp
 // Interface: extern "C", driven through ctypes (bitstream/native.py).
@@ -713,6 +714,139 @@ int asuna_encode_intra_slice(
             if (cbfCb) encodeResidual(cb, lcb, clog2, false, mode, signHiding);
             if (cbfCr) encodeResidual(cb, lcr, clog2, false, mode, signHiding);
 
+            cb.encodeBinTrm(idx == ncu - 1 ? 1 : 0);
+        }
+    }
+    cb.finish(tailValue, tailBits);
+    if ((int)cb.out.size() > outCap) return -1;
+    memcpy(outBuf, cb.out.data(), cb.out.size());
+    return (int)cb.out.size();
+}
+
+// CTU64 intra quadtree slice (depth-0 always split; subtrees to 16 or 8):
+// split32 / modes32 [ncu*4], split16 / modes16 [ncu*16], modes8 [ncu*64]
+// (z-order), levelsY [ncu, 64*64], levelsCb/Cr [ncu, 32*32]. 8-sample
+// cell mode / depth maps drive the split_cu contexts and the MPM
+// candidates (an above candidate outside the CTU is DC).
+int asuna_encode_intra_slice_qt64(
+    const uint8_t* split32, const int32_t* modes32,
+    const uint8_t* split16, const int32_t* modes16, const int32_t* modes8,
+    const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
+    int rows, int cols, int qp, int maxDepth, int signHiding,
+    const int32_t* sao, const int32_t* qpMap, int bitDepth,
+    uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
+{
+    Cabac cb;
+    cb.init(2, qp);
+    const int ncu = rows * cols;
+    const int G = 8;                       // 8px cells per CTU side
+    const int gr = G * rows, gc = G * cols;
+    std::vector<int32_t> modeMap((size_t)gr * gc, 1);   // DC
+    std::vector<uint8_t> depthMap((size_t)gr * gc, 0);
+    std::vector<int32_t> bufY(32 * 32), bufC(16 * 16), bufC2(16 * 16);
+    QpChain qc;
+    qc.qpMap = qpMap;
+    qc.qpPrev = qp;
+
+    for (int r = 0; r < rows; r++) {
+        for (int c = 0; c < cols; c++) {
+            int idx = r * cols + c;
+            const int32_t* ly = levelsY + (size_t)idx * 64 * 64;
+            const int32_t* lcb = levelsCb + (size_t)idx * 32 * 32;
+            const int32_t* lcr = levelsCr + (size_t)idx * 32 * 32;
+            int gy = G * r, gx = G * c;
+            if (sao)
+                encodeSaoCtu(cb, sao + (size_t)idx * 18,
+                             c > 0 ? sao + (size_t)(idx - 1) * 18 : nullptr,
+                             r > 0 ? sao + (size_t)(idx - cols) * 18 : nullptr,
+                             bitDepth);
+            qc.startCtu(idx);
+
+            auto splitFlag = [&](int cy, int cx, int d, int sp) {
+                int ctx = (cx > 0 && depthMap[(size_t)cy * gc + cx - 1] > d
+                           ? 1 : 0)
+                        + (cy > 0 && depthMap[(size_t)(cy - 1) * gc + cx] > d
+                           ? 1 : 0);
+                cb.encodeBin(sp, CTX_SPLIT_CU + ctx);
+            };
+            auto codeCu = [&](int cy, int cx, int sc, int mode, int depth) {
+                int px = sc * 8;
+                int log2 = 0;
+                while ((1 << (log2 + 1)) <= px) log2++;
+                int oy = (cy - gy) * 8, ox = (cx - gx) * 8;
+                for (int yy = 0; yy < px; yy++)
+                    memcpy(bufY.data() + yy * px,
+                           ly + (size_t)(oy + yy) * 64 + ox,
+                           px * sizeof(int32_t));
+                int hc = px / 2;
+                for (int yy = 0; yy < hc; yy++) {
+                    memcpy(bufC.data() + yy * hc,
+                           lcb + (size_t)(oy / 2 + yy) * 32 + ox / 2,
+                           hc * sizeof(int32_t));
+                    memcpy(bufC2.data() + yy * hc,
+                           lcr + (size_t)(oy / 2 + yy) * 32 + ox / 2,
+                           hc * sizeof(int32_t));
+                }
+                int candL = cx > 0 ? modeMap[(size_t)cy * gc + cx - 1] : 1;
+                int candA = (cy % G) != 0 ? modeMap[(size_t)(cy - 1) * gc + cx]
+                                          : 1;
+                int mpm[3];
+                deriveMPM(candL, candA, mpm);
+                if (log2 == 6 - maxDepth)
+                    cb.encodeBin(1, CTX_PART_SIZE);     // 2Nx2N at min CB
+                encodeIntraLumaMode(cb, mode, mpm);
+                cb.encodeBin(0, CTX_INTRA_CHROMA);      // DM
+                int cbfY = anyNonzero(bufY.data(), px * px) ? 1 : 0;
+                int cbfCb = anyNonzero(bufC.data(), hc * hc) ? 1 : 0;
+                int cbfCr = anyNonzero(bufC2.data(), hc * hc) ? 1 : 0;
+                cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
+                cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
+                cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+                qc.maybeCode(cb, cbfY || cbfCb || cbfCr);
+                if (cbfY) encodeResidual(cb, bufY.data(), log2, true, mode,
+                                         signHiding);
+                if (cbfCb) encodeResidual(cb, bufC.data(), log2 - 1, false,
+                                          mode, signHiding);
+                if (cbfCr) encodeResidual(cb, bufC2.data(), log2 - 1, false,
+                                          mode, signHiding);
+                for (int dy = 0; dy < sc; dy++)
+                    for (int dx = 0; dx < sc; dx++) {
+                        modeMap[(size_t)(cy + dy) * gc + cx + dx] = mode;
+                        depthMap[(size_t)(cy + dy) * gc + cx + dx] =
+                            (uint8_t)depth;
+                    }
+            };
+
+            static const int QOFF[4][2] = {{0,0},{0,1},{1,0},{1,1}};
+            splitFlag(gy, gx, 0, 1);                 // depth-0 always split
+            for (int q = 0; q < 4; q++) {
+                int cy32 = gy + 4 * QOFF[q][0], cx32 = gx + 4 * QOFF[q][1];
+                int sp32 = split32[(size_t)idx * 4 + q] ? 1 : 0;
+                splitFlag(cy32, cx32, 1, sp32);
+                if (!sp32) {
+                    codeCu(cy32, cx32, 4, modes32[(size_t)idx * 4 + q], 1);
+                    continue;
+                }
+                for (int sq = 0; sq < 4; sq++) {
+                    int cy16 = cy32 + 2 * QOFF[sq][0];
+                    int cx16 = cx32 + 2 * QOFF[sq][1];
+                    int m16 = modes16[(size_t)idx * 16 + q * 4 + sq];
+                    if (maxDepth == 2) {
+                        codeCu(cy16, cx16, 2, m16, 2);
+                        continue;
+                    }
+                    int sp16 = split16[(size_t)idx * 16 + q * 4 + sq] ? 1 : 0;
+                    splitFlag(cy16, cx16, 2, sp16);
+                    if (!sp16) {
+                        codeCu(cy16, cx16, 2, m16, 2);
+                    } else {
+                        for (int uq = 0; uq < 4; uq++)
+                            codeCu(cy16 + QOFF[uq][0], cx16 + QOFF[uq][1], 1,
+                                   modes8[(size_t)idx * 64 + q * 16 + sq * 4
+                                          + uq], 3);
+                    }
+                }
+            }
             cb.encodeBinTrm(idx == ncu - 1 ? 1 : 0);
         }
     }

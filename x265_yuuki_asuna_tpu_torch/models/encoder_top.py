@@ -8,7 +8,8 @@ Port of x265_yuuki_asuna_tpu/models/encoder_top.py: IntraEncoderSession
 (encode_frame, the frame batches submit_batch / finish_batch /
 encode_batch, headers with the info, mastering-display and
 content-light-level SEI, the sei_provider hook, lossless, slices, WPP,
-scaling lists and the three hash SEI types) and
+scaling lists, the three hash SEI types, 4:4:4, noise reduction, fast
+intra and the CTU64 quadtree with its deblock and writer) and
 VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
 hash SEI, scenecut (the cost rule or the histogram rule) and keyint_min;
 push_frame / flush with b_adapt 0, 1 and 2, the rc-lookahead window, the
@@ -145,14 +146,15 @@ from ..bitstream.bitio import (BitWriter, wrap_nal, NAL_CRA, NAL_IDR_W_RADL,
                                NAL_TRAIL_R)
 from ..ops import deblock as DB
 from ..ops import filters as FL
+from ..ops import quant
 from ..ops import sao as SAO
 from ..ops.pixel import ssim_plane
 from ..ops.quant import Quantizer
 from ..utils import geometry as G
 from ..utils.device import exact_fp32_matmul, resolve_device
 from .inter_encoder import InterFrameEncoder, InterQTEncoder
-from .intra_encoder import (IntraFrameEncoder, IntraQTEncoder,
-                            chroma_qp_from_luma)
+from .intra_encoder import (IntraFrameEncoder, IntraQT64Encoder,
+                            IntraQTEncoder, chroma_qp_from_luma)
 from . import slicetype
 from .lookahead import Lookahead
 from .ratecontrol import (RateControl, RCConfig, StatsWriter, TwoPassRC,
@@ -160,22 +162,20 @@ from .ratecontrol import (RateControl, RCConfig, StatsWriter, TwoPassRC,
 
 FPS = (25, 1)      # default signalled frame rate (VUI timing, level)
 
-# every keyword of the JAX sessions this port has no slice for yet, with
-# the slice that adds it (ROADMAP Queue 1)
+# every keyword of the JAX video session this port has no slice for
+# yet, with the slice that adds it (ROADMAP Queue 1); the all-intra
+# session takes every keyword of the JAX one
 _LATER = {
     "analysis_save": "the analysis save/load slice",
     "analysis_load": "the analysis save/load slice",
     "analysis_share": "the analysis save/load slice",
     "scale_factor": "the analysis save/load slice",
     "rqt": "the RQT slice",
-    "nr_intra": "the noise-reduction slice",
-    "fast_intra": "the fast-intra slice", "csp": "the 4:4:4 slice",
 }
-# the defaults of those keywords in each JAX session
+# the defaults of those keywords in the JAX video session
 _VIDEO_DEFAULTS = {
     "analysis_save": None, "analysis_load": None, "analysis_share": None,
     "scale_factor": 1, "rqt": False}
-_INTRA_DEFAULTS = {"nr_intra": 0, "fast_intra": False, "csp": "i420"}
 
 
 def _check_options(options: dict, defaults: dict) -> None:
@@ -192,26 +192,33 @@ def _check_options(options: dict, defaults: dict) -> None:
                 "adds it")
 
 
-def _grid(max_depth: int, cu_size: int) -> int:
-    """The CTU size of a session: cu_size (16 or 32) on the uniform grid,
-    32 for the quadtree of depth 1 or 2 (whatever cu_size, as in the
-    reference's sessions); other geometries raise NotImplementedError."""
+def _grid(max_depth: int, cu_size: int, intra: bool = False) -> int:
+    """The CTU size of a session: cu_size (16 or 32) on the uniform grid;
+    with a quadtree, 64 for the all-intra session's cu_size=64 (max_depth
+    2 or 3, else ValueError: the 64x64 CU always splits, as the
+    reference's program asserts), else 32 (max_depth 1 or 2, whatever
+    cu_size, as in the reference's sessions: its video sessions code
+    CTU32). Other geometries raise NotImplementedError."""
+    if intra and max_depth and cu_size == 64:
+        if max_depth not in (2, 3):
+            raise ValueError(
+                f"max_depth={max_depth} with cu_size=64: the 64x64 CU "
+                "always splits, so max_depth is 2 or 3 (the reference's "
+                "assertion)")
+        return 64
     if max_depth not in (0, 1, 2):
         raise NotImplementedError(
             f"max_depth={max_depth}: the port codes the uniform grid "
-            "(0) and the CTU32 quadtree of depth 1 or 2; the CTU64 slice "
-            "adds depth 3 (ROADMAP Queue 1 item 9)")
-    if max_depth and cu_size == 64:
-        raise NotImplementedError(
-            "max_depth with cu_size=64: the CTU64 slice adds CTU64 "
-            "quadtrees")
+            "(0), the CTU32 quadtree of depth 1 or 2 and, in the "
+            "all-intra session with cu_size=64, the CTU64 quadtree of "
+            "depth 2 or 3 (ROADMAP Queue 1 item 9)")
     if max_depth:
         return 32
     if cu_size not in (16, 32):
         raise NotImplementedError(
             f"cu_size={cu_size}: the port's uniform grid codes 16x16 and "
-            "32x32 CUs; CTU64 is the CTU64 slice's (ROADMAP Queue 1 item "
-            "9)")
+            "32x32 CUs; CTU64 is the all-intra session's quadtree "
+            "(max_depth 2 or 3, ROADMAP Queue 1 item 9)")
     return cu_size
 
 
@@ -234,14 +241,16 @@ def frame_quality(recon, y, u, v, device="cpu", bit_depth: int = 8):
                        bit_depth))
 
 
-def host_planes(out: dict, h: int, w: int, bit_depth: int):
-    """The decision dict's recon planes cropped to h x w (chroma h/2 x
-    w/2), as the reference's sessions return them: uint8 at 8 bits,
-    uint16 above."""
+def host_planes(out: dict, h: int, w: int, bit_depth: int,
+                c_shift: int = 1):
+    """The decision dict's recon planes cropped to h x w (chroma h x w
+    shifted right by c_shift: 1 in 4:2:0, 0 in 4:4:4), as the
+    reference's sessions return them: uint8 at 8 bits, uint16 above."""
     pdt = np.uint16 if bit_depth > 8 else np.uint8
+    ch, cw = h >> c_shift, w >> c_shift
     return (out["recon_y"][:h, :w].astype(pdt),
-            out["recon_u"][:h // 2, :w // 2].astype(pdt),
-            out["recon_v"][:h // 2, :w // 2].astype(pdt))
+            out["recon_u"][:ch, :cw].astype(pdt),
+            out["recon_v"][:ch, :cw].astype(pdt))
 
 
 def effective_qp_map(out: dict, qp_map, slice_qp: int):
@@ -477,11 +486,17 @@ def hash_sei(out: dict, bit_depth: int = 8, hash_type: int = 0) -> bytes:
 class IntraEncoderSession:
     """All-intra CQP session, 4:2:0 at 8, 10 or 12 bits (bit_depth: Main,
     Main10, Main12 with the Range Extensions' constraint flags; deeper
-    planes come in and go out as uint16).
+    planes come in and go out as uint16), or 4:4:4 (csp="i444": Main
+    4:4:4, chroma planes at luma size; the uniform grid, lossy, with no
+    slices, WPP or loop filters, as in the reference).
 
     cu_size=16 or 32 codes the uniform grid of 16x16 or 32x32 CUs;
     max_depth=2 codes CTU32 quadtrees down to 8x8 CUs, max_depth=1 down
-    to 16x16 (cu_size is then 32, as in the reference). deblock / sao:
+    to 16x16 (cu_size is then 32, as in the reference); cu_size=64 with
+    max_depth=2 or 3 codes CTU64 quadtrees (the 64x64 CU always splits;
+    CUs down to 16x16 or 8x8; no SAO, no device DPB: the deblock runs
+    after the program; under wpp the PPS signals WPP but the slice is one
+    substream, the reference's fault, ROADMAP Queue 3). deblock / sao:
     the in-loop filters; on the quadtree they run in the program
     (dpb_device=True: the video session's chain) or, as in the
     reference's intra session, after it in the host form. sbh / rdoq /
@@ -512,8 +527,16 @@ class IntraEncoderSession:
     neither a QP map's cu_qp_delta nor the bypass flag); scaling_lists
     ("default" or a scaling-list file; ignored under lossless, RDOQ or
     the quadtree); hash_type (the hash SEI's 0 MD5, 1 CRC, 2 checksum).
-    Options of the JAX session outside these slices raise
-    NotImplementedError."""
+
+    nr_intra (0-2000; the uniform grid, zeroed under lossless, the
+    quadtree, slices and WPP): noise reduction, each frame's transformed
+    blocks lowered by per-coefficient offsets from the |coef| sums of the
+    frames before it (a batch's frames by zero offsets, adding nothing,
+    as in the reference; in 4:4:4 the reference's chroma offsets have the
+    4:2:0 size, so the first frame raises ValueError as its program
+    does). fast_intra (the uniform grid, not lossless): every CU's luma
+    mode decided up front from the source's neighbours. The session
+    takes every keyword of the JAX one."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
                  cu_size: int = 16, fps: Tuple[int, int] = FPS,
@@ -526,16 +549,39 @@ class IntraEncoderSession:
                  recon_host: bool = True, psy_rd: float = 0.0,
                  bit_depth: int = 8, lossless: bool = False,
                  slices: int = 1, wpp: bool = False, hash_type: int = 0,
-                 scaling_lists: str = None, **options):
-        _check_options(options, _INTRA_DEFAULTS)
-        cu_size = _grid(max_depth, cu_size)
+                 scaling_lists: str = None, nr_intra: int = 0,
+                 fast_intra: bool = False, csp: str = "i420"):
+        cu_size = _grid(max_depth, cu_size, intra=True)
         if bit_depth not in (8, 10, 12):
             raise ValueError(f"bit_depth={bit_depth}: 8, 10 or 12")
+        if csp not in ("i420", "i444"):
+            raise ValueError(f"csp={csp!r}: 'i420' or 'i444'")
+        i444 = csp == "i444"
         if max_depth and (lossless or slices > 1):
             raise NotImplementedError(
                 "lossless and slices run on the uniform grid: the "
                 "reference's quadtree intra session refuses them (its "
                 "assertions 'quadtree + lossless / slices unsupported')")
+        if i444 and (lossless or max_depth or slices > 1 or wpp or sao
+                     or deblock):
+            raise NotImplementedError(
+                "4:4:4 runs on the uniform grid, lossy, with no slices, "
+                "WPP or loop filters: the reference's intra session refuses "
+                "the rest (its assertion '4:4:4: uniform-grid lossy path, "
+                "no loop filters')")
+        if i444 and scaling_lists:
+            raise ValueError(
+                "scaling lists with 4:4:4: the reference's program takes "
+                "the chroma matrices one size below the chroma TUs and "
+                "fails")
+        self.csp, self.c_shift = csp, 0 if i444 else 1
+        # noise reduction: the uniform grid's lossy path, zeroed silently
+        # under lossless, the quadtree, slices and WPP (the arguments as
+        # given, as in the reference)
+        self.nr_intra = 0 if (lossless or max_depth or slices > 1 or wpp) \
+            else min(max(int(nr_intra), 0), 2000)
+        self.fast_intra = bool(fast_intra) and not max_depth \
+            and not lossless
         if hash_type not in (0, 1, 2):
             raise ValueError(f"hash_type={hash_type}: 0 MD5, 1 CRC, 2 "
                              "checksum")
@@ -553,7 +599,8 @@ class IntraEncoderSession:
         self.qp, self.cu, self.max_depth = qp, cu_size, max_depth
         self.hash_sei, self.hash_type = hash_sei, hash_type
         self.deblock = bool(deblock) and not self.lossless
-        self.sao = bool(sao) and not self.lossless
+        # CTU64 codes no SAO (the reference's)
+        self.sao = bool(sao) and not self.lossless and cu_size != 64
         rdoq = bool(rdoq) and not self.lossless
         self.scaling = None
         if scaling_lists and not (self.lossless or rdoq or max_depth):
@@ -571,8 +618,9 @@ class IntraEncoderSession:
         self.aq_mode = 0 if self.lossless else aq_mode
         self.aq_strength = aq_strength
         self.quant_fn = Quantizer(self.sbh, rdoq, psy_rdoq, bit_depth,
-                                  self.scaling)
-        self.dpb_device = bool(dpb_device) and max_depth > 0
+                                  self.scaling, csp420=not i444)
+        self.dpb_device = bool(dpb_device) and max_depth > 0 \
+            and cu_size == 32
         self.info_sei = info_sei
         self.master_display, self.max_cll = master_display, max_cll
         self.sei_provider = None      # callable(display_idx) -> bytes
@@ -586,12 +634,13 @@ class IntraEncoderSession:
             width=self.coded_w, height=self.coded_h,
             conf_win=(0, self.coded_w - width, 0, self.coded_h - height),
             ptl=HDR.ProfileTierLevel(
-                profile_idc=4 if bit_depth > 10 else
+                profile_idc=4 if bit_depth > 10 or i444 else
                 2 if bit_depth > 8 else 1,
                 bit_depth_constraint=bit_depth,
+                chroma_constraint=3 if i444 else 1,
                 level_idc=SEI.pick_level(self.coded_w, self.coded_h,
                                          fps[0] / max(fps[1], 1))),
-            bit_depth=bit_depth,
+            chroma_format_idc=3 if i444 else 1, bit_depth=bit_depth,
             log2_min_cb=log2cu - max_depth, log2_diff_max_min_cb=max_depth,
             log2_min_tb=2, log2_diff_max_min_tb=min(log2cu, 5) - 2,
             strong_intra_smoothing=0, timing_info=(fps[1], fps[0]),
@@ -602,7 +651,11 @@ class IntraEncoderSession:
                                cu_qp_delta=int(bool(self.aq_mode)),
                                transquant_bypass=int(self.lossless),
                                entropy_coding_sync=int(self.wpp))
-        if max_depth:
+        if cu_size == 64:
+            self.frame_encoder = IntraQT64Encoder(
+                self.coded_w, self.coded_h, self.device, self.quant_fn,
+                psy_rd, max_depth, self.deblock)
+        elif max_depth:
             self.frame_encoder = IntraQTEncoder(
                 self.coded_w, self.coded_h, self.device, self.deblock,
                 self.sao, self.quant_fn,
@@ -612,7 +665,15 @@ class IntraEncoderSession:
             # a sliced session codes each band as a frame of its own
             self.frame_encoder = IntraFrameEncoder(
                 self.coded_w, self.band_rows * cu_size, cu_size,
-                self.device, self.quant_fn, self.lossless)
+                self.device, self.quant_fn, self.lossless, csp,
+                self.fast_intra, bool(self.nr_intra))
+        if self.nr_intra:
+            # the running |coef| sums and block counts of luma and chroma
+            # (sized, as in the reference, for 4:2:0 chroma)
+            self._nr = {"sum_y": np.zeros(cu_size * cu_size, np.int64),
+                        "cnt_y": 0,
+                        "sum_c": np.zeros((cu_size // 2) ** 2, np.int64),
+                        "cnt_c": 0}
         # wall-clock ms per stage, summed over frames
         self.stage_ms = defaultdict(float)
 
@@ -641,21 +702,28 @@ class IntraEncoderSession:
         return out + SEI.wrap_sei(msgs) if msgs else out
 
     def _pad(self, y, u, v):
+        ch, cw = self.coded_h >> self.c_shift, self.coded_w >> self.c_shift
         return (G.pad_plane(y, self.coded_h, self.coded_w),
-                G.pad_plane(u, self.coded_h // 2, self.coded_w // 2),
-                G.pad_plane(v, self.coded_h // 2, self.coded_w // 2))
+                G.pad_plane(u, ch, cw), G.pad_plane(v, ch, cw))
 
     def code(self, yp, up, vp, qp: int, with_sao: bool = True,
-             qp_map=None) -> dict:
+             qp_map=None, nr: bool = False) -> dict:
         """The decision dict of one intra picture from padded planes at the
         slice QP qp and, when given, the per-CU QP map qp_map (kept under
         "qp_map"), its recon filtered (with_sao=False: deblocked only)
-        and, with SAO, its parameters under "sao"."""
+        and, with SAO, its parameters under "sao". nr: with noise
+        reduction, denoise at the offsets of the sums so far and add this
+        picture's sums to them (a batch's frames denoise by zero offsets
+        and add nothing, as in the reference)."""
         st = self.stage_ms
         q = qp if qp_map is None else qp_map
         if self.max_depth:
             out = _program(st, "intra", self.frame_encoder, yp, up, vp, q,
                            with_sao=with_sao, slice_qp=qp)
+        elif self.nr_intra and nr:
+            out = _program(st, "intra", self.frame_encoder, yp, up, vp, q,
+                           nr_off=self._nr_offsets())
+            self._nr_accumulate(out)
         else:
             out = _program(st, "intra", self.frame_encoder, yp, up, vp, q)
         if qp_map is not None:
@@ -663,6 +731,28 @@ class IntraEncoderSession:
         if not self.max_depth:
             self._filter(out, qp, (yp, up, vp), with_sao)
         return out
+
+    def _nr_offsets(self):
+        """The denoise offsets of the next picture from the running |coef|
+        sums (the reference's _nr_offsets, after x265's
+        noiseReductionUpdate): luma [cu, cu], chroma [cu/2, cu/2] (the
+        reference's size, in 4:4:4 too)."""
+        st, log2 = self._nr, self.cu.bit_length() - 1
+        offy, st["sum_y"], st["cnt_y"] = quant.nr_update_offsets(
+            st["sum_y"], st["cnt_y"], self.nr_intra,
+            1 << (18 - 2 * (log2 - 2)))
+        offc, st["sum_c"], st["cnt_c"] = quant.nr_update_offsets(
+            st["sum_c"], st["cnt_c"], self.nr_intra,
+            1 << (18 - 2 * (log2 - 3)))
+        nc = self.cu // 2
+        return offy.reshape(self.cu, self.cu), offc.reshape(nc, nc)
+
+    def _nr_accumulate(self, out: dict) -> None:
+        st = self._nr
+        st["sum_y"] = st["sum_y"] + out["nr_sum_y"]
+        st["cnt_y"] += self.rows * self.cols
+        st["sum_c"] = st["sum_c"] + out["nr_sum_c"]
+        st["cnt_c"] += 2 * self.rows * self.cols
 
     def aq_map(self, yp, up, vp):
         """The per-CU QP map of a frame from padded planes under AQ
@@ -685,15 +775,21 @@ class IntraEncoderSession:
                        nal_type: int = NAL_IDR_W_RADL, poc: int = 0) -> bytes:
         """The I slice NAL of a coded picture: an IDR, or with nal_type
         NAL_CRA an open GOP's CRA at poc; under wpp its CTU rows' WPP
-        substreams."""
-        if self.wpp:
+        substreams (not at CTU64: the reference's CTU64 writer codes one
+        substream under the PPS's WPP flag, ROADMAP Queue 3)."""
+        if self.wpp and self.cu != 64:
             return self._assemble_wpp(out, qp, nal_type, poc)
         sao = out.get("sao")
         bw = HDR.write_slice_header(self.sps, self.pps, slice_type=2,
                                     slice_qp=qp, nal_type=nal_type, poc=poc,
                                     sao=sao is not None)
         qp_map = out.get("qp_map")
-        if self.max_depth:
+        if self.cu == 64:
+            res = native.encode_intra_slice_qt64(
+                out, self.rows, self.cols, qp, self.max_depth,
+                sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
+                bit_depth=self.bit_depth)
+        elif self.max_depth:
             res = native.encode_slice_qt2(2, self.max_depth, out, qp,
                                           sign_hiding=self.sbh, sao=sao,
                                           qp_map=qp_map,
@@ -703,7 +799,8 @@ class IntraEncoderSession:
                 out["modes"], out["levels_y"], out["levels_cb"],
                 out["levels_cr"], self.cu.bit_length() - 1, qp,
                 sign_hiding=self.sbh, sao=sao, qp_map=qp_map,
-                bit_depth=self.bit_depth, lossless=self.lossless)
+                bit_depth=self.bit_depth, lossless=self.lossless,
+                chroma444=self.csp == "i444")
         return _slice_nal(bw, res, nal_type)
 
     def _assemble_wpp(self, out: dict, qp: int, nal_type: int,
@@ -821,7 +918,8 @@ class IntraEncoderSession:
         if not with_recon:
             return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
                                psnr_y=0.0, frame_type="I", qp=self.qp)
-        recon = host_planes(out, self.src_h, self.src_w, self.bit_depth)
+        recon = host_planes(out, self.src_h, self.src_w, self.bit_depth,
+                            self.c_shift)
         py, pu, pv, ssim = frame_quality(recon, *frame, self.device,
                                          self.bit_depth)
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
@@ -837,7 +935,7 @@ class IntraEncoderSession:
             return self._encode_sliced(y, u, v)
         padded = self._pad(y, u, v)
         qp_map = self._timed_aq(padded)
-        out = self.code(*padded, self.qp, qp_map=qp_map)
+        out = self.code(*padded, self.qp, qp_map=qp_map, nr=True)
         nal = _timed(self.stage_ms, "serialize", self.assemble_slice, out,
                      self.qp)
         return self._result(out, nal, (y, u, v))

@@ -4,14 +4,17 @@ diagonals.
 Port of the default branch of x265_yuuki_asuna_tpu/models/intra_encoder.py
 (`_build` + `_unpack`, and `submit_frames` / `collect_frames` /
 `encode_frames` for batches of frames: uniform grid of 16x16 or 32x32
-CUs, 4:2:0 at 8, 10 or 12 bits (the quantizer's), plain quant (with the
-scaling lists' matrices when the quantizer has them), sign-bit hiding
-or static-bit RDOQ with psy-RDOQ, or transquant bypass (lossless: the
-levels are the residual and the recon is the source), one QP or a
-per-CU QP map per frame; no noise reduction). The JAX program scans the
-wavefront diagonals with `lax.scan` over fixed-width slots; here a
-Python loop walks the
-diagonals and each step batches exactly that diagonal's CUs (the JAX
+CUs, 4:2:0 or 4:4:4 at 8, 10 or 12 bits (the quantizer's), plain quant
+(with the scaling lists' matrices when the quantizer has them),
+sign-bit hiding or static-bit RDOQ with psy-RDOQ, or transquant bypass
+(lossless: the levels are the residual and the recon is the source),
+one QP or a per-CU QP map per frame, noise reduction (the `nr_off`
+inputs and |coef| sums) and fast intra (modes decided from the source
+before the wavefront: `decide_modes_from_source`)), and of its CTU64
+quadtree (`_build_qt64` + `_unpack_qt64`, IntraQT64Encoder below). The
+JAX program scans the wavefront diagonals with `lax.scan` over
+fixed-width slots; here a Python loop walks the diagonals and each step
+batches exactly that diagonal's CUs (the JAX
 program's padding slots never reach its outputs, so the results are the
 same), of every frame of a batch at once: frames are independent, so F
 frames share each step's launches with their CUs stacked on the block
@@ -29,11 +32,15 @@ rerun.
 
 from __future__ import annotations
 
+import math
+import time
+
 import numpy as np
 import torch
 
 from ..ops import bitcost as BC
-from ..ops import intra, pixel, transforms
+from ..ops import fp32
+from ..ops import intra, pixel, quant, transforms
 from ..ops.quant import PLAIN, Quantizer
 from ..utils.geometry import wavefront_schedule
 
@@ -48,16 +55,27 @@ def chroma_qp_from_luma(qp_y: int, offset: int = 0) -> int:
     return [29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37][qpi - 30]
 
 
-def cu_qps(qp, n: int, device):
+# ChromaArrayType 3 (4:4:4): QpC = min(qPi, 51), no table (spec 8.6.1)
+CHROMA_QP_TABLE_444 = np.minimum(np.arange(58), 51).astype(np.int32)
+
+
+def chroma_qp(qp_y: int, i444: bool = False) -> int:
+    """The chroma QP of a luma QP: table 8-10 in 4:2:0, min(QP, 51) in
+    4:4:4."""
+    return int(CHROMA_QP_TABLE_444[min(max(qp_y, 0), 57)]) if i444 \
+        else chroma_qp_from_luma(qp_y)
+
+
+def cu_qps(qp, n: int, device, i444: bool = False):
     """(luma, chroma) QPs of n blocks: ints for one QP (qp an int), else
     int32 tensors [n] from a per-block QP array (AQ / cuTree), the chroma
-    QP of each through table 8-10."""
+    QP of each through table 8-10 (4:4:4: CHROMA_QP_TABLE_444)."""
     if np.ndim(qp) == 0:
-        return int(qp), chroma_qp_from_luma(int(qp))
+        return int(qp), chroma_qp(int(qp), i444)
     q = torch.as_tensor(np.array(qp, np.int32).reshape(-1), device=device)
     if q.numel() != n:
         raise ValueError(f"{q.numel()} QPs for {n} blocks")
-    tab = torch.tensor([chroma_qp_from_luma(k) for k in range(58)],
+    tab = torch.tensor([chroma_qp(k, i444) for k in range(58)],
                        dtype=torch.int32, device=device)
     return q, tab[q.clamp(0, 57).long()]
 
@@ -86,7 +104,8 @@ class Wavefront:
     diagonal, the CU indices of every frame, the state rows holding the
     left / top / top-right / top-left neighbors (the sentinel row F * ncu
     where a neighbor is unavailable) and the reference availability masks
-    of the luma (n) and chroma (n/2) boundary vectors."""
+    of the luma (n) and 4:2:0 chroma (n/2) boundary vectors (4:4:4 chroma
+    takes luma's)."""
 
     def __init__(self, rows: int, cols: int, n: int, device, frames: int = 1):
         nd, _, rc, valid = wavefront_schedule(rows, cols, slope=2)
@@ -129,13 +148,16 @@ def boundary_vector(botrow: torch.Tensor, rightcol: torch.Tensor, nbr,
 
 def tq_recon(src: torch.Tensor, pred: torch.Tensor, qp, log2n: int,
              intra_slice: bool, quant_fn: Quantizer = PLAIN, luma=True,
-             modes=None, is_intra=None, states=None):
+             modes=None, is_intra=None, states=None, denoise=None):
     """Transform, quantize (quant_fn, with the blocks' luma flag, modes,
     intra flags and the slice's frozen contexts), dequantize, inverse
     transform and reconstruct at quant_fn's bit depth: (levels, recon)
-    [B, n, n] int32."""
+    [B, n, n] int32. denoise: a function of the coefficients applied
+    before quantization (noise reduction)."""
     bd = quant_fn.bit_depth
     coef = transforms.forward_transform(src - pred, bd)
+    if denoise is not None:
+        coef = denoise(coef)
     levels = quant_fn(coef, qp, log2n, intra_slice, luma, modes, is_intra,
                       states)
     rr = transforms.inverse_transform(quant_fn.dequant(levels, qp, log2n,
@@ -147,11 +169,13 @@ class WaveState:
     """One frame's wavefront state on the device: the carried bottom row
     and right column of every CU's recon (luma; Cb and Cr side by side),
     with the sentinel row `ncu` left at the fill value 1 << (bd - 1), and
-    the per-CU results committed so far."""
+    the per-CU results committed so far. Chroma blocks are n/2 (4:2:0) or
+    n (i444: 4:4:4) wide."""
 
-    def __init__(self, ncu: int, n: int, device, bit_depth: int = 8):
-        nc = n // 2
-        self.n, self.bd = n, bit_depth
+    def __init__(self, ncu: int, n: int, device, bit_depth: int = 8,
+                 i444: bool = False):
+        nc = n if i444 else n // 2
+        self.n, self.nc, self.bd, self.i444 = n, nc, bit_depth, i444
         z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                        device=device)
         st = lambda k: torch.full((ncu + 1, k), 1 << (bit_depth - 1),
@@ -169,21 +193,28 @@ class WaveState:
             boundary_vector(self.bry, self.rcy, nbr, self.n), avail, self.bd)
         return intra.predict_all_modes_matmul(v, self.n, self.bd, luma=True)
 
+    def luma_mode(self, nbr, avail, modes) -> torch.Tensor:
+        """The luma predictions [S, n, n] in given modes (fast intra)."""
+        v = intra.substitute_references(
+            boundary_vector(self.bry, self.rcy, nbr, self.n), avail, self.bd)
+        return intra.predict_mode_matmul(v, modes, self.n, self.bd,
+                                         luma=True)
+
     def chroma_dm(self, nbr, avail, modes) -> torch.Tensor:
         """Chroma intra predictions in the DM mode (= the luma mode),
-        [2S, n/2, n/2]: the S Cb blocks, then the S Cr blocks."""
-        nc = self.n // 2
+        [2S, nc, nc]: the S Cb blocks, then the S Cr blocks."""
+        nc = self.nc
         v = torch.cat([boundary_vector(self.bruv[:, :nc], self.rcuv[:, :nc],
                                        nbr, nc),
                        boundary_vector(self.bruv[:, nc:], self.rcuv[:, nc:],
                                        nbr, nc)])
         v = intra.substitute_references(v, avail.repeat(2, 1), self.bd)
         return intra.predict_mode_matmul(v, modes.repeat(2), nc, self.bd,
-                                         luma=False)
+                                         luma=False, chroma444=self.i444)
 
     def commit(self, cu, modes, lv, rec, lvc, recc):
         """Store the results of the diagonal's CUs `cu` and their edges."""
-        n, nc, S = self.n, self.n // 2, cu.shape[0]
+        n, nc, S = self.n, self.nc, cu.shape[0]
         self.modes[cu] = modes.to(torch.int32)
         self.lv_y[cu], self.rec_y[cu] = lv, rec
         self.lv_c[:, cu] = lvc.reshape(2, S, nc, nc)
@@ -197,8 +228,9 @@ class WaveState:
     def result(self, rows: int, cols: int, frames: int = 1) -> list:
         """Each frame's modes, levels and recon planes in the JAX
         package's decision dict layout (numpy)."""
-        n, nc = self.n, self.n // 2
+        n, nc = self.n, self.nc
         H, W = rows * n, cols * n
+        CH, CW = rows * nc, cols * nc
         h = lambda t: t.cpu().numpy()
         modes, lv_y, lv_c = h(self.modes), h(self.lv_y), h(self.lv_c)
         rec_y, rec_c = self.rec_y, self.rec_c
@@ -212,8 +244,8 @@ class WaveState:
                 "levels_cb": lv_c[0, s].reshape(rows, cols, nc, nc),
                 "levels_cr": lv_c[1, s].reshape(rows, cols, nc, nc),
                 "recon_y": h(from_blocks(rec_y[s], n, H, W)),
-                "recon_u": h(from_blocks(rec_c[0, s], nc, H // 2, W // 2)),
-                "recon_v": h(from_blocks(rec_c[1, s], nc, H // 2, W // 2)),
+                "recon_u": h(from_blocks(rec_c[0, s], nc, CH, CW)),
+                "recon_v": h(from_blocks(rec_c[1, s], nc, CH, CW)),
             })
         return out
 
@@ -225,13 +257,13 @@ def gather_mode(preds: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
                         .expand(-1, 1, n, n))[:, 0]
 
 
-def planes_to_blocks(y, u, v, n: int, device):
+def planes_to_blocks(y, u, v, n: int, device, nc: int = None):
     """Host planes -> int32 CU blocks on the device ([ncu, n, n]
-    luma, [ncu, n/2, n/2] chroma)."""
+    luma, [ncu, nc, nc] chroma, nc n/2 by default)."""
+    nc = n // 2 if nc is None else nc
     t = lambda p: torch.as_tensor(np.ascontiguousarray(p), device=device) \
         .to(torch.int32)
-    return to_blocks(t(y), n), to_blocks(t(u), n // 2), \
-        to_blocks(t(v), n // 2)
+    return to_blocks(t(y), n), to_blocks(t(u), nc), to_blocks(t(v), nc)
 
 
 class IntraFrameEncoder:
@@ -239,12 +271,23 @@ class IntraFrameEncoder:
     size (16 or 32); quant_fn picks the levels (plain, sign-bit hiding or
     static RDOQ, with or without scaling lists); lossless bypasses
     transform and quantization (the levels are the residual, the recon
-    the source)."""
+    the source). csp "i444" codes 4:4:4 (chroma planes and CUs at luma
+    size, chroma references filtered as luma's, QpC = min(QP, 51));
+    fast_intra decides every CU's luma mode up front from the
+    edge-replicated source's neighbours (all 35 modes, the SATD argmin),
+    and the wavefront then predicts only that mode; nr denoises every
+    transformed block by per-coefficient offsets before quantization and
+    returns each frame's |coef| sums (noise reduction)."""
 
     def __init__(self, width: int, height: int, cu_size: int, device,
-                 quant_fn: Quantizer = PLAIN, lossless: bool = False):
+                 quant_fn: Quantizer = PLAIN, lossless: bool = False,
+                 csp: str = "i420", fast_intra: bool = False,
+                 nr: bool = False):
         self.n = cu_size
         self.lossless = bool(lossless)
+        self.i444 = csp == "i444"
+        self.nc = cu_size if self.i444 else cu_size // 2
+        self.fast_intra, self.nr = bool(fast_intra), bool(nr)
         self.rows, self.cols = height // cu_size, width // cu_size
         self.device = torch.device(device)
         self.quant_fn = quant_fn
@@ -257,46 +300,101 @@ class IntraFrameEncoder:
         return self._waves[frames]
 
     def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
-                     qp) -> dict:
-        """y: [H, W] pixels padded to the coded size; u, v: [H/2, W/2];
-        qp: one QP, or the per-CU QP map ([rows, cols] or [ncu]). Returns
-        the decision dict (numpy): modes, levels_*, recon_*."""
+                     qp, nr_off=None) -> dict:
+        """y: [H, W] pixels padded to the coded size; u, v: [H/2, W/2]
+        ([H, W] in 4:4:4); qp: one QP, or the per-CU QP map ([rows,
+        cols] or [ncu]); nr_off: with nr, the denoise offsets (luma [n,
+        n], chroma [nc, nc]; None: zeros). Returns the decision dict
+        (numpy): modes, levels_*, recon_* and with nr "nr_sum_y" /
+        "nr_sum_c", the frame's |coef| sums (int64 [n*n], [nc*nc])."""
         return self.encode_frames([y], [u], [v],
-                                  qp if np.ndim(qp) == 0 else [qp])[0]
+                                  qp if np.ndim(qp) == 0 else [qp],
+                                  nr_off)[0]
 
-    def encode_frames(self, ys, us, vs, qp) -> list:
+    def encode_frames(self, ys, us, vs, qp, nr_off=None) -> list:
         """A batch of independent frames (sequences of padded planes), each
         wavefront step batching the step's CUs of every frame; one
         decision dict per frame, each equal to its frame's encode_frame.
         qp: one QP for every CU, or a per-CU QP map for each frame (a
-        sequence of F [rows, cols] or [ncu] arrays)."""
-        n, F = self.n, len(ys)
+        sequence of F [rows, cols] or [ncu] arrays); nr_off: one set of
+        denoise offsets for every frame of the batch."""
+        n, nc, F = self.n, self.nc, len(ys)
+        ncu = self.rows * self.cols
         log2n = n.bit_length() - 1
-        qp, qpc = cu_qps(qp, F * self.rows * self.cols, self.device)
+        log2c = nc.bit_length() - 1
+        qp, qpc = cu_qps(qp, F * ncu, self.device, self.i444)
         at = lambda q, cu: q if isinstance(q, int) else q[cu]
-        blk = [planes_to_blocks(y, u, v, n, self.device)
+        blk = [planes_to_blocks(y, u, v, n, self.device, nc)
                for y, u, v in zip(ys, us, vs)]
         yb, ub, vb = (torch.cat([b[i] for b in blk]) for i in range(3))
-        ws = WaveState(F * self.rows * self.cols, n, self.device,
-                       self.quant_fn.bit_depth)
+        ws = WaveState(F * ncu, n, self.device, self.quant_fn.bit_depth,
+                       self.i444)
         q = self.quant_fn
+        modes_all = self._source_modes(ys) if self.fast_intra else None
+        nr = None
+        if self.nr:
+            if nr_off is None:
+                nr_off = (np.zeros((n, n), np.int32),
+                          np.zeros((n // 2,) * 2, np.int32))
+            offs = tuple(torch.as_tensor(np.asarray(o, np.int32),
+                                         device=self.device) for o in nr_off)
+            nr = (offs, torch.zeros((F, n * n), dtype=torch.int64,
+                                    device=self.device),
+                  torch.zeros((F, nc * nc), dtype=torch.int64,
+                              device=self.device))
+
+        def tq(src, pred, qp_, log2, luma, m, k):
+            def denoise(coef):
+                coef, a = quant.denoise_dct(coef, nr[0][k])
+                # each block's frame: CU numbers are f * ncu + cu, and a
+                # chroma batch is Cb blocks then Cr blocks
+                f = (cu if luma else cu.repeat(2)) // ncu
+                nr[1 + k].index_add_(0, f, a.flatten(1).to(torch.int64))
+                return coef
+            return tq_recon(src, pred, qp_, log2, True, q, luma, m,
+                            denoise=None if nr is None else denoise)
+
         for cu, nbr, avail in self.wave(F).steps:
-            # luma: all 35 modes, SATD argmin (first minimum)
-            preds = ws.luma_all_modes(nbr, avail[n])
             src = yb[cu]
-            m = torch.argmin(pixel.satd(src[:, None], preds), dim=1)
+            if modes_all is None:
+                # luma: all 35 modes, SATD argmin (first minimum)
+                preds = ws.luma_all_modes(nbr, avail[n])
+                m = torch.argmin(pixel.satd(src[:, None], preds), dim=1)
+                pred = gather_mode(preds, m)
+            else:
+                m = modes_all[cu]
+                pred = ws.luma_mode(nbr, avail[n], m)
             srcc = torch.cat([ub[cu], vb[cu]])     # Cb and Cr in one batch
-            predc = ws.chroma_dm(nbr, avail[n // 2], m)
+            predc = ws.chroma_dm(nbr, avail[nc], m)
             if self.lossless:
-                lv, rec = src - gather_mode(preds, m), src
+                lv, rec = src - pred, src
                 lvc, recc = srcc - predc, srcc
             else:
-                lv, rec = tq_recon(src, gather_mode(preds, m), at(qp, cu),
-                                   log2n, True, q, True, m)
-                lvc, recc = tq_recon(srcc, predc, cb_cr(at(qpc, cu)),
-                                     log2n - 1, True, q, False, m.repeat(2))
+                lv, rec = tq(src, pred, at(qp, cu), log2n, True, m, 0)
+                lvc, recc = tq(srcc, predc, cb_cr(at(qpc, cu)), log2c, False,
+                               m.repeat(2), 1)
             ws.commit(cu, m, lv, rec, lvc, recc)
-        return ws.result(self.rows, self.cols, F)
+        out = ws.result(self.rows, self.cols, F)
+        if nr is not None:
+            sy, sc = nr[1].cpu().numpy(), nr[2].cpu().numpy()
+            for f, o in enumerate(out):
+                o["nr_sum_y"], o["nr_sum_c"] = sy[f], sc[f]
+        return out
+
+    def _source_modes(self, ys) -> torch.Tensor:
+        """Fast intra: every CU's luma mode from the edge-replicated source
+        plane's neighbours (all 35 modes, the SATD argmin; [F * ncu])."""
+        from .qt_common import source_v       # qt_common imports this
+        n, bd = self.n, self.quant_fn.bit_depth
+        out = []
+        for y in ys:
+            y32 = torch.as_tensor(np.ascontiguousarray(y),
+                                  device=self.device).to(torch.int32)
+            preds = intra.predict_all_modes_matmul(source_v(y32, n), n, bd,
+                                                   luma=True)
+            out.append(torch.argmin(pixel.satd(to_blocks(y32, n)[:, None],
+                                               preds), dim=1))
+        return torch.cat(out)
 
 
 class IntraQTEncoder:
@@ -390,3 +488,282 @@ class IntraQTEncoder:
         out["recon_dev"] = tuple(p.to(pixel.plane_dtype(self.bd))
                                  for p in rec)
         return out
+
+
+class IntraQT64Encoder:
+    """CTU64 quadtree intra frame encoder (port of
+    IntraFrameEncoder._build_qt64 + _unpack_qt64, the reference's default
+    CTU size): the 64x64 CU always splits; each 32x32 block chooses
+    between one CU and four 16x16 subtrees, each 16x16 block (max_depth
+    3) between one CU and four 8x8 CUs, bottom-up by RD (SSD + lambda2 *
+    (static TU bits + MODE_BITS), + 1 bit for each split flag below the
+    minimum size), inside the wavefront. quant_fn: plain, mode-dependent
+    sign-bit hiding or static-bit RDOQ (psy-RDOQ on luma); psy_rd: the
+    psycho-visual term of the RD; deblock: the in-loop deblock after the
+    frame (every CU edge at BS 2, on the 8-sample grid).
+
+    Every CU of every size predicts from the recon of what precedes it
+    in z-order, each size choosing its luma mode by the SATD argmin over
+    the 35 modes, chroma taking the DM mode. The reference's scan step
+    holds a CTU tile and its carried neighbour edges and masks its
+    writes; the port keeps frame planes and, for the CTUs of one
+    wavefront diagonal, codes each z-order position as one batch: a
+    block reads its references from the plane, which holds the recon of
+    the z-earlier blocks as decided so far (a candidate's own region is
+    never among its references) and the final recon of the left, top
+    and top-right CTUs (qt_common.block_v gives the spec's availability
+    inside the 64 tile); after a subtree the RD choice writes the
+    unsplit candidate back over the region where it wins."""
+
+    def __init__(self, width: int, height: int, device,
+                 quant_fn: Quantizer = PLAIN, psy_rd: float = 0.0,
+                 max_depth: int = 3, deblock: bool = False):
+        from . import qt_common as QT      # qt_common imports this module
+        if max_depth not in (2, 3):
+            raise ValueError("CTU64: the 64x64 CU always splits, so "
+                             f"max_depth is 2 or 3, not {max_depth} (the "
+                             "reference's assertion)")
+        self.QT = QT
+        self.n = 64
+        self.rows, self.cols = height // 64, width // 64
+        self.H, self.W = height, width
+        self.device = torch.device(device)
+        self.quant_fn, self.psy_rd = quant_fn, float(psy_rd)
+        self.bd = quant_fn.bit_depth
+        self.depth3 = max_depth >= 3
+        self.max_depth = max_depth
+        self.filters = Deblock64(bool(deblock), self.bd)
+        nd, _, rc, valid = wavefront_schedule(self.rows, self.cols, slope=2)
+        self.diags = [(rc[d, valid[d], 0].astype(np.int64),
+                       rc[d, valid[d], 1].astype(np.int64))
+                      for d in range(nd)]
+        self._idx = {}
+
+    def _index(self, d: int, y0: int, x0: int, nn: int):
+        """Device indices of the nn-blocks at (y0, x0) of diagonal d's
+        CTUs: luma (references, availability, samples), then chroma's."""
+        key = (d, y0, x0, nn)
+        if key not in self._idx:
+            QT, t = self.QT, lambda a: torch.as_tensor(a, device=self.device)
+            r, c = self.diags[d]
+            hc = nn // 2
+            vi, va = QT.block_v(r, c, y0, x0, nn, 64, self.cols, self.W)
+            vc, vac = QT.block_v(r, c, y0 // 2, x0 // 2, hc, 32, self.cols,
+                                 self.W // 2)
+            self._idx[key] = (
+                t(vi), t(va), t(QT.block_index(r, c, y0, x0, nn, 64,
+                                               self.W)),
+                t(vc), t(vac), t(QT.block_index(r, c, y0 // 2, x0 // 2, hc,
+                                                32, self.W // 2)))
+        return self._idx[key]
+
+    def encode_frame(self, y, u, v, qp, with_sao: bool = True,
+                     slice_qp: int = None) -> dict:
+        """y, u, v: planes padded to the coded size (numpy); qp: one QP or
+        the per-CTU QP map (AQ; [rows, cols] or [ncu]); slice_qp: the
+        deblock's QP before the first coded CTU (default the map's
+        largest). with_sao is accepted for the sessions' call (CTU64
+        codes no SAO). Returns the decision dict (numpy): split32 /
+        modes32 [rows, cols, 4], split16 / modes16 [rows, cols, 4, 4],
+        modes8 [rows, cols, 4, 4, 4], levels_y [rows, cols, 64, 64],
+        levels_cb / _cr [rows, cols, 32, 32] and the recon planes."""
+        rows, cols, dev = self.rows, self.cols, self.device
+        ncu = rows * cols
+        pl = lambda p: torch.as_tensor(np.array(p, np.int32), device=dev)
+        src = (pl(y), pl(u), pl(v))
+        rec = tuple(torch.zeros_like(p) for p in src)
+        lv = tuple(torch.zeros_like(p) for p in src)
+        qmap = np.broadcast_to(np.asarray(qp, np.int32).reshape(-1)
+                               if np.ndim(qp) else np.int32(qp), (ncu,))
+        qy, qc = cu_qps(qmap, ncu, dev)
+        l2 = self.QT.lam2(qy)
+        z = lambda *shape, dt=torch.int32: torch.zeros(shape, dtype=dt,
+                                                       device=dev)
+        dec = {"split32": z(ncu, 4, dt=torch.bool), "modes32": z(ncu, 4),
+               "split16": z(ncu, 4, 4, dt=torch.bool),
+               "modes16": z(ncu, 4, 4), "modes8": z(ncu, 4, 4, 4)}
+        for d, (r, c) in enumerate(self.diags):
+            ctu = torch.as_tensor(r * cols + c, device=dev)
+            one = (qmap == qmap[0]).all()
+            ctx = (d, int(qmap[0]) if one else qy[ctu],
+                   chroma_qp_from_luma(int(qmap[0])) if one else qc[ctu],
+                   l2[ctu])
+            for q, (qy_, qx_) in enumerate(self.QT.QOFF):
+                sp32, m32, sp16, m16, m8 = self._tree32(
+                    ctx, src, rec, lv, 32 * qy_, 32 * qx_)
+                dec["split32"][ctu, q], dec["modes32"][ctu, q] = sp32, m32
+                dec["split16"][ctu, q], dec["modes16"][ctu, q] = sp16, m16
+                dec["modes8"][ctu, q] = m8
+        h = lambda a: a.cpu().numpy()
+        out = {k: h(a).reshape((rows, cols) + tuple(a.shape[1:]))
+               for k, a in dec.items()}
+        rec = self.filters(rec, lv, out, self.max_depth, qmap, slice_qp)
+        tiles = lambda p, k: h(to_blocks(p, k)).reshape(rows, cols, k, k)
+        out.update(levels_y=tiles(lv[0], 64), levels_cb=tiles(lv[1], 32),
+                   levels_cr=tiles(lv[2], 32), recon_y=h(rec[0]),
+                   recon_u=h(rec[1]), recon_v=h(rec[2]))
+        return out
+
+    def _code(self, ctx, src, rec, y0: int, x0: int, nn: int):
+        """One candidate CU of size nn at (y0, x0) of the diagonal's CTUs,
+        nothing written: [mode, (levels y, levels Cb + Cr), (recon y,
+        recon Cb + Cr), dist, bits], the bits None until _bits prices
+        them."""
+        d, qy, qc, _ = ctx
+        q, bd = self.quant_fn, self.bd
+        vi, va, bi, vc, vac, bc = self._index(d, y0, x0, nn)
+        S, hc = bi.shape[0], nn // 2
+        v = intra.substitute_references(rec[0].reshape(-1)[vi], va, bd)
+        preds = intra.predict_all_modes_matmul(v, nn, bd, luma=True)
+        sy = src[0].reshape(-1)[bi].reshape(S, nn, nn)
+        m = torch.argmin(pixel.satd(sy[:, None], preds), dim=1)
+        lvy, ry = tq_recon(sy, gather_mode(preds, m), qy, nn.bit_length() - 1,
+                           True, q, True, m)
+        v = intra.substitute_references(
+            torch.cat([rec[1].reshape(-1)[vc], rec[2].reshape(-1)[vc]]),
+            vac.repeat(2, 1), bd)
+        predc = intra.predict_mode_matmul(v, m.repeat(2), hc, bd, luma=False)
+        sc = torch.cat([src[1].reshape(-1)[bc], src[2].reshape(-1)[bc]]) \
+            .reshape(2 * S, hc, hc)
+        lvc, rc_ = tq_recon(sc, predc, cb_cr(qc), hc.bit_length() - 1, True,
+                            q, False, m.repeat(2))
+        QT = self.QT
+        dist = (QT.ssd(sy, ry) + QT.ssd(sc[:S], rc_[:S])) + \
+            QT.ssd(sc[S:], rc_[S:])
+        if self.psy_rd > 0:
+            e = (pixel.psy_energy(sy) - pixel.psy_energy(ry)).abs().float()
+            psy = np.float32(self.psy_rd)
+            # the reference's contracted multiply-add; at a power of two
+            # (the presets' 1, 2, 4) the product is exact, so the plain
+            # float32 add rounds once too
+            dist = dist + e * psy if math.frexp(self.psy_rd)[0] == 0.5 \
+                else fp32.fma(e, psy, dist)
+        return [m.to(torch.int32), (lvy, lvc), (ry, rc_), dist, None]
+
+    def _bits(self, cands) -> None:
+        """Price candidates' levels on the host in one round trip: each
+        one's bits, ((Y + Cb) + Cr) + MODE_BITS in float32 (the reference's
+        order), set on the device."""
+        levels = [t for c in cands for t in c[1]]
+        host = torch.cat([t.flatten() for t in levels]).cpu().numpy()
+        out, o = [], 0
+        for c in cands:
+            lvy, lvc = c[1]
+            S = lvy.shape[0]
+            by = quant.est_tu_bits(host[o:o + lvy.numel()].reshape(S, -1))
+            o += lvy.numel()
+            bc = quant.est_tu_bits(host[o:o + lvc.numel()].reshape(2 * S,
+                                                                    -1))
+            o += lvc.numel()
+            out.append(((by + bc[:S]) + bc[S:]) + np.float32(
+                self.QT.MODE_BITS))
+        dev = torch.as_tensor(np.stack(out)).to(self.device)
+        for c, b in zip(cands, dev):
+            c[4] = b
+
+    def _put(self, ctx, rec, lv, y0: int, x0: int, nn: int, cand,
+             keep=None):
+        """Write a candidate's recon and levels into the planes (where
+        keep [S] is False, when given: the rest keeps the planes')."""
+        _, lvs, recs, _, _ = cand
+        _, _, bi, _, _, bc = self._index(ctx[0], y0, x0, nn)
+        S = bi.shape[0]
+        for planes, (ya, ca) in ((rec, recs), (lv, lvs)):
+            for p, idx, a in ((planes[0], bi, ya), (planes[1], bc, ca[:S]),
+                              (planes[2], bc, ca[S:])):
+                new = a.reshape(S, -1)
+                if keep is not None:
+                    new = torch.where(keep[:, None], p.view(-1)[idx], new)
+                p.view(-1)[idx] = new
+
+    def _tree16(self, ctx, src, rec, lv, y0: int, x0: int):
+        """A 16x16 block: one CU, or (max_depth 3) four 8x8 CUs by RD.
+        Returns (dist, bits, split, mode16, modes8 [S, 4]); at max_depth 2
+        bits is the CU candidate, unpriced (its bits + 1 once priced)."""
+        c16 = self._code(ctx, src, rec, y0, x0, 16)
+        m16, d16 = c16[0], c16[3]
+        S = m16.shape[0]
+        if not self.depth3:
+            self._put(ctx, rec, lv, y0, x0, 16, c16)
+            zs = torch.zeros(S, dtype=torch.int32, device=m16.device)
+            return d16, c16, \
+                torch.zeros(S, dtype=torch.bool, device=m16.device), m16, \
+                torch.stack([zs] * 4, 1)
+        c8s = []
+        for sy, sx in self.QT.QOFF:
+            yy, xx = y0 + 8 * sy, x0 + 8 * sx
+            c8s.append(self._code(ctx, src, rec, yy, xx, 8))
+            self._put(ctx, rec, lv, yy, xx, 8, c8s[-1])
+        self._bits([c16] + c8s)
+        d8 = torch.zeros(S, dtype=torch.float32, device=m16.device)
+        b8 = torch.zeros_like(d8)
+        for c8 in c8s:
+            d8, b8 = d8 + c8[3], b8 + c8[4]
+        l2, b16 = ctx[3], c16[4]
+        one = np.float32(1.0)
+        sp = (d8 + l2 * (b8 + one)) < (d16 + l2 * (b16 + one))
+        self._put(ctx, rec, lv, y0, x0, 16, c16, keep=sp)
+        return (torch.where(sp, d8, d16),
+                torch.where(sp, b8 + one, b16 + one), sp, m16,
+                torch.stack([c[0] for c in c8s], 1))
+
+    def _tree32(self, ctx, src, rec, lv, y0: int, x0: int):
+        """A 32x32 block: one CU or four 16x16 subtrees by RD. Returns
+        (split, mode32, split16 [S, 4], modes16 [S, 4], modes8 [S, 4, 4])."""
+        c32 = self._code(ctx, src, rec, y0, x0, 32)
+        subs = [self._tree16(ctx, src, rec, lv, y0 + 16 * qy, x0 + 16 * qx)
+                for qy, qx in self.QT.QOFF]
+        one = np.float32(1.0)
+        # depth 2: the 16x16 CUs are priced with the 32x32 one
+        self._bits([c32] + ([] if self.depth3 else [t[1] for t in subs]))
+        dq = torch.zeros_like(c32[3])
+        bq = torch.zeros_like(dq)
+        for dd, bb, _, _, _ in subs:
+            dq, bq = dq + dd, bq + (bb if self.depth3 else bb[4] + one)
+        l2 = ctx[3]
+        sp = (dq + l2 * (bq + one)) < (c32[3] + l2 * (c32[4] + one))
+        self._put(ctx, rec, lv, y0, x0, 32, c32, keep=sp)
+        return sp, c32[0], torch.stack([t[2] for t in subs], 1), \
+            torch.stack([t[3] for t in subs], 1), \
+            torch.stack([t[4] for t in subs], 1)
+
+
+class Deblock64:
+    """The CTU64 intra frame's deblock (the reference's session runs it
+    after the program: BS 2 on every CU edge of the 8-sample grid,
+    ops/deblock.compute_bs_qt64_intra, each CTU at its decoder-side QP),
+    and the wall-clock ms of the last frame's, as the stage "deblock"."""
+
+    def __init__(self, on: bool, bit_depth: int = 8):
+        self.on, self.bd = on, bit_depth
+        self.ms = {}
+
+    def __call__(self, rec, lv, out: dict, max_depth: int,
+                 qmap: np.ndarray, slice_qp=None):
+        """The deblocked (y, u, v) planes (rec itself when off). out: the
+        decision dict's split32 / split16; qmap: each CTU's QP [ncu];
+        slice_qp: the QP before the first coded CTU (default the map's
+        largest)."""
+        self.ms = {}
+        if not self.on:
+            return rec
+        from ..ops import deblock as DB, filters as FL
+        t0 = time.perf_counter()
+        dev = rec[0].device
+        rows, cols = out["split32"].shape[:2]
+        bs_v, bs_h = (torch.as_tensor(b, device=dev) for b in
+                      DB.compute_bs_qt64_intra(out["split32"],
+                                               out["split16"], max_depth))
+        tiles = lambda p, k: (p != 0).reshape(rows, k, cols, k).any(3) \
+            .any(1).reshape(-1)
+        cbf = tiles(lv[0], 64) | tiles(lv[1], 32) | tiles(lv[2], 32)
+        q_eff = FL.effective_qp(torch.as_tensor(np.array(qmap), device=dev),
+                                cbf, int(qmap.max()) if slice_qp is None
+                                else int(slice_qp))
+        cell_q = q_eff.reshape(rows, cols).repeat_interleave(8, 0) \
+            .repeat_interleave(8, 1)
+        out3 = FL.deblock_qt2(rec, cell_q, bs_v, bs_h, self.bd)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        self.ms = {"deblock": (time.perf_counter() - t0) * 1e3}
+        return out3

@@ -2,7 +2,8 @@
 
 Port of x265_yuuki_asuna_tpu/ops/deblock.py: the spec tables, the batched
 luma and chroma edge filters, and the uniform-grid frames (the IDR, every
-CU edge at BS 2; the P frame, per-edge BS), at any bit depth (beta and
+CU edge at BS 2; the P frame, per-edge BS; the CTU64 intra quadtree's
+BS, compute_bs_qt64_intra), at any bit depth (beta and
 tc scaled by 2^(bd - 8), samples clipped to the bd-bit range), with one
 QP per frame or a per-CU QP map (AQ / cuTree: each edge at the average of its two
 CUs' QPs, `edge_qps`).
@@ -327,3 +328,37 @@ def deblock_frame_inter(y, u, v, cu_size: int, qp_y, qp_c: int, bs_v,
     u, v = (filter_plane(p, vc, hc, False, (tc_c_v, mask_v),
                          (tc_c_h, mask_h), maxv) for p in (u, v))
     return y, u, v
+
+
+def compute_bs_qt64_intra(split32, split16, max_depth: int):
+    """Boundary strengths of a CTU64 intra quadtree frame on the 8-sample
+    cell grid (host numpy): 2 on every CU edge, 0 inside a CU. split32
+    [rows, cols, 4] and split16 [rows, cols, 4, 4] are the z-order split
+    flags (split16 unread at max_depth 2). Returns (bs_v [gr, gc-1], bs_h
+    [gr-1, gc]) int32, gr = 8 rows, gc = 8 cols."""
+    split32 = np.asarray(split32, bool)
+    split16 = np.asarray(split16, bool)
+    rows, cols = split32.shape[:2]
+    cu_id = np.zeros((8 * rows, 8 * cols), np.int64)
+    nid = 1
+    qoff = ((0, 0), (0, 1), (1, 0), (1, 1))
+    for r in range(rows):
+        for c in range(cols):
+            for q, (qy, qx) in enumerate(qoff):
+                y32, x32 = 8 * r + 4 * qy, 8 * c + 4 * qx
+                if not split32[r, c, q]:
+                    cu_id[y32:y32 + 4, x32:x32 + 4] = nid
+                    nid += 1
+                    continue
+                for sq, (sy, sx) in enumerate(qoff):
+                    y16, x16 = y32 + 2 * sy, x32 + 2 * sx
+                    if max_depth == 2 or not split16[r, c, q, sq]:
+                        cu_id[y16:y16 + 2, x16:x16 + 2] = nid
+                        nid += 1
+                        continue
+                    for uy, ux in qoff:
+                        cu_id[y16 + uy, x16 + ux] = nid
+                        nid += 1
+    bs_v = np.where(cu_id[:, :-1] != cu_id[:, 1:], 2, 0).astype(np.int32)
+    bs_h = np.where(cu_id[:-1, :] != cu_id[1:, :], 2, 0).astype(np.int32)
+    return bs_v, bs_h

@@ -165,6 +165,11 @@ def eg_bits_int(k: torch.Tensor) -> torch.Tensor:
     return _lookup("eg_bits", k)
 
 
+def eg_bits_host(k: np.ndarray) -> np.ndarray:
+    """eg_bits_int of a host (numpy) integer array."""
+    return _tables(_N)["eg_bits"][k]
+
+
 def mv_log_bits(mx: torch.Tensor, my: torch.Tensor) -> torch.Tensor:
     """The uniform B program's MV rate, 4 + 2 log2(1 + |mx|) + 2 log2(1 +
     |my|), in XLA's float32 for integer MVs with |mv| < 2^16: each 2 *

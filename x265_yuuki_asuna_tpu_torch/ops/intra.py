@@ -180,11 +180,16 @@ def _weights_t(n: int, luma: bool, device) -> Tuple[torch.Tensor, int]:
 
 
 def predict_all_modes_matmul(v: torch.Tensor, n: int, bit_depth: int = 8,
-                             luma: bool = True) -> torch.Tensor:
+                             luma: bool = True,
+                             chroma444: bool = False) -> torch.Tensor:
     """All 35 modes for a batch of blocks. v: [B, 4n+1] substituted
     references. Returns [B, 35, n, n] int32 (spec-exact incl. the DC/H/V
-    boundary filters for luma n < 32)."""
-    Wt, T = _weights_t(n, luma, v.device)
+    boundary filters for luma n < 32). chroma444: 4:4:4 chroma, whose
+    references are filtered as luma's (spec 8.4.4.2.3 applies when cIdx
+    is 0 or ChromaArrayType is 3) but whose DC / H / V edges are not
+    (cIdx 0 only)."""
+    filt = luma or chroma444
+    Wt, T = _weights_t(n, filt, v.device)
     if v.is_cuda:
         assert not torch.backends.cuda.matmul.allow_tf32 and \
             torch.get_float32_matmul_precision() == "highest", \
@@ -192,7 +197,7 @@ def predict_all_modes_matmul(v: torch.Tensor, n: int, bit_depth: int = 8,
     vi = v.to(torch.int32)
     B = vi.shape[0]
     two_n = 2 * n
-    vf = filter_references(vi) if (luma and n > 4) else vi
+    vf = filter_references(vi) if (filt and n > 4) else vi
     vcat = torch.cat([vi, vf], dim=-1).to(torch.float32)      # [B, 2L]
     acc = (vcat @ Wt).to(torch.int32)
     pred = ((acc + (1 << (T - 1))) >> T).reshape(B, 35, n, n)
@@ -226,10 +231,12 @@ def predict_all_modes_matmul(v: torch.Tensor, n: int, bit_depth: int = 8,
 
 
 def predict_mode_matmul(v: torch.Tensor, modes: torch.Tensor, n: int,
-                        bit_depth: int = 8, luma: bool = True) -> torch.Tensor:
+                        bit_depth: int = 8, luma: bool = True,
+                        chroma444: bool = False) -> torch.Tensor:
     """One chosen mode per block. v: [B, 4n+1]; modes: [B]. Returns
     [B, n, n] int32 — the all-modes product followed by a gather on the
     mode axis (bit-exact with the all-modes path)."""
-    allp = predict_all_modes_matmul(v, n, bit_depth, luma=luma)
+    allp = predict_all_modes_matmul(v, n, bit_depth, luma=luma,
+                                    chroma444=chroma444)
     idx = modes.to(torch.int64).reshape(-1, 1, 1, 1).expand(-1, 1, n, n)
     return torch.gather(allp, 1, idx)[:, 0]

@@ -4,7 +4,8 @@ batched.
 
 Port of x265_yuuki_asuna_tpu/ops/quant.py (quant, dequant, quant_matrix,
 dequant_matrix, sign_bit_hiding, sign_bit_hiding_mdcs, quant_rdoq,
-quant_rdoq_ctx, sign_at_scan). The QP is a Python int (one QP for the
+quant_rdoq_ctx, est_tu_bits, denoise_dct, nr_update_offsets,
+sign_at_scan). The QP is a Python int (one QP for the
 call) or an int tensor [B] (one QP per block of a [B, N, N] batch, as
 the programs pass it).
 Reference behavior (studied, not copied): common/dct.cpp quant_c /
@@ -179,10 +180,11 @@ def _mdcs_scan(log2n: int, modes: torch.Tensor, is_luma: bool,
     getTUEntropyCodingParameters): intra TUs up to 8x8 luma (4x4 chroma
     in 4:2:0) scan horizontally for modes 22-30 and vertically for modes
     6-14; everything else, and inter blocks (is_intra False), scans
-    diagonally. int64 [B]."""
-    m = modes.reshape(-1).to(torch.int64)
+    diagonally. int64 [B], or the int T.SCAN_DIAG for a TU size that
+    always scans diagonally."""
     if log2n > (3 if is_luma else 3 - int(csp420)):
-        return torch.zeros_like(m)
+        return T.SCAN_DIAG
+    m = modes.reshape(-1).to(torch.int64)
     hor = (m >= 22) & (m <= 30)
     ver = (m >= 6) & (m <= 14)
     if is_intra is not None:
@@ -508,6 +510,55 @@ def quant_rdoq_ctx(coef: torch.Tensor, qp, log2_tr_size: int, bit_depth: int,
     return out.clamp(-32768, 32767).reshape(coef.shape)
 
 
+def est_tu_bits(levels: np.ndarray) -> np.ndarray:
+    """The static bit estimate of TUs (the CTU64 program's RD), on the
+    host: levels [B, N*N] (numpy) -> float32 [B], each nonzero level's
+    static RDOQ bits (_static_level_bits) summed left to right in raster
+    order in float32, as the reference's compiled program sums them
+    (numpy's add.accumulate is strictly sequential; on the device the
+    chain would take a launch per element), plus 6 for a TU with any."""
+    a = np.abs(levels)
+    rem = np.maximum(a - 2, 0)
+    rb = np.where(rem > 0, fp32.eg_bits_host(rem + 1), _F32(0.0))
+    bits = np.where(a > 0, np.where(a > 1, _F32(4.0), _F32(3.0)) + rb,
+                    _F32(0.0)).astype(_F32)
+    return (np.add.accumulate(bits, axis=1, dtype=_F32)[:, -1]
+            + np.where(a.any(1), _F32(6.0), _F32(0.0))).astype(_F32)
+
+
+# ---------------------------------------------------------------------------
+# noise reduction (the reference's --nr-intra: dct.cpp denoiseDct_c and
+# frameencoder.cpp noiseReductionUpdate)
+# ---------------------------------------------------------------------------
+
+def denoise_dct(coef: torch.Tensor, offset):
+    """|coef| lowered by offset (>= 0, broadcast against coef's last two
+    axes) and clamped at 0, its sign restored: (denoised coef, |coef|
+    before), int32. A shape that does not broadcast raises ValueError,
+    as the reference's program does."""
+    c = coef.to(torch.int32)
+    off = torch.as_tensor(offset, dtype=torch.int32, device=c.device)
+    if off.ndim and tuple(off.shape) != tuple(c.shape[-off.ndim:]):
+        raise ValueError("Incompatible shapes for broadcasting: shapes="
+                         f"[{tuple(c.shape)}, {tuple(off.shape)}]")
+    a = c.abs()
+    return (a - off).clamp(min=0) * torch.sign(c), a
+
+
+def nr_update_offsets(res_sum: np.ndarray, count: int, strength: int,
+                      max_blocks: int):
+    """The denoise offsets from running |coef| sums (host): res_sum int64
+    [ncoef] over count blocks; past max_blocks both are halved first.
+    Returns (offsets int32 [ncoef] with a zero DC, res_sum, count)."""
+    if count > max_blocks:
+        res_sum = res_sum >> 1
+        count >>= 1
+    off = ((int(strength) * int(count) + res_sum // 2) // (res_sum + 1)) \
+        .astype(np.int32)
+    off[0] = 0
+    return off, res_sum, count
+
+
 def sign_at_scan(sign: torch.Tensor, scan: torch.Tensor) -> torch.Tensor:
     """Signs [B, nn] (raster) in scan order."""
     return sign[:, scan]
@@ -529,8 +580,12 @@ class Quantizer:
     blocks, each half at its own list."""
 
     def __init__(self, sbh: bool = False, rdoq: bool = False,
-                 psy_rdoq: float = 0.0, bit_depth: int = 8, scaling=None):
+                 psy_rdoq: float = 0.0, bit_depth: int = 8, scaling=None,
+                 csp420: bool = True):
         self.sbh, self.rdoq = bool(sbh) and not rdoq, bool(rdoq)
+        # the chroma format of the sign-hiding scan (4:4:4 chroma scans
+        # as luma by size)
+        self.csp420 = bool(csp420)
         self.psy_rdoq = float(psy_rdoq) if rdoq else 0.0
         self.bit_depth = bit_depth
         self.qp_offset = 6 * (bit_depth - 8)
@@ -586,7 +641,8 @@ class Quantizer:
                        qtab=qtab)
         if modes is None:
             return sign_bit_hiding(lv, du, log2n)
-        return sign_bit_hiding_mdcs(lv, du, log2n, modes, luma, is_intra)
+        return sign_bit_hiding_mdcs(lv, du, log2n, modes, luma, is_intra,
+                                    self.csp420)
 
     def dequant(self, levels: torch.Tensor, qp, log2n: int,
                 luma: bool = True) -> torch.Tensor:
