@@ -217,7 +217,33 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      --qp 32 through cli.main, a CTU64 depth-2 frame beside the CTU32
      depth-2 quadtree's, a 4:4:4 frame, fast intra beside the plain
      uniform grid in turns, three NR frames beside three without: ms,
-     launches, bytes, PSNR-Y/U/V, peak memory; K1 none);
+     launches, bytes, PSNR-Y/U/V, peak memory; K1 none); then the last
+     options at the entry points (tests/tools_pins.py): golden_rqt (the
+     RQT P program at one QP, at a QP map and with RDOQ and the B
+     program against the JAX programs' digests, tests/test_rqt.py's P
+     and B sessions, the deblocked P session whose stream decodes to
+     another picture as the reference's does, --rqt through cli.main),
+     golden_analysis (tests/test_analysis_reuse.py's and
+     tests/test_scale_factor.py's passes, streams and record files, and
+     --analysis-save / --analysis-load), golden_ladder (the two-rung
+     ladder with and without the hand-off, --ladder through cli.main),
+     golden_sei_tools (the HDR10+ session, --dolby-vision-rpu and
+     --dhdr10-info through cli.main, --recon-y4m-exec's y4m against
+     --recon's planes), each against the JAX package's md5s;
+     tools_cpu_vs_card (416x240: the RQT P and B sessions, the save and
+     load passes with their record files, the 416x240 + 208x120 ladder
+     with the hand-off, card against CPU); 1080p_rqt (the depth-2
+     quadtree, I + P, with rqt=True and rqt=False: bytes, PSNR-Y, K1 2
+     fused + 1 surface in both, the share of unsplit inter CU32 leaves
+     whose TU split, the P program's ms with the split variant on and off
+     in turns and its CUDA launches each way, the plain rerun identical);
+     1080p_analysis (the uniform IPPP path, a save pass then a load pass
+     of 3 frames: fps, bytes, PSNR-Y, K1's launches by frame: the load
+     pass's P frames launch no ME sweep; the plain rerun identical) and
+     1080p_ladder (--keyint 250 --ladder 1920x1080:6000,960x540:2000
+     through cli.main, 4 frames: fps, each rung's kbps against its
+     target, the scaler's ms per frame, K1's launches per rung: the 1080p
+     rung, hinted by the 540p one, launches its lookahead's only);
   6. the kernels line (launches on the flagship's path, and on each
      path; each entry point's int16 time, plain time, bound and launches
      on the 10-bit path); then the card line and, last, the ok line.
@@ -3147,6 +3173,414 @@ def phase_1080p_intra_opts(dev, trace_quadtrees: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the last options at the entry points: RQT, analysis save / load / share
+# with scale_factor, the ABR ladder and its scaler, the HDR10+ / Dolby
+# Vision metadata and reconplay
+# ---------------------------------------------------------------------------
+
+def tools_pins():
+    """tests/tools_pins.py: the RQT programs, sessions and command line,
+    the analysis passes, the ladder and the metadata command lines, and
+    the JAX package's pins over them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import tools_pins as pins
+    return pins
+
+
+def _check(phase: str, ok: dict):
+    if not all(ok.values()):
+        raise AssertionError(f"{phase}: differ from the pins: "
+                             f"{[k for k, v in ok.items() if not v]}")
+
+
+def phase_golden_rqt(dev):
+    """RQT on the card: the P program at one QP, at a per-CTU QP map and
+    with RDOQ and the B program on tools_pins.rqt_inputs() against the
+    JAX programs' pinned digests (every key, recon included), the P and B
+    sessions of tests/test_rqt.py and the deblocked P session (the
+    reference's fault: the stream decodes to another picture) against the
+    pinned md5s, and --preset ultrafast --qp 22 --rqt through cli.main;
+    K1's launches over them."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    from x265_yuuki_asuna_tpu_torch.models.inter_encoder import \
+        InterQTEncoder
+    from x265_yuuki_asuna_tpu_torch.ops.quant import Quantizer
+    pins = tools_pins()
+    k1_start()
+    dicts = pins.rqt_dicts(InterQTEncoder, Quantizer, dev)
+    got = {k: pins.digest(d) for k, d in dicts.items()}
+    ok = {k: got[k] == pins.RQT_DIGEST[k] for k in got}
+    split = {k: int((d["tu_split32"] & ~d["split"] & ~d["use_intra"]).sum())
+             for k, d in dicts.items()}
+    for name in pins.RQT_SESSIONS:
+        got[name] = pins.run_session(top, name, device=dev)[0]
+        ok["session_" + name] = got[name] == pins.RQT_PINS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = pins.write_cli_inputs(tmp, _write_y4m)
+        got["cli_rqt"] = pins.run_cli(cli.main, "rqt", tmp, src)
+        ok["cli_rqt"] = got["cli_rqt"] == pins.CLI_PINS["rqt"]
+    launches = k1_read()
+    emit(phase="golden_rqt", got=got, match=ok, split_inter_cu32=split,
+         k1_launches=launches)
+    _check("golden_rqt", ok)
+    return launches
+
+
+def _resize_np(dev):
+    from x265_yuuki_asuna_tpu_torch.ops import scaler
+    return lambda p, h, w: scaler.resize_plane(p, h, w, device=dev).cpu() \
+        .numpy()
+
+
+def phase_golden_analysis(dev):
+    """Analysis reuse on the card: tests/test_analysis_reuse.py's save and
+    load passes and tests/test_scale_factor.py's (pass 1 at half size
+    through the port's scaler on the card, pass 2 with scale_factor 2):
+    the streams and record files against the JAX package's md5s; then
+    --analysis-save and --analysis-load through cli.main; K1's launches
+    over them."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    pins = tools_pins()
+    k1_start()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {"analysis": pins.run_analysis(top, tmp, device=dev),
+               "scale_factor": pins.run_scale_factor(top, _resize_np(dev),
+                                                     tmp, device=dev)}
+        ok = {"analysis": got["analysis"] == pins.ANALYSIS_PINS,
+              "scale_factor": got["scale_factor"] == pins.SCALE_PINS}
+        src = pins.write_cli_inputs(tmp, _write_y4m)
+        for name in ("analysis_save", "analysis_load"):
+            got["cli_" + name] = pins.run_cli(cli.main, name, tmp, src)
+            ok["cli_" + name] = got["cli_" + name] == pins.CLI_PINS[name]
+        got["cli_record"] = pins.file_md5(os.path.join(tmp, "cli.dat"))
+        ok["cli_record"] = got["cli_record"] == \
+            pins.CLI_PINS["analysis_record"]
+    launches = k1_read()
+    emit(phase="golden_analysis", got=got, match=ok, k1_launches=launches)
+    _check("golden_analysis", ok)
+    return launches
+
+
+def phase_golden_ladder(dev):
+    """The ladder on the card: the 128x96 + 64x48 rungs over
+    tools_pins.ladder_clip() with and without the analysis hand-off, and
+    --keyint 5 --ladder 64x48:300,32x24:100 through cli.main, each rung's
+    stream against the JAX package's md5; K1's launches over them."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import ladder
+    pins = tools_pins()
+    k1_start()
+    got = {str(s): pins.run_ladder(ladder, s, device=dev)[0]
+           for s in (True, False)}
+    ok = {k: got[k] == pins.LADDER_PINS[k == "True"] for k in got}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = pins.write_cli_inputs(tmp, _write_y4m)
+        got["cli_ladder"] = pins.run_cli(cli.main, "ladder", tmp, src)
+        ok["cli_ladder"] = got["cli_ladder"] == pins.CLI_PINS["ladder"]
+    launches = k1_read()
+    emit(phase="golden_ladder", got=got, match=ok, k1_launches=launches)
+    _check("golden_ladder", ok)
+    return launches
+
+
+def phase_golden_sei_tools(dev):
+    """The metadata and reconplay on the card: tests/test_sei_extras.py's
+    session with each frame's HDR10+ SEI, --dolby-vision-rpu (all-intra)
+    and --dhdr10-info with --dolby-vision-rpu (a video session) through
+    cli.main against the JAX package's md5s; --recon-y4m-exec into dd,
+    whose file must be the y4m of the --recon planes."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.bitstream import sei
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    pins = tools_pins()
+    got = {"hdr10p": pins.run_hdr10p_session(top, sei, device=dev)[0]}
+    ok = {"hdr10p": got["hdr10p"] == pins.SEI_PINS["hdr10p"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = pins.write_cli_inputs(tmp, _write_y4m)
+        for name in ("dovi", "hdr10p_dovi"):
+            got[name] = pins.run_cli(cli.main, name, tmp, src)
+            ok[name] = got[name] == pins.CLI_PINS[name]
+        sink, recon = os.path.join(tmp, "sink.y4m"), \
+            os.path.join(tmp, "r.yuv")
+        rc = cli.main([src, "-o", os.path.join(tmp, "o.hevc"), "--keyint",
+                       "1", "--qp", "32", "--recon", recon,
+                       "--recon-y4m-exec", f"dd of={sink} status=none"])
+        with open(sink, "rb") as f, open(recon, "rb") as g:
+            data, body = f.read(), g.read()
+        size = 64 * 48 * 3 // 2
+        ok["reconplay"] = rc == 0 and data == (
+            b"YUV4MPEG2 W64 H48 F25:1 Ip A1:1 C420\n" + b"".join(
+                b"FRAME\n" + body[i * size:(i + 1) * size]
+                for i in range(pins.CLI_FRAMES)))
+    emit(phase="golden_sei_tools", got=got, match=ok)
+    _check("golden_sei_tools", ok)
+
+
+def phase_tools_cpu_vs_card(dev, n=3):
+    """The slice's paths on a 416x240 synth_clip, on the card and with
+    device="cpu": the quadtree P session with RQT (QP 22, 2 frames), the
+    quadtree B session with RQT (bframes 1, b_adapt 0: I, P, B), the
+    uniform save and load passes (3 frames, the record files too) and the
+    416x240 + 208x120 ladder with the hand-off (3 frames): equal streams."""
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    from x265_yuuki_asuna_tpu_torch.models import ladder
+    pins = tools_pins()
+    clip = synth_clip(n, 416, 240)
+    rqt = dict(qp=22, max_depth=2, keyint=100, hash_sei=True, rqt=True)
+    got, secs, split = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in (None, "cpu"):
+            tag = where or "card"
+            t0 = time.perf_counter()
+            s = top.VideoEncoderSession(416, 240, device=where, **rqt)
+            res = [s.encode_frame(*f) for f in clip[:2]]
+            got[("rqt_p", tag)] = pins.md5(
+                s.headers() + b"".join(r.nals for r in res))
+            s = top.VideoEncoderSession(416, 240, bframes=1, b_adapt=0,
+                                        device=where, **rqt)
+            res = push_all(s, clip)
+            got[("rqt_b", tag)] = pins.md5(
+                s.headers() + b"".join(r.nals for r in res))
+            secs["rqt_" + tag] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            streams = []
+            dat = os.path.join(tmp, tag + ".dat")
+            for kw in (dict(analysis_save=dat), dict(analysis_load=dat)):
+                s = top.VideoEncoderSession(416, 240, device=where, qp=32,
+                                            hash_sei=True, **kw)
+                streams.append(pins.md5(s.headers() + b"".join(
+                    s.encode_frame(*f).nals for f in clip)))
+                if "analysis_save" in kw:
+                    s.analysis_save.close()
+            got[("analysis", tag)] = streams + [pins.file_md5(dat)]
+            secs["analysis_" + tag] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lad = ladder.LadderEncoder(
+                416, 240, [ladder.Rung(416, 240, 800),
+                           ladder.Rung(208, 120, 250)], keyint=250,
+                device=where)
+            streams = lad.headers()
+            for f in clip:
+                for j, fr in enumerate(lad.encode_frame(*f)):
+                    streams[j] += fr.nals
+            got[("ladder", tag)] = [pins.md5(x) for x in streams]
+            secs["ladder_" + tag] = time.perf_counter() - t0
+    match = {k: got[(k, "card")] == got[(k, "cpu")]
+             for k, t in got if t == "card"}
+    emit(phase="tools_cpu_vs_card", frames=n,
+         md5={f"{k}_{t}": v for (k, t), v in got.items()}, seconds=secs,
+         match=match)
+    if not all(match.values()):
+        raise AssertionError(f"tools_cpu_vs_card: the card's streams "
+                             f"differ from the CPU's: {match}")
+
+
+def phase_1080p_rqt(dev, turns=2):
+    """RQT at 1080p: synth_clip, the CTU32 depth-2 quadtree at QP 32, an
+    I and a P frame with rqt=True and with rqt=False (two sessions, one
+    after the other): each run's bytes, PSNR-Y, K1's launches (the same:
+    RQT adds no sweep) and the share of the P frame's unsplit inter CU32
+    leaves whose TU split; then the P program of the RQT session again
+    with the split variant on and off in turns (ms) and each one's CUDA
+    launches (torch.profiler), and its plain rerun, which must be
+    identical."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    frames = synth_clip(2, W1080, H1080)
+    runs = {}
+    for rqt in (True, False):
+        sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
+                                   hash_sei=True, max_depth=2, rqt=rqt,
+                                   device=dev)
+        inst = _Instrumented(sess, ippp=True)
+        total = len(sess.headers())
+        torch.cuda.synchronize()
+        k1_start()                                # the main path starts
+        res = [sess.encode_frame(*f) for f in frames]
+        launches = k1_read()
+        a, k = inst.last(False)
+        out = inst.run(*a, **k)
+        leaf = ~out["split"] & ~out["use_intra"]
+        runs[rqt] = dict(
+            sess=sess, inst=inst, out=out, res=res,
+            report=dict(bytes=total + sum(len(r.nals) for r in res),
+                        frame_bytes=[len(r.nals) for r in res],
+                        psnr_y=[r.psnr_y for r in res],
+                        frame_ms=inst.call_ms, k1_launches=launches,
+                        inter_cu32_leaves=int(leaf.sum()),
+                        split_share=(float((out["tu_split32"] & leaf).sum()
+                                           / max(leaf.sum(), 1))
+                                     if rqt else None)))
+        if [r.frame_type for r in res] != ["I", "P"] or not all(
+                np.isfinite([r.psnr_y for r in res])):
+            raise AssertionError("1080p_rqt output malformed")
+    on = runs[True]
+    enc = on["sess"].inter_encoder
+    a, k = on["inst"].last(False)
+
+    def set_on(v):
+        enc.rqt = v
+    p_ms = _turns_ms(lambda: on["inst"].run(*a, **k), set_on, turns)
+    p_launches = {}
+    for v in (True, False):
+        set_on(v)
+        p_launches[str(v)] = _launches(lambda: on["inst"].run(*a, **k))
+    set_on(True)
+    want = {"sad_sweep_best": 2, "sad_block8_sweep": 1,
+            "sad_block4_sweep": 0}
+    emit(phase="1080p_rqt", rqt=runs[True]["report"],
+         no_rqt=runs[False]["report"],
+         bytes_change=runs[True]["report"]["bytes"]
+         / runs[False]["report"]["bytes"] - 1,
+         p_program_ms={str(v): m for v, m in p_ms.items()},
+         p_program_launches=p_launches, k1_launches_want=want)
+    for v in (True, False):
+        if runs[v]["report"]["k1_launches"] != want:
+            raise AssertionError(f"1080p_rqt: K1 launches "
+                                 f"{runs[v]['report']['k1_launches']} != "
+                                 f"{want}")
+    _plain_rerun("1080p_rqt", on["inst"], bi=False)
+    return runs[True]["report"]["k1_launches"]
+
+
+def phase_1080p_analysis(dev, n_frames=3):
+    """Analysis reuse at 1080p on the uniform 16x16 IPPP path (QP 32, hash
+    SEI): a save pass, then a load pass over the same n_frames frames of
+    synth_clip: each pass's fps after the IDR, bytes, PSNR-Y, ms per
+    frame and K1's launches by frame (the fused sweep: the lookahead's one
+    a frame in both passes, the P frame's ME one in the save pass and
+    none in the load pass); the load pass's last P frame's plain rerun
+    identical."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    frames = synth_clip(n_frames, W1080, H1080)
+    out, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dat = os.path.join(tmp, "a.dat")
+        for name, kw in (("save", dict(analysis_save=dat)),
+                         ("load", dict(analysis_load=dat))):
+            sess = VideoEncoderSession(W1080, H1080, qp=32, keyint=250,
+                                       hash_sei=True, device=dev, **kw)
+            inst = _Instrumented(sess, ippp=True)
+            nbytes = len(sess.headers())
+            per_frame = []
+            k1_start()                            # the main path starts
+            for f in frames:
+                before = k1_read()
+                nbytes += len(sess.encode_frame(*f).nals)
+                per_frame.append({k: v - before[k]
+                                  for k, v in k1_read().items()})
+            total[name] = k1_read()
+            if name == "save":
+                sess.analysis_save.close()
+            res = inst.results
+            out[name] = dict(
+                fps=(len(res) - 1) / (sum(inst.call_ms[1:]) / 1e3),
+                frame_ms=inst.call_ms, bytes=nbytes,
+                psnr_y=[r.psnr_y for r in res],
+                frame_type=[r.frame_type for r in res],
+                k1_by_frame=per_frame, k1_launches=total[name],
+                stage_ms_total=dict(sess.stage_ms))
+            if [r.frame_type for r in res] != ["I"] + ["P"] * (
+                    n_frames - 1) or not all(np.isfinite(
+                        [r.psnr_y for r in res])):
+                raise AssertionError("1080p_analysis output malformed")
+    want = {"save": {"sad_sweep_best": 2 * n_frames - 1,
+                     "sad_block8_sweep": 0, "sad_block4_sweep": 0},
+            "load": {"sad_sweep_best": n_frames, "sad_block8_sweep": 0,
+                     "sad_block4_sweep": 0}}
+    emit(phase="1080p_analysis", **out, k1_launches_want=want,
+         bytes_change=out["load"]["bytes"] / out["save"]["bytes"] - 1)
+    if total != want:
+        raise AssertionError(f"1080p_analysis: K1 launches {total} != "
+                             f"{want}")
+    _plain_rerun("1080p_analysis_load", inst, bi=False)
+    return total
+
+
+def phase_1080p_ladder(dev, n_frames=4):
+    """--ladder 1920x1080:6000,960x540:2000 --keyint 250 through cli.main
+    over an n_frames 1080p y4m of synth_clip (the 960x540 rung codes first
+    and hands its MVs, scaled by 2, to the 1080p rung): fps after the
+    first frame (both rungs), each rung's kbps at 25 fps against its
+    target, bytes and frame types, the scaler's ms per frame, and K1's
+    launches per rung (the donor's lookahead and ME sweeps, the
+    consumer's lookahead sweeps only)."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import ladder
+    frames = synth_clip(n_frames, W1080, H1080)
+    made = []
+
+    def capture(*a, **k):
+        lad = ladder.LadderEncoder(*a, **k)
+        made.append(lad)
+        per = [dict.fromkeys(K1_ENTRIES, 0) for _ in lad.sessions]
+        res = [[] for _ in lad.sessions]
+        for i, s in enumerate(lad.sessions):
+            def counted(*f, _run=s.encode_frame, _i=i):
+                before = k1_read()
+                r = _run(*f)
+                for n, c in k1_read().items():
+                    per[_i][n] += c - before[n]
+                res[_i].append(r)
+                return r
+            s.encode_frame = counted
+        lad.k1_per_rung, lad.res = per, res
+        call, ms = lad.encode_frame, []
+
+        def timed(*f):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = call(*f)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return got
+        lad.encode_frame, lad.frame_ms = timed, ms
+        return lad
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.y4m")
+        _write_y4m(src, frames)
+        argv = [src, "-o", os.path.join(tmp, "out.hevc"), "--keyint",
+                "250", "--ladder", "1920x1080:6000,960x540:2000"]
+        k1_start()                                # the main path starts
+        with mock.patch.object(cli, "LadderEncoder", side_effect=capture):
+            rc = cli.main(argv)
+        launches = k1_read()
+        sizes = {r: os.path.getsize(os.path.join(tmp, f"out_{r}.hevc"))
+                 for r in ("1920x1080", "960x540")}
+    lad = made[0]
+    rungs = []
+    for i, r in enumerate(lad.rungs):
+        size = sizes[f"{r.width}x{r.height}"]
+        rungs.append(dict(
+            rung=f"{r.width}x{r.height}", target_kbps=r.bitrate_kbps,
+            kbps_at_25fps=size * 8 * 25 / n_frames / 1000, bytes=size,
+            frame_type=[x.frame_type for x in lad.res[i]],
+            qp=[x.qp for x in lad.res[i]],
+            psnr_y=[x.psnr_y for x in lad.res[i]],
+            k1_launches=lad.k1_per_rung[i],
+            analysis_hints=lad.sessions[i].hinted))
+    fps = (n_frames - 1) / (sum(lad.frame_ms[1:]) / 1e3)
+    emit(phase="1080p_ladder", frames=n_frames, fps=fps,
+         frame_ms=lad.frame_ms, rungs=rungs,
+         scale_ms_per_frame=lad.scale_ms / n_frames, k1_launches=launches)
+    want = [{"sad_sweep_best": n_frames, "sad_block8_sweep": 0,
+             "sad_block4_sweep": 0},
+            {"sad_sweep_best": 2 * n_frames - 1, "sad_block8_sweep": 0,
+             "sad_block4_sweep": 0}]
+    if rc != 0 or any(not np.isfinite(r["psnr_y"]).all() or r["frame_type"]
+                      != ["I"] + ["P"] * (n_frames - 1) for r in rungs):
+        raise AssertionError("1080p_ladder output malformed")
+    if lad.k1_per_rung != want:
+        raise AssertionError(f"1080p_ladder: K1 launches per rung "
+                             f"{lad.k1_per_rung} != {want}")
+    return launches
+
+
 # The phases after K1, as (key, phase function, keyword arguments), the
 # longest first (by earlier runs' times) so that the pool ends together;
 # each runs whole in one process, its K1 counts set to 0 just before its
@@ -3167,6 +3601,9 @@ JOBS = (
     ("1080p_qt2_b_lf_sbh", "phase_1080p_b", dict(
         name="1080p_qt2_b_lf_sbh", opts=dict(LF, sbh=True))),
     ("1080p_flagship", "phase_1080p_flagship", {}),
+    ("1080p_rqt", "phase_1080p_rqt", {}),
+    ("tools_cpu_vs_card", "phase_tools_cpu_vs_card", {}),
+    ("1080p_ladder", "phase_1080p_ladder", {}),
     ("1080p_qt2_b_crf", "phase_1080p_b", dict(
         name="1080p_qt2_b_crf", opts=FLAGSHIP_CRF,
         n_frames=QT_B_CRF_FRAMES)),
@@ -3188,6 +3625,8 @@ JOBS = (
     ("weightp_cpu_vs_card", "phase_weightp_cpu_vs_card", {}),
     ("1080p_cli_intra_ctu32_wpp", "phase_1080p_cli_intra_ctu32_wpp", {}),
     ("golden_p_options", "phase_golden_p_options", {}),
+    ("1080p_analysis", "phase_1080p_analysis", {}),
+    ("golden_rqt", "phase_golden_rqt", {}),
     ("1080p_qt2", "phase_1080p", dict(name="1080p_qt2", max_depth=2,
                                       n_frames=QT_FRAMES)),
     ("main10_cpu_vs_card", "phase_cli_cpu_vs_card", dict(
@@ -3214,6 +3653,9 @@ JOBS = (
     ("golden_qt2_b", "phase_golden_qt2_b", {}),
     ("golden", "phase_golden", dict(key="ippp_cqp", qp=32, cu_size=16)),
     ("lossless_cpu_vs_card", "phase_lossless_cpu_vs_card", {}),
+    ("golden_analysis", "phase_golden_analysis", {}),
+    ("golden_ladder", "phase_golden_ladder", {}),
+    ("golden_sei_tools", "phase_golden_sei_tools", {}),
 )
 WORKERS = 4     # processes sharing the card (8 host cores)
 _SINK = None    # a worker's queue to the parent (emit's lines, results)
@@ -3365,8 +3807,13 @@ def main(argv=None):
         by_path[key] = res[key]
     by_path["1080p_cli_ctu32"], sizes32 = res["1080p_cli_ctu32"]
     by_path["1080p_api_p_only"], sizes_p = res["1080p_api_p_only"]
-    for key in ("1080p_wpp_b", "golden_intra_opts", "1080p_intra_opts"):
+    for key in ("1080p_wpp_b", "golden_intra_opts", "1080p_intra_opts",
+                "golden_rqt", "golden_analysis", "golden_ladder",
+                "1080p_rqt", "1080p_ladder"):
         by_path[key] = res[key]
+    analysis = res["1080p_analysis"]
+    for name, counts in analysis.items():
+        by_path[f"1080p_analysis_{name}"] = counts
     # the flagship's path: every entry point runs there
     launches = by_path["1080p_flagship"]
     me = k1["P-frame ME 1088x1920"]
@@ -3405,7 +3852,10 @@ def main(argv=None):
                  "bound_by": r24["surface_bound_by"]},
          "int16": dict(i16(me16, "surface_"), r24_12bit=i16(
              me16_r24, "surface_"), launches_main10={
-                 p: c["sad_block8_sweep"] for p, c in main10.items()})},
+                 p: c["sad_block8_sweep"] for p, c in main10.items()}),
+         # RQT: the quadtree P frame's one surface, as without it
+         "rqt": {"1080p_rqt": res["1080p_rqt"]["sad_block8_sweep"],
+                 "golden_rqt": res["golden_rqt"]["sad_block8_sweep"]}},
         {"name": "sad_sweep_best", **common,
          "launches": launches["sad_sweep_best"],
          "launches_by_path": per_path("sad_sweep_best"),
@@ -3432,7 +3882,12 @@ def main(argv=None):
          # the P-frame options: two sweeps per two-reference P frame
          "p_options": {"1080p_api_p_only_by_size": sizes_p,
                        "launches_golden_p_options":
-                           golden_popts["sad_sweep_best"]}},
+                           golden_popts["sad_sweep_best"]},
+         # analysis reuse: the loaded P frames run no ME sweep (the
+         # lookahead's one a frame stays); the ladder's rungs
+         "analysis": {f"1080p_analysis_{k}": v["sad_sweep_best"]
+                      for k, v in analysis.items()},
+         "ladder": res["1080p_ladder"]["sad_sweep_best"]},
         {"name": "sad_block4_sweep", **common,
          "launches": launches["sad_block4_sweep"],
          "launches_by_path": per_path("sad_block4_sweep"),

@@ -277,9 +277,13 @@ def test_weighted_presets_code_decodable_streams(tmp_path, preset):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--ladder", "48x32:300"], ["--devices", "2"],
-    ["--dhdr10-info", "m.json"], ["--dolby-vision-rpu", "r.bin"],
-    ["--recon-y4m-exec", "cat"]])
+    # (--ladder, --dhdr10-info, --dolby-vision-rpu and --recon-y4m-exec
+    # run now, tests/test_torch_ladder.py and test_torch_host_tools.py:
+    # their cases hold --devices with other counts and flags)
+    ["--devices", "4"], ["--devices", "2"],
+    ["--devices", "2", "--dhdr10-info", "m.json"],
+    ["--devices", "3", "--dolby-vision-rpu", "r.bin"],
+    ["--devices", "8", "--recon-y4m-exec", "cat"]])
 def test_cli_features_without_a_slice_raise(tmp_path, flag):
     src = str(tmp_path / "e.y4m")
     _empty_clip(src)

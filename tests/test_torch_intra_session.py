@@ -211,17 +211,24 @@ def _keywords(cls):
 def test_every_jax_keyword_runs_or_names_its_slice(cls, param, tmp_path):
     """A non-default value of each keyword either codes a frame in the
     port or raises NotImplementedError naming the slice that adds it;
-    never TypeError. The stats files live in a temporary directory; pass
-    2 reads a pass-1 file the port wrote there."""
+    never TypeError. The stats and analysis files live in a temporary
+    directory; pass 2 reads a pass-1 file the port wrote there, and
+    analysis_load a record file."""
     val = _non_default(param)
     assert val != param.default
-    if param.name in ("stats_write", "stats_read"):
+    if param.name in ("stats_write", "stats_read", "analysis_save",
+                      "analysis_load"):
         val = str(tmp_path / val)
     if param.name == "stats_read":
         p1 = t_top.VideoEncoderSession(64, 48, device="cpu",
                                        stats_write=val)
         p1.encode_frame(*clip(64, 48, n=1)[0])
         p1.stats_writer.close()
+    if param.name == "analysis_load":
+        p1 = t_top.VideoEncoderSession(64, 48, device="cpu",
+                                       analysis_save=val)
+        p1.encode_frame(*clip(64, 48, n=1)[0])
+        p1.analysis_save.close()
     top = getattr(t_top, cls)
     try:
         s = top(64, 48, device="cpu", **{param.name: val})

@@ -130,14 +130,15 @@ def test_load_session_state_mid_gop_with_filters(kw):
 
 
 def test_filters_do_not_open_other_later_options():
-    with pytest.raises(NotImplementedError, match="RQT"):
-        t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
+    # (rqt and the analysis options run now with the filters: the
+    # geometries outside the port still raise, and the quadtree keeps
+    # the reference's assertion against analysis reuse)
+    with pytest.raises(NotImplementedError, match="max_depth"):
+        t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=3,
                                   rqt=True, **LF)
-    # (wpp runs now with the filters: the analysis options are still to
-    # come)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        t_top.VideoEncoderSession(64, 48, device="cpu", scale_factor=2,
-                                  **LF)
+    with pytest.raises(AssertionError, match="analysis"):
+        t_top.VideoEncoderSession(64, 48, device="cpu", max_depth=2,
+                                  analysis_share=[], **LF)
 
 
 @pytest.mark.slow

@@ -173,7 +173,10 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
         load_session_state(s, state)
 
 
-@pytest.mark.parametrize("option", [
+NIE, AE = NotImplementedError, AssertionError
+
+
+@pytest.mark.parametrize("option,exc,match", [
     # (the cases bframes and max_depth=1 had: both run now, the uniform
     # B session and the depth-1 quadtree)
     # (the case cu_size=64 took the place of cu_size=32, and scale_factor
@@ -183,22 +186,49 @@ def test_load_session_state_rejects_wrong_geometry(jax_ippp):
     # and analysis_share [] took the places of max_merge 5, wpp, n_refs,
     # max_merge 2, dup_threshold, tmvp and frame_dup: the P-frame options
     # run now, tests/test_torch_p_options.py)
-    {"max_depth": 3}, {"cu_size": 64}, {"rqt": True}, {"cu_size": 8},
-    {"scale_factor": 2}, {"analysis_save": "a.dat"}, {"scale_factor": 4},
+    # (the analysis options and rqt run now, tests/test_torch_analysis.py
+    # and test_torch_rqt.py: their cases hold a geometry still outside
+    # the port, or a combination the reference asserts against)
+    pytest.param({"max_depth": 3}, NIE, "max_depth", id="option0"),
+    pytest.param({"cu_size": 64}, NIE, "cu_size", id="option1"),
+    pytest.param({"rqt": True, "max_depth": 3}, NIE, "max_depth",
+                 id="option2"),
+    pytest.param({"cu_size": 8}, NIE, "cu_size", id="option3"),
+    pytest.param({"scale_factor": 2, "cu_size": 24}, NIE, "cu_size",
+                 id="option4"),
+    pytest.param({"analysis_save": "a.dat", "n_refs": 2}, AE, "multi-ref",
+                 id="option5"),
+    pytest.param({"scale_factor": 4, "max_depth": 4}, NIE, "max_depth",
+                 id="option6"),
     # (the cases bit_depth 12 and 10 had: both run now, Main12 and Main10)
-    {"analysis_share": "load"},
-    {"analysis_load": "a.dat"}, {"analysis_share": "save"},
-    {"analysis_load": "b.dat"},
-    {"scale_factor": 3},
-    {"max_depth": 4}, {"analysis_save": "b.dat"}, {"cu_size": 128},
-    {"analysis_share": []},
+    pytest.param({"analysis_share": "load", "cu_size": 128}, NIE,
+                 "cu_size", id="option7"),
+    pytest.param({"analysis_load": "a.dat", "n_refs": 2}, AE, "multi-ref",
+                 id="option8"),
+    pytest.param({"analysis_share": "save", "n_refs": 2}, AE, "multi-ref",
+                 id="option9"),
+    pytest.param({"analysis_load": "b.dat", "max_depth": 2}, AE,
+                 "no analysis reuse", id="option10"),
+    pytest.param({"scale_factor": 3, "max_depth": 3}, NIE, "max_depth",
+                 id="option11"),
+    pytest.param({"max_depth": 4}, NIE, "max_depth", id="option12"),
+    pytest.param({"analysis_save": "b.dat", "max_depth": 1}, AE,
+                 "no analysis reuse", id="option13"),
+    pytest.param({"cu_size": 128}, NIE, "cu_size", id="option14"),
+    pytest.param({"analysis_share": [], "max_depth": 2}, AE,
+                 "no analysis reuse", id="option15"),
     # (the case max_depth 3 with cu_size 64 took the place of max_depth 2
     # with cu_size 64: the video session's quadtree codes CTU32 whatever
     # cu_size, as the reference's does; CTU64 is the all-intra session's)
-    {"max_depth": 3, "cu_size": 64},
+    pytest.param({"max_depth": 3, "cu_size": 64}, NIE, "max_depth",
+                 id="option16"),
 ])
-def test_options_outside_the_slice_raise(option):
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
+def test_options_outside_the_slice_raise(option, exc, match):
+    """A geometry the port does not code raises NotImplementedError
+    naming it; an option the reference asserts against raises
+    AssertionError with the reference's reason (before any file is
+    opened)."""
+    with pytest.raises(exc, match=match):
         t_top.VideoEncoderSession(64, 48, device="cpu", **option)
 
 
@@ -221,25 +251,39 @@ def test_rate_control_options_code_a_frame(option):
         assert s.sps.hrd == (400000, 200000, 0)
 
 
-@pytest.mark.parametrize("option", [
+@pytest.mark.parametrize("option,exc,match", [
     # (scale_factor and analysis_share took the places of hash_type 1 and
     # 2: the CRC and checksum SEI run now; scale_factor 3, analysis_load,
     # analysis_save, cu_size 64 and analysis_share "load" / [] took the
     # places of frame_dup, dup_threshold, max_merge, tmvp, wpp and n_refs:
     # the quadtree keeps max_merge and frame_dup, drops tmvp and wpp and
     # asserts one reference, as the reference does)
-    {"scale_factor": 3}, {"analysis_load": "b.dat"}, {"scale_factor": 2},
+    # (rqt, scale_factor and analysis_share "save" run on the quadtree
+    # now: the reference asserts against analysis reuse there, and
+    # against a second reference)
+    pytest.param({"scale_factor": 3, "analysis_load": "b.dat"}, AE,
+                 "no analysis reuse", id="option0"),
+    pytest.param({"analysis_load": "b.dat"}, AE, "no analysis reuse",
+                 id="option1"),
+    pytest.param({"scale_factor": 2, "analysis_save": "b.dat"}, AE,
+                 "no analysis reuse", id="option2"),
     # (bit_depth 10 runs now: Main10)
     # (scale_factor 4 took the place of cu_size 64: the video session's
     # quadtree codes CTU32 whatever cu_size, as the reference's does)
-    {"analysis_save": "b.dat"}, {"scale_factor": 4},
-    {"analysis_share": "save"},
-    {"analysis_share": "load"},
-    {"rqt": True},
-    {"analysis_share": []},
+    pytest.param({"analysis_save": "b.dat"}, AE, "no analysis reuse",
+                 id="option3"),
+    pytest.param({"scale_factor": 4, "analysis_share": []}, AE,
+                 "no analysis reuse", id="option4"),
+    pytest.param({"analysis_share": "save", "n_refs": 2}, AE, "multi-ref",
+                 id="option5"),
+    pytest.param({"analysis_share": "load", "n_refs": 2}, AE, "multi-ref",
+                 id="option6"),
+    pytest.param({"rqt": True, "n_refs": 2}, AE, "multi-ref", id="option7"),
+    pytest.param({"analysis_share": []}, AE, "no analysis reuse",
+                 id="option8"),
 ])
-def test_quadtree_options_outside_the_slice_raise(option):
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
+def test_quadtree_options_outside_the_slice_raise(option, exc, match):
+    with pytest.raises(exc, match=match):
         t_top.VideoEncoderSession(64, 48, max_depth=2, device="cpu",
                                   **option)
 
@@ -247,23 +291,27 @@ def test_quadtree_options_outside_the_slice_raise(option):
 B_SESSION = dict(max_depth=2, bframes=3, b_adapt=0)
 
 
-@pytest.mark.parametrize("option,match", [
+@pytest.mark.parametrize("option,exc,match", [
     # (the ids of the cases weightp, wpp, tmvp and max_merge had: weightp
     # and max_merge run on B sessions, which drop wpp on the quadtree and
     # tmvp, as the reference does)
-    pytest.param({"analysis_load": "b.dat"}, "analysis_load",
+    # (rqt and scale_factor run on B sessions now: their cases and the
+    # analysis options' meet the reference's assertions)
+    pytest.param({"analysis_load": "b.dat"}, AE, "no analysis reuse",
                  id="option0-weightp"),
-    ({"rqt": True}, "rqt"),
-    pytest.param({"scale_factor": 3}, "scale_factor", id="option2-tmvp"),
+    pytest.param({"rqt": True, "n_refs": 2}, AE, "multi-ref",
+                 id="option1-rqt"),
+    pytest.param({"scale_factor": 3, "analysis_share": []}, AE,
+                 "no analysis reuse", id="option2-tmvp"),
     # (the case max_depth=0 had: the uniform 16x16 grid's B session runs
     # now, and its CTU32 grid; CTU64 is still to come)
-    pytest.param({"max_depth": 0, "cu_size": 64}, "cu_size=64",
+    pytest.param({"max_depth": 0, "cu_size": 64}, NIE, "cu_size=64",
                  id="option3-max_depth=0"),
-    pytest.param({"analysis_save": "b.dat"}, "analysis_save",
+    pytest.param({"analysis_save": "b.dat"}, AE, "no analysis reuse",
                  id="option4-max_merge"),
 ])
-def test_b_session_options_outside_the_slice_raise(option, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_b_session_options_outside_the_slice_raise(option, exc, match):
+    with pytest.raises(exc, match=match):
         t_top.VideoEncoderSession(64, 48, device="cpu",
                                   **{**B_SESSION, **option})
 

@@ -11,9 +11,12 @@ CTU32 quadtree of depth 2 when the minimum CU is 8, of depth 1 when it is
 WPP substreams, and b_lossless there), on the CUDA card unless the
 caller passes device="cpu". The uniform P-only session takes the
 reference's two L0 references and TMVP (one reference with TMVP under
-weightp). A setting the port's sessions do not run yet raises
-NotImplementedError from the session, naming the slice that adds it:
-e.g. the analysis save / load options.
+weightp). The rest of the x265.h surface: cleanup, dither_image,
+calculate_vmaf (libvmaf is not built in: RuntimeError, as the
+reference's build without it), get_slicetype_poc_and_scenecut,
+get_ref_frame_list and set_analysis_data (records in the
+--analysis-save format; they steer the motion search of a session made
+with analysis_load or analysis_share, as in the reference).
 """
 
 from __future__ import annotations
@@ -222,6 +225,11 @@ class Encoder:
             self._stats.encoded_picture_count += 1
             self._stats.accumulated_bits += fr.bits
             self._psnr_sum += fr.psnr_y
+            self._last_frame_info = {
+                "sliceType": fr.frame_type,
+                "poc": getattr(fr, "poc", None),
+                "bScenecut": 1 if fr.frame_type == "I" else 0,
+            }
             out.append(fr.nals)
         return out
 
@@ -387,3 +395,73 @@ def check_params(p: Param):
                 f"configuration requires level {need / 30:.1f} but "
                 f"level_idc pins {p.level_idc / 30:.1f} "
                 f"(use allow-non-conformance to override)")
+
+
+# -- the rest of the public API (x265.h: x265_cleanup, x265_dither_image,
+# x265_calculate_vmaf, x265_get_slicetype_poc_and_scenecut,
+# x265_get_ref_frame_list, x265_set_analysis_data) -------------------------
+
+def cleanup():
+    """x265_cleanup: there is no global state to free."""
+
+
+def dither_image(plane16: np.ndarray, bit_depth_in: int,
+                 bit_depth_out: int = 8) -> np.ndarray:
+    """x265_dither_image: one plane from bit_depth_in down to
+    bit_depth_out bits by error diffusion along each row (the running
+    error of each sample carried to the next; uint8 out at 8 bits or
+    fewer, else uint16). The rows run side by side, column by column."""
+    if bit_depth_in == bit_depth_out:
+        return plane16.astype(np.uint8 if bit_depth_out <= 8 else np.uint16)
+    shift = bit_depth_in - bit_depth_out
+    half = 1 << (shift - 1)
+    maxv = (1 << bit_depth_out) - 1
+    src = plane16.astype(np.int32)
+    out = np.zeros_like(src)
+    err = np.zeros(src.shape[0], np.int32)
+    for xx in range(src.shape[1]):
+        v = src[:, xx] + err
+        q = np.clip((v + half) >> shift, 0, maxv)
+        err = v - (q << shift)
+        out[:, xx] = q
+    return out.astype(np.uint8 if bit_depth_out <= 8 else np.uint16)
+
+
+VMAF_AVAILABLE = False
+
+
+def calculate_vmaf(*_args, **_kw):
+    """x265_calculate_vmaf: this build has no libvmaf (the reference built
+    without ENABLE_LIBVMAF), so it raises RuntimeError."""
+    raise RuntimeError("VMAF support not compiled in (libvmaf unavailable)")
+
+
+def get_slicetype_poc_and_scenecut(enc: Encoder, pic_out=None) -> dict:
+    """x265_get_slicetype_poc_and_scenecut: the slice type, POC and scene
+    cut flag (1 for an I frame) of the last picture out; None / None / 0
+    before the first."""
+    st = getattr(enc, "_last_frame_info", None)
+    if st is None:
+        return {"sliceType": None, "poc": None, "bScenecut": 0}
+    return dict(st)
+
+
+def get_ref_frame_list(enc: Encoder) -> tuple:
+    """x265_get_ref_frame_list: the POCs of the (L0, L1) references of the
+    next picture, as the reference reports them: a B session's last
+    anchor in L0, else nothing."""
+    anchor = getattr(getattr(enc, "_sess", None), "anchor", None)
+    return ([anchor[1]] if anchor else [], [])
+
+
+def set_analysis_data(enc: Encoder, analysis) -> int:
+    """x265_set_analysis_data: hand the encoder analysis records (the
+    --analysis-save format: a list of {"t": "I" | "P", "mvx", "mvy"}),
+    read from the next frame on (the index starts again at 0). Returns 0,
+    or -1 for an encoder whose session takes no records (all-intra)."""
+    sess = getattr(enc, "_sess", None)
+    if sess is None or not hasattr(sess, "analysis_data"):
+        return -1
+    sess.analysis_data = analysis
+    sess.analysis_idx = 0
+    return 0

@@ -1,5 +1,6 @@
 """Bit-level writer and NAL packaging (host copy of
-x265_yuuki_asuna_tpu/bitstream/bitio.py: BitWriter, wrap_nal).
+x265_yuuki_asuna_tpu/bitstream/bitio.py: BitWriter, wrap_nal,
+parse_annexb_nals).
 
 Reference behavior (studied, not copied): common/bitstream.h,
 encoder/nal.cpp (start codes, emulation prevention).
@@ -92,3 +93,25 @@ def wrap_nal(nal_type: int, rbsp: bytes, temporal_id: int = 0) -> bytes:
     """Annex-B NAL: start code + 2-byte header + anti-emulated payload."""
     header = bytes([(nal_type << 1) & 0x7E, temporal_id + 1])
     return b"\x00\x00\x00\x01" + header + anti_emulation(rbsp)
+
+
+def parse_annexb_nals(data: bytes):
+    """Split an Annex-B byte stream into NAL payloads without their start
+    codes and 2-byte headers (emulation-prevention bytes left in place:
+    wrap_nal re-wraps each payload verbatim, adding a header). A NAL of
+    two bytes or fewer is dropped."""
+    nals = []
+    i = 0
+    n = len(data)
+    while True:
+        j = data.find(b"\x00\x00\x01", i)
+        if j < 0:
+            break
+        j += 3
+        k = data.find(b"\x00\x00\x01", j)
+        end = n if k < 0 else (k - 1 if k > 0 and data[k - 1] == 0 else k)
+        payload = data[j:end].rstrip(b"\x00") if k < 0 else data[j:end]
+        if len(payload) > 2:
+            nals.append(bytes(payload[2:]))
+        i = j
+    return nals

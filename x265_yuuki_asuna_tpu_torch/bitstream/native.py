@@ -43,7 +43,8 @@ def load() -> ctypes.CDLL:
         lib.asuna_encode_slice_qt2.restype = ctypes.c_int
         lib.asuna_encode_slice_qt2.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
-            + [ctypes.c_int] * 8 + extras + out)
+            + [ctypes.c_int] * 8 + extras + [ctypes.c_void_p, ctypes.c_int]
+            + out)
         _lib = lib
     return _lib
 
@@ -238,7 +239,7 @@ _QT2_SHAPES = {"split": (), "split16": (4,), "use_intra": (), "modes": (),
 def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
                      max_merge: int = 3, poc: int = 0, poc_l0: int = 0,
                      poc_l1: int = 0, sign_hiding: bool = False, sao=None,
-                     qp_map=None, bit_depth: int = 8):
+                     qp_map=None, bit_depth: int = 8, max_tt: int = 0):
     """CTU32 quadtree slice CABAC data (slice_type 2 = I, 1 = P, 0 = B;
     depth 1 or 2) from the quadtree programs' decision dict. A B slice
     reads pdir* (1 = L0, 2 = L1, 3 = bi) and the L1 MVs mv1x/mv41x/mv81x
@@ -247,6 +248,9 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
     ([ncu, 18]), coded before the CTU, or None. qp_map: each CTU's QP
     ([rows, cols]; its cu_qp_delta is coded at its first CU with a coded
     cbf), or None. bit_depth: the samples' (the SAO offsets' range).
+    max_tt: the SPS's max_transform_hierarchy_depth_inter; at 1 every
+    inter CU above 4x4 codes a split_transform_flag, and an unsplit inter
+    CU32 whose out["tu_split32"] is set codes four 16x16 TUs (RQT).
     Returns (payload, tail, tail_bits)."""
     if slice_type not in (0, 1, 2):
         raise ValueError(f"slice type {slice_type}: 0 = B, 1 = P, 2 = I")
@@ -271,15 +275,22 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
 
     args = [ptr(k, np.uint8 if k.startswith(("split", "use_intra"))
                 else np.int32) for k in _QT2_SHAPES]
+    ts32 = None
+    if max_tt >= 1 and out.get("tu_split32") is not None:
+        a = np.ascontiguousarray(out["tu_split32"], np.uint8)
+        if a.shape != (rows, cols):
+            raise ValueError(f"tu_split32: shape {a.shape} for a {rows}x"
+                             f"{cols} CTU grid")
+        keep.append(a)
+        ts32 = a.ctypes.data
     cap = int(rows * cols * (32 * 32 + 2 * 16 * 16) * 4 + 65536)
     buf = np.empty(cap, np.uint8)
     tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
     nbytes = lib.asuna_encode_slice_qt2(
         slice_type, max_depth, *args, rows, cols, qp, max_merge, poc,
         poc_l0, poc_l1, int(sign_hiding), _sao_ptr(sao, rows * cols, keep),
-        _qp_ptr(qp_map, rows * cols, keep), bit_depth, buf.ctypes.data,
-        cap, ctypes.byref(tail),
-        ctypes.byref(tail_bits))
+        _qp_ptr(qp_map, rows * cols, keep), bit_depth, ts32, int(max_tt),
+        buf.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
     return _finish(nbytes, buf, tail, tail_bits)
 
 

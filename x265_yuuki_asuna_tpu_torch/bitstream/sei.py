@@ -2,19 +2,23 @@
 x265_yuuki_asuna_tpu/bitstream/sei.py the sessions write: wrap_sei,
 active_parameter_sets, user_data_unregistered, parse_master_display,
 mastering_display, content_light_level, the HRD's buffering_period and
-pic_timing, pick_level).
+pic_timing, the HDR10+ T.35 metadata of user_data_t35,
+hdr10plus_t35_payload, load_hdr10plus_json and hdr10plus_sei_for_frame,
+pick_level).
 
 Reference behavior (studied, not copied): encoder/sei.cpp, common/level.cpp.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from typing import List, Optional, Tuple
 
 from .bitio import BitWriter, wrap_nal, NAL_PREFIX_SEI
 
 # payload types (spec D.2.1)
+SEI_USER_DATA_T35 = 4
 SEI_USER_DATA_UNREGISTERED = 5
 SEI_ACTIVE_PARAMETER_SETS = 129
 SEI_MASTERING_DISPLAY = 137
@@ -92,6 +96,96 @@ def content_light_level(max_cll: int, max_fall: int) -> bytes:
     bw.write_bits(max_cll, 16)
     bw.write_bits(max_fall, 16)
     return sei_message(SEI_CONTENT_LIGHT_LEVEL, bw.get_bytes())
+
+
+# ---------------------------------------------------------------------------
+# HDR10+ dynamic metadata (SMPTE ST 2094-40 in an ITU-T T.35 registered
+# user-data SEI): one record per frame from a hdr10plus_tool-style JSON,
+# the default full-frame window only
+# ---------------------------------------------------------------------------
+
+def user_data_t35(payload: bytes) -> bytes:
+    return sei_message(SEI_USER_DATA_T35, payload)
+
+
+def hdr10plus_t35_payload(rec: dict) -> bytes:
+    """One frame's HDR10+ record as an ST 2094-40 T.35 payload: the T.35
+    header (country 0xB5, provider 0x003C, code 0x0001, application 4
+    version 1), the window count, the targeted display's peak, per
+    window MaxScl, AverageRGB and up to 15 luminance percentiles, then
+    per window the Bezier tone-mapping curve when the record has one."""
+    bw = BitWriter()
+    bw.write_bits(0xB5, 8)            # itu_t_t35_country_code
+    bw.write_bits(0x003C, 16)         # terminal_provider_code
+    bw.write_bits(0x0001, 16)         # terminal_provider_oriented_code
+    bw.write_bits(4, 8)               # application_identifier
+    bw.write_bits(1, 8)               # application_version
+    num_windows = int(rec.get("NumberOfWindows", 1))
+    bw.write_bits(num_windows, 2)
+    bw.write_bits(int(rec.get("TargetedSystemDisplayMaximumLuminance", 0)),
+                  27)
+    bw.write_bits(0, 1)    # targeted_system_display_actual_peak_luminance
+    lum = rec.get("LuminanceParameters", {})
+    maxscl = lum.get("MaxScl", [0, 0, 0])
+    for _ in range(num_windows):
+        for v in maxscl[:3]:
+            bw.write_bits(int(v), 17)
+        bw.write_bits(int(lum.get("AverageRGB", 0)), 17)
+        dists = lum.get("LuminanceDistributions", {})
+        perc = dists.get("DistributionIndex", [])
+        vals = dists.get("DistributionValues", [])
+        n = min(len(perc), len(vals), 15)
+        bw.write_bits(n, 4)
+        for i in range(n):
+            bw.write_bits(int(perc[i]), 7)
+            bw.write_bits(int(vals[i]), 17)
+        bw.write_bits(0, 10)          # fraction_bright_pixels
+    bw.write_bits(0, 1)    # mastering_display_actual_peak_luminance_flag
+    bez = rec.get("BezierCurveData")
+    for _ in range(num_windows):
+        if bez:
+            bw.write_bits(1, 1)       # tone_mapping_flag
+            bw.write_bits(int(bez.get("KneePointX", 0)), 12)
+            bw.write_bits(int(bez.get("KneePointY", 0)), 12)
+            anchors = bez.get("Anchors", [])[:15]
+            bw.write_bits(len(anchors), 4)
+            for a in anchors:
+                bw.write_bits(int(a), 10)
+        else:
+            bw.write_bits(0, 1)
+        bw.write_bits(0, 1)           # color_saturation_mapping_flag
+    bw.write_align_zero()
+    return bytes(bw.get_bytes())
+
+
+def load_hdr10plus_json(path: str):
+    """The per-frame records of a hdr10plus_tool-style JSON (its
+    "SceneInfo", or "frames", or a top-level list); [] when the file
+    cannot be read or parsed."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return []
+    if isinstance(doc, dict):
+        return doc.get("SceneInfo", doc.get("frames", []))
+    if isinstance(doc, list):
+        return doc
+    return []
+
+
+def hdr10plus_sei_for_frame(records, display_idx: int) -> bytes:
+    """The prefix-SEI NAL carrying the HDR10+ metadata of the frame at
+    display_idx (past the records' end, the last record's); b"" with no
+    records or when the record cannot be coded."""
+    if not records:
+        return b""
+    rec = records[min(display_idx, len(records) - 1)]
+    try:
+        payload = hdr10plus_t35_payload(rec)
+    except (KeyError, TypeError, ValueError):
+        return b""
+    return wrap_sei([user_data_t35(payload)])
 
 
 # ---------------------------------------------------------------------------

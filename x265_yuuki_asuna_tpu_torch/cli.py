@@ -22,11 +22,17 @@ all-intra option: 4:4:4 input (all-intra under CQP on the CTU16 grid,
 no loop filters, as in the reference), --nr-intra and --ctu 64 with
 --keyint 1 (the CTU64 quadtree, depth 2 or 3); as in the reference,
 --wpp is an all-intra option (off CTU64) and --ref 2 falls back to one
-reference with B frames, the quadtree or weighted prediction. A setting
-the port's sessions do not run yet raises NotImplementedError from the
-session, naming the slice that adds it: e.g. --rqt or --analysis-save.
-The ABR ladder, the multi-device pipeline, reconplay and the HDR10+ /
-Dolby Vision metadata raise NotImplementedError here.
+reference with B frames, the quadtree or weighted prediction. --rqt
+splits inter CU32 TUs on the quadtree; --analysis-save / --analysis-load
+(with --scale-factor) put the session on the uniform IPPP grid of --ctu
+(16 by default: no quadtree, B frames or weighted prediction, as in the
+reference); --ladder WxH:kbps[,...] codes every rung of an ABR ladder in
+one pass (models/ladder.py), one output per rung named
+{stem}_{W}x{H}.{ext}; --dhdr10-info adds each frame's HDR10+ SEI and
+--dolby-vision-rpu one Dolby Vision RPU NAL per frame (the last one
+repeated); --recon-y4m-exec pipes the recon as y4m into a command. Frames
+are read ahead on a thread (utils/io.PrefetchReader). The multi-device
+pipeline (--devices 2 or more) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +43,10 @@ import time
 
 import numpy as np
 
+from .bitstream import sei as SEI
+from .bitstream.bitio import parse_annexb_nals, wrap_nal
 from .models.encoder_top import IntraEncoderSession, VideoEncoderSession
+from .models.ladder import LadderEncoder, parse_ladder
 from .utils import io as IO
 from .utils import param as P
 
@@ -53,19 +62,9 @@ _MAT = {'gbr': 0, 'bt709': 1, 'unknown': 2, 'fcc': 4, 'bt470bg': 5,
         'smpte170m': 6, 'smpte240m': 7, 'ycgco': 8, 'bt2020nc': 9,
         'bt2020c': 10, 'smpte2085': 11, 'chroma-derived-nc': 12,
         'chroma-derived-c': 13, 'ictcp': 14}
-# flags whose feature the port has no slice for yet (ROADMAP Queue 1)
-_LATER_FLAGS = {
-    "ladder": "--ladder: the ABR ladder (models/ladder.py, ops/scaler.py) "
-              "is ROADMAP Queue 1 item 14",
-    "devices": "--devices: the multi-device pipeline (parallel/*) is "
-               "ROADMAP Queue 1 item 15",
-    "dhdr10_info": "--dhdr10-info: the HDR10+ SEI comes with the SEI "
-                   "extras (ROADMAP Queue 1 item 13)",
-    "dolby_vision_rpu": "--dolby-vision-rpu: the Dolby Vision RPU NALs "
-                        "come with the SEI extras (ROADMAP Queue 1 item 13)",
-    "recon_y4m_exec": "--recon-y4m-exec: reconplay (utils/io.ReconPlay) "
-                      "comes with ROADMAP Queue 1 item 14",
-}
+# the one flag whose feature the port has no slice for yet
+_DEVICES_LATER = ("--devices: the multi-device pipeline (parallel/*) is "
+                  "ROADMAP Queue 1 item 15")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -362,15 +361,68 @@ def configure(args, prm, info, device=None):
         psy_rd=psy_rd, psy_rdoq=psy_rdoq, device=device)
 
 
+def add_metadata(sess, args) -> None:
+    """The per-frame metadata of the command line through the session's
+    sei_provider: --dhdr10-info's HDR10+ SEI (when its JSON has
+    records), then --dolby-vision-rpu's RPU NALs (when its file holds
+    any), one UNSPEC62 NAL per frame, the last one repeated."""
+    if args.dhdr10_info:
+        recs = SEI.load_hdr10plus_json(args.dhdr10_info)
+        if recs:
+            sess.sei_provider = (
+                lambda idx: SEI.hdr10plus_sei_for_frame(recs, idx))
+    if args.dolby_vision_rpu:
+        with open(args.dolby_vision_rpu, "rb") as f:
+            rpus = parse_annexb_nals(f.read())
+        if rpus:
+            prev = sess.sei_provider
+
+            def dovi(idx):
+                head = prev(idx) if prev else b""
+                return head + wrap_nal(62, rpus[min(idx, len(rpus) - 1)])
+            sess.sei_provider = dovi
+
+
+def _run_ladder(args, reader, device=None) -> int:
+    """--ladder: one pass over the source, every rung scaled and coded
+    (LadderEncoder with the hand-off; --qp, 32 by default, for a rung
+    without a bitrate), each rung's stream in {stem}_{W}x{H}.{ext}. As in
+    the reference, --keyint must be given (keyint > 1 is compared
+    first: without it, TypeError)."""
+    info = reader.info
+    rungs = parse_ladder(args.ladder)
+    lad = LadderEncoder(info.width, info.height, rungs,
+                        fps=(info.fps_num, info.fps_denom),
+                        qp=32 if args.qp is None else args.qp,
+                        keyint=max(args.keyint, 2) if args.keyint > 1
+                        else 250, hash_sei=not args.no_hash, device=device)
+    stem, _, ext = args.output.rpartition(".")
+    outs = [IO.RawBitstreamWriter(f"{stem}_{r.width}x{r.height}.{ext}")
+            for r in rungs]
+    for w, hdr in zip(outs, lad.headers()):
+        w.write(hdr)
+    n = 0
+    t0 = time.time()
+    frames = IO.PrefetchReader(reader)
+    for y, u, v in frames:
+        for w, fr in zip(outs, lad.encode_frame(y, u, v)):
+            w.write(fr.nals)
+        n += 1
+        if args.frames and n >= args.frames:
+            break
+    frames.close()
+    for w in outs:
+        w.close()
+    print(f"\nladder: {n} frames x {len(rungs)} rungs in "
+          f"{time.time() - t0:.2f}s", file=sys.stderr)
+    return 0
+
+
 def parse(argv):
     """(args, Param) of a command line: the flags, then the Param of its
     preset and tune with the unknown "--name=value" options applied
     through param_parse (ParamError for a bad one)."""
     args, extra = _parser().parse_known_args(argv)
-    for key, why in _LATER_FLAGS.items():
-        val = getattr(args, key)
-        if val and not (key == "devices" and val < 2):
-            raise NotImplementedError(why)
     prm = P.param_default_preset(args.preset, args.tune)
     for opt in extra:
         if not opt.startswith("--"):
@@ -406,11 +458,17 @@ def main(argv=None, device=None):
         print(f"x265-cuda: cannot open input: {e}", file=sys.stderr)
         return 1
     info = reader.info
+    if args.ladder:
+        return _run_ladder(args, reader, device)
+    if args.devices and args.devices >= 2:
+        reader.close()
+        raise NotImplementedError(_DEVICES_LATER)
     if info.csp not in (P.CSP_I420, P.CSP_I444):
         print("x265-cuda: only 4:2:0 and 4:4:4 inputs supported",
               file=sys.stderr)
         return 1
     sess = configure(args, prm, info, device)
+    add_metadata(sess, args)
     qpfile = {}
     if args.qpfile:
         # reference --qpfile format: "<frameNumber> <frameType> <QP>"
@@ -437,6 +495,8 @@ def main(argv=None, device=None):
     out = IO.RawBitstreamWriter(args.output)
     out.write(sess.headers())
     recon_writer = IO.YUVWriter(args.recon) if args.recon else None
+    recon_play = IO.ReconPlay(args.recon_y4m_exec, info) \
+        if args.recon_y4m_exec else None
 
     csv_header = ("Encode Order, Type, POC, QP, Bits, PSNR Y, PSNR U, "
                   "PSNR V, SSIM Y")
@@ -471,6 +531,8 @@ def main(argv=None, device=None):
         nonlocal n
         if recon_writer:
             recon_writer.write_frame(*fr.recon)
+        if recon_play:
+            recon_play.write_frame(*fr.recon)
         if csv_lines is not None:
             line = _csv_line(n, fr, args.qp)
             if csv_timing:
@@ -518,7 +580,8 @@ def main(argv=None, device=None):
             results = [fr for f in pending for fr in sess.push_la(*f)]
         elif len(pending) > 1 and hasattr(sess, "encode_batch"):
             results = sess.encode_batch(
-                pending, need_recon=bool(recon_writer or csv_lines))
+                pending, need_recon=bool(recon_writer or csv_lines
+                                         or recon_play))
         else:
             results = [sess.encode_frame(*f) for f in pending]
         write_in_order(results)
@@ -530,10 +593,8 @@ def main(argv=None, device=None):
 
     seen = 0
     src_idx = -1
-    while True:
-        frame = reader.read_frame()
-        if frame is None:
-            break
+    frames = IO.PrefetchReader(reader)
+    for frame in frames:
         src_idx += 1
         if src_idx < args.chunk_start:
             continue              # reference --chunk-start lead-in skip
@@ -554,7 +615,7 @@ def main(argv=None, device=None):
             flush_batch()
         if args.frames and seen >= args.frames:
             break
-    reader.close()
+    frames.close()
     flush_batch()
     if use_bframes:
         emit(sess.flush())       # close the tail mini-GOP
@@ -569,6 +630,8 @@ def main(argv=None, device=None):
     out.close()
     if recon_writer:
         recon_writer.close()
+    if recon_play:
+        recon_play.close()
     if args.csv:
         # summary row (reference CSV encode-summary analog)
         if n:

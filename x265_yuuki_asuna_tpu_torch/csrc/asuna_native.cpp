@@ -1438,10 +1438,12 @@ int asuna_encode_b_slice(
 // ---------------------------------------------------------------------------
 // CTU32 quadtree I/P/B slices (depth 1-2): coding_quadtree per CTU with
 // split_cu_flag contexts from the neighbours' depths (9.3.4.2.2), MPMs and
-// merge/AMVP candidates from a cell grid of 32>>maxDepth pixels. The
-// port's copy of the qt2 writer in x265_yuuki_asuna_tpu/native/
-// asuna_native.cpp (asuna_encode_slice_qt2), cut to one reference per list
-// and one TU per CU (no RQT), no SAO and no per-CU QP.
+// merge/AMVP candidates from a cell grid of 32>>maxDepth pixels, each
+// CTU's SAO parameters before it, a cu_qp_delta per CTU under a QP map,
+// and the inter transform tree of max_transform_hierarchy_depth_inter 0
+// or 1 (RQT: a CU32 whose TU splits into four 16x16 TUs). The port's copy
+// of the qt2 writer in x265_yuuki_asuna_tpu/native/asuna_native.cpp
+// (asuna_encode_slice_qt2), cut to one reference per list.
 // ---------------------------------------------------------------------------
 
 namespace qt2 {
@@ -1685,6 +1687,7 @@ struct SliceCtx {
     int sliceType;            // 0=B, 1=P, 2=I
     int pocCur, pocL0, pocL1;
     int signHiding;           // sign_data_hiding_enabled_flag
+    int maxTt;                // max_transform_hierarchy_depth_inter
     QpChain qc;               // per-CTU cu_qp_delta chain (QG == CTU)
 };
 
@@ -1730,27 +1733,58 @@ static void codeIntraPart(SliceCtx& S, int gy, int gx, int s, int mode,
     g.fill(gy, gx, s, cell);
 }
 
-// transform_tree + transform_unit of an inter 2Nx2N CU with one TU (spec
-// 7.3.8.8/7.3.8.10; max_transform_hierarchy_depth_inter = 0)
+// transform_tree + transform_unit of an inter 2Nx2N CU (spec
+// 7.3.8.8/7.3.8.10). With maxTt >= 1 the split_transform_flag is coded
+// for every inter CU above 4x4 (context 5 - log2cu); tuSplit codes the
+// residual as four half-size TUs in z-order at trafoDepth 1, chroma
+// following the luma split (4:2:0), their levels in quadrant layout in
+// the CU's buffers.
 static void codeInterTransformTree(SliceCtx& S, const int32_t* qly,
                                    const int32_t* qcb, const int32_t* qcr,
-                                   int log2cu) {
+                                   int log2cu, int tuSplit) {
     Cabac& cb = *S.cb;
     const int nl = 1 << log2cu, ncr = nl >> 1;
-    int cbfCb = anyNonzero(qcb, ncr * ncr);
-    int cbfCr = anyNonzero(qcr, ncr * ncr);
-    cb.encodeBin(cbfCb, CTX_QT_CBF + 2);
-    cb.encodeBin(cbfCr, CTX_QT_CBF + 2);
-    int cbfY = anyNonzero(qly, nl * nl);
-    if (cbfCb || cbfCr) cb.encodeBin(cbfY, CTX_QT_CBF + 1);
-    S.qc.maybeCode(cb, cbfY || cbfCb || cbfCr);
-    if (cbfY) encodeResidual(cb, qly, log2cu, true, -1, S.signHiding);
-    if (cbfCb) encodeResidual(cb, qcb, log2cu - 1, false, -1, S.signHiding);
-    if (cbfCr) encodeResidual(cb, qcr, log2cu - 1, false, -1, S.signHiding);
+    int cbfCb0 = anyNonzero(qcb, ncr * ncr);
+    int cbfCr0 = anyNonzero(qcr, ncr * ncr);
+    if (S.maxTt >= 1 && log2cu > 2)
+        cb.encodeBin(tuSplit, CTX_TRANS_SUBDIV + 5 - log2cu);
+    cb.encodeBin(cbfCb0, CTX_QT_CBF + 2);
+    cb.encodeBin(cbfCr0, CTX_QT_CBF + 2);
+    if (!tuSplit) {
+        int cbfY = anyNonzero(qly, nl * nl);
+        if (cbfCb0 || cbfCr0) cb.encodeBin(cbfY, CTX_QT_CBF + 1);
+        S.qc.maybeCode(cb, cbfY || cbfCb0 || cbfCr0);
+        if (cbfY) encodeResidual(cb, qly, log2cu, true, -1, S.signHiding);
+        if (cbfCb0) encodeResidual(cb, qcb, log2cu - 1, false, -1,
+                                   S.signHiding);
+        if (cbfCr0) encodeResidual(cb, qcr, log2cu - 1, false, -1,
+                                   S.signHiding);
+        return;
+    }
+    const int h = nl >> 1, hc = ncr >> 1;
+    int32_t ty[16 * 16], tcb[8 * 8], tcr[8 * 8];
+    for (int q = 0; q < 4; q++) {
+        const int qy = (q >> 1) * h, qx = (q & 1) * h;
+        extractLv(qly, nl, qy, qx, h, ty);
+        extractLv(qcb, ncr, qy / 2, qx / 2, hc, tcb);
+        extractLv(qcr, ncr, qy / 2, qx / 2, hc, tcr);
+        int cbfCb = cbfCb0 && anyNonzero(tcb, hc * hc);
+        int cbfCr = cbfCr0 && anyNonzero(tcr, hc * hc);
+        if (cbfCb0) cb.encodeBin(cbfCb, CTX_QT_CBF + 2 + 1);
+        if (cbfCr0) cb.encodeBin(cbfCr, CTX_QT_CBF + 2 + 1);
+        int cbfY = anyNonzero(ty, h * h);
+        cb.encodeBin(cbfY, CTX_QT_CBF + 0);          // trafoDepth != 0
+        S.qc.maybeCode(cb, cbfY || cbfCb || cbfCr);
+        if (cbfY) encodeResidual(cb, ty, log2cu - 1, true, -1, S.signHiding);
+        if (cbfCb) encodeResidual(cb, tcb, log2cu - 2, false, -1,
+                                  S.signHiding);
+        if (cbfCr) encodeResidual(cb, tcr, log2cu - 2, false, -1,
+                                  S.signHiding);
+    }
 }
 
 static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
-                      int mode, const Motion& motion) {
+                      int mode, const Motion& motion, int tuSplit) {
     Cabac& cb = *S.cb;
     QGrid& g = *S.grid;
     const int px = s * S.cellPx;
@@ -1840,12 +1874,13 @@ static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
         rqt = hasResid ? 1 : 0;
         cb.encodeBin(rqt, CTX_QT_ROOT_CBF);
     }
-    if (rqt) codeInterTransformTree(S, qly, qcb, qcr, log2cu);
+    if (rqt) codeInterTransformTree(S, qly, qcb, qcr, log2cu, tuSplit);
     g.fill(gy, gx, s, cell);
 }
 
 struct CtuData {
     int sp0;
+    int tuSplit32;                 // RQT: the unsplit CU32's TU splits
     const uint8_t* split16;        // [4] or null (depth 1)
     int ui32, m32;
     Motion mo32;
@@ -1876,7 +1911,7 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
     static const int QOFF[4][2] = {{0,0},{0,1},{1,0},{1,1}};
     splitFlag(gy, gx, 0, D.sp0);
     if (!D.sp0) {
-        codeCuQt2(S, gy, gx, g, D.ui32, D.m32, D.mo32);
+        codeCuQt2(S, gy, gx, g, D.ui32, D.m32, D.mo32, D.tuSplit32);
         setDepth(gy, gx, g, 0);
         return;
     }
@@ -1886,13 +1921,13 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
         int sub = (S.cellPx == 8) && D.split16 && D.split16[q];
         if (S.cellPx == 8) splitFlag(cy, cx, 1, sub);
         if (!sub) {
-            codeCuQt2(S, cy, cx, half, D.ui4[q], D.m4[q], D.mo4[q]);
+            codeCuQt2(S, cy, cx, half, D.ui4[q], D.m4[q], D.mo4[q], 0);
             setDepth(cy, cx, half, 1);
         } else {
             for (int sq = 0; sq < 4; sq++) {
                 int sy = cy + QOFF[sq][0], sx = cx + QOFF[sq][1];
                 int k = q * 4 + sq;
-                codeCuQt2(S, sy, sx, 1, D.ui8[k], D.m8[k], D.mo8[k]);
+                codeCuQt2(S, sy, sx, 1, D.ui8[k], D.m8[k], D.mo8[k], 0);
                 depth[(size_t)sy * gc + sx] = 2;
             }
         }
@@ -1914,7 +1949,10 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
 // sign_data_hiding_enabled_flag. sao: int32[ncu*18] per-CTU SAO params,
 // coded before each CTU with left / up merge candidates (null: no SAO).
 // qpMap: int32[ncu] each CTU's QP (its cu_qp_delta is coded at its first
-// CU with a coded cbf; null: no delta syntax).
+// CU with a coded cbf; null: no delta syntax). maxTt: the SPS's
+// max_transform_hierarchy_depth_inter (0 or 1); tuSplit32: uint8[ncu]
+// (with maxTt 1, else null) whether each CTU's CU32, where it is an
+// unsplit inter CU, codes four 16x16 TUs.
 // Returns the payload size, -1 when outBuf is too small.
 extern "C" int asuna_encode_slice_qt2(
     int sliceType, int maxDepth,
@@ -1931,8 +1969,8 @@ extern "C" int asuna_encode_slice_qt2(
     const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
     int rows, int cols, int qp, int maxMerge,
     int pocCur, int pocL0, int pocL1, int signHiding, const int32_t* sao,
-    const int32_t* qpMap, int bitDepth, uint8_t* outBuf, int outCap,
-    uint32_t* tailValue, int* tailBits)
+    const int32_t* qpMap, int bitDepth, const uint8_t* tuSplit32, int maxTt,
+    uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
 {
     using namespace qt2;
     if (sliceType < 0 || sliceType > 2) return -2;
@@ -1953,6 +1991,7 @@ extern "C" int asuna_encode_slice_qt2(
     S.sliceType = sliceType;
     S.pocCur = pocCur; S.pocL0 = pocL0; S.pocL1 = pocL1;
     S.signHiding = signHiding;
+    S.maxTt = maxTt;
     S.qc.qpMap = qpMap;
     S.qc.qpPrev = qp;
     const bool intra = sliceType == 2;
@@ -1973,6 +2012,7 @@ extern "C" int asuna_encode_slice_qt2(
             size_t idx = (size_t)r * cols + c;
             CtuData D;
             D.sp0 = split[idx] ? 1 : 0;
+            D.tuSplit32 = tuSplit32 ? (tuSplit32[idx] ? 1 : 0) : 0;
             D.split16 = split16 ? split16 + idx * 4 : nullptr;
             D.ui32 = intra ? 1 : ui32[idx];
             D.m32 = m32[idx];

@@ -14,7 +14,9 @@ VideoEncoderSession.encode_frame with its headers, I/P slice assembly,
 hash SEI, scenecut (the cost rule or the histogram rule) and keyint_min;
 push_frame / flush with b_adapt 0, 1 and 2, the rc-lookahead window, the
 B-pyramid, open GOP (CRA keyframes with RASL leading pictures) and the B
-slice assembly. As in the reference, the video
+slice assembly; RQT on the quadtree's P and B frames; analysis save /
+load / share with scale_factor on the uniform IPPP path
+(scale_analysis_rec, read_analysis). As in the reference, the video
 session codes its I frames through an IntraEncoderSession. Device work
 (lookahead, intra and inter programs) runs on `device`; the CABAC pass
 runs on the host through the native writer (WPP substreams, and P slices
@@ -126,6 +128,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import pickle
 import time
 from collections import defaultdict
 from dataclasses import dataclass
@@ -162,34 +165,34 @@ from .ratecontrol import (RateControl, RCConfig, StatsWriter, TwoPassRC,
 
 FPS = (25, 1)      # default signalled frame rate (VUI timing, level)
 
-# every keyword of the JAX video session this port has no slice for
-# yet, with the slice that adds it (ROADMAP Queue 1); the all-intra
-# session takes every keyword of the JAX one
-_LATER = {
-    "analysis_save": "the analysis save/load slice",
-    "analysis_load": "the analysis save/load slice",
-    "analysis_share": "the analysis save/load slice",
-    "scale_factor": "the analysis save/load slice",
-    "rqt": "the RQT slice",
-}
-# the defaults of those keywords in the JAX video session
-_VIDEO_DEFAULTS = {
-    "analysis_save": None, "analysis_load": None, "analysis_share": None,
-    "scale_factor": 1, "rqt": False}
+def scale_analysis_rec(rec: dict, sf: int, rows: int, cols: int) -> dict:
+    """An analysis record's CU-grid MV hints for a session sf times the
+    size (--scale-factor, the ladder's hand-off): each grid repeated sf
+    times along both axes, cropped to rows x cols, the missing rows and
+    columns filled from the edge, and the vectors multiplied by sf."""
+    out = dict(rec)
+    for k in ("mvx", "mvy"):
+        if k in rec:
+            g = np.repeat(np.repeat(rec[k], sf, 0), sf, 1)[:rows, :cols]
+            pr, pc = rows - g.shape[0], cols - g.shape[1]
+            if pr > 0 or pc > 0:
+                g = np.pad(g, ((0, max(pr, 0)), (0, max(pc, 0))),
+                           mode="edge")
+            out[k] = (g * sf).astype(np.int32)
+    return out
 
 
-def _check_options(options: dict, defaults: dict) -> None:
-    """A keyword of the JAX session outside the port's slices: its
-    default is accepted, any other value raises NotImplementedError
-    naming the slice that adds it; a keyword no JAX session has raises
-    TypeError."""
-    for k, val in options.items():
-        if k not in defaults:
-            raise TypeError(f"unknown option {k!r}")
-        if val != defaults[k]:
-            raise NotImplementedError(
-                f"{k}={val!r} is not in the port's slices yet; {_LATER[k]} "
-                "adds it")
+def read_analysis(path: str) -> list:
+    """The records of an --analysis-save file (pickled one after
+    another), in order."""
+    recs = []
+    with open(path, "rb") as f:
+        try:
+            while True:
+                recs.append(pickle.load(f))
+        except EOFError:
+            pass
+    return recs
 
 
 def _grid(max_depth: int, cu_size: int, intra: bool = False) -> int:
@@ -211,14 +214,14 @@ def _grid(max_depth: int, cu_size: int, intra: bool = False) -> int:
             f"max_depth={max_depth}: the port codes the uniform grid "
             "(0), the CTU32 quadtree of depth 1 or 2 and, in the "
             "all-intra session with cu_size=64, the CTU64 quadtree of "
-            "depth 2 or 3 (ROADMAP Queue 1 item 9)")
+            "depth 2 or 3 (ROADMAP Queue 1 item 9b)")
     if max_depth:
         return 32
     if cu_size not in (16, 32):
         raise NotImplementedError(
             f"cu_size={cu_size}: the port's uniform grid codes 16x16 and "
             "32x32 CUs; CTU64 is the all-intra session's quadtree "
-            "(max_depth 2 or 3, ROADMAP Queue 1 item 9)")
+            "(max_depth 2 or 3, ROADMAP Queue 1 item 9b)")
     return cu_size
 
 
@@ -1074,10 +1077,20 @@ class VideoEncoderSession:
     two references or TMVP; a quadtree session stops at its first
     duplicate frame, as the reference does), wpp (kept on the uniform
     grid, asserts no AQ or cuTree; its P slices signal no weights under
-    weightp, the reference's fault). device=None runs on the CUDA
-    card (and raises when there is none); device="cpu" runs every
-    kernel's plain PyTorch version. Options of the JAX session outside
-    these slices raise NotImplementedError."""
+    weightp, the reference's fault). rqt: the quadtree's inter CU32
+    leaves may code four 16x16 TUs (max_transform_hierarchy_depth_inter
+    1; dropped on the uniform grid). Analysis reuse on the uniform IPPP
+    path (the quadtree and two references assert, as in the reference):
+    analysis_save (a file of pickled per-frame records), analysis_share
+    ("save": the records kept in shared_analysis; a list: records read
+    from it as a donor appends them) and analysis_load (scaled by
+    scale_factor onto this grid) give each P frame its record's MVs as
+    hints, refined in place of the integer search (K1 is not launched
+    for that frame's ME); weighted P frames ignore them, and a B
+    session's P anchors fail on them (ValueError), as in the reference.
+    device=None runs on the CUDA card (and raises when there is none);
+    device="cpu" runs every kernel's plain PyTorch version. Geometries
+    the port does not code raise NotImplementedError."""
 
     def __init__(self, width: int, height: int, qp: int = 32,
                  cu_size: int = 16, fps: Tuple[int, int] = FPS,
@@ -1104,16 +1117,26 @@ class VideoEncoderSession:
                  bit_depth: int = 8, hash_type: int = 0, n_refs: int = 1,
                  tmvp: bool = False, max_merge: int = 3,
                  frame_dup: bool = False, dup_threshold: int = 70,
-                 wpp: bool = False, **options):
-        _check_options(options, _VIDEO_DEFAULTS)
+                 wpp: bool = False, analysis_save: str = None,
+                 analysis_load: str = None, analysis_share=None,
+                 scale_factor: int = 1, rqt: bool = False):
         cu_size = _grid(max_depth, cu_size)
         # the reference's P-frame options: two L0 references on the
         # uniform IPPP path only (asserted), TMVP kept there only, WPP on
         # the uniform grid without a QP map (asserted), frame duplication
         # without B frames, two references or TMVP
         self.n_refs = max(1, min(n_refs, 2))
-        if self.n_refs > 1 and (bframes or max_depth or weightp):
+        if self.n_refs > 1 and (bframes or max_depth or weightp
+                                or analysis_load or analysis_save
+                                or analysis_share):
             raise AssertionError("multi-ref: uniform IPPP sessions (the "
+                                 "reference's assertion)")
+        # RQT: the quadtree's inter CU32 leaves may split their TU into
+        # four 16x16 TUs (dropped on the uniform grid, as in the
+        # reference); analysis save / load: the uniform grid only
+        self.rqt = bool(rqt) and max_depth > 0
+        if max_depth and (analysis_load or analysis_save):
+            raise AssertionError("inter quadtree: no analysis reuse (the "
                                  "reference's assertion)")
         self.tmvp = bool(tmvp) and not bframes and not max_depth
         self.wpp = bool(wpp) and not max_depth
@@ -1184,6 +1207,37 @@ class VideoEncoderSession:
         self.pps.cu_qp_delta = int(bool(aq_mode or cutree))
         self.pps.weighted_pred = int(self.weightp)
         self.sps.temporal_mvp = int(self.tmvp)
+        self.sps.max_transform_hierarchy_depth_inter = int(self.rqt)
+        self.rows, self.cols = self.coded_h // cu_size, self.coded_w // cu_size
+        # analysis reuse: analysis_save pickles a record per IPPP frame
+        # ({"t": "I" | "P"} and a P frame's "mvx" / "mvy" on the CU grid)
+        # into that file, analysis_share="save" keeps the records in
+        # shared_analysis, and analysis_load (scaled by scale_factor to
+        # this grid) or an analysis_share list (read as a donor session
+        # appends to it: the ladder) gives each P frame the MVs of its
+        # record as hints; records are read by frame index, the last one
+        # past the end, and an I record hints zero MVs
+        self.analysis_save = open(analysis_save, "wb") \
+            if analysis_save else None
+        self.analysis_data = None
+        self.analysis_idx = 0
+        self.shared_analysis = [] if isinstance(analysis_share, str) \
+            and analysis_share == "save" else None
+        if isinstance(analysis_share, list):
+            self.analysis_data = analysis_share
+        if analysis_load:
+            recs = read_analysis(analysis_load)
+            if scale_factor > 1:
+                recs = [scale_analysis_rec(r, scale_factor, self.rows,
+                                           self.cols) for r in recs]
+            self.analysis_data = recs
+        if max_depth and self.analysis_data is not None:
+            raise AssertionError("inter quadtree: CTU32; no analysis reuse "
+                                 "(the reference's assertion)")
+        # the hinted P program: the reference's weighted program takes no
+        # hint (its search runs in full), and a B session's P anchors give
+        # it none (ValueError there, as in the reference)
+        self.hinted = self.analysis_data is not None and not self.weightp
         quant_fn = self.intra_sess.quant_fn
         # B slices evaluate intra candidates with b_intra (the
         # reference's bIntraInBFrames: x265's presets and --b-intra
@@ -1198,7 +1252,7 @@ class VideoEncoderSession:
                 recon_host=recon_host, psy_rd=psy_rd, b_intra=self.b_intra,
                 search_range=search_range, weightp=self.weightp,
                 sao_form="program" if self.dpb_device else "host",
-                max_depth=max_depth)
+                max_depth=max_depth, rqt=self.rqt)
         else:
             self.inter_encoder = InterFrameEncoder(
                 self.coded_w, self.coded_h, cu_size, self.device, quant_fn,
@@ -1258,7 +1312,6 @@ class VideoEncoderSession:
         # per-CU QP offsets [rows, cols] from the host API's ctu_info
         # (x265_encoder_ctu_info), added to every later frame's map
         self.ctu_info_offsets = None
-        self.rows, self.cols = self.coded_h // cu_size, self.coded_w // cu_size
         # zones: (first, last display index, QP or None, bitrate factor
         # or None)
         self.zones = []
@@ -1429,7 +1482,7 @@ class VideoEncoderSession:
             if is_idr:
                 return self._code_idr(yp, up, vp, qp, qp_map)
             return self._code_p(yp, up, vp, self.ref, qp, self.poc, 1,
-                                qp_map)
+                                qp_map, self._analysis_hint())
 
         # frame duplication: a P frame whose luma PSNR against the
         # previous source reaches dup_threshold is coded as an all-skip
@@ -1451,6 +1504,7 @@ class VideoEncoderSession:
                 break
             qp = min(qp + max(1, int(round(6 * math.log2(over)))), 51)
             out, nals = attempt(qp)
+        self._analysis_record(out, is_idr)
         self.ref2 = None if is_idr else self.ref
         self.ref = self._recon_ref(out)
         if self.tmvp:
@@ -1458,6 +1512,34 @@ class VideoEncoderSession:
         self.frame_idx += 1
         return self._finish(out, nals, (y, u, v), qp, self.poc,
                             "I" if is_idr else "P", la_cost)
+
+    def _analysis_hint(self):
+        """This P frame's (mvx, mvy) hints from its analysis record (the
+        one at the frame index, the last past the end; zero MVs from an
+        I record), or None without records."""
+        if self.analysis_data is None:
+            return None
+        rec = self.analysis_data[min(self.analysis_idx,
+                                     len(self.analysis_data) - 1)]
+        ncu = self.rows * self.cols
+        return tuple(rec.get(k, np.zeros(ncu, np.int32)).reshape(-1)
+                     for k in ("mvx", "mvy"))
+
+    def _analysis_record(self, out: dict, is_idr: bool) -> None:
+        """Write the frame's analysis record (analysis_save / the shared
+        list) and move the record index on."""
+        if self.analysis_save is not None or \
+                self.shared_analysis is not None:
+            rec = {"t": "I" if is_idr else "P"}
+            if not is_idr:
+                rec["mvx"] = out["mvx"].astype(np.int32)
+                rec["mvy"] = out["mvy"].astype(np.int32)
+            if self.analysis_save is not None:
+                pickle.dump(rec, self.analysis_save)
+                self.analysis_save.flush()
+            if self.shared_analysis is not None:
+                self.shared_analysis.append(rec)
+        self.analysis_idx += 1
 
     def _motion_field(self, out: dict, is_idr: bool) -> dict:
         """A coded picture's motion field as the next frame's collocated
@@ -1829,15 +1911,24 @@ class VideoEncoderSession:
                                 out, qp)
 
     def _code_p(self, yp, up, vp, ref, qp: int, poc: int, ref_delta: int,
-                qp_map=None):
+                qp_map=None, hint=None):
         """(decision dict, slice NAL) of a P picture predicted from the
         recon planes `ref`, ref_delta pictures before it (at the per-CU
         QP map qp_map when given), with weightp at the weights
         _decide_weights picks against `ref`; with n_refs=2 also from
         self.ref2, the picture before `ref` (the first P frame after an
         IDR has none: the program searches `ref` twice and the slice
-        signals one reference, as in the reference)."""
+        signals one reference, as in the reference). hint: the (mvx, mvy)
+        of the frame's analysis record, which the hinted program refines
+        in place of its full search."""
         kw = {"slice_qp": qp} if self.max_depth else {}
+        if self.hinted:
+            if hint is None:
+                raise ValueError(
+                    "the analysis-hinted P program needs hints, and a B "
+                    "session's P anchors give none (the reference fails "
+                    "there too: ROADMAP Queue 3)")
+            kw["hint"] = hint
         weights = None
         if self.weightp:
             weights = self._timed("weights", self._decide_weights, yp, up,
@@ -1978,7 +2069,8 @@ class VideoEncoderSession:
                                           self.max_merge,
                                           sign_hiding=self.sbh, sao=sao,
                                           qp_map=qp_map,
-                                          bit_depth=self.bit_depth)
+                                          bit_depth=self.bit_depth,
+                                          max_tt=int(self.rqt))
         elif n_refs == 1 and not self.tmvp:
             res = native.encode_p_slice(
                 out["use_intra"], out["modes"], out["mvx"], out["mvy"],
@@ -2088,7 +2180,8 @@ class VideoEncoderSession:
                                           poc_l0=poc0, poc_l1=poc1,
                                           sign_hiding=self.sbh, sao=sao,
                                           qp_map=qp_map,
-                                          bit_depth=self.bit_depth)
+                                          bit_depth=self.bit_depth,
+                                          max_tt=int(self.rqt))
         else:
             res = native.encode_b_slice(
                 out["use_intra"], out["modes"], out["pdir"], *_b_mvs(out),

@@ -6,7 +6,9 @@ x265_yuuki_asuna_tpu/models/inter_encoder.py (`_build` + `_unpack`): the
 uni-prediction P frame, with explicit weighted prediction (weightp), the
 P frame with two L0 references (`motion_phase_2ref`) and the B frame
 (`motion_phase_b`), each with sign-bit hiding (diagonal scan) or
-static-bit RDOQ, at one QP or a per-CU QP map.
+static-bit RDOQ, at one QP or a per-CU QP map; analysis reuse's hinted P
+frame (`analysis_load`: no integer search, the subpel refinement starts
+at each CU's hint).
 Phase A runs for every CU at once: integer full search through K1
 (`ops.me.full_search_sad`, per reference), half- then quarter-pel SATD
 refinement, motion compensation and, with two references, the choice of
@@ -113,17 +115,22 @@ class InterFrameEncoder:
 
     # ---------- phase A: dense ME + MC over all CUs ----------------------
     def _search(self, yb: torch.Tensor, y: torch.Tensor,
-                search: torch.Tensor):
+                search: torch.Tensor, hint=None):
         """Every CU's quarter-pel MV against the luma plane `search` (the
-        device plane type): K1's integer full search of y, then half- then
-        quarter-pel SATD refinement (8 neighbours each, the first of equal
-        costs kept)."""
+        device plane type): K1's integer full search of y, or with a hint
+        (analysis reuse: each CU's quarter-pel (mvx, mvy), host arrays)
+        no search, then half- then quarter-pel SATD refinement around it
+        (8 neighbours each, the first of equal costs kept)."""
         n, px, py, bd = self.n, self.px, self.py, self.bd
         ry = search.to(torch.int32)
-        mvx_i, mvy_i, _ = me.full_search_sad(search, y, n, self.search_range,
-                                             lambda_bits=2,
-                                             peak=pixel.peak(bd))
-        mvx, mvy = mvx_i * 4, mvy_i * 4
+        if hint is not None:
+            mvx, mvy = (torch.as_tensor(np.asarray(h, np.int32),
+                                        device=self.device) for h in hint)
+        else:
+            mvx_i, mvy_i, _ = me.full_search_sad(
+                search, y, n, self.search_range, lambda_bits=2,
+                peak=pixel.peak(bd))
+            mvx, mvy = mvx_i * 4, mvy_i * 4
 
         def eval_mv(mx, my):
             return pixel.satd(yb, interp.mc_luma_qpel(ry, px, py, mx, my, n,
@@ -144,11 +151,13 @@ class InterFrameEncoder:
         return mvx, mvy
 
     def motion_phase(self, y: torch.Tensor, ref_y: torch.Tensor,
-                     ref_u: torch.Tensor, ref_v: torch.Tensor, wts=None):
+                     ref_u: torch.Tensor, ref_v: torch.Tensor, wts=None,
+                     hint=None):
         """y, ref_*: device planes; wts: ((w, o) luma, cb, cr) for the
-        weighted branch, or None. Returns quarter-pel (mvx, mvy), the
-        luma/chroma predictions [ncu, n, n] / [ncu, n/2, n/2] and the
-        inter SATD [ncu]."""
+        weighted branch, or None; hint: the analysis hints _search starts
+        from, or None. Returns quarter-pel (mvx, mvy), the luma/chroma
+        predictions [ncu, n, n] / [ncu, n/2, n/2] and the inter SATD
+        [ncu]."""
         n, px, py, bd = self.n, self.px, self.py, self.bd
         yb = to_blocks(y.to(torch.int32), n)
         # the weighted branch searches (integer and subpel) on the
@@ -156,7 +165,7 @@ class InterFrameEncoder:
         search = ref_y if wts is None else interp.weight_plane(
             ref_y, *wts[0], bd)
         ry = search.to(torch.int32)
-        mvx, mvy = self._search(yb, y, search)
+        mvx, mvy = self._search(yb, y, search, hint)
         if wts is not None:
             pred_y, pred_u, pred_v = weighted_preds(
                 tuple(p.to(torch.int32) for p in (ref_y, ref_u, ref_v)),
@@ -220,14 +229,17 @@ class InterFrameEncoder:
 
     # ---------------------------------------------------------------------
     def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp,
-                     weights=None, ref1=None, ref2=None) -> dict:
+                     weights=None, ref1=None, ref2=None, hint=None) -> dict:
         """All planes padded to the coded size; ref_* are the
         decoded reference planes (L0); ref1: the L1 reference's (y, u, v)
         planes for a B frame, None for a P frame; ref2: a P frame's second
         L0 reference's (y, u, v) planes (the two-reference program, the
         chosen index under "ref"), None for one; qp one QP or the per-CU
         QP map (AQ / cuTree); weights (weightp, P frames): {"luma" / "cb" /
-        "cr": (w, o)} at denominator 6, a missing component the identity.
+        "cr": (w, o)} at denominator 6, a missing component the identity;
+        hint (a P frame with one reference, unweighted: analysis reuse):
+        each CU's quarter-pel (mvx, mvy) [ncu], refined in place of K1's
+        full search, which is then not launched.
         Returns the decision dict (numpy; a B frame's with pdir and the L1
         MVs, each list's MVs as searched: the session masks them by
         pdir)."""
@@ -253,7 +265,7 @@ class InterFrameEncoder:
         else:
             mvx, mvy, pred_yb, pred_ub, pred_vb, isatd = self.motion_phase(
                 pl(y), pl(ref_y), pl(ref_u), pl(ref_v),
-                frame_weights(weights) if self.weightp else None)
+                frame_weights(weights) if self.weightp else None, hint)
         yb, ub, vb = planes_to_blocks(y, u, v, n, dev)
 
         # ---------- phase B: wavefront decision + recon ------------------
@@ -384,7 +396,7 @@ class InterQTEncoder:
     dense decide, then the commit of the intra leaves. Port of
     InterFrameEncoder._build_qt + _unpack_qt with bi=False and with
     bi=True (max_depth 1: CUs 32 and 16, or 2: down to 8; at quant_fn's
-    bit depth; no RQT;
+    bit depth; rqt: the TU split of inter CU32 leaves;
     quant_fn: plain, sign-bit hiding
     under the mode-dependent scan or context RDOQ; psy_rd: the
     psycho-visual term of the leaf RD; b_intra: intra candidates in B
@@ -405,6 +417,15 @@ class InterQTEncoder:
     winner, then the motion decision, then the leaf RD; then the bottom-up
     split decisions. The inter leaves' levels and recon are
     exact from the dense phase.
+
+    RQT (rqt): every CU32's inter candidate is also coded as four 16x16
+    TUs (chroma four 8x8 TUs per plane), all CTUs in one batch; the split
+    variant replaces the single TU where its SSD + lambda2 (bits + 1) is
+    strictly less (its bits + 12 for the cbf flags, no psycho-visual
+    term), before the intra and split decisions. "tu_split32" carries the
+    choice of every CTU's CU32 leaf ([rows, cols]; the writer reads it
+    where that leaf is an inter CU), the split leaf's levels in quadrant
+    layout.
 
     P frames: merge-candidate RD of the ME winner against the left /
     above / above-right neighbours, the zero MV and the frame-median MV,
@@ -439,9 +460,11 @@ class InterQTEncoder:
                  hme_range: int = 16, recon_host: bool = True,
                  psy_rd: float = 0.0, b_intra: bool = False,
                  search_range: int = 16, weightp: bool = False,
-                 sao_form: str = "program", max_depth: int = 2):
+                 sao_form: str = "program", max_depth: int = 2,
+                 rqt: bool = False):
         self.geo = QT.QtGeometry(height // QT.N, width // QT.N,
                                  torch.device(device))
+        self.rqt = bool(rqt)
         self.sizes = QT.sizes_of(max_depth)
         self.quant_fn = quant_fn
         self.psy_rd, self.b_intra = psy_rd, bool(b_intra)
@@ -652,6 +675,16 @@ class InterQTEncoder:
                                                  qpc_blk, states, False,
                                                  self.quant_fn,
                                                  psy_rd=self.psy_rd)
+            if self.rqt and nn == QT.N:
+                lv2, rec2, dist2, bits2 = QT.rd_leaf_split(
+                    nn, srcs3, epred, qp_blk, qpc_blk, states, self.quant_fn)
+                tu_split = QT.tu_split_rd(dist2, bits2, edist, ebits, l2)
+                ts = tu_split[:, None, None]
+                elv = tuple(torch.where(ts, a, b) for a, b in zip(lv2, elv))
+                erec = tuple(torch.where(ts, a, b)
+                             for a, b in zip(rec2, erec))
+                edist = torch.where(tu_split, dist2, edist)
+                ebits = torch.where(tu_split, bits2, ebits)
             if not self._allow_intra(bi, nn):
                 ui = torch.zeros(nb, dtype=torch.bool, device=dev)
                 modes = torch.zeros(nb, dtype=torch.int32, device=dev)
@@ -697,7 +730,8 @@ class InterQTEncoder:
         per_size = {QT.N: lambda a: h(a).reshape(rows, cols),
                     16: lambda a: QT.by_ctu(a, geo.map16, (rows, cols, 4)),
                     8: lambda a: QT.by_ctu(a, geo.map8, (rows, cols, 4, 4))}
-        out = {"split": h(split).reshape(rows, cols), "tu_split32": None,
+        out = {"split": h(split).reshape(rows, cols),
+               "tu_split32": per_size[QT.N](tu_split) if self.rqt else None,
                "split16": None if split16 is None else per_size[16](split16)}
         for nn, (ki, km) in ((QT.N, ("use_intra", "modes")),
                              (16, ("use_intra4", "modes4")),

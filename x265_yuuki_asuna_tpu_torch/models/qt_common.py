@@ -8,8 +8,9 @@ or one per CTU under AQ / cuTree) and the per-QP lambdas,
 the SSD, the dense source-neighbour intra decision, the leaf RD (the
 transform/quant/recon step with the program's quantizer: plain,
 mode-dependent sign-bit hiding or context RDOQ at the slice's frozen
-states), the commit of the decided intra leaves and the in-loop filter
-chain (ops/filters.py) that runs after it.
+states) and RQT's split variant of an inter leaf (tq_quads,
+rd_leaf_split, tu_split_rd), the commit of the decided intra leaves and
+the in-loop filter chain (ops/filters.py) that runs after it.
 
 The commit. The reference scans the CTU wavefront diagonals; each step
 computes, for every CTU of the diagonal, the whole-CTU intra variant and
@@ -345,6 +346,64 @@ def rd_leaf(nn: int, srcs3, pred3, qp_y, qp_c, states, intra_slice: bool,
              + BC.est_tu_bits_ctx(lv_cb, log2nn - 1, False, states, sh))
             + BC.est_tu_bits_ctx(lv_cr, log2nn - 1, False, states, sh))
     return (lv_y, lv_cb, lv_cr), (rec_y, rec_u, rec_v), dist, bits
+
+
+def tq_quads(src, pred, qp, log2nn: int, quant_fn: Quantizer, luma: bool,
+             states):
+    """The residual of [B, nn, nn] blocks (nn = 1 << log2nn) coded as four
+    half-size TUs (the RQT split variant; inter rounding, the diagonal
+    scan): (levels, recon) [B, nn, nn] with each TU at its quadrant, and
+    the levels [B, 4, nn/2, nn/2] in z-order. qp: one QP or the blocks'
+    [B] QPs."""
+    B, nn = src.shape[0], 1 << log2nn
+    h2 = nn // 2
+    quad = lambda a: a.reshape(B, 2, h2, 2, h2).permute(0, 1, 3, 2, 4) \
+        .reshape(B * 4, h2, h2)
+    back = lambda a: a.reshape(B, 2, 2, h2, h2).permute(0, 1, 3, 2, 4) \
+        .reshape(B, nn, nn)
+    if not isinstance(qp, int):
+        qp = qp.repeat_interleave(4)
+    lv, rec = tq_recon(quad(src), quad(pred), qp, log2nn - 1, False,
+                       quant_fn, luma, None, None, states)
+    return back(lv), back(rec), lv.reshape(B, 4, h2, h2)
+
+
+def rd_leaf_split(nn: int, srcs3, pred3, qp_y, qp_c, states,
+                  quant_fn: Quantizer = PLAIN):
+    """The RQT split variant of an inter candidate at one size: its
+    residual as four nn/2 luma TUs and, following luma in 4:2:0, four
+    nn/4 chroma TUs per plane (tq_quads): ((lv_y, lv_cb, lv_cr), (rec_y,
+    rec_u, rec_v), dist, bits), the levels in quadrant layout. dist is the
+    SSD of the three planes (no psycho-visual term, as in the
+    reference); bits each plane's four TUs' K9 bits summed left to right,
+    the planes' sums in turn, + 12 for the cbf flags."""
+    log2nn = nn.bit_length() - 1
+    sy, su, sv = srcs3
+    lv_y, rec_y, q_y = tq_quads(sy, pred3[0], qp_y, log2nn, quant_fn, True,
+                                states)
+    lv_cb, rec_u, q_cb = tq_quads(su, pred3[1], qp_c, log2nn - 1, quant_fn,
+                                  False, states)
+    lv_cr, rec_v, q_cr = tq_quads(sv, pred3[2], qp_c, log2nn - 1, quant_fn,
+                                  False, states)
+    dist = (ssd(sy, rec_y) + ssd(su, rec_u)) + ssd(sv, rec_v)
+    sh = quant_fn.sbh
+    bits = ((sum4(BC.est_tu_bits_ctx(q_y, log2nn - 1, True, states, sh))
+             + sum4(BC.est_tu_bits_ctx(q_cb, log2nn - 2, False, states, sh)))
+            + sum4(BC.est_tu_bits_ctx(q_cr, log2nn - 2, False, states, sh))) \
+        + 12.0
+    return (lv_y, lv_cb, lv_cr), (rec_y, rec_u, rec_v), dist, bits
+
+
+def rqt_cost(dist, bits, l2) -> torch.Tensor:
+    """A TU variant's RD cost dist + l2 (bits + 1) in float32 as XLA's CPU
+    code computes it: the multiply contracted into the add (fp32.fma)."""
+    return fp32.fma(bits + 1.0, l2, dist)
+
+
+def tu_split_rd(dist2, bits2, dist, bits, l2) -> torch.Tensor:
+    """RQT's choice per block: the split variant (dist2, bits2) where its
+    rqt_cost is strictly below the single TU's (dist, bits)."""
+    return rqt_cost(dist2, bits2, l2) < rqt_cost(dist, bits, l2)
 
 
 def sources3(y32, u32, v32, nn: int):

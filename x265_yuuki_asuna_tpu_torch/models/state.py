@@ -86,7 +86,8 @@ def load_session_state(sess, state: dict) -> None:
     if sess.bframes:
         raise NotImplementedError(
             "load_session_state for a session with bframes > 0: the "
-            "mini-GOP state (pending frames, anchors) is a later slice's")
+            "mini-GOP state (pending frames, anchors) is a later slice's "
+            "(ROADMAP Queue 1 item 12)")
     sess.ref = _ref_planes(sess, state, "ref")
     if state.get("ref2_y") is not None:
         sess.ref2 = _ref_planes(sess, state, "ref2")

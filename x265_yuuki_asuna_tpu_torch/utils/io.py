@@ -1,17 +1,21 @@
 """Raw video I/O: Y4M and YUV readers and writers, and the Annex-B
 stream writer (port's copy of x265_yuuki_asuna_tpu/utils/io.py: VideoInfo,
-Y4MReader, YUVReader, open_input, Y4MWriter, YUVWriter,
-RawBitstreamWriter; numpy on the host).
+Y4MReader, YUVReader, open_input, PrefetchReader, Y4MWriter, YUVWriter,
+RawBitstreamWriter, ReconPlay; numpy on the host).
 
 Reference behavior studied (not copied): input/y4m.cpp, input/yuv.cpp,
-output/raw.cpp, output/y4m.cpp, output/yuv.cpp.
+output/raw.cpp, output/y4m.cpp, output/yuv.cpp, output/reconplay.cpp.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import shlex
+import subprocess
+import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -148,17 +152,58 @@ def open_input(path: str, width: int = 0, height: int = 0, fps: Tuple[int, int] 
     return YUVReader(path, info)
 
 
+class PrefetchReader:
+    """Reads a reader's frames on a background thread, up to `depth`
+    ahead (the reference's y4m ring buffer); iterate it for the frames in
+    order. close() stops the thread and closes the reader."""
+
+    def __init__(self, reader, depth: int = 4):
+        self.reader = reader
+        self.info = reader.info
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = False
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self._stop:
+            frame = self.reader.read_frame()
+            self.q.put(frame)
+            if frame is None:
+                break
+
+    def close(self):
+        self._stop = True
+        while self.thread.is_alive():       # unblock a pending put
+            try:
+                self.q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self.reader.close()
+
+    def __iter__(self) -> Iterator:
+        while True:
+            frame = self.q.get()
+            if frame is None:
+                return
+            yield frame
+
+
+def _y4m_header(info: "VideoInfo") -> bytes:
+    ctag = {CSP_I420: "420", CSP_I422: "422", CSP_I444: "444",
+            CSP_I400: "mono"}[info.csp]
+    if info.bit_depth > 8:
+        ctag += f"p{info.bit_depth}"
+    return (f"YUV4MPEG2 W{info.width} H{info.height} "
+            f"F{info.fps_num}:{info.fps_denom} Ip A1:1 C{ctag}\n"
+            .encode("ascii"))
+
+
 class Y4MWriter:
     def __init__(self, path: str, info: VideoInfo):
         self.f = open(path, "wb")
         self.info = info
-        ctag = {CSP_I420: "420", CSP_I422: "422", CSP_I444: "444",
-                CSP_I400: "mono"}[info.csp]
-        if info.bit_depth > 8:
-            ctag += f"p{info.bit_depth}"
-        self.f.write(f"YUV4MPEG2 W{info.width} H{info.height} "
-                     f"F{info.fps_num}:{info.fps_denom} Ip A1:1 C{ctag}\n"
-                     .encode("ascii"))
+        self.f.write(_y4m_header(info))
 
     def write_frame(self, y, u, v):
         self.f.write(b"FRAME\n")
@@ -169,6 +214,36 @@ class Y4MWriter:
 
     def close(self):
         self.f.close()
+
+
+class ReconPlay:
+    """Pipes recon frames as y4m into a command's standard input (the
+    reference's reconplay, e.g. a player reading stdin). A command that
+    has closed its input is no longer written to; close() waits up to
+    10 s for it to end."""
+
+    def __init__(self, command: str, info: "VideoInfo"):
+        self.proc = subprocess.Popen(shlex.split(command),
+                                     stdin=subprocess.PIPE)
+        self.info = info
+        self.proc.stdin.write(_y4m_header(info))
+
+    def write_frame(self, y, u, v):
+        try:
+            self.proc.stdin.write(b"FRAME\n")
+            self.proc.stdin.write(np.ascontiguousarray(y).tobytes())
+            if u is not None:
+                self.proc.stdin.write(np.ascontiguousarray(u).tobytes())
+                self.proc.stdin.write(np.ascontiguousarray(v).tobytes())
+        except BrokenPipeError:
+            pass
+
+    def close(self):
+        try:
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        self.proc.wait(timeout=10)
 
 
 class YUVWriter:
