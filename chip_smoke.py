@@ -244,6 +244,23 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      through cli.main, 4 frames: fps, each rung's kbps against its
      target, the scaler's ms per frame, K1's launches per rung: the 1080p
      rung, hinted by the 540p one, launches its lookahead's only);
+     then the multi-slot pipeline (tests/parallel_pins.py), its slots as
+     four streams of card 0 and, on a machine of two cards or more,
+     across the cards: golden_pipeline (the frame- and band-parallel
+     programs, the P-chain fill and steady state against the JAX
+     programs' digests, the pipelined sessions at QP 32 and 30 and under
+     per-chain ABR, the int8 refusal and its sequential stream, --devices
+     4 through cli.main, the video session's flush(count), each against
+     the JAX package's md5s; every session's K1 launches on its slots'
+     streams, one a P frame), pipeline_cpu_vs_card (416x240, the IDR and
+     two chains of 4: encode_clip on the card against the CPU's and
+     against encode_clip_sequential, --devices 4 through cli.main; the
+     host's waits for the card under set_sync_debug_mode) and
+     1080p_pipeline (the IDR and two chains of 4, encode_clip and
+     encode_clip_sequential in turns: fps after the IDR, bytes, PSNR-Y,
+     K1 one fused sweep a P frame either way, the share of K1 launches on
+     the slots' own streams; profiled over the IDR and one chain each
+     way: the device's idle share and the overlap of the streams);
   6. the kernels line (launches on the flagship's path, and on each
      path; each entry point's int16 time, plain time, bound and launches
      on the 10-bit path); then the card line and, last, the ok line.
@@ -3581,6 +3598,288 @@ def phase_1080p_ladder(dev, n_frames=4):
     return launches
 
 
+def parallel_pins():
+    """tests/parallel_pins.py: the multi-slot pipeline's inputs, runners
+    and the JAX package's pins over them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import parallel_pins as pins
+    return pins
+
+
+def _stream_start():
+    """Set K1's launches by CUDA stream to 0."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    me_sad.launches_by_stream.clear()
+
+
+def _stream_share(slots) -> dict:
+    """K1's launches since _stream_start() by slot (each slot's stream),
+    the launches on no slot's stream, and the share that went to the slot
+    streams."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    by = dict(me_sad.launches_by_stream)
+    mine = {s.index: by.pop(s.stream.cuda_stream, 0) for s in slots}
+    total = sum(mine.values()) + sum(by.values())
+    return {"by_slot": mine, "elsewhere": sum(by.values()),
+            "slot_share": sum(mine.values()) / max(total, 1)}
+
+
+def _slot_layouts():
+    """Four streams of card 0, and across the cards where there are two
+    or more (slot k on card k % the card count)."""
+    out = {"streams_of_card0": ["cuda:0"]}
+    if torch.cuda.device_count() >= 2:
+        out["across_cards"] = None
+    return out
+
+
+def phase_golden_pipeline(dev):
+    """The multi-slot pipeline on the card against the JAX package's pins
+    (tests/parallel_pins.py), with the slots as four streams of card 0
+    and, where the machine has two cards or more, across the cards: the
+    frame-parallel dicts (8 slots), the band-parallel stream (4), the
+    P-chain fill's and steady state's dicts, the pipelined sessions (QP
+    32, QP 30, per-chain ABR: every frame's NALs and QPs), the int8
+    refusal and its sequential stream, --devices 4 (and --bitrate)
+    through cli.main, and the video session's flush(count). Each
+    session's K1 launches must all land on the slots' streams, one
+    fused sweep per P frame coded by the slot."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch import parallel as par
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    from x265_yuuki_asuna_tpu_torch.models.inter_encoder import \
+        InterFrameEncoder
+    from x265_yuuki_asuna_tpu_torch.models.intra_encoder import \
+        IntraFrameEncoder
+    from x265_yuuki_asuna_tpu_torch.parallel.session import \
+        PipelinedEncoder
+    pins = parallel_pins()
+    ok, streams = {}, {}
+    k1_start()                                    # the main path starts
+    for lay, devices in _slot_layouts().items():
+        kw = dict(devices=devices)
+        ok[lay + "/frame_parallel"] = [pins.digest(d) for d in
+                                       pins.frame_parallel_dicts(
+                                           par, IntraFrameEncoder, **kw)] \
+            == pins.FRAME_PARALLEL_DIGESTS
+        ok[lay + "/bands"] = pins.md5(pins.band_stream(par, top, **kw)) == \
+            pins.BANDS_MD5
+        ok[lay + "/pipeline"] = [pins.digest(d) for d in pins.pipeline_dicts(
+            par, InterFrameEncoder, **kw)] == pins.PIPELINE_DIGESTS
+        ok[lay + "/pipeline_stream"] = [
+            [pins.digest(d) for d in row] for row in
+            pins.pipeline_stream_dicts(par, InterFrameEncoder, **kw)] == \
+            pins.PIPELINE_STREAM_DIGESTS
+        for name in pins.SESSIONS:
+            _stream_start()
+            enc, res, stream = pins.run_session(PipelinedEncoder, name, **kw)
+            ok[f"{lay}/{name}"] = pins.session_pin_of(res, stream) == \
+                pins.SESSION_PINS[name]
+            share = _stream_share(enc.slots)
+            # every chain codes N frames (the last one padded)
+            chains = -(-(pins.SESSIONS[name]["frames"] - 1) // enc.n)
+            ok[f"{lay}/{name}/k1_on_slot_streams"] = share == {
+                "by_slot": dict.fromkeys(range(enc.n), chains),
+                "elsewhere": 0, "slot_share": 1.0}
+            streams[f"{lay}/{name}"] = share
+        frames = pins.noise_clip()
+        try:
+            PipelinedEncoder(64, 48, qp=pins.OVERFLOW_QP, n_devices=4,
+                             **kw).encode_clip(frames)
+            ok[lay + "/int8_refusal"] = False
+        except RuntimeError as e:
+            ok[lay + "/int8_refusal"] = "overflowed int8" in str(e)
+        enc = PipelinedEncoder(64, 48, qp=pins.OVERFLOW_QP, n_devices=4,
+                               **kw)
+        res = enc.encode_clip_sequential(frames)
+        ok[lay + "/int8_sequential"] = pins.md5(enc.headers() + b"".join(
+            r.nals for r in res)) == pins.OVERFLOW_SEQ_MD5
+    with tempfile.TemporaryDirectory() as tmp:
+        src = pins.write_cli_input(tmp, _write_y4m)
+        for name in ("d4", "d4_abr"):
+            ok["cli_" + name] = pins.run_cli(cli.main, name, tmp, src) == \
+                pins.CLI_PINS[name]
+    pin = pins.FLUSH_COUNT_PIN
+    ok["flush_count"] = pins.run_flush_count(top, device=dev) == (
+        pin["stream"], pin["frames"], pin["after_flush2"])
+    launches = k1_read()
+    emit(phase="golden_pipeline", layouts=list(_slot_layouts()),
+         cards=torch.cuda.device_count(), match=ok,
+         k1_by_slot_stream=streams, k1_launches=launches)
+    _check("golden_pipeline", ok)
+    return launches
+
+
+def _sync_sites(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): its result and
+    the port's source lines that made the host wait for the card, with
+    their counts."""
+    import warnings
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in ws:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return got, sites
+
+
+def phase_pipeline_cpu_vs_card(dev, n_chains=2):
+    """A 416x240 clip of synth_clip, the IDR and n_chains chains of 4,
+    through PipelinedEncoder(n_devices=4) on the card (four streams of
+    card 0) and on the CPU: the card's encode_clip stream equals the
+    CPU's and the card's encode_clip_sequential; --devices 4 through
+    cli.main on the card codes the same stream. The card's pipeline runs
+    once more under torch.cuda.set_sync_debug_mode("warn"): where the
+    host waits for the card."""
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.parallel.session import \
+        PipelinedEncoder
+    w, h = 416, 240
+    frames = synth_clip(1 + 4 * n_chains, w, h)
+    k1_start()                                    # the main path starts
+    got = {}
+    for name, kw in (("card", dict(devices=["cuda:0"])),
+                     ("cpu", dict(device="cpu"))):
+        enc = PipelinedEncoder(w, h, qp=32, n_devices=4, **kw)
+        res = enc.encode_clip(frames)
+        got[name] = enc.headers() + b"".join(r.nals for r in res)
+        if name == "card":
+            seq = enc.encode_clip_sequential(frames)
+            got["card_sequential"] = enc.headers() + b"".join(
+                r.nals for r in seq)
+            _, sites = _sync_sites(lambda: enc.encode_clip(frames))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "o.hevc")
+        _write_y4m(src, frames)
+        assert cli.main([src, "-o", out, "--devices", "4"]) == 0
+        with open(out, "rb") as f:
+            got["cli"] = f.read()
+    launches = k1_read()
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in got.items()}
+    ok = {k: v == md5["cpu"] for k, v in md5.items()}
+    emit(phase="pipeline_cpu_vs_card", frames=len(frames), md5=md5,
+         match=ok, sync_sites=sites, k1_launches=launches)
+    _check("pipeline_cpu_vs_card", ok)
+    return launches
+
+
+def _busy_union(intervals) -> float:
+    """ms covered by at least one of the (start, end) us intervals."""
+    busy, end = 0.0, -1.0
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def _device_record(fn):
+    """fn() under torch.profiler (CUDA only): its result, wall ms, the
+    kernels' launches, the device's busy ms (kernel time on any stream)
+    and idle share, and the kernel time summed over streams against the
+    busy time (above 1 when streams overlapped)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    ks = [(e.start_ns() / 1e3, e.end_ns() / 1e3)
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda and e.duration_ns() > 0 and
+          not getattr(e, "is_user_annotation", lambda: False)()]
+    busy = _busy_union(ks)
+    summed = sum(b - a for a, b in ks) / 1e3
+    return got, {"wall_ms": wall, "launches": len(ks), "device_busy_ms": busy,
+                 "device_idle_share": 1 - busy / wall,
+                 "kernel_ms_over_busy_ms": summed / max(busy, 1e-9)}
+
+
+def phase_1080p_pipeline(dev, n_chains=2):
+    """PipelinedEncoder(1920, 1080, qp=32, n_devices=4) over synth_clip,
+    the IDR and n_chains chains of 4, with the slots as four streams of
+    card 0: encode_clip and encode_clip_sequential in turns (pipeline,
+    sequential, sequential, pipeline): each run's fps after the IDR, ms,
+    bytes and PSNR-Y, K1's fused launches per P frame (one either way),
+    the share of the pipeline's K1 launches each slot issued on its own
+    stream; then one profiled run each way over the IDR and one chain:
+    the device's idle share, and whether kernels of different streams
+    overlapped (kernel ms summed over streams against busy ms). Both
+    ways' streams are equal."""
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    from x265_yuuki_asuna_tpu_torch.parallel.session import \
+        PipelinedEncoder
+    frames = synth_clip(1 + 4 * n_chains, W1080, H1080)
+    enc = PipelinedEncoder(W1080, H1080, qp=32, n_devices=4,
+                           devices=["cuda:0"])
+    sess, idr_ms = enc.sess, []
+    code_idr = sess._encode_idr_anchor
+
+    def timed_idr(*f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = code_idr(*f)
+        torch.cuda.synchronize()
+        idr_ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+    sess._encode_idr_anchor = timed_idr
+    ways = {"pipeline": enc.encode_clip,
+            "sequential": enc.encode_clip_sequential}
+    runs = {"pipeline": [], "sequential": []}
+    streams, n_p = {}, len(frames) - 1
+    k1_start()                                    # the main path starts
+    for way in ("pipeline", "sequential", "sequential", "pipeline"):
+        before = me_sad.sad_sweep_best.launches
+        _stream_start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ways[way](frames)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        p_ms = ms - idr_ms[-1]
+        runs[way].append(dict(
+            ms=ms, idr_ms=idr_ms[-1], fps_after_idr=n_p / (p_ms / 1e3),
+            bytes=len(enc.headers()) + sum(len(r.nals) for r in res),
+            psnr_y=[r.psnr_y for r in res],
+            k1_fused_per_p_frame=(me_sad.sad_sweep_best.launches
+                                  - before) / n_p,
+            md5=hashlib.md5(b"".join(r.nals for r in res)).hexdigest(),
+            frame_type=[r.frame_type for r in res]))
+        if way == "pipeline":
+            streams = _stream_share(enc.slots)
+    launches = k1_read()
+    short = frames[:5]
+    _, dev_pipe = _device_record(lambda: enc.encode_clip(short))
+    _, dev_seq = _device_record(lambda: enc.encode_clip_sequential(short))
+    emit(phase="1080p_pipeline", frames=len(frames), slots=enc.n,
+         card=torch.cuda.get_device_name(0), runs=runs,
+         k1_by_slot_stream=streams,
+         device={"pipeline": dev_pipe, "sequential": dev_seq,
+                 "frames": len(short)},
+         k1_launches=launches)
+    md5s = {r["md5"] for rs in runs.values() for r in rs}
+    per_p = {r["k1_fused_per_p_frame"] for rs in runs.values() for r in rs}
+    if len(md5s) != 1 or per_p != {1.0} or any(
+            r["frame_type"] != ["I"] + ["P"] * n_p or
+            not np.isfinite(r["psnr_y"]).all()
+            for rs in runs.values() for r in rs):
+        raise AssertionError(f"1080p_pipeline: streams {md5s}, K1 per P "
+                             f"frame {per_p}")
+    if streams.get("slot_share") != 1.0 or \
+            set(streams["by_slot"].values()) != {n_chains}:
+        raise AssertionError(f"1080p_pipeline: K1 by slot {streams}")
+    return launches
+
+
 # The phases after K1, as (key, phase function, keyword arguments), the
 # longest first (by earlier runs' times) so that the pool ends together;
 # each runs whole in one process, its K1 counts set to 0 just before its
@@ -3595,6 +3894,7 @@ JOBS = (
     ("1080p_intra", "phase_1080p_intra", {}),
     ("golden_intra_opts", "phase_golden_intra_opts", {}),
     ("1080p_cli_medium", "phase_1080p_cli_medium", {}),
+    ("1080p_pipeline", "phase_1080p_pipeline", {}),
     ("1080p_cli_ultrafast", "phase_1080p_cli_ultrafast", {}),
     ("1080p_api_p_only", "phase_1080p_api_p_only", {}),
     ("1080p_wpp_b", "phase_1080p_wpp_b", {}),
@@ -3627,6 +3927,8 @@ JOBS = (
     ("golden_p_options", "phase_golden_p_options", {}),
     ("1080p_analysis", "phase_1080p_analysis", {}),
     ("golden_rqt", "phase_golden_rqt", {}),
+    ("golden_pipeline", "phase_golden_pipeline", {}),
+    ("pipeline_cpu_vs_card", "phase_pipeline_cpu_vs_card", {}),
     ("1080p_qt2", "phase_1080p", dict(name="1080p_qt2", max_depth=2,
                                       n_frames=QT_FRAMES)),
     ("main10_cpu_vs_card", "phase_cli_cpu_vs_card", dict(
@@ -3809,7 +4111,8 @@ def main(argv=None):
     by_path["1080p_api_p_only"], sizes_p = res["1080p_api_p_only"]
     for key in ("1080p_wpp_b", "golden_intra_opts", "1080p_intra_opts",
                 "golden_rqt", "golden_analysis", "golden_ladder",
-                "1080p_rqt", "1080p_ladder"):
+                "1080p_rqt", "1080p_ladder", "golden_pipeline",
+                "pipeline_cpu_vs_card", "1080p_pipeline"):
         by_path[key] = res[key]
     analysis = res["1080p_analysis"]
     for name, counts in analysis.items():
@@ -3887,7 +4190,10 @@ def main(argv=None):
          # lookahead's one a frame stays); the ladder's rungs
          "analysis": {f"1080p_analysis_{k}": v["sad_sweep_best"]
                       for k, v in analysis.items()},
-         "ladder": res["1080p_ladder"]["sad_sweep_best"]},
+         "ladder": res["1080p_ladder"]["sad_sweep_best"],
+         # the pipeline: one fused sweep per P frame, on its slot's stream
+         "pipeline": {k: res[k]["sad_sweep_best"] for k in (
+             "golden_pipeline", "pipeline_cpu_vs_card", "1080p_pipeline")}},
         {"name": "sad_block4_sweep", **common,
          "launches": launches["sad_block4_sweep"],
          "launches_by_path": per_path("sad_block4_sweep"),

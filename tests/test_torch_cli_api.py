@@ -278,18 +278,27 @@ def test_weighted_presets_code_decodable_streams(tmp_path, preset):
 
 @pytest.mark.parametrize("flag", [
     # (--ladder, --dhdr10-info, --dolby-vision-rpu and --recon-y4m-exec
-    # run now, tests/test_torch_ladder.py and test_torch_host_tools.py:
-    # their cases hold --devices with other counts and flags)
+    # run in tests/test_torch_ladder.py and test_torch_host_tools.py;
+    # --devices in tests/test_torch_parallel.py: these cases hold it with
+    # other counts and flags)
     ["--devices", "4"], ["--devices", "2"],
     ["--devices", "2", "--dhdr10-info", "m.json"],
     ["--devices", "3", "--dolby-vision-rpu", "r.bin"],
     ["--devices", "8", "--recon-y4m-exec", "cat"]])
 def test_cli_features_without_a_slice_raise(tmp_path, flag):
-    src = str(tmp_path / "e.y4m")
-    _empty_clip(src)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        t_cli.main([src, "-o", str(tmp_path / "o.hevc")] + flag,
-                   device="cpu")
+    """No flag is left without a slice: --devices N codes the pipelined
+    stream (parallel/session.PipelinedEncoder), and, as in the
+    reference, the flags of the other paths are not read there."""
+    from x265_yuuki_asuna_tpu_torch.parallel.session import \
+        PipelinedEncoder
+    src, dst = str(tmp_path / "e.y4m"), tmp_path / "o.hevc"
+    PP.write_clip(src, 2)
+    assert t_cli.main([src, "-o", str(dst)] + flag, device="cpu") == 0
+    enc = PipelinedEncoder(PP.W, PP.H, n_devices=int(flag[1]),
+                           device="cpu")
+    res = enc.encode_clip(PP.clip_frames(2))
+    assert dst.read_bytes() == enc.headers() + b"".join(r.nals
+                                                         for r in res)
 
 
 def _api_encoder(**parse):

@@ -30,9 +30,11 @@ reference); --ladder WxH:kbps[,...] codes every rung of an ABR ladder in
 one pass (models/ladder.py), one output per rung named
 {stem}_{W}x{H}.{ext}; --dhdr10-info adds each frame's HDR10+ SEI and
 --dolby-vision-rpu one Dolby Vision RPU NAL per frame (the last one
-repeated); --recon-y4m-exec pipes the recon as y4m into a command. Frames
-are read ahead on a thread (utils/io.PrefetchReader). The multi-device
-pipeline (--devices 2 or more) raises NotImplementedError.
+repeated); --recon-y4m-exec pipes the recon as y4m into a command;
+--devices N (2 or more) codes P-chains across N pipeline slots
+(parallel/session.PipelinedEncoder: CQP or, with --bitrate, per-chain
+ABR, CTU16, no loop filters), each slot a stream, round-robin over the
+cards. Frames are read ahead on a thread (utils/io.PrefetchReader).
 """
 
 from __future__ import annotations
@@ -62,10 +64,6 @@ _MAT = {'gbr': 0, 'bt709': 1, 'unknown': 2, 'fcc': 4, 'bt470bg': 5,
         'smpte170m': 6, 'smpte240m': 7, 'ycgco': 8, 'bt2020nc': 9,
         'bt2020c': 10, 'smpte2085': 11, 'chroma-derived-nc': 12,
         'chroma-derived-c': 13, 'ictcp': 14}
-# the one flag whose feature the port has no slice for yet
-_DEVICES_LATER = ("--devices: the multi-device pipeline (parallel/*) is "
-                  "ROADMAP Queue 1 item 15")
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="x265-cuda", add_help=True)
@@ -177,7 +175,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--zones", default=None,
                     help="per-range overrides: start,end,q=N|b=M[/...]")
     ap.add_argument("--devices", type=int, default=0,
-                    help="pipelined multi-device encode over N devices")
+                    help="pipelined encode: P-chains across N slots (a "
+                    "stream each, round-robin over the cards; CQP, CTU16, "
+                    "no loop filters)")
     ap.add_argument("--ladder", default=None,
                     help="ABR ladder: WxH:kbps[,WxH:kbps...] -> per-rung "
                          "outputs suffixed _WxH")
@@ -418,6 +418,45 @@ def _run_ladder(args, reader, device=None) -> int:
     return 0
 
 
+def _run_pipeline(args, reader, device=None) -> int:
+    """--devices N: the frame pipeline across N slots
+    (parallel/session.PipelinedEncoder), as the reference's: --qp (32 by
+    default), per-chain ABR with --bitrate, --frames; no hash SEI, and
+    the flags of the other paths are not read. Reads the input through
+    PrefetchReader (the reference iterates its reader, which its readers
+    do not support: ROADMAP Queue 3)."""
+    from .parallel.session import PipelinedEncoder
+    info = reader.info
+    enc = PipelinedEncoder(
+        info.width, info.height, qp=32 if args.qp is None else args.qp,
+        n_devices=args.devices, fps=(info.fps_num, info.fps_denom),
+        rc_mode="abr" if args.bitrate else "cqp",
+        bitrate_kbps=args.bitrate or 0, device=device)
+    frames = []
+    src = IO.PrefetchReader(reader)
+    for f in src:
+        frames.append(f)
+        if args.frames and len(frames) >= args.frames:
+            break
+    src.close()
+    t0 = time.time()
+    results = enc.encode_clip(frames)
+    out = IO.RawBitstreamWriter(args.output)
+    out.write(enc.headers())
+    total_bits = 0
+    for fr in results:
+        out.write(fr.nals)
+        total_bits += fr.bits
+    out.close()
+    el = time.time() - t0
+    kbps = total_bits * info.fps_num / max(
+        len(results) * info.fps_denom, 1) / 1000
+    print(f"\nencoded {len(results)} frames on {enc.n} devices in "
+          f"{el:.2f}s ({len(results) / max(el, 1e-9):.2f} fps), "
+          f"{kbps:.2f} kb/s", file=sys.stderr)
+    return 0
+
+
 def parse(argv):
     """(args, Param) of a command line: the flags, then the Param of its
     preset and tune with the unknown "--name=value" options applied
@@ -461,8 +500,7 @@ def main(argv=None, device=None):
     if args.ladder:
         return _run_ladder(args, reader, device)
     if args.devices and args.devices >= 2:
-        reader.close()
-        raise NotImplementedError(_DEVICES_LATER)
+        return _run_pipeline(args, reader, device)
     if info.csp not in (P.CSP_I420, P.CSP_I444):
         print("x265-cuda: only 4:2:0 and 4:4:4 inputs supported",
               file=sys.stderr)

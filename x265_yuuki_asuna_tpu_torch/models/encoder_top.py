@@ -214,14 +214,21 @@ def _grid(max_depth: int, cu_size: int, intra: bool = False) -> int:
             f"max_depth={max_depth}: the port codes the uniform grid "
             "(0), the CTU32 quadtree of depth 1 or 2 and, in the "
             "all-intra session with cu_size=64, the CTU64 quadtree of "
-            "depth 2 or 3 (ROADMAP Queue 1 item 9b)")
+            "depth 2 or 3. Deeper on CTU32 means CUs under 8x8, which "
+            "HEVC does not allow: the reference codes them but cannot "
+            "write its SPS (log2_min_luma_coding_block_size_minus3 = -1 "
+            "fails its assertion), so it has no stream (ROADMAP Queue 1 "
+            "item 9b)")
     if max_depth:
         return 32
     if cu_size not in (16, 32):
         raise NotImplementedError(
             f"cu_size={cu_size}: the port's uniform grid codes 16x16 and "
             "32x32 CUs; CTU64 is the all-intra session's quadtree "
-            "(max_depth 2 or 3, ROADMAP Queue 1 item 9b)")
+            "(max_depth 2 or 3). The reference's uniform 8x8 grid writes "
+            "a CTU of 8, outside every HEVC profile (CTUs of 16 to 64): "
+            "libde265 decodes its stream, FFmpeg refuses it (ROADMAP "
+            "Queue 1 item 9b)")
     return cu_size
 
 
@@ -1725,10 +1732,14 @@ class VideoEncoderSession:
                 best_k, best = k, costs[k]
         return best_k
 
-    def flush(self) -> List[FrameResult]:
+    def flush(self, count: int = None) -> List[FrameResult]:
         """End of stream: drain the rc-lookahead window (each frame with
         what remains of its window), then code the open mini-GOP (its last
-        frame as the P anchor)."""
+        frame as the P anchor). flush(count): a direct caller's mini-GOP
+        close, _flush_minigop(count), with nothing drained (the
+        reference's)."""
+        if count is not None:
+            return self._flush_minigop(count)
         out = []
         while self.la_queue:
             out += self._pop_la_b()
@@ -1813,6 +1824,9 @@ class VideoEncoderSession:
         return self._zone_qp(self.gop_display_base + poc, qp)
 
     def _encode_idr_anchor(self, y, u, v) -> FrameResult:
+        """The GOP's IDR anchor at POC 0 (the reference's
+        _encode_anchor(..., idr=True)), at the rate control's QP in its
+        zone; also the pipeline's IDR (parallel/session.py)."""
         qp = self._timed("rc", self.rc.frame_qp, True)
         self.gop_display_base = self.display_idx
         qp = self._zone_qp(self.display_idx, qp)
@@ -2040,18 +2054,21 @@ class VideoEncoderSession:
 
     def _assemble_p_slice(self, out: dict, qp: int, poc: int,
                           ref_delta: int, weights=None,
-                          n_refs: int = 1) -> bytes:
+                          n_refs: int = 1, rps=None) -> bytes:
         """P slice referencing the picture ref_delta before it (with
         n_refs=2 also the one before that), with the explicit weights
-        `weights` under weightp. The native writer codes one reference
-        without TMVP; two references or TMVP go through the Python CABAC
-        (with the cu_qp_delta chain of a QP map), WPP through its
-        substreams."""
+        `weights` under weightp; rps: the slice's own short-term RPS
+        ((negative pictures, positive pictures), each (delta POC,
+        used_by_curr)), None for the one of ref_delta (and of the two
+        references). The native writer codes one reference without TMVP;
+        two references or TMVP go through the Python CABAC (with the
+        cu_qp_delta chain of a QP map), WPP through its substreams."""
         sao, qp_map = out.get("sao"), out.get("qp_map")
+        if rps is None and n_refs == 2:
+            rps = ([(1, 1), (2, 1)], [])
         hdr = dict(slice_type=1, slice_qp=qp, poc=poc,
                    ref_poc_delta=ref_delta, max_merge=self.max_merge,
-                   sao=sao is not None, num_ref_l0=n_refs,
-                   rps=([(1, 1), (2, 1)], []) if n_refs == 2 else None)
+                   sao=sao is not None, num_ref_l0=n_refs, rps=rps)
         if self.wpp:
             # the reference's WPP P slice passes no weights (ROADMAP
             # Queue 3) and no QP map

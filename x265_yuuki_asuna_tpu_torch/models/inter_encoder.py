@@ -230,7 +230,18 @@ class InterFrameEncoder:
     # ---------------------------------------------------------------------
     def encode_frame(self, y, u, v, ref_y, ref_u, ref_v, qp,
                      weights=None, ref1=None, ref2=None, hint=None) -> dict:
-        """All planes padded to the coded size; ref_* are the
+        """The decision dict of one frame: submit_frame, then
+        finish_frame (the arguments are submit_frame's)."""
+        return self.finish_frame(self.submit_frame(
+            y, u, v, ref_y, ref_u, ref_v, qp, weights, ref1, ref2, hint))
+
+    def submit_frame(self, y, u, v, ref_y, ref_u, ref_v, qp,
+                     weights=None, ref1=None, ref2=None, hint=None) -> dict:
+        """Launch one frame's program and fetch nothing: the handle holds
+        its decisions and recon on the device (recon_planes reads the
+        recon there, finish_frame fetches the dict; the reference's
+        submit_frame / finish_frame). All planes padded to the coded
+        size (host arrays or tensors); ref_* are the
         decoded reference planes (L0); ref1: the L1 reference's (y, u, v)
         planes for a B frame, None for a P frame; ref2: a P frame's second
         L0 reference's (y, u, v) planes (the two-reference program, the
@@ -240,9 +251,9 @@ class InterFrameEncoder:
         hint (a P frame with one reference, unweighted: analysis reuse):
         each CU's quarter-pel (mvx, mvy) [ncu], refined in place of K1's
         full search, which is then not launched.
-        Returns the decision dict (numpy; a B frame's with pdir and the L1
-        MVs, each list's MVs as searched: the session masks them by
-        pdir)."""
+        finish_frame returns the decision dict (numpy; a B frame's with
+        pdir and the L1 MVs, each list's MVs as searched: the session
+        masks them by pdir)."""
         dev = self.device
         n = self.n
         ncu = self.rows * self.cols
@@ -291,15 +302,49 @@ class InterFrameEncoder:
                                  self.quant_fn, False)
             use_intra[cu] = ui
             ws.commit(cu, m, lv, rec, lvc, recc)
+        return {"ws": ws, "use_intra": use_intra, "mvx": mvx, "mvy": mvy,
+                "ref": ref_sel, "pdir": pdir, "mv1x": mv1x, "mv1y": mv1y}
 
+    def upload(self, *planes):
+        """Host planes (or tensors) on the device in the plane type; from
+        the host through pinned memory, so the copy does not wait for the
+        work queued on the stream."""
+        dt = pixel.plane_dtype(self.bd)
+        out = []
+        for p in planes:
+            if not isinstance(p, torch.Tensor):
+                p = torch.from_numpy(np.ascontiguousarray(p).astype(
+                    np.uint8 if dt == torch.uint8 else np.int16))
+                if self.device.type == "cuda":
+                    p = p.pin_memory()
+            out.append(p.to(self.device, dt, non_blocking=True))
+        return tuple(out)
+
+    def recon_planes(self, handle: dict):
+        """The submitted frame's recon (y, u, v) as device planes of the
+        plane type (a reference for the next frame), without a fetch."""
+        rows, cols, n, nc = self.rows, self.cols, self.n, self.n // 2
+        ws = handle["ws"]
+        dt = pixel.plane_dtype(self.bd)
+        return (from_blocks(ws.rec_y, n, rows * n, cols * n).to(dt),
+                from_blocks(ws.rec_c[0], nc, rows * nc, cols * nc).to(dt),
+                from_blocks(ws.rec_c[1], nc, rows * nc, cols * nc).to(dt))
+
+    def finish_frame(self, handle: dict) -> dict:
+        """Fetch a submitted frame's decision dict (numpy)."""
         rows, cols = self.rows, self.cols
-        out = ws.result(rows, cols)[0]
+        out = handle["ws"].result(rows, cols)[0]
         h = lambda a: None if a is None else a.cpu().numpy().reshape(rows,
                                                                      cols)
-        out.update({"use_intra": h(use_intra), "mvx": h(mvx), "mvy": h(mvy),
-                    "ref": h(ref_sel), "pdir": h(pdir), "mv1x": h(mv1x),
-                    "mv1y": h(mv1y)})
+        out.update({k: h(handle[k]) for k in (
+            "use_intra", "mvx", "mvy", "ref", "pdir", "mv1x", "mv1y")})
         return out
+
+    def to(self, device) -> "InterFrameEncoder":
+        """The same encoder with its tables on `device`."""
+        return InterFrameEncoder(self.cols * self.n, self.rows * self.n,
+                                 self.n, device, self.quant_fn,
+                                 self.search_range, self.weightp)
 
 
 # ---------------------------------------------------------------------------

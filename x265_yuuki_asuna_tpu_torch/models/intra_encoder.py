@@ -258,11 +258,11 @@ def gather_mode(preds: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
 
 
 def planes_to_blocks(y, u, v, n: int, device, nc: int = None):
-    """Host planes -> int32 CU blocks on the device ([ncu, n, n]
-    luma, [ncu, nc, nc] chroma, nc n/2 by default)."""
+    """Host planes (or tensors) -> int32 CU blocks on the device ([ncu,
+    n, n] luma, [ncu, nc, nc] chroma, nc n/2 by default)."""
     nc = n // 2 if nc is None else nc
-    t = lambda p: torch.as_tensor(np.ascontiguousarray(p), device=device) \
-        .to(torch.int32)
+    t = lambda p: (p if isinstance(p, torch.Tensor) else torch.as_tensor(
+        np.ascontiguousarray(p))).to(device, torch.int32)
     return to_blocks(t(y), n), to_blocks(t(u), nc), to_blocks(t(v), nc)
 
 
@@ -318,6 +318,11 @@ class IntraFrameEncoder:
         qp: one QP for every CU, or a per-CU QP map for each frame (a
         sequence of F [rows, cols] or [ncu] arrays); nr_off: one set of
         denoise offsets for every frame of the batch."""
+        return self.finish_frames(self.submit_frames(ys, us, vs, qp, nr_off))
+
+    def submit_frames(self, ys, us, vs, qp, nr_off=None):
+        """Launch encode_frames' program and fetch nothing; returns the
+        handle finish_frames takes."""
         n, nc, F = self.n, self.nc, len(ys)
         ncu = self.rows * self.cols
         log2n = n.bit_length() - 1
@@ -374,12 +379,24 @@ class IntraFrameEncoder:
                 lvc, recc = tq(srcc, predc, cb_cr(at(qpc, cu)), log2c, False,
                                m.repeat(2), 1)
             ws.commit(cu, m, lv, rec, lvc, recc)
+        return ws, nr, F
+
+    def finish_frames(self, handle) -> list:
+        """Fetch the decision dicts of a submit_frames handle."""
+        ws, nr, F = handle
         out = ws.result(self.rows, self.cols, F)
         if nr is not None:
             sy, sc = nr[1].cpu().numpy(), nr[2].cpu().numpy()
             for f, o in enumerate(out):
                 o["nr_sum_y"], o["nr_sum_c"] = sy[f], sc[f]
         return out
+
+    def to(self, device) -> "IntraFrameEncoder":
+        """The same encoder with its tables on `device`."""
+        return IntraFrameEncoder(
+            self.cols * self.n, self.rows * self.n, self.n, device,
+            self.quant_fn, self.lossless, "i444" if self.i444 else "i420",
+            self.fast_intra, self.nr)
 
     def _source_modes(self, ys) -> torch.Tensor:
         """Fast intra: every CU's luma mode from the edge-replicated source

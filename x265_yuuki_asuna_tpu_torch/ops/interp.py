@@ -20,6 +20,8 @@ border extension). All sums are int32.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -44,6 +46,14 @@ CHROMA_FILTERS = np.array([
 IF_INTERNAL_OFFS = 1 << 13   # 8192
 
 
+@lru_cache(maxsize=None)
+def _filters(luma: bool, device) -> torch.Tensor:
+    """The luma or chroma filter taps on `device`, made once (a host copy
+    per call would make the host wait for the card's stream)."""
+    return torch.as_tensor(LUMA_FILTERS if luma else CHROMA_FILTERS,
+                           device=device)
+
+
 def _two_stage(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y, frac_x,
                frac_y, n: int, luma: bool, bit_depth: int) -> torch.Tensor:
     """The vertical stage's int32 sums [B, n, n] before its shift: both
@@ -51,8 +61,7 @@ def _two_stage(ref_plane: torch.Tensor, px, py, mv_int_x, mv_int_y, frac_x,
     dev = ref_plane.device
     taps = 8 if luma else 4
     half = taps // 2 - 1          # 3 luma, 1 chroma
-    filters = torch.as_tensor(LUMA_FILTERS if luma else CHROMA_FILTERS,
-                              device=dev)
+    filters = _filters(luma, dev)
     H, W = ref_plane.shape
     B = px.shape[0]
     ext = n + taps - 1
@@ -191,7 +200,7 @@ def subpel_refine_win(win: torch.Tensor, src_blocks: torch.Tensor, n: int,
     neighbours; the first minimum wins, so ties keep the earlier one."""
     from . import pixel
     dev = win.device
-    filters = torch.as_tensor(LUMA_FILTERS, device=dev)
+    filters = _filters(True, dev)
     B = win.shape[0]
     headroom = 14 - bit_depth
     shift1, shift2 = 6 - headroom, 6 + headroom

@@ -15,6 +15,7 @@ The kernels' design and bounds are in the CUDA source's header comment.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -26,6 +27,9 @@ _DTYPES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 _MAX_DIFF = {torch.uint8: 255, torch.int16: 65535, torch.int32: 2 ** 32 - 1}
 BEST_SIZES = (8, 16, 32)
 _fns = {}
+# every entry point's launches by the CUDA stream they went to (its
+# cuda_stream handle): a pipeline slot's K1 runs on the slot's stream
+launches_by_stream = collections.Counter()
 
 
 def _kernel(name: str):
@@ -73,6 +77,7 @@ def _launch(name: str, plane: torch.Tensor, *args):
         err = _kernel(name)(*args, stream)
     if err:
         raise RuntimeError(f"K1 {name} launch failed: CUDA error {err}")
+    launches_by_stream[stream] += 1
 
 
 def _surface_plain(ref_plane: torch.Tensor, src_plane: torch.Tensor,

@@ -14,6 +14,8 @@ integer far below 2^53 and the result is exact in any summation order.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -37,9 +39,16 @@ def hadamard_matrix(n: int) -> np.ndarray:
     return h
 
 
+@lru_cache(maxsize=None)
+def _hadamard_t(n: int, device) -> torch.Tensor:
+    """The Hadamard matrix as float64 on `device`, made once (a host copy
+    per call would make the host wait for the card's stream)."""
+    return torch.as_tensor(hadamard_matrix(n), dtype=torch.float64,
+                           device=device)
+
+
 def _hadamard2d(blocks: torch.Tensor, n: int) -> torch.Tensor:
-    H = torch.as_tensor(hadamard_matrix(n), dtype=torch.float64,
-                        device=blocks.device)
+    H = _hadamard_t(n, blocks.device)
     return (H @ blocks.to(torch.float64) @ H).to(torch.int64)
 
 

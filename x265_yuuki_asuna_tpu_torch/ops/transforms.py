@@ -45,7 +45,10 @@ def dct_matrix(n: int) -> np.ndarray:
     return out
 
 
+@lru_cache(maxsize=None)
 def _t64(n: int, device) -> torch.Tensor:
+    """The DCT matrix as float64 on `device`, made once: a host copy in
+    every transform would make the host wait for the card's stream."""
     return torch.as_tensor(dct_matrix(n), dtype=torch.float64, device=device)
 
 
