@@ -261,6 +261,21 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      K1 one fused sweep a P frame either way, the share of K1 launches on
      the slots' own streams; profiled over the IDR and one chain each
      way: the device's idle share and the overlap of the streams);
+     then the uniform 8x8 grid (tests/cu8_pins.py): k1_n8 (in phase 2,
+     with the card to itself: the fused sweep at n = 8 on 1080x1920, 135
+     block rows, in uint8 and 10-bit int16, a 40x48 crop of 5 block rows
+     at lambda 0, 1 and 2 and a flat plane at lambda 0 and 2, each equal
+     to its plain version; time, plain time, bound), golden_cu8 (every
+     pin of the uniform 8x8 grid's sessions, PipelinedEncoder, analysis
+     save / load and two passes against the JAX package's md5s and
+     frames, the AQ sessions refused with the reason, and the CTU64 P / B
+     writer's outputs of tests/native_writer_pins.py), cu8_cpu_vs_card
+     (416x240: the IPPP session with the filters and the B session, card
+     against CPU) and 1080p_cu8 (cu_size=8 with the deblock and SAO over
+     synth_clip, I + 2 P timed and a P frame profiled: fps after the IDR,
+     launches a P frame, the device's idle share, K1's launches by entry
+     point and the fused sweep's by size, bytes, PSNR-Y, peak memory; the
+     last P frame's plain rerun identical);
   6. the kernels line (launches on the flagship's path, and on each
      path; each entry point's int16 time, plain time, bound and launches
      on the 10-bit path); then the card line and, last, the ok line.
@@ -3880,12 +3895,274 @@ def phase_1080p_pipeline(dev, n_chains=2):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the uniform 8x8 grid (tests/cu8_pins.py) and the writers no session
+# reaches (tests/native_writer_pins.py)
+# ---------------------------------------------------------------------------
+
+def cu8_pins():
+    """tests/cu8_pins.py: the uniform 8x8 grid's sessions and the JAX
+    package's pins over them."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import cu8_pins as pins
+    return pins
+
+
+def native_writer_pins():
+    """tests/native_writer_pins.py: the CTU64 P / B writer's seeded
+    inputs and the JAX package's md5s of its output."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import native_writer_pins as pins
+    return pins
+
+
+def phase_k1_n8(dev, card):
+    """K1's fused sweep at n = 8 on a full-resolution plane (the uniform
+    8x8 grid's P and B ME: 1080x1920, 135 block rows, R = 16, lambda_bits
+    2) against its plain version in uint8 and in int16 at 10 bits, then a
+    40x48 crop (5 block rows, an odd count) at lambda 0, 1 and 2 and a
+    flat plane at lambda 0 (every cost ties: (-R, -R)) and 2 ((0, 0)),
+    and the lookahead's sweep at cu 8 (lambda 1 on the half-resolution
+    planes trimmed to whole 8x8 blocks: 536x960, 67 block rows) in uint8
+    and 10-bit int16; then its time, plain time, bound and the wrapper's
+    time at 1080x1920 and at the lookahead's 536x960, in uint8 and 10-bit
+    int16."""
+    from x265_yuuki_asuna_tpu_torch.models.lookahead import downscale_half
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    fr = synth_clip(2, W1080, H1080)
+    rng = np.random.default_rng(19)
+
+    def deep(y):
+        p = y.astype(np.int16)
+        return torch.as_tensor((p << 2) + rng.integers(0, 4, p.shape)
+                               .astype(np.int16), device=dev)
+    u8 = [torch.as_tensor(f[0], device=dev) for f in fr]
+    d16 = [deep(f[0]) for f in fr]
+    flat = torch.full((64, 64), 77, dtype=torch.uint8, device=dev)
+    # Lookahead(1920, 1080): lh = (1080 // 2) // 8 * 8, lw = 960
+    low = lambda y, dt: downscale_half(y)[:536, :960].to(dt).contiguous()
+    cases = [("ME 1080x1920 n=8", 8, u8[0], u8[1], (2,)),
+             ("ME 1080x1920 n=8 int16", 10, d16[0], d16[1], (2,)),
+             ("lookahead 536x960 n=8", 8, low(u8[0], torch.uint8),
+              low(u8[1], torch.uint8), (1,)),
+             ("lookahead 536x960 n=8 int16", 10, low(d16[0], torch.int16),
+              low(d16[1], torch.int16), (1,)),
+             ("40x48 n=8", 8, u8[0][:40, :48].contiguous(),
+              u8[1][3:43, 5:53].contiguous(), (0, 1, 2)),
+             ("flat n=8", 8, flat, flat, (0, 2))]
+    rows, err = {}, 0
+    for name, bd, ref, src, lams in cases:
+        peak = (1 << bd) - 1
+        H, W = src.shape
+        e = {}
+        for lam in lams:
+            kb = me_sad.sad_sweep_best(ref, src, 16, 8, lam, peak)
+            pb = me_sad.sad_sweep_best_plain(ref, src, 16, 8, lam)
+            torch.cuda.synchronize()
+            e[lam] = max(int((a.long() - b.long()).abs().max())
+                         for a, b in zip(kb, pb))
+            want = -16 if lam == 0 else 0
+            if name.startswith("flat") and not (
+                    bool((kb[0] == want).all()) and
+                    bool((kb[1] == want).all()) and bool((kb[2] == 0).all())):
+                raise AssertionError(f"flat n=8 at lambda {lam}: the first "
+                                     f"minimum must be ({want}, {want})")
+        shift, kdt = me_sad.key_layout(src.dtype, 8, 16, max(lams), peak)
+        row = dict(shape=name, H=H, W=W, R=16, n=8, dtype=str(src.dtype),
+                   bit_depth=bd, block_rows=H // 8, key_dtype=str(kdt),
+                   key_shift=shift, max_abs_err=e)
+        if name.startswith(("ME", "lookahead")):
+            lam = lams[0]
+            keys = torch.full(((H // 8) * (W // 8),), -1, dtype=kdt,
+                              device=dev)
+            row["ms"] = cuda_ms(lambda: me_sad._launch(
+                "best", src, ref.data_ptr(), src.data_ptr(), keys.data_ptr(),
+                H, W, 16, 8, lam, shift, keys.element_size(),
+                me_sad._DTYPES[src.dtype]), 50)
+            row["route_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best(ref, src, 16, 8, lam, peak), 20)
+            row["plain_ms"] = cuda_ms(
+                lambda: me_sad.sad_sweep_best_plain(ref, src, 16, 8, lam), 2)
+            row["bound_ms"], row["bound_by"] = k1_bound_ms(
+                H, W, 16, src.dtype, int_ops_per_s(*card, src.dtype), 8)
+        emit(phase="k1_n8", **row)
+        if any(e.values()):
+            raise AssertionError(f"K1 n=8 differs from its plain version "
+                                 f"at {name}: {e}")
+        rows[name] = row
+        err = max(err, *e.values())
+    return rows, err
+
+
+def phase_golden_cu8(dev):
+    """The uniform 8x8 grid on the card against the JAX package's pins
+    (tests/cu8_pins.py): every session's md5 and (POC, type, QP),
+    PipelinedEncoder on four streams of card 0 (encode_clip and
+    encode_clip_sequential), analysis save / load and two passes with
+    their files, the AQ sessions refused with the reason; then the CTU64
+    P / B writer's streams (tests/native_writer_pins.py). Returns K1's
+    launch counts and the fused sweep's by size."""
+    from x265_yuuki_asuna_tpu_torch.bitstream import native
+    from x265_yuuki_asuna_tpu_torch.models import encoder_top as top
+    from x265_yuuki_asuna_tpu_torch.parallel.session import \
+        PipelinedEncoder
+    P, NW = cu8_pins(), native_writer_pins()
+    ok, t0 = {}, time.perf_counter()
+    k1_start()                                    # the main path starts
+    for name in P.SESSIONS:
+        ok[name] = P.run(top, name, device=dev)[:2] == P.PINS[name]
+    for seq in (False, True):
+        ok[f"pipeline_{'sequential' if seq else 'clip'}"] = \
+            P.run_pipeline(PipelinedEncoder, seq,
+                           devices=["cuda:0"]) == P.PIPE_PIN
+    with tempfile.TemporaryDirectory() as d:
+        for kind, pin in P.TWO_FILE_PINS.items():
+            ok[kind] = P.run_two_files(top, d, kind, device=dev) == pin
+    launches, sizes = k1_read(), k1_sizes()
+    for name in P.REFUSED:
+        try:
+            P.run(top, name, device=dev)
+            ok[f"refused_{name}"] = False
+        except ValueError as e:
+            ok[f"refused_{name}"] = "AQ at cu_size=8" in str(e)
+    for name in NW.QT64_CASES:
+        args, kw = NW.qt64_args(name)
+        ok[f"qt64_{name}"] = NW.digest(native.encode_slice_qt64(
+            *args, **kw)) == NW.QT64_PINS[name]
+    emit(phase="golden_cu8", pins=len(ok), held=sum(ok.values()),
+         failed=[k for k, v in ok.items() if not v],
+         seconds=time.perf_counter() - t0, k1_launches=launches,
+         k1_fused_by_size=sizes)
+    if not all(ok.values()):
+        raise AssertionError(
+            f"golden_cu8: {[k for k, v in ok.items() if not v]}")
+    if not launches["sad_sweep_best"] or not sizes[8]:
+        raise AssertionError(f"golden_cu8: K1 launches {launches} {sizes}")
+    return dict(launches, fused_by_size=sizes)
+
+
+def phase_cu8_cpu_vs_card(dev):
+    """The uniform 8x8 grid at 416x240 on the card and on the CPU: the
+    IPPP session with the deblock and SAO (I + 2 P) and the B session
+    (bframes 2, b-adapt 0: I, P, b, b); equal streams and frames."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    frames = synth_clip(4, 416, 240)
+    out = {}
+    for name, kw, n in (("ippp_lf", dict(deblock=True, sao=True), 3),
+                        ("b", dict(bframes=2, b_adapt=0), 4)):
+        got = {}
+        for where in (dev, "cpu"):
+            s = VideoEncoderSession(416, 240, qp=32, cu_size=8, keyint=250,
+                                    device=where, **kw)
+            res = push_all(s, frames[:n]) if kw.get("bframes") else \
+                [s.encode_frame(*f) for f in frames[:n]]
+            got[str(where)] = (_md5_of(s, res),
+                               [(r.frame_type, r.qp) for r in res])
+        out[name] = got
+    same = {k: len({repr(v) for v in g.values()}) == 1
+            for k, g in out.items()}
+    emit(phase="cu8_cpu_vs_card", streams={k: {w: v[0] for w, v in g.items()}
+                                           for k, g in out.items()},
+         frames={k: next(iter(g.values()))[1] for k, g in out.items()},
+         identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"cu8_cpu_vs_card: {same}")
+    return same
+
+
+def phase_1080p_cu8(dev, n_frames=3):
+    """The uniform 8x8 grid at 1080p: VideoEncoderSession(1920, 1080,
+    qp=32, cu_size=8, keyint=250) with the deblock and SAO over
+    synth_clip, I + 2 P timed (fps after the IDR, stage ms, bytes,
+    PSNR-Y, peak memory), then one more P frame under torch.profiler
+    (its launches and the device's idle share); K1's launches by entry
+    point and the fused sweep's by size (every sweep at n = 8: one
+    lookahead sweep a frame, one ME sweep a P frame on the 1080x1920
+    plane); the last P frame's program again with K1 patched to its plain
+    version, identical."""
+    from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
+        VideoEncoderSession
+    from x265_yuuki_asuna_tpu_torch.utils import geometry as G
+    frames = synth_clip(n_frames + 1, W1080, H1080)
+    sess = VideoEncoderSession(W1080, H1080, qp=32, cu_size=8, keyint=250,
+                               deblock=True, sao=True, device=dev)
+    total = len(sess.headers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, t_frames = [], []
+    k1_start()                                    # the main path starts
+    for fr in frames[:n_frames]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(sess.encode_frame(*fr))
+        torch.cuda.synchronize()
+        t_frames.append(time.perf_counter() - t0)
+        total += len(results[-1].nals)
+    last_ref = sess.ref
+    r_prof, rec = _device_record(lambda: sess.encode_frame(*frames[-1]))
+    results.append(r_prof)
+    launches, sizes = k1_read(), k1_sizes()
+    peak = torch.cuda.max_memory_allocated()
+    n_p = sum(r.frame_type == "P" for r in results)
+    psnr = [r.psnr_y for r in results]
+    emit(phase="1080p_cu8", frames=len(results), p_frames=n_p,
+         coded=[sess.coded_w, sess.coded_h], cus=[sess.cols, sess.rows],
+         fps_after_idr=(n_frames - 1) / sum(t_frames[1:]),
+         frame_ms=[t * 1e3 for t in t_frames],
+         stage_ms={k: v for k, v in sess.stage_ms.items()},
+         profiled_p_frame=rec, bytes=total, frame_bytes=[
+             len(r.nals) for r in results], psnr_y=psnr,
+         frame_type=[r.frame_type for r in results],
+         k1_launches=launches, k1_fused_by_size=sizes,
+         max_memory_allocated=peak)
+    want = {"sad_sweep_best": len(results) + n_p, "sad_block8_sweep": 0,
+            "sad_block4_sweep": 0}
+    if launches != want or sizes[8] != want["sad_sweep_best"]:
+        raise AssertionError(f"1080p_cu8: K1 launches {launches} {sizes} "
+                             f"!= {want}")
+    if not (np.isfinite(psnr).all() and results[0].frame_type == "I" and
+            n_p == len(results) - 1 and all(
+                r.recon[0].shape == (H1080, W1080) for r in results)):
+        raise AssertionError("1080p_cu8 output malformed")
+    y, u, v = frames[-1]
+    yp = G.pad_plane(y, sess.coded_h, sess.coded_w)
+    up = G.pad_plane(u, sess.coded_h // 2, sess.coded_w // 2)
+    vp = G.pad_plane(v, sess.coded_h // 2, sess.coded_w // 2)
+    qp = results[-1].qp
+    out_k = sess.inter_encoder.encode_frame(yp, up, vp, *last_ref, qp)
+    with plain_k1():
+        out_p = sess.inter_encoder.encode_frame(yp, up, vp, *last_ref, qp)
+    same = _same_decisions(out_k, out_p)
+    emit(phase="1080p_cu8_p_frame_plain_rerun", identical=same)
+    if not same:
+        raise AssertionError("1080p_cu8: kernel and plain P-frame "
+                             "decisions differ")
+    # the same frames on the uniform 16x16 grid, for the bytes and PSNR
+    ref16 = VideoEncoderSession(W1080, H1080, qp=32, cu_size=16,
+                                keyint=250, deblock=True, sao=True,
+                                device=dev)
+    t0 = time.perf_counter()
+    res16 = [ref16.encode_frame(*fr) for fr in frames[:n_frames]]
+    torch.cuda.synchronize()
+    emit(phase="cu8_vs_cu16", frames=n_frames,
+         frame_bytes=[[len(r.nals) for r in results[:n_frames]],
+                      [len(r.nals) for r in res16]],
+         psnr_y=[psnr[:n_frames], [r.psnr_y for r in res16]],
+         bytes_change=sum(len(r.nals) for r in results[:n_frames])
+         / sum(len(r.nals) for r in res16) - 1,
+         ms=[sum(t_frames) * 1e3, (time.perf_counter() - t0) * 1e3])
+    return dict(launches, fused_by_size=sizes)
+
+
 # The phases after K1, as (key, phase function, keyword arguments), the
 # longest first (by earlier runs' times) so that the pool ends together;
 # each runs whole in one process, its K1 counts set to 0 just before its
 # main path and read just after, as when the script ran them one by one.
 JOBS = (
     ("1080p_intra_opts", "phase_1080p_intra_opts", {}),
+    ("golden_cu8", "phase_golden_cu8", {}),
+    ("1080p_cu8", "phase_1080p_cu8", {}),
     ("1080p_cli_superfast", "phase_1080p_cli_superfast", {}),
     ("1080p_qt2_rdoq", "phase_1080p", dict(name="1080p_qt2_rdoq",
                                            max_depth=2, n_frames=2,
@@ -3895,6 +4172,7 @@ JOBS = (
     ("golden_intra_opts", "phase_golden_intra_opts", {}),
     ("1080p_cli_medium", "phase_1080p_cli_medium", {}),
     ("1080p_pipeline", "phase_1080p_pipeline", {}),
+    ("cu8_cpu_vs_card", "phase_cu8_cpu_vs_card", {}),
     ("1080p_cli_ultrafast", "phase_1080p_cli_ultrafast", {}),
     ("1080p_api_p_only", "phase_1080p_api_p_only", {}),
     ("1080p_wpp_b", "phase_1080p_wpp_b", {}),
@@ -4064,8 +4342,10 @@ def main(argv=None):
         k1, err = phase_k1(dev, card)
         k1_16, err16 = phase_k1_int16(dev, card)
         k1_32, err32 = phase_k1_n32(dev, card)
-        return smi, k1, k1_16, k1_32, max(err, err16, err32)
-    (smi, k1, k1_16, k1_32, err), res = run_jobs(dev, args.workers, start)
+        k1_8, err8 = phase_k1_n8(dev, card)
+        return smi, k1, k1_16, k1_32, k1_8, max(err, err16, err32, err8)
+    (smi, k1, k1_16, k1_32, k1_8, err), res = run_jobs(dev, args.workers,
+                                                       start)
     golden10, golden_opts, golden_popts = (
         res["golden_main10"], res["golden_stream_opts"],
         res["golden_p_options"])
@@ -4112,7 +4392,8 @@ def main(argv=None):
     for key in ("1080p_wpp_b", "golden_intra_opts", "1080p_intra_opts",
                 "golden_rqt", "golden_analysis", "golden_ladder",
                 "1080p_rqt", "1080p_ladder", "golden_pipeline",
-                "pipeline_cpu_vs_card", "1080p_pipeline"):
+                "pipeline_cpu_vs_card", "1080p_pipeline", "golden_cu8",
+                "1080p_cu8"):
         by_path[key] = res[key]
     analysis = res["1080p_analysis"]
     for name, counts in analysis.items():
@@ -4133,6 +4414,11 @@ def main(argv=None):
     hme16 = k1_16["hme 544x960 int16"]
     me32 = k1_32["ME 1088x1920 n=32"]
     me32_16 = k1_32["ME 1088x1920 n=32 int16"]
+    me8, me8_16 = k1_8["ME 1080x1920 n=8"], k1_8["ME 1080x1920 n=8 int16"]
+    la8, la8_16 = (k1_8["lookahead 536x960 n=8"],
+                   k1_8["lookahead 536x960 n=8 int16"])
+    pick = lambda r: {k: r[k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "route_ms")}
     # each entry point on the 10-bit path's int16 planes: its time, plain
     # time and bound, and its launches there (the 1080p path; HME's 4x4
     # surface runs on the 10-bit flagship session of golden_main10)
@@ -4182,6 +4468,15 @@ def main(argv=None):
                  "int16": {k: me32_16[k] for k in (
                      "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                      "route_ms")}},
+         # n = 8 on a full-resolution plane: the uniform 8x8 grid's ME
+         # (1080p_cu8: every fused sweep there is n = 8, the lookahead's
+         # and the ME's)
+         "n8_full": dict(pick(me8), launches=res["1080p_cu8"][
+             "fused_by_size"][8], launches_golden_cu8=res["golden_cu8"][
+                 "fused_by_size"][8], int16=pick(me8_16),
+             lookahead=dict(pick(la8), int16=pick(la8_16)),
+             crop_flat_max_abs_err={r["shape"]: r["max_abs_err"]
+                                    for r in k1_8.values()}),
          # the P-frame options: two sweeps per two-reference P frame
          "p_options": {"1080p_api_p_only_by_size": sizes_p,
                        "launches_golden_p_options":

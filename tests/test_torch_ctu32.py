@@ -86,12 +86,15 @@ def test_fused_sizes_and_counts():
 
 
 def test_grid_takes_ctu32_and_refuses_ctu64():
+    """The uniform grid takes CUs of 32 (and, since the 8x8 grid codes,
+    8: tests/test_torch_cu8.py); a uniform CTU64 is refused."""
     s = t_top.VideoEncoderSession(64, 48, cu_size=32, device="cpu")
     assert (s.cu, s.rows, s.cols, s.inter_encoder.n) == (32, 2, 2, 32)
     assert s.sps.log2_min_cb == 5 and s.sps.log2_diff_max_min_cb == 0
-    for cu in (64, 8):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_top.IntraEncoderSession(64, 48, cu_size=cu, device="cpu")
+    with pytest.raises(NotImplementedError, match="CTU64"):
+        t_top.IntraEncoderSession(64, 48, cu_size=64, device="cpu")
+    s = t_top.IntraEncoderSession(64, 48, cu_size=8, device="cpu")
+    assert (s.cu, s.rows, s.cols) == (8, 6, 8)
 
 
 def test_ctu32_parameter_sets_match_jax():

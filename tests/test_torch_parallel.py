@@ -282,22 +282,24 @@ def test_flush_count_closes_a_minigop_as_the_reference():
 def test_item_9b_geometries_stay_refused():
     """CTU32 at max_depth=3 means 4x4 CUs: the JAX session codes them but
     cannot write its SPS (log2_min_luma_coding_block_size_minus3 = -1
-    fails its writer's assertion). The uniform 8x8 grid writes a CTU of
-    8, outside every profile (CtbLog2SizeY 4-6): libde265 decodes it,
-    FFmpeg refuses it (the slow test). The port refuses both, naming
-    the reason."""
+    fails its writer's assertion), and the port refuses it, naming the
+    reason. The uniform 8x8 grid codes now: its CTU of 8 lies outside
+    every profile (CtbLog2SizeY 4-6), libde265 decodes it and FFmpeg
+    refuses it (the slow test); the port's stream of the pinned session
+    is the JAX package's (more in tests/test_torch_cu8.py)."""
     from x265_yuuki_asuna_tpu.models.encoder_top import \
         VideoEncoderSession as JS
     with pytest.raises(AssertionError):
         JS(64, 48, max_depth=3).headers()
-    sps = JS(64, 48, cu_size=8).intra_sess.sps
-    assert sps.log2_min_cb + sps.log2_diff_max_min_cb == 3
     with pytest.raises(NotImplementedError, match="item 9b") as e:
         t_top.VideoEncoderSession(64, 48, max_depth=3, device="cpu")
     assert "SPS" in str(e.value)
-    with pytest.raises(NotImplementedError, match="item 9b") as e:
-        t_top.VideoEncoderSession(64, 48, cu_size=8, device="cpu")
-    assert "profile" in str(e.value)
+    s = t_top.VideoEncoderSession(64, 48, qp=32, keyint=10, cu_size=8,
+                                  device="cpu")
+    assert s.sps.log2_min_cb + s.sps.log2_diff_max_min_cb == 3
+    res = [s.encode_frame(*f) for f in PP.session_clip(64, 48, 3)]
+    assert PP.md5(s.headers() + b"".join(r.nals for r in res)) == \
+        PP.CU8_MD5
 
 
 # ---------------------------------------------------------------------------

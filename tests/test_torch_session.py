@@ -193,7 +193,9 @@ NIE, AE = NotImplementedError, AssertionError
     pytest.param({"cu_size": 64}, NIE, "cu_size", id="option1"),
     pytest.param({"rqt": True, "max_depth": 3}, NIE, "max_depth",
                  id="option2"),
-    pytest.param({"cu_size": 8}, NIE, "cu_size", id="option3"),
+    # (the case cu_size 4 took the place of cu_size 8: the uniform 8x8
+    # grid codes now, tests/test_torch_cu8.py)
+    pytest.param({"cu_size": 4}, NIE, "cu_size", id="option3"),
     pytest.param({"scale_factor": 2, "cu_size": 24}, NIE, "cu_size",
                  id="option4"),
     pytest.param({"analysis_save": "a.dat", "n_refs": 2}, AE, "multi-ref",

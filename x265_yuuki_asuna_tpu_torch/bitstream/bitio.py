@@ -1,6 +1,7 @@
-"""Bit-level writer and NAL packaging (host copy of
+"""Bit-level writer and reader and NAL packaging (host copy of
 x265_yuuki_asuna_tpu/bitstream/bitio.py: BitWriter, wrap_nal,
-parse_annexb_nals).
+parse_annexb_nals; the reader's split_annexb, strip_emulation and
+BitReader, which no encode path runs).
 
 Reference behavior (studied, not copied): common/bitstream.h,
 encoder/nal.cpp (start codes, emulation prevention).
@@ -99,7 +100,10 @@ def parse_annexb_nals(data: bytes):
     """Split an Annex-B byte stream into NAL payloads without their start
     codes and 2-byte headers (emulation-prevention bytes left in place:
     wrap_nal re-wraps each payload verbatim, adding a header). A NAL of
-    two bytes or fewer is dropped."""
+    two bytes or fewer is dropped. The RPU files' splitter: it trims
+    zeros otherwise than the reader's split_annexb (one zero before a
+    start code, all zeros after the last NAL), each as its reference
+    does."""
     nals = []
     i = 0
     n = len(data)
@@ -115,3 +119,86 @@ def parse_annexb_nals(data: bytes):
             nals.append(bytes(payload[2:]))
         i = j
     return nals
+
+
+def strip_emulation(payload: bytes) -> bytes:
+    """A NAL payload without its emulation-prevention bytes (the 0x03
+    after two zero bytes and before a byte <= 3): the RBSP."""
+    out = bytearray()
+    zeros = 0
+    i = 0
+    while i < len(payload):
+        b = payload[i]
+        if zeros >= 2 and b == 3 and i + 1 < len(payload) \
+                and payload[i + 1] <= 3:
+            zeros = 0
+            i += 1
+            continue
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+        i += 1
+    return bytes(out)
+
+
+def split_annexb(data: bytes):
+    """An Annex-B stream's NAL units, each its 2-byte header and payload
+    without the start code (the zero bytes before a following start code
+    trimmed, the last NAL's kept): the reader's splitter."""
+    starts = []
+    i, n = 0, len(data)
+    while i < n - 3:
+        if data[i] == 0 and data[i + 1] == 0:
+            if data[i + 2] == 1:
+                starts.append(i + 3)
+                i += 3
+                continue
+            if data[i + 2] == 0 and i + 3 < n and data[i + 3] == 1:
+                starts.append(i + 4)
+                i += 4
+                continue
+        i += 1
+    nals = []
+    for k, s in enumerate(starts):
+        end = (starts[k + 1] - 3) if k + 1 < len(starts) else n
+        while end > s and data[end - 1] == 0 and k + 1 < len(starts):
+            end -= 1
+        nals.append(data[s:end])
+    return nals
+
+
+class BitReader:
+    """MSB-first reader over an RBSP: fixed-length fields, ue(v) and
+    se(v) (spec 9.2)."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0           # bit position
+
+    def read_bits(self, nbits: int) -> int:
+        v = 0
+        for _ in range(nbits):
+            byte = self.data[self.pos >> 3]
+            v = (v << 1) | ((byte >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+    def read_flag(self) -> int:
+        return self.read_bits(1)
+
+    def read_ue(self) -> int:
+        zeros = 0
+        while self.read_bits(1) == 0:
+            zeros += 1
+            if zeros >= 32:
+                raise ValueError("ue(v) with 32 leading zero bits")
+        return (1 << zeros) - 1 + (self.read_bits(zeros) if zeros else 0)
+
+    def read_se(self) -> int:
+        k = self.read_ue()
+        return (k + 1) // 2 if k & 1 else -(k // 2)
+
+    def byte_aligned(self) -> bool:
+        return (self.pos & 7) == 0
+
+    def more_rbsp_data(self) -> bool:
+        return self.pos < len(self.data) * 8 - 8

@@ -1,7 +1,9 @@
-"""CABAC arithmetic encoder (HM-style low / range), in Python.
+"""CABAC arithmetic encoder (HM-style low / range) and decoder (spec
+9.3.4.3), in Python.
 
-Port of the encoder half of x265_yuuki_asuna_tpu/bitstream/cabac.py
-(`CabacEncoder`). The sessions code their slices through the native
+Port of x265_yuuki_asuna_tpu/bitstream/cabac.py (`CabacEncoder`,
+`CabacDecoder`). The decoder reads what the writers code, for the tests;
+no encode path runs it. The sessions code their slices through the native
 writer (`native.py`); this engine codes what that writer has no entry
 for: the WPP substreams, one per CTU row, whose contexts carry from the
 row above (`encoder_top.IntraEncoderSession._assemble_wpp`). It codes one
@@ -125,3 +127,70 @@ class CabacEncoder:
         tail = (self.low >> 8) & ((1 << tail_bits) - 1) if tail_bits > 0 \
             else 0
         return bytes(self.out), tail, tail_bits
+
+
+class CabacDecoder:
+    """Spec 9.3.4.3 arithmetic decoder over a slice's RBSP from the bit
+    start_bitpos (the slice data's first byte). ctx as CabacEncoder's."""
+
+    def __init__(self, data: bytes, start_bitpos: int = 0):
+        self.data = data
+        self.bitpos = start_bitpos
+        self.ctx = None
+        self.range = 510                     # initialisation, 9.3.2.5
+        self.offset = self._read_bits(9)
+
+    def init_contexts(self, slice_type: int, qp: int):
+        self.ctx = init_all_contexts(slice_type, qp)
+
+    def _read_bits(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            i = self.bitpos >> 3
+            bit = (self.data[i] >> (7 - (self.bitpos & 7))) & 1 \
+                if i < len(self.data) else 0
+            self.bitpos += 1
+            v = (v << 1) | bit
+        return v
+
+    def decode_bin(self, ctx_idx: int) -> int:
+        mstate = self.ctx[ctx_idx]
+        state, mps = mstate >> 1, mstate & 1
+        lps = int(LPS_TABLE[state][(self.range >> 6) & 3])
+        self.range -= lps
+        if self.offset >= self.range:        # LPS
+            self.offset -= self.range
+            self.range = lps
+            binval = 1 - mps
+            if state == 0:
+                mps = 1 - mps
+            self.ctx[ctx_idx] = (int(TRANS_IDX_LPS[state]) << 1) | mps
+        else:
+            binval = mps
+            self.ctx[ctx_idx] = (int(TRANS_IDX_MPS[state]) << 1) | mps
+        while self.range < 256:
+            self.range <<= 1
+            self.offset = (self.offset << 1) | self._read_bits(1)
+        return binval
+
+    def decode_bin_ep(self) -> int:
+        self.offset = (self.offset << 1) | self._read_bits(1)
+        if self.offset >= self.range:
+            self.offset -= self.range
+            return 1
+        return 0
+
+    def decode_bins_ep(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.decode_bin_ep()
+        return v
+
+    def decode_bin_trm(self) -> int:
+        self.range -= 2
+        if self.offset >= self.range:
+            return 1
+        while self.range < 256:
+            self.range <<= 1
+            self.offset = (self.offset << 1) | self._read_bits(1)
+        return 0

@@ -2,9 +2,10 @@
 Python CABAC engine: the intra modes, the transform tree of one TU per
 component, SAO parameters and cu_qp_delta.
 
-Port of the encoder half of x265_yuuki_asuna_tpu/bitstream/ctu_syntax.py
-(derive_mpm, encode_intra_luma_mode, encode_intra_chroma_mode,
-encode_intra_ctu_full, encode_sao_ctu, encode_cu_qp_delta), 4:2:0 only.
+Port of x265_yuuki_asuna_tpu/bitstream/ctu_syntax.py (derive_mpm,
+encode_intra_luma_mode, encode_intra_chroma_mode, encode_intra_ctu_full,
+encode_sao_ctu, encode_cu_qp_delta, and their readers decode_*, which
+only the tests run), 4:2:0 only.
 SAO parameters come in the port's packed form: one CTU's [18] int row,
 [luma, cb, cr] x [type, aux, o0..o3] (ops/sao.py). The native writer
 codes the same syntax for the sessions' slices; this one serves the WPP
@@ -23,8 +24,8 @@ from typing import List
 import numpy as np
 
 from . import tables as T
-from .cabac import CabacEncoder
-from .residual import encode_residual
+from .cabac import CabacDecoder, CabacEncoder
+from .residual import decode_residual, encode_residual
 
 CTX = T.CTX_OFFSET
 DC_MODE = 1
@@ -66,6 +67,19 @@ def encode_intra_luma_mode(enc: CabacEncoder, mode: int, mpm: List[int]):
         enc.encode_bins_ep(rem, 5)
 
 
+def decode_intra_luma_mode(dec: CabacDecoder, mpm: List[int]) -> int:
+    if dec.decode_bin(CTX["intra_luma"]):
+        idx = 0
+        if dec.decode_bin_ep():
+            idx = 1 + dec.decode_bin_ep()
+        return mpm[idx]
+    rem = dec.decode_bins_ep(5)
+    for m in sorted(mpm):
+        if rem >= m:
+            rem += 1
+    return rem
+
+
 def encode_intra_chroma_mode(enc: CabacEncoder, chroma_mode: int,
                              luma_mode: int):
     """DM (derived from luma) is the single bin 0; otherwise bin 1 + 2
@@ -79,6 +93,14 @@ def encode_intra_chroma_mode(enc: CabacEncoder, chroma_mode: int,
     idx = table.index(chroma_mode)
     enc.encode_bin(1, CTX["intra_chroma"])
     enc.encode_bins_ep(idx, 2)
+
+
+def decode_intra_chroma_mode(dec: CabacDecoder, luma_mode: int) -> int:
+    if not dec.decode_bin(CTX["intra_chroma"]):
+        return luma_mode
+    allowed = [PLANAR_MODE, VER_MODE, 10, DC_MODE]
+    m = allowed[dec.decode_bins_ep(2)]
+    return 34 if m == luma_mode else m
 
 
 @dataclass
@@ -131,6 +153,37 @@ def encode_intra_ctu_full(enc: CabacEncoder, d: CTUDecisions, log2_cu: int,
     if cbf_cr:
         encode_residual(enc, d.cr_levels, log2_cu - 1, False, d.luma_mode,
                         sign_hiding)
+
+
+def decode_intra_ctu_full(dec: CabacDecoder, log2_cu: int, cand_left: int,
+                          cand_above: int, part_mode_coded: bool = True,
+                          sign_hiding: bool = False,
+                          bypass_enabled: bool = False,
+                          qp_delta_enabled: bool = False):
+    """encode_intra_ctu_full read back: (luma mode, chroma mode, luma
+    levels [N, N], Cb and Cr levels [N/2, N/2]); cu_qp_delta is read (and
+    dropped) when qp_delta_enabled and a cbf is set."""
+    if bypass_enabled:
+        dec.decode_bin(CTX["tq_bypass"])
+    if part_mode_coded and dec.decode_bin(CTX["part_size"]) != 1:
+        raise ValueError("an NxN intra partition: the writers code 2Nx2N")
+    luma_mode = decode_intra_luma_mode(dec, derive_mpm(cand_left,
+                                                       cand_above))
+    chroma_mode = decode_intra_chroma_mode(dec, luma_mode)
+    n = 1 << log2_cu
+    cbf_cb = dec.decode_bin(CTX["qt_cbf"] + 2)
+    cbf_cr = dec.decode_bin(CTX["qt_cbf"] + 2)
+    cbf_luma = dec.decode_bin(CTX["qt_cbf"] + 1)
+    if qp_delta_enabled and (cbf_luma or cbf_cb or cbf_cr):
+        decode_cu_qp_delta(dec)
+    z = lambda k: np.zeros((k, k), np.int32)
+    luma = decode_residual(dec, log2_cu, True, luma_mode, sign_hiding) \
+        if cbf_luma else z(n)
+    cb = decode_residual(dec, log2_cu - 1, False, chroma_mode,
+                         sign_hiding) if cbf_cb else z(n // 2)
+    cr = decode_residual(dec, log2_cu - 1, False, chroma_mode,
+                         sign_hiding) if cbf_cr else z(n // 2)
+    return luma_mode, chroma_mode, luma, cb, cr
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +240,48 @@ def encode_sao_ctu(enc: CabacEncoder, params, left_params, up_params,
                 enc.encode_bins_ep(aux, 2)   # eo_class (cr inherits cb's)
 
 
+def _dec_offsets_abs(dec, cmax):
+    out = []
+    for _ in range(4):
+        a = 0
+        while a < cmax and dec.decode_bin_ep():
+            a += 1
+        out.append(a)
+    return out
+
+
+def _dec_type(dec):
+    if not dec.decode_bin(CTX["sao_type"]):
+        return SAO_OFF
+    return SAO_EO if dec.decode_bin_ep() else SAO_BO
+
+
+def decode_sao_ctu(dec: CabacDecoder, left_params, up_params,
+                   bit_depth: int = 8):
+    """encode_sao_ctu read back: the CTU's packed row [18] (a merged
+    neighbour's row copied; edge offsets' signs inferred, positive for
+    categories 1 and 2)."""
+    cmax = (1 << (min(bit_depth, 10) - 5)) - 1
+    for nb in (left_params, up_params):
+        if nb is not None and dec.decode_bin(CTX["sao_merge"]):
+            return [int(x) for x in nb]
+    p = [0] * 18
+    for group in ((0,), (1, 2)):             # luma; cb with cr
+        t = _dec_type(dec)
+        if t == SAO_OFF:
+            continue
+        for k in group:
+            a = _dec_offsets_abs(dec, cmax)
+            if t == SAO_BO:
+                offs = [-x if x and dec.decode_bin_ep() else x for x in a]
+                aux = dec.decode_bins_ep(5)
+            else:
+                aux = dec.decode_bins_ep(2) if k < 2 else p[7]
+                offs = [a[0], a[1], -a[2], -a[3]]
+            p[6 * k:6 * k + 6] = [t, aux, *offs]
+    return p
+
+
 def encode_cu_qp_delta(enc: CabacEncoder, delta: int):
     """cu_qp_delta_abs (spec 9.3.3.10: TU prefix of cMax 5, context bin 0
     then bins 1+, EG0 bypass suffix) and its sign."""
@@ -208,3 +303,19 @@ def encode_cu_qp_delta(enc: CabacEncoder, delta: int):
             enc.encode_bins_ep(v, k)
     if a:
         enc.encode_bin_ep(1 if delta < 0 else 0)
+
+
+def decode_cu_qp_delta(dec: CabacDecoder) -> int:
+    """encode_cu_qp_delta read back: the signed delta."""
+    prefix = 0
+    while prefix < 5 and dec.decode_bin(
+            CTX["delta_qp"] + (0 if prefix == 0 else 1)):
+        prefix += 1
+    a = prefix
+    if prefix == 5:
+        k, base = 0, 0
+        while dec.decode_bin_ep():
+            base += 1 << k
+            k += 1
+        a = 5 + base + (dec.decode_bins_ep(k) if k else 0)
+    return -a if a and dec.decode_bin_ep() else a

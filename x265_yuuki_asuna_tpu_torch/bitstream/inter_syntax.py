@@ -8,7 +8,9 @@ merge_candidates_ref, amvp_candidates with _scale_mv, encode_ref_idx,
 encode_merge_idx, encode_mvd, InterCTUDecision, skip_ctx,
 encode_inter_ctu: one or two L0 references, the temporal candidate of
 TMVP) and the B side (BMotion, merge_candidates_b, amvp_candidates_b,
-BCTUDecision, encode_b_ctu: one reference per list). The native writer
+BCTUDecision, encode_b_ctu: one reference per list), with the readers of
+both sides (decode_inter_ctu, decode_b_ctu and their elements), which
+only the tests run. The native writer
 codes the one-reference P and B slices; this one serves what it has no
 entry for: the P slices with two references or TMVP, and the P / B WPP
 substreams. The encoder must signal merge_idx and the MVP flags against
@@ -28,9 +30,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from . import tables as T
-from .cabac import CabacEncoder
-from .ctu_syntax import derive_mpm, encode_cu_qp_delta, encode_intra_luma_mode
-from .residual import encode_residual
+from .cabac import CabacDecoder, CabacEncoder
+from .ctu_syntax import (decode_intra_chroma_mode, decode_intra_luma_mode,
+                         derive_mpm, encode_cu_qp_delta,
+                         encode_intra_luma_mode)
+from .residual import decode_residual, encode_residual
 
 CTX = T.CTX_OFFSET
 DC_MODE = 1
@@ -515,3 +519,177 @@ def encode_b_ctu(enc: CabacEncoder, d: BCTUDecision, grid, r: int, c: int,
     if root:
         _residuals(enc, d, log2_cu, -1, sign_hiding, cu_qp_delta, False)
     grid[r][c] = BCUState(False, d.motion, skip=False)
+
+
+
+# ---------------------------------------------------------------------------
+# the readers
+# ---------------------------------------------------------------------------
+
+def decode_ref_idx(dec: CabacDecoder, n_refs: int) -> int:
+    if n_refs <= 1 or not dec.decode_bin(CTX["ref_idx"]):
+        return 0
+    if n_refs == 2 or not dec.decode_bin(CTX["ref_idx"] + 1):
+        return 1
+    ref = 2
+    while ref < n_refs - 1 and dec.decode_bin_ep():
+        ref += 1
+    return ref
+
+
+def decode_merge_idx(dec: CabacDecoder, max_cands: int) -> int:
+    if max_cands <= 1 or not dec.decode_bin(CTX["merge_idx"]):
+        return 0
+    idx = 1
+    while idx < max_cands - 1 and dec.decode_bin_ep():
+        idx += 1
+    return idx
+
+
+def _read_eg1(dec: CabacDecoder) -> int:
+    k, base = 1, 0
+    while dec.decode_bin_ep():
+        base += 1 << k
+        k += 1
+    return base + dec.decode_bins_ep(k)
+
+
+def decode_mvd(dec: CabacDecoder) -> Tuple[int, int]:
+    """mvd_coding() read back: (mvd_x, mvd_y)."""
+    gx0 = dec.decode_bin(CTX["mvd"])
+    gy0 = dec.decode_bin(CTX["mvd"])
+    gx1 = dec.decode_bin(CTX["mvd"] + 1) if gx0 else 0
+    gy1 = dec.decode_bin(CTX["mvd"] + 1) if gy0 else 0
+    out = []
+    for g0, g1 in ((gx0, gx1), (gy0, gy1)):
+        if not g0:
+            out.append(0)
+            continue
+        mag = 2 + _read_eg1(dec) if g1 else 1
+        out.append(-mag if dec.decode_bin_ep() else mag)
+    return out[0], out[1]
+
+
+def _decode_intra_cu(dec, grid, r: int, c: int, log2_cu: int,
+                     sign_hiding: bool):
+    """An intra CU of a P or B slice after its pred_mode_flag: (luma mode,
+    luma, cb, cr levels); its MPMs take the left CU's mode and DC
+    above."""
+    if dec.decode_bin(CTX["part_size"]) != 1:
+        raise ValueError("an NxN intra partition: the writers code 2Nx2N")
+    left = grid[r][c - 1] if c > 0 else None
+    cl = left.intra_mode if (left is not None and left.is_intra) else DC_MODE
+    mode = decode_intra_luma_mode(dec, derive_mpm(cl, DC_MODE))
+    cmode = decode_intra_chroma_mode(dec, mode)
+    cbf_cb = dec.decode_bin(CTX["qt_cbf"] + 2)
+    cbf_cr = dec.decode_bin(CTX["qt_cbf"] + 2)
+    cbf_y = dec.decode_bin(CTX["qt_cbf"] + 1)
+    n = 1 << log2_cu
+    z = lambda k: np.zeros((k, k), np.int32)
+    return (mode,
+            decode_residual(dec, log2_cu, True, mode, sign_hiding)
+            if cbf_y else z(n),
+            decode_residual(dec, log2_cu - 1, False, cmode, sign_hiding)
+            if cbf_cb else z(n // 2),
+            decode_residual(dec, log2_cu - 1, False, cmode, sign_hiding)
+            if cbf_cr else z(n // 2))
+
+
+def _decode_inter_residual(dec, log2_cu: int, sign_hiding: bool):
+    """An inter CU's transform tree of one TU a component (after
+    rqt_root_cbf 1): the luma cbf is inferred 1 without a chroma cbf."""
+    n = 1 << log2_cu
+    z = lambda k: np.zeros((k, k), np.int32)
+    cbf_cb = dec.decode_bin(CTX["qt_cbf"] + 2)
+    cbf_cr = dec.decode_bin(CTX["qt_cbf"] + 2)
+    cbf_y = dec.decode_bin(CTX["qt_cbf"] + 1) if (cbf_cb or cbf_cr) else 1
+    return (decode_residual(dec, log2_cu, True, -1, sign_hiding)
+            if cbf_y else z(n),
+            decode_residual(dec, log2_cu - 1, False, -1, sign_hiding)
+            if cbf_cb else z(n // 2),
+            decode_residual(dec, log2_cu - 1, False, -1, sign_hiding)
+            if cbf_cr else z(n // 2))
+
+
+def decode_inter_ctu(dec: CabacDecoder, grid, r: int, c: int, log2_cu: int,
+                     max_merge: int, sign_hiding: bool = False,
+                     n_refs: int = 1, ref_deltas=None, col=None):
+    """encode_inter_ctu read back (no cu_qp_delta): (CUInfo, luma, cb, cr
+    levels), the CU entered into grid."""
+    n = 1 << log2_cu
+    z = lambda k: np.zeros((k, k), np.int32)
+    if dec.decode_bin(CTX["skip"] + skip_ctx(grid, r, c)):
+        idx = decode_merge_idx(dec, max_merge)
+        mv, ref = merge_candidates_ref(grid, r, c, max_merge, n_refs,
+                                       col=col, ref_deltas=ref_deltas)[idx]
+        grid[r][c] = CUInfo(False, mv, skip=True, ref=ref)
+        return grid[r][c], z(n), z(n // 2), z(n // 2)
+    if dec.decode_bin(CTX["pred_mode"]):
+        mode, ly, cb, cr = _decode_intra_cu(dec, grid, r, c, log2_cu,
+                                            sign_hiding)
+        grid[r][c] = CUInfo(True, (0, 0), mode)
+        return grid[r][c], ly, cb, cr
+    if dec.decode_bin(CTX["part_size"]) != 1:
+        raise ValueError("an inter partition other than 2Nx2N")
+    if dec.decode_bin(CTX["merge_flag"]):
+        idx = decode_merge_idx(dec, max_merge)
+        mv, ref = merge_candidates_ref(grid, r, c, max_merge, n_refs,
+                                       col=col, ref_deltas=ref_deltas)[idx]
+        rqt_root_cbf = 1
+    else:
+        ref = decode_ref_idx(dec, n_refs)
+        mvd = decode_mvd(dec)
+        mvp = dec.decode_bin(CTX["mvp_idx"])
+        pred = amvp_candidates(grid, r, c, target_ref=ref,
+                               ref_deltas=ref_deltas, col=col)[mvp]
+        mv = (pred[0] + mvd[0], pred[1] + mvd[1])
+        rqt_root_cbf = dec.decode_bin(CTX["qt_root_cbf"])
+    ly, cb, cr = _decode_inter_residual(dec, log2_cu, sign_hiding) \
+        if rqt_root_cbf else (z(n), z(n // 2), z(n // 2))
+    grid[r][c] = CUInfo(False, mv, skip=False, ref=ref)
+    return grid[r][c], ly, cb, cr
+
+
+def decode_b_ctu(dec: CabacDecoder, grid, r: int, c: int, log2_cu: int,
+                 max_merge: int, poc_cur: int, poc_l0: int, poc_l1: int,
+                 sign_hiding: bool = False):
+    """encode_b_ctu read back (no cu_qp_delta): (BCUState, luma, cb, cr
+    levels), the CU entered into grid."""
+    n = 1 << log2_cu
+    z = lambda k: np.zeros((k, k), np.int32)
+    if dec.decode_bin(CTX["skip"] + skip_ctx(grid, r, c)):
+        idx = decode_merge_idx(dec, max_merge)
+        grid[r][c] = BCUState(False, merge_candidates_b(grid, r, c,
+                                                        max_merge)[idx],
+                              skip=True)
+        return grid[r][c], z(n), z(n // 2), z(n // 2)
+    if dec.decode_bin(CTX["pred_mode"]):
+        mode, ly, cb, cr = _decode_intra_cu(dec, grid, r, c, log2_cu,
+                                            sign_hiding)
+        grid[r][c] = BCUState(True, None, mode)
+        return grid[r][c], ly, cb, cr
+    if dec.decode_bin(CTX["part_size"]) != 1:
+        raise ValueError("an inter partition other than 2Nx2N")
+    if dec.decode_bin(CTX["merge_flag"]):
+        idx = decode_merge_idx(dec, max_merge)
+        motion = merge_candidates_b(grid, r, c, max_merge)[idx]
+        rqt = 1
+    else:
+        if dec.decode_bin(CTX["inter_dir"] + 0):
+            dirv = 3
+        else:
+            dirv = 2 if dec.decode_bin(CTX["inter_dir"] + 4) else 1
+        mvs = [(0, 0), (0, 0)]
+        for lx in (0, 1):
+            if dirv & (1 << lx):
+                mvd = decode_mvd(dec)
+                f = dec.decode_bin(CTX["mvp_idx"])
+                pred = amvp_candidates_b(grid, r, c, lx, poc_cur, poc_l0,
+                                         poc_l1)[f]
+                mvs[lx] = (pred[0] + mvd[0], pred[1] + mvd[1])
+        motion = BMotion(dirv, mvs[0], mvs[1])
+        rqt = dec.decode_bin(CTX["qt_root_cbf"])
+    ly, cb, cr = _decode_inter_residual(dec, log2_cu, sign_hiding) \
+        if rqt else (z(n), z(n // 2), z(n // 2))
+    grid[r][c] = BCUState(False, motion, skip=False)
+    return grid[r][c], ly, cb, cr

@@ -45,6 +45,14 @@ def load() -> ctypes.CDLL:
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(_QT2_SHAPES)
             + [ctypes.c_int] * 8 + extras + [ctypes.c_void_p, ctypes.c_int]
             + out)
+        lib.asuna_encode_slice_qt64.restype = ctypes.c_int
+        lib.asuna_encode_slice_qt64.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * (6 + len(_QT2_SHAPES))
+            + [ctypes.c_int] * 8 + extras + [ctypes.c_void_p, ctypes.c_int]
+            + out)
+        lib.asuna_encode_residual_test.restype = ctypes.c_int
+        lib.asuna_encode_residual_test.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 4 + out)
         _lib = lib
     return _lib
 
@@ -236,6 +244,59 @@ _QT2_SHAPES = {"split": (), "split16": (4,), "use_intra": (), "modes": (),
                "levels_cr": (16, 16)}
 
 
+def _qt2_ptr(out: dict, key: str, rows: int, cols: int, keep: list,
+             what: str):
+    """The writer's pointer to out[key], of shape (rows, cols) +
+    _QT2_SHAPES[key]."""
+    if out.get(key) is None:
+        raise ValueError(f"{key}: missing from the decision dict of {what}")
+    a = np.ascontiguousarray(out[key], np.uint8 if key.startswith(
+        ("split", "use_intra")) else np.int32)
+    if a.shape != (rows, cols) + _QT2_SHAPES[key]:
+        raise ValueError(f"{key}: shape {a.shape} for a {rows}x{cols} CTU "
+                         "grid")
+    keep.append(a)
+    return a.ctypes.data
+
+
+def _grid_layout(out: dict, rows: int, cols: int) -> dict:
+    """out with each _QT2_SHAPES array given CTU-major, as the reference's
+    test writers take it ([rows * cols] + shape, or [rows * cols, its
+    size]), reshaped to (rows, cols) + shape; other arrays as they are
+    (_qt2_ptr then checks them)."""
+    res = dict(out)
+    for key, shape in _QT2_SHAPES.items():
+        if out.get(key) is None:
+            continue
+        a = np.asarray(out[key])
+        if a.shape in ((rows * cols,) + shape,
+                       (rows * cols, int(np.prod(shape)))):
+            res[key] = a.reshape((rows, cols) + shape)
+    return res
+
+
+def _qt2_args(out: dict, rows: int, cols: int, skip, keep: list,
+              slice_type: int) -> list:
+    """The pointers of _QT2_SHAPES' arrays in the writers' order, None for
+    the keys skip(key) leaves out."""
+    return [None if skip(k) else
+            _qt2_ptr(out, k, rows, cols, keep,
+                     f"a slice of type {slice_type}") for k in _QT2_SHAPES]
+
+
+def _tu_split_ptr(out: dict, rows: int, cols: int, max_tt: int,
+                  keep: list):
+    """The pointer to out["tu_split32"] with max_tt >= 1, else None."""
+    if max_tt < 1 or out.get("tu_split32") is None:
+        return None
+    a = np.ascontiguousarray(out["tu_split32"], np.uint8)
+    if a.shape != (rows, cols):
+        raise ValueError(f"tu_split32: shape {a.shape} for a {rows}x{cols} "
+                         "CTU grid")
+    keep.append(a)
+    return a.ctypes.data
+
+
 def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
                      max_merge: int = 3, poc: int = 0, poc_l0: int = 0,
                      poc_l1: int = 0, sign_hiding: bool = False, sao=None,
@@ -258,31 +319,11 @@ def encode_slice_qt2(slice_type: int, max_depth: int, out: dict, qp: int,
     rows, cols = out["split"].shape
     keep = []      # the arrays must outlive the call
 
-    def ptr(key, dt):
-        if (slice_type == 2 and key in _QT2_INTER) or \
-                (slice_type == 1 and key in _QT2_B) or \
-                (max_depth < 2 and key in _QT2_DEPTH2):
-            return None
-        if out.get(key) is None:
-            raise ValueError(f"{key}: missing from the decision dict of a "
-                             f"slice of type {slice_type}")
-        a = np.ascontiguousarray(out[key], dt)
-        if a.shape != (rows, cols) + _QT2_SHAPES[key]:
-            raise ValueError(f"{key}: shape {a.shape} for a {rows}x{cols} "
-                             "CTU grid")
-        keep.append(a)
-        return a.ctypes.data
-
-    args = [ptr(k, np.uint8 if k.startswith(("split", "use_intra"))
-                else np.int32) for k in _QT2_SHAPES]
-    ts32 = None
-    if max_tt >= 1 and out.get("tu_split32") is not None:
-        a = np.ascontiguousarray(out["tu_split32"], np.uint8)
-        if a.shape != (rows, cols):
-            raise ValueError(f"tu_split32: shape {a.shape} for a {rows}x"
-                             f"{cols} CTU grid")
-        keep.append(a)
-        ts32 = a.ctypes.data
+    skip = lambda key: (slice_type == 2 and key in _QT2_INTER) or \
+        (slice_type == 1 and key in _QT2_B) or \
+        (max_depth < 2 and key in _QT2_DEPTH2)
+    args = _qt2_args(out, rows, cols, skip, keep, slice_type)
+    ts32 = _tu_split_ptr(out, rows, cols, max_tt, keep)
     cap = int(rows * cols * (32 * 32 + 2 * 16 * 16) * 4 + 65536)
     buf = np.empty(cap, np.uint8)
     tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
@@ -304,3 +345,127 @@ def crc16(data: bytes, init: int = 0xffff) -> int:
         msb = (crc >> 15) & 1
         crc = ((crc << 1) & 0xffff) ^ (msb * 0x1021)
     return crc
+
+
+# the arrays a CTU64 slice needs; without the others the writer takes a
+# CU32 inter (use_intra 0, mode DC), 16x16 CUs intra-free, no 8x8 level,
+# L0 motion (pdir 1) and zero MVs
+_QT64_NEEDS = ("split", "modes4", "levels_y", "levels_cb", "levels_cr")
+
+
+def encode_slice_qt64(slice_type: int, out: dict, split64, mot64,
+                      rows64: int, cols64: int, qp: int,
+                      max_merge: int = 3, sign_hiding: bool = False,
+                      poc: int = 0, poc_l0: int = 0, poc_l1: int = 0,
+                      sao=None, qp_map=None, bit_depth: int = 8,
+                      max_tt: int = 0):
+    """CTU64 P / B slice CABAC data (slice_type 1 = P, 0 = B; the SPS's CTB
+    64, min CB 8): split64 [rows64 * cols64] chooses, per CTU64, one CU64
+    (its motion from mot64 = (pdir, mv0x, mv0y, mv1x, mv1y), each
+    [rows64 * cols64]; its four TU32s' levels from the four CTU32 slots of
+    out) or the four CTU32 trees of out (a depth-2 quadtree decision dict
+    in the CTU32 grid of 2 * rows64 x 2 * cols64; arrays missing from it
+    take the defaults _QT64_NEEDS names). sao ([n64, 18]) and
+    qp_map ([rows64, cols64]) are per CTU64; the rest as for
+    encode_slice_qt2. Returns (payload, tail, tail_bits)."""
+    if slice_type not in (0, 1):
+        raise ValueError(f"slice type {slice_type}: the CTU64 writer codes "
+                         "0 = B, 1 = P")
+    lib = load()
+    rows, cols = out["split"].shape
+    if (rows, cols) != (2 * rows64, 2 * cols64):
+        raise ValueError(f"a {rows}x{cols} CTU32 grid for {rows64}x{cols64} "
+                         "CTU64s")
+    n64, keep = rows64 * cols64, []
+    out = _grid_layout(out, rows, cols)
+
+    def flat64(a, dt):
+        a = np.ascontiguousarray(a, dt).reshape(-1)
+        if a.size != n64:
+            raise ValueError(f"a CTU64 array of {a.size} for {n64} CTU64s")
+        keep.append(a)
+        return a.ctypes.data
+
+    head = [flat64(split64, np.uint8)] + [flat64(m, np.int32) for m in mot64]
+    args = _qt2_args(out, rows, cols, lambda k: out.get(k) is None and
+                     k not in _QT64_NEEDS, keep, slice_type)
+    ts32 = _tu_split_ptr(out, rows, cols, max_tt, keep)
+    cap = int(rows * cols * (32 * 32 + 2 * 16 * 16) * 4 + 65536)
+    buf = np.empty(cap, np.uint8)
+    tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
+    nbytes = lib.asuna_encode_slice_qt64(
+        slice_type, *head, *args, rows64, cols64, qp, max_merge,
+        int(sign_hiding), poc, poc_l0, poc_l1, _sao_ptr(sao, n64, keep),
+        _qp_ptr(qp_map, n64, keep), bit_depth, ts32, int(max_tt),
+        buf.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+    return _finish(nbytes, buf, tail, tail_bits)
+
+
+def encode_intra_slice_qt(split, mode32, modes4, levels_y, levels_cb,
+                          levels_cr, qp: int, sign_hiding: bool = False):
+    """CTU32 quadtree I slice of depth 1 (one 32x32 CU or four 16x16 CUs a
+    CTU): split [rows, cols], mode32 [rows, cols], modes4 [ncu, 4] in
+    z-order, levels_y [ncu, 32*32] (a split CTU's 16x16 TUs at their
+    places), levels_cb / _cr [ncu, 16*16]. The quadtree writer at depth
+    1. Returns (payload, tail, tail_bits)."""
+    return encode_slice_qt2(2, 1, _grid_layout({
+        "split": split, "modes": mode32, "modes4": modes4,
+        "levels_y": levels_y, "levels_cb": levels_cb,
+        "levels_cr": levels_cr}, *np.shape(split)), qp,
+        sign_hiding=sign_hiding)
+
+
+def encode_p_slice_qt(split, use_intra32, modes32, mv32x, mv32y,
+                      use_intra4, modes4, mv4x, mv4y, levels_y, levels_cb,
+                      levels_cr, qp: int, max_merge: int,
+                      sign_hiding: bool = False):
+    """CTU32 quadtree P slice of depth 1: each CTU's CU32 (use_intra32,
+    modes32, mv32x / y [rows, cols]) or its four 16x16 CUs (use_intra4,
+    modes4, mv4x / y [ncu, 4], z-order), the levels as for
+    encode_intra_slice_qt. The quadtree writer at depth 1. Returns
+    (payload, tail, tail_bits)."""
+    return encode_slice_qt2(1, 1, _grid_layout({
+        "split": split, "use_intra": use_intra32, "modes": modes32,
+        "mvx": mv32x, "mvy": mv32y, "use_intra4": use_intra4,
+        "modes4": modes4, "mv4x": mv4x, "mv4y": mv4y,
+        "levels_y": levels_y, "levels_cb": levels_cb,
+        "levels_cr": levels_cr}, *np.shape(split)), qp, max_merge,
+        sign_hiding=sign_hiding)
+
+
+def encode_residual_test(levels: np.ndarray, log2: int, is_luma: bool,
+                         intra_mode: int, qp: int):
+    """One TU's residual_coding() alone (the I slice's contexts at qp,
+    then the terminating bin): levels [2^log2, 2^log2], intra_mode < 0
+    for an inter TU. Returns (payload, tail, tail_bits)."""
+    lv = np.ascontiguousarray(levels, np.int32)
+    cap = lv.nbytes + 4096
+    buf = np.empty(cap, np.uint8)
+    tail, tail_bits = ctypes.c_uint32(), ctypes.c_int()
+    nbytes = load().asuna_encode_residual_test(
+        lv.ctypes.data, log2, int(is_luma), intra_mode, qp,
+        buf.ctypes.data, cap, ctypes.byref(tail), ctypes.byref(tail_bits))
+    return _finish(nbytes, buf, tail, tail_bits)
+
+
+def pack_sao(sao_params, rows: int, cols: int):
+    """Per-CTU SAO parameters as rows of dicts {"luma" | "cb" | "cr":
+    (type, aux, [o0..o3])} packed into the writers' [ncu, 18] int32
+    ([luma, cb, cr] x [type, aux, o0..o3]); None for None."""
+    if sao_params is None:
+        return None
+    arr = np.zeros((rows * cols, 18), np.int32)
+    for r in range(rows):
+        for c in range(cols):
+            for k, name in enumerate(("luma", "cb", "cr")):
+                t, a, offs = sao_params[r][c][name]
+                arr[r * cols + c, 6 * k:6 * k + 6] = [t, a, *offs]
+    return arr
+
+
+def unpack_sao(arr, rows: int, cols: int):
+    """pack_sao's inverse: [ncu, 18] int32 to rows of dicts."""
+    return [[{name: (int(b[6 * k]), int(b[6 * k + 1]),
+                     [int(x) for x in b[6 * k + 2:6 * k + 6]])
+              for k, name in enumerate(("luma", "cb", "cr"))}
+             for b in arr[r * cols:(r + 1) * cols]] for r in range(rows)]

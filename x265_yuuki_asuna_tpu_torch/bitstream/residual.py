@@ -1,9 +1,10 @@
 """residual_coding() syntax: the entropy coding of one TU's levels
 (spec 7.3.8.11, 9.3.4.2.5-9.3.4.2.7), through the Python CABAC engine.
 
-Port of the encoder half of x265_yuuki_asuna_tpu/bitstream/residual.py
-(`encode_residual`). The native writer (`native.py`) codes the same
-syntax for the sessions' slices; this one serves the WPP substreams.
+Port of x265_yuuki_asuna_tpu/bitstream/residual.py (`encode_residual`,
+and its reader `decode_residual`, which only the tests run). The native
+writer (`native.py`) codes the same syntax for the sessions' slices;
+this one serves the WPP substreams.
 Levels come as a dense signed int array [N, N] in raster order.
 
 Reference behavior (studied, not copied): encoder/entropy.cpp
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import tables as T
-from .cabac import CabacEncoder
+from .cabac import CabacDecoder, CabacEncoder
 
 C1FLAG_NUMBER = 8
 C2FLAG_NUMBER = 1
@@ -237,3 +238,137 @@ def _write_remain(enc: CabacEncoder, code: int, rice: int):
         enc.encode_bins_ep((1 << (COEF_REMAIN_BIN_REDUCTION + length + 1)) - 2,
                            COEF_REMAIN_BIN_REDUCTION + length + 1)
         enc.encode_bins_ep(cn, length + rice)
+
+
+def decode_residual(dec: CabacDecoder, log2_size: int, is_luma: bool,
+                    intra_mode: int, sign_hiding: bool = False) -> np.ndarray:
+    """One TU's residual_coding() read back: the levels [N, N] int32 in
+    raster order (encode_residual's inverse, the hidden sign taken from
+    the parity of the group's level sum)."""
+    n = 1 << log2_size
+    out = np.zeros(n * n, dtype=np.int32)
+    scan_type = select_scan(log2_size, is_luma, intra_mode)
+    scan = T.scan_order(scan_type, log2_size)
+    ncg = max(1, n >> 2)
+    cg_scan = T.scan_order_cg(scan_type, max(0, log2_size - 2))
+    first_ctx = first_sig_map_ctx(log2_size, is_luma, scan_type)
+
+    max_group = (log2_size << 1) - 1
+    if is_luma:
+        off = 3 * (log2_size - 2) + (1 if log2_size == 5 else 0)
+        ctx_base_x, ctx_base_y = CTX["last_x"] + off, CTX["last_y"] + off
+        shift = (log2_size + 1) >> 2
+    else:
+        ctx_base_x, ctx_base_y = CTX["last_x"] + 15, CTX["last_y"] + 15
+        shift = log2_size - 2
+
+    def read_last(base):
+        g = 0
+        while g < max_group and dec.decode_bin(base + (g >> shift)):
+            g += 1
+        return g
+
+    gx, gy = read_last(ctx_base_x), read_last(ctx_base_y)
+    lx, ly = int(T.MIN_IN_GROUP[gx]), int(T.MIN_IN_GROUP[gy])
+    if gx > 3:
+        lx += dec.decode_bins_ep((gx >> 1) - 1)
+    if gy > 3:
+        ly += dec.decode_bins_ep((gy >> 1) - 1)
+    if scan_type == T.SCAN_VER:
+        lx, ly = ly, lx
+    pos_last = (ly << log2_size) | lx
+    last_scan_pos = int(np.nonzero(scan == pos_last)[0][0])
+
+    sig_bank = CTX["sig"] + (0 if is_luma else 27)
+    cg_bank = CTX["sig_cg"] + (0 if is_luma else 2)
+    one_bank = CTX["one"] + (0 if is_luma else 16)
+    abs_bank = CTX["abs"] + (0 if is_luma else 4)
+
+    last_cg = last_scan_pos >> 4
+    cg_flags = np.zeros((ncg, ncg), dtype=np.int32)
+    c1 = 1
+    for cg in range(last_cg, -1, -1):
+        cgy, cgx = divmod(int(cg_scan[cg]) if ncg > 1 else 0, ncg)
+        if cg == last_cg or cg == 0:
+            csbf = 1
+        else:
+            csbf = dec.decode_bin(cg_bank + _cg_ctx(cg_flags, cgx, cgy, ncg))
+        cg_flags[cgy, cgx] = csbf
+        if not csbf:
+            continue
+        pattern = _pattern_sig_ctx(cg_flags, cgx, cgy, ncg) if ncg > 1 else 0
+        # significant flags, in descending scan position k
+        sig_pos = []
+        if cg == last_cg:
+            sig_pos.append(last_scan_pos & 15)
+            start = (last_scan_pos & 15) - 1
+        else:
+            start = 15
+        for k in range(start, -1, -1):
+            if k == 0 and cg > 0 and cg != last_cg and not sig_pos:
+                sig_pos.append(0)            # the inferred DC
+                break
+            ctx = _sig_ctx(log2_size, is_luma, pattern,
+                           int(scan[cg * 16 + k]), first_ctx, n)
+            if dec.decode_bin(sig_bank + ctx):
+                sig_pos.append(k)
+        num_nz = len(sig_pos)
+        if num_nz == 0:
+            continue
+        ctx_set = (2 if (cg > 0 and is_luma) else 0) + (0 if (c1 & 3) else 1)
+        c1 = 1
+        base1 = one_bank + 4 * ctx_set
+        gt1 = [0] * num_nz
+        first_c2 = -1
+        for i in range(min(num_nz, C1FLAG_NUMBER)):
+            sym = dec.decode_bin(base1 + c1)
+            gt1[i] = sym
+            if sym:
+                c1 = 0
+                if first_c2 < 0:
+                    first_c2 = i
+            elif 0 < c1 < 3:
+                c1 += 1
+        gt2 = dec.decode_bin(abs_bank + ctx_set) \
+            if c1 == 0 and first_c2 >= 0 else 0
+        hide = sign_hiding and (sig_pos[0] - sig_pos[-1] >= SBH_THRESHOLD)
+        signs = [dec.decode_bins_ep(1)
+                 for _ in range(num_nz - (1 if hide else 0))]
+        # the levels the flags imply; coeff_abs_level_remaining wherever
+        # the writer coded one
+        lv = [1 + (gt1[i] if i < C1FLAG_NUMBER else 0)
+              + (gt2 if i == first_c2 else 0) for i in range(num_nz)]
+        if c1 == 0 or num_nz > C1FLAG_NUMBER:
+            rice, threshold, first_coeff2 = 0, COEF_REMAIN_BIN_REDUCTION, 1
+            for i in range(first_c2 if first_c2 >= 0 else 0, num_nz):
+                if first_c2 < 0 and i < C1FLAG_NUMBER:
+                    continue
+                if i < C1FLAG_NUMBER:
+                    base = 2 + first_coeff2
+                    coded = gt1[i] == 1 and (i != first_c2 or gt2 == 1)
+                else:
+                    base, coded = 1, True
+                if coded:
+                    lv[i] = base + _read_remain(dec, rice)
+                    if lv[i] > threshold and rice <= 3:
+                        rice += 1
+                        threshold <<= 1
+                first_coeff2 = 0
+        for i, k in enumerate(sig_pos):
+            p = int(scan[cg * 16 + k])
+            neg = (sum(lv) & 1) if hide and i == num_nz - 1 else signs[i]
+            out[p] = -lv[i] if neg else lv[i]
+    return out.reshape(n, n)
+
+
+def _read_remain(dec: CabacDecoder, rice: int) -> int:
+    """coeff_abs_level_remaining (9.3.3.11): a unary prefix, then rice
+    bits, or past COEF_REMAIN_BIN_REDUCTION an Exp-Golomb escape."""
+    prefix = 0
+    while prefix < 32 and dec.decode_bins_ep(1):
+        prefix += 1
+    if prefix < COEF_REMAIN_BIN_REDUCTION:
+        return (prefix << rice) + (dec.decode_bins_ep(rice) if rice else 0)
+    length = prefix - COEF_REMAIN_BIN_REDUCTION
+    val = dec.decode_bins_ep(length + rice)
+    return (((1 << length) - 1 + COEF_REMAIN_BIN_REDUCTION) << rice) + val

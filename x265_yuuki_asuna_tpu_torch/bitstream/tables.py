@@ -186,6 +186,10 @@ def _min_in_group(g: int) -> int:
     return g if g < 4 else (2 + (g & 1)) << ((g >> 1) - 1)
 
 
+# the first position of each last_sig_coeff prefix group (9.3.3.1.2)
+MIN_IN_GROUP = np.array([_min_in_group(g) for g in range(10)],
+                        dtype=np.int32)
+
 # last_sig_coeff prefix group of each position (9.3.3.1.2)
 GROUP_IDX = np.array([max(g for g in range(10) if _min_in_group(g) <= pos)
                       for pos in range(32)], dtype=np.int32)

@@ -856,6 +856,23 @@ int asuna_encode_intra_slice_qt64(
     return (int)cb.out.size();
 }
 
+// One TU's residual_coding() alone in an I slice's contexts at qp,
+// terminated: the syntax of encodeResidual held against the Python
+// reference (log2 2-5; intraMode < 0 for inter, the diagonal scan).
+int asuna_encode_residual_test(const int32_t* levels, int log2, int isLuma,
+                               int intraMode, int qp, uint8_t* outBuf,
+                               int outCap, uint32_t* tailValue, int* tailBits)
+{
+    Cabac cb;
+    cb.init(2, qp);
+    encodeResidual(cb, levels, log2, isLuma != 0, intraMode, false);
+    cb.encodeBinTrm(1);
+    cb.finish(tailValue, tailBits);
+    if ((int)cb.out.size() > outCap) return -1;
+    memcpy(outBuf, cb.out.data(), cb.out.size());
+    return (int)cb.out.size();
+}
+
 // CRC-16 for the decoded-picture-hash SEI (reference common/picyuv.cpp
 // updateCRC: poly 0x1021, MSB first, over the plane's bytes). Returns the
 // running CRC; the caller finishes with 16 zero bits (crcFinish).
@@ -1688,6 +1705,7 @@ struct SliceCtx {
     int pocCur, pocL0, pocL1;
     int signHiding;           // sign_data_hiding_enabled_flag
     int maxTt;                // max_transform_hierarchy_depth_inter
+    int ctuLog2 = 5;          // the CTB's log2 size (6 in CTU64 slices)
     QpChain qc;               // per-CTU cu_qp_delta chain (QG == CTU)
 };
 
@@ -1854,7 +1872,8 @@ static void codeCuQt2(SliceCtx& S, int gy, int gx, int s, int isIntra,
         int32_t preds[2][2];
         if (S.sliceType == 0) {
             // inter_pred_idc: bi flag (context by CU depth), then L0/L1
-            cb.encodeBin(motion.dir == 3 ? 1 : 0, CTX_INTER_DIR + 5 - log2cu);
+            cb.encodeBin(motion.dir == 3 ? 1 : 0,
+                         CTX_INTER_DIR + S.ctuLog2 - log2cu);
             if (motion.dir != 3)
                 cb.encodeBin(motion.dir == 1 ? 0 : 1, CTX_INTER_DIR + 4);
             if (motion.dir & 1) {
@@ -1892,8 +1911,10 @@ struct CtuData {
     Motion mo8[16];
 };
 
+// One CTU32 tree at CTU position (r, c) of g cells a side; dBase: its
+// root's depth (1 inside a split CTU64).
 static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
-                       std::vector<uint8_t>& depth, int g) {
+                       std::vector<uint8_t>& depth, int g, int dBase = 0) {
     Cabac& cb = *S.cb;
     int gc = S.grid->gc;
     int gy = g * r, gx = g * c;
@@ -1909,29 +1930,138 @@ static void codeCtuQt2(SliceCtx& S, const CtuData& D, int r, int c,
                 depth[(size_t)yy * gc + xx] = d;
     };
     static const int QOFF[4][2] = {{0,0},{0,1},{1,0},{1,1}};
-    splitFlag(gy, gx, 0, D.sp0);
+    splitFlag(gy, gx, dBase, D.sp0);
     if (!D.sp0) {
         codeCuQt2(S, gy, gx, g, D.ui32, D.m32, D.mo32, D.tuSplit32);
-        setDepth(gy, gx, g, 0);
+        setDepth(gy, gx, g, dBase);
         return;
     }
     int half = g / 2;
     for (int q = 0; q < 4; q++) {
         int cy = gy + QOFF[q][0] * half, cx = gx + QOFF[q][1] * half;
         int sub = (S.cellPx == 8) && D.split16 && D.split16[q];
-        if (S.cellPx == 8) splitFlag(cy, cx, 1, sub);
+        if (S.cellPx == 8) splitFlag(cy, cx, dBase + 1, sub);
         if (!sub) {
             codeCuQt2(S, cy, cx, half, D.ui4[q], D.m4[q], D.mo4[q], 0);
-            setDepth(cy, cx, half, 1);
+            setDepth(cy, cx, half, dBase + 1);
         } else {
             for (int sq = 0; sq < 4; sq++) {
                 int sy = cy + QOFF[sq][0], sx = cx + QOFF[sq][1];
                 int k = q * 4 + sq;
                 codeCuQt2(S, sy, sx, 1, D.ui8[k], D.m8[k], D.mo8[k], 0);
-                depth[(size_t)sy * gc + sx] = 2;
+                depth[(size_t)sy * gc + sx] = (uint8_t)(dBase + 2);
             }
         }
     }
+}
+
+// One unsplit CU64 of a CTU64 P / B slice: merge / skip or an inter 2Nx2N
+// CU whose transform tree splits (inferred, spec 7.3.8.8: log2TrafoSize
+// 6 > MaxTbLog2SizeY 5) into four TU32s at trafoDepth 1, each with its
+// 16x16 chroma TUs. The four TU32s' levels are the four constituent CTU32
+// slots' (qlvY / qlvCb / qlvCr, z-order), so the level buffers keep the
+// CTU32 layout. The SAO parameters and the cu_qp_delta quantization
+// group are the CTU64's.
+static void codeCu64(SliceCtx& S, int gy, int gx, const Motion& motion,
+                     const int32_t* const qlvY[4],
+                     const int32_t* const qlvCb[4],
+                     const int32_t* const qlvCr[4]) {
+    Cabac& cb = *S.cb;
+    QGrid& g = *S.grid;
+    const int s = 64 / S.cellPx;
+    int cbfY[4], cbfCb[4], cbfCr[4], anyY = 0, anyCb = 0, anyCr = 0;
+    for (int q = 0; q < 4; q++) {
+        cbfY[q] = anyNonzero(qlvY[q], 32 * 32); anyY |= cbfY[q];
+        cbfCb[q] = anyNonzero(qlvCb[q], 16 * 16); anyCb |= cbfCb[q];
+        cbfCr[q] = anyNonzero(qlvCr[q], 16 * 16); anyCr |= cbfCr[q];
+    }
+    bool hasResid = anyY || anyCb || anyCr;
+    const QCell* l = g.at(gy, gx - 1);
+    const QCell* a = g.at(gy - 1, gx);
+    int sctx = (l && l->skip ? 1 : 0) + (a && a->skip ? 1 : 0);
+    int mergeIdx = -1;
+    if (S.sliceType == 1) {
+        int32_t cands[5][2];
+        mergeCandsP(g, gy, gx, s, S.maxMerge, cands);
+        for (int i = 0; i < S.maxMerge; i++)
+            if (cands[i][0] == motion.mv0x && cands[i][1] == motion.mv0y) {
+                mergeIdx = i;
+                break;
+            }
+    } else {
+        Motion cands[5];
+        mergeCandsB(g, gy, gx, s, S.maxMerge, cands);
+        for (int i = 0; i < S.maxMerge; i++)
+            if (cands[i].sameAs(motion)) {
+                mergeIdx = i;
+                break;
+            }
+    }
+    QCell cell;
+    cell.decoded = 1;
+    cell.motion = motion;
+    bool isSkip = mergeIdx >= 0 && !hasResid;
+    cb.encodeBin(isSkip ? 1 : 0, CTX_SKIP + sctx);
+    if (isSkip) {
+        encodeMergeIdx(cb, mergeIdx, S.maxMerge);
+        cell.skip = 1;
+        g.fill(gy, gx, s, cell);
+        return;
+    }
+    cb.encodeBin(0, CTX_PRED_MODE);
+    cb.encodeBin(1, CTX_PART_SIZE);                  // 2Nx2N
+    int rqt;
+    if (mergeIdx >= 0) {
+        cb.encodeBin(1, CTX_MERGE_FLAG);
+        encodeMergeIdx(cb, mergeIdx, S.maxMerge);
+        rqt = 1;                                     // inferred for merge
+    } else {
+        cb.encodeBin(0, CTX_MERGE_FLAG);
+        int32_t preds[2][2];
+        if (S.sliceType == 0) {
+            cb.encodeBin(motion.dir == 3 ? 1 : 0, CTX_INTER_DIR + 0);
+            if (motion.dir != 3)
+                cb.encodeBin(motion.dir == 1 ? 0 : 1, CTX_INTER_DIR + 4);
+            if (motion.dir & 1) {
+                amvpCandsB(g, gy, gx, s, 0, S.pocCur, S.pocL0, S.pocL1,
+                           preds);
+                codeMvdMvp(cb, motion.mv0x, motion.mv0y, preds);
+            }
+            if (motion.dir & 2) {
+                amvpCandsB(g, gy, gx, s, 1, S.pocCur, S.pocL0, S.pocL1,
+                           preds);
+                codeMvdMvp(cb, motion.mv1x, motion.mv1y, preds);
+            }
+        } else {
+            amvpCandsP(g, gy, gx, s, preds);
+            codeMvdMvp(cb, motion.mv0x, motion.mv0y, preds);
+        }
+        rqt = hasResid ? 1 : 0;
+        cb.encodeBin(rqt, CTX_QT_ROOT_CBF);
+    }
+    if (rqt) {
+        // trafoDepth 0 (log2 6): the split is inferred, the chroma cbfs
+        // cover the whole 32x32 chroma block
+        cb.encodeBin(anyCb, CTX_QT_CBF + 2);
+        cb.encodeBin(anyCr, CTX_QT_CBF + 2);
+        for (int q = 0; q < 4; q++) {
+            // trafoDepth 1 (log2 5): split_transform_flag only when the
+            // inter depth allows one more split (never taken)
+            if (S.maxTt >= 1)
+                cb.encodeBin(0, CTX_TRANS_SUBDIV + 0);
+            if (anyCb) cb.encodeBin(cbfCb[q], CTX_QT_CBF + 2 + 1);
+            if (anyCr) cb.encodeBin(cbfCr[q], CTX_QT_CBF + 2 + 1);
+            cb.encodeBin(cbfY[q], CTX_QT_CBF + 0);   // trafoDepth != 0
+            S.qc.maybeCode(cb, cbfY[q] || cbfCb[q] || cbfCr[q]);
+            if (cbfY[q])
+                encodeResidual(cb, qlvY[q], 5, true, -1, S.signHiding);
+            if (cbfCb[q])
+                encodeResidual(cb, qlvCb[q], 4, false, -1, S.signHiding);
+            if (cbfCr[q])
+                encodeResidual(cb, qlvCr[q], 4, false, -1, S.signHiding);
+        }
+    }
+    g.fill(gy, gx, s, cell);
 }
 
 }  // namespace qt2
@@ -2041,6 +2171,145 @@ extern "C" int asuna_encode_slice_qt2(
             S.qc.startCtu((int)idx);
             codeCtuQt2(S, D, r, c, depth, g);
             cb.encodeBinTrm(idx == (size_t)ncu - 1 ? 1 : 0);
+        }
+    }
+    cb.finish(tailValue, tailBits);
+    if ((int)cb.out.size() > outCap) return -1;
+    memcpy(outBuf, cb.out.data(), cb.out.size());
+    return (int)cb.out.size();
+}
+
+// Encode a CTU64 P / B slice's CTU data (sliceType 1 = P, 0 = B): the SPS
+// signals CTB 64 and min CB 8. Each CTU64 codes either one CU64
+// (split64 0: codeCu64 with the motion of pdir64 / mv64* [n64]) or its
+// four CTU32 trees (split64 1) from the same arrays as
+// asuna_encode_slice_qt2 in their CTU32 raster layout (rows = 2 * rows64,
+// cols = 2 * cols64), at depth 1 on a grid of 8-sample cells. In a P
+// slice pdir* and the L1 arrays may be null; ui8 / m8 / split16 null mean
+// no 8x8 level. sao [n64*18] and qpMap [n64] are per CTU64; maxTt and
+// tuSplit32 as for asuna_encode_slice_qt2. Returns the payload size, -1
+// when outBuf is too small.
+extern "C" int asuna_encode_slice_qt64(
+    int sliceType,
+    const uint8_t* split64,
+    const int32_t* pdir64, const int32_t* mv64x, const int32_t* mv64y,
+    const int32_t* mv641x, const int32_t* mv641y,
+    const uint8_t* split, const uint8_t* split16,
+    const uint8_t* ui32, const int32_t* m32,
+    const int32_t* pdir32, const int32_t* mv32x, const int32_t* mv32y,
+    const int32_t* mv321x, const int32_t* mv321y,
+    const uint8_t* ui4, const int32_t* m4,
+    const int32_t* pdir4, const int32_t* mv4x, const int32_t* mv4y,
+    const int32_t* mv41x, const int32_t* mv41y,
+    const uint8_t* ui8, const int32_t* m8,
+    const int32_t* pdir8, const int32_t* mv8x, const int32_t* mv8y,
+    const int32_t* mv81x, const int32_t* mv81y,
+    const int32_t* levelsY, const int32_t* levelsCb, const int32_t* levelsCr,
+    int rows64, int cols64, int qp, int maxMerge, int signHiding,
+    int pocCur, int pocL0, int pocL1,
+    const int32_t* sao, const int32_t* qpMap, int bitDepth,
+    const uint8_t* tuSplit32, int maxTt,
+    uint8_t* outBuf, int outCap, uint32_t* tailValue, int* tailBits)
+{
+    using namespace qt2;
+    if (sliceType != 0 && sliceType != 1) return -2;
+    Cabac cb;
+    cb.init(sliceType, qp);
+    const int cols = 2 * cols64;
+    const int n64 = rows64 * cols64;
+    QGrid grid;
+    grid.gr = 8 * rows64; grid.gc = 8 * cols64;
+    grid.v.resize((size_t)grid.gr * grid.gc);
+    std::vector<uint8_t> depth((size_t)grid.gr * grid.gc, 0);
+
+    SliceCtx S;
+    S.cb = &cb; S.grid = &grid;
+    S.cellPx = 8; S.minLog2 = 3; S.ctuLog2 = 6;
+    S.maxMerge = maxMerge; S.signHiding = signHiding;
+    S.sliceType = sliceType;
+    S.pocCur = pocCur; S.pocL0 = pocL0; S.pocL1 = pocL1;
+    S.maxTt = maxTt;
+    S.qc.qpMap = qpMap;
+    S.qc.qpPrev = qp;
+    auto mot = [](const int32_t* pd, const int32_t* x0, const int32_t* y0,
+                  const int32_t* x1, const int32_t* y1, size_t i) {
+        Motion m;
+        m.dir = pd ? pd[i] : 1;
+        m.mv0x = (m.dir & 1) && x0 ? x0[i] : 0;
+        m.mv0y = (m.dir & 1) && y0 ? y0[i] : 0;
+        m.mv1x = (m.dir & 2) && x1 ? x1[i] : 0;
+        m.mv1y = (m.dir & 2) && y1 ? y1[i] : 0;
+        return m;
+    };
+    auto off = [](const int32_t* p, size_t o) { return p ? p + o : nullptr; };
+    static const int QOFF[4][2] = {{0,0},{0,1},{1,0},{1,1}};
+    static const uint8_t ONES4[4] = {1, 1, 1, 1};
+
+    for (int r64 = 0; r64 < rows64; r64++) {
+        for (int c64 = 0; c64 < cols64; c64++) {
+            size_t i64 = (size_t)r64 * cols64 + c64;
+            if (sao)
+                encodeSaoCtu(cb, sao + i64 * 18,
+                             c64 > 0 ? sao + (i64 - 1) * 18 : nullptr,
+                             r64 > 0 ? sao + (i64 - cols64) * 18 : nullptr,
+                             bitDepth);
+            S.qc.startCtu((int)i64);
+            int gy = 8 * r64, gx = 8 * c64;
+            int sp64 = split64[i64] ? 1 : 0;
+            int ctx = (gx > 0 && depth[(size_t)gy * grid.gc + gx - 1] > 0
+                       ? 1 : 0)
+                    + (gy > 0 && depth[(size_t)(gy - 1) * grid.gc + gx] > 0
+                       ? 1 : 0);
+            cb.encodeBin(sp64, CTX_SPLIT_CU + ctx);
+            if (!sp64) {
+                const int32_t* qY[4];
+                const int32_t* qCb[4];
+                const int32_t* qCr[4];
+                for (int q = 0; q < 4; q++) {
+                    size_t i32 = (size_t)(2 * r64 + QOFF[q][0]) * cols
+                               + (2 * c64 + QOFF[q][1]);
+                    qY[q] = levelsY + i32 * 32 * 32;
+                    qCb[q] = levelsCb + i32 * 16 * 16;
+                    qCr[q] = levelsCr + i32 * 16 * 16;
+                }
+                codeCu64(S, gy, gx,
+                         mot(pdir64, mv64x, mv64y, mv641x, mv641y, i64),
+                         qY, qCb, qCr);
+                for (int yy = gy; yy < gy + 8; yy++)
+                    for (int xx = gx; xx < gx + 8; xx++)
+                        depth[(size_t)yy * grid.gc + xx] = 0;
+            } else {
+                for (int q = 0; q < 4; q++) {
+                    int r = 2 * r64 + QOFF[q][0], c = 2 * c64 + QOFF[q][1];
+                    size_t idx = (size_t)r * cols + c;
+                    CtuData D;
+                    D.sp0 = split[idx] ? 1 : 0;
+                    D.tuSplit32 = tuSplit32 ? (tuSplit32[idx] ? 1 : 0) : 0;
+                    D.split16 = split16 ? split16 + idx * 4 : nullptr;
+                    D.ui32 = ui32 ? ui32[idx] : 0;
+                    D.m32 = m32 ? m32[idx] : 1;
+                    D.mo32 = mot(pdir32, mv32x, mv32y, mv321x, mv321y, idx);
+                    D.ui4 = ui4 ? ui4 + idx * 4 : ONES4;
+                    D.m4 = m4 + idx * 4;
+                    for (int k = 0; k < 4; k++)
+                        D.mo4[k] = mot(off(pdir4, idx * 4), off(mv4x, idx * 4),
+                                       off(mv4y, idx * 4), off(mv41x, idx * 4),
+                                       off(mv41y, idx * 4), k);
+                    D.ui8 = ui8 ? ui8 + idx * 16 : nullptr;
+                    D.m8 = m8 ? m8 + idx * 16 : nullptr;
+                    for (int k = 0; k < 16; k++)
+                        D.mo8[k] = mot(off(pdir8, idx * 16),
+                                       off(mv8x, idx * 16),
+                                       off(mv8y, idx * 16),
+                                       off(mv81x, idx * 16),
+                                       off(mv81y, idx * 16), k);
+                    S.lvY = levelsY + idx * 32 * 32;
+                    S.lvCb = levelsCb + idx * 16 * 16;
+                    S.lvCr = levelsCr + idx * 16 * 16;
+                    codeCtuQt2(S, D, r, c, depth, 4, 1);
+                }
+            }
+            cb.encodeBinTrm(i64 == (size_t)n64 - 1 ? 1 : 0);
         }
     }
     cb.finish(tailValue, tailBits);

@@ -196,12 +196,15 @@ def read_analysis(path: str) -> list:
 
 
 def _grid(max_depth: int, cu_size: int, intra: bool = False) -> int:
-    """The CTU size of a session: cu_size (16 or 32) on the uniform grid;
-    with a quadtree, 64 for the all-intra session's cu_size=64 (max_depth
-    2 or 3, else ValueError: the 64x64 CU always splits, as the
+    """The CTU size of a session: cu_size (8, 16 or 32) on the uniform
+    grid; with a quadtree, 64 for the all-intra session's cu_size=64
+    (max_depth 2 or 3, else ValueError: the 64x64 CU always splits, as the
     reference's program asserts), else 32 (max_depth 1 or 2, whatever
     cu_size, as in the reference's sessions: its video sessions code
-    CTU32). Other geometries raise NotImplementedError."""
+    CTU32). Other geometries raise NotImplementedError. The uniform 8x8
+    grid writes a CTU of 8, outside every HEVC profile (CTUs of 16 to 64),
+    as the reference does: libde265 decodes its streams, FFmpeg refuses
+    them."""
     if intra and max_depth and cu_size == 64:
         if max_depth not in (2, 3):
             raise ValueError(
@@ -221,15 +224,24 @@ def _grid(max_depth: int, cu_size: int, intra: bool = False) -> int:
             "item 9b)")
     if max_depth:
         return 32
-    if cu_size not in (16, 32):
+    if cu_size not in (8, 16, 32):
         raise NotImplementedError(
-            f"cu_size={cu_size}: the port's uniform grid codes 16x16 and "
-            "32x32 CUs; CTU64 is the all-intra session's quadtree "
-            "(max_depth 2 or 3). The reference's uniform 8x8 grid writes "
-            "a CTU of 8, outside every HEVC profile (CTUs of 16 to 64): "
-            "libde265 decodes its stream, FFmpeg refuses it (ROADMAP "
-            "Queue 1 item 9b)")
+            f"cu_size={cu_size}: the uniform grid codes 8x8, 16x16 and "
+            "32x32 CUs, as the reference's does; CTU64 is the all-intra "
+            "session's quadtree (max_depth 2 or 3)")
     return cu_size
+
+
+def _aq_grid_check(yp, cu: int) -> None:
+    """AQ on a CU grid finer than 16x16 raises ValueError for a plane of
+    a 16x16 block or more: compute_aq_offsets' map comes on the 16x16
+    grid, a quarter of the 8x8 CUs, and the reference's session fails on
+    the shapes at the frame's QP map."""
+    if cu < 16 and min(np.shape(yp)) >= 16:
+        raise ValueError(
+            f"AQ at cu_size={cu}: the offsets come on the 16x16 grid, a "
+            "quarter of the 8x8 CU grid's blocks, and the reference fails "
+            "on the shapes there (ROADMAP Queue 3)")
 
 
 def psnr(a, b, bit_depth: int = 8) -> float:
@@ -769,6 +781,7 @@ class IntraEncoderSession:
         (luma and chroma energies), or None without AQ."""
         if not self.aq_mode:
             return None
+        _aq_grid_check(yp, self.cu)
         offs = compute_aq_offsets(yp, self.cu, self.aq_strength,
                                   mode=self.aq_mode, u_plane=up, v_plane=vp,
                                   bit_depth=self.bit_depth)
@@ -2261,6 +2274,7 @@ class VideoEncoderSession:
         if self.ctu_info_offsets is not None:
             off = off + self.ctu_info_offsets
         if self.aq_mode:
+            _aq_grid_check(yp, self.cu)
             off = off + compute_aq_offsets(yp, self.cu, self.aq_strength,
                                            mode=self.aq_mode,
                                            bit_depth=self.bit_depth)
@@ -2304,8 +2318,13 @@ class VideoEncoderSession:
 
     def _cutree_offsets(self) -> np.ndarray:
         """Per-CU integer QP offsets [rows, cols] from the causal
-        average."""
+        average. Each CU pools cu // 16 lowres blocks a side: none at
+        cu 8, whose offsets are then all 0 (the reference's fault:
+        cuTree's causal average does nothing on the 8x8 grid, where the
+        window's pooling takes one block a CU; ROADMAP Queue 3)."""
+        rows, cols = self.coded_h // self.cu, self.coded_w // self.cu
+        if self.cu < 16:
+            return np.zeros((rows, cols), np.int32)
         ratio = (self.cutree_icost + self.cutree_acc) / self.cutree_icost
         off_blk = np.clip(-self.cutree_strength * np.log2(ratio), -6.0, 0.0)
-        rows, cols = self.coded_h // self.cu, self.coded_w // self.cu
         return slicetype.pool_to_cu(off_blk, self.cu, rows, cols)
