@@ -1195,26 +1195,15 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
     QP map (AQ / cuTree) it also reports each frame's map statistics and
     checks that the plain rerun of the last b frame reproduces its map."""
     from x265_yuuki_asuna_tpu_torch.models.encoder_top import \
-        VideoEncoderSession
+        FILTER_STAGES, VideoEncoderSession
     frames = synth_clip(n_frames, W1080, H1080)
     sess = VideoEncoderSession(W1080, H1080, device=dev, **dict(
         dict(qp=32, keyint=250, hash_sei=True, **B_KW), **(opts or {})))
     # record the inter program's calls, to rerun the last B frame, and
-    # each program call's filter ms (calls run in coding order), and each
-    # frame's QP map
+    # each frame's QP map (each frame's filter ms are its span totals)
     enc = sess.inter_encoder
-    calls, run, filter_ms, maps = [], enc.encode_frame, [], []
-
-    def recorded(e, fn):
-        def call(*a, **k):
-            out = fn(*a, **k)
-            filter_ms.append(sum(e.filters.ms.values()))
-            return out
-        return call
-    enc.encode_frame = lambda *a, **k: calls.append((a, k)) or \
-        recorded(enc, run)(*a, **k)
-    sess.intra_encoder.encode_frame = recorded(
-        sess.intra_encoder, sess.intra_encoder.encode_frame)
+    calls, run, maps = [], enc.encode_frame, []
+    enc.encode_frame = lambda *a, **k: calls.append((a, k)) or run(*a, **k)
     qp_map_fn = sess._qp_map
 
     def qp_map(yp, qp):
@@ -1242,7 +1231,9 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
     runs = {k: sum(r.frame_type in t for r in results)
             for k, t in (("intra", "I"), ("inter", "P"), ("inter_b", "Bb"),
                          ("serialize", "IPBb"), ("filters", "IPBb"),
-                         ("qp_map", "IPBb"), ("rc", "IPBb"))}
+                         ("qp_map", "IPBb"), ("rc", "IPBb"), ("me", "PBb"),
+                         ("decide", "PBb"), ("commit", "PBb"),
+                         ("fetch", "PBb"))}
     runs["lookahead"] = len(frames)
     quality = dict(frame_bytes=[len(r.nals) for r in results],
                    psnr_y=[r.psnr_y for r in results],
@@ -1260,8 +1251,9 @@ def phase_1080p_b(dev, name="1080p_qt2_b", opts=None,
          stage_ms_per_frame=stage, bytes=total, kbps_at_25fps=kbps,
          qp=[r.qp for r in results],
          frame_type=[r.frame_type for r in results], k1_launches=launches,
-         filters_ms_by_frame=[[r.frame_type, ms]
-                              for r, ms in zip(results, filter_ms)],
+         filters_ms_by_frame=[[r.frame_type, sum(r.stage_ms.get(k, 0.0)
+                                                 for k in FILTER_STAGES)]
+                              for r in results],
          max_memory_allocated=torch.cuda.max_memory_allocated(), **quality,
          **extra)
     psnr = quality["psnr_y"]

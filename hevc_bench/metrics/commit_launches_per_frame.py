@@ -1,0 +1,9 @@
+"""commit_launches_per_frame: kernels of the traced frames whose device
+start lies in a "commit" span (the innermost span there), per traced
+frame; nothing where the traced frames record no such span."""
+
+from hevc_bench import phases
+
+
+def read(ctx):
+    return phases.launches_in(ctx.tracer, "commit")

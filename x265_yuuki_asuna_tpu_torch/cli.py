@@ -539,22 +539,17 @@ def main(argv=None, device=None):
     csv_header = ("Encode Order, Type, POC, QP, Bits, PSNR Y, PSNR U, "
                   "PSNR V, SSIM Y")
     csv_timing = args.csv and args.csv_log_level >= 2
-    stage_prev = {}
     if csv_timing:
         csv_header += ", Device ms, Deblock ms, SAO ms, Serialize ms"
 
-    def stage_ms():
-        """The session's stage ms since the last call, in the reference's
-        columns: the programs (device work and its launches, with the
-        device-DPB filter chain that runs inside them), the host-form
-        deblock, the host-form SAO, the writer."""
-        cur = dict(sess.stage_ms)
-        vals = [sum(cur.get(k, 0.0) - stage_prev.get(k, 0.0) for k in keys)
+    def stage_ms(fr):
+        """The frame's span totals (FrameResult.stage_ms) in the
+        reference's columns: the programs (device work and its launches,
+        with the device-DPB filter chain that runs inside them), the
+        host-form deblock, the host-form SAO, the writer."""
+        return [round(sum(fr.stage_ms.get(k, 0.0) for k in keys), 1)
                 for keys in (("intra", "inter", "inter_b", "filters"),
                              ("deblock",), ("sao",), ("serialize",))]
-        stage_prev.clear()
-        stage_prev.update(cur)
-        return [round(v, 1) for v in vals]
 
     csv_lines = [csv_header] if args.csv else None
     psnr_acc = []  # (psnr_y, psnr_u, psnr_v, ssim)
@@ -574,7 +569,7 @@ def main(argv=None, device=None):
         if csv_lines is not None:
             line = _csv_line(n, fr, args.qp)
             if csv_timing:
-                line += ", " + ", ".join(str(v) for v in stage_ms())
+                line += ", " + ", ".join(str(v) for v in stage_ms(fr))
             csv_lines.append(line)
         if fr.psnr_y:
             psnr_acc.append((fr.psnr_y, fr.psnr_u, fr.psnr_v, fr.ssim_y))

@@ -130,8 +130,7 @@ import hashlib
 import math
 import pickle
 import time
-from collections import defaultdict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -301,7 +300,7 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
     "qp_map" in out, at each CU's decoder-side QP; then SAO per cu x cu CU
     in the host form at the slice QP. src3: the padded source planes. Sets
     the filtered recon_* and, with sao, "sao" (packed [ncu, 18]). Each
-    filter is timed as its stage of stage_ms ("deblock", "sao"), inside a
+    filter is a span of stage_ms ("deblock", "sao"), inside a
     profiler range named "filters". bit_depth: the samples'; the deblock
     runs at deblock_bit_depth (default bit_depth): the reference's video
     session deblocks its uniform grid at 8 bits whatever the samples'
@@ -311,8 +310,8 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else \
         (lambda: None)
-    with torch.profiler.record_function("filters"):
-        t0 = time.perf_counter()
+
+    def upload_deblock():
         rec = tuple(t(out[k]).to(torch.int32)
                     for k in ("recon_y", "recon_u", "recon_v"))
         qpc = chroma_qp_from_luma(qp)
@@ -330,17 +329,24 @@ def filter_uniform(out: dict, qp: int, is_idr: bool, cu: int, deblock: bool,
             rec = DB.deblock_frame_inter(*rec, cu, qarg, qpc, bs_v, bs_h, dbd)
         if deblock:
             sync()
-            t1 = time.perf_counter()
-            stage_ms["deblock"] += (t1 - t0) * 1e3
-            t0 = t1
+        return rec
+
+    def sao_fetch(rec):
         if sao:
             src = tuple(t(p).to(torch.int32) for p in src3)
             rec, params = SAO.sao_frame(rec, src, cu, qp, "host", bd)
             out["sao"] = params.cpu().numpy()
         out["recon_y"], out["recon_u"], out["recon_v"] = (
             p.cpu().numpy() for p in rec)
-        stage_ms["sao" if sao else "deblock"] += \
-            (time.perf_counter() - t0) * 1e3
+
+    # without SAO the read-back is the deblock's; without the deblock
+    # the upload is SAO's
+    with torch.profiler.record_function("filters"):
+        if deblock:
+            rec = _timed(stage_ms, "deblock", upload_deblock)
+            _timed(stage_ms, "sao" if sao else "deblock", sao_fetch, rec)
+        else:
+            _timed(stage_ms, "sao", lambda: sao_fetch(upload_deblock()))
 
 
 def _amvp_choice(mv, preds):
@@ -388,24 +394,82 @@ class FrameResult:
     psnr_u: float = 0.0
     psnr_v: float = 0.0
     ssim_y: float = 0.0
+    # the frame's id, its display index (-1 where the session gives none),
+    # and the wall ms of every span recorded while it was coded, by stage
+    display: int = -1
+    stage_ms: dict = field(default_factory=dict)
+
+
+# stages a session times for a mini-GOP or the stream, not for one frame
+SESSION_STAGES = ("lookahead", "b_adapt", "rc")
+# the in-loop filters' stages: the device-DPB chain, the host form's two
+FILTER_STAGES = ("filters", "deblock", "sao")
+
+
+class StageMs(dict):
+    """A session's wall ms by stage, summed over its frames (0.0 for a
+    stage never timed), and the totals of the frame being coded: between
+    begin() and end(), `frame` is (its display index, {stage: ms}), else
+    None. SESSION_STAGES are the session's alone."""
+
+    def __init__(self):
+        super().__init__()
+        self.frame = None
+
+    def __missing__(self, stage):
+        return 0.0
+
+    def add(self, stage: str, ms: float) -> None:
+        self[stage] += ms
+        if self.frame is not None and stage not in SESSION_STAGES:
+            spans = self.frame[1]
+            spans[stage] = spans.get(stage, 0.0) + ms
+
+    def begin(self, display: int) -> None:
+        """The spans from here to end() are also the frame's at display."""
+        self.frame = (display, {})
+
+    def end(self):
+        """(display index, {stage: ms}) of the frame begun last, (-1, {})
+        without one; no frame is open after it."""
+        frame, self.frame = self.frame, None
+        return frame or (-1, {})
 
 
 def _timed(stage_ms, stage: str, fn, *args, **kw):
+    """The port's one span call: fn(*args, **kw), its host wall ms added
+    to the StageMs stage_ms under `stage` (and to the open frame's
+    totals). The sessions and, through span_hook, their frame programs
+    look it up in this module at every call, so a wrapper set on the
+    module's attribute sees every span. stage_ms may also be a plain
+    mapping of stage to ms, which has no frames."""
     t0 = time.perf_counter()
     out = fn(*args, **kw)
-    stage_ms[stage] += (time.perf_counter() - t0) * 1e3
+    ms = (time.perf_counter() - t0) * 1e3
+    if isinstance(stage_ms, StageMs):
+        stage_ms.add(stage, ms)
+    else:
+        stage_ms[stage] += ms
     return out
 
 
+def span_hook(stage_ms):
+    """The span call a session hands its frame programs (their `span`):
+    span(stage, fn, *args, **kw) runs fn as a span of stage_ms through
+    _timed."""
+    def span(stage: str, fn, *args, **kw):
+        return _timed(stage_ms, stage, fn, *args, **kw)
+    return span
+
+
 def _program(stage_ms, stage: str, enc, *args, **kw) -> dict:
-    """A frame program's decision dict; the quadtree programs' filters
-    are timed as their own stages ("filters" for the device-DPB chain,
-    "deblock" and "sao" for the host form), the rest as `stage`."""
+    """A frame program's decision dict, timed as `stage` less its filters:
+    the quadtree programs' filters are spans of their own (FILTER_STAGES:
+    "filters" for the device-DPB chain, "deblock" and "sao" for the host
+    form), whose ms come out of `stage`."""
+    before = sum(stage_ms[k] for k in FILTER_STAGES)
     out = _timed(stage_ms, stage, enc.encode_frame, *args, **kw)
-    flt = getattr(enc, "filters", None)
-    for k, ms in (flt.ms.items() if flt is not None else ()):
-        stage_ms[stage] -= ms
-        stage_ms[k] += ms
+    stage_ms.add(stage, before - sum(stage_ms[k] for k in FILTER_STAGES))
     return out
 
 
@@ -696,8 +760,12 @@ class IntraEncoderSession:
                         "cnt_y": 0,
                         "sum_c": np.zeros((cu_size // 2) ** 2, np.int64),
                         "cnt_c": 0}
-        # wall-clock ms per stage, summed over frames
-        self.stage_ms = defaultdict(float)
+        # wall-clock ms per stage, summed over frames, and each frame's
+        # (FrameResult.stage_ms); the quadtree programs' spans go there
+        # too
+        self.stage_ms = StageMs()
+        if cu_size == 64 or max_depth:
+            self.frame_encoder.span = span_hook(self.stage_ms)
 
     # ------------------------------------------------------------------
     def headers(self) -> bytes:
@@ -938,22 +1006,26 @@ class IntraEncoderSession:
         if self.hash_sei:
             nals += _timed(self.stage_ms, "serialize", hash_sei, out,
                            self.bit_depth, self.hash_type)
+        display, spans = self.stage_ms.end()
         if not with_recon:
             return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
-                               psnr_y=0.0, frame_type="I", qp=self.qp)
+                               psnr_y=0.0, frame_type="I", qp=self.qp,
+                               display=display, stage_ms=spans)
         recon = host_planes(out, self.src_h, self.src_w, self.bit_depth,
                             self.c_shift)
         py, pu, pv, ssim = frame_quality(recon, *frame, self.device,
                                          self.bit_depth)
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
                            psnr_y=py, frame_type="I", qp=self.qp,
-                           psnr_u=pu, psnr_v=pv, ssim_y=ssim)
+                           psnr_u=pu, psnr_v=pv, ssim_y=ssim,
+                           display=display, stage_ms=spans)
 
     # ------------------------------------------------------------------
     def encode_frame(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> FrameResult:
         """Code one frame (planes at the source size, uint8 at 8 bits,
         uint16 above) as an IDR."""
+        self.stage_ms.begin(self._display_counter)
         if self.slices > 1:
             return self._encode_sliced(y, u, v)
         padded = self._pad(y, u, v)
@@ -988,8 +1060,11 @@ class IntraEncoderSession:
             nals += _timed(self.stage_ms, "serialize", hash_sei, whole,
                            self.bit_depth, self.hash_type)
         recon = host_planes(whole, self.src_h, self.src_w, self.bit_depth)
+        display, spans = self.stage_ms.end()
+        self._display_counter += 1
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
-                           psnr_y=psnr(recon[0], y, self.bit_depth))
+                           psnr_y=psnr(recon[0], y, self.bit_depth),
+                           display=display, stage_ms=spans)
 
     def _band_slice(self, out: dict, slice_addr: int,
                     addr_bits: int) -> bytes:
@@ -1017,9 +1092,12 @@ class IntraEncoderSession:
         the device-DPB program chain, and with neither the hash SEI, the
         deblock nor need_recon it returns no recon. A sliced session codes
         the frames one after another (encode_frame), as the reference
-        does."""
+        does. The batch's program and filter spans are its first frame's
+        (FrameResult.stage_ms): the uniform grid's frames share one
+        program."""
         if self.slices > 1:
             return [self.encode_frame(*f) for f in frames], None, None
+        self.stage_ms.begin(self._display_counter)
         need_recon = self.hash_sei or self.deblock or need_recon
         padded = [self._pad(*f) for f in frames]
         if self.max_depth:
@@ -1038,10 +1116,14 @@ class IntraEncoderSession:
         outs, frames, need_recon = handle
         if frames is None:                   # a sliced session's results
             return outs
-        return [self._result(out, _timed(self.stage_ms, "serialize",
-                                         self.assemble_slice, out, self.qp),
-                             f, need_recon)
-                for out, f in zip(outs, frames)]
+        results = []
+        for k, (out, f) in enumerate(zip(outs, frames)):
+            if k:
+                self.stage_ms.begin(self._display_counter)
+            results.append(self._result(
+                out, _timed(self.stage_ms, "serialize", self.assemble_slice,
+                            out, self.qp), f, need_recon))
+        return results
 
     def encode_batch(self, frames, need_recon: bool = False) \
             -> List[FrameResult]:
@@ -1385,10 +1467,13 @@ class VideoEncoderSession:
         self.anchor = None
         self.anchor_lowres = None
         self._last_idr_didx = -10 ** 9
-        # wall-clock ms per stage, summed over frames (each stage ends in a
-        # device->host copy, so the times include the device work); the
-        # intra session adds its own stages here
+        # wall-clock ms per stage, summed over frames, and each frame's
+        # (each program ends in a device->host copy, so the times include
+        # the device work); the intra session adds its own stages here,
+        # and the quadtree programs their phases
         self.stage_ms = self.intra_sess.stage_ms
+        if max_depth:
+            self.inter_encoder.span = span_hook(self.stage_ms)
 
     @property
     def intra_encoder(self):
@@ -1478,6 +1563,7 @@ class VideoEncoderSession:
             self._cutree_window = None
         else:
             icost, pcost, scenecut, self._cutree_window, didx = _la
+        self.stage_ms.begin(didx)
         is_idr = (self.frame_idx % self.keyint == 0) or self.ref is None \
             or (self.scenecut_enabled and scenecut
                 and self.frame_idx >= self.keyint_min) \
@@ -1840,6 +1926,7 @@ class VideoEncoderSession:
         """The GOP's IDR anchor at POC 0 (the reference's
         _encode_anchor(..., idr=True)), at the rate control's QP in its
         zone; also the pipeline's IDR (parallel/session.py)."""
+        self.stage_ms.begin(self.display_idx)
         qp = self._timed("rc", self.rc.frame_qp, True)
         self.gop_display_base = self.display_idx
         qp = self._zone_qp(self.display_idx, qp)
@@ -1863,6 +1950,7 @@ class VideoEncoderSession:
         pending, windows = self.pending, self.pending_windows
         self.pending, self.pending_lowres, self.pending_windows = [], [], []
         cra_poc = prev_poc + len(pending) + 1
+        self.stage_ms.begin(self.display_idx)
         qp = self._timed("rc", self.rc.frame_qp, True)
         qp = self._zone_qp(self.display_idx, qp)
         yp, up, vp = self._pad(y, u, v)
@@ -1890,6 +1978,7 @@ class VideoEncoderSession:
                          qp: int) -> FrameResult:
         """The mini-GOP's P anchor, ref_delta pictures after the previous
         anchor, at the QP qp."""
+        self.stage_ms.begin(self.gop_display_base + poc)
         yp, up, vp = self._pad(y, u, v)
         out, nals = self._code_p(yp, up, vp, self.anchor[0], qp, poc,
                                  ref_delta, self._qp_map(yp, qp))
@@ -1904,6 +1993,7 @@ class VideoEncoderSession:
         referenced middle B, coded TRAIL_R; nal_type overrides the NAL
         type (an open GOP's RASL_N). Returns the FrameResult and the recon
         planes."""
+        self.stage_ms.begin(self.gop_display_base + poc)
         yp, up, vp = self._pad(y, u, v)
         qp_map = self._qp_map(yp, qp)
         kw = {"slice_qp": qp} if self.max_depth else {}
@@ -2027,7 +2117,8 @@ class VideoEncoderSession:
         rc_type, by default the frame's; and on the IPPP path pass 2 and
         the pass-1 stats, with the frame's lookahead cost la_cost), and
         make the frame's result (recon cropped to the source, the quality
-        metrics against the source planes `frame`)."""
+        metrics against the source planes `frame`, and the frame's
+        display index and span totals, which end here)."""
         if self.hash_sei:
             nals += self._timed("serialize", hash_sei, out, self.bit_depth,
                                 self.intra_sess.hash_type)
@@ -2035,12 +2126,13 @@ class VideoEncoderSession:
             rc_type = "B" if frame_type in "Bb" else frame_type
         self._timed("rc", self._rc_done, qp, len(nals) * 8, frame_type,
                     la_cost, rc_type)
+        display, spans = self.stage_ms.end()
         if out.get("recon_y") is None:
             # recon_out=False without the quality metrics or the hash SEI
             # on the quadtree path: the recon never left the device
             return FrameResult(nals=nals, recon=None, bits=len(nals) * 8,
                                psnr_y=0.0, frame_type=frame_type, qp=qp,
-                               poc=poc)
+                               poc=poc, display=display, stage_ms=spans)
         bd = self.bit_depth
         recon = host_planes(out, self.src_h, self.src_w, bd)
         q = frame_quality(recon, *frame, self.device, bd) \
@@ -2048,7 +2140,8 @@ class VideoEncoderSession:
                                           0.0, 0.0)
         return FrameResult(nals=nals, recon=recon, bits=len(nals) * 8,
                            psnr_y=q[0], frame_type=frame_type, qp=qp,
-                           poc=poc, psnr_u=q[1], psnr_v=q[2], ssim_y=q[3])
+                           poc=poc, psnr_u=q[1], psnr_v=q[2], ssim_y=q[3],
+                           display=display, stage_ms=spans)
 
     def _rc_done(self, qp: int, bits: int, frame_type: str,
                  la_cost: float, rc_type: str) -> None:

@@ -517,6 +517,9 @@ class InterQTEncoder:
         self.weightp = bool(weightp)
         self.bd = quant_fn.bit_depth
         self.filters = QT.LoopFilters(deblock, sao, sao_form, self.bd)
+        # the span call of the program's phases (a session's recorder,
+        # else none)
+        self.span = QT.no_span
         self.hme, self.hme_range = hme, hme_range
         # the decision dict carries the recon planes on the host
         # (recon_y / _u / _v); off, only recon_dev holds them
@@ -652,10 +655,18 @@ class InterQTEncoder:
         at denominator 6. Returns the decision dict (numpy), "recon_dev",
         the (filtered) recon planes as device tensors (uint8 at 8 bits,
         int16 above), and with SAO "sao", its parameters packed [ncu,
-        18]."""
+        18].
+
+        The program runs as flat phases, each a span of self.span: "me"
+        (K1's sweeps, then each size's subpel refinement), "decide" (each
+        size's motion decision and leaf RD, then the split decisions and
+        the inter leaves' planes), "fetch" (the host's reads of the
+        decisions), "commit" (the intra leaves' wavefront), the filters'
+        stages, "fetch" (the levels and recon planes)."""
         geo = self.geo
         dev = geo.device
         bd = self.bd
+        span = self.span
         bi = ref1 is not None
         wts = frame_weights(weights) if self.weightp and not bi else None
         y8, u8, v8 = (_plane(p, dev, bd) for p in (y, u, v))
@@ -665,8 +676,45 @@ class InterQTEncoder:
         y32, u32, v32 = (p.to(torch.int32) for p in (y8, u8, v8))
         refs = [tuple(p.to(torch.int32) for p in r) for r in r8]
         fq = QT.FrameQp(geo, qp, slice_qp)
-        # each list's luma search plane: the weighted P frame's is the
-        # weight-transformed reference
+        search32, fine, coarse = span("me", self._sweeps, y8, r8, refs, wts)
+        # B / P contexts, at the first CTU's QP as in the reference
+        states = BC.init_states_dev(0 if bi else 1, fq.first)
+        leaf, motion = {}, {}
+        for nn in self.sizes:
+            mvs = span("me", lambda: [self._refine(nn, y32, sp, f, c)
+                                      for sp, f, c in zip(search32, fine,
+                                                          coarse)])
+            leaf[nn], motion[nn] = span("decide", self._decide, nn,
+                                        (y32, u32, v32), refs, mvs, wts,
+                                        states, fq)
+        split16, split, rec, lv = span("decide", self._inter_leaves, leaf,
+                                       fq)
+        out = span("fetch", self._decisions, leaf, motion, split, split16)
+        if not bi or self.b_intra:
+            span("commit", self._commit, out, (y32, u32, v32), rec, lv, fq,
+                 states)
+        sizes = (QT.N, 16, 8)
+        rec, sao = self.filters(
+            span, rec, (y32, u32, v32), lv, fq, split, split16,
+            tuple(leaf[nn]["ui"] if nn in leaf else None for nn in sizes),
+            tuple(motion[nn][1:] if nn in motion else None for nn in sizes),
+            tuple(motion[nn][0] if nn in motion else None for nn in sizes)
+            if bi else None)
+        if sao is not None:
+            out["sao"] = sao
+        out.update(span("fetch", QT.decision_planes, geo, rec, lv,
+                        self.recon_host))
+        out["recon_dev"] = tuple(p.to(pixel.plane_dtype(bd)) for p in rec)
+        return out
+
+    def _sweeps(self, y8, r8, refs, wts):
+        """K1's sweeps of each list: (the int32 luma search planes, each
+        list's {size: (mvx, mvy, sad)} integer winners, each list's
+        half-resolution winners with hme, else None). Each list's search
+        plane is its reference's luma; the weighted P frame's (wts) is
+        the weight-transformed reference. r8 / refs: each list's planes
+        in the device plane type / in int32."""
+        bd = self.bd
         search, search32 = [r[0] for r in r8], [r[0] for r in refs]
         if wts is not None:
             search[0] = interp.weight_plane(search[0], *wts[0], bd)
@@ -690,68 +738,82 @@ class InterQTEncoder:
                                          self.hme_range, lambda_bits=2,
                                          peak=pixel.peak(bd))
                       for lr in low_refs]
-        # B / P contexts, at the first CTU's QP as in the reference
-        states = BC.init_states_dev(0 if bi else 1, fq.first)
-        leaf, motion = {}, {}
-        for nn in self.sizes:
-            px, py = geo.pxpy[nn]
-            qp_blk, qpc_blk = fq.blk(nn, fq.cu), fq.blk(nn, fq.c)
-            l2 = QT.lam2(qp_blk)
-            mvs = [self._refine(nn, y32, sp, f, c)
-                   for sp, f, c in zip(search32, fine, coarse)]
-            if bi:
-                motion[nn], epred, ebits_mv = self._motion_b(
-                    nn, y32, refs[0], refs[1], *mvs, states, qp_blk)
-            elif wts is not None:
-                # the ME winner, no merge candidates
-                bx, by, _ = mvs[0]
-                motion[nn] = (None, bx, by, None, None)
-                ebits_mv = _mv_bits(bx, by, states)
-                epred = weighted_preds(refs[0], px, py, bx, by, nn, wts, bd)
-            else:
-                bx, by, ebits_mv = self._motion(nn, y32, refs[0][0], mvs[0],
-                                                states, qp_blk)
-                motion[nn] = (None, bx, by, None, None)
-                epred = _mc3(refs[0], px, py, bx, by, nn, bd)
-            nb = px.shape[0]
-            srcs3 = QT.sources3(y32, u32, v32, nn)
-            # the inter rounding offset for both candidates (P and B)
-            elv, erec, edist, ebits = QT.rd_leaf(nn, srcs3, epred, qp_blk,
-                                                 qpc_blk, states, False,
-                                                 self.quant_fn,
-                                                 psy_rd=self.psy_rd)
-            if self.rqt and nn == QT.N:
-                lv2, rec2, dist2, bits2 = QT.rd_leaf_split(
-                    nn, srcs3, epred, qp_blk, qpc_blk, states, self.quant_fn)
-                tu_split = QT.tu_split_rd(dist2, bits2, edist, ebits, l2)
-                ts = tu_split[:, None, None]
-                elv = tuple(torch.where(ts, a, b) for a, b in zip(lv2, elv))
-                erec = tuple(torch.where(ts, a, b)
-                             for a, b in zip(rec2, erec))
-                edist = torch.where(tu_split, dist2, edist)
-                ebits = torch.where(tu_split, bits2, ebits)
-            if not self._allow_intra(bi, nn):
-                ui = torch.zeros(nb, dtype=torch.bool, device=dev)
-                modes = torch.zeros(nb, dtype=torch.int32, device=dev)
-                dist, bits = edist, ebits + ebits_mv
-            else:
-                modes, *ipred = QT.dense_intra(nn, y32, u32, v32, bd)
-                _, _, idist, ibits = QT.rd_leaf(nn, srcs3, ipred, qp_blk,
-                                                qpc_blk, states, False,
-                                                self.quant_fn, modes,
-                                                self.psy_rd)
-                ci = idist + l2 * (ibits + QT.MODE_BITS)
-                ce = edist + l2 * (ebits + ebits_mv)
-                ui = ci < ce
-                dist = torch.where(ui, idist, edist)
-                bits = torch.where(ui, ibits + QT.MODE_BITS,
-                                   ebits + ebits_mv)
-            leaf[nn] = {"ui": ui, "modes": modes, "dist": dist,
-                        "bits": bits, "elv": elv, "erec": erec}
-        split16, split = QT.split_rd(leaf, geo, QT.lam2(fq.cu))
+        return search32, fine, coarse
 
-        # the inter leaves' recon and levels, each position from its
-        # level (0: CU32, 1: CU16, 2: CU8) on the 8x8 cell grid
+    def _decide(self, nn: int, src3, refs, mvs, wts, states, fq):
+        """The nn-blocks' decisions: the motion decision and its
+        prediction, the inter leaf's RD (with RQT's split variant at 32),
+        then the intra candidate's where the slice allows one. src3: the
+        int32 source planes; refs: each list's int32 planes; mvs: each
+        list's refined (mvx, mvy, satd). Returns (the leaf's dict: "ui",
+        "modes", "dist", "bits", "elv", "erec", with RQT at 32
+        "tu_split"; the motion (pdir or None, mvx, mvy, mv1x or None,
+        mv1y or None))."""
+        geo = self.geo
+        bd = self.bd
+        bi = len(refs) > 1
+        y32, u32, v32 = src3
+        px, py = geo.pxpy[nn]
+        qp_blk, qpc_blk = fq.blk(nn, fq.cu), fq.blk(nn, fq.c)
+        l2 = QT.lam2(qp_blk)
+        if bi:
+            motion, epred, ebits_mv = self._motion_b(
+                nn, y32, refs[0], refs[1], *mvs, states, qp_blk)
+        elif wts is not None:
+            # the ME winner, no merge candidates
+            bx, by, _ = mvs[0]
+            motion = (None, bx, by, None, None)
+            ebits_mv = _mv_bits(bx, by, states)
+            epred = weighted_preds(refs[0], px, py, bx, by, nn, wts, bd)
+        else:
+            bx, by, ebits_mv = self._motion(nn, y32, refs[0][0], mvs[0],
+                                            states, qp_blk)
+            motion = (None, bx, by, None, None)
+            epred = _mc3(refs[0], px, py, bx, by, nn, bd)
+        nb = px.shape[0]
+        srcs3 = QT.sources3(y32, u32, v32, nn)
+        # the inter rounding offset for both candidates (P and B)
+        elv, erec, edist, ebits = QT.rd_leaf(nn, srcs3, epred, qp_blk,
+                                             qpc_blk, states, False,
+                                             self.quant_fn,
+                                             psy_rd=self.psy_rd)
+        lf = {}
+        if self.rqt and nn == QT.N:
+            lv2, rec2, dist2, bits2 = QT.rd_leaf_split(
+                nn, srcs3, epred, qp_blk, qpc_blk, states, self.quant_fn)
+            tu_split = QT.tu_split_rd(dist2, bits2, edist, ebits, l2)
+            ts = tu_split[:, None, None]
+            elv = tuple(torch.where(ts, a, b) for a, b in zip(lv2, elv))
+            erec = tuple(torch.where(ts, a, b) for a, b in zip(rec2, erec))
+            edist = torch.where(tu_split, dist2, edist)
+            ebits = torch.where(tu_split, bits2, ebits)
+            lf["tu_split"] = tu_split
+        if not self._allow_intra(bi, nn):
+            ui = torch.zeros(nb, dtype=torch.bool, device=geo.device)
+            modes = torch.zeros(nb, dtype=torch.int32, device=geo.device)
+            dist, bits = edist, ebits + ebits_mv
+        else:
+            modes, *ipred = QT.dense_intra(nn, y32, u32, v32, bd)
+            _, _, idist, ibits = QT.rd_leaf(nn, srcs3, ipred, qp_blk,
+                                            qpc_blk, states, False,
+                                            self.quant_fn, modes,
+                                            self.psy_rd)
+            ci = idist + l2 * (ibits + QT.MODE_BITS)
+            ce = edist + l2 * (ebits + ebits_mv)
+            ui = ci < ce
+            dist = torch.where(ui, idist, edist)
+            bits = torch.where(ui, ibits + QT.MODE_BITS, ebits + ebits_mv)
+        lf.update(ui=ui, modes=modes, dist=dist, bits=bits, elv=elv,
+                  erec=erec)
+        return lf, motion
+
+    def _inter_leaves(self, leaf: dict, fq):
+        """The split decisions and the inter leaves' (y, u, v) recon and
+        levels planes: (split16 or None at depth 1, split, rec, lv), each
+        position's from its level (0: CU32, 1: CU16, 2: CU8) on the 8x8
+        cell grid."""
+        geo = self.geo
+        split16, split = QT.split_rd(leaf, geo, QT.lam2(fq.cu))
         H, W, rows, cols = geo.H, geo.W, geo.rows, geo.cols
         lvl = torch.where(split.reshape(rows, cols), 1, 0) \
             .repeat_interleave(4, 0).repeat_interleave(4, 1)
@@ -770,13 +832,20 @@ class InterQTEncoder:
                 for k in range(1, len(p)):
                     sel = torch.where(up == k, p[k], sel)
                 dst.append(sel.contiguous())
+        return split16, split, rec, lv
 
+    def _decisions(self, leaf: dict, motion: dict, split, split16) -> dict:
+        """The decision dict's splits, TU splits, intra flags, modes and
+        motion of every size, read to the host (numpy)."""
+        geo = self.geo
+        rows, cols = geo.rows, geo.cols
         h = lambda a: a.cpu().numpy()
         per_size = {QT.N: lambda a: h(a).reshape(rows, cols),
                     16: lambda a: QT.by_ctu(a, geo.map16, (rows, cols, 4)),
                     8: lambda a: QT.by_ctu(a, geo.map8, (rows, cols, 4, 4))}
         out = {"split": h(split).reshape(rows, cols),
-               "tu_split32": per_size[QT.N](tu_split) if self.rqt else None,
+               "tu_split32": per_size[QT.N](leaf[QT.N]["tu_split"])
+               if self.rqt else None,
                "split16": None if split16 is None else per_size[16](split16)}
         for nn, (ki, km) in ((QT.N, ("use_intra", "modes")),
                              (16, ("use_intra4", "modes4")),
@@ -786,24 +855,16 @@ class InterQTEncoder:
             out[km] = None if lf is None else per_size[nn](lf["modes"])
             for k, a in zip(_MOTION_KEYS[nn], mo):
                 out[k] = None if a is None else per_size[nn](a)
-        if not bi or self.b_intra:
-            rs = lambda k, *shape: None if out[k] is None else \
-                out[k].reshape(-1, *shape)
-            leaves = QT.intra_leaves(
-                rs("split"), rs("split16", 4), rs("modes"), rs("modes4", 4),
-                rs("modes8", 4, 4), rs("use_intra"), rs("use_intra4", 4),
-                rs("use_intra8", 4, 4))
-            QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, False,
-                            self.quant_fn, states)
-        sizes = (QT.N, 16, 8)
-        rec, sao = self.filters(
-            rec, (y32, u32, v32), lv, fq, split, split16,
-            tuple(leaf[nn]["ui"] if nn in leaf else None for nn in sizes),
-            tuple(motion[nn][1:] if nn in motion else None for nn in sizes),
-            tuple(motion[nn][0] if nn in motion else None for nn in sizes)
-            if bi else None)
-        if sao is not None:
-            out["sao"] = sao
-        out.update(QT.decision_planes(geo, rec, lv, self.recon_host))
-        out["recon_dev"] = tuple(p.to(pixel.plane_dtype(bd)) for p in rec)
         return out
+
+    def _commit(self, out: dict, src3, rec, lv, fq, states) -> None:
+        """The decided intra leaves (from the host decision dict out)
+        reconstructed over the inter ones in rec / lv, in place."""
+        rs = lambda k, *shape: None if out[k] is None else \
+            out[k].reshape(-1, *shape)
+        leaves = QT.intra_leaves(
+            rs("split"), rs("split16", 4), rs("modes"), rs("modes4", 4),
+            rs("modes8", 4, 4), rs("use_intra"), rs("use_intra4", 4),
+            rs("use_intra8", 4, 4))
+        QT.commit_intra(leaves, self.geo, src3, rec, lv, fq, False,
+                        self.quant_fn, states)

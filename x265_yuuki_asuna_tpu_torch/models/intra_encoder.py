@@ -33,7 +33,6 @@ rerun.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
@@ -444,6 +443,8 @@ class IntraQTEncoder:
                                  torch.device(device))
         self.bd = quant_fn.bit_depth
         self.filters = QT.LoopFilters(deblock, sao, sao_form, self.bd)
+        # the span call of the filters (a session's recorder, else none)
+        self.span = QT.no_span
         # the decision dict carries the recon planes on the host
         # (recon_y / _u / _v); off, only recon_dev holds them
         self.recon_host = recon_host
@@ -497,8 +498,8 @@ class IntraQTEncoder:
                                  rs(out["modes8"], 4, 4))
         QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, True,
                         self.quant_fn, states)
-        rec, sao = self.filters(rec, (y32, u32, v32), lv, fq, split, split16,
-                                with_sao=with_sao)
+        rec, sao = self.filters(self.span, rec, (y32, u32, v32), lv, fq,
+                                split, split16, with_sao=with_sao)
         if sao is not None:
             out["sao"] = sao
         out.update(QT.decision_planes(geo, rec, lv, self.recon_host))
@@ -550,6 +551,8 @@ class IntraQT64Encoder:
         self.depth3 = max_depth >= 3
         self.max_depth = max_depth
         self.filters = Deblock64(bool(deblock), self.bd)
+        # the span call of the deblock (a session's recorder, else none)
+        self.span = QT.no_span
         nd, _, rc, valid = wavefront_schedule(self.rows, self.cols, slope=2)
         self.diags = [(rc[d, valid[d], 0].astype(np.int64),
                        rc[d, valid[d], 1].astype(np.int64))
@@ -614,7 +617,8 @@ class IntraQT64Encoder:
         h = lambda a: a.cpu().numpy()
         out = {k: h(a).reshape((rows, cols) + tuple(a.shape[1:]))
                for k, a in dec.items()}
-        rec = self.filters(rec, lv, out, self.max_depth, qmap, slice_qp)
+        rec = self.filters(self.span, rec, lv, out, self.max_depth, qmap,
+                           slice_qp)
         tiles = lambda p, k: h(to_blocks(p, k)).reshape(rows, cols, k, k)
         out.update(levels_y=tiles(lv[0], 64), levels_cb=tiles(lv[1], 32),
                    levels_cr=tiles(lv[2], 32), recon_y=h(rec[0]),
@@ -749,23 +753,24 @@ class Deblock64:
     """The CTU64 intra frame's deblock (the reference's session runs it
     after the program: BS 2 on every CU edge of the 8-sample grid,
     ops/deblock.compute_bs_qt64_intra, each CTU at its decoder-side QP),
-    and the wall-clock ms of the last frame's, as the stage "deblock"."""
+    run as the span "deblock" of the program's span call."""
 
     def __init__(self, on: bool, bit_depth: int = 8):
         self.on, self.bd = on, bit_depth
-        self.ms = {}
 
-    def __call__(self, rec, lv, out: dict, max_depth: int,
+    def __call__(self, span, rec, lv, out: dict, max_depth: int,
                  qmap: np.ndarray, slice_qp=None):
-        """The deblocked (y, u, v) planes (rec itself when off). out: the
-        decision dict's split32 / split16; qmap: each CTU's QP [ncu];
-        slice_qp: the QP before the first coded CTU (default the map's
-        largest)."""
-        self.ms = {}
+        """The deblocked (y, u, v) planes (rec itself when off). span: the
+        program's span call; out: the decision dict's split32 / split16;
+        qmap: each CTU's QP [ncu]; slice_qp: the QP before the first coded
+        CTU (default the map's largest)."""
         if not self.on:
             return rec
+        return span("deblock", self._deblock, rec, lv, out, max_depth, qmap,
+                    slice_qp)
+
+    def _deblock(self, rec, lv, out, max_depth, qmap, slice_qp):
         from ..ops import deblock as DB, filters as FL
-        t0 = time.perf_counter()
         dev = rec[0].device
         rows, cols = out["split32"].shape[:2]
         bs_v, bs_h = (torch.as_tensor(b, device=dev) for b in
@@ -782,5 +787,4 @@ class Deblock64:
         out3 = FL.deblock_qt2(rec, cell_q, bs_v, bs_h, self.bd)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        self.ms = {"deblock": (time.perf_counter() - t0) * 1e3}
         return out3

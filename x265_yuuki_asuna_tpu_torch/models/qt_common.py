@@ -28,7 +28,6 @@ results are the same with far fewer launches.
 
 from __future__ import annotations
 
-import time
 from functools import lru_cache
 
 import numpy as np
@@ -536,29 +535,35 @@ def by_ctu(a: torch.Tensor, m: torch.Tensor, shape) -> np.ndarray:
 
 
 
+def no_span(stage: str, fn, *args, **kw):
+    """The span call of a frame program built outside a session: fn
+    alone (a session's programs record their phases through its own,
+    encoder_top.span_hook)."""
+    return fn(*args, **kw)
+
+
 class LoopFilters:
     """The quadtree programs' in-loop filters (deblock, SAO; each may be
-    off; SAO in its "program" or "host" form) and the wall-clock ms of
-    the last frame's chain by stage: "filters" for the program form (the
-    device-DPB chain), "deblock" and "sao" apart for the host form (the
-    reference's host filters), on bit_depth-bit samples."""
+    off; SAO in its "program" or "host" form) on bit_depth-bit samples,
+    each run as a span of the program's span call: "filters" for the
+    program form (the device-DPB chain), "deblock" and "sao" apart for
+    the host form (the reference's host filters)."""
 
     def __init__(self, deblock: bool, sao: bool, sao_form: str = "program",
                  bit_depth: int = 8):
         self.deblock, self.sao, self.sao_form = deblock, sao, sao_form
         self.bit_depth = bit_depth
-        self.ms = {}
 
-    def __call__(self, rec, src3, lv, fq: FrameQp, split, split16,
+    def __call__(self, span, rec, src3, lv, fq: FrameQp, split, split16,
                  ui_sizes=None, mv_sizes=None, pdir_sizes=None,
                  with_sao: bool = True):
         """The filtered recon planes of a frame (the same planes when both
         filters are off) and its SAO parameters ([ncu, 18] int32 numpy,
-        or None); the arguments of FL.qt_loopfilter, with the frame's
-        per-CTU and slice QPs (fq); with_sao=False leaves SAO out of this
-        frame. Each timed stage runs between two device synchronisations,
-        inside a profiler range named "filters"."""
-        self.ms = {}
+        or None); span: the program's span call; then the arguments of
+        FL.qt_loopfilter, with the frame's per-CTU and slice QPs (fq);
+        with_sao=False leaves SAO out of this frame. Each stage is a span
+        that runs between two device synchronisations, inside a profiler
+        range named "filters"."""
         sao_on = self.sao and with_sao
         if not (self.deblock or sao_on):
             return rec, None
@@ -570,19 +575,23 @@ class LoopFilters:
         # form's chain as one
         steps = [("deblock", self.deblock, False), ("sao", False, sao_on)] \
             if host else [("filters", self.deblock, sao_on)]
-        rec, sao = tuple(rec), None
-        sync()
-        for stage, db, so in steps:
-            if not (db or so):
-                continue
-            t0 = time.perf_counter()
+
+        def stage(rec, db, so):
             with torch.profiler.record_function("filters"):
                 rec, p = FL.qt_loopfilter(rec, src3, fq.cu, fq.slice, split,
                                           split16, ui_sizes, mv_sizes,
                                           pdir_sizes, lv, db, so,
                                           self.sao_form, self.bit_depth)
-                if p is not None:
-                    sao = p.cpu().numpy()
+                p = None if p is None else p.cpu().numpy()
                 sync()
-            self.ms[stage] = (time.perf_counter() - t0) * 1e3
+            return rec, p
+
+        rec, sao = tuple(rec), None
+        sync()
+        for name, db, so in steps:
+            if not (db or so):
+                continue
+            rec, p = span(name, stage, rec, db, so)
+            if p is not None:
+                sao = p
         return rec, sao
