@@ -16,9 +16,9 @@ measurement). A failed phase stops every worker and fails the run.
 
 Phases, each printing one JSON line (any failure raises and exits nonzero):
   1. the card's name, power limit and maximum SM clock (nvidia-smi); build
-     every native library of the port (K1 with nvcc for sm_90a, the CABAC
-     writer with g++), all compilers started together; K1's -Xptxas -v
-     summary;
+     every native library of the port (K1 and the intra commit with nvcc
+     for sm_90a, the CABAC writer with g++), all compilers started
+     together; the two CUDA libraries' -Xptxas -v summaries;
   2. K1's three entry points against their plain PyTorch versions on the
      card, exactly equal: the surface kernel (sad_block8_sweep), the 4x4
      surface (sad_block4_sweep: HME's coarse sweep, at 544x960 uint8 and
@@ -276,9 +276,21 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
      launches a P frame, the device's idle share, K1's launches by entry
      point and the fused sweep's by size, bytes, PSNR-Y, peak memory; the
      last P frame's plain rerun identical);
-  6. the kernels line (launches on the flagship's path, and on each
-     path; each entry point's int16 time, plain time, bound and launches
-     on the 10-bit path); then the card line and, last, the ok line.
+     intra_commit (in phase 2, with the card to itself): the intra commit
+     kernel against the batched commit on the first P anchor's commit of
+     medium-psnr-1080p.pan (the benchmark's configuration and content),
+     equal on rec and levels; the time, host wall and launches of each,
+     and the kernel's bounds (bytes; the chain of its diagonals, as the
+     same launches over a table with no leaf);
+  6. intra_commit_paths: the intra commit's counters on each path's main
+     path (the kernel's launches and leaves, the batched commit's
+     leaves): the batched commit takes no leaf where the dispatch rule
+     sends them to the kernel (IC_KERNEL_PATHS), the kernel none under
+     RDOQ (IC_BATCHED_PATHS); the kernels line (launches on the
+     flagship's path, and on each path; each entry point's int16 time,
+     plain time, bound and launches on the 10-bit path; the intra
+     commit's row: the replay's time, bounds and agreement, and the
+     counters of each path); then the card line and, last, the ok line.
 Exits nonzero without a result when no CUDA device is present.
 """
 
@@ -485,8 +497,9 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in logs["me_sad"].splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
+    ptxas = {lib: [ln.strip() for ln in logs[lib].splitlines()
+                   if "registers" in ln or "spill" in ln or "smem" in ln]
+             for lib in ("me_sad", "intra_commit")}
     emit(phase="build", card=smi, clocks_max_sm_mhz=clock, sms=sms,
          int32_abs_diff_adds_per_s=int_ops_per_s(sms, clock, torch.int32),
          build_s=build_s, libraries=sorted(logs), ptxas=ptxas)
@@ -994,18 +1007,40 @@ K1_ENTRIES = ("sad_sweep_best", "sad_block8_sweep", "sad_block4_sweep")
 
 
 def k1_start():
-    """Set every K1 entry point's launch count to 0 (a main path starts)."""
+    """Set every K1 entry point's launch count, and the intra commit's
+    counters, to 0 (a main path starts)."""
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
     for name in K1_ENTRIES:
         getattr(me_sad, name).launches = 0
     me_sad.sad_sweep_best.launches_by_size = dict.fromkeys(
         me_sad.BEST_SIZES, 0)
+    ic_counts(reset=True)
 
 
 def k1_read() -> dict:
-    """Every K1 entry point's launch count since k1_start()."""
+    """Every K1 entry point's launch count since k1_start(); the intra
+    commit's counters since then are kept as the job's main path's
+    (_IC_MAIN, which _run_job returns beside the phase's result)."""
     from x265_yuuki_asuna_tpu_torch.ops.kernels import me_sad
+    _IC_MAIN[0] = ic_counts()
     return {name: getattr(me_sad, name).launches for name in K1_ENTRIES}
+
+
+_IC_MAIN = [None]
+
+
+def ic_counts(reset: bool = False) -> dict:
+    """The intra commit's counters: the kernel's launches and leaves and
+    the batched commit's leaves (models/qt_common.commit_intra's
+    dispatch); reset: set them to 0 first."""
+    from x265_yuuki_asuna_tpu_torch.models import qt_common as QT
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import intra_commit as IC
+    if reset:
+        IC.intra_commit.launches = IC.intra_commit.leaves = 0
+        QT.commit_intra.batched_leaves = 0
+    return {"launches": IC.intra_commit.launches,
+            "leaves": IC.intra_commit.leaves,
+            "batched_leaves": QT.commit_intra.batched_leaves}
 
 
 @contextlib.contextmanager
@@ -3986,6 +4021,119 @@ def phase_k1_n8(dev, card):
     return rows, err
 
 
+def _commit_bytes(table: np.ndarray, sizes: np.ndarray) -> int:
+    """Bytes the intra commit must move for the leaves of `table` (the
+    luma size of each ZPOS entry: `sizes`): each leaf's source samples
+    read, recon and levels written and reference samples read, luma and
+    both 4:2:0 chroma planes, int32; the table uploaded and the CTUs' QPs
+    read."""
+    sizes = np.broadcast_to(sizes, table.shape)[table >= 0]
+    per = lambda m: 3 * m * m + 4 * m + 1
+    return int(4 * (per(sizes).sum() + 2 * per(sizes // 2).sum())
+               + table.nbytes + 8 * table.shape[0])
+
+
+def phase_intra_commit(dev, seed=23, iters=20, batched_iters=2):
+    """The intra commit kernel (ops/kernels/intra_commit.py) against the
+    batched commit on one 1080p P anchor's decisions in the shape of
+    medium-psnr-1080p.pan: the benchmark's configuration and content, the
+    session's first P anchor's commit inputs captured and replayed (the
+    commit is idempotent on them: each leaf reads only inter samples and
+    leaves committed before it). Both must agree on rec and levels. Times
+    (CUDA events over `iters` calls, and host wall to a synchronize),
+    kernel launches and copies of one profiled call each way, and the
+    kernel's two bounds: its bytes at the card's rate, and its chain of
+    dependent diagonals, measured as the same launches over a table with
+    no leaf (every CTA returns at once)."""
+    from torch.profiler import ProfilerActivity, profile
+    from hevc_bench import harness
+    from hevc_bench.content import Content
+    from x265_yuuki_asuna_tpu_torch import cli
+    from x265_yuuki_asuna_tpu_torch.models import qt_common as QT
+    from x265_yuuki_asuna_tpu_torch.ops.kernels import intra_commit as IC
+    from x265_yuuki_asuna_tpu_torch.utils import io as IO
+    from x265_yuuki_asuna_tpu_torch.utils import param as P
+    cell = "medium-psnr-1080p.pan"
+    _, cfg, mix = harness.load_cell(cell)
+    args, prm = cli.parse(["input.y4m", "-o", "out.hevc"] + cfg["argv"])
+    sess = cli.configure(args, prm, IO.VideoInfo(W1080, H1080, 25, 1,
+                                                  P.CSP_I420, 8), None)
+    content = Content(mix, W1080, H1080, seed, dev)
+    got, commit = [], QT.commit_intra
+
+    def spy(table, geo, src, rec, lv, fq, intra_slice, quant_fn=QT.PLAIN,
+            states=None):
+        if not intra_slice and not got:
+            got.append((table.copy(), geo, src, tuple(p.clone() for p in rec),
+                        tuple(p.clone() for p in lv), fq, quant_fn))
+        return commit(table, geo, src, rec, lv, fq, intra_slice, quant_fn,
+                      states)
+    with mock.patch.object(QT, "commit_intra", spy):
+        for i in range(4 * (sess.bframes + 1)):
+            sess.push_frame(*content.frame(i))
+            if got:
+                break
+    table, geo, src, rec0, lv0, fq, q = got[0]
+    fresh = lambda: ([p.clone() for p in rec0], [p.clone() for p in lv0])
+    k_rec, k_lv = fresh()
+    b_rec, b_lv = fresh()
+    IC.intra_commit(table, geo, src, k_rec, k_lv, fq, False, q)
+    QT.commit_batched(table, geo, src, b_rec, b_lv, fq, False, q)
+    torch.cuda.synchronize()
+    agree = all(torch.equal(a, b) for a, b in zip(k_rec + k_lv,
+                                                  b_rec + b_lv))
+    kernel = lambda: IC.intra_commit(table, geo, src, k_rec, k_lv, fq,
+                                     False, q)
+    batched = lambda: QT.commit_batched(table, geo, src, b_rec, b_lv, fq,
+                                        False, q)
+    diags = IC.diagonals(table, geo.cols)
+    sizes = np.array([n for _, _, n in QT.ZPOS])
+    empty = torch.full(table.shape, -1, dtype=torch.int32, device=dev)
+    chain = lambda: IC.launch(empty, diags, geo, src, k_rec, k_lv, fq,
+                              False, q)
+
+    def wall_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def launches(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in ev)
+        return len(ev) - copies, copies
+
+    row = dict(
+        cell=cell, seed=seed, frame_pushed=i, quantizer=dict(
+            sbh=q.sbh, rdoq=q.rdoq, bit_depth=q.bit_depth),
+        leaves=int((table >= 0).sum()), ctus_with_leaves=int(
+            (table >= 0).any(1).sum()), diagonals=len(diags),
+        leaves_by_size={n: int(((table >= 0) & (sizes == n)).sum())
+                        for n in (32, 16, 8)},
+        agree=agree,
+        kernel_ms=cuda_ms(kernel, iters), kernel_wall_ms=wall_ms(kernel,
+                                                                 iters),
+        chain_floor_ms=cuda_ms(chain, iters),
+        batched_ms=cuda_ms(batched, batched_iters),
+        batched_wall_ms=wall_ms(batched, batched_iters),
+        kernel_launches_copies=launches(kernel),
+        batched_launches_copies=launches(batched))
+    nbytes = _commit_bytes(table, sizes)
+    row.update(bytes=nbytes, bound_bytes_ms=nbytes / H100_BYTES_PER_S * 1e3)
+    emit(phase="intra_commit", **row)
+    if not agree:
+        raise AssertionError("the intra commit kernel differs from the "
+                             "batched commit")
+    return row
+
+
 def phase_golden_cu8(dev):
     """The uniform 8x8 grid on the card against the JAX package's pins
     (tests/cu8_pins.py): every session's md5 and (POC, type, QP),
@@ -4151,6 +4299,16 @@ def phase_1080p_cu8(dev, n_frames=3):
 # longest first (by earlier runs' times) so that the pool ends together;
 # each runs whole in one process, its K1 counts set to 0 just before its
 # main path and read just after, as when the script ran them one by one.
+# the paths whose every intra leaf the kernel commits (on the card, the
+# plain or sign-hiding quantizer, 4:2:0), and those that keep the batched
+# commit (RDOQ); main() checks both with _run_job's counters
+IC_KERNEL_PATHS = ("1080p_qt2", "1080p_qt2_b", "1080p_qt2_b_lf",
+                   "1080p_qt2_b_lf_sbh", "1080p_qt2_b_lf_sbh_aq",
+                   "1080p_qt2_b_crf", "1080p_cli_medium",
+                   "1080p_cli_ultrafast", "1080p_cli_superfast",
+                   "1080p_cli_medium_main10", "1080p_flagship")
+IC_BATCHED_PATHS = ("1080p_qt2_rdoq",)
+
 JOBS = (
     ("1080p_intra_opts", "phase_1080p_intra_opts", {}),
     ("golden_cu8", "phase_golden_cu8", {}),
@@ -4234,8 +4392,14 @@ _SINK = None    # a worker's queue to the parent (emit's lines, results)
 
 
 def _run_job(dev, job):
+    """(the phase's result, its intra commit counters: its main path's,
+    from k1_start to its last k1_read, or the whole job's where it has
+    no main path)."""
     key, fn, kw = job
-    return globals()[fn](dev, **kw)
+    _IC_MAIN[0] = None
+    ic_counts(reset=True)
+    res = globals()[fn](dev, **kw)
+    return res, _IC_MAIN[0] or dict(ic_counts(), span="job")
 
 
 def _worker(t0, nxt, sink, go, threads):
@@ -4265,13 +4429,16 @@ def _worker(t0, nxt, sink, go, threads):
 def run_jobs(dev, workers: int, start) -> dict:
     """Every job of JOBS, on `workers` processes sharing the card (1: in
     this process, one after the other); start() runs here first, while
-    the workers reach the card. Returns {key: the phase's result}. A
+    the workers reach the card. Returns start()'s result, {key: the
+    phase's result} and {key: its intra commit counters} (_run_job). A
     failed job fails the run, and every worker is stopped."""
     import multiprocessing as mp
     import queue
     if workers <= 1:
         out = start()
-        return out, {job[0]: _run_job(dev, job) for job in JOBS}
+        results = {job[0]: _run_job(dev, job) for job in JOBS}
+        return (out, {k: r for k, (r, _) in results.items()},
+                {k: ic for k, (_, ic) in results.items()})
     ctx = mp.get_context("spawn")
     nxt, sink, go = ctx.Value("i", 0), ctx.Queue(), ctx.Event()
     threads = max(1, (os.cpu_count() or 8) // workers)
@@ -4313,7 +4480,8 @@ def run_jobs(dev, workers: int, start) -> dict:
     missing = [job[0] for job in JOBS if job[0] not in results]
     if missing:
         raise RuntimeError(f"jobs without a result: {missing}")
-    return out, results
+    return (out, {k: r for k, (r, _) in results.items()},
+            {k: ic for k, (_, ic) in results.items()})
 
 
 def main(argv=None):
@@ -4335,9 +4503,21 @@ def main(argv=None):
         k1_16, err16 = phase_k1_int16(dev, card)
         k1_32, err32 = phase_k1_n32(dev, card)
         k1_8, err8 = phase_k1_n8(dev, card)
-        return smi, k1, k1_16, k1_32, k1_8, max(err, err16, err32, err8)
-    (smi, k1, k1_16, k1_32, k1_8, err), res = run_jobs(dev, args.workers,
-                                                       start)
+        ic = phase_intra_commit(dev)
+        return smi, k1, k1_16, k1_32, k1_8, ic, max(err, err16, err32,
+                                                    err8)
+    (smi, k1, k1_16, k1_32, k1_8, ic, err), res, ic_by_path = run_jobs(
+        dev, args.workers, start)
+    # the intra commit on each path: the kernel takes every intra leaf
+    # where the dispatch rule holds (on the card, no RDOQ or scaling
+    # lists, 4:2:0), none under RDOQ
+    bad = {p: ic_by_path[p] for p in IC_KERNEL_PATHS
+           if ic_by_path[p]["batched_leaves"]}
+    bad.update({p: ic_by_path[p] for p in IC_BATCHED_PATHS
+                if ic_by_path[p]["launches"]})
+    emit(phase="intra_commit_paths", by_path=ic_by_path, mismatched=bad)
+    if bad:
+        raise AssertionError(f"intra commit dispatch: {bad}")
     golden10, golden_opts, golden_popts = (
         res["golden_main10"], res["golden_stream_opts"],
         res["golden_p_options"])
@@ -4487,7 +4667,25 @@ def main(argv=None):
          "ms": hme["ms"], "plain_ms": hme["plain_ms"],
          "bound_ms": hme["bound_ms"], "bound_by": hme["bound_by"],
          "int16": dict(i16(hme16, "surface_"), launches_main10={
-             p: c["sad_block4_sweep"] for p, c in main10.items()})}])
+             p: c["sad_block4_sweep"] for p, c in main10.items()})},
+        # the intra commit: one 1080p P anchor of medium-psnr-1080p.pan
+        # (its time, bounds and agreement), launches and leaves on each
+        # path's main path
+        {"name": "intra_commit", "route": "cuda",
+         "source": "x265_yuuki_asuna_tpu_torch/csrc/intra_commit.cu",
+         "replaces": None, "max_abs_err": 0 if ic["agree"] else None,
+         "library_ms": None,
+         "launches": ic_by_path["1080p_flagship"]["launches"],
+         "launches_by_path": {p: c["launches"]
+                              for p, c in ic_by_path.items()},
+         "leaves_by_path": {p: c["leaves"] for p, c in ic_by_path.items()},
+         "batched_leaves_by_path": {p: c["batched_leaves"]
+                                    for p, c in ic_by_path.items()},
+         "ms": ic["kernel_ms"],
+         "plain_ms": ic["batched_ms"], "bound_ms": max(
+             ic["bound_bytes_ms"], ic["chain_floor_ms"]),
+         "bound_by": "chain" if ic["chain_floor_ms"] >= ic["bound_bytes_ms"]
+         else "bytes"}])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

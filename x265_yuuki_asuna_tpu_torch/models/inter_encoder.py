@@ -862,9 +862,9 @@ class InterQTEncoder:
         reconstructed over the inter ones in rec / lv, in place."""
         rs = lambda k, *shape: None if out[k] is None else \
             out[k].reshape(-1, *shape)
-        leaves = QT.intra_leaves(
+        table = QT.leaf_table(
             rs("split"), rs("split16", 4), rs("modes"), rs("modes4", 4),
             rs("modes8", 4, 4), rs("use_intra"), rs("use_intra4", 4),
             rs("use_intra8", 4, 4))
-        QT.commit_intra(leaves, self.geo, src3, rec, lv, fq, False,
+        QT.commit_intra(table, self.geo, src3, rec, lv, fq, False,
                         self.quant_fn, states)

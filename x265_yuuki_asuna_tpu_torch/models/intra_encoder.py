@@ -491,12 +491,12 @@ class IntraQTEncoder:
         rec = (z(y32), z(u32), z(v32))
         lv = (z(y32), z(u32), z(v32))
         rs = lambda a, *shape: None if a is None else a.reshape(-1, *shape)
-        leaves = QT.intra_leaves(out["split"].reshape(-1),
-                                 rs(out["split16"], 4),
-                                 out["modes"].reshape(-1),
-                                 out["modes4"].reshape(-1, 4),
-                                 rs(out["modes8"], 4, 4))
-        QT.commit_intra(leaves, geo, (y32, u32, v32), rec, lv, fq, True,
+        table = QT.leaf_table(out["split"].reshape(-1),
+                              rs(out["split16"], 4),
+                              out["modes"].reshape(-1),
+                              out["modes4"].reshape(-1, 4),
+                              rs(out["modes8"], 4, 4))
+        QT.commit_intra(table, geo, (y32, u32, v32), rec, lv, fq, True,
                         self.quant_fn, states)
         rec, sao = self.filters(self.span, rec, (y32, u32, v32), lv, fq,
                                 split, split16, with_sao=with_sao)

@@ -16,14 +16,17 @@ The commit. The reference scans the CTU wavefront diagonals; each step
 computes, for every CTU of the diagonal, the whole-CTU intra variant and
 then every 16x16 / 8x8 position in z-order, and keeps the decided ones
 (masked writes into a CTU tile, neighbours carried as CTU edges). The
-port copies the decided tree to the host once per frame and runs only the
-leaves that exist: for each diagonal, each z-order position with at least
-one intra leaf on that diagonal is one batch. Each leaf reads its
-reference samples straight from the frame's recon plane, which at that
-point holds exactly what the reference's tile and carried edges hold at
-the positions the spec makes available (z-earlier leaves of the CTU, the
-final recon of the left, top, top-left and top-right CTUs), so the
-results are the same with far fewer launches.
+port copies the decided tree to the host once per frame as a per-CTU
+leaf table (leaf_table) and runs only the leaves that exist. Each leaf
+reads its reference samples straight from the frame's recon plane, which
+at that point holds exactly what the reference's tile and carried edges
+hold at the positions the spec makes available (z-earlier leaves of the
+CTU, the final recon of the left, top, top-left and top-right CTUs), so
+the results are the same with far fewer launches. On the card, with the
+plain or sign-hiding quantizer, one kernel launch per diagonal commits
+every leaf of its CTUs (ops/kernels/intra_commit.py); elsewhere the
+batched commit runs each z-order position of each diagonal as one batch
+of PyTorch ops (commit_batched).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..ops import bitcost as BC
 from ..ops import fp32
 from ..ops import filters as FL
 from ..ops import intra, pixel
+from ..ops.kernels import intra_commit as IC
 from ..ops.quant import PLAIN, Quantizer
 from .intra_encoder import cb_cr, cu_qps, gather_mode, to_blocks, tq_recon
 
@@ -427,7 +431,7 @@ def intra_leaves(split, sp16, mA, m16, m8, intraA=None, intra16=None,
     split [ncu], sp16 [ncu, 4] (None at depth 1: no 16x16 CU splits), mA
     [ncu], m16 [ncu, 4], m8 [ncu, 4, 4] (None at depth 1);
     intra* the per-leaf intra flags (None: every leaf is intra, as in an I
-    slice)."""
+    slice). The plain version of leaf_table."""
     out = []
     for i in range(len(split)):
         if not split[i]:
@@ -448,6 +452,29 @@ def intra_leaves(split, sp16, mA, m16, m8, intraA=None, intra16=None,
     return out
 
 
+def leaf_table(split, sp16, mA, m16, m8, intraA=None, intra16=None,
+               intra8=None) -> np.ndarray:
+    """The decided intra leaves as a per-CTU table, int32 [ncu, 21]: the
+    mode of the leaf at each ZPOS entry, -1 where there is no intra leaf;
+    the arguments as for intra_leaves. Its (ctu, zpos index) entries >= 0
+    in row-major order are intra_leaves' list."""
+    split = np.asarray(split, bool)
+    ncu = len(split)
+    flag = lambda f, *shape: np.ones((ncu,) + shape, bool) if f is None \
+        else np.asarray(f, bool).reshape((ncu,) + shape)
+    s16 = flag(sp16, 4) if sp16 is not None else np.zeros((ncu, 4), bool)
+    t = np.full((ncu, 4, 5), -1, np.int32)          # [16-block, 8-blocks]
+    t[:, :, 0] = np.where(split[:, None] & ~s16 & flag(intra16, 4),
+                          np.asarray(m16).reshape(ncu, 4), -1)
+    if m8 is not None:
+        t[:, :, 1:] = np.where((split[:, None] & s16)[..., None]
+                               & flag(intra8, 4, 4),
+                               np.asarray(m8).reshape(ncu, 4, 4), -1)
+    top = np.where(~split & flag(intraA), np.asarray(mA).reshape(ncu), -1)
+    return np.concatenate([top[:, None].astype(np.int32),
+                           t.reshape(ncu, 20)], 1)
+
+
 def block_index(r, c, y0: int, x0: int, nn: int, ctu: int, width: int):
     """Flat plane indices [S, nn*nn] of the nn-blocks at (y0, x0) of CTUs
     (r, c), raster within each block (host numpy)."""
@@ -457,32 +484,53 @@ def block_index(r, c, y0: int, x0: int, nn: int, ctu: int, width: int):
     return (ys * width + xs).reshape(len(r), nn * nn)
 
 
-def commit_intra(leaves, geo: QtGeometry, src, rec, lv, fq: FrameQp,
-                 intra_slice: bool, quant_fn: Quantizer = PLAIN,
-                 states=None):
+def commit_intra(table: np.ndarray, geo: QtGeometry, src, rec, lv,
+                 fq: FrameQp, intra_slice: bool,
+                 quant_fn: Quantizer = PLAIN, states=None):
     """Reconstruct the intra leaves in decoding order, in place.
 
     src, rec, lv: (y, u, v) int32 frame planes on the device (source,
     recon, levels); rec and lv hold the inter leaves already (P) or
-    nothing yet (I). leaves: intra_leaves(). For each wavefront diagonal
-    (CTU (r, c) on diagonal 2r + c) and each z-order position, the leaves
-    there form one batch: luma, then Cb and Cr together, each leaf at its
-    CTU's QPs (fq). quant_fn and states: the program's quantizer and the
-    slice's frozen contexts; the samples' bit depth is quant_fn's."""
-    rows, cols, W = geo.rows, geo.cols, geo.W
+    nothing yet (I). table: leaf_table(); each leaf at its CTU's QPs (fq).
+    quant_fn and states: the program's quantizer and the slice's frozen
+    contexts; the samples' bit depth is quant_fn's. Where the kernel
+    takes the planes and the quantizer (IC.takes: on the card, 4:2:0, 8
+    to 12 bits, plain or sign-hiding levels) it commits them, one launch
+    per diagonal; else the batched commit (RDOQ, scaling lists, 4:4:4,
+    the CPU). `commit_intra.batched_leaves` counts the leaves the batched
+    commit took."""
+    if IC.takes(src, quant_fn):
+        IC.intra_commit(table, geo, src, rec, lv, fq, intra_slice, quant_fn)
+        return
+    commit_intra.batched_leaves += int((np.asarray(table) >= 0).sum())
+    commit_batched(table, geo, src, rec, lv, fq, intra_slice, quant_fn,
+                   states)
+
+
+commit_intra.batched_leaves = 0
+
+
+def commit_batched(table: np.ndarray, geo: QtGeometry, src, rec, lv,
+                   fq: FrameQp, intra_slice: bool,
+                   quant_fn: Quantizer = PLAIN, states=None):
+    """commit_intra as batches of PyTorch ops (the kernel's plain
+    version): for each wavefront diagonal (CTU (r, c) on diagonal 2r + c)
+    and each z-order position, the leaves there form one batch: luma,
+    then Cb and Cr together."""
+    cols, W = geo.cols, geo.W
     bd = quant_fn.bit_depth
     dev = geo.device
-    steps = {}
-    for ctu, k, mode in leaves:
-        r, c = divmod(ctu, cols)
-        steps.setdefault((2 * r + c, k), []).append((r, c, mode))
+    table = np.asarray(table)
+    ctus, ks = np.nonzero(table >= 0)
+    rs, cs = ctus // cols, ctus % cols
+    step = (2 * rs + cs) * len(ZPOS) + ks           # (diagonal, position)
     t = lambda a: torch.as_tensor(a, device=dev)
-    for (_, k), items in sorted(steps.items()):
-        y0, x0, nn = ZPOS[k]
-        r = np.array([it[0] for it in items])
-        c = np.array([it[1] for it in items])
-        modes = t(np.array([it[2] for it in items], np.int64))
-        S = len(items)
+    for key in np.unique(step):
+        sel = step == key
+        y0, x0, nn = ZPOS[key % len(ZPOS)]
+        r, c = rs[sel], cs[sel]
+        modes = t(table[ctus[sel], ks[sel]].astype(np.int64))
+        S = len(r)
         qy, qc = fq.leaves(r * cols + c)
         nc, ctu_c = nn // 2, N // 2
         # luma

@@ -1,7 +1,8 @@
 """Build and load the port's native libraries from `csrc/`.
 
-Two libraries, both with a plain C interface loaded through ctypes:
+Three libraries, each with a plain C interface loaded through ctypes:
   * `me_sad`       — the K1 SAD-sweep CUDA kernel, nvcc for sm_90a;
+  * `intra_commit` — the quadtree intra commit CUDA kernel, nvcc for sm_90a;
   * `asuna_native` — the host CABAC / slice-syntax writer, g++.
 Each is built on first use into `build/` (listed in .gitignore). A build
 failure raises: there is no fallback. `build()` starts one compiler per
@@ -20,7 +21,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-LIBS = {"me_sad": "me_sad.cu", "asuna_native": "asuna_native.cpp"}
+LIBS = {"me_sad": "me_sad.cu", "intra_commit": "intra_commit.cu",
+        "asuna_native": "asuna_native.cpp"}
 
 _loaded = {}
 _lock = threading.Lock()
